@@ -1,0 +1,171 @@
+"""The port's hand-written Hopper kernels: building, binding, launch counts.
+
+CUDA sources live in ``csrc/`` and are compiled at first use with ``nvcc``
+for ``sm_90a`` into ``build/kernels/`` at the root of the checkout, as
+shared libraries with a plain C interface, and bound with ``ctypes``. Every
+pointer and the stream go through ``ctypes.c_void_p``; each C entry returns
+``cudaGetLastError()``, and ``check`` raises if it is not 0. The Triton
+kernels are built by their own modules, inside the functions that launch
+them.
+
+Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
+kernel and nowhere else, so that a run can show which kernels the main path
+went through. ``KERNELS`` describes each kernel for reports.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_TPU = "fish_diffusion_tpu/"
+_PORT = "fish_diffusion_tpu_torch/"
+KERNELS = {
+    "wavenet_gate": dict(
+        id="K1", route="cuda", source=_PORT + "csrc/wavenet_block.cu",
+        replaces=_TPU + "models/wavenet.py:59",
+    ),
+    "wavenet_out": dict(
+        id="K1", route="cuda", source=_PORT + "csrc/wavenet_block.cu",
+        replaces=_TPU + "models/wavenet.py:59",
+    ),
+    "unipc_predict": dict(
+        id="K2", route="triton", source=_PORT + "models/diffusion.py",
+        replaces=_TPU + "models/diffusion.py:462",
+    ),
+    "unipc_correct": dict(
+        id="K2", route="triton", source=_PORT + "models/diffusion.py",
+        replaces=_TPU + "models/diffusion.py:462",
+    ),
+    "nsf_phase_base": dict(
+        id="K3", route="triton", source=_PORT + "models/vocoders/source.py",
+        replaces=_TPU + "models/vocoders/source.py:77",
+    ),
+    "nsf_merge": dict(
+        id="K3", route="triton", source=_PORT + "models/vocoders/source.py",
+        replaces=_TPU + "models/vocoders/source.py:92",
+    ),
+    "conv1d": dict(
+        id="K4", route="cuda", source=_PORT + "csrc/conv1d.cu",
+        replaces=_TPU + "ops/blocked_conv.py:84",
+    ),
+    "conv_transpose1d": dict(
+        id="K4", route="cuda", source=_PORT + "csrc/conv1d.cu",
+        replaces=_TPU + "models/vocoders/nsf_hifigan.py:359",
+    ),
+}
+
+LAUNCHES = {name: 0 for name in KERNELS}
+BUILD_LOGS: dict = {}
+_LIBS: dict = {}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# csrc/<file>.cu -> {C entry: argtypes}; every entry returns an int
+SIGNATURES = {
+    "wavenet_block": {
+        "wavenet_gate": [_I] + [_P] * 6 + [_I] * 5 + [_P],
+        "wavenet_out": [_I] + [_P] * 7 + [_I] * 3 + [_P],
+    },
+    "conv1d": {
+        "conv1d_forward": [_I, _I] + [_P] * 5 + [_I] * 9 + [_F, _I, _I, _P],
+    },
+}
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(home) / "bin" / "nvcc"] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.exists():
+            return str(c)
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` once (cached by content) and bind its C
+    entries with the argument types in ``SIGNATURES``."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    src = CSRC / f"{name}.cu"
+    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    so = BUILD_DIR / f"lib{name}-{tag.hexdigest()[:12]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            capture_output=True, text=True,
+        )
+        BUILD_LOGS[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _I
+    _LIBS[name] = lib
+    return lib
+
+
+def build_all() -> None:
+    """Build every CUDA source (the Triton kernels build at first launch)."""
+    for name in SIGNATURES:
+        load_library(name)
+
+
+def check(status: int, name: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {status})")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    """0 = float32, 1 = bfloat16: the element types the CUDA kernels take."""
+    if t.dtype == torch.float32:
+        return 0
+    if t.dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of one dtype."""
+    dev, dt = tensors[0].device, tensors[0].dtype
+    for t in tensors:
+        if t.device != dev or not t.is_cuda:
+            raise ValueError(f"{name}: all tensors must be on one CUDA device")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: mixed dtypes {dt} and {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
