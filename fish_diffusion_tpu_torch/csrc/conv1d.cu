@@ -20,11 +20,15 @@
 // memory and occupancy at the narrow ones (C = 16-32), where the output
 // tile is only as wide as C_out. Design: one block per (time tile x
 // out-channel tile). It stages the input window of the tile, halo included,
-// and the weights of a chunk of input channels in shared memory (activation
-// applied once, as the window is loaded), and keeps a 4 x 4 (time x
-// channel) register tile per thread with float32 accumulation. The tile's
-// width follows C_out (64, 32, 16 or 1), and its length grows as it
-// narrows, so that every block keeps 256 threads busy.
+// and the weights of a chunk of 8 input channels in shared memory
+// (activation applied once, as the window is loaded), and keeps an 8 x 4
+// (time x channel) register tile per thread with float32 accumulation: 32
+// FMAs for every 9 shared-memory loads. The tile's width follows C_out
+// (64, 32, 16 or 1), and its length grows as it narrows, so that every
+// block keeps 256 threads busy. The transposed conv runs one output
+// residue class t = u * s + r - pad per block: its outputs all read the
+// same K / u taps k = r + q * u, at input rows s - q, so it is a stride-1
+// correlation with one weight load per tap and channel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -50,7 +54,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 }
 
 constexpr int THREADS = 256;
-constexpr int BCI = 8;  // input channels per shared-memory stage
 
 struct ConvArgs {
   int B, T_in, T_out, C_in, C_out, K, stride, dil, pad;
@@ -58,32 +61,30 @@ struct ConvArgs {
   int has_slope, do_tanh;
 };
 
-__host__ __device__ inline int floor_div(int a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
+// Input rows a tile of BT outputs reads: the direct conv's window, or (for
+// the transposed conv) BT residue-class rows plus the K / stride - 1 earlier
+// rows the taps reach back to.
+__host__ __device__ inline int window_rows(const ConvArgs& p, bool transposed,
+                                           int BT) {
+  return transposed ? BT + p.K / p.stride - 1
+                    : (BT - 1) * p.stride + (p.K - 1) * p.dil + 1;
 }
 
-// First input row and row count of the window an output tile of BT rows
-// starting at t0 reads.
-template <int BT>
-__host__ __device__ inline void window(const ConvArgs& p, int transposed,
-                                       int t0, int* lo, int* rows) {
-  if (!transposed) {
-    *lo = t0 * p.stride - p.pad;
-    *rows = (BT - 1) * p.stride + (p.K - 1) * p.dil + 1;
+template <int N>
+__device__ __forceinline__ void load_smem(const float* q, float* v) {
+  if constexpr (N == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(q);
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
   } else {
-    *lo = floor_div(t0 + p.pad - (p.K - 1), p.stride);
-    const int hi = floor_div(t0 + BT - 1 + p.pad, p.stride);
-    *rows = hi - *lo + 1;
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = q[i];
   }
 }
 
-template <int BT>
-__host__ inline int max_window_rows(const ConvArgs& p, int transposed) {
-  if (!transposed) return (BT - 1) * p.stride + (p.K - 1) * p.dil + 1;
-  return (BT - 1 + p.K - 1) / p.stride + 2;
-}
-
-template <typename T, int BT, int BCO, int TM, int TN, bool TRANSPOSED>
+// BCI input channels per shared-memory stage: 8, or 1 for the
+// single-channel noise convs.
+template <typename T, int BT, int BCO, int TM, int TN, int BCI,
+          bool TRANSPOSED>
 __global__ void __launch_bounds__(THREADS) conv1d_kernel(
     const T* __restrict__ x, const T* __restrict__ w,
     const T* __restrict__ bias, const T* __restrict__ res,
@@ -91,21 +92,22 @@ __global__ void __launch_bounds__(THREADS) conv1d_kernel(
   extern __shared__ float smem[];
   constexpr int TX = BCO / TN;  // threads along out-channels
   constexpr int TY = BT / TM;   // threads along time
+  constexpr int XS = BCI == 1 ? 1 : BCI + 1;  // window row stride; +1 spreads banks
   static_assert(TX * TY == THREADS, "tile must use all threads");
 
   const int tid = threadIdx.x;
   const int tx = tid % TX;
   const int ty = tid / TX;
-  const int t0 = blockIdx.x * BT;
+  const int t0 = blockIdx.x * BT;  // first output row, or first s of the class
   const int o0 = blockIdx.y * BCO;
-  const int b = blockIdx.z;
+  const int b = TRANSPOSED ? blockIdx.z / p.stride : blockIdx.z;
+  const int rr = TRANSPOSED ? blockIdx.z % p.stride : 0;
+  const int taps = TRANSPOSED ? p.K / p.stride : p.K;
 
-  const int bci = p.C_in < BCI ? p.C_in : BCI;
-  const int xs_stride = bci == 1 ? 1 : bci + 1;  // +1 spreads banks
-  int lo, rows;
-  window<BT>(p, TRANSPOSED, t0, &lo, &rows);
-  float* xs = smem;                               // [rows][xs_stride]
-  float* ws = smem + ((rows * xs_stride + 3) & ~3);  // [K][bci][BCO]
+  const int lo = TRANSPOSED ? t0 - (taps - 1) : t0 * p.stride - p.pad;
+  const int rows = window_rows(p, TRANSPOSED, BT);
+  float* xs = smem;                               // [rows][XS]
+  float* ws = smem + ((rows * XS + 3) & ~3);      // [taps][BCI][BCO]
 
   float acc[TM][TN];
 #pragma unroll
@@ -115,23 +117,23 @@ __global__ void __launch_bounds__(THREADS) conv1d_kernel(
 
   const T* xb = x + (size_t)b * p.T_in * p.C_in;
 
-  for (int c0 = 0; c0 < p.C_in; c0 += bci) {
-    for (int idx = tid; idx < rows * bci; idx += THREADS) {
-      const int r = idx / bci;
-      const int c = idx - r * bci;
+  for (int c0 = 0; c0 < p.C_in; c0 += BCI) {
+    for (int idx = tid; idx < rows * BCI; idx += THREADS) {
+      const int r = idx / BCI;
+      const int c = idx % BCI;
       const int gr = lo + r;
       float v = 0.f;
       if (gr >= 0 && gr < p.T_in && c0 + c < p.C_in) {
         v = to_f(xb[(size_t)gr * p.C_in + c0 + c]);
         if (p.has_slope && v < 0.f) v *= p.slope;
       }
-      xs[r * xs_stride + c] = v;
+      xs[r * XS + c] = v;
     }
-    for (int idx = tid; idx < p.K * bci * BCO; idx += THREADS) {
+    for (int idx = tid; idx < taps * BCI * BCO; idx += THREADS) {
       const int o = idx % BCO;
-      const int kc = idx / BCO;
-      const int c = kc % bci;
-      const int k = kc / bci;
+      const int c = (idx / BCO) % BCI;
+      const int q = idx / (BCO * BCI);
+      const int k = TRANSPOSED ? rr + q * p.stride : q;
       float v = 0.f;
       if (c0 + c < p.C_in && o0 + o < p.C_out)
         v = to_f(w[((size_t)k * p.C_in + c0 + c) * p.C_out + o0 + o]);
@@ -139,37 +141,19 @@ __global__ void __launch_bounds__(THREADS) conv1d_kernel(
     }
     __syncthreads();
 
-    if (!TRANSPOSED) {
-      for (int k = 0; k < p.K; ++k) {
-        for (int c = 0; c < bci; ++c) {
-          float bv[TN];
+    for (int q = 0; q < taps; ++q) {
+      // window row of output i for this tap, less the row of output 0
+      const int roff = TRANSPOSED ? taps - 1 - q : q * p.dil;
+      const int rstep = TRANSPOSED ? 1 : p.stride;
 #pragma unroll
-          for (int j = 0; j < TN; ++j)
-            bv[j] = ws[(k * bci + c) * BCO + tx * TN + j];
+      for (int c = 0; c < BCI; ++c) {
+        float bv[TN];
+        load_smem<TN>(&ws[(q * BCI + c) * BCO + tx * TN], bv);
 #pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            const int r = (ty + i * TY) * p.stride + k * p.dil;
-            const float a = xs[r * xs_stride + c];
+        for (int i = 0; i < TM; ++i) {
+          const float a = xs[((ty + i * TY) * rstep + roff) * XS + c];
 #pragma unroll
-            for (int j = 0; j < TN; ++j) acc[i][j] += a * bv[j];
-          }
-        }
-      }
-    } else {
-      const int taps = p.K / p.stride;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int t = t0 + ty + i * TY;
-        const int phase = (t + p.pad) % p.stride;
-        for (int q = 0; q < taps; ++q) {
-          const int k = phase + q * p.stride;
-          const int r = (t + p.pad - k) / p.stride - lo;
-          for (int c = 0; c < bci; ++c) {
-            const float a = xs[r * xs_stride + c];
-#pragma unroll
-            for (int j = 0; j < TN; ++j)
-              acc[i][j] += a * ws[(k * bci + c) * BCO + tx * TN + j];
-          }
+          for (int j = 0; j < TN; ++j) acc[i][j] += a * bv[j];
         }
       }
     }
@@ -180,8 +164,9 @@ __global__ void __launch_bounds__(THREADS) conv1d_kernel(
   const T* rb = res ? res + (size_t)b * p.T_out * p.C_out : nullptr;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int t = t0 + ty + i * TY;
-    if (t >= p.T_out) continue;
+    const int s = t0 + ty + i * TY;
+    const int t = TRANSPOSED ? p.stride * s + rr - p.pad : s;
+    if (t < 0 || t >= p.T_out) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int o = o0 + tx * TN + j;
@@ -195,42 +180,56 @@ __global__ void __launch_bounds__(THREADS) conv1d_kernel(
   }
 }
 
-template <typename T, int BT, int BCO, int TM, int TN, bool TRANSPOSED>
+template <typename T, int BT, int BCO, int TM, int TN, int BCI,
+          bool TRANSPOSED>
 int launch_tile(const void* x, const void* w, const void* bias,
                 const void* res, void* out, const ConvArgs& p,
                 cudaStream_t stream) {
-  const int bci = p.C_in < BCI ? p.C_in : BCI;
-  const int xs_stride = bci == 1 ? 1 : bci + 1;
-  const int rows = max_window_rows<BT>(p, TRANSPOSED);
+  constexpr int XS = BCI == 1 ? 1 : BCI + 1;
+  const int rows = window_rows(p, TRANSPOSED, BT);
+  const int taps = TRANSPOSED ? p.K / p.stride : p.K;
   const size_t smem =
-      sizeof(float) * (((rows * xs_stride + 3) & ~3) + p.K * bci * BCO);
-  auto kernel = conv1d_kernel<T, BT, BCO, TM, TN, TRANSPOSED>;
+      sizeof(float) * (((rows * XS + 3) & ~3) + taps * BCI * BCO);
+  auto kernel = conv1d_kernel<T, BT, BCO, TM, TN, BCI, TRANSPOSED>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((p.T_out + BT - 1) / BT, (p.C_out + BCO - 1) / BCO, p.B);
+  // the transposed conv: one grid row per residue class, s in [0, S)
+  const int n = TRANSPOSED ? (p.T_out - 1 + p.pad) / p.stride + 1 : p.T_out;
+  dim3 grid((n + BT - 1) / BT, (p.C_out + BCO - 1) / BCO,
+            TRANSPOSED ? p.B * p.stride : p.B);
   kernel<<<grid, THREADS, smem, stream>>>((const T*)x, (const T*)w,
                                           (const T*)bias, (const T*)res,
                                           (T*)out, p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool TRANSPOSED>
+template <typename T, int BCI, bool TRANSPOSED>
 int dispatch(const void* x, const void* w, const void* bias, const void* res,
              void* out, const ConvArgs& p, cudaStream_t stream) {
   if (p.C_out >= 64)
-    return launch_tile<T, 64, 64, 4, 4, TRANSPOSED>(x, w, bias, res, out, p,
-                                                    stream);
+    return launch_tile<T, 128, 64, 8, 4, BCI, TRANSPOSED>(x, w, bias, res, out,
+                                                          p, stream);
   if (p.C_out >= 32)
-    return launch_tile<T, 128, 32, 4, 4, TRANSPOSED>(x, w, bias, res, out, p,
-                                                     stream);
+    return launch_tile<T, 256, 32, 8, 4, BCI, TRANSPOSED>(x, w, bias, res, out,
+                                                          p, stream);
   if (p.C_out > 1)
-    return launch_tile<T, 256, 16, 4, 4, TRANSPOSED>(x, w, bias, res, out, p,
-                                                     stream);
-  return launch_tile<T, 1024, 1, 4, 1, TRANSPOSED>(x, w, bias, res, out, p,
-                                                   stream);
+    return launch_tile<T, 512, 16, 8, 4, BCI, TRANSPOSED>(x, w, bias, res, out,
+                                                          p, stream);
+  return launch_tile<T, 1024, 1, 4, 1, BCI, TRANSPOSED>(x, w, bias, res, out,
+                                                        p, stream);
+}
+
+template <typename T>
+int dispatch_conv(int transposed, const void* x, const void* w,
+                  const void* bias, const void* res, void* out,
+                  const ConvArgs& p, cudaStream_t stream) {
+  if (transposed) return dispatch<T, 8, true>(x, w, bias, res, out, p, stream);
+  if (p.C_in == 1)
+    return dispatch<T, 1, false>(x, w, bias, res, out, p, stream);
+  return dispatch<T, 8, false>(x, w, bias, res, out, p, stream);
 }
 
 }  // namespace
@@ -247,9 +246,6 @@ extern "C" int conv1d_forward(int dtype, int transposed, const void* x,
              dil,  pad,  slope, has_slope, do_tanh};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return transposed ? dispatch<float, true>(x, w, bias, res, out, p, s)
-                      : dispatch<float, false>(x, w, bias, res, out, p, s);
-  return transposed
-             ? dispatch<__nv_bfloat16, true>(x, w, bias, res, out, p, s)
-             : dispatch<__nv_bfloat16, false>(x, w, bias, res, out, p, s);
+    return dispatch_conv<float>(transposed, x, w, bias, res, out, p, s);
+  return dispatch_conv<__nv_bfloat16>(transposed, x, w, bias, res, out, p, s);
 }
