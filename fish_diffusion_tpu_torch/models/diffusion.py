@@ -16,8 +16,12 @@ They replace the JAX package's ``_sample_unipc`` scan body
 bound by memory bandwidth: pure elementwise arithmetic over ``[B, T, 128]``
 float32, a few tensors in and out, next to a 20-block denoiser eval. Each
 pass reads each tensor once and writes its outputs once, with the step's
-coefficients as scalar arguments. ``unipc_predict_reference`` and
-``unipc_correct_reference`` are the plain versions.
+coefficients as scalar arguments. The data prediction is fused into the
+corrector because the corrector is its first consumer: after each denoiser
+eval the corrector finishes step i - 1 with it, then the predictor starts
+step i from the corrected x. ``unipc_predict_reference`` and
+``unipc_correct_reference`` are the plain versions; one step is the
+corrector followed by the predictor.
 
 PLMS and naive sampling and shallow diffusion are not ported yet (ROADMAP
 Queue 1 items 4 and 6).
