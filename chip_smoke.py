@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SVC serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's SVC paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -7,19 +7,34 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device:  require CUDA, print the card's name and power limit, turn TF32
             off for every comparison.
-2. build:   compile the CUDA sources in ``fish_diffusion_tpu_torch/csrc``.
+2. build:   compile the CUDA sources in ``fish_diffusion_tpu_torch/csrc``,
+            one ``nvcc`` each, all started together.
 3. kernels: every hand-written kernel against its plain PyTorch version at
-            the shapes of the main path (B=4 x 1024 frames), with median
-            CUDA-event times of both; then the whole 20-block denoiser eval
-            and the whole vocoder against their plain compositions.
+            B=4 x 1024 frames, with median CUDA-event times of both, its
+            bound (the larger of the bytes the function must move over
+            3.35 TB/s and the float32 operations it needs over 67 TFLOP/s)
+            and, where one PyTorch call computes the same function, that
+            call's time; K5 also at B=1 over a segment for each of its
+            tiles; then the whole 20-block denoiser eval and the whole
+            vocoder against their plain compositions.
 4. serve:   ``SVCInference`` built from ``configs/svc_hubert_soft.py`` at
             full width (HubertSoft 12x768, WaveNet 20x512, NSF-HiFiGAN 512,
-            100 UniPC evals) with seeded random weights answers three
-            requests; every kernel's launch count must grow; a short request
-            is checked against the plain composition.
+            1000 steps at interval 10) with seeded random weights answers
+            three requests that carry their f0 (every kernel's launch count
+            must grow as the path implies; a short request is checked
+            against the plain composition); then the file-to-file path: a
+            24 s wav of three phrases through ``inference`` with Harvest
+            pitch and UniPC, again with shallow diffusion (``skip_steps``
+            500), and a 2.97 s ``forward`` with each of PLMS and naive; K5
+            and K8-cand are held against their plain versions, and timed,
+            on the inputs the shallow request gave them; a short shallow
+            file is checked against the plain composition of every kernel.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel (its
+``launches`` count the file-to-file path; K5's and K8-cand's times are
+those of the shallow request's own calls, with their B=4 times under
+``batch4``); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -29,7 +44,9 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -38,10 +55,14 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 SR, HOP, MEL = 44100, 512, 128
 B, T, R = 4, 1024, 512
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s and float32 FLOP/s outside the
+# tensor cores (the kernels here are float32 SIMT)
+HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` over ``iters`` CUDA-event timed runs."""
+def cuda_ms(fn, iters: int = 10, warmup: int = 2, reps: int = 1) -> float:
+    """Median milliseconds of one call of ``fn`` over ``iters`` CUDA-event
+    timed runs of ``reps`` back-to-back calls each."""
     import torch
 
     for _ in range(warmup):
@@ -51,11 +72,23 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    return statistics.median(s.elapsed_time(e) for s, e in events) / reps
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, flops: float):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_err(a, b) -> float:
@@ -76,6 +109,7 @@ class Report:
     def __init__(self):
         self.failures = []
         self.kernels = {}
+        self.extra = {}
 
     def compare(self, label, got, ref, tol, relative=False):
         err = max_err(got, ref)
@@ -87,13 +121,31 @@ class Report:
             self.failures.append(label)
         return err
 
-    def kernel(self, name, err, ms, plain_ms, shape):
-        entry = self.kernels.setdefault(
-            name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, shape=shape)
-        )
+    def kernel(self, name, err, ms, plain_ms, shape="", n_bytes=0, flops=0,
+               library_ms=None):
+        """Accumulate one measured call (times, bound and library time add
+        up over the calls of one entry; errors take the maximum)."""
+        entry = self.kernels.setdefault(name, dict(
+            max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+            bound_time=defaultdict(float), library_ms=None, shape=""))
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["shape"] = shape or entry["shape"]
         entry["ms"] += ms
         entry["plain_ms"] += plain_ms
+        if n_bytes or flops:
+            t, by = bound(n_bytes, flops)
+            entry["bound_ms"] += t
+            entry["bound_time"][by] += t
+        if library_ms is not None:
+            entry["library_ms"] = (entry["library_ms"] or 0.0) + library_ms
+
+    def batch4(self, name, r, shape):
+        """A kernel's times at B=4 x 1024 frames, beside its entry for the
+        main path's own calls."""
+        t, by = bound(*r["work"])
+        self.extra[name] = dict(batch4=dict(
+            shape=shape, ms=r["ms"], plain_ms=r["plain"], bound_ms=t, bound_by=by,
+            library_ms=r.get("lib")))
 
     def finish(self, phase):
         if self.failures:
@@ -145,17 +197,24 @@ def phase_kernels(report: Report, seed: int):
             "wavenet_out": (cuda_ms(lambda: wavenet.residual_out(*out_args)),
                             cuda_ms(lambda: wavenet.residual_out_reference(*out_args))),
         }
+        traffic = {
+            "wavenet_gate": nbytes(a["x"], a["step"], a["cond"], a["w_conv"],
+                                   a["b_conv"], a["x"]),
+            "wavenet_out": nbytes(out_args[0], a["x"], a["skip"], a["w_out"],
+                                  a["b_out"], a["x"], a["skip"]),
+        }
         for name, (ms, plain) in times.items():
             flops = 2 * B * T * (3 * R if name == "wavenet_gate" else R) * 2 * R
             print(f"  {name} {tag}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
                   f"TFLOP/s), plain {plain:.4f} ms")
             if dtype == torch.float32:
-                report.kernel(name, 0.0, ms, plain, "one block, B=4 T=1024 R=512 f32")
+                report.kernel(name, 0.0, ms, plain, "one block, B=4 T=1024 R=512 f32",
+                              traffic[name], flops)
 
-    print("[kernels] K2 UniPC step, [4, 1024, 128] f32")
-    table = diffusion.unipc_step_table(
-        diffusion.ScheduleCoefficients(np.linspace(1e-4, 0.01, 1000)), 100
-    )
+    print("[kernels] K2 steps (UniPC, PLMS, naive), [4, 1024, 128] f32; times "
+          "per launch over 20 back-to-back launches")
+    coeffs = diffusion.ScheduleCoefficients(np.linspace(1e-4, 0.01, 1000))
+    table = diffusion.unipc_step_table(coeffs, 100)
     i = 50
     f = {k: v.astype(np.float64) for k, v in table.items()}
     t = dict(x=rn(B, T, MEL), m0=rn(B, T, MEL), m1=rn(B, T, MEL), m2=rn(B, T, MEL),
@@ -167,16 +226,29 @@ def phase_kernels(report: Report, seed: int):
             f["c_corr"][i, 1], f["c_corr_D1t"][i], f["inv_rk"][i, 0], f["inv_rk"][i, 1])
     pred = tuple(float(v) if isinstance(v, np.floating) else v for v in pred)
     corr = tuple(float(v) if isinstance(v, np.floating) else v for v in corr)
-    for name, fn, ref, args in (
+    acp = coeffs.alphas_cumprod.astype(np.float32)
+    naive = diffusion.naive_step_table(coeffs)
+    plms = (t["x"], t["eps"], t["m0"], t["m1"], t["m2"], *diffusion.PLMS_WEIGHTS[2],
+            *diffusion.plms_transfer(acp, 500, 490))
+    ddpm = (t["x"], t["eps"], t["xe"],
+            *(float(naive[k][500]) for k in ("a", "b", "c1", "c2", "sigma")))
+    elems = B * T * MEL
+    for name, fn, ref, args, n_io, flops in (
         ("unipc_predict", diffusion.unipc_predict,
-         diffusion.unipc_predict_reference, pred),
+         diffusion.unipc_predict_reference, pred, 5, 10 * elems),
         ("unipc_correct", diffusion.unipc_correct,
-         diffusion.unipc_correct_reference, corr),
+         diffusion.unipc_correct_reference, corr, 8, 18 * elems),
+        ("plms_update", diffusion.plms_update, diffusion.plms_update_reference,
+         plms, 6, 13 * elems),
+        ("ddpm_update", diffusion.ddpm_update, diffusion.ddpm_update_reference,
+         ddpm, 4, 10 * elems),
     ):
         err = report.compare(name, fn(*args), ref(*args), 1e-5, relative=True)
-        ms, plain = cuda_ms(lambda: fn(*args)), cuda_ms(lambda: ref(*args))
+        ms = cuda_ms(lambda: fn(*args), reps=20)
+        plain = cuda_ms(lambda: ref(*args), reps=20)
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
-        report.kernel(name, err, ms, plain, "one step, [4, 1024, 128] f32")
+        report.kernel(name, err, ms, plain, "one step, [4, 1024, 128] f32",
+                      n_io * elems * 4, flops)
 
     print("[kernels] K3 NSF source, B=4 T=1024 hop=512, 9 harmonics")
     f0 = (torch.rand((B, T), generator=gen, device=DEVICE) * 400 + 100)
@@ -191,14 +263,18 @@ def phase_kernels(report: Report, seed: int):
     ms = cuda_ms(lambda: source.nsf_phase_base(f0, SR, HOP))
     plain = cuda_ms(lambda: source.nsf_phase_base_reference(f0, SR, HOP))
     print(f"  nsf_phase_base: kernel {ms:.4f} ms, plain {plain:.4f} ms")
-    report.kernel("nsf_phase_base", err, ms, plain, "B=4 T=1024")
+    report.kernel("nsf_phase_base", err, ms, plain, "B=4 T=1024",
+                  nbytes(f0, base_ref), 4 * B * T)
     margs = (f0, base_ref, rand_ini, noise, weight, bias, SR, HOP)
     err = report.compare("nsf_merge", source.nsf_merge(*margs),
                          source.nsf_merge_reference(*margs), 1e-4)
     ms = cuda_ms(lambda: source.nsf_merge(*margs))
     plain = cuda_ms(lambda: source.nsf_merge_reference(*margs))
     print(f"  nsf_merge: kernel {ms:.4f} ms, plain {plain:.4f} ms")
-    report.kernel("nsf_merge", err, ms, plain, "B=4 T=1024 hop=512")
+    # per sample and harmonic: phase, sin, uv gate, noise, weight (~8)
+    report.kernel("nsf_merge", err, ms, plain, "B=4 T=1024 hop=512",
+                  nbytes(f0, base_ref, rand_ini, noise, weight, bias) + 4 * B * T * HOP,
+                  8 * noise.numel())
 
     print("[kernels] K4 vocoder convolutions, every shape of a B=4 x 1024-frame pass")
     gen_cpu_seed = seed + 1
@@ -232,6 +308,7 @@ def phase_kernels(report: Report, seed: int):
         finally:
             nsf_hifigan.conv1d = real["conv1d"]
             nsf_hifigan.conv_transpose1d = real["conv_transpose1d"]
+        library = {"conv1d": library_conv1d, "conv_transpose1d": library_conv_transpose1d}
         for (name, xs, ws, *_), (x, (args, kwargs), count) in calls.items():
             got = real[name](x, *args, **kwargs)
             ref = refs[name](x, *args, **kwargs)
@@ -239,9 +316,17 @@ def phase_kernels(report: Report, seed: int):
                                  got, ref, 1e-4, relative=True)
             ms = cuda_ms(lambda: real[name](x, *args, **kwargs), iters=5)
             plain = cuda_ms(lambda: refs[name](x, *args, **kwargs), iters=5)
-            print(f"    x{count} per pass: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+            lib = cuda_ms(library[name](x, *args, **kwargs), iters=5)
+            w = args[0]
+            flops = 2 * got.numel() * w.shape[1] * w.shape[2] if name == "conv1d" \
+                else 2 * x.numel() * w.shape[1] * w.shape[2]
+            io = nbytes(x, w, args[1], got) + (
+                nbytes(kwargs["residual"]) if kwargs.get("residual") is not None else 0)
+            print(f"    x{count} per pass: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"cuDNN alone {lib:.4f} ms")
             report.kernel(name, err, ms * count, plain * count,
-                          "sum over one vocoder pass, B=4 x 1024 frames")
+                          "sum over one vocoder pass, B=4 x 1024 frames",
+                          io * count, flops * count, lib * count)
         calls.clear()
 
     print("[kernels] whole denoiser eval (20 x 512) and whole vocoder vs plain")
@@ -271,6 +356,150 @@ def phase_kernels(report: Report, seed: int):
     report.finish("kernels")
     return dict(denoiser_eval_ms=ms_den, denoiser_eval_plain_ms=plain_den,
                 vocoder_ms=ms_voc, vocoder_plain_ms=plain_voc)
+
+
+def library_conv1d(x, weight, bias, stride=1, dilation=1, padding=0, **_):
+    """One cuDNN call for K4's convolution (its fused input activation,
+    residual and tanh left out), on the same inputs in torch's layout."""
+    import torch.nn.functional as F
+
+    xt = x.transpose(1, 2).contiguous()
+    return lambda: F.conv1d(xt, weight, bias, stride, padding, dilation)
+
+
+def library_conv_transpose1d(x, weight, bias, stride, padding, **_):
+    import torch.nn.functional as F
+
+    xt = x.transpose(1, 2).contiguous()
+    return lambda: F.conv_transpose1d(xt, weight, bias, stride, padding)
+
+
+def stft_work(yp, out, n_fft: int):
+    """Bytes and float32 operations that the STFT magnitude needs, whatever
+    the kernel does: the signal and the window read once, the magnitudes
+    written once; per frame a real FFT of n_fft points (2.5 n log2 n), the
+    window's n products and 4 operations per bin for the magnitude."""
+    frames, bins = out.shape[0] * out.shape[2], out.shape[1]
+    flops = frames * (2.5 * n_fft * np.log2(n_fft) + n_fft + 4 * bins)
+    return nbytes(yp, out) + 4 * n_fft, flops
+
+
+def measure_stft(report: Report, yp, basis, hop: int, label: str, timed=True):
+    """K5 against its plain version on one input; with ``timed``, the
+    kernel's, the plain version's and ``torch.stft().abs()``'s times."""
+    import torch
+
+    from fish_diffusion_tpu_torch import kernels
+    from fish_diffusion_tpu_torch.ops import mel
+
+    n_fft, bins = basis.shape[0], basis.shape[1] // 2
+    got = mel.stft_magnitude(yp, basis, hop)
+    tile = kernels.load_library("stft").stft_tile(got.shape[0] * got.shape[2], bins)
+    err = report.compare(f"stft_magnitude {label}, M={got.shape[0] * got.shape[2]} "
+                         f"(tile {tile} rows)", got,
+                         mel.stft_magnitude_reference(yp, basis, hop), 1e-4, relative=True)
+    out = dict(err=err, tile=tile, work=stft_work(yp, got, n_fft))
+    if timed:
+        window = torch.hann_window(n_fft, device=DEVICE)
+        out.update(
+            ms=cuda_ms(lambda: mel.stft_magnitude(yp, basis, hop), iters=5),
+            plain=cuda_ms(lambda: mel.stft_magnitude_reference(yp, basis, hop), iters=5),
+            lib=cuda_ms(lambda: torch.stft(yp, n_fft, hop, n_fft, window, center=False,
+                                           return_complex=True).abs(), iters=5))
+        t_bound, by = bound(*out["work"])
+        print(f"    kernel {out['ms']:.4f} ms, plain {out['plain']:.4f} ms, torch.stft "
+              f"{out['lib']:.4f} ms, bound {t_bound:.4f} ms ({by})")
+    return out
+
+
+def measure_viterbi(report: Report, args, label: str):
+    """K8-cand against its plain version (path and f0 identical), timed."""
+    from fish_diffusion_tpu_torch.extractors import pitch
+
+    got, ref = pitch.viterbi_candidates(*args), pitch.viterbi_candidates_reference(*args)
+    err = max(report.compare(f"viterbi_candidates path {label} (identical)",
+                             got[1], ref[1], 0.0),
+              report.compare(f"viterbi_candidates f0 {label} (identical)",
+                             got[0], ref[0], 0.0))
+    ms = cuda_ms(lambda: pitch.viterbi_candidates(*args), iters=5)
+    plain = cuda_ms(lambda: pitch.viterbi_candidates_reference(*args), iters=3)
+    B_, T_ = args[2].shape
+    print(f"    kernel {ms:.4f} ms ({ms * 1e3 / max(T_ - 1, 1):.3f} us per frame), "
+          f"plain {plain:.4f} ms")
+    # per transition: 25 state pairs of ~6 operations; the real limit is
+    # the chain of T - 1 dependent frames
+    return dict(err=err, ms=ms, plain=plain,
+                work=(nbytes(*args, *got), 6 * B_ * (T_ - 1) * 25))
+
+
+def phase_kernels_stft_viterbi(report: Report, seed: int):
+    """K5 (STFT magnitude) and K8-cand (candidate Viterbi) against their
+    plain versions at B=4 x 1024 frames (timed; kept under ``batch4`` in
+    the kernels line) and K5 at B=1 over a segment's length for each of the
+    kernel's three tiles. The main path's own calls are held and timed in
+    ``phase_file_to_file``."""
+    import torch
+    import torch.nn.functional as F
+
+    from fish_diffusion_tpu_torch.ops import mel
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+
+    def padded(y, n_fft):
+        pad = int((n_fft - HOP) / 2)
+        return F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0].contiguous()
+
+    n_samples = T * HOP
+    print(f"[kernels] K5 STFT magnitude, B={B} x {n_samples} samples, hop {HOP}")
+    y = torch.randn((B, n_samples), generator=gen, device=DEVICE) * 0.3
+    for key_shift in (0, 2):
+        n_fft = int(np.round(2048 * 2 ** (key_shift / 12)))
+        yp = padded(y, n_fft)
+        r = measure_stft(report, yp, mel._dft_basis(n_fft, n_fft, DEVICE), HOP,
+                         f"B=4 n_fft={n_fft}")
+        report.kernel("stft_magnitude", r["err"], 0.0, 0.0)
+        if key_shift == 0:
+            report.batch4("stft_magnitude", r, f"B=4 x {n_samples} samples, n_fft 2048")
+    print("[kernels] K5 at B=1, one segment of 1.5 s, 7.4 s and 1024 frames")
+    basis = mel._dft_basis(2048, 2048, DEVICE)
+    tiles = set()
+    for seconds in (1.5, 7.4, T * HOP / SR):
+        y1 = torch.randn((1, int(seconds * SR)), generator=gen, device=DEVICE) * 0.3
+        r = measure_stft(report, padded(y1, 2048), basis, HOP, f"B=1 {seconds:.2f} s",
+                         timed=False)
+        report.kernel("stft_magnitude", r["err"], 0.0, 0.0)
+        tiles.add(r["tile"])
+    if tiles != {32, 64, 128}:
+        report.failures.append(f"stft_magnitude: B=1 cases took tiles {sorted(tiles)}")
+
+    print(f"[kernels] K8-cand candidate Viterbi, B={B} T={T} K=4")
+    freqs = torch.rand((B, T, 4), generator=gen, device=DEVICE) * 1050 + 50
+    freqs = freqs * (torch.rand((B, T, 4), generator=gen, device=DEVICE) > 0.3)
+    strengths = torch.rand((B, T, 4), generator=gen, device=DEVICE) * 2 - 1
+    unvoiced = torch.rand((B, T), generator=gen, device=DEVICE) * 1.5
+    r = measure_viterbi(report, (freqs, strengths, unvoiced), "B=4 T=1024")
+    report.kernel("viterbi_candidates", r["err"], 0.0, 0.0)
+    report.batch4("viterbi_candidates", r, "B=4 T=1024 K=4")
+    report.finish("kernels (K5, K8)")
+
+
+class recording:
+    """Swap ``module.name`` for a wrapper that calls it and keeps its
+    arguments (the tensors are not copied) between ``start`` and ``stop``."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+        self.fn = getattr(module, name)
+
+    def start(self):
+        def call(*args):
+            self.calls.append(args)
+            return self.fn(*args)
+
+        setattr(self.module, self.name, call)
+
+    def stop(self):
+        setattr(self.module, self.name, self.fn)
 
 
 def kwargs_str(kwargs):
@@ -334,8 +563,9 @@ def phase_serve(report: Report, seed: int):
     layers = cfg.model.diffusion.denoiser.residual_layers
     per_vocoder = {"conv_transpose1d": 5, "conv1d": 2 + 5 * (1 + 3 * 6),
                    "nsf_phase_base": 1, "nsf_merge": 1}
-    expected = {"wavenet_gate": layers * evals, "wavenet_out": layers * evals,
-                "unipc_predict": evals, "unipc_correct": evals, **per_vocoder}
+    expected = {name: 0 for name in kernels.LAUNCHES}
+    expected.update({"wavenet_gate": layers * evals, "wavenet_out": layers * evals,
+                     "unipc_predict": evals, "unipc_correct": evals, **per_vocoder})
 
     requests = [
         ("forward_batch 4 x ~11.9 s (bucket 1024)",
@@ -369,14 +599,15 @@ def phase_serve(report: Report, seed: int):
         )
         print(f"[serve] {label}: {secs:.3f} s for {audio_secs:.2f} s of audio, "
               f"RTF {secs / audio_secs:.4f}, peak |wav| "
-              f"{max(float(np.abs(o).max()) for o in outs):.3f}, launches {grew} "
+              f"{max(float(np.abs(o).max()) for o in outs):.3f}, launches "
+              f"{({k: v for k, v in grew.items() if v})} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             report.failures.append(label)
     launches = dict(kernels.LAUNCHES)
     print(f"[serve] launches over the three requests: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name, n in expected.items():
+        if n and launches[name] <= 0:
             report.failures.append(f"{name} never launched")
     print(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -395,6 +626,219 @@ def phase_serve(report: Report, seed: int):
     report.compare("serve 1 x 1.1 s vs plain composition (wav)",
                    torch.from_numpy(got), torch.from_numpy(ref), 1e-2)
     report.finish("serve")
+    return engine
+
+
+def make_phrase(rng, seconds: float, f0: float) -> np.ndarray:
+    """A sung phrase: two partials with 5 Hz vibrato over a noise floor."""
+    t = np.arange(int(seconds * SR)) / SR
+    phase = 2 * np.pi * np.cumsum(f0 * (1 + 0.015 * np.sin(2 * np.pi * 5 * t))) / SR
+    return 0.3 * np.sin(phase) + 0.1 * np.sin(2 * phase) + 0.01 * rng.standard_normal(len(t))
+
+
+def make_song(rng, path, phrases) -> np.ndarray:
+    """Phrases ((seconds, f0), ...) between stretches of digital silence,
+    written as a 16-bit wav; returns the samples as read back."""
+    from fish_diffusion_tpu_torch.utils.audio import load_wav, save_wav
+
+    parts = [np.zeros(int(0.3 * SR))]
+    for seconds, f0 in phrases:
+        parts += [make_phrase(rng, seconds, f0), np.zeros(int(0.6 * SR))]
+    save_wav(path, np.concatenate(parts[:-1] + [np.zeros(int(0.3 * SR))]), SR)
+    return load_wav(path)[0]
+
+
+class StageClock:
+    """Host seconds (with a device sync on each side) spent in chosen
+    methods while a request runs."""
+
+    def __init__(self):
+        self.seconds = defaultdict(float)
+        self.saved = []
+
+    def wrap(self, obj, attr, label):
+        import torch
+
+        fn = getattr(obj, attr)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[label] += time.perf_counter() - t0
+            return out
+
+        self.saved.append((obj, attr, fn, attr in vars(obj)))
+        setattr(obj, attr, timed)
+
+    def restore(self):
+        for obj, attr, fn, own in reversed(self.saved):
+            if own:
+                setattr(obj, attr, fn)
+            else:
+                delattr(obj, attr)
+
+
+def phase_file_to_file(report: Report, engine, seed: int):
+    """The second slice's path: ``inference`` on a 24 s wav with Harvest
+    pitch (UniPC; then shallow), ``forward`` with PLMS and naive, and a
+    short shallow file against the plain composition of every kernel."""
+    import torch
+
+    from fish_diffusion_tpu_torch import kernels
+    from fish_diffusion_tpu_torch.extractors import pitch, world
+    from fish_diffusion_tpu_torch.models import diffusion, wavenet
+    from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, source
+    from fish_diffusion_tpu_torch.ops import mel
+    from fish_diffusion_tpu_torch.utils.audio import load_wav, slice_audio
+
+    cfg = engine.config.model.diffusion
+    layers, T_steps, interval = (cfg.denoiser.residual_layers, cfg.timesteps,
+                                 cfg.sampler_interval)
+    rng = np.random.default_rng(seed + 20)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    song = make_song(rng, tmp / "song.wav", [(7.4, 220.0), (7.4, 247.0), (7.4, 196.0)])
+    rms = np.sqrt(np.mean(song ** 2) + 1e-12)
+    normed = np.clip(song * (10 ** (-23 / 20) / (rms + 1e-12)), -1, 1)
+    n_seg = len(list(slice_audio(normed, SR)))
+    short = make_phrase(rng, 256 * HOP / SR, 233.0).astype(np.float32)
+    print(f"[file] {len(song) / SR:.2f} s wav, {n_seg} segments (bucket 1024 each); "
+          f"a {len(short) / SR:.2f} s segment for PLMS and naive")
+
+    vocoder = {"conv_transpose1d": 5, "conv1d": 2 + 5 * (1 + 3 * 6),
+               "nsf_phase_base": 1, "nsf_merge": 1}
+
+    def expect(segments, evals, steps=None, predictor="unipc", stft=0):
+        steps = evals if steps is None else steps
+        out = {name: 0 for name in kernels.LAUNCHES}
+        out.update({k: v * segments for k, v in vocoder.items()})
+        out.update(wavenet_gate=layers * evals * segments,
+                   wavenet_out=layers * evals * segments,
+                   viterbi_candidates=segments, stft_magnitude=stft * segments)
+        if predictor == "unipc":
+            out.update(unipc_predict=steps * segments, unipc_correct=steps * segments)
+        elif predictor == "plms":
+            out.update(plms_update=(steps + 1) * segments)
+        else:
+            out.update(ddpm_update=steps * segments)
+        return out
+
+    full, shallow = T_steps // interval, max((T_steps - 500) // interval, 2)
+    speakers = engine.parse_speaker(0)
+    requests = [
+        ("inference (a) 24 s, Harvest + UniPC", len(song),
+         lambda: engine.inference(tmp / "song.wav", tmp / "a.wav", seed=seed),
+         tmp / "a.wav", expect(n_seg, full)),
+        ("inference (b) 24 s, shallow skip_steps=500", len(song),
+         lambda: engine.inference(tmp / "song.wav", tmp / "b.wav", skip_steps=500,
+                                  seed=seed),
+         tmp / "b.wav", expect(n_seg, shallow, stft=1)),
+        ("forward (c) 2.97 s, Harvest + PLMS", len(short),
+         lambda: engine.forward(short, speakers, noise_predictor="plms", seed=seed),
+         None, expect(1, full + 1, full, "plms")),
+        ("forward (c) 2.97 s, Harvest + naive", len(short),
+         lambda: engine.forward(short, speakers, noise_predictor="naive", seed=seed),
+         None, expect(1, full, full, "naive")),
+    ]
+    # warm-up, not counted: the first request of a bucket designs Harvest's
+    # filter bank on the host and plans its FFTs; the first shallow one
+    # builds K5's DFT basis on the host
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.inference(tmp / "song.wav", tmp / "warm.wav", seed=seed)
+    engine.inference(tmp / "song.wav", tmp / "warm.wav", skip_steps=500, seed=seed)
+    engine.forward(short, speakers, seed=seed)
+    torch.cuda.synchronize()
+    print(f"[file] warm-up (the 24 s file, again shallow, then the 2.97 s segment, "
+          f"UniPC): {time.perf_counter() - t0:.3f} s")
+
+    clock = StageClock()
+    stft_calls = recording(mel, "stft_magnitude")
+    viterbi_calls = recording(world, "viterbi_candidates")
+    kernels.reset_launches()
+    for label, n_samples, run, written, expected in requests:
+        before = dict(kernels.LAUNCHES)
+        shallow_request = "shallow" in label
+        if shallow_request:
+            clock.wrap(world, "harvest_f0", "Harvest")
+            clock.wrap(engine.vocoder, "wav2spec", "wav2spec (K5)")
+            clock.wrap(engine.text_features_extractor.model, "forward", "HubertSoft")
+            clock.wrap(engine.model, "sample", "sample")
+            clock.wrap(engine.vocoder, "spec2wav", "vocoder")
+            stft_calls.start()
+            viterbi_calls.start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if shallow_request:
+            clock.restore()
+            stft_calls.stop()
+            viterbi_calls.stop()
+        grew = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+        outs = [out] + ([load_wav(written)[0]] if written else [])
+        ok = (
+            all(len(o) == n_samples for o in outs)
+            and all(np.isfinite(o).all() and np.abs(o).max() <= 1.0 for o in outs)
+            and np.abs(out).max() > 0
+            and grew == expected
+        )
+        print(f"[file] {label}: {secs:.3f} s for {n_samples / SR:.2f} s of audio, "
+              f"RTF {secs / (n_samples / SR):.4f}, peak |wav| {np.abs(out).max():.3f}, "
+              f"launches {({k: v for k, v in grew.items() if v})} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            print(f"  expected {({k: v for k, v in expected.items() if v})}")
+            report.failures.append(label)
+        if shallow_request:
+            parts = ", ".join(f"{k} {v:.3f} s" for k, v in clock.seconds.items())
+            print(f"[file] where the shallow request's time went (synced host "
+                  f"clock): {parts}")
+    launches = dict(kernels.LAUNCHES)
+    print(f"[file] launches over the file-to-file path: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            report.failures.append(f"{name} never launched on the file-to-file path")
+
+    # K5 and K8-cand on the inputs request (b) gave them, the tiles the path
+    # runs: held against their plain versions and timed (summed per request)
+    print("[file] K5 and K8-cand on request (b)'s own inputs")
+    frames = "+".join(str((y.shape[1] - b.shape[0]) // h + 1) for y, b, h in stft_calls.calls)
+    for yp, basis, hop in stft_calls.calls:
+        r = measure_stft(report, yp, basis, hop, f"request (b) B={yp.shape[0]}")
+        report.kernel("stft_magnitude", r["err"], r["ms"], r["plain"],
+                      f"request (b), sum of its {len(stft_calls.calls)} calls at "
+                      f"B=1, {frames} frames, n_fft 2048", *r["work"], r["lib"])
+    frames = "+".join(str(a[2].shape[1]) for a in viterbi_calls.calls)
+    for args in viterbi_calls.calls:
+        r = measure_viterbi(report, args, f"request (b) T={args[2].shape[1]}")
+        report.kernel("viterbi_candidates", r["err"], r["ms"], r["plain"],
+                      f"request (b), sum of its {len(viterbi_calls.calls)} calls at "
+                      f"B=1, {frames} frames, K=4", *r["work"])
+
+    # a short shallow file with Harvest, through the kernels and through the
+    # plain version of every kernel
+    make_song(rng, tmp / "small.wav", [(1.5, 208.0)])
+    run_small = lambda: engine.inference(tmp / "small.wav", tmp / "small_out.wav",  # noqa: E731
+                                         skip_steps=500, seed=seed)
+    got = run_small()
+    with plain_path({
+        (wavenet, "residual_block"): wavenet.residual_block_reference,
+        (diffusion, "unipc_predict"): diffusion.unipc_predict_reference,
+        (diffusion, "unipc_correct"): diffusion.unipc_correct_reference,
+        (diffusion, "plms_update"): diffusion.plms_update_reference,
+        (diffusion, "ddpm_update"): diffusion.ddpm_update_reference,
+        (nsf_hifigan, "conv1d"): nsf_hifigan.conv1d_reference,
+        (nsf_hifigan, "conv_transpose1d"): nsf_hifigan.conv_transpose1d_reference,
+        (source, "nsf_source"): source.nsf_source_reference,
+        (mel, "stft_magnitude"): mel.stft_magnitude_reference,
+        (world, "viterbi_candidates"): pitch.viterbi_candidates_reference,
+    }):
+        ref = run_small()
+    report.compare("file 1.5 s shallow with Harvest vs plain composition (wav)",
+                   torch.from_numpy(got), torch.from_numpy(ref), 1e-2)
+    report.finish("file to file")
     return launches
 
 
@@ -426,7 +870,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels.build_all()
-    print(f"[build] CUDA sources built in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] CUDA sources built in {time.perf_counter() - t0:.1f} s, one nvcc "
+          f"each, all started together; each took "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in kernels.BUILD_SECONDS.items())
+          + f" (sum {sum(kernels.BUILD_SECONDS.values()):.1f} s)")
     for name, log in kernels.BUILD_LOGS.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -434,7 +881,9 @@ def main() -> int:
 
     report = Report()
     totals = phase_kernels(report, args.seed)
-    launches = phase_serve(report, args.seed)
+    phase_kernels_stft_viterbi(report, args.seed)
+    engine = phase_serve(report, args.seed)
+    launches = phase_file_to_file(report, engine, args.seed)
 
     entries = []
     for name, meta in kernels.KERNELS.items():
@@ -443,7 +892,10 @@ def main() -> int:
             name=f"{meta['id']} {name}", route=meta["route"], source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
-            shape=k["shape"],
+            bound_ms=k["bound_ms"],
+            bound_by=max(k["bound_time"], key=k["bound_time"].get),
+            library_ms=k["library_ms"], shape=k["shape"],
+            **report.extra.get(name, {}),
         ))
     print(json.dumps(totals))
     print(smi)

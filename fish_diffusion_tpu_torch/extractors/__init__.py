@@ -1,1 +1,2 @@
 from .feature import HubertSoft  # noqa: F401
+from .world import HarvestPitchExtractor  # noqa: F401

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..registry import FEATURE_EXTRACTORS
+from ..utils import resolve_device
 
 _CONV_LAYERS = (
     (512, 10, 5),
@@ -209,13 +210,15 @@ class HubertSoft(BaseFeatureExtractor):
     ``checkpoint_path`` names a pickle of the JAX package's params (the
     format ``tools/preprocessing/convert_hubert_checkpoint.py`` writes),
     carried across by ``convert.hubert_soft_from_jax``; without one,
-    ``random_init`` draws every parameter from ``seed``."""
+    ``random_init`` draws every parameter from ``seed``. Runs on ``device``,
+    the card unless the caller asks for the CPU."""
 
     sampling_rate = 16000
 
     def __init__(self, checkpoint_path: Optional[str] = None,
-                 random_init: bool = False, seed: int = 0, device="cpu",
+                 random_init: bool = False, seed: int = 0, device="cuda",
                  **encoder_kwargs):
+        self.device = resolve_device(device)
         self.model = HubertSoftModel(**encoder_kwargs)
         self.has_weights = False
         if checkpoint_path:
@@ -225,7 +228,6 @@ class HubertSoft(BaseFeatureExtractor):
                 self.load_state_dict(hubert_soft_from_jax(pickle.load(f)))
         elif random_init:
             self.init_random(seed)
-        self.device = torch.device(device)
         self.model.to(self.device).eval()
 
     def load_state_dict(self, state_dict: dict):

@@ -2,7 +2,8 @@
 
 CUDA sources live in ``csrc/`` and are compiled at first use with ``nvcc``
 for ``sm_90a`` into ``build/kernels/`` at the root of the checkout, as
-shared libraries with a plain C interface, and bound with ``ctypes``. Every
+shared libraries with a plain C interface, and bound with ``ctypes``
+(``build_all`` starts one ``nvcc`` per source, all at once). Every
 pointer and the stream go through ``ctypes.c_void_p``; each C entry returns
 ``cudaGetLastError()``, and ``check`` raises if it is not 0. The Triton
 kernels are built by their own modules, inside the functions that launch
@@ -20,6 +21,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -66,10 +70,27 @@ KERNELS = {
         id="K4", route="cuda", source=_PORT + "csrc/conv1d.cu",
         replaces=_TPU + "models/vocoders/nsf_hifigan.py:359",
     ),
+    "plms_update": dict(
+        id="K2", route="triton", source=_PORT + "models/diffusion.py",
+        replaces=_TPU + "models/diffusion.py:395",
+    ),
+    "ddpm_update": dict(
+        id="K2", route="triton", source=_PORT + "models/diffusion.py",
+        replaces=_TPU + "models/diffusion.py:366",
+    ),
+    "stft_magnitude": dict(
+        id="K5", route="cuda", source=_PORT + "csrc/stft.cu",
+        replaces=_TPU + "ops/mel.py:135",
+    ),
+    "viterbi_candidates": dict(
+        id="K8", route="cuda", source=_PORT + "csrc/viterbi.cu",
+        replaces=_TPU + "extractors/pitch.py:277",
+    ),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOGS: dict = {}
+BUILD_SECONDS: dict = {}
 _LIBS: dict = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -81,6 +102,13 @@ SIGNATURES = {
     },
     "conv1d": {
         "conv1d_forward": [_I, _I] + [_P] * 5 + [_I] * 9 + [_F, _I, _I, _P],
+    },
+    "stft": {
+        "stft_magnitude": [_P] * 3 + [_I] * 6 + [_P],
+        "stft_tile": [_I, _I],
+    },
+    "viterbi": {
+        "viterbi_candidates": [_P] * 6 + [_I] * 3 + [_P],
     },
 }
 
@@ -107,27 +135,41 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def _library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{tag.hexdigest()[:12]}.so"
+
+
+def _build(name: str) -> None:
+    """Compile ``csrc/<name>.cu`` unless its library is built, keeping the
+    compiler's output in ``BUILD_LOGS`` and its wall seconds in
+    ``BUILD_SECONDS``."""
+    so = _library_path(name)
+    if so.exists():
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        capture_output=True, text=True,
+    )
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    BUILD_LOGS[name] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+    os.replace(tmp, so)
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` once (cached by content) and bind its C
     entries with the argument types in ``SIGNATURES``."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    src = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"lib{name}-{tag.hexdigest()[:12]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        BUILD_LOGS[name] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    _build(name)
+    lib = ctypes.CDLL(str(_library_path(name)))
     for fn, argtypes in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = _I
@@ -136,7 +178,10 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> None:
-    """Build every CUDA source (the Triton kernels build at first launch)."""
+    """Build every CUDA source, one ``nvcc`` each, all started together
+    (the Triton kernels build at first launch)."""
+    with ThreadPoolExecutor(len(SIGNATURES)) as pool:
+        list(pool.map(_build, [name for name in SIGNATURES if name not in _LIBS]))
     for name in SIGNATURES:
         load_library(name)
 

@@ -109,11 +109,14 @@ class DiffSinger(nn.Module):
         pitch_shift=None,
         energy=None,
         sampler_interval: Optional[int] = None,
+        skip_steps: int = 0,
+        original_mel: Optional[torch.Tensor] = None,
         noise_predictor: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
         x_T: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Condition assembly + full reverse diffusion -> mel [B, T, M]."""
+        """Condition assembly + reverse diffusion -> mel [B, T, M]; shallow
+        when ``skip_steps`` > 0 with ``original_mel`` [B, T, M]."""
         features = self.forward_features(
             speakers=speakers,
             contents=contents,
@@ -127,6 +130,8 @@ class DiffSinger(nn.Module):
         return self.diffusion(
             features["features"],
             sampler_interval=sampler_interval,
+            skip_steps=skip_steps,
+            original_mel=original_mel,
             noise_predictor=noise_predictor,
             x_masks=features["x_masks"],
             cond_masks=features["cond_masks"],

@@ -2,29 +2,43 @@
 
 The schedule and the UniPC step table are host-side numpy float64, the
 same algebra as the JAX package, cast to float32 where they meet the
-device. The sampler is UniPC (bh1/bh2, orders 1-3, data prediction); its
-per-step update is K2, two Triton kernels:
+device. Three samplers, each with its per-step update as K2, fused
+elementwise Triton kernels over ``[B, T, 128]`` float32:
 
-- ``unipc_predict``: x_pred = c_x x + c_m0 m0 + c_p0 D1s_0 + c_p1 D1s_1,
-  with D1s_k = (m_{k+1} - m0) inv_rk_k; the final order-1 step too;
-- ``unipc_correct``: m_t = (x_eval - sigma eps) / alpha (the data
+- UniPC (bh1/bh2, orders 1-3, data prediction), the default:
+  ``unipc_predict``: x_pred = c_x x + c_m0 m0 + c_p0 D1s_0 + c_p1 D1s_1,
+  with D1s_k = (m_{k+1} - m0) inv_rk_k, the final order-1 step too;
+  ``unipc_correct``: m_t = (x_eval - sigma eps) / alpha (the data
   prediction), fused with the corrector x_new = c_x x + c_m0 m0
-  + c_c0 D1s_0 + c_c1 D1s_1 + c_d1t (m_t - m0).
+  + c_c0 D1s_0 + c_c1 D1s_1 + c_d1t (m_t - m0);
+- PLMS: ``plms_update``: the Adams-Bashforth combination of the new eps
+  and a 3-slot history, eps' = (w0 eps + w1 h_2 + w2 h_1 + w3 h_0) / den,
+  fused with the transfer x + c_d (c_x x - c_e eps');
+- naive DDPM: ``ddpm_update``: x0 = clip(a x - b eps, -1, 1), then
+  c1 x0 + c2 x + sigma noise.
 
-They replace the JAX package's ``_sample_unipc`` scan body
-(``fish_diffusion_tpu/models/diffusion.py:462``). On an H100 the update is
-bound by memory bandwidth: pure elementwise arithmetic over ``[B, T, 128]``
-float32, a few tensors in and out, next to a 20-block denoiser eval. Each
-pass reads each tensor once and writes its outputs once, with the step's
-coefficients as scalar arguments. The data prediction is fused into the
-corrector because the corrector is its first consumer: after each denoiser
-eval the corrector finishes step i - 1 with it, then the predictor starts
-step i from the corrected x. ``unipc_predict_reference`` and
-``unipc_correct_reference`` are the plain versions; one step is the
-corrector followed by the predictor.
+They replace the JAX package's scan bodies ``_sample_unipc``
+(``fish_diffusion_tpu/models/diffusion.py:462``), ``_sample_plms`` (``:395``)
+and ``_sample_naive`` (``:366``). On an H100 each update is bound by memory
+bandwidth: a few tensors in and one or two out, next to a 20-block denoiser
+eval. Each pass reads each tensor once and writes its outputs once, with the
+step's coefficients as scalar arguments taken on the host from the float32
+tables, as the JAX package's float32 device arithmetic takes them. The data
+prediction is fused into the UniPC corrector because the corrector is its
+first consumer: after each denoiser eval the corrector finishes step i - 1
+with it, then the predictor starts step i from the corrected x. The
+``*_reference`` functions are the plain versions, which the wrappers take
+for CPU tensors.
 
-PLMS and naive sampling and shallow diffusion are not ported yet (ROADMAP
-Queue 1 items 4 and 6).
+Shallow diffusion (``skip_steps`` with ``original_mel``) warm-starts from
+the normalized input mel noised to step T - skip; UniPC then solves from
+t = (T - skip) / T, as the JAX package does (a deliberate departure from
+fish-diffusion, whose UniPC always solves from t = 1).
+
+Random draws come from one ``torch.Generator``, in this order: x_T (unless
+``original_mel`` is given), the warm-start noise (when ``skip_steps``), then
+one noise per naive step, in step order (t = 0 included, where it is
+multiplied by 0).
 """
 
 from __future__ import annotations
@@ -225,6 +239,31 @@ def _unipc_correct_kernel(x_ptr, m0_ptr, m1_ptr, m2_ptr, xe_ptr, eps_ptr,
     tl.store(x_out_ptr + offs, x_new, mask=mask)
 
 
+def _plms_update_kernel(x_ptr, e_ptr, h2_ptr, h1_ptr, h0_ptr, out_ptr, n,
+                       w0, w1, w2, w3, den, c_d, c_x, c_e,
+                       BLOCK: tl.constexpr):
+    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < n
+    x = tl.load(x_ptr + offs, mask=mask)
+    e = tl.load(e_ptr + offs, mask=mask)
+    h2 = tl.load(h2_ptr + offs, mask=mask)
+    h1 = tl.load(h1_ptr + offs, mask=mask)
+    h0 = tl.load(h0_ptr + offs, mask=mask)
+    eps = tl.math.div_rn(w0 * e + w1 * h2 + w2 * h1 + w3 * h0, den)
+    tl.store(out_ptr + offs, x + c_d * (c_x * x - c_e * eps), mask=mask)
+
+
+def _ddpm_update_kernel(x_ptr, e_ptr, z_ptr, out_ptr, n, a, b, c1, c2, sigma,
+                        BLOCK: tl.constexpr):
+    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < n
+    x = tl.load(x_ptr + offs, mask=mask)
+    e = tl.load(e_ptr + offs, mask=mask)
+    z = tl.load(z_ptr + offs, mask=mask)
+    x0 = tl.minimum(tl.maximum(a * x - b * e, -1.0), 1.0)
+    tl.store(out_ptr + offs, c1 * x0 + c2 * x + sigma * z, mask=mask)
+
+
 def _triton_kernels() -> dict:
     global tl
     if not _TRITON:
@@ -234,6 +273,8 @@ def _triton_kernels() -> dict:
         tl = triton.language
         _TRITON["predict"] = triton.jit(_unipc_predict_kernel)
         _TRITON["correct"] = triton.jit(_unipc_correct_kernel)
+        _TRITON["plms"] = triton.jit(_plms_update_kernel)
+        _TRITON["ddpm"] = triton.jit(_ddpm_update_kernel)
     return _TRITON
 
 
@@ -260,14 +301,8 @@ def unipc_predict(x, m0, m1, m2, c_x, c_m0, c_p0, c_p1, ir0, ir1):
     if not x.is_cuda:
         return unipc_predict_reference(x, m0, m1, m2, c_x, c_m0, c_p0, c_p1,
                                        ir0, ir1)
-    _check_same("unipc_predict", x, m0, m1, m2)
-    out = torch.empty_like(x)
-    n = x.numel()
-    _triton_kernels()["predict"][(-(-n // _BLOCK),)](
-        x, m0, m1, m2, out, n, c_x, c_m0, c_p0, c_p1, ir0, ir1, BLOCK=_BLOCK
-    )
-    kernels.count_launch("unipc_predict")
-    return out
+    return _launch_elementwise("unipc_predict", "predict", (x, m0, m1, m2),
+                               (c_x, c_m0, c_p0, c_p1, ir0, ir1))
 
 
 def unipc_correct_reference(x, m0, m1, m2, x_eval, eps, alpha, sigma,
@@ -337,6 +372,123 @@ def sample_unipc(x: torch.Tensor, denoise, table: dict) -> torch.Tensor:
     (ir0, ir1), (cp0, cp1) = f["inv_rk"][i], f["c_pred"][i]
     return unipc_predict(x, m0, m1, m2, f["c_x"][i], f["c_m0"][i], cp0, cp1,
                          ir0, ir1)
+
+
+def _launch_elementwise(name, kernel, tensors, scalars):
+    _check_same(name, *tensors)
+    out = torch.empty_like(tensors[0])
+    n = out.numel()
+    _triton_kernels()[kernel][(-(-n // _BLOCK),)](
+        *tensors, out, n, *scalars, BLOCK=_BLOCK
+    )
+    kernels.count_launch(name)
+    return out
+
+
+# PLMS stage weights (w0, w1, w2, w3, den) on (eps, h_2, h_1, h_0), h_2 the
+# newest history slot; stage 0 runs its two denoiser evals with the first
+# and the last row
+PLMS_WEIGHTS = (
+    (3.0, -1.0, 0.0, 0.0, 2.0),
+    (23.0, -16.0, 5.0, 0.0, 12.0),
+    (55.0, -59.0, 37.0, -9.0, 24.0),
+)
+PLMS_FIRST = (1.0, 0.0, 0.0, 0.0, 1.0)
+PLMS_AVERAGE = (1.0, 1.0, 0.0, 0.0, 2.0)
+
+
+def plms_transfer(acp: np.ndarray, t: int, t_prev: int) -> tuple:
+    """(c_d, c_x, c_e) of the PLMS transfer from step t to t_prev, from the
+    float32 ``alphas_cumprod`` in float32 arithmetic."""
+    a_t, a_prev = acp[t], acp[t_prev]
+    a_t_sq, a_prev_sq = np.sqrt(a_t), np.sqrt(a_prev)
+    one = np.float32(1.0)
+    c_x = one / (a_t_sq * (a_t_sq + a_prev_sq))
+    c_e = one / (a_t_sq * (np.sqrt((one - a_prev) * a_t)
+                           + np.sqrt((one - a_t) * a_prev)))
+    return float(a_prev - a_t), float(c_x), float(c_e)
+
+
+def plms_update_reference(x, e, h2, h1, h0, w0, w1, w2, w3, den, c_d, c_x, c_e):
+    # IEEE division, as in unipc_correct_reference
+    eps = (w0 * e + w1 * h2 + w2 * h1 + w3 * h0) / torch.tensor(den, device=x.device)
+    return x + c_d * (c_x * x - c_e * eps)
+
+
+def plms_update(x, e, h2, h1, h0, w0, w1, w2, w3, den, c_d, c_x, c_e):
+    """K2-PLMS: the stage's combination of the new eps ``e`` and the
+    history (``h2`` the newest), fused with the transfer to t_prev."""
+    if not x.is_cuda:
+        return plms_update_reference(x, e, h2, h1, h0, w0, w1, w2, w3, den,
+                                     c_d, c_x, c_e)
+    return _launch_elementwise("plms_update", "plms", (x, e, h2, h1, h0),
+                               (w0, w1, w2, w3, den, c_d, c_x, c_e))
+
+
+def ddpm_update_reference(x, e, noise, a, b, c1, c2, sigma):
+    x0 = torch.clamp(a * x - b * e, -1.0, 1.0)
+    return c1 * x0 + c2 * x + sigma * noise
+
+
+def ddpm_update(x, e, noise, a, b, c1, c2, sigma):
+    """K2-naive: one DDPM ancestral step at integer t (the 1-step posterior
+    coefficients at t; sigma = 0 at t = 0)."""
+    if not x.is_cuda:
+        return ddpm_update_reference(x, e, noise, a, b, c1, c2, sigma)
+    return _launch_elementwise("ddpm_update", "ddpm", (x, e, noise),
+                               (a, b, c1, c2, sigma))
+
+
+def naive_step_table(coeffs: "ScheduleCoefficients") -> dict:
+    """Per-t scalars of ``ddpm_update`` from the float32 tables: a, b, c1,
+    c2 and sigma = exp(0.5 log_var), 0 at t = 0."""
+    f32 = {k: getattr(coeffs, k).astype(np.float32) for k in (
+        "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod",
+        "posterior_mean_coef1", "posterior_mean_coef2",
+        "posterior_log_variance_clipped")}
+    sigma = np.exp(np.float32(0.5) * f32["posterior_log_variance_clipped"])
+    sigma[0] = 0.0
+    return dict(a=f32["sqrt_recip_alphas_cumprod"],
+                b=f32["sqrt_recipm1_alphas_cumprod"],
+                c1=f32["posterior_mean_coef1"], c2=f32["posterior_mean_coef2"],
+                sigma=sigma.astype(np.float32))
+
+
+def _t_batch(x, t) -> torch.Tensor:
+    return torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
+
+
+def sample_plms(x, denoise, ts, interval: int, acp: np.ndarray) -> torch.Tensor:
+    """PLMS multistep sampling over the integer steps ``ts`` (descending):
+    two denoiser evals on the first step, one after; a 3-slot eps history.
+    ``acp`` is the float32 ``alphas_cumprod``."""
+    hist = []
+    for stage, t in enumerate(int(t) for t in ts):
+        t_prev = max(t - interval, 0)
+        transfer = plms_transfer(acp, t, t_prev)
+        eps = denoise(x, _t_batch(x, t))
+        if stage == 0:
+            x_pred = plms_update(x, eps, eps, eps, eps, *PLMS_FIRST, *transfer)
+            eps_prev = denoise(x_pred, _t_batch(x, t_prev))
+            x_new = plms_update(x, eps, eps_prev, eps, eps, *PLMS_AVERAGE, *transfer)
+        else:
+            h = [eps] * (3 - len(hist)) + hist  # weight 0 on missing slots
+            x_new = plms_update(x, eps, h[2], h[1], h[0],
+                                *PLMS_WEIGHTS[min(stage, 3) - 1], *transfer)
+        hist = (hist + [eps])[-3:]
+        x = x_new
+    return x
+
+
+def sample_naive(x, denoise, ts, table: dict, generator=None) -> torch.Tensor:
+    """DDPM ancestral sampling over the integer steps ``ts`` (descending),
+    one noise draw per step from ``generator``."""
+    for t in (int(t) for t in ts):
+        eps = denoise(x, _t_batch(x, t))
+        noise = torch.randn(x.shape, generator=generator, device=x.device)
+        x = ddpm_update(x, eps, noise, *(float(table[k][t]) for k in (
+            "a", "b", "c1", "c2", "sigma")))
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -430,35 +582,49 @@ class GaussianDiffusion(nn.Module):
         generator: Optional[torch.Generator] = None,
         x_T: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Reverse diffusion from x_T (drawn from ``generator`` unless
-        given) to a denormalized mel [B, T, M]."""
-        if skip_steps or original_mel is not None:
-            raise NotImplementedError(
-                "shallow diffusion needs the mel transform, which is not "
-                "ported yet (ROADMAP Queue 1 item 6)"
-            )
+        """Reverse diffusion to a denormalized mel [B, T, M]. x_T is drawn
+        from ``generator`` unless given or unless ``original_mel`` [B, T, M]
+        is (shallow diffusion: the warm start is ``original_mel`` noised to
+        step T - ``skip_steps``)."""
         sampler_interval = sampler_interval or self.sampler_interval
         predictor = (noise_predictor or self.noise_predictor).lower()
-        if predictor != "unipc":
-            raise NotImplementedError(
-                f"the {predictor!r} sampler is not ported yet (ROADMAP Queue 1 "
-                "item 4); use 'unipc'"
-            )
+        if predictor not in ("unipc", "plms", "naive"):
+            raise NotImplementedError(f"unknown noise predictor {predictor!r}")
 
-        if x_T is None:
+        if original_mel is not None:
+            x = self.norm_spec(original_mel.float())
+        elif x_T is not None:
+            x = x_T.float()
+        else:
             t_ref = x_masks if x_masks is not None else features
             shape = (features.shape[0], t_ref.shape[1], self.mel_channels)
-            x_T = torch.randn(shape, generator=generator, device=features.device)
+            x = torch.randn(shape, generator=generator, device=features.device)
+        if skip_steps:
+            t = torch.full((x.shape[0],), self.timesteps - skip_steps,
+                           dtype=torch.long, device=x.device)
+            noise = torch.randn(x.shape, generator=generator, device=x.device)
+            x = self.q_sample(x, t, noise)
+        ts = np.arange(0, self.timesteps - skip_steps, sampler_interval)[::-1]
 
         plan = self.denoise_fn.prepare(features, cond_masks)
 
         def denoise(xt, tb):
             return self.denoise_fn(xt, tb, None, x_masks=x_masks, plan=plan)
 
-        table = unipc_step_table(
-            self.coeffs,
-            self.timesteps // sampler_interval,
-            variant=self.unipc_variant,
-            order=self.unipc_order,
-        )
-        return self.denorm_spec(sample_unipc(x_T.float(), denoise, table))
+        x = x.contiguous()
+        if predictor == "naive":
+            x = sample_naive(x, denoise, ts, naive_step_table(self.coeffs), generator)
+        elif predictor == "plms":
+            x = sample_plms(x, denoise, ts, sampler_interval,
+                            self.coeffs.alphas_cumprod.astype(np.float32))
+        else:
+            steps = self.timesteps // sampler_interval
+            t_start = None
+            if skip_steps:
+                steps = max((self.timesteps - skip_steps) // sampler_interval, 2)
+                t_start = (self.timesteps - skip_steps) / self.timesteps
+            table = unipc_step_table(self.coeffs, steps, t_start,
+                                     variant=self.unipc_variant,
+                                     order=self.unipc_order)
+            x = sample_unipc(x, denoise, table)
+        return self.denorm_spec(x)

@@ -27,7 +27,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ... import kernels
+from ...ops.mel import LogMelSpectrogram
 from ...registry import VOCODERS
+from ...utils import resolve_device
 from .source import SourceModule
 
 LRELU_SLOPE = 0.1
@@ -235,11 +237,12 @@ class NsfHifiGANGenerator(nn.Module):
 
 @VOCODERS.register_module(name="NsfHifiGAN")
 class NsfHifiGAN:
-    """Inference wrapper: ``spec2wav``. ``checkpoint_path`` names a pickle
-    of the JAX package's generator params (the format
-    ``tools/nsf_hifigan/convert_checkpoint.py`` writes), carried across by
-    ``convert.nsf_hifigan_from_jax``. Without one, ``random_init`` draws
-    every parameter from ``seed``."""
+    """Inference wrapper: ``spec2wav`` and ``wav2spec`` (the log-mel
+    transform, K5). ``checkpoint_path`` names a pickle of the JAX package's
+    generator params (the format ``tools/nsf_hifigan/convert_checkpoint.py``
+    writes), carried across by ``convert.nsf_hifigan_from_jax``. Without
+    one, ``random_init`` draws every parameter from ``seed``. Runs on
+    ``device``, the card unless the caller asks for the CPU."""
 
     def __init__(
         self,
@@ -255,9 +258,16 @@ class NsfHifiGAN:
         generator_config: Optional[dict] = None,
         random_init: bool = False,
         seed: int = 0,
-        device="cpu",
+        device="cuda",
     ):
+        self.device = resolve_device(device)
         self.use_natural_log = use_natural_log
+        self.mel_transform = LogMelSpectrogram(
+            sample_rate=sampling_rate, n_fft=n_fft, win_length=win_length,
+            hop_length=hop_length, f_min=f_min, f_max=f_max,
+            n_mels=mel_channels, use_natural_log=use_natural_log,
+            device=self.device,
+        )
         gen_cfg = dict(num_mels=mel_channels, sampling_rate=sampling_rate,
                        hop_size=hop_length)
         gen_cfg.update(generator_config or {})
@@ -273,7 +283,7 @@ class NsfHifiGAN:
             from ...utils import init_random_
 
             init_random_(self.generator, seed)
-        self.generator.to(device).eval()
+        self.generator.to(self.device).eval()
 
     def load_checkpoint(self, path: str):
         from ...convert import nsf_hifigan_from_jax
@@ -297,7 +307,7 @@ class NsfHifiGAN:
         return wav[0] if squeeze else wav
 
     def wav2spec(self, audio, key_shift: float = 0.0, speed: float = 1.0):
-        raise NotImplementedError(
-            "the mel transform (STFT, kernel K5) is not ported yet "
-            "(ROADMAP Queue 1 item 6)"
-        )
+        """audio [B, T] -> log-mel [B, T // hop, M] (channels-last), log10
+        unless ``use_natural_log``."""
+        mel = self.mel_transform.wav2spec(audio, key_shift=key_shift, speed=speed)
+        return mel.transpose(1, 2)

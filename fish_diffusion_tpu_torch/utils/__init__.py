@@ -1,9 +1,23 @@
-"""Seeded random weights for modules that have no checkpoint yet."""
+"""Seeded random weights for modules that have no checkpoint yet, and the
+device rule of the port's entry points."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. Entry points default to
+    ``"cuda"``; without a card that default raises instead of falling back
+    to the CPU, which a caller asks for with ``device="cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run on the CPU"
+        )
+    return device
 
 
 @torch.no_grad()

@@ -1,5 +1,5 @@
-"""The CUDA sources of K1 and K4, compiled for the host CPU and run against
-their plain PyTorch versions at small shapes.
+"""The CUDA sources of K1, K4, K5 and K8-cand, compiled for the host CPU
+and run against their plain PyTorch versions at small shapes.
 
 The card is the real test (``chip_smoke.py``, ``tests/test_torch_kernels_cuda.py``),
 but the kernels' tiling, halos, masks and epilogues are plain C++ over
@@ -21,13 +21,16 @@ import pytest
 import torch
 
 from fish_diffusion_tpu_torch import kernels
+from fish_diffusion_tpu_torch.extractors import pitch
 from fish_diffusion_tpu_torch.models import wavenet
 from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan
+from fish_diffusion_tpu_torch.ops import mel
 
 SHIM = r"""
 #pragma once
 #include <barrier>
 #include <cmath>
+#include <math.h>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -48,6 +51,11 @@ struct dim3 {
 inline thread_local dim3 threadIdx, blockIdx;
 inline thread_local std::barrier<>* g_barrier;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
+// round-to-nearest arithmetic that nvcc never contracts into an FMA (g++
+// in ISO C++ mode does not contract either)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0 };
@@ -221,3 +229,65 @@ def test_conv_transpose1d_source(host_libs, C_in, C_out, K, u):
                 None, T_out, K, u, 1, pad, 0.1, False)
     ref = nsf_hifigan.conv_transpose1d_reference(x, w, b, u, pad, 0.1)
     assert (got - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize(
+    "B,n_fft,win,hop,F,tile",
+    # with 8 SMs the rows M = B * F and the bins pick the tile: 128 x 64
+    # (n_fft 2048 and 2299), 64 x 32 (n_fft 300), 32 x 32 (n_fft 64)
+    [(1, 2048, 2048, 512, 5, 128), (2, 2299, 2299, 512, 3, 128),
+     (2, 300, 240, 75, 40, 64), (1, 64, 48, 16, 10, 32)],
+)
+def test_stft_source(host_libs, B, n_fft, win, hop, F, tile):
+    """K5: <= 1e-5 relative to the largest magnitude (sums of n_fft
+    products in another order); n_fft 2299 and 300 are not powers of two."""
+    gen = torch.Generator().manual_seed(n_fft + F)
+    y = rn(gen, B, n_fft + (F - 1) * hop + hop // 3, scale=0.3)
+    basis = mel._dft_basis(n_fft, win, "cpu")
+    bins = n_fft // 2 + 1
+    assert host_libs["stft"].stft_tile(B * F, bins) == tile
+    out = torch.full((B, bins, F), float("nan"))
+    assert host_libs["stft"].stft_magnitude(
+        y.data_ptr(), basis.data_ptr(), out.data_ptr(), B, y.shape[1], n_fft,
+        hop, bins, F, None) == 0
+    ref = mel.stft_magnitude_reference(y, basis, hop)
+    assert ref.shape == out.shape
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("B,T,K", [(3, 50, 4), (2, 1, 4), (1, 30, 2)])
+def test_viterbi_source(host_libs, B, T, K):
+    """K8-cand on random candidate maps: path and f0 identical."""
+    gen = torch.Generator().manual_seed(T + K)
+    freqs = torch.rand((B, T, K), generator=gen) * 1050 + 50
+    freqs = freqs * (torch.rand((B, T, K), generator=gen) > 0.3)
+    strengths = torch.rand((B, T, K), generator=gen) * 2 - 1
+    unvoiced = torch.rand((B, T), generator=gen) * 1.5
+    _check_viterbi(host_libs["viterbi"], freqs, strengths, unvoiced)
+
+
+def test_viterbi_source_ties(host_libs):
+    """K8-cand where every score ties (equal candidates and strengths) and
+    where voiced states tie among themselves: the first state wins, as in
+    the plain version and ``jnp.argmax``."""
+    T = 12
+    freqs = torch.full((2, T, 4), 220.0)
+    freqs[1, :, 2:] = 440.0
+    strengths = torch.full((2, T, 4), 0.5)
+    unvoiced = torch.full((2, T), 0.5)
+    path = _check_viterbi(host_libs["viterbi"], freqs, strengths, unvoiced)
+    assert (path == 0).all()
+
+
+def _check_viterbi(lib, freqs, strengths, unvoiced):
+    B, T, K = freqs.shape
+    backptr = torch.empty((B, max(T - 1, 1), K + 1), dtype=torch.int32)
+    path = torch.full((B, T), -1, dtype=torch.int32)
+    f0 = torch.full((B, T), float("nan"))
+    assert lib.viterbi_candidates(freqs.data_ptr(), strengths.data_ptr(),
+                                  unvoiced.data_ptr(), backptr.data_ptr(),
+                                  path.data_ptr(), f0.data_ptr(), B, T, K, None) == 0
+    ref_f0, ref_path = pitch.viterbi_candidates_reference(freqs, strengths, unvoiced)
+    torch.testing.assert_close(path, ref_path, atol=0, rtol=0)
+    torch.testing.assert_close(f0, ref_f0, atol=0, rtol=0)
+    return path

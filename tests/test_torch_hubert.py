@@ -25,7 +25,7 @@ def _one_thread():
 @pytest.fixture(scope="module")
 def extractors():
     jax_ext = JHubertSoft(num_layers=2, random_init=True)
-    port = HubertSoft(num_layers=2)
+    port = HubertSoft(num_layers=2, device="cpu")
     port.load_state_dict(hubert_soft_from_jax(jax_ext.params))
     return jax_ext, port
 
@@ -53,4 +53,4 @@ def test_hubert_soft_matches_jax(extractors):
 
 def test_hubert_soft_needs_weights():
     with pytest.raises(RuntimeError, match="no weights"):
-        HubertSoft(num_layers=1)(np.zeros(16000, np.float32), 16000)
+        HubertSoft(num_layers=1, device="cpu")(np.zeros(16000, np.float32), 16000)

@@ -1,5 +1,6 @@
-"""The port's hand-written kernels (K1-K4) against their plain PyTorch
-versions on an NVIDIA GPU, at small shapes that exercise the ragged edges.
+"""The port's hand-written kernels (K1-K5, K8-cand) against their plain
+PyTorch versions on an NVIDIA GPU, at small shapes that exercise the ragged
+edges.
 
 These need the card (the CUDA kernels have no CPU mode, and Triton needs a
 GPU); without one they skip. On the card:
@@ -9,8 +10,10 @@ The full-width check of every kernel is ``chip_smoke.py``."""
 import pytest
 import torch
 
+from fish_diffusion_tpu_torch.extractors import pitch
 from fish_diffusion_tpu_torch.models import diffusion, wavenet
 from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, source
+from fish_diffusion_tpu_torch.ops import mel
 
 pytestmark = pytest.mark.cuda
 
@@ -53,6 +56,49 @@ def test_unipc_step(gen):
     ref = diffusion.unipc_correct_reference(*t, *corr)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+
+
+def test_plms_and_ddpm_updates(gen):
+    """K2-PLMS and K2-naive: <= 1e-5 relative (one or two roundings apart)."""
+    t = [rn(gen, 3, 37, 16) for _ in range(5)]
+    args = (*t, *diffusion.PLMS_WEIGHTS[1], 0.01, 3.1, 2.7)
+    torch.testing.assert_close(diffusion.plms_update(*args),
+                               diffusion.plms_update_reference(*args), atol=1e-5, rtol=1e-5)
+    args = (t[0], t[1], t[2], 1.3, 0.4, 0.6, 0.39, 0.05)
+    torch.testing.assert_close(diffusion.ddpm_update(*args),
+                               diffusion.ddpm_update_reference(*args), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "B,n_fft,win,hop,F",
+    # on an H100 (132 SMs) the rows M = B * F and the bins pick the tile:
+    # 32 x 32 for the short cases, 64 x 32 for one 7.4 s segment (637
+    # frames), 128 x 64 for one segment of 1024 frames
+    [(1, 2048, 2048, 512, 5), (2, 2299, 2299, 512, 33), (2, 300, 240, 75, 40),
+     (1, 64, 48, 16, 10), (1, 2048, 2048, 512, 637), (1, 2048, 2048, 512, 1024)],
+)
+def test_stft_magnitude(gen, B, n_fft, win, hop, F):
+    """K5: <= 1e-5 relative to the largest magnitude."""
+    y = rn(gen, B, n_fft + (F - 1) * hop + hop // 3, scale=0.3)
+    basis = mel._dft_basis(n_fft, win, str(y.device))
+    got = mel.stft_magnitude(y, basis, hop)
+    ref = mel.stft_magnitude_reference(y, basis, hop)
+    torch.testing.assert_close(got, ref, atol=1e-5 * ref.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("B,T,K", [(3, 500, 4), (2, 1, 4), (1, 30, 2)])
+def test_viterbi_candidates(gen, B, T, K):
+    """K8-cand: path and f0 identical to the plain version, ties included."""
+    freqs = torch.rand((B, T, K), generator=gen, device="cuda") * 1050 + 50
+    freqs = freqs * (torch.rand((B, T, K), generator=gen, device="cuda") > 0.3)
+    strengths = torch.rand((B, T, K), generator=gen, device="cuda") * 2 - 1
+    unvoiced = torch.rand((B, T), generator=gen, device="cuda") * 1.5
+    strengths[:, ::7] = 0.5  # ties between candidates of equal frequency
+    freqs[:, ::7] = 220.0
+    got = pitch.viterbi_candidates(freqs, strengths, unvoiced)
+    ref = pitch.viterbi_candidates_reference(freqs, strengths, unvoiced)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=0, rtol=0)
 
 
 def test_nsf_source(gen):
