@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SVC paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's SVC paths and vocoder training once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -29,11 +29,27 @@ Phases, in order; any failure raises and the script exits non-zero:
             and K8-cand are held against their plain versions, and timed,
             on the inputs the shallow request gave them; a short shallow
             file is checked against the plain composition of every kernel.
+5. train:   ``VocoderTrainer.fit`` on ``configs/vocoder_nsf_hifigan.py`` at
+            full width (NSF-HiFiGAN 512, MPD 2/3/5/7/11, 3-scale MSD, batch
+            16 x 32768, float32) over a synthetic dataset: 2 warm-up and 8
+            timed steps (seconds, audio seconds per second, stage split,
+            peak memory, losses, exact launches per step), validation and a
+            checkpoint; a resume from it; one step through the kernels
+            against one through every plain version (every loss within
+            1e-4 relative, every discriminator gradient within 1e-3 of its
+            max, every generator gradient within 1e-3 or 3x the plain
+            step's own change under a 1e-6 change of the audio, whichever
+            is larger: the losses' kinks give float32 noise of ~1e-3 there);
+            and each kernel of
+            this slice (K5 backward, K6, the weight gradient, K4's input
+            gradient, K3 backward) against its plain version, timed beside
+            its bound and the PyTorch call for the same function.
 
 The line before the last is a JSON object with one entry per kernel (its
-``launches`` count the file-to-file path; K5's and K8-cand's times are
-those of the shallow request's own calls, with their B=4 times under
-``batch4``); the last line is
+``launches`` count the file-to-file path for the serving kernels and the
+training run for the others, ``launches_by_path`` both; K5's and
+K8-cand's times are those of the shallow request's own calls, with their
+B=4 times under ``batch4``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -485,21 +501,29 @@ def phase_kernels_stft_viterbi(report: Report, seed: int):
 
 class recording:
     """Swap ``module.name`` for a wrapper that calls it and keeps its
-    arguments (the tensors are not copied) between ``start`` and ``stop``."""
+    arguments, (args, kwargs) per call (the tensors are not copied), between
+    ``start`` and ``stop``, or inside a ``with`` block."""
 
     def __init__(self, module, name: str):
         self.module, self.name, self.calls = module, name, []
         self.fn = getattr(module, name)
 
     def start(self):
-        def call(*args):
-            self.calls.append(args)
-            return self.fn(*args)
+        def call(*args, **kwargs):
+            self.calls.append((args, kwargs))
+            return self.fn(*args, **kwargs)
 
         setattr(self.module, self.name, call)
 
     def stop(self):
         setattr(self.module, self.name, self.fn)
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
 
 
 def kwargs_str(kwargs):
@@ -797,21 +821,23 @@ def phase_file_to_file(report: Report, engine, seed: int):
                   f"clock): {parts}")
     launches = dict(kernels.LAUNCHES)
     print(f"[file] launches over the file-to-file path: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    path_kernels = {k for *_, expected in requests for k, v in expected.items() if v}
+    for name in path_kernels:
+        if launches[name] <= 0:
             report.failures.append(f"{name} never launched on the file-to-file path")
 
     # K5 and K8-cand on the inputs request (b) gave them, the tiles the path
     # runs: held against their plain versions and timed (summed per request)
     print("[file] K5 and K8-cand on request (b)'s own inputs")
-    frames = "+".join(str((y.shape[1] - b.shape[0]) // h + 1) for y, b, h in stft_calls.calls)
-    for yp, basis, hop in stft_calls.calls:
+    frames = "+".join(str((y.shape[1] - b.shape[0]) // h + 1)
+                      for (y, b, h), _ in stft_calls.calls)
+    for (yp, basis, hop), _ in stft_calls.calls:
         r = measure_stft(report, yp, basis, hop, f"request (b) B={yp.shape[0]}")
         report.kernel("stft_magnitude", r["err"], r["ms"], r["plain"],
                       f"request (b), sum of its {len(stft_calls.calls)} calls at "
                       f"B=1, {frames} frames, n_fft 2048", *r["work"], r["lib"])
-    frames = "+".join(str(a[2].shape[1]) for a in viterbi_calls.calls)
-    for args in viterbi_calls.calls:
+    frames = "+".join(str(a[2].shape[1]) for a, _ in viterbi_calls.calls)
+    for args, _ in viterbi_calls.calls:
         r = measure_viterbi(report, args, f"request (b) T={args[2].shape[1]}")
         report.kernel("viterbi_candidates", r["err"], r["ms"], r["plain"],
                       f"request (b), sum of its {len(viterbi_calls.calls)} calls at "
@@ -840,6 +866,429 @@ def phase_file_to_file(report: Report, engine, seed: int):
                    torch.from_numpy(got), torch.from_numpy(ref), 1e-2)
     report.finish("file to file")
     return launches
+
+
+TRAIN_B, TRAIN_SEG = 16, 32768
+
+
+def make_vocoder_dataset(rng, root: Path):
+    """32 training and 2 validation clips of 2-4 s, harmonic phrases with a
+    known f0 (``make_phrase``), as ``.npy`` dicts {path, audio, pitches,
+    sampling_rate} (the preprocessing contract; pitches at frame rate)."""
+    for split, n in (("train", 32), ("valid", 2)):
+        (root / split).mkdir(parents=True)
+        for i in range(n):
+            seconds, f0 = rng.uniform(2.0, 4.0), rng.uniform(110.0, 440.0)
+            audio = make_phrase(rng, seconds, f0).astype(np.float32)
+            t = np.arange(len(audio) // HOP + 1) * HOP / SR
+            np.save(root / split / f"{i}.npy", {
+                "path": f"{split}/{i}.wav", "audio": audio,
+                "pitches": (f0 * (1 + 0.015 * np.sin(2 * np.pi * 5 * t))).astype(np.float32),
+                "sampling_rate": SR})
+
+
+def train_launches_per_step(gen_cfg, n_mels: int, n_stft: int = 3) -> dict:
+    """Kernel launches one v1 GAN step implies, from the model's structure.
+
+    Generator forward: conv_pre, per level one transposed conv, one noise
+    conv and fans x 6 resblock convs, conv_post (all K4), the source (K3).
+    Generator backward: K4 input gradients for every conv but conv_pre (the
+    mel is data), the noise convs' through K4's transposed mode where they
+    are strided; a weight gradient for every conv; K3's backward once.
+    STFT: the generator's mel of the real audio, then each mel and STFT
+    scale on real and generated audio; a backward per scale on the
+    generated. K6: layers 1, 2, 5 of the 3 MSD scales in four passes (D
+    real, D fake, G real, G fake), an input gradient in the three passes
+    with a graph, a weight gradient in the two of the D phase."""
+    levels = len(gen_cfg["upsample_rates"])
+    res = levels * len(gen_cfg["resblock_kernel_sizes"]) * 6
+    strided_noise = levels - 1  # the last level's noise conv is 1 x 1
+    k6 = 3 * 3
+    return {
+        "conv1d": (2 + levels + res) + (levels + res + 1 + (levels - strided_noise)),
+        "conv_transpose1d": levels + strided_noise,
+        "nsf_phase_base": 1, "nsf_merge": 1, "nsf_merge_backward": 1,
+        "stft_magnitude": 1 + 2 * n_mels + 2 * n_stft,
+        "stft_backward": n_mels + n_stft,
+        "grouped_conv1d": k6 * 4 + k6 * 3,
+        "conv1d_wgrad": (2 + 2 * levels + res) + k6 * 2,
+    }
+
+
+def timed_triple(fn, ref, lib=None, iters=5):
+    """(kernel ms, plain ms, library ms or None), CUDA-event medians."""
+    return (cuda_ms(fn, iters=iters), cuda_ms(ref, iters=iters),
+            cuda_ms(lib, iters=iters) if lib is not None else None)
+
+
+def measure_train_kernels(report: Report, seed: int, stft_calls, k6_calls, conv_calls):
+    """Each kernel of this slice against its plain version on inputs of the
+    step's own shapes (the calls the step made), with kernel, plain and
+    library times and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, source
+    from fish_diffusion_tpu_torch.ops import blocked_conv, mel
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 31)
+    shape_note = f"the step's own inputs, B={TRAIN_B} x {TRAIN_SEG} samples"
+
+    print("[train] K5 backward (stft_backward) at the step's 6 STFT configurations")
+    for g, phasor, basis, hop, T_pad in stft_calls:
+        n_fft, bins = basis.shape[0], basis.shape[1] // 2
+        got = mel.stft_backward(g, phasor, basis, hop, T_pad)
+        ref = mel.stft_backward_reference(g, phasor, basis, hop, T_pad)
+        err = report.compare(f"stft_backward n_fft={n_fft} hop={hop} F={g.shape[2]}",
+                             got, ref, 1e-4 * max_abs(ref))
+        win = int((basis[:, 0] != 0).sum()) + 1  # a periodic Hann window has one zero
+        window = F.pad(torch.hann_window(win, device=DEVICE),
+                       ((n_fft - win) // 2, n_fft - win - (n_fft - win) // 2))
+        yl = torch.randn((g.shape[0], T_pad), generator=gen, device=DEVICE).requires_grad_()
+        mag = torch.stft(yl, n_fft, hop, n_fft, window, center=False,
+                         return_complex=True).abs()
+        ms, plain, lib = timed_triple(
+            lambda: mel.stft_backward(g, phasor, basis, hop, T_pad),
+            lambda: mel.stft_backward_reference(g, phasor, basis, hop, T_pad),
+            lambda: torch.autograd.grad(mag, yl, g, retain_graph=True))
+        frames = g.shape[0] * g.shape[2]
+        flops = frames * (2.5 * n_fft * np.log2(n_fft) + 2 * n_fft + 6 * bins)
+        print(f"    kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.stft backward {lib:.4f} ms")
+        report.kernel("stft_backward", err, ms, plain,
+                      f"sum of the step's 6 calls, {shape_note}",
+                      nbytes(g, phasor, got) + 4 * n_fft, flops, lib)
+
+    print("[train] K6 (grouped_conv1d) forward and input gradient, and its weight "
+          "gradient (conv1d_wgrad), at MSD scale 0 layers 1, 2, 5")
+    wgrad_parts = defaultdict(float)
+    for (x, w, b, stride, groups), _ in k6_calls[:3]:
+        x, w, b = x.detach(), w.detach(), b.detach()
+        K, T_in, C_out = w.shape[2], x.shape[1], w.shape[0]
+        with torch.no_grad():
+            out = blocked_conv.grouped_conv1d(x, w, b, stride, groups)
+            ref = blocked_conv.grouped_conv1d_reference(x, w, b, stride, groups)
+        label = f"x{list(x.shape)} -> {C_out}, s{stride} g{groups}"
+        err_f = report.compare(f"grouped_conv1d fwd {label}", out, ref, 1e-4 * max_abs(ref))
+        xt = x.transpose(1, 2).contiguous()
+        ms_f = timed_triple(lambda: blocked_conv.grouped_conv1d(x, w, b, stride, groups),
+                            lambda: blocked_conv.grouped_conv1d_reference(x, w, b, stride, groups),
+                            lambda: F.conv1d(xt, w, b, stride, K // 2, 1, groups))
+        gy = torch.randn(out.shape, generator=gen, device=DEVICE)
+        gyt = gy.transpose(1, 2).contiguous()
+        xr = x.clone().requires_grad_()
+        yr = blocked_conv.grouped_conv1d_reference(xr, w, b, stride, groups)
+        (ref_dx,) = torch.autograd.grad(yr, xr, gy, retain_graph=True)
+        dx = blocked_conv._grouped_input_grad(gy, w, T_in, stride, groups)
+        err_d = report.compare(f"grouped_conv1d dgrad {label}", dx, ref_dx,
+                               1e-4 * max_abs(ref_dx))
+        ms_d = timed_triple(
+            lambda: blocked_conv._grouped_input_grad(gy, w, T_in, stride, groups),
+            lambda: torch.autograd.grad(yr, xr, gy, retain_graph=True),
+            lambda: torch.nn.grad.conv1d_input(xt.shape, w, gyt, stride, K // 2, 1, groups))
+        dw = blocked_conv.conv1d_wgrad(x, gy, K, stride, 1, K // 2, groups)
+        ref_dw = blocked_conv.conv1d_wgrad_reference(x, gy, K, stride, 1, K // 2, groups)
+        err_w = report.compare(f"conv1d_wgrad (K6) {label}", dw, ref_dw, 1e-4 * max_abs(ref_dw))
+        ms_w = timed_triple(
+            lambda: blocked_conv.conv1d_wgrad(x, gy, K, stride, 1, K // 2, groups),
+            lambda: blocked_conv.conv1d_wgrad_reference(x, gy, K, stride, 1, K // 2, groups),
+            lambda: torch.nn.grad.conv1d_weight(xt, w.shape, gyt, stride, K // 2, 1, groups))
+        flops = 2 * out.numel() * w.shape[1] * K
+        for tag, (ms, plain, lib) in (("fwd", ms_f), ("dgrad", ms_d), ("wgrad", ms_w)):
+            print(f"    {tag} {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                  f"plain {plain:.4f} ms, cuDNN {lib:.4f} ms")
+        report.kernel("grouped_conv1d", max(err_f, err_d),
+                      ms_f[0] + ms_d[0], ms_f[1] + ms_d[1],
+                      f"one forward + one input gradient of MSD scale 0 layers 1, 2, 5, "
+                      f"{shape_note}", nbytes(x, w, b, out) + nbytes(gy, w, dx),
+                      2 * flops, ms_f[2] + ms_d[2])
+        wgrad_parts["K6 layers 1, 2, 5"] += ms_w[0]
+        report.kernel("conv1d_wgrad", err_w, ms_w[0], ms_w[1],
+                      "", nbytes(x, gy, dw), flops, ms_w[2])
+
+    print("[train] conv1d_wgrad and K4's input gradient at the k=11, d=5 resblock "
+          "conv of each generator level")
+    dgrad = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, max_rel_err=0.0)
+    for (x, w, b), kw in conv_calls:
+        x, w = x.detach(), w.detach()
+        C_out, C_in, K = w.shape
+        d, p, slope = kw["dilation"], kw["padding"], kw["in_slope"]
+        gy = torch.randn((x.shape[0], x.shape[1], C_out), generator=gen, device=DEVICE)
+        xa, gyt = F.leaky_relu(x, slope).transpose(1, 2).contiguous(), gy.transpose(1, 2).contiguous()
+        dw = blocked_conv.conv1d_wgrad(x, gy, K, 1, d, p, slope_a=slope)
+        ref = blocked_conv.conv1d_wgrad_reference(x, gy, K, 1, d, p, slope_a=slope)
+        label = f"x{list(x.shape)} k{K} d{d}"
+        err = report.compare(f"conv1d_wgrad (K4) {label}", dw, ref, 1e-4 * max_abs(ref))
+        ms = timed_triple(lambda: blocked_conv.conv1d_wgrad(x, gy, K, 1, d, p, slope_a=slope),
+                          lambda: blocked_conv.conv1d_wgrad_reference(x, gy, K, 1, d, p,
+                                                                      slope_a=slope),
+                          lambda: torch.nn.grad.conv1d_weight(xa, w.shape, gyt, 1, p, d))
+        flops = 2 * x.shape[0] * x.shape[1] * C_in * C_out * K
+        print(f"    wgrad {label}: kernel {ms[0]:.4f} ms ({flops / ms[0] / 1e9:.1f} TFLOP/s), "
+              f"plain {ms[1]:.4f} ms, cuDNN {ms[2]:.4f} ms")
+        wgrad_parts[f"generator C={C_in}"] += ms[0]
+        report.kernel("conv1d_wgrad", err, ms[0], ms[1],
+                      "K6 layers 1, 2, 5 of MSD scale 0 and the k=11, d=5 resblock conv "
+                      f"of each generator level, {shape_note}", nbytes(x, gy, dw), flops, ms[2])
+        # K4's input gradient of the same conv: flipped taps, swapped channels
+        w_flip = w.flip(2).transpose(0, 1).contiguous()
+        zero = torch.zeros(C_in, device=DEVICE)
+        pad_t = (K - 1) * d - p
+        dxa = nsf_hifigan._conv1d_forward(gy, w_flip, zero, 1, d, pad_t)
+        xr = F.leaky_relu(x, slope).requires_grad_()
+        yr = F.conv1d(xr.transpose(1, 2), w, None, 1, p, d).transpose(1, 2)
+        (ref_dx,) = torch.autograd.grad(yr, xr, gy, retain_graph=True)
+        err = report.compare(f"conv1d dgrad (K4) {label}", dxa, ref_dx, 1e-4 * max_abs(ref_dx))
+        ms = timed_triple(lambda: nsf_hifigan._conv1d_forward(gy, w_flip, zero, 1, d, pad_t),
+                          lambda: torch.autograd.grad(yr, xr, gy, retain_graph=True),
+                          lambda: torch.nn.grad.conv1d_input(xa.shape, w, gyt, 1, p, d))
+        print(f"    dgrad {label}: kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, "
+              f"cuDNN {ms[2]:.4f} ms")
+        dgrad["bound_ms"] += bound(nbytes(gy, w, dxa), flops)[0]
+        dgrad["ms"] += ms[0]
+        dgrad["plain_ms"] += ms[1]
+        dgrad["library_ms"] += ms[2]
+        dgrad["max_rel_err"] = max(dgrad["max_rel_err"], err / max_abs(ref_dx))
+    report.extra.setdefault("conv1d_wgrad", {})["ms_by_part"] = dict(wgrad_parts)
+    report.extra.setdefault("conv1d", {})["train_dgrad"] = dict(
+        shape="the k=11, d=5 resblock conv of each generator level, "
+              f"B={TRAIN_B} x {TRAIN_SEG} samples", **dgrad)
+
+    print(f"[train] K3 backward (nsf_merge_backward) at B={TRAIN_B} T={TRAIN_SEG // HOP} "
+          f"hop={HOP}")
+    T_f = TRAIN_SEG // HOP
+    f0 = torch.rand((TRAIN_B, T_f), generator=gen, device=DEVICE) * 400 + 100
+    f0 = f0 * (torch.rand((TRAIN_B, T_f), generator=gen, device=DEVICE) > 0.2)
+    rand_ini = torch.rand((TRAIN_B, 9), generator=gen, device=DEVICE)
+    rand_ini[:, 0] = 0
+    noise = torch.randn((TRAIN_B, TRAIN_SEG, 9), generator=gen, device=DEVICE)
+    weight = torch.randn(9, generator=gen, device=DEVICE) / 3
+    bias = torch.randn(1, generator=gen, device=DEVICE) * 0.1
+    base = source.nsf_phase_base_reference(f0, SR, HOP)
+    out = source.nsf_merge_reference(f0, base, rand_ini, noise, weight, bias, SR, HOP)
+    g = torch.randn(out.shape, generator=gen, device=DEVICE)
+    args = (g, out, f0, base, rand_ini, noise, SR, HOP)
+    got, ref = source.nsf_merge_backward(*args), source.nsf_merge_backward_reference(*args)
+    err = report.compare("nsf_merge_backward (dW, db)", got, ref, 1e-4 * max_abs(ref))
+    ms, plain, _ = timed_triple(lambda: source.nsf_merge_backward(*args),
+                                lambda: source.nsf_merge_backward_reference(*args))
+    print(f"    kernel {ms:.4f} ms, plain {plain:.4f} ms (no single PyTorch call)")
+    report.kernel("nsf_merge_backward", err, ms, plain,
+                  f"B={TRAIN_B} T={T_f} hop={HOP}, 9 harmonics",
+                  nbytes(g, out, f0, base, rand_ini, noise) + 40,
+                  12 * noise.numel() + 3 * g.numel())
+
+
+def phase_train(report: Report, seed: int):
+    """The third slice's path: ``VocoderTrainer.fit`` on
+    ``configs/vocoder_nsf_hifigan.py`` at full width (float32), a resume,
+    the whole step through the kernels against the whole step through the
+    plain versions, and each new kernel at the step's shapes."""
+    import copy
+
+    import torch
+
+    from fish_diffusion_tpu_torch import kernels
+    from fish_diffusion_tpu_torch.config import Config
+    from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, source
+    from fish_diffusion_tpu_torch.ops import blocked_conv, mel
+    from fish_diffusion_tpu_torch.training import vocoder_cli
+    from fish_diffusion_tpu_torch.training.vocoder_trainer import VocoderTrainer
+
+    rng = np.random.default_rng(seed + 40)
+    np.random.seed(seed + 41)  # the dataset's pitch and loudness shifts, crops
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    make_vocoder_dataset(rng, tmp / "data")
+    cfg = Config.fromfile(ROOT / "configs" / "vocoder_nsf_hifigan.py")
+    cfg.trainer["precision"] = "32-true"
+    cfg.trainer["discriminator_dtype"] = "float32"
+    cfg.dataset.train["path"] = str(tmp / "data" / "train")
+    cfg.dataset.valid["path"] = str(tmp / "data" / "valid")
+    # the loaders read in this process (no worker processes to stop)
+    loader = vocoder_cli.build_loader(cfg.dataset.train, {**cfg.dataloader.train,
+                                                          "num_workers": 0})
+    valid = vocoder_cli.build_loader(cfg.dataset.valid, {**cfg.dataloader.valid,
+                                                         "num_workers": 0})
+    t0 = time.perf_counter()
+    trainer = VocoderTrainer(cfg, log_dir=str(tmp / "logs"), steps_per_epoch=len(loader),
+                             device=DEVICE)
+    gen_cfg = dict(cfg.model.generator)
+    expected = {name: 0 for name in kernels.LAUNCHES}
+    expected.update(train_launches_per_step(gen_cfg, len(cfg.model.multi_scale_mels)))
+    print(f"[train] trainer built in {time.perf_counter() - t0:.1f} s: NSF-HiFiGAN 512 "
+          f"(upsample 8.8.2.2.2, ResBlock1 3/7/11), MPD periods "
+          f"{cfg.model.mpd.periods}, 3-scale MSD, batch {cfg.dataloader.train.batch_size} x "
+          f"{cfg.dataset.train.segment_size}, float32, {len(loader)} steps per epoch")
+
+    warm, timed = 2, 8
+    step_fn = trainer._train_step
+    clock = StageClock()
+    for attr, label in (("generate", "generator"), ("d_phase", "D phase"),
+                        ("g_phase", "G phase"), ("apply_updates", "optimizer")):
+        clock.wrap(step_fn, attr, label)
+    steps, stages_after_warmup, peak = [], {}, {}
+
+    def timed_step(state, batch, draws):
+        if len(steps) == warm:
+            stages_after_warmup.update(clock.seconds)
+            torch.cuda.reset_peak_memory_stats()
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        state, metrics = step_fn(state, batch, draws)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t_step
+        steps.append((seconds, {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES},
+                      {k: float(v) for k, v in metrics.items()}))
+        if len(steps) == warm + timed:
+            peak["bytes"] = torch.cuda.max_memory_allocated()
+        return state, metrics
+
+    trainer._train_step = timed_step
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state = trainer.fit(loader, max_steps=warm + timed, valid_loader=valid,
+                        valid_every=10 ** 9, log_every=1, save_every=10 ** 9, seed=seed)
+    torch.cuda.synchronize()
+    fit_seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    clock.restore()
+    trainer._train_step = step_fn
+
+    secs = [s for s, _, _ in steps[warm:]]
+    median = statistics.median(secs)
+    audio_s = TRAIN_B * TRAIN_SEG / SR
+    stages = {k: (v - stages_after_warmup.get(k, 0.0)) / timed for k, v in clock.seconds.items()}
+    print(f"[train] fit: {len(steps)} steps + validation + checkpoint in {fit_seconds:.1f} s; "
+          f"steps {warm + 1}-{warm + timed}: median {median:.4f} s per step "
+          f"(min {min(secs):.4f}, max {max(secs):.4f}), {audio_s / median:.2f} audio s "
+          f"trained per s, {1 / median:.3f} steps/s")
+    print("[train] per step (synchronised stage clocks, mean over the timed steps): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in stages.items()))
+    print(f"[train] peak device memory over the timed steps {peak['bytes'] / 2**30:.2f} GiB")
+    for i, (s, grew, metrics) in enumerate(steps):
+        ok = grew == expected and all(np.isfinite(v) for v in metrics.values())
+        print(f"  step {i + 1}: {s:.4f} s, " + ", ".join(
+            f"{k} {v:.4f}" for k, v in metrics.items()) + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            print(f"    launches {({k: v for k, v in grew.items() if v})}, "
+                  f"expected {({k: v for k, v in expected.items() if v})}")
+            report.failures.append(f"train step {i + 1}")
+    print(f"[train] launches per step: {({k: v for k, v in expected.items() if v})} "
+          "(every step exactly)")
+    rows = [json.loads(line) for line in open(tmp / "logs" / "metrics.jsonl")]
+    val = [r["valid_mel_l1"] for r in rows if "valid_mel_l1" in r]
+    print(f"[train] validation mel L1 at step {state.step}: {val}")
+    if state.step != warm + timed or len(val) != 1 or not np.isfinite(val[0]):
+        report.failures.append("train fit / validation")
+    for name, n in expected.items():
+        if n and launches[name] <= 0:
+            report.failures.append(f"{name} never launched on the training path")
+
+    # resume from the checkpoint fit wrote at its last step
+    saved = {k: v.detach().cpu().clone() for k, v in
+             {**state.params_g.state_dict(), **state.params_d.state_dict()}.items()}
+    resumed = VocoderTrainer(cfg, log_dir=str(tmp / "logs"), steps_per_epoch=len(loader),
+                             device=DEVICE)
+    restored = resumed.ckpt.restore(resumed.init_state(seed + 1))
+    same = all(torch.equal(v.cpu(), saved[k]) for k, v in
+               {**restored.params_g.state_dict(), **restored.params_d.state_dict()}.items())
+    after = resumed.fit(loader, max_steps=warm + timed + 1, resume=True,
+                        save_every=10 ** 9, seed=seed)
+    ok = same and restored.opt_state_g.count == warm + timed and after.step == warm + timed + 1
+    print(f"[train] resume: checkpoint of step {warm + timed} restored (parameters "
+          f"{'identical' if same else 'DIFFER'}), one more step -> step {after.step} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        report.failures.append("train resume")
+    del resumed, restored, after
+    torch.cuda.empty_cache()
+
+    # one step through the kernels and one through every plain version,
+    # from the same state, batch and draws (TF32 is off)
+    batch = trainer._to_device(next(iter(loader)))
+    draws = trainer.draw(batch, torch.Generator(device=DEVICE).manual_seed(seed + 99))
+    snap = copy.deepcopy({"g": state.params_g.state_dict(), "d": state.params_d.state_dict(),
+                          "s": state.spectral_d, "og": state.opt_state_g.state_dict(),
+                          "od": state.opt_state_d.state_dict(), "step": state.step})
+
+    def restore():
+        state.params_g.load_state_dict(snap["g"])
+        state.params_d.load_state_dict(snap["d"])
+        state.spectral_d = {k: v.clone() for k, v in snap["s"].items()}
+        state.opt_state_g.load_state_dict(copy.deepcopy(snap["og"]))
+        state.opt_state_d.load_state_dict(copy.deepcopy(snap["od"]))
+        state.step = snap["step"]
+
+    def grads():
+        return {f"{tag}.{k}": p.grad.detach().clone() for tag, m in
+                (("g", state.params_g), ("d", state.params_d)) for k, p in m.named_parameters()}
+
+    plain_fns = {
+        (nsf_hifigan, "conv1d"): nsf_hifigan.conv1d_reference,
+        (nsf_hifigan, "conv_transpose1d"): nsf_hifigan.conv_transpose1d_reference,
+        (source, "nsf_source"): source.nsf_source_reference,
+        (mel, "stft_magnitude"): mel.stft_magnitude_reference,
+        (blocked_conv, "grouped_conv1d"): blocked_conv.grouped_conv1d_reference,
+    }
+
+    def one_step(swaps, audio_scale=1.0):
+        """One step from the snapshot -> (grads, metrics, launches)."""
+        restore()
+        kernels.reset_launches()
+        scaled = {**batch, "audio": batch["audio"] * audio_scale}
+        with plain_path(swaps):
+            _, metrics = step_fn(state, scaled, draws)
+        return grads(), metrics, dict(kernels.LAUNCHES)
+
+    def worst_error(got, ref, tag):
+        rel = {k: float((got[k] - ref[k]).abs().max())
+               / max(float(ref[k].abs().max()), 1e-30) for k in ref if k.startswith(tag)}
+        k = max(rel, key=rel.get)
+        return k, rel[k]
+
+    with recording(mel, "stft_backward") as stft_rec, \
+            recording(blocked_conv, "grouped_conv1d") as k6_rec, \
+            recording(nsf_hifigan, "conv1d") as conv_rec:
+        g_k, m_k, _ = one_step({})
+    g_p, m_p, launched = one_step(plain_fns)
+    if any(launched.values()):
+        report.failures.append(f"plain step launched kernels: {launched}")
+    # The step's float32 noise floor: the plain step again with the audio
+    # scaled by 1 + 1e-6, a change of the size of the kernels' own
+    # differences from plain. The losses have kinks (L1 signs, the
+    # envelope's max-pool, leaky-relu, the log clamp); a change of size d
+    # flips a few of them, and as a parameter's gradient sums many terms of
+    # either sign, the generator's gradients move by about sqrt(d), ~1e-3.
+    g_q, _, _ = one_step(plain_fns, 1.0 + 1e-6)
+    for k, want in m_p.items():
+        if k.startswith("loss"):
+            report.compare(f"train step {k} vs plain", m_k[k].reshape(1), want.reshape(1),
+                           1e-4 * abs(float(want)))
+    name_d, err_d = worst_error(g_k, g_p, "d.")
+    name_g, err_g = worst_error(g_k, g_p, "g.")
+    floor_name, floor = worst_error(g_q, g_p, "g.")
+    tol_g = max(1e-3, 3 * floor)
+    ok_d, ok_g = err_d <= 1e-3, err_g <= tol_g
+    print(f"[train] whole step, kernels vs plain ({len(g_p)} gradient tensors): "
+          f"discriminators' largest error {err_d:.3e} of its max |grad| ({name_d}), tol "
+          f"1e-3 {'ok' if ok_d else 'FAIL'}; generator's {err_g:.3e} ({name_g}), tol "
+          f"{tol_g:.3e} = max(1e-3, 3 x the plain step's own {floor:.3e} under audio x "
+          f"(1 + 1e-6), {floor_name}) {'ok' if ok_g else 'FAIL'}")
+    if not (ok_d and ok_g):
+        report.failures.append("train step gradients vs plain")
+    restore()
+    step_check = dict(d_max_rel_err=err_d, g_max_rel_err=err_g, g_noise_floor=floor,
+                      g_tol=tol_g)
+
+    calls = [c for c in conv_rec.calls if c[0][1].shape[2] == 11 and c[1].get("dilation") == 5]
+    measure_train_kernels(report, seed, [c[0] for c in stft_rec.calls], k6_rec.calls, calls)
+    report.finish("train")
+    return launches, dict(
+        train_step_s_median=median, train_step_s=secs, train_audio_s_per_s=audio_s / median,
+        train_steps_per_s=1 / median, train_stage_s=stages,
+        train_peak_gib=peak["bytes"] / 2**30, train_losses_last=steps[-1][2],
+        train_launches_per_step={k: v for k, v in expected.items() if v},
+        train_step_vs_plain=step_check)
 
 
 def main() -> int:
@@ -884,13 +1333,22 @@ def main() -> int:
     phase_kernels_stft_viterbi(report, args.seed)
     engine = phase_serve(report, args.seed)
     launches = phase_file_to_file(report, engine, args.seed)
+    del engine
+    torch.cuda.empty_cache()
+    train_launches, train = phase_train(report, args.seed)
+    totals.update(train)
 
     entries = []
     for name, meta in kernels.KERNELS.items():
         k = report.kernels[name]
+        # a kernel's launches on the path it belongs to: the file-to-file
+        # path for the serving kernels, the training run for the others
+        path = "file" if launches[name] else "train"
         entries.append(dict(
             name=f"{meta['id']} {name}", route=meta["route"], source=meta["source"],
-            replaces=meta["replaces"], launches=launches[name],
+            replaces=meta["replaces"],
+            launches=launches[name] if path == "file" else train_launches[name],
+            launches_by_path={"file": launches[name], "train": train_launches[name]},
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"],
             bound_by=max(k["bound_time"], key=k["bound_time"].get),

@@ -8,9 +8,12 @@ for the TPU becomes a hand-written Hopper kernel here (CUDA C++ in
 ``csrc/`` or Triton), with a plain PyTorch version beside it; see
 ``kernels.py``.
 
-Ported so far: SVC serving (``inference.svc.SVCInference``): HubertSoft
-content features, DiffSVC condition assembly, UniPC sampling over the
-WaveNet denoiser, and the NSF-HiFiGAN vocoder.
+Ported so far: SVC serving and file-to-file conversion
+(``inference.svc.SVCInference``, ``inference.cli``): Harvest pitch,
+HubertSoft content features, DiffSVC condition assembly, UniPC, PLMS and
+naive sampling over the WaveNet denoiser, shallow diffusion, and the
+NSF-HiFiGAN vocoder; and NSF-HiFiGAN vocoder training
+(``training.vocoder_trainer.VocoderTrainer``, ``training.vocoder_cli``).
 """
 
 __version__ = "0.1.0"

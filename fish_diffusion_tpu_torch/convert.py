@@ -12,7 +12,10 @@ converters in ``tools/``:
   ``tools/nsf_hifigan/convert_checkpoint.py:convert``);
 - ``hubert_soft_from_jax``: the HubertSoft tower with HF ``HubertModel``
   keys (inverse of
-  ``tools/preprocessing/convert_hubert_checkpoint.py:convert_hf_hubert``).
+  ``tools/preprocessing/convert_hubert_checkpoint.py:convert_hf_hubert``);
+- ``discriminators_from_jax``: the v1 GAN discriminators (MPD + MSD) and
+  their spectral-norm state, in fish-diffusion's torch names (reference
+  ``nsf_hifigan/models.py:525-613``).
 
 Layouts: flax Dense ``[in, out]`` is torch Linear ``[out, in]``; flax Conv
 ``[k, in, out]`` is torch ``[out, in, k]``; the flax ConvTranspose
@@ -170,3 +173,47 @@ def hubert_soft_from_jax(params: dict) -> dict:
 
     _linear(sd, "proj", params["soft_proj"])
     return sd
+
+
+def _wn_conv(sd, prefix, p, name, kernel_axes):
+    """flax ``nn.WeightNorm`` around ``<name>_conv``: the scale ->
+    ``weight_g`` [C_out, 1, ...], the kernel -> ``weight_v`` (torch layout)."""
+    kernel = np.asarray(p[f"{name}_conv"]["kernel"]).transpose(kernel_axes)
+    scale = np.asarray(p[name][f"{name}_conv/kernel/scale"])
+    sd[f"{prefix}.weight_g"] = _t(scale.reshape((-1,) + (1,) * (kernel.ndim - 1)))
+    sd[f"{prefix}.weight_v"] = _t(kernel)
+    sd[f"{prefix}.bias"] = _t(p[f"{name}_conv"]["bias"])
+
+
+def discriminators_from_jax(params_d: dict, spectral_d: dict):
+    """The JAX ``Discriminators("v1")`` params and ``spectral_d`` ->
+    (state dict of the port's ``training.gan.Discriminators``, its spectral
+    state). Weight-normed convs become ``weight_g``/``weight_v``, the
+    spectral-normed scale's kernels ``weight_orig``; the u/v vectors are
+    carried across as they are."""
+    sd: dict = {}
+    for j, (_, disc) in enumerate(params_d["mpd"].items()):
+        i = 0
+        while f"convs_{i}_conv" in disc:  # flax [kh, kw, in, out]
+            _wn_conv(sd, f"mpd.discriminators.{j}.convs.{i}", disc, f"convs_{i}",
+                     (3, 2, 0, 1))
+            i += 1
+        _wn_conv(sd, f"mpd.discriminators.{j}.conv_post", disc, "conv_post",
+                 (3, 2, 0, 1))
+    spectral = {}
+    for j in range(3):
+        disc = params_d["second"][f"disc_s{j}"]
+        uv = (spectral_d.get("second") or {}).get(f"disc_s{j}")
+        names = [f"convs_{i}" for i in range(7)] + ["conv_post"]
+        for name in names:
+            torch_name = f"msd.discriminators.{j}." + (
+                "conv_post" if name == "conv_post" else f"convs.{name[6:]}")
+            if uv is None:
+                _wn_conv(sd, torch_name, disc, name, (2, 1, 0))
+                continue
+            conv = disc[f"{name}_conv"]
+            sd[f"{torch_name}.weight_orig"] = _t(np.asarray(conv["kernel"]).transpose(2, 1, 0))
+            sd[f"{torch_name}.bias"] = _t(conv["bias"])
+            spectral[f"{torch_name}.weight_u"] = _t(uv[f"{name}_u"])
+            spectral[f"{torch_name}.weight_v"] = _t(uv[f"{name}_v"])
+    return sd, spectral

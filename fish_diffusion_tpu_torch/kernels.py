@@ -86,6 +86,22 @@ KERNELS = {
         id="K8", route="cuda", source=_PORT + "csrc/viterbi.cu",
         replaces=_TPU + "extractors/pitch.py:277",
     ),
+    "stft_backward": dict(
+        id="K5", route="cuda", source=_PORT + "csrc/stft.cu",
+        replaces=_TPU + "ops/mel.py:184",
+    ),
+    "grouped_conv1d": dict(
+        id="K6", route="cuda", source=_PORT + "csrc/grouped_conv1d.cu",
+        replaces=_TPU + "ops/blocked_conv.py:137",
+    ),
+    "conv1d_wgrad": dict(
+        id="K4/K6", route="cuda", source=_PORT + "csrc/conv1d_wgrad.cu",
+        replaces=_TPU + "ops/blocked_conv.py:84",
+    ),
+    "nsf_merge_backward": dict(
+        id="K3", route="triton", source=_PORT + "models/vocoders/source.py",
+        replaces=_TPU + "models/vocoders/source.py:92",
+    ),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -104,8 +120,16 @@ SIGNATURES = {
         "conv1d_forward": [_I, _I] + [_P] * 5 + [_I] * 9 + [_F, _I, _I, _P],
     },
     "stft": {
-        "stft_magnitude": [_P] * 3 + [_I] * 6 + [_P],
+        "stft_magnitude": [_P] * 4 + [_I] * 6 + [_P],
         "stft_tile": [_I, _I],
+        "stft_backward": [_P] * 4 + [_I] * 6 + [_P],
+    },
+    "grouped_conv1d": {
+        "grouped_conv1d": [_I] + [_P] * 4 + [_I] * 9 + [_P],
+    },
+    "conv1d_wgrad": {
+        "conv1d_wgrad": [_P] * 4 + [_I] * 10 + [_F, _I, _F, _I, _I, _P],
+        "conv1d_wgrad_splits": [_I] * 4,
     },
     "viterbi": {
         "viterbi_candidates": [_P] * 6 + [_I] * 3 + [_P],

@@ -10,6 +10,11 @@ upsampling layers with their leaky-relu. ``conv1d_reference`` and
 ``conv_transpose1d_reference`` are the plain versions, which the wrappers
 take for CPU tensors. The harmonic source is K3 (``source.py``).
 
+Training differentiates both wrappers (``_Conv1d``, ``_ConvTranspose1d``):
+input gradients run through K4's own kernel with re-packed weights, weight
+gradients through ``ops/blocked_conv.py:conv1d_wgrad``, and the derivatives
+of the fused leaky-relu and tanh are elementwise PyTorch between them.
+
 Parameters are stored in fish-diffusion's torch layout and names
 (``conv_pre``, ``ups.{i}``, ``noise_convs.{i}``,
 ``resblocks.{r}.convs{1,2}.{j}``, ``conv_post``, ``m_source.l_linear``), so
@@ -27,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ... import kernels
+from ...ops.blocked_conv import conv1d_wgrad
 from ...ops.mel import LogMelSpectrogram
 from ...registry import VOCODERS
 from ...utils import resolve_device
@@ -54,13 +60,14 @@ def conv1d_reference(x, weight, bias, stride: int = 1, dilation: int = 1,
 
 
 def conv_transpose1d_reference(x, weight, bias, stride: int, padding: int,
-                               in_slope: Optional[float] = None):
+                               in_slope: Optional[float] = None,
+                               output_padding: int = 0):
     """Plain version of K4's transposed conv. x [B, T, C_in]; weight
     [C_in, C_out, K] (torch layout)."""
     if in_slope is not None:
         x = F.leaky_relu(x, in_slope)
     return F.conv_transpose1d(x.transpose(1, 2), weight, bias, stride,
-                              padding).transpose(1, 2)
+                              padding, output_padding).transpose(1, 2)
 
 
 def _launch_conv(name, transposed, x, w_packed, bias, residual, T_out, K,
@@ -93,11 +100,9 @@ def _launch_conv(name, transposed, x, w_packed, bias, residual, T_out, K,
     return out
 
 
-def conv1d(x, weight, bias, stride: int = 1, dilation: int = 1,
-           padding: int = 0, in_slope: Optional[float] = None, residual=None,
-           tanh: bool = False):
-    """K4 direct conv: ``act(x) * W + bias (+ residual)``, then tanh if
-    asked. CPU tensors take ``conv1d_reference``."""
+def _conv1d_forward(x, weight, bias, stride: int = 1, dilation: int = 1,
+                    padding: int = 0, in_slope: Optional[float] = None,
+                    residual=None, tanh: bool = False):
     if not x.is_cuda:
         return conv1d_reference(x, weight, bias, stride, dilation, padding,
                                 in_slope, residual, tanh)
@@ -111,24 +116,138 @@ def conv1d(x, weight, bias, stride: int = 1, dilation: int = 1,
                         in_slope, tanh)
 
 
-def conv_transpose1d(x, weight, bias, stride: int, padding: int,
-                     in_slope: Optional[float] = None):
-    """K4 transposed conv with torch ``ConvTranspose1d`` semantics, on
-    ``act(x)``. CPU tensors take ``conv_transpose1d_reference``."""
-    if not x.is_cuda:
-        return conv_transpose1d_reference(x, weight, bias, stride, padding,
-                                          in_slope)
+def _conv_transpose1d_forward(x, weight, bias, stride: int, padding: int,
+                              in_slope: Optional[float] = None,
+                              T_out: Optional[int] = None):
+    """``T_out`` (default the transposed conv's own length) cuts the output
+    or pads it with zeros."""
     C_in, C_out, K = weight.shape
+    natural = (x.shape[1] - 1) * stride - 2 * padding + K
+    T_out = natural if T_out is None else T_out
+    if not x.is_cuda:
+        y = conv_transpose1d_reference(x, weight, bias, stride, padding, in_slope,
+                                       max(0, min(stride - 1, T_out - natural)))
+        return F.pad(y[:, :T_out], (0, 0, 0, max(0, T_out - y.shape[1])))
     if x.shape[-1] != C_in:
         raise ValueError(f"conv_transpose1d: input has {x.shape[-1]} "
                          f"channels, weight {C_in}")
     if K % stride:
         raise ValueError(f"conv_transpose1d: kernel {K} is not a multiple "
                          f"of stride {stride}")
-    T_out = (x.shape[1] - 1) * stride - 2 * padding + K
     return _launch_conv("conv_transpose1d", True, x,
                         weight.permute(2, 0, 1).contiguous(), bias, None,
                         T_out, K, stride, 1, padding, in_slope, False)
+
+
+def _leaky_grad(g, x, slope: Optional[float]):
+    """g times the derivative of the input activation at x."""
+    return g if slope is None else torch.where(x > 0, g, g * slope)
+
+
+class _Conv1d(torch.autograd.Function):
+    """K4's direct conv with its gradients: the input gradient through K4
+    itself (a stride-1 conv's is a conv with flipped taps and swapped
+    channels, padding (K - 1) * d - p; a strided conv's is a transposed
+    conv), the weight gradient through ``conv1d_wgrad``, the derivatives of
+    the input activation and the tanh as elementwise glue."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, residual, stride, dilation, padding,
+                in_slope, tanh):
+        out = _conv1d_forward(x, weight, bias, stride, dilation, padding,
+                              in_slope, residual, tanh)
+        ctx.save_for_backward(x, weight, out if tanh else None)
+        ctx.conf = (stride, dilation, padding, in_slope, tanh)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, out = ctx.saved_tensors
+        stride, dilation, padding, in_slope, tanh = ctx.conf
+        if tanh:
+            g = g * (1 - out * out)
+        g = g.contiguous()
+        C_out, C_in, K = weight.shape
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            zero = torch.zeros(C_in, dtype=g.dtype, device=g.device)
+            if stride == 1:
+                w = weight.flip(2).transpose(0, 1).contiguous()
+                dx = _conv1d_forward(g, w, zero, 1, dilation,
+                                     (K - 1) * dilation - padding)
+            elif dilation == 1:
+                dx = _conv_transpose1d_forward(g, weight, zero, stride, padding,
+                                               T_out=x.shape[1])
+            else:
+                raise NotImplementedError("conv1d: input gradient of a "
+                                          "strided, dilated conv")
+            dx = _leaky_grad(dx, x, in_slope)
+        if ctx.needs_input_grad[1]:
+            dw = conv1d_wgrad(x, g, K, stride, dilation, padding,
+                              slope_a=in_slope).permute(2, 1, 0)
+        if ctx.needs_input_grad[2]:
+            db = g.sum(dim=(0, 1))
+        dres = g if ctx.needs_input_grad[3] else None
+        return dx, dw, db, dres, None, None, None, None, None
+
+
+class _ConvTranspose1d(torch.autograd.Function):
+    """K4's transposed conv with its gradients: the input gradient is a
+    strided direct conv through K4 with the same weights, the weight
+    gradient ``conv1d_wgrad`` with the output's gradient gathered."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, in_slope):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding, in_slope)
+        return _conv_transpose1d_forward(x, weight, bias, stride, padding,
+                                         in_slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        stride, padding, in_slope = ctx.conf
+        g = g.contiguous()
+        C_in, C_out, K = weight.shape
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            zero = torch.zeros(C_in, dtype=g.dtype, device=g.device)
+            dx = _leaky_grad(_conv1d_forward(g, weight, zero, stride, 1, padding),
+                             x, in_slope)
+        if ctx.needs_input_grad[1]:
+            dw = conv1d_wgrad(g, x, K, stride, 1, padding,
+                              slope_b=in_slope).permute(2, 1, 0)
+        if ctx.needs_input_grad[2]:
+            db = g.sum(dim=(0, 1))
+        return dx, dw, db, None, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def conv1d(x, weight, bias, stride: int = 1, dilation: int = 1,
+           padding: int = 0, in_slope: Optional[float] = None, residual=None,
+           tanh: bool = False):
+    """K4 direct conv: ``act(x) * W + bias (+ residual)``, then tanh if
+    asked; differentiable (``_Conv1d``). CPU tensors take
+    ``conv1d_reference``."""
+    if _needs_grad(x, weight, bias, residual):
+        return _Conv1d.apply(x, weight, bias, residual, stride, dilation,
+                             padding, in_slope, tanh)
+    return _conv1d_forward(x, weight, bias, stride, dilation, padding,
+                           in_slope, residual, tanh)
+
+
+def conv_transpose1d(x, weight, bias, stride: int, padding: int,
+                     in_slope: Optional[float] = None):
+    """K4 transposed conv with torch ``ConvTranspose1d`` semantics, on
+    ``act(x)``; differentiable (``_ConvTranspose1d``). CPU tensors take
+    ``conv_transpose1d_reference``."""
+    if _needs_grad(x, weight, bias):
+        return _ConvTranspose1d.apply(x, weight, bias, stride, padding, in_slope)
+    return _conv_transpose1d_forward(x, weight, bias, stride, padding, in_slope)
 
 
 class ResBlock1(nn.Module):

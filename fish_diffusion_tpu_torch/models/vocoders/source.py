@@ -27,6 +27,12 @@ On an H100 the pair is bound by memory: it reads the ``[B, T * hop, 9]``
 noise (drawn outside, with a ``torch.Generator``; an in-kernel Philox draw
 is later work) and writes ``[B, T * hop]``. ``nsf_phase_base_reference``
 and ``nsf_merge_reference`` are the plain versions.
+
+Training trains the merge's Dense(9 -> 1) (``l_linear``): its gradient is
+``nsf_merge_backward``, a third Triton kernel that recomputes the signals
+(replacing what XLA derives for ``source.py:92`` on the TPU), with
+``nsf_merge_backward_reference`` beside it. The gradient reaches the
+merged source through the noise convs' input gradient (K4).
 """
 
 from __future__ import annotations
@@ -84,6 +90,46 @@ def _source_kernel(f0_ptr, base_ptr, rand_ptr, noise_ptr, w_ptr, bias_ptr,
     tl.store(out_ptr + samples, out, mask=smask)
 
 
+def _source_bwd_kernel(f0_ptr, base_ptr, rand_ptr, noise_ptr, out_ptr, g_ptr,
+                       part_ptr, T, sr, sine_amp, noise_std,
+                       HOP: tl.constexpr, FT: tl.constexpr, NH: tl.constexpr):
+    tile = tl.program_id(0)
+    b = tl.program_id(1)
+    frames = tile * FT + tl.arange(0, FT)
+    fmask = frames < T
+    f0 = tl.load(f0_ptr + b * T + frames, mask=fmask, other=0.0)
+    base = tl.load(base_ptr + b * T + frames, mask=fmask, other=0.0)
+    rad = tl.math.div_rn(f0, sr)
+    j = tl.arange(0, HOP)
+    phase = base[:, None] + rad[:, None] * (j + 1).to(tl.float32)[None, :]
+    phase = phase - tl.floor(phase)
+    uv = (f0 > 0.0).to(tl.float32)
+    noise_amp = uv * noise_std + (1.0 - uv) * sine_amp / 3.0
+    samples = (b * T + frames[:, None]) * HOP + j[None, :]
+    smask = fmask[:, None] & (j[None, :] < HOP)
+    out = tl.load(out_ptr + samples, mask=smask, other=0.0)
+    gz = tl.load(g_ptr + samples, mask=smask, other=0.0) * (1.0 - out * out)
+    part = part_ptr + (b * tl.num_programs(0) + tile) * (NH + 1)
+    for n in tl.static_range(NH):
+        ph = phase * (n + 1) + tl.load(rand_ptr + b * NH + n)
+        ph = ph - tl.floor(ph)
+        sine = libdevice.sin(6.283185307179586 * ph) * sine_amp
+        nz = tl.load(noise_ptr + samples * NH + n, mask=smask, other=0.0)
+        s_n = sine * uv[:, None] + noise_amp[:, None] * nz
+        tl.store(part + n, tl.sum(tl.sum(gz * s_n, axis=1), axis=0))
+    tl.store(part + NH, tl.sum(tl.sum(gz, axis=1), axis=0))
+
+
+def _partials_sum_kernel(part_ptr, out_ptr, P, NH1: tl.constexpr,
+                         BLOCK: tl.constexpr):
+    n = tl.program_id(0)
+    acc = tl.zeros((BLOCK,), dtype=tl.float32)
+    for p0 in range(0, P, BLOCK):
+        rows = p0 + tl.arange(0, BLOCK)
+        acc += tl.load(part_ptr + rows * NH1 + n, mask=rows < P, other=0.0)
+    tl.store(out_ptr + n, tl.sum(acc, axis=0))
+
+
 def _triton_kernels() -> dict:
     global tl, libdevice
     if not _TRITON:
@@ -97,6 +143,8 @@ def _triton_kernels() -> dict:
         tl, libdevice = triton.language, _libdevice
         _TRITON["base"] = triton.jit(_phase_base_kernel)
         _TRITON["source"] = triton.jit(_source_kernel)
+        _TRITON["source_bwd"] = triton.jit(_source_bwd_kernel)
+        _TRITON["partials_sum"] = triton.jit(_partials_sum_kernel)
     return _TRITON
 
 
@@ -113,12 +161,9 @@ def nsf_phase_base_reference(f0, sampling_rate: int, hop: int):
     return torch.remainder(torch.cumsum(advance, dim=1) - advance, 1.0).float()
 
 
-def nsf_merge_reference(f0, base, rand_ini, noise, weight, bias,
-                        sampling_rate: int, hop: int, sine_amp: float = 0.1,
-                        noise_std: float = 0.003):
-    """Plain version of K3's second kernel. f0, base [B, T]; rand_ini [B, H]
-    (column 0 is 0); noise [B, T * hop, H] standard normal; weight [H];
-    bias [1] -> merged source [B, T * hop, 1]."""
+def _source_signals_reference(f0, base, rand_ini, noise, sampling_rate: int,
+                              hop: int, sine_amp: float, noise_std: float):
+    """The H gated sines plus noise that the merge mixes, [B, T, hop, H]."""
     B, T = f0.shape
     H = rand_ini.shape[1]
     rad = _true_div(f0, sampling_rate)
@@ -131,9 +176,34 @@ def nsf_merge_reference(f0, base, rand_ini, noise, weight, bias,
 
     uv = (f0 > 0).float()[:, :, None, None]
     noise_amp = uv * noise_std + (1 - uv) * sine_amp / 3
-    sines = sines * uv + noise_amp * noise.view(B, T, hop, H)
+    return sines * uv + noise_amp * noise.view(B, T, hop, H)
+
+
+def nsf_merge_reference(f0, base, rand_ini, noise, weight, bias,
+                        sampling_rate: int, hop: int, sine_amp: float = 0.1,
+                        noise_std: float = 0.003):
+    """Plain version of K3's second kernel. f0, base [B, T]; rand_ini [B, H]
+    (column 0 is 0); noise [B, T * hop, H] standard normal; weight [H];
+    bias [1] -> merged source [B, T * hop, 1]."""
+    B, T = f0.shape
+    sines = _source_signals_reference(f0, base, rand_ini, noise, sampling_rate,
+                                      hop, sine_amp, noise_std)
     merged = sines @ weight + bias
     return torch.tanh(merged).reshape(B, T * hop, 1)
+
+
+def nsf_merge_backward_reference(g, out, f0, base, rand_ini, noise,
+                                 sampling_rate: int, hop: int,
+                                 sine_amp: float = 0.1,
+                                 noise_std: float = 0.003):
+    """Plain version of K3's backward: g, out [B, T * hop, 1] (the merged
+    source's gradient and the source itself) -> (dW [H], db [1]) with
+    ``gz = g * (1 - out^2)``, ``dW[n] = sum gz * s_n``, ``db = sum gz``."""
+    B, T = f0.shape
+    sines = _source_signals_reference(f0, base, rand_ini, noise, sampling_rate,
+                                      hop, sine_amp, noise_std)
+    gz = (g * (1 - out * out)).reshape(B, T, hop, 1)
+    return (gz * sines).sum(dim=(0, 1, 2)), gz.sum().reshape(1)
 
 
 def nsf_source_reference(f0, rand_ini, noise, weight, bias, sampling_rate: int,
@@ -161,9 +231,9 @@ def nsf_phase_base(f0, sampling_rate: int, hop: int):
     return base
 
 
-def nsf_merge(f0, base, rand_ini, noise, weight, bias, sampling_rate: int,
-              hop: int, sine_amp: float = 0.1, noise_std: float = 0.003):
-    """K3, second kernel. CPU tensors take ``nsf_merge_reference``."""
+def _nsf_merge_forward(f0, base, rand_ini, noise, weight, bias,
+                       sampling_rate: int, hop: int, sine_amp: float = 0.1,
+                       noise_std: float = 0.003):
     if not f0.is_cuda:
         return nsf_merge_reference(f0, base, rand_ini, noise, weight, bias,
                                    sampling_rate, hop, sine_amp, noise_std)
@@ -187,6 +257,74 @@ def nsf_merge(f0, base, rand_ini, noise, weight, bias, sampling_rate: int,
     )
     kernels.count_launch("nsf_merge")
     return out
+
+
+def nsf_merge_backward(g, out, f0, base, rand_ini, noise, sampling_rate: int,
+                       hop: int, sine_amp: float = 0.1,
+                       noise_std: float = 0.003):
+    """K3's backward: (dW [H], db [1]) of the Dense(H -> 1) merge. One Triton
+    program per (batch row, tile of frames) recomputes the phase, sines,
+    voicing and noise of its samples, as the forward does (the
+    ``[B, T * hop, H]`` sines never reach device memory), and writes its
+    H + 1 partial sums; a second program per output adds the partials in
+    program order. Memory-bound on the noise it rereads. CPU tensors take
+    ``nsf_merge_backward_reference``."""
+    if not f0.is_cuda:
+        return nsf_merge_backward_reference(g, out, f0, base, rand_ini, noise,
+                                            sampling_rate, hop, sine_amp,
+                                            noise_std)
+    kernels.require_cuda("nsf_merge_backward", g, out, f0, base, rand_ini, noise)
+    B, T = f0.shape
+    H = rand_ini.shape[1]
+    if tuple(g.shape) != (B, T * hop, 1) or tuple(out.shape) != (B, T * hop, 1):
+        raise ValueError("nsf_merge_backward: g and out must be [B, T * hop, 1]")
+    if hop & (hop - 1):
+        raise ValueError(f"nsf_merge_backward: hop {hop} is not a power of two")
+    tiles = -(-T // _FRAMES_PER_PROGRAM)
+    part = torch.empty((B * tiles, H + 1), dtype=f0.dtype, device=f0.device)
+    sums = torch.empty((H + 1,), dtype=f0.dtype, device=f0.device)
+    k = _triton_kernels()
+    k["source_bwd"][(tiles, B)](
+        f0, base, rand_ini, noise, out, g, part, T, float(sampling_rate),
+        float(sine_amp), float(noise_std), HOP=hop, FT=_FRAMES_PER_PROGRAM,
+        NH=H, num_warps=8,
+    )
+    k["partials_sum"][(H + 1,)](part, sums, B * tiles, NH1=H + 1, BLOCK=256)
+    kernels.count_launch("nsf_merge_backward")
+    return sums[:H], sums[H:]
+
+
+class _NsfMerge(torch.autograd.Function):
+    """K3's merge with the gradient of its Dense(H -> 1) weights: only
+    ``weight`` and ``bias`` are trained (f0 is data, the draws are not
+    differentiated), so the backward is ``nsf_merge_backward``."""
+
+    @staticmethod
+    def forward(ctx, f0, base, rand_ini, noise, weight, bias, sampling_rate,
+                hop, sine_amp, noise_std):
+        out = _nsf_merge_forward(f0, base, rand_ini, noise, weight, bias,
+                                 sampling_rate, hop, sine_amp, noise_std)
+        ctx.save_for_backward(f0, base, rand_ini, noise, out)
+        ctx.conf = (sampling_rate, hop, sine_amp, noise_std)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        f0, base, rand_ini, noise, out = ctx.saved_tensors
+        dw, db = nsf_merge_backward(g.contiguous(), out, f0, base, rand_ini,
+                                    noise, *ctx.conf)
+        return None, None, None, None, dw, db, None, None, None, None
+
+
+def nsf_merge(f0, base, rand_ini, noise, weight, bias, sampling_rate: int,
+              hop: int, sine_amp: float = 0.1, noise_std: float = 0.003):
+    """K3, second kernel; differentiable in ``weight`` and ``bias``
+    (``_NsfMerge``). CPU tensors take ``nsf_merge_reference``."""
+    args = (f0, base, rand_ini, noise, weight, bias, sampling_rate, hop,
+            sine_amp, noise_std)
+    if torch.is_grad_enabled() and (weight.requires_grad or bias.requires_grad):
+        return _NsfMerge.apply(*args)
+    return _nsf_merge_forward(*args)
 
 
 def nsf_source(f0, rand_ini, noise, weight, bias, sampling_rate: int, hop: int,

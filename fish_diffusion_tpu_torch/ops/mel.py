@@ -18,13 +18,21 @@ Conventions kept from the JAX package:
 - log compression: natural log of ``clamp(x, 1e-5)``, times 0.434294 for
   log10 mels.
 
-The backward of the STFT (the JAX package's hand VJP) and ``istft`` are not
-ported yet (ROADMAP Queue 2, K5).
+Training differentiates the magnitude (``_StftMagnitude``): in that mode
+the forward also writes the phasor ``re / mag``, ``im / mag``, and the
+backward is K5's second kernel, ``stft_backward``, the hand VJP of the JAX
+package (``ops/mel.py:184``) with ``stft_backward_reference`` beside it.
+``linear_spectrogram`` is the JAX ``stft_magnitude`` with its ``center``
+option (the STFT loss). ``LogMelSpectrogram.log_mel`` is the
+differentiable log-mel; ``wav2spec``, which serving calls, stays under
+``torch.inference_mode``. ``istft`` is not ported yet (ROADMAP Queue 2, K5).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -122,9 +130,11 @@ def _dft_kernel(n_fft: int, win_length: int) -> np.ndarray:
 @functools.lru_cache(maxsize=16)
 def _dft_basis(n_fft: int, win_length: int, device: str) -> torch.Tensor:
     """K5's operand: ``_dft_kernel`` as a contiguous [n_fft, 2 * bins]
-    float32 tensor on ``device``."""
+    float32 tensor on ``device``. Made outside inference mode, so that a
+    basis first built while serving can be saved for a backward later."""
     k = _dft_kernel(n_fft, win_length)[:, 0, :]
-    return torch.from_numpy(np.ascontiguousarray(k.T)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(k.T)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -132,24 +142,29 @@ def _dft_basis(n_fft: int, win_length: int, device: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _stft_reference(y: torch.Tensor, basis: torch.Tensor, hop: int,
+                    with_phasor: bool = False):
+    n_fft, two_bins = basis.shape
+    bins = two_bins // 2
+    spec = (y.unfold(-1, n_fft, hop) @ basis).transpose(1, 2)  # [B, 2 * bins, F]
+    re, im = spec[:, :bins], spec[:, bins:]
+    mag = torch.sqrt(re * re + im * im + 1e-9)
+    return mag, (spec / mag.repeat(1, 2, 1) if with_phasor else None)
+
+
 def stft_magnitude_reference(y: torch.Tensor, basis: torch.Tensor,
                              hop: int) -> torch.Tensor:
     """Plain version of K5. y [B, T_pad], basis [n_fft, 2 * bins] ->
     [B, bins, F] with F = (T_pad - n_fft) // hop + 1."""
-    n_fft, two_bins = basis.shape
-    bins = two_bins // 2
-    spec = y.unfold(-1, n_fft, hop) @ basis  # [B, F, 2 * bins]
-    re, im = spec[..., :bins], spec[..., bins:]
-    return torch.sqrt(re * re + im * im + 1e-9).transpose(1, 2)
+    return _stft_reference(y, basis, hop)[0]
 
 
-def stft_magnitude(y: torch.Tensor, basis: torch.Tensor, hop: int) -> torch.Tensor:
-    """K5: the STFT magnitude without centring, ``sqrt(re^2 + im^2 + 1e-9)``
-    of the windowed DFT (``basis`` from ``_dft_basis``) of every frame of
-    ``y`` [B, T_pad] -> [B, bins, F]. CPU tensors take
-    ``stft_magnitude_reference``."""
+def _stft_forward(y: torch.Tensor, basis: torch.Tensor, hop: int,
+                  with_phasor: bool = False):
+    """K5's forward -> (magnitude [B, bins, F], phasor [B, 2 * bins, F] or
+    None). CPU tensors take the plain version."""
     if not y.is_cuda:
-        return stft_magnitude_reference(y, basis, hop)
+        return _stft_reference(y, basis, hop, with_phasor)
     kernels.require_cuda("stft_magnitude", y, basis)
     if y.dtype != torch.float32:
         raise TypeError(f"stft_magnitude: takes float32, got {y.dtype}")
@@ -162,14 +177,96 @@ def stft_magnitude(y: torch.Tensor, basis: torch.Tensor, hop: int) -> torch.Tens
         raise ValueError(f"stft_magnitude: {T_pad} samples, n_fft {n_fft}, hop {hop}")
     n_frames = (T_pad - n_fft) // hop + 1
     out = torch.empty((B, bins, n_frames), dtype=torch.float32, device=y.device)
+    phasor = (torch.empty((B, 2 * bins, n_frames), dtype=torch.float32,
+                          device=y.device) if with_phasor else None)
     lib = kernels.load_library("stft")
     kernels.check(
-        lib.stft_magnitude(y.data_ptr(), basis.data_ptr(), out.data_ptr(), B,
+        lib.stft_magnitude(y.data_ptr(), basis.data_ptr(), out.data_ptr(),
+                           phasor.data_ptr() if with_phasor else None, B,
                            T_pad, n_fft, hop, bins, n_frames, kernels.stream()),
         "stft_magnitude",
     )
     kernels.count_launch("stft_magnitude")
-    return out
+    return out, phasor
+
+
+def stft_backward_reference(g: torch.Tensor, phasor: torch.Tensor,
+                            basis: torch.Tensor, hop: int, T_pad: int) -> torch.Tensor:
+    """Plain version of K5's backward: the magnitude's gradient g
+    [B, bins, F] and the phasor [B, 2 * bins, F] -> the signal's gradient
+    [B, T_pad] (the spectrum's gradient through the DFT basis, then the
+    frames' overlap-add)."""
+    n_fft = basis.shape[0]
+    gs = g.repeat(1, 2, 1) * phasor  # [B, 2 * bins, F]
+    frames = basis @ gs  # [B, n_fft, F]
+    F_ = frames.shape[2]
+    covered = (F_ - 1) * hop + n_fft
+    out = torch.nn.functional.fold(frames, (1, covered), (1, n_fft), stride=(1, hop))
+    return F.pad(out.reshape(g.shape[0], covered), (0, T_pad - covered))
+
+
+def stft_backward(g: torch.Tensor, phasor: torch.Tensor, basis: torch.Tensor,
+                  hop: int, T_pad: int) -> torch.Tensor:
+    """K5's backward (``csrc/stft.cu``): the signal's gradient [B, T_pad]
+    from the magnitude's gradient g [B, bins, F] and the forward's phasor.
+    CPU tensors take ``stft_backward_reference``."""
+    if not g.is_cuda:
+        return stft_backward_reference(g, phasor, basis, hop, T_pad)
+    kernels.require_cuda("stft_backward", g, phasor, basis)
+    B, bins, n_frames = g.shape
+    n_fft = basis.shape[0]
+    if (tuple(phasor.shape) != (B, 2 * bins, n_frames)
+            or tuple(basis.shape) != (n_fft, 2 * bins)
+            or T_pad < (n_frames - 1) * hop + n_fft):
+        raise ValueError(f"stft_backward: g {tuple(g.shape)}, phasor "
+                         f"{tuple(phasor.shape)}, basis {tuple(basis.shape)}, "
+                         f"{T_pad} samples")
+    grad = torch.empty((B, T_pad), dtype=torch.float32, device=g.device)
+    kernels.check(
+        kernels.load_library("stft").stft_backward(
+            g.data_ptr(), phasor.data_ptr(), basis.data_ptr(), grad.data_ptr(),
+            B, T_pad, n_fft, hop, bins, n_frames, kernels.stream()),
+        "stft_backward",
+    )
+    kernels.count_launch("stft_backward")
+    return grad
+
+
+class _StftMagnitude(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, basis, hop):
+        out, phasor = _stft_forward(y, basis, hop, with_phasor=True)
+        ctx.save_for_backward(phasor, basis)
+        ctx.conf = (hop, y.shape[1])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        phasor, basis = ctx.saved_tensors
+        hop, T_pad = ctx.conf
+        return stft_backward(g.contiguous(), phasor, basis, hop, T_pad), None, None
+
+
+def stft_magnitude(y: torch.Tensor, basis: torch.Tensor, hop: int) -> torch.Tensor:
+    """K5: the STFT magnitude without centring, ``sqrt(re^2 + im^2 + 1e-9)``
+    of the windowed DFT (``basis`` from ``_dft_basis``) of every frame of
+    ``y`` [B, T_pad] -> [B, bins, F]. Differentiable in ``y``, with
+    ``stft_backward`` as its backward. CPU tensors take the plain versions."""
+    if torch.is_grad_enabled() and y.requires_grad:
+        return _StftMagnitude.apply(y, basis, hop)
+    return _stft_forward(y, basis, hop)[0]
+
+
+def linear_spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,
+                       win_length: Optional[int] = None, center: bool = False):
+    """The JAX package's ``stft_magnitude``: [B, T] -> [B, n_fft // 2 + 1,
+    frames], reflect-padded by ``n_fft // 2`` on each side when ``center``."""
+    win_length = win_length or n_fft
+    if center:
+        pad = n_fft // 2
+        y = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
+    return stft_magnitude(y.contiguous(), _dft_basis(n_fft, win_length, str(y.device)),
+                          hop_length)
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +353,12 @@ class LogMelSpectrogram:
             mel = mel * 0.434294  # ln -> log10
         return mel
 
+    def log_mel(self, y, key_shift: float = 0.0, speed: float = 1.0):
+        """Audio [B, T] or [T] -> log-mel [B, n_mels, frames], differentiable
+        in ``y`` (the training losses)."""
+        return self.compress(self(y, key_shift=key_shift, speed=speed))
+
     @torch.inference_mode()
     def wav2spec(self, y, key_shift: float = 0.0, speed: float = 1.0):
-        """Audio [B, T] or [T] -> log-mel [B, n_mels, frames]."""
-        return self.compress(self(y, key_shift=key_shift, speed=speed))
+        """Audio [B, T] or [T] -> log-mel [B, n_mels, frames] (serving)."""
+        return self.log_mel(y, key_shift=key_shift, speed=speed)

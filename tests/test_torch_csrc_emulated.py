@@ -1,5 +1,6 @@
-"""The CUDA sources of K1, K4, K5 and K8-cand, compiled for the host CPU
-and run against their plain PyTorch versions at small shapes.
+"""The CUDA sources of K1, K4 (and its weight gradient), K5 (forward and
+backward), K6 and K8-cand, compiled for the host CPU and run against their
+plain PyTorch versions at small shapes.
 
 The card is the real test (``chip_smoke.py``, ``tests/test_torch_kernels_cuda.py``),
 but the kernels' tiling, halos, masks and epilogues are plain C++ over
@@ -24,7 +25,7 @@ from fish_diffusion_tpu_torch import kernels
 from fish_diffusion_tpu_torch.extractors import pitch
 from fish_diffusion_tpu_torch.models import wavenet
 from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan
-from fish_diffusion_tpu_torch.ops import mel
+from fish_diffusion_tpu_torch.ops import blocked_conv, mel
 
 SHIM = r"""
 #pragma once
@@ -248,7 +249,7 @@ def test_stft_source(host_libs, B, n_fft, win, hop, F, tile):
     assert host_libs["stft"].stft_tile(B * F, bins) == tile
     out = torch.full((B, bins, F), float("nan"))
     assert host_libs["stft"].stft_magnitude(
-        y.data_ptr(), basis.data_ptr(), out.data_ptr(), B, y.shape[1], n_fft,
+        y.data_ptr(), basis.data_ptr(), out.data_ptr(), None, B, y.shape[1], n_fft,
         hop, bins, F, None) == 0
     ref = mel.stft_magnitude_reference(y, basis, hop)
     assert ref.shape == out.shape
@@ -291,3 +292,108 @@ def _check_viterbi(lib, freqs, strengths, unvoiced):
     torch.testing.assert_close(path, ref_path, atol=0, rtol=0)
     torch.testing.assert_close(f0, ref_f0, atol=0, rtol=0)
     return path
+
+
+@pytest.mark.parametrize(
+    "B,n_fft,win,hop,F",
+    # k_ov = 4 (hop divides n_fft), 3 with basis rows past n_fft masked
+    # (hop 27 and 100), and two column tiles (hop 100 > 64)
+    [(1, 64, 64, 16, 9), (2, 64, 48, 27, 6), (1, 256, 200, 100, 4)],
+)
+def test_stft_backward_source(host_libs, B, n_fft, win, hop, F):
+    """K5 in training: the forward's phasor equals the plain one (<= 1e-5);
+    the backward <= 1e-5 of the gradient's scale, every sample written."""
+    gen = torch.Generator().manual_seed(n_fft + hop)
+    T_pad = n_fft + (F - 1) * hop + hop // 2
+    y = rn(gen, B, T_pad, scale=0.3)
+    basis = mel._dft_basis(n_fft, win, "cpu")
+    bins = n_fft // 2 + 1
+    mag, phasor = mel._stft_reference(y, basis, hop, with_phasor=True)
+    got_mag = torch.empty(B, bins, F)
+    got_ph = torch.full((B, 2 * bins, F), float("nan"))
+    lib = host_libs["stft"]
+    assert lib.stft_magnitude(y.data_ptr(), basis.data_ptr(), got_mag.data_ptr(),
+                              got_ph.data_ptr(), B, T_pad, n_fft, hop, bins, F, None) == 0
+    assert (got_ph - phasor).abs().max().item() <= 1e-5
+    g = rn(gen, B, bins, F)
+    grad = torch.full((B, T_pad), float("nan"))
+    assert lib.stft_backward(g.data_ptr(), phasor.contiguous().data_ptr(), basis.data_ptr(),
+                             grad.data_ptr(), B, T_pad, n_fft, hop, bins, F, None) == 0
+    ref = mel.stft_backward_reference(g, phasor, basis, hop, T_pad)
+    assert (grad - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def _grouped(lib, transposed, x, w_packed, bias, T_out, stride, pad, groups):
+    B, T_in, C_in = x.shape
+    K, _, C_out = w_packed.shape
+    out = torch.full((B, T_out, C_out), float("nan"))
+    assert lib.grouped_conv1d(int(transposed), x.data_ptr(), w_packed.data_ptr(),
+                              None if bias is None else bias.data_ptr(), out.data_ptr(),
+                              B, T_in, T_out, C_in, C_out, K, stride, pad, groups,
+                              None) == 0
+    return out
+
+
+@pytest.mark.parametrize(
+    "C_in,C_out,groups,stride,T",
+    # the tiles by output width per group: 8 (1024 x 8), 16, 32, 64; the
+    # transposed mode's widths are C_in / groups
+    [(16, 16, 2, 2, 21), (32, 32, 2, 2, 19), (32, 64, 2, 1, 9), (64, 128, 2, 4, 30)],
+)
+def test_grouped_conv1d_source(host_libs, C_in, C_out, groups, stride, T):
+    """K6, k = 41: the forward against the plain grouped conv, the
+    transposed mode on ``grouped_transposed_weight`` against the autograd
+    input gradient of the plain version (T = 30 at stride 4: its last
+    sample lies past ``conv_transpose1d``'s natural length): <= 1e-5 of the
+    output's scale."""
+    gen = torch.Generator().manual_seed(C_in + C_out + stride)
+    K = 41
+    x = rn(gen, 1, T, C_in)
+    w = rn(gen, C_out, C_in // groups, K, scale=(K * C_in / groups) ** -0.5)
+    b = rn(gen, C_out)
+    lib = host_libs["grouped_conv1d"]
+    T_out = blocked_conv.grouped_out_len(T, stride)
+    got = _grouped(lib, False, x, w.permute(2, 1, 0).contiguous(), b, T_out, stride,
+                   K // 2, groups)
+    ref = blocked_conv.grouped_conv1d_reference(x, w, b, stride, groups)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+    dy = rn(gen, 1, T_out, C_out)
+    got = _grouped(lib, True, dy, blocked_conv.grouped_transposed_weight(w, stride, groups),
+                   None, T, stride, K // 2, groups)
+    xr = x.clone().requires_grad_()
+    (ref,) = torch.autograd.grad(blocked_conv.grouped_conv1d_reference(xr, w, b, stride, groups),
+                                 xr, dy)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize(
+    "B,T_a,CA,T_b,CB,K,stride,dil,pad,groups,slope_a,slope_b",
+    [
+        (2, 300, 8, 300, 16, 3, 1, 3, 3, 1, 0.1, None),     # resblock conv, 16 wide
+        (2, 160, 8, 80, 32, 4, 2, 1, 1, 1, None, 0.1),      # transposed conv's, 32 wide
+        (1, 90, 32, 45, 64, 41, 2, 1, 20, 4, None, None),   # K6 layer, 16 per group
+        (2, 200, 16, 200, 1, 7, 1, 1, 3, 1, 0.01, None),    # conv_post, 1 wide
+        (1, 50, 4, 50, 64, 5, 1, 1, 2, 1, None, None),      # 64 wide
+        (2, 256, 1, 32, 24, 16, 8, 1, 4, 1, None, None),    # noise conv, C_in = 1
+    ],
+)
+def test_conv1d_wgrad_source(host_libs, B, T_a, CA, T_b, CB, K, stride, dil, pad, groups,
+                             slope_a, slope_b):
+    """The weight gradient, partial sums over reduction chunks added in
+    order: <= 1e-5 of its scale."""
+    gen = torch.Generator().manual_seed(T_a + CB + K)
+    a, bm = rn(gen, B, T_a, CA), rn(gen, B, T_b, CB)
+    lib = host_libs["conv1d_wgrad"]
+    M = K * (CA // groups)
+    splits = lib.conv1d_wgrad_splits(M, CB // groups, groups, B * T_b)
+    part = torch.empty(splits, groups, M, CB // groups)
+    out = torch.full((K, CA // groups, CB), float("nan"))
+    assert lib.conv1d_wgrad(a.data_ptr(), bm.data_ptr(), part.data_ptr(), out.data_ptr(),
+                            B, T_a, T_b, CA, CB, K, stride, dil, pad, groups,
+                            float(slope_a or 0.0), int(slope_a is not None),
+                            float(slope_b or 0.0), int(slope_b is not None), splits,
+                            None) == 0
+    ref = blocked_conv.conv1d_wgrad_reference(a, bm, K, stride, dil, pad, groups,
+                                              slope_a, slope_b)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of
-``fish_diffusion_tpu_torch`` loads no JAX, flax or ``fish_diffusion_tpu``
-module (checked in a fresh interpreter)."""
+``fish_diffusion_tpu_torch`` (the training modules, the datasets and the
+discriminators among them) loads no JAX, flax, optax or
+``fish_diffusion_tpu`` module (checked in a fresh interpreter)."""
 
 import subprocess
 import sys
@@ -15,8 +16,12 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "fish_diffusion_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "fish_diffusion_tpu"))
 assert len(names) >= 15, names
+for name in ("training.gan", "training.vocoder_trainer", "training.vocoder_cli",
+             "training.optim", "training.checkpoint", "datasets.naive",
+             "models.discriminators", "ops.blocked_conv"):
+    assert "fish_diffusion_tpu_torch." + name in names, name
 assert not bad, bad
 """
 

@@ -1,6 +1,6 @@
-"""The port's hand-written kernels (K1-K5, K8-cand) against their plain
-PyTorch versions on an NVIDIA GPU, at small shapes that exercise the ragged
-edges.
+"""The port's hand-written kernels (K1-K6, K8-cand, the weight gradient,
+and the backward kernels of K3 and K5) against their plain PyTorch versions
+on an NVIDIA GPU, at small shapes that exercise the ragged edges.
 
 These need the card (the CUDA kernels have no CPU mode, and Triton needs a
 GPU); without one they skip. On the card:
@@ -13,7 +13,7 @@ import torch
 from fish_diffusion_tpu_torch.extractors import pitch
 from fish_diffusion_tpu_torch.models import diffusion, wavenet
 from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, source
-from fish_diffusion_tpu_torch.ops import mel
+from fish_diffusion_tpu_torch.ops import blocked_conv, mel
 
 pytestmark = pytest.mark.cuda
 
@@ -166,3 +166,118 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(TypeError, match="float32"):
         diffusion.unipc_predict(*(rn(gen, 4, 4).double() for _ in range(4)),
                                 1.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+
+
+@pytest.mark.parametrize(
+    "B,n_fft,win,hop,F",
+    # the training losses' scales (hop 270 and 540 do not divide n_fft) and
+    # a short one with two column tiles
+    [(2, 512, 512, 128, 33), (1, 2048, 1080, 270, 20), (2, 4096, 2160, 540, 9),
+     (1, 256, 200, 100, 4)],
+)
+def test_stft_backward(gen, B, n_fft, win, hop, F):
+    """K5 in training: the magnitude and the spectrum re, im (= phasor x
+    magnitude; the phasor alone is ill-conditioned where a bin's magnitude
+    is near 0) <= 1e-5 of plain; the backward <= 1e-5 of the gradient's
+    scale."""
+    T_pad = n_fft + (F - 1) * hop + hop // 2
+    y = rn(gen, B, T_pad, scale=0.3)
+    basis = mel._dft_basis(n_fft, win, "cuda")
+    mag, phasor = mel._stft_forward(y, basis, hop, with_phasor=True)
+    ref_mag, ref_phasor = mel._stft_reference(y, basis, hop, with_phasor=True)
+    torch.testing.assert_close(mag, ref_mag, atol=1e-5 * ref_mag.abs().max().item(), rtol=0)
+    spec, ref_spec = phasor * mag.repeat(1, 2, 1), ref_phasor * ref_mag.repeat(1, 2, 1)
+    torch.testing.assert_close(spec, ref_spec, atol=1e-5 * ref_mag.abs().max().item(), rtol=0)
+    g = rn(gen, *mag.shape)
+    got = mel.stft_backward(g, phasor, basis, hop, T_pad)
+    ref = mel.stft_backward_reference(g, phasor, basis, hop, T_pad)
+    torch.testing.assert_close(got, ref, atol=1e-5 * ref.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize(
+    "C_in,C_out,groups,stride,T",
+    # MSD layers 1, 2 and 5 (their widths per group), and stride 4
+    [(128, 128, 4, 2, 301), (128, 256, 16, 2, 150), (1024, 1024, 16, 1, 37),
+     (64, 128, 2, 4, 30)],
+)
+def test_grouped_conv1d_and_its_gradients(gen, C_in, C_out, groups, stride, T):
+    """K6 forward, its input gradient (transposed mode) and its weight
+    gradient (conv1d_wgrad) through autograd, against the plain version's
+    autograd: <= 1e-4 of each one's scale."""
+    K = 41
+    x = rn(gen, 2, T, C_in).requires_grad_()
+    w = rn(gen, C_out, C_in // groups, K, scale=(K * C_in / groups) ** -0.5).requires_grad_()
+    b = rn(gen, C_out).requires_grad_()
+    out = blocked_conv.grouped_conv1d(x, w, b, stride, groups)
+    gy = rn(gen, *out.shape)
+    got = torch.autograd.grad(out, (x, w, b), gy)
+    ref_out = blocked_conv.grouped_conv1d_reference(x, w, b, stride, groups)
+    ref = torch.autograd.grad(ref_out, (x, w, b), gy)
+    for g_, r_ in zip((out,) + got, (ref_out,) + ref):
+        torch.testing.assert_close(g_, r_, atol=1e-4 * r_.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize(
+    "C_in,C_out,K,stride,dil,pad,slope,res,tanh",
+    [
+        (128, 70, 7, 1, 1, 3, None, False, False),    # conv_pre (no input gradient)
+        (32, 32, 11, 1, 5, 25, 0.1, True, False),     # resblock conv
+        (16, 16, 3, 1, 3, 3, 0.1, False, False),
+        (1, 256, 128, 64, 1, 32, None, True, False),  # noise conv: transposed dgrad
+        (16, 1, 7, 1, 1, 3, 0.01, False, True),       # conv_post with tanh
+        (1, 16, 1, 1, 1, 0, None, True, False),       # the last noise conv
+    ],
+)
+def test_conv1d_gradients(gen, C_in, C_out, K, stride, dil, pad, slope, res, tanh):
+    """K4's input gradient (through K4) and weight gradient
+    (conv1d_wgrad) against autograd of the plain version: <= 1e-4 of each
+    one's scale."""
+    B, T = 2, 64 * stride
+    x = rn(gen, B, T, C_in).requires_grad_(C_in != 128)
+    w = rn(gen, C_out, C_in, K, scale=(C_in * K) ** -0.5).requires_grad_()
+    b = rn(gen, C_out).requires_grad_()
+    T_out = (T + 2 * pad - dil * (K - 1) - 1) // stride + 1
+    r = rn(gen, B, T_out, C_out).requires_grad_() if res else None
+    kw = dict(stride=stride, dilation=dil, padding=pad, in_slope=slope, residual=r, tanh=tanh)
+    inputs = [t for t in (x, w, b, r) if t is not None and t.requires_grad]
+    out = nsf_hifigan.conv1d(x, w, b, **kw)
+    gy = rn(gen, *out.shape)
+    got = torch.autograd.grad(out, inputs, gy)
+    ref = torch.autograd.grad(nsf_hifigan.conv1d_reference(x, w, b, **kw), inputs, gy)
+    for g_, r_ in zip(got, ref):
+        torch.testing.assert_close(g_, r_, atol=1e-4 * r_.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("C_in,C_out,K,u", [(96, 48, 16, 8), (32, 16, 4, 2)])
+def test_conv_transpose1d_gradients(gen, C_in, C_out, K, u):
+    """K4's transposed conv: input gradient through K4's strided conv and
+    weight gradient through conv1d_wgrad, <= 1e-4 of each one's scale."""
+    x = rn(gen, 2, 51, C_in).requires_grad_()
+    w = rn(gen, C_in, C_out, K, scale=(C_in * K / u) ** -0.5).requires_grad_()
+    b = rn(gen, C_out).requires_grad_()
+    out = nsf_hifigan.conv_transpose1d(x, w, b, u, (K - u) // 2, in_slope=0.1)
+    gy = rn(gen, *out.shape)
+    got = torch.autograd.grad(out, (x, w, b), gy)
+    ref = torch.autograd.grad(nsf_hifigan.conv_transpose1d_reference(
+        x, w, b, u, (K - u) // 2, in_slope=0.1), (x, w, b), gy)
+    for g_, r_ in zip(got, ref):
+        torch.testing.assert_close(g_, r_, atol=1e-4 * r_.abs().max().item(), rtol=0)
+
+
+def test_nsf_merge_backward(gen):
+    """K3's backward: dW and db <= 1e-4 of their scale (sums over every
+    sample in another order)."""
+    B, T, hop = 3, 50, 256
+    f0 = torch.rand((B, T), generator=gen, device="cuda") * 500 + 80
+    f0 = f0 * (torch.rand((B, T), generator=gen, device="cuda") > 0.3)
+    rand_ini = torch.rand((B, 9), generator=gen, device="cuda")
+    rand_ini[:, 0] = 0
+    noise = rn(gen, B, T * hop, 9)
+    base = source.nsf_phase_base(f0, 44100, hop)
+    out = source.nsf_merge_reference(f0, base, rand_ini, noise, rn(gen, 9, scale=0.3),
+                                     rn(gen, 1, scale=0.1), 44100, hop)
+    g = rn(gen, *out.shape)
+    args = (g, out, f0, base, rand_ini, noise, 44100, hop)
+    for got, ref in zip(source.nsf_merge_backward(*args),
+                        source.nsf_merge_backward_reference(*args)):
+        torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)

@@ -1,7 +1,9 @@
-"""PyTorch port vs the JAX package: the mel transform (``ops/mel.py``) and
-``NsfHifiGAN.wav2spec``. On the CPU the port's STFT magnitude (K5) runs its
-plain version."""
+"""PyTorch port vs the JAX package: the mel transform (``ops/mel.py``),
+``NsfHifiGAN.wav2spec`` and the STFT magnitude's backward (the losses of
+vocoder training). On the CPU the port's STFT magnitude (K5) and its
+backward run their plain versions."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -84,3 +86,36 @@ def test_stft_magnitude_matches_torch_stft(n_fft, win, hop):
     ref = torch.stft(y, n_fft, hop, n_fft, window, center=False, return_complex=True).abs()
     assert got.shape == ref.shape == (2, n_fft // 2 + 1, (y.shape[1] - n_fft) // hop + 1)
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("center", [False, True])
+@pytest.mark.parametrize("n_fft,hop,win", [(512, 128, 512), (2048, 270, 1080), (4096, 540, 2160)])
+def test_stft_magnitude_and_vjp_match_jax(n_fft, hop, win, center):
+    """The JAX ``stft_magnitude`` (``center`` both ways) and its hand VJP
+    against the port's ``linear_spectrogram`` and its backward (K5's plain
+    versions on the CPU): each <= 1e-4 of its largest value. The scales
+    are those of the STFT and mel losses (hop 270 and 540 do not divide
+    n_fft)."""
+    y = audio(seconds=0.25, batch=2, seed=n_fft)
+    ref, vjp = jax.vjp(lambda v: jmel.stft_magnitude(v, n_fft, hop, win, center=center),
+                       jnp.asarray(y))
+    ct = np.random.default_rng(hop).standard_normal(ref.shape).astype(np.float32)
+    (ref_dy,) = vjp(jnp.asarray(ct))
+
+    ty = torch.from_numpy(y).requires_grad_()
+    got = tmel.linear_spectrogram(ty, n_fft, hop, win, center=center)
+    (got * torch.from_numpy(ct)).sum().backward()
+    ref, ref_dy = np.asarray(ref), np.asarray(ref_dy)
+    assert got.shape == ref.shape
+    assert np.abs(got.detach().numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
+    assert np.abs(ty.grad.numpy() - ref_dy).max() <= 1e-4 * np.abs(ref_dy).max()
+
+
+def test_log_mel_is_differentiable_and_wav2spec_is_not():
+    """``log_mel`` carries a gradient back to the signal (the mel loss);
+    ``wav2spec`` (serving) runs under ``inference_mode``."""
+    mt = tmel.LogMelSpectrogram(sample_rate=SR, device="cpu")
+    y = torch.from_numpy(audio(seconds=0.3)).requires_grad_()
+    mt.log_mel(y).sum().backward()
+    assert y.grad is not None and torch.isfinite(y.grad).all() and y.grad.abs().max() > 0
+    assert mt.wav2spec(y.detach()).is_inference()
