@@ -36,18 +36,28 @@ Phases, in order; any failure raises and the script exits non-zero:
             peak memory, losses, exact launches per step), validation and a
             checkpoint; a resume from it; one step through the kernels
             against one through every plain version (every loss within
-            1e-4 relative, every discriminator gradient within 1e-3 of its
-            max, every generator gradient within 1e-3 or 3x the plain
-            step's own change under a 1e-6 change of the audio, whichever
-            is larger: the losses' kinks give float32 noise of ~1e-3 there);
+            1e-4 relative, every gradient within 1e-3 of its max or 3x the
+            plain step's own largest change under five ~1e-6 changes of the
+            audio, whichever is larger: the losses' kinks give float32
+            noise of 1e-4-1e-2 there);
             and each kernel of
             this slice (K5 backward, K6, the weight gradient, K4's input
             gradient, K3 backward) against its plain version, timed beside
             its bound and the PyTorch call for the same function.
+6. train_v2: the same on ``configs/vocoder_refinegan.py`` (RefineGAN
+            start_channels 16, hop 256, GAN flavor v2: MPD 2/3/5/7/11 + MRD
+            at (1024, 120, 600), (2048, 240, 1200), (512, 50, 240), batch 16
+            x 32768, float32): 2 warm-up and 6 timed steps, validation, a
+            checkpoint and a resume, the whole step against the plain
+            versions (the same tolerances), then K6 2-D (forward, input
+            gradient in its direct and transposed modes, weight gradient) at
+            every layer of one MRD pass, K9 at the step's template and K5 at
+            the step's MRD and mel shapes, each against its plain version and
+            timed beside its bound and library call.
 
 The line before the last is a JSON object with one entry per kernel (its
 ``launches`` count the file-to-file path for the serving kernels and the
-training run for the others, ``launches_by_path`` both; K5's and
+training runs for the others, ``launches_by_path`` all three paths; K5's and
 K8-cand's times are those of the shallow request's own calls, with their
 B=4 times under ``batch4``); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -869,6 +879,9 @@ def phase_file_to_file(report: Report, engine, seed: int):
 
 
 TRAIN_B, TRAIN_SEG = 16, 32768
+# relative changes of the audio whose gradient moves give a training step's
+# float32 noise floor (the largest; ``drive_training``)
+FLOOR_SCALES = (1e-6, -1e-6, 2e-6, -2e-6, 3e-6)
 
 
 def make_vocoder_dataset(rng, root: Path):
@@ -1078,27 +1091,31 @@ def measure_train_kernels(report: Report, seed: int, stft_calls, k6_calls, conv_
                   12 * noise.numel() + 3 * g.numel())
 
 
-def phase_train(report: Report, seed: int):
-    """The third slice's path: ``VocoderTrainer.fit`` on
-    ``configs/vocoder_nsf_hifigan.py`` at full width (float32), a resume,
-    the whole step through the kernels against the whole step through the
-    plain versions, and each new kernel at the step's shapes."""
+def drive_training(report: Report, seed: int, tag: str, config_file: str, describe,
+                   warm: int, timed: int, expected_fn, plain_fns: dict, record):
+    """One training path at full width (float32) on a synthetic dataset:
+    ``VocoderTrainer.fit`` for ``warm`` + ``timed`` steps with validation
+    and a checkpoint, every step's launches held to ``expected_fn(trainer)``
+    exactly; a resume from the checkpoint; then one step through the
+    kernels, during which the calls of the wrappers in ``record`` ((module,
+    name) pairs) are kept, against one through every plain version in
+    ``plain_fns``. Returns (launches over the fit, the path's numbers under
+    ``tag``, the recorded calls by name)."""
     import copy
 
     import torch
 
     from fish_diffusion_tpu_torch import kernels
     from fish_diffusion_tpu_torch.config import Config
-    from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, source
-    from fish_diffusion_tpu_torch.ops import blocked_conv, mel
     from fish_diffusion_tpu_torch.training import vocoder_cli
     from fish_diffusion_tpu_torch.training.vocoder_trainer import VocoderTrainer
 
+    say = f"[{tag}]"
     rng = np.random.default_rng(seed + 40)
     np.random.seed(seed + 41)  # the dataset's pitch and loudness shifts, crops
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_"))
     make_vocoder_dataset(rng, tmp / "data")
-    cfg = Config.fromfile(ROOT / "configs" / "vocoder_nsf_hifigan.py")
+    cfg = Config.fromfile(ROOT / "configs" / config_file)
     cfg.trainer["precision"] = "32-true"
     cfg.trainer["discriminator_dtype"] = "float32"
     cfg.dataset.train["path"] = str(tmp / "data" / "train")
@@ -1111,15 +1128,12 @@ def phase_train(report: Report, seed: int):
     t0 = time.perf_counter()
     trainer = VocoderTrainer(cfg, log_dir=str(tmp / "logs"), steps_per_epoch=len(loader),
                              device=DEVICE)
-    gen_cfg = dict(cfg.model.generator)
     expected = {name: 0 for name in kernels.LAUNCHES}
-    expected.update(train_launches_per_step(gen_cfg, len(cfg.model.multi_scale_mels)))
-    print(f"[train] trainer built in {time.perf_counter() - t0:.1f} s: NSF-HiFiGAN 512 "
-          f"(upsample 8.8.2.2.2, ResBlock1 3/7/11), MPD periods "
-          f"{cfg.model.mpd.periods}, 3-scale MSD, batch {cfg.dataloader.train.batch_size} x "
-          f"{cfg.dataset.train.segment_size}, float32, {len(loader)} steps per epoch")
+    expected.update(expected_fn(trainer))
+    print(f"{say} trainer built in {time.perf_counter() - t0:.1f} s: {describe(cfg)}, "
+          f"batch {cfg.dataloader.train.batch_size} x {cfg.dataset.train.segment_size}, "
+          f"float32, {len(loader)} steps per epoch")
 
-    warm, timed = 2, 8
     step_fn = trainer._train_step
     clock = StageClock()
     for attr, label in (("generate", "generator"), ("d_phase", "D phase"),
@@ -1158,13 +1172,13 @@ def phase_train(report: Report, seed: int):
     median = statistics.median(secs)
     audio_s = TRAIN_B * TRAIN_SEG / SR
     stages = {k: (v - stages_after_warmup.get(k, 0.0)) / timed for k, v in clock.seconds.items()}
-    print(f"[train] fit: {len(steps)} steps + validation + checkpoint in {fit_seconds:.1f} s; "
+    print(f"{say} fit: {len(steps)} steps + validation + checkpoint in {fit_seconds:.1f} s; "
           f"steps {warm + 1}-{warm + timed}: median {median:.4f} s per step "
           f"(min {min(secs):.4f}, max {max(secs):.4f}), {audio_s / median:.2f} audio s "
           f"trained per s, {1 / median:.3f} steps/s")
-    print("[train] per step (synchronised stage clocks, mean over the timed steps): "
+    print(f"{say} per step (synchronised stage clocks, mean over the timed steps): "
           + ", ".join(f"{k} {v:.4f} s" for k, v in stages.items()))
-    print(f"[train] peak device memory over the timed steps {peak['bytes'] / 2**30:.2f} GiB")
+    print(f"{say} peak device memory over the timed steps {peak['bytes'] / 2**30:.2f} GiB")
     for i, (s, grew, metrics) in enumerate(steps):
         ok = grew == expected and all(np.isfinite(v) for v in metrics.values())
         print(f"  step {i + 1}: {s:.4f} s, " + ", ".join(
@@ -1172,17 +1186,17 @@ def phase_train(report: Report, seed: int):
         if not ok:
             print(f"    launches {({k: v for k, v in grew.items() if v})}, "
                   f"expected {({k: v for k, v in expected.items() if v})}")
-            report.failures.append(f"train step {i + 1}")
-    print(f"[train] launches per step: {({k: v for k, v in expected.items() if v})} "
+            report.failures.append(f"{tag} step {i + 1}")
+    print(f"{say} launches per step: {({k: v for k, v in expected.items() if v})} "
           "(every step exactly)")
     rows = [json.loads(line) for line in open(tmp / "logs" / "metrics.jsonl")]
     val = [r["valid_mel_l1"] for r in rows if "valid_mel_l1" in r]
-    print(f"[train] validation mel L1 at step {state.step}: {val}")
+    print(f"{say} validation mel L1 at step {state.step}: {val}")
     if state.step != warm + timed or len(val) != 1 or not np.isfinite(val[0]):
-        report.failures.append("train fit / validation")
+        report.failures.append(f"{tag} fit / validation")
     for name, n in expected.items():
         if n and launches[name] <= 0:
-            report.failures.append(f"{name} never launched on the training path")
+            report.failures.append(f"{name} never launched on the {tag} path")
 
     # resume from the checkpoint fit wrote at its last step
     saved = {k: v.detach().cpu().clone() for k, v in
@@ -1195,11 +1209,11 @@ def phase_train(report: Report, seed: int):
     after = resumed.fit(loader, max_steps=warm + timed + 1, resume=True,
                         save_every=10 ** 9, seed=seed)
     ok = same and restored.opt_state_g.count == warm + timed and after.step == warm + timed + 1
-    print(f"[train] resume: checkpoint of step {warm + timed} restored (parameters "
+    print(f"{say} resume: checkpoint of step {warm + timed} restored (parameters "
           f"{'identical' if same else 'DIFFER'}), one more step -> step {after.step} "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        report.failures.append("train resume")
+        report.failures.append(f"{tag} resume")
     del resumed, restored, after
     torch.cuda.empty_cache()
 
@@ -1220,16 +1234,8 @@ def phase_train(report: Report, seed: int):
         state.step = snap["step"]
 
     def grads():
-        return {f"{tag}.{k}": p.grad.detach().clone() for tag, m in
+        return {f"{t}.{k}": p.grad.detach().clone() for t, m in
                 (("g", state.params_g), ("d", state.params_d)) for k, p in m.named_parameters()}
-
-    plain_fns = {
-        (nsf_hifigan, "conv1d"): nsf_hifigan.conv1d_reference,
-        (nsf_hifigan, "conv_transpose1d"): nsf_hifigan.conv_transpose1d_reference,
-        (source, "nsf_source"): source.nsf_source_reference,
-        (mel, "stft_magnitude"): mel.stft_magnitude_reference,
-        (blocked_conv, "grouped_conv1d"): blocked_conv.grouped_conv1d_reference,
-    }
 
     def one_step(swaps, audio_scale=1.0):
         """One step from the snapshot -> (grads, metrics, launches)."""
@@ -1240,55 +1246,296 @@ def phase_train(report: Report, seed: int):
             _, metrics = step_fn(state, scaled, draws)
         return grads(), metrics, dict(kernels.LAUNCHES)
 
-    def worst_error(got, ref, tag):
+    def worst_error(got, ref, prefix):
         rel = {k: float((got[k] - ref[k]).abs().max())
-               / max(float(ref[k].abs().max()), 1e-30) for k in ref if k.startswith(tag)}
+               / max(float(ref[k].abs().max()), 1e-30) for k in ref if k.startswith(prefix)}
         k = max(rel, key=rel.get)
         return k, rel[k]
 
-    with recording(mel, "stft_backward") as stft_rec, \
-            recording(blocked_conv, "grouped_conv1d") as k6_rec, \
-            recording(nsf_hifigan, "conv1d") as conv_rec:
+    recorders = [recording(mod, name) for mod, name in record]
+    for r in recorders:
+        r.start()
+    try:
         g_k, m_k, _ = one_step({})
+    finally:
+        for r in recorders:
+            r.stop()
     g_p, m_p, launched = one_step(plain_fns)
     if any(launched.values()):
-        report.failures.append(f"plain step launched kernels: {launched}")
+        report.failures.append(f"{tag}: plain step launched kernels: {launched}")
     # The step's float32 noise floor: the plain step again with the audio
-    # scaled by 1 + 1e-6, a change of the size of the kernels' own
-    # differences from plain. The losses have kinks (L1 signs, the
-    # envelope's max-pool, leaky-relu, the log clamp); a change of size d
-    # flips a few of them, and as a parameter's gradient sums many terms of
-    # either sign, the generator's gradients move by about sqrt(d), ~1e-3.
-    g_q, _, _ = one_step(plain_fns, 1.0 + 1e-6)
+    # scaled by 1 + d, a change of the size of the kernels' own differences
+    # from plain. The losses have kinks (L1 signs, the envelope's max-pool,
+    # leaky-relu, the log clamp); such a change flips a few of them, and the
+    # gradients move by 1e-4-1e-2 of their max whatever its size (1e-7 to
+    # 1e-5). Which kinks flip is chance: at one state the largest move
+    # ranges over 3.4x from one d to the next, and the kernels' differences
+    # draw from the same spread, so the floor is the largest move over
+    # several d, for the generator and the discriminators alike.
+    moves = {"g.": [], "d.": []}
+    for d in FLOOR_SCALES:
+        g_q, _, _ = one_step(plain_fns, 1.0 + d)
+        for prefix, found in moves.items():
+            found.append(worst_error(g_q, g_p, prefix))
+        del g_q
     for k, want in m_p.items():
         if k.startswith("loss"):
-            report.compare(f"train step {k} vs plain", m_k[k].reshape(1), want.reshape(1),
+            report.compare(f"{tag} step {k} vs plain", m_k[k].reshape(1), want.reshape(1),
                            1e-4 * abs(float(want)))
-    name_d, err_d = worst_error(g_k, g_p, "d.")
-    name_g, err_g = worst_error(g_k, g_p, "g.")
-    floor_name, floor = worst_error(g_q, g_p, "g.")
-    tol_g = max(1e-3, 3 * floor)
-    ok_d, ok_g = err_d <= 1e-3, err_g <= tol_g
-    print(f"[train] whole step, kernels vs plain ({len(g_p)} gradient tensors): "
-          f"discriminators' largest error {err_d:.3e} of its max |grad| ({name_d}), tol "
-          f"1e-3 {'ok' if ok_d else 'FAIL'}; generator's {err_g:.3e} ({name_g}), tol "
-          f"{tol_g:.3e} = max(1e-3, 3 x the plain step's own {floor:.3e} under audio x "
-          f"(1 + 1e-6), {floor_name}) {'ok' if ok_g else 'FAIL'}")
-    if not (ok_d and ok_g):
-        report.failures.append("train step gradients vs plain")
+    for prefix in ("g.", "d."):  # a comparison of gradients that are all 0 says nothing
+        if max(float(v.abs().max()) for k, v in g_p.items() if k.startswith(prefix)) == 0:
+            report.failures.append(f"{tag}: every {prefix[0]} gradient of the plain step is 0")
+    held = {}
+    for prefix, whose in (("d.", "discriminators'"), ("g.", "generator's")):
+        name, err = worst_error(g_k, g_p, prefix)
+        floor_name, floor = max(moves[prefix], key=lambda m: m[1])
+        tol = max(1e-3, 3 * floor)
+        held[prefix[0]] = (err, floor, tol)
+        listed = ", ".join(f"{m:.3e} at {d:+.0e}" for d, (_, m) in zip(FLOOR_SCALES,
+                                                                         moves[prefix]))
+        print(f"{say} whole step, kernels vs plain: the {whose} largest gradient error "
+              f"{err:.3e} of its max |grad| ({name}), tol {tol:.3e} = max(1e-3, 3 x the "
+              f"largest {floor:.3e} of the plain step's own moves under audio x (1 + d): "
+              f"{listed}; {floor_name}) {'ok' if err <= tol else 'FAIL'}")
+        if not err <= tol:
+            report.failures.append(f"{tag} step {whose} gradients vs plain: {err:.3e} > "
+                                   f"tol {tol:.3e}")
     restore()
-    step_check = dict(d_max_rel_err=err_d, g_max_rel_err=err_g, g_noise_floor=floor,
-                      g_tol=tol_g)
+    totals = {
+        f"{tag}_step_s_median": median, f"{tag}_step_s": secs,
+        f"{tag}_audio_s_per_s": audio_s / median, f"{tag}_steps_per_s": 1 / median,
+        f"{tag}_stage_s": stages, f"{tag}_peak_gib": peak["bytes"] / 2**30,
+        f"{tag}_losses_last": steps[-1][2],
+        f"{tag}_launches_per_step": {k: v for k, v in expected.items() if v},
+        f"{tag}_step_vs_plain": {f"{w}_{k}": v for w, row in held.items()
+                                 for k, v in zip(("max_rel_err", "noise_floor", "tol"), row)},
+    }
+    return launches, totals, {r.name: r.calls for r in recorders}
 
-    calls = [c for c in conv_rec.calls if c[0][1].shape[2] == 11 and c[1].get("dilation") == 5]
-    measure_train_kernels(report, seed, [c[0] for c in stft_rec.calls], k6_rec.calls, calls)
+
+def phase_train(report: Report, seed: int):
+    """The third slice's path: ``VocoderTrainer.fit`` on
+    ``configs/vocoder_nsf_hifigan.py`` at full width (float32), a resume,
+    the whole step through the kernels against the whole step through the
+    plain versions, and each new kernel at the step's shapes."""
+    from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, source
+    from fish_diffusion_tpu_torch.ops import blocked_conv, mel
+
+    launches, totals, calls = drive_training(
+        report, seed, "train", "vocoder_nsf_hifigan.py",
+        lambda cfg: (f"NSF-HiFiGAN 512 (upsample 8.8.2.2.2, ResBlock1 3/7/11), MPD "
+                     f"periods {cfg.model.mpd.periods}, 3-scale MSD"),
+        2, 8,
+        lambda trainer: train_launches_per_step(dict(trainer.config.model.generator),
+                                                len(trainer.config.model.multi_scale_mels)),
+        {
+            (nsf_hifigan, "conv1d"): nsf_hifigan.conv1d_reference,
+            (nsf_hifigan, "conv_transpose1d"): nsf_hifigan.conv_transpose1d_reference,
+            (source, "nsf_source"): source.nsf_source_reference,
+            (mel, "stft_magnitude"): mel.stft_magnitude_reference,
+            (blocked_conv, "grouped_conv1d"): blocked_conv.grouped_conv1d_reference,
+        },
+        [(mel, "stft_backward"), (blocked_conv, "grouped_conv1d"), (nsf_hifigan, "conv1d")])
+    conv = [c for c in calls["conv1d"] if c[0][1].shape[2] == 11 and c[1].get("dilation") == 5]
+    measure_train_kernels(report, seed, [c[0] for c in calls["stft_backward"]],
+                          calls["grouped_conv1d"], conv)
     report.finish("train")
-    return launches, dict(
-        train_step_s_median=median, train_step_s=secs, train_audio_s_per_s=audio_s / median,
-        train_steps_per_s=1 / median, train_stage_s=stages,
-        train_peak_gib=peak["bytes"] / 2**30, train_losses_last=steps[-1][2],
-        train_launches_per_step={k: v for k, v in expected.items() if v},
-        train_step_vs_plain=step_check)
+    return launches, totals
+
+
+def train_v2_launches_per_step(trainer) -> dict:
+    """Kernel launches one v2 GAN step (RefineGAN, MPD + MRD) implies, from
+    the model's structure.
+
+    Generator forward: template_conv, 6 convs per down level, mel_conv,
+    source_conv, per up level input_conv and 3 branches x 6 convs, and
+    output_conv (all K4); the template (K3's linear phase scan, K9). Its
+    backward: K4 input gradients for every conv but the three whose input
+    is data (template_conv, mel_conv, source_conv), a weight gradient for
+    every conv. STFT: the generator's mel of the real audio; each mel scale
+    on real and generated audio, with a backward on the generated; each MRD
+    resolution in the D phase on real and fake, in the G phase on the fake
+    (the v2 G phase has no real pass), with a backward there. K6 2-D: the
+    MRD's layers in three passes (D real, D fake, G fake); input gradients
+    for every layer but the first in the D phase's two passes and for every
+    layer in the G phase's, the stride-2 layers' in the transposed mode;
+    weight gradients in the D phase's two passes."""
+    from fish_diffusion_tpu_torch.models.discriminators import DiscriminatorR
+
+    gen = trainer.generator
+    n_conv = 1 + 6 * len(gen.downsample_rates) + 2 + 19 * len(gen.upsample_rates) + 1
+    n_res = len(trainer.discs.mrd.discriminators)
+    n_mels = len(trainer.config.model.multi_scale_mels)
+    layers = [s for _, _, s, _ in DiscriminatorR.SPECS] + [(1, 1)]
+    strided = sum(s != (1, 1) for s in layers)
+    direct = len(layers) - strided
+    return {
+        "conv1d": n_conv + (n_conv - 3), "conv1d_wgrad": n_conv,
+        "nsf_phase_base": 1, "comb_merge": 1,
+        "stft_magnitude": 1 + 2 * n_mels + 3 * n_res,
+        "stft_backward": n_mels + n_res,
+        "conv2d": n_res * (3 * len(layers) + 2 * (direct - 1) + direct),
+        "conv2d_transposed": n_res * 3 * strided,
+        "conv2d_wgrad": n_res * 2 * len(layers),
+    }
+
+
+def measure_train_v2_kernels(report: Report, seed: int, conv2d_calls, stft_calls,
+                             stft_bwd_calls, comb_calls):
+    """K6 2-D (forward, input gradient in the direct or transposed mode,
+    weight gradient) at every layer of one MRD pass of the step, K9 at the
+    step's template, and K5 at the step's MRD and mel-loss shapes: each
+    against its plain version, with kernel, plain and library times and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from fish_diffusion_tpu_torch.models.discriminators import DiscriminatorR
+    from fish_diffusion_tpu_torch.models.vocoders import source
+    from fish_diffusion_tpu_torch.ops import blocked_conv, mel
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 51)
+    n_layers = len(DiscriminatorR.SPECS) + 1
+    one_pass = conv2d_calls[: len(conv2d_calls) // 3]  # the D phase's real pass
+    print(f"[train_v2] K6 2-D at the {len(one_pass)} layers of one MRD pass "
+          f"(B={TRAIN_B} x {TRAIN_SEG} samples): forward, input gradient, weight gradient")
+    parts = defaultdict(float)
+    for i, ((x, w, b, stride, pad), _) in enumerate(one_pass):
+        x, w, b = x.detach(), w.detach(), b.detach()
+        stride, pad = tuple(stride), tuple(pad)
+        KH, KW = w.shape[2:]
+        with torch.no_grad():
+            out = blocked_conv.conv2d_nhwc(x, w, b, stride, pad)
+            ref = blocked_conv.conv2d_nhwc_reference(x, w, b, stride, pad)
+        label = (f"res {i // n_layers} layer {i % n_layers} x{list(x.shape)} -> "
+                 f"{w.shape[0]}, k({KH},{KW}) s{stride}")
+        err_f = report.compare(f"conv2d fwd {label}", out, ref, 1e-4 * max_abs(ref))
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        ms_f = timed_triple(lambda: blocked_conv.conv2d_nhwc(x, w, b, stride, pad),
+                            lambda: blocked_conv.conv2d_nhwc_reference(x, w, b, stride, pad),
+                            lambda: F.conv2d(xc, w, b, stride, pad))
+        flops = 2 * out.numel() * w.shape[1] * KH * KW
+        gy = torch.randn(out.shape, generator=gen, device=DEVICE)
+        gyc = gy.permute(0, 3, 1, 2).contiguous()
+        xr = x.clone().requires_grad_()
+        yr = blocked_conv.conv2d_nhwc_reference(xr, w, b, stride, pad)
+        (ref_dx,) = torch.autograd.grad(yr, xr, gy, retain_graph=True)
+        in_hw = tuple(x.shape[1:3])
+        dx = blocked_conv.conv2d_input_grad(gy, w, in_hw, stride, pad)
+        mode = "conv2d" if stride == (1, 1) else "conv2d_transposed"
+        err_d = report.compare(f"{mode} dgrad {label}", dx, ref_dx, 1e-4 * max_abs(ref_dx))
+        ms_d = timed_triple(
+            lambda: blocked_conv.conv2d_input_grad(gy, w, in_hw, stride, pad),
+            lambda: torch.autograd.grad(yr, xr, gy, retain_graph=True),
+            lambda: torch.nn.grad.conv2d_input(xc.shape, w, gyc, stride, pad))
+        dw = blocked_conv.conv2d_wgrad(x, gy, (KH, KW), stride, pad)
+        ref_dw = blocked_conv.conv2d_wgrad_reference(x, gy, (KH, KW), stride, pad)
+        err_w = report.compare(f"conv2d_wgrad {label}", dw, ref_dw, 1e-4 * max_abs(ref_dw))
+        ms_w = timed_triple(
+            lambda: blocked_conv.conv2d_wgrad(x, gy, (KH, KW), stride, pad),
+            lambda: blocked_conv.conv2d_wgrad_reference(x, gy, (KH, KW), stride, pad),
+            lambda: torch.nn.grad.conv2d_weight(xc, w.shape, gyc, stride, pad))
+        for tag_, (ms, plain, lib) in (("fwd", ms_f), ("dgrad", ms_d), ("wgrad", ms_w)):
+            print(f"    {tag_} {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                  f"plain {plain:.4f} ms, cuDNN {lib:.4f} ms")
+        note = f"sum over the {len(one_pass)} layers of one MRD pass, B={TRAIN_B} x {TRAIN_SEG}"
+        report.kernel("conv2d", err_f, ms_f[0], ms_f[1],
+                      f"forward {note}; with the stride-1 layers' input gradients",
+                      nbytes(x, w, b, out), flops, ms_f[2])
+        report.kernel(mode, err_d, ms_d[0], ms_d[1],
+                      "" if mode == "conv2d" else f"input gradient of the stride-2 layers, {note}",
+                      nbytes(gy, w, dx), flops, ms_d[2])
+        report.kernel("conv2d_wgrad", err_w, ms_w[0], ms_w[1], f"weight gradient {note}",
+                      nbytes(x, gy, dw), flops, ms_w[2])
+        parts[f"layer {i % n_layers} fwd"] += ms_f[0]
+        parts[f"layer {i % n_layers} dgrad"] += ms_d[0]
+        parts[f"layer {i % n_layers} wgrad"] += ms_w[0]
+    report.extra.setdefault("conv2d", {})["train_v2_ms_by_layer"] = dict(parts)
+
+    print("[train_v2] K9 (K3's linear phase scan + comb_merge) at the step's template")
+    (f0, noise, sr, hop, *_), _ = comb_calls[0]
+    base_ref = source.nsf_phase_base_reference(f0, sr, hop, "linear")
+    d = (source.nsf_phase_base(f0, sr, hop, "linear") - base_ref).abs()
+    err = float(torch.minimum(d, 1 - d).max())
+    ok = err <= 1e-6
+    print(f"  nsf_phase_base linear: max_abs_err={err:.3e} (mod 1) tol=1.000e-06 "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        report.failures.append("nsf_phase_base linear")
+    got = source.comb_merge(f0, base_ref, noise, sr, hop)
+    ref = source.comb_merge_reference(f0, base_ref, noise, sr, hop)
+    err = report.compare(f"comb_merge B={f0.shape[0]} T={f0.shape[1]} hop={hop}", got, ref,
+                         1e-5)
+    ms, plain, _ = timed_triple(lambda: source.comb_merge(f0, base_ref, noise, sr, hop),
+                                lambda: source.comb_merge_reference(f0, base_ref, noise, sr,
+                                                                    hop))
+    ms_b, plain_b, _ = timed_triple(lambda: source.nsf_phase_base(f0, sr, hop, "linear"),
+                                    lambda: source.nsf_phase_base_reference(f0, sr, hop,
+                                                                            "linear"))
+    print(f"    comb_merge: kernel {ms:.4f} ms, plain {plain:.4f} ms (no single PyTorch "
+          f"call); the linear phase scan: kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms")
+    # per sample: interpolated f0, the float64 phase, round, sinc, gate, noise
+    report.kernel("comb_merge", err, ms, plain, f"B={f0.shape[0]} T={f0.shape[1]} hop={hop}",
+                  nbytes(f0, base_ref, noise, got), 30 * got.numel())
+    report.extra.setdefault("nsf_phase_base", {})["train_v2_linear"] = dict(
+        ms=ms_b, plain_ms=plain_b, shape=f"B={f0.shape[0]} T={f0.shape[1]} hop={hop}")
+
+    print("[train_v2] K5 at the step's STFT shapes (MRD resolutions, mel scales)")
+    k5 = {}
+    seen = set()
+    for (yp, basis, hop), _ in stft_calls:
+        key = (tuple(yp.shape), tuple(basis.shape), hop)
+        if key in seen:
+            continue
+        seen.add(key)
+        r = measure_stft(report, yp.detach(), basis, hop,
+                         f"B={yp.shape[0]} n_fft={basis.shape[0]} hop={hop}")
+        k5[f"fwd n_fft {basis.shape[0]} hop {hop}"] = dict(
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain"], library_ms=r["lib"])
+    for (g, phasor, basis, hop, T_pad), _ in stft_bwd_calls:
+        got = mel.stft_backward(g, phasor, basis, hop, T_pad)
+        ref = mel.stft_backward_reference(g, phasor, basis, hop, T_pad)
+        err = report.compare(f"stft_backward n_fft={basis.shape[0]} hop={hop} F={g.shape[2]}",
+                             got, ref, 1e-4 * max_abs(ref))
+        ms, plain, _ = timed_triple(lambda: mel.stft_backward(g, phasor, basis, hop, T_pad),
+                                    lambda: mel.stft_backward_reference(g, phasor, basis,
+                                                                        hop, T_pad))
+        print(f"    kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        k5[f"bwd n_fft {basis.shape[0]} hop {hop}"] = dict(max_abs_err=err, ms=ms,
+                                                          plain_ms=plain)
+    report.extra.setdefault("stft_magnitude", {})["train_v2"] = {
+        k: v for k, v in k5.items() if k.startswith("fwd")}
+    report.extra.setdefault("stft_backward", {})["train_v2"] = {
+        k: v for k, v in k5.items() if k.startswith("bwd")}
+
+
+def phase_train_v2(report: Report, seed: int):
+    """The fourth slice's path: ``VocoderTrainer.fit`` on
+    ``configs/vocoder_refinegan.py`` at full width (RefineGAN start_channels
+    16, GAN flavor v2 with MPD + MRD, float32), a resume, the whole step
+    through the kernels against the whole step through the plain versions,
+    and each new kernel at the step's shapes."""
+    from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, source
+    from fish_diffusion_tpu_torch.ops import blocked_conv, mel
+
+    launches, totals, calls = drive_training(
+        report, seed, "train_v2", "vocoder_refinegan.py",
+        lambda cfg: (f"RefineGAN start_channels {cfg.model.generator.start_channels}, hop "
+                     f"{cfg.model.generator.hop_length} (down 2.2.8.8, up 8.8.2.2), MPD periods "
+                     f"{cfg.model.mpd.periods}, MRD {cfg.model.mrd.resolutions}"),
+        2, 6, train_v2_launches_per_step,
+        {
+            (nsf_hifigan, "conv1d"): nsf_hifigan.conv1d_reference,
+            (source, "comb_tooth"): source.comb_tooth_reference,
+            (mel, "stft_magnitude"): mel.stft_magnitude_reference,
+            (blocked_conv, "conv2d_nhwc"): blocked_conv.conv2d_nhwc_reference,
+        },
+        [(blocked_conv, "conv2d_nhwc"), (mel, "stft_magnitude"), (mel, "stft_backward"),
+         (source, "comb_tooth")])
+    measure_train_v2_kernels(report, seed, calls["conv2d_nhwc"], calls["stft_magnitude"],
+                             calls["stft_backward"], calls["comb_tooth"])
+    report.finish("train_v2")
+    return launches, totals
 
 
 def main() -> int:
@@ -1337,18 +1584,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches, train = phase_train(report, args.seed)
     totals.update(train)
+    torch.cuda.empty_cache()
+    v2_launches, train_v2 = phase_train_v2(report, args.seed)
+    totals.update(train_v2)
 
+    by_path = {"file": launches, "train": train_launches, "train_v2": v2_launches}
     entries = []
     for name, meta in kernels.KERNELS.items():
         k = report.kernels[name]
-        # a kernel's launches on the path it belongs to: the file-to-file
-        # path for the serving kernels, the training run for the others
-        path = "file" if launches[name] else "train"
+        # a kernel's launches on the first path that runs it: the
+        # file-to-file path for the serving kernels, then the NSF-HiFiGAN
+        # training run, then the RefineGAN one
+        path = next(p for p, counts in by_path.items() if counts[name] or p == "train_v2")
         entries.append(dict(
             name=f"{meta['id']} {name}", route=meta["route"], source=meta["source"],
-            replaces=meta["replaces"],
-            launches=launches[name] if path == "file" else train_launches[name],
-            launches_by_path={"file": launches[name], "train": train_launches[name]},
+            replaces=meta["replaces"], launches=by_path[path][name],
+            launches_by_path={p: counts[name] for p, counts in by_path.items()},
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"],
             bound_by=max(k["bound_time"], key=k["bound_time"].get),

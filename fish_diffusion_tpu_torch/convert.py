@@ -13,9 +13,12 @@ converters in ``tools/``:
 - ``hubert_soft_from_jax``: the HubertSoft tower with HF ``HubertModel``
   keys (inverse of
   ``tools/preprocessing/convert_hubert_checkpoint.py:convert_hf_hubert``);
-- ``discriminators_from_jax``: the v1 GAN discriminators (MPD + MSD) and
-  their spectral-norm state, in fish-diffusion's torch names (reference
-  ``nsf_hifigan/models.py:525-613``).
+- ``refinegan_from_jax``: ``RefineGANGenerator`` (inverse of
+  ``tools/refinegan/convert_checkpoint.py:convert_refinegan``);
+- ``discriminators_from_jax``: the GAN discriminators of either flavor
+  (MPD + MSD with its spectral-norm state, or MPD + MRD), in
+  fish-diffusion's torch names (reference ``nsf_hifigan/models.py:525-613``,
+  ``refinegan/mrd.py``).
 
 Layouts: flax Dense ``[in, out]`` is torch Linear ``[out, in]``; flax Conv
 ``[k, in, out]`` is torch ``[out, in, k]``; the flax ConvTranspose
@@ -185,14 +188,58 @@ def _wn_conv(sd, prefix, p, name, kernel_axes):
     sd[f"{prefix}.bias"] = _t(p[f"{name}_conv"]["bias"])
 
 
-def discriminators_from_jax(params_d: dict, spectral_d: dict):
-    """The JAX ``Discriminators("v1")`` params and ``spectral_d`` ->
-    (state dict of the port's ``training.gan.Discriminators``, its spectral
-    state). Weight-normed convs become ``weight_g``/``weight_v``, the
-    spectral-normed scale's kernels ``weight_orig``; the u/v vectors are
-    carried across as they are."""
+def _resblock(sd, prefix, p):
+    j = 0
+    while f"convs1_{j}" in p:
+        _wn_conv(sd, f"{prefix}.convs1.{j}", p, f"convs1_{j}", (2, 1, 0))
+        _wn_conv(sd, f"{prefix}.convs2.{j}", p, f"convs2_{j}", (2, 1, 0))
+        j += 1
+
+
+def refinegan_from_jax(params: dict) -> dict:
+    """``RefineGANGenerator`` params (the plain and blocked JAX layouts share
+    one tree) -> the port's state dict, in fish-diffusion's torch names."""
     sd: dict = {}
-    for j, (_, disc) in enumerate(params_d["mpd"].items()):
+    for name in ("template_conv", "mel_conv", "output_conv"):
+        _wn_conv(sd, name, params, name, (2, 1, 0))
+    _conv(sd, "source_conv", params["source_conv"])
+    i = 0
+    while f"down_res_{i}" in params:
+        _resblock(sd, f"downsample_blocks.{i}.1", params[f"down_res_{i}"])
+        i += 1
+    i = 0
+    while f"up_res_{i}" in params:
+        block, q = params[f"up_res_{i}"], f"upsample_conv_blocks.{i}"
+        _conv(sd, f"{q}.input_conv", block["input_conv"])
+        m = 0
+        for k in (3, 7, 11):
+            if f"res_k{k}" not in block:
+                continue
+            sd[f"{q}.blocks.{m}.0.weight"] = _t(block[f"adain1_k{k}"]["weight"])
+            _resblock(sd, f"{q}.blocks.{m}.1", block[f"res_k{k}"])
+            sd[f"{q}.blocks.{m}.2.weight"] = _t(block[f"adain2_k{k}"]["weight"])
+            m += 1
+        i += 1
+    return sd
+
+
+MRD_RESOLUTIONS = ((1024, 120, 600), (2048, 240, 1200), (512, 50, 240))
+
+
+def discriminators_from_jax(params_d: dict, spectral_d: dict,
+                            resolutions=MRD_RESOLUTIONS):
+    """The JAX ``Discriminators`` params and ``spectral_d`` -> (state dict of
+    the port's ``training.gan.Discriminators``, its spectral state). Flavor
+    v1's second stack is the MSD (``disc_s*``), v2's the MRD (``disc_r*``,
+    no spectral state). Weight-normed convs become ``weight_g``/``weight_v``,
+    the spectral-normed scale's kernels ``weight_orig``; the u/v vectors are
+    carried across as they are. The MPD's periods are taken in increasing
+    order, the MRD's in the order of ``resolutions`` (a tree that passed
+    through ``jax.tree_util`` has its keys sorted as strings)."""
+    sd: dict = {}
+    mpd = params_d["mpd"]
+    for j, name in enumerate(sorted(mpd, key=lambda n: int(n[len("disc_p"):]))):
+        disc = mpd[name]
         i = 0
         while f"convs_{i}_conv" in disc:  # flax [kh, kw, in, out]
             _wn_conv(sd, f"mpd.discriminators.{j}.convs.{i}", disc, f"convs_{i}",
@@ -200,6 +247,15 @@ def discriminators_from_jax(params_d: dict, spectral_d: dict):
             i += 1
         _wn_conv(sd, f"mpd.discriminators.{j}.conv_post", disc, "conv_post",
                  (3, 2, 0, 1))
+    if "disc_s0" not in params_d["second"]:
+        for j, (n_fft, hop, _) in enumerate(resolutions):
+            disc = params_d["second"][f"disc_r{n_fft}_{hop}"]
+            for i in range(5):
+                _wn_conv(sd, f"mrd.discriminators.{j}.convs.{i}", disc, f"convs_{i}",
+                         (3, 2, 0, 1))
+            _wn_conv(sd, f"mrd.discriminators.{j}.conv_post", disc, "conv_post",
+                     (3, 2, 0, 1))
+        return sd, {}
     spectral = {}
     for j in range(3):
         disc = params_d["second"][f"disc_s{j}"]

@@ -80,7 +80,7 @@ KERNELS = {
     ),
     "stft_magnitude": dict(
         id="K5", route="cuda", source=_PORT + "csrc/stft.cu",
-        replaces=_TPU + "ops/mel.py:135",
+        replaces=_TPU + "ops/mel.py:136",
     ),
     "viterbi_candidates": dict(
         id="K8", route="cuda", source=_PORT + "csrc/viterbi.cu",
@@ -101,6 +101,22 @@ KERNELS = {
     "nsf_merge_backward": dict(
         id="K3", route="triton", source=_PORT + "models/vocoders/source.py",
         replaces=_TPU + "models/vocoders/source.py:92",
+    ),
+    "conv2d": dict(
+        id="K6 2-D", route="cuda", source=_PORT + "csrc/conv2d.cu",
+        replaces=_TPU + "ops/blocked_conv.py:99",
+    ),
+    "conv2d_transposed": dict(
+        id="K6 2-D", route="cuda", source=_PORT + "csrc/conv2d.cu",
+        replaces=_TPU + "ops/blocked_conv.py:99",
+    ),
+    "conv2d_wgrad": dict(
+        id="K6 2-D", route="cuda", source=_PORT + "csrc/conv2d.cu",
+        replaces=_TPU + "ops/blocked_conv.py:99",
+    ),
+    "comb_merge": dict(
+        id="K9", route="triton", source=_PORT + "models/vocoders/source.py",
+        replaces=_TPU + "models/vocoders/source.py:172",
     ),
 }
 
@@ -133,6 +149,11 @@ SIGNATURES = {
     },
     "viterbi": {
         "viterbi_candidates": [_P] * 6 + [_I] * 3 + [_P],
+    },
+    "conv2d": {
+        "conv2d": [_I] + [_P] * 4 + [_I] * 13 + [_P],
+        "conv2d_wgrad_splits": [_I] * 3,
+        "conv2d_wgrad": [_P] * 4 + [_I] * 14 + [_P],
     },
 }
 

@@ -1,5 +1,6 @@
-"""GAN discriminators and losses (``fish_diffusion_tpu/models/discriminators.py``),
-the v1 flavor: the multi-period (MPD) and multi-scale (MSD) discriminators.
+"""GAN discriminators and losses (``fish_diffusion_tpu/models/discriminators.py``):
+the multi-period (MPD), multi-scale (MSD, flavor v1) and multi-resolution
+(MRD, flavor v2) discriminators.
 
 Parameters carry fish-diffusion's torch layout and names (reference
 ``nsf_hifigan/models.py:525-613``): weight-normed convs hold ``weight_g``
@@ -17,7 +18,13 @@ The MSD runs channels-last ``[B, T, C]`` like the JAX package; its grouped
 k = 41 layers 1, 2 and 5 are K6 (``ops/blocked_conv.py:grouped_conv1d``),
 the other layers plain ``F.conv1d``, as they were plain XLA convs. The MPD's
 2-D convs are plain ``F.conv2d`` (NCHW; its feature maps are the JAX ones
-transposed). Discriminators compute in float32.
+transposed). The MRD's resolution discriminators reflect-pad the waveform
+by ``(n_fft - hop) // 2``, take K5's STFT magnitude without centring
+(``sqrt(re^2 + im^2 + 1e-9)``: the eps keeps the gradient finite at silent
+bins) and run their weight-normed 2-D convs channels-last ``[B, frames, F,
+C]`` through K6 2-D (``ops/blocked_conv.py:conv2d_nhwc``); their feature
+maps and scores have the JAX package's shapes. Discriminators compute in
+float32.
 """
 
 from __future__ import annotations
@@ -191,6 +198,63 @@ class DiscriminatorS(nn.Module):
         h = F.conv1d(h.transpose(1, 2), w, self.conv_post.bias, 1, 1).transpose(1, 2)
         fmap.append(h)
         return h.reshape(h.shape[0], -1), fmap, new
+
+
+class DiscriminatorR(nn.Module):
+    """Resolution discriminator over the STFT magnitude. x [B, T] ->
+    (score [B, N], fmap list of [B, frames, F', C])."""
+
+    # (ch, kernel, stride, padding)
+    SPECS = (
+        (32, (3, 9), (1, 1), (1, 4)),
+        (32, (3, 9), (1, 2), (1, 4)),
+        (32, (3, 9), (1, 2), (1, 4)),
+        (32, (3, 9), (1, 2), (1, 4)),
+        (32, (3, 3), (1, 1), (1, 1)),
+    )
+
+    def __init__(self, n_fft: int = 1024, hop_length: int = 120,
+                 win_length: int = 600, leaky_relu_slope: float = 0.2):
+        super().__init__()
+        self.n_fft, self.hop_length, self.win_length = n_fft, hop_length, win_length
+        self.slope = leaky_relu_slope
+        c_in, convs = 1, []
+        for ch, k, _, _ in self.SPECS:
+            convs.append(NormConv(c_in, ch, k))
+            c_in = ch
+        self.convs = nn.ModuleList(convs)
+        self.conv_post = NormConv(c_in, 1, (3, 3))
+
+    def forward(self, x):
+        pad = (self.n_fft - self.hop_length) // 2
+        y = F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+        mag = linear_spectrogram(y, self.n_fft, self.hop_length, self.win_length)
+        h = mag.transpose(1, 2)[..., None].contiguous()  # [B, frames, F, 1]
+        fmap = []
+        for (_, _, s, p), conv in zip(self.SPECS, self.convs):
+            h = blocked_conv.conv2d_nhwc(h, conv.weight()[0], conv.bias, s, p)
+            h = F.leaky_relu(h, self.slope)
+            fmap.append(h)
+        h = blocked_conv.conv2d_nhwc(h, self.conv_post.weight()[0], self.conv_post.bias,
+                                     (1, 1), (1, 1))
+        fmap.append(h)
+        return h.reshape(h.shape[0], -1), fmap
+
+
+class MultiResolutionDiscriminator(nn.Module):
+    def __init__(self, resolutions: Sequence[Tuple[int, int, int]] = (
+            (1024, 120, 600), (2048, 240, 1200), (512, 50, 240))):
+        super().__init__()
+        self.discriminators = nn.ModuleList(
+            DiscriminatorR(*r) for r in resolutions)
+
+    def forward(self, x):
+        scores, fmaps = [], []
+        for d in self.discriminators:
+            s, f = d(x)
+            scores.append(s)
+            fmaps.append(f)
+        return scores, fmaps
 
 
 class MultiScaleDiscriminator(nn.Module):

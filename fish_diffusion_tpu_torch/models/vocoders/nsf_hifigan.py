@@ -298,6 +298,7 @@ class NsfHifiGANGenerator(nn.Module):
         if resblock != "1":
             raise NotImplementedError("only ResBlock1 is ported")
         self.num_mels = num_mels
+        self.hop_size = hop_size
         self.upsample_rates = tuple(upsample_rates)
         self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
         self.num_kernels = len(resblock_kernel_sizes)

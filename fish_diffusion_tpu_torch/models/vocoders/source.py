@@ -33,13 +33,33 @@ Training trains the merge's Dense(9 -> 1) (``l_linear``): its gradient is
 (replacing what XLA derives for ``source.py:92`` on the TPU), with
 ``nsf_merge_backward_reference`` beside it. The gradient reaches the
 merged source through the noise convs' input gradient (K4).
+
+RefineGAN's comb-tooth template (K9) replaces the JAX package's
+``BlockedCombTooth`` (``source.py:172``) on linear f0 interpolation
+(``sample_f0_blocked``, ``source.py:55``, whose per-lane coefficients are
+``frame_interp_coeffs``): sample j of frame k has
+``f0 = f[k-1] a_prev[j] + f[k] a_cur[j] + f[k+1] a_next[j]`` (edge frames
+repeated), and its phase is the frame's base plus the same combination of
+the coefficients' inclusive prefix sums, over sr, formed in float64
+(within a frame the phase reaches hop * f0 / sr, 128 at hop 256 near
+sr / 2, where float32's step would be 8e-6). K3's ``nsf_phase_base`` gains this
+``interp="linear"`` mode (a frame advances by the prefix sums' last
+entries). ``comb_merge``, a Triton kernel, forms per (row, tile of
+frames) the phase, ``x = phase - round(phase)`` (half to even), the sinc
+comb ``0.1 sinc(sr x / (f0 + 1e-3))``, the voicing gate and the injected
+noise, and writes only ``[B, T * hop]``; it needs no gradient (the template
+depends on f0 and noise alone). Bound by memory: f0 and noise in, the
+template out. ``comb_merge_reference`` is the plain version,
+``CombToothSource`` the module.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -51,13 +71,23 @@ _TRITON: dict = {}
 _FRAMES_PER_PROGRAM = 4
 
 
-def _phase_base_kernel(f0_ptr, base_ptr, T, sr, hop, BLOCK_T: tl.constexpr):
+def _phase_base_kernel(f0_ptr, base_ptr, T, sr, hop, a_prev, a_cur, a_next,
+                       BLOCK_T: tl.constexpr, LINEAR: tl.constexpr):
     b = tl.program_id(0)
     offs = tl.arange(0, BLOCK_T)
     mask = offs < T
     f0 = tl.load(f0_ptr + b * T + offs, mask=mask, other=0.0)
-    advance = tl.math.div_rn(f0, sr) * hop
-    advance = (advance - tl.floor(advance)).to(tl.float64)
+    if LINEAR:
+        f_prev = tl.load(f0_ptr + b * T + tl.maximum(offs - 1, 0), mask=mask, other=0.0)
+        f_next = tl.load(f0_ptr + b * T + tl.minimum(offs + 1, T - 1), mask=mask,
+                         other=0.0)
+        # float64 division is IEEE (div.rn.f64)
+        advance = (f_prev.to(tl.float64) * a_prev + f0.to(tl.float64) * a_cur
+                   + f_next.to(tl.float64) * a_next) / sr.to(tl.float64)
+    else:
+        advance = tl.math.div_rn(f0, sr) * hop
+        advance = advance.to(tl.float64)
+    advance = advance - tl.floor(advance)
     excl = tl.cumsum(advance, axis=0) - advance
     base = (excl - tl.floor(excl)).to(tl.float32)
     tl.store(base_ptr + b * T + offs, base, mask=mask)
@@ -120,6 +150,41 @@ def _source_bwd_kernel(f0_ptr, base_ptr, rand_ptr, noise_ptr, out_ptr, g_ptr,
     tl.store(part + NH, tl.sum(tl.sum(gz, axis=1), axis=0))
 
 
+def _comb_kernel(f0_ptr, base_ptr, coef_ptr, psum_ptr, noise_ptr, out_ptr, T, sr,
+                 wave_amp, noise_std, HOP: tl.constexpr, FT: tl.constexpr):
+    b = tl.program_id(1)
+    frames = tl.program_id(0) * FT + tl.arange(0, FT)
+    fmask = frames < T
+    row = f0_ptr + b * T
+    f0 = tl.load(row + frames, mask=fmask, other=0.0)
+    f_prev = tl.load(row + tl.maximum(frames - 1, 0), mask=fmask, other=0.0)
+    f_next = tl.load(row + tl.minimum(frames + 1, T - 1), mask=fmask, other=0.0)
+    base = tl.load(base_ptr + b * T + frames, mask=fmask, other=0.0)
+    j = tl.arange(0, HOP)
+    fp, fc, fn = f_prev[:, None], f0[:, None], f_next[:, None]
+    f0s = (fp * tl.load(coef_ptr + j)[None, :] + fc * tl.load(coef_ptr + HOP + j)[None, :]
+           + fn * tl.load(coef_ptr + 2 * HOP + j)[None, :])
+    # the intra-frame phase reaches hop * f0 / sr (128 at hop 256 near sr / 2):
+    # float64 keeps it exact to well below float32's step at 1
+    intra = (fp.to(tl.float64) * tl.load(psum_ptr + j)[None, :]
+             + fc.to(tl.float64) * tl.load(psum_ptr + HOP + j)[None, :]
+             + fn.to(tl.float64) * tl.load(psum_ptr + 2 * HOP + j)[None, :])
+    phase = base[:, None].to(tl.float64) + intra / sr.to(tl.float64)
+    phase = phase - tl.floor(phase)
+    x = (phase - libdevice.rint(phase)).to(tl.float32)
+    z = tl.math.div_rn(sr * x, f0s + 1e-3)
+    pz = 3.141592653589793 * z
+    safe = tl.where(z == 0.0, 1.0, pz)
+    sinc = tl.where(z == 0.0, 1.0, tl.math.div_rn(libdevice.sin(safe), safe))
+    voiced = f0s > 0.0
+    noise_amp = tl.where(voiced, noise_std, wave_amp / 3.0)
+    samples = (b * T + frames[:, None]) * HOP + j[None, :]
+    smask = fmask[:, None] & (j[None, :] < HOP)
+    nz = tl.load(noise_ptr + samples, mask=smask, other=0.0)
+    out = tl.where(voiced, sinc * wave_amp, 0.0) + noise_amp * nz
+    tl.store(out_ptr + samples, out, mask=smask)
+
+
 def _partials_sum_kernel(part_ptr, out_ptr, P, NH1: tl.constexpr,
                          BLOCK: tl.constexpr):
     n = tl.program_id(0)
@@ -145,6 +210,7 @@ def _triton_kernels() -> dict:
         _TRITON["source"] = triton.jit(_source_kernel)
         _TRITON["source_bwd"] = triton.jit(_source_bwd_kernel)
         _TRITON["partials_sum"] = triton.jit(_partials_sum_kernel)
+        _TRITON["comb"] = triton.jit(_comb_kernel)
     return _TRITON
 
 
@@ -154,10 +220,52 @@ def _true_div(x: torch.Tensor, divisor: float) -> torch.Tensor:
     return x / torch.tensor(divisor, dtype=x.dtype, device=x.device)
 
 
-def nsf_phase_base_reference(f0, sampling_rate: int, hop: int):
+@functools.lru_cache(maxsize=None)
+def frame_interp_coeffs(hop: int):
+    """The per-lane coefficients of linear f0 interpolation, align_corners
+    False (``fish_diffusion_tpu/models/vocoders/source.py:40``): rows
+    a_prev, a_cur, a_next, [3, hop] float32; and their inclusive prefix
+    sums, [3, hop] float64 (the phase is formed in float64)."""
+    j = np.arange(hop, dtype=np.float64)
+    pos = (j + 0.5) / hop - 0.5
+    w = np.where(pos < 0, pos + 1.0, pos)
+    a = np.stack([np.where(pos < 0, 1.0 - w, 0.0), np.where(pos < 0, w, 1.0 - w),
+                  np.where(pos < 0, 0.0, w)]).astype(np.float32)
+    return a, np.cumsum(a.astype(np.float64), axis=1)
+
+
+@functools.lru_cache(maxsize=16)
+def _coeff_tensors(hop: int, device: str):
+    """``frame_interp_coeffs`` on ``device``, made outside inference mode."""
+    a, psum = frame_interp_coeffs(hop)
+    with torch.inference_mode(False):
+        return torch.from_numpy(a).to(device), torch.from_numpy(psum).to(device)
+
+
+def _neighbours(f0):
+    """f0 [B, T] -> (f0 of the previous frame, of the next), edges repeated."""
+    return (torch.cat([f0[:, :1], f0[:, :-1]], dim=1),
+            torch.cat([f0[:, 1:], f0[:, -1:]], dim=1))
+
+
+def nsf_phase_base_reference(f0, sampling_rate: int, hop: int,
+                             interp: str = "nearest"):
     """Plain version of K3's first kernel: f0 [B, T] -> the phase at the
-    start of each frame, [B, T] in [0, 1)."""
-    advance = torch.remainder(_true_div(f0, sampling_rate) * hop, 1.0).double()
+    start of each frame, [B, T] in [0, 1). ``interp="nearest"`` holds a
+    frame's f0 for its ``hop`` samples (NSF-HiFiGAN); ``"linear"``
+    interpolates it (RefineGAN), so that a frame advances by
+    ``(f[k-1] A_prev + f[k] A_cur + f[k+1] A_next) / sr`` with A the
+    coefficients' sums."""
+    if interp == "nearest":
+        advance = _true_div(f0, sampling_rate) * hop
+    elif interp == "linear":
+        sums = frame_interp_coeffs(hop)[1][:, -1]
+        f_prev, f_next = (f.double() for f in _neighbours(f0))
+        advance = (f_prev * float(sums[0]) + f0.double() * float(sums[1])
+                   + f_next * float(sums[2])) / sampling_rate
+    else:
+        raise NotImplementedError(f"interp {interp!r}")
+    advance = torch.remainder(advance.double(), 1.0)
     return torch.remainder(torch.cumsum(advance, dim=1) - advance, 1.0).float()
 
 
@@ -215,18 +323,22 @@ def nsf_source_reference(f0, rand_ini, noise, weight, bias, sampling_rate: int,
                                sampling_rate, hop, sine_amp, noise_std)
 
 
-def nsf_phase_base(f0, sampling_rate: int, hop: int):
-    """K3, first kernel. CPU tensors take ``nsf_phase_base_reference``."""
+def nsf_phase_base(f0, sampling_rate: int, hop: int, interp: str = "nearest"):
+    """K3, first kernel (``interp`` as in ``nsf_phase_base_reference``).
+    CPU tensors take ``nsf_phase_base_reference``."""
     if not f0.is_cuda:
-        return nsf_phase_base_reference(f0, sampling_rate, hop)
+        return nsf_phase_base_reference(f0, sampling_rate, hop, interp)
     kernels.require_cuda("nsf_phase_base", f0)
     if f0.dtype != torch.float32 or f0.ndim != 2:
         raise TypeError("nsf_phase_base: takes float32 f0 [B, T]")
+    if interp not in ("nearest", "linear"):
+        raise NotImplementedError(f"interp {interp!r}")
     B, T = f0.shape
     base = torch.empty_like(f0)
     block_t = max(16, 1 << (T - 1).bit_length())
-    _triton_kernels()["base"][(B,)](f0, base, T, float(sampling_rate), hop,
-                                    BLOCK_T=block_t)
+    sums = [float(v) for v in frame_interp_coeffs(hop)[1][:, -1]]
+    _triton_kernels()["base"][(B,)](f0, base, T, float(sampling_rate), hop, *sums,
+                                    BLOCK_T=block_t, LINEAR=interp == "linear")
     kernels.count_launch("nsf_phase_base")
     return base
 
@@ -365,3 +477,89 @@ class SourceModule(nn.Module):
             self.l_linear.weight[0].contiguous(), self.l_linear.bias,
             self.sampling_rate, self.hop, self.sine_amp, self.noise_std,
         )
+
+
+# ---------------------------------------------------------------------------
+# K9: the comb-tooth template
+# ---------------------------------------------------------------------------
+
+
+def comb_merge_reference(f0, base, noise, sampling_rate: int, hop: int,
+                         wave_amp: float = 0.1, noise_std: float = 0.003):
+    """Plain version of K9's merge. f0, base [B, T] (base from
+    ``nsf_phase_base(..., interp="linear")``); noise [B, T * hop] standard
+    normal -> template [B, T * hop]."""
+    B, T = f0.shape
+    coef, psum = _coeff_tensors(hop, str(f0.device))
+    f_prev, f_next = _neighbours(f0)
+    fp, fc, fn = f_prev[..., None], f0[..., None], f_next[..., None]
+    f0s = fp * coef[0] + fc * coef[1] + fn * coef[2]
+    intra = fp.double() * psum[0] + fc.double() * psum[1] + fn.double() * psum[2]
+    phase = torch.remainder(base[..., None].double() + intra / sampling_rate, 1.0)
+    x = (phase - torch.round(phase)).float()
+    comb = torch.sinc(sampling_rate * x / (f0s + 1e-3)) * wave_amp
+    voiced = f0s > 0
+    noise_amp = torch.where(voiced, noise_std, wave_amp / 3)
+    out = torch.where(voiced, comb, 0.0) + noise_amp * noise.view(B, T, hop)
+    return out.reshape(B, T * hop)
+
+
+def comb_merge(f0, base, noise, sampling_rate: int, hop: int,
+               wave_amp: float = 0.1, noise_std: float = 0.003):
+    """K9's merge: one Triton program per (batch row, tile of frames); only
+    the ``[B, T * hop]`` template reaches device memory. CPU tensors take
+    ``comb_merge_reference``."""
+    if not f0.is_cuda:
+        return comb_merge_reference(f0, base, noise, sampling_rate, hop, wave_amp,
+                                    noise_std)
+    kernels.require_cuda("comb_merge", f0, base, noise)
+    if f0.dtype != torch.float32 or f0.ndim != 2:
+        raise TypeError("comb_merge: takes float32 f0 [B, T]")
+    B, T = f0.shape
+    if tuple(base.shape) != (B, T) or tuple(noise.shape) != (B, T * hop):
+        raise ValueError("comb_merge: base must be [B, T] and noise [B, T * hop]")
+    if hop & (hop - 1):
+        raise ValueError(f"comb_merge: hop {hop} is not a power of two")
+    out = torch.empty((B, T * hop), dtype=f0.dtype, device=f0.device)
+    grid = (-(-T // _FRAMES_PER_PROGRAM), B)
+    coef, psum = _coeff_tensors(hop, str(f0.device))
+    _triton_kernels()["comb"][grid](
+        f0, base, coef, psum, noise, out, T,
+        float(sampling_rate), float(wave_amp), float(noise_std), HOP=hop,
+        FT=_FRAMES_PER_PROGRAM, num_warps=8,
+    )
+    kernels.count_launch("comb_merge")
+    return out
+
+
+def comb_tooth_reference(f0, noise, sampling_rate: int, hop: int,
+                         wave_amp: float = 0.1, noise_std: float = 0.003):
+    """Plain version of K9: frame f0 [B, T] -> template [B, T * hop]."""
+    base = nsf_phase_base_reference(f0, sampling_rate, hop, "linear")
+    return comb_merge_reference(f0, base, noise, sampling_rate, hop, wave_amp,
+                                noise_std)
+
+
+def comb_tooth(f0, noise, sampling_rate: int, hop: int, wave_amp: float = 0.1,
+               noise_std: float = 0.003):
+    """K9: K3's frame-phase scan in its linear mode, then ``comb_merge``."""
+    base = nsf_phase_base(f0, sampling_rate, hop, "linear")
+    return comb_merge(f0, base, noise, sampling_rate, hop, wave_amp, noise_std)
+
+
+class CombToothSource(nn.Module):
+    """RefineGAN's sinc comb excitation from frame-rate f0 (``BlockedCombTooth``
+    with linear f0 interpolation). f0 [B, T] and standard normal noise
+    [B, T * hop] (drawn by the caller) -> [B, T * hop, 1]. No parameters."""
+
+    def __init__(self, sampling_rate: int, hop: int, wave_amp: float = 0.1,
+                 noise_std: float = 0.003):
+        super().__init__()
+        self.sampling_rate, self.hop = sampling_rate, hop
+        self.wave_amp, self.noise_std = wave_amp, noise_std
+
+    def forward(self, f0: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        B, T = f0.shape
+        out = comb_tooth(f0.float().contiguous(), noise.reshape(B, T * self.hop).contiguous(),
+                         self.sampling_rate, self.hop, self.wave_amp, self.noise_std)
+        return out[..., None]

@@ -14,7 +14,13 @@ plain functions those layouts computed, channels-last ``[B, T, C]``:
   transposed mode (taps padded with zeros to a multiple of the stride);
 - ``conv1d_wgrad``: the weight gradient of K4's and K6's convolutions
   (``csrc/conv1d_wgrad.cu``), partial sums over chunks of the batch and
-  time reduction added in a fixed order.
+  time reduction added in a fixed order;
+- ``conv2d_nhwc``: K6 2-D, the multi-resolution discriminator's NHWC 2-D
+  convolutions (``csrc/conv2d.cu``), what ``blocked_apply_2d`` computes
+  once its block-padding columns are masked. Its input gradient is the
+  kernel's direct mode (stride 1: flipped taps, swapped channels) or its
+  transposed mode (stride 2 in frequency); its weight gradient
+  ``conv2d_wgrad``.
 
 Each kernel has its plain version beside it (``*_reference``), which the
 wrappers take for CPU tensors; on a CUDA tensor they launch the kernel or
@@ -232,3 +238,176 @@ def grouped_conv1d(x, weight, bias, stride: int, groups: int):
                                     or (bias is not None and bias.requires_grad)):
         return _GroupedConv1d.apply(x, weight, bias, stride, groups)
     return _grouped_forward(x, weight, bias, stride, groups)
+
+
+# ---------------------------------------------------------------------------
+# K6 2-D: conv2d_nhwc
+# ---------------------------------------------------------------------------
+
+
+def conv2d_out_size(n: int, k: int, s: int, p: int) -> int:
+    """The JAX package's output length, ``(n + 2p - k) // s + 1``."""
+    return (n + 2 * p - k) // s + 1
+
+
+def conv2d_nhwc_reference(x, weight, bias, stride=(1, 1), padding=(0, 0)):
+    """Plain version of K6 2-D: ``F.conv2d`` on permuted tensors. x
+    [B, H, W, C_in]; weight [C_out, C_in, KH, KW] (torch layout); zero
+    padding -> [B, H', W', C_out]."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, tuple(stride), tuple(padding))
+    return y.permute(0, 2, 3, 1)
+
+
+def _conv2d_packed_reference(transposed: bool, x, w_packed, bias, out_hw, stride,
+                             padding):
+    """Plain version of K6 2-D's kernel on its own operands: w_packed
+    [KH, KW, C_in, C_out]; the direct conv, or the transposed one (torch
+    ``conv_transpose2d``, cut or padded with zeros to ``out_hw``; the
+    wrapper passes no bias in that mode)."""
+    xt = x.permute(0, 3, 1, 2)
+    if transposed:
+        y = F.conv_transpose2d(xt, w_packed.permute(2, 3, 0, 1), bias, tuple(stride),
+                               tuple(padding))
+    else:
+        y = F.conv2d(xt, w_packed.permute(3, 2, 0, 1), bias, tuple(stride),
+                     tuple(padding))
+    y = y.permute(0, 2, 3, 1)[:, : out_hw[0], : out_hw[1]]
+    return F.pad(y, (0, 0, 0, out_hw[1] - y.shape[2], 0, out_hw[0] - y.shape[1]))
+
+
+def _conv2d(transposed: bool, x, w_packed, bias, out_hw, stride, padding):
+    """K6 2-D on its own operands (``csrc/conv2d.cu``); counted as
+    ``conv2d`` or ``conv2d_transposed``. CPU tensors take the plain
+    version."""
+    if not x.is_cuda:
+        return _conv2d_packed_reference(transposed, x, w_packed, bias, out_hw,
+                                        stride, padding)
+    name = "conv2d_transposed" if transposed else "conv2d"
+    tensors = [x, w_packed] + ([bias] if bias is not None else [])
+    kernels.require_cuda(name, *tensors)
+    if x.dtype != torch.float32 or x.ndim != 4 or w_packed.ndim != 4:
+        raise TypeError(f"{name}: takes float32 x [B, H, W, C] and w [KH, KW, C_in, C_out]")
+    B, H_in, W_in, C_in = x.shape
+    KH, KW, ci, C_out = w_packed.shape
+    (SH, SW), (PH, PW) = stride, padding
+    if ci != C_in or (bias is not None and bias.shape != (C_out,)):
+        raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w_packed.shape)}")
+    if transposed and (KH % SH or KW % SW):
+        raise ValueError(f"{name}: taps ({KH}, {KW}), stride ({SH}, {SW})")
+    out = torch.empty((B, *out_hw, C_out), dtype=x.dtype, device=x.device)
+    kernels.check(
+        kernels.load_library("conv2d").conv2d(
+            int(transposed), x.data_ptr(), w_packed.data_ptr(),
+            bias.data_ptr() if bias is not None else None, out.data_ptr(), B,
+            H_in, W_in, out_hw[0], out_hw[1], C_in, C_out, KH, KW, SH, SW, PH, PW,
+            kernels.stream(),
+        ),
+        name,
+    )
+    kernels.count_launch(name)
+    return out
+
+
+def _conv2d_forward(x, weight, bias, stride, padding):
+    KH, KW = weight.shape[2:]
+    out_hw = (conv2d_out_size(x.shape[1], KH, stride[0], padding[0]),
+              conv2d_out_size(x.shape[2], KW, stride[1], padding[1]))
+    return _conv2d(False, x, weight.permute(2, 3, 1, 0).contiguous(), bias, out_hw,
+                   stride, padding)
+
+
+def conv2d_input_grad(g, weight, in_hw, stride, padding):
+    """dL/dx of ``conv2d_nhwc`` from the output's gradient g
+    [B, H', W', C_out]: for stride (1, 1) the direct mode with flipped taps
+    and swapped channels (padding K - 1 - P), else the transposed mode with
+    the weight re-packed [KH', KW', C_out, C_in] (zero taps appended up to
+    multiples of the strides)."""
+    KH, KW = weight.shape[2:]
+    if tuple(stride) == (1, 1):
+        w = weight.flip(2, 3).permute(2, 3, 0, 1).contiguous()
+        return _conv2d(False, g, w, None, in_hw, (1, 1),
+                       (KH - 1 - padding[0], KW - 1 - padding[1]))
+    w = F.pad(weight.permute(2, 3, 0, 1),
+              (0, 0, 0, 0, 0, -KW % stride[1], 0, -KH % stride[0]))
+    return _conv2d(True, g, w.contiguous(), None, in_hw, stride, padding)
+
+
+def conv2d_wgrad_reference(x, g, kernel_hw, stride=(1, 1), padding=(0, 0)):
+    """Plain version of ``conv2d_wgrad``: x [B, H, W, C_in], g
+    [B, H', W', C_out] -> dW [KH, KW, C_in, C_out] with
+    ``dW[kh, kw, c, o] = sum_{b, h, w} x[b, h*SH + kh - PH, w*SW + kw - PW, c]
+    * g[b, h, w, o]`` (positions outside x are 0)."""
+    (KH, KW), (SH, SW), (PH, PW) = kernel_hw, stride, padding
+    B, Ho, Wo, C_out = g.shape
+    xp = F.pad(x, (0, 0, PW, PW + KW, PH, PH + KH))
+    gm = g.reshape(B * Ho * Wo, C_out)
+    out = []
+    for kh in range(KH):
+        for kw in range(KW):
+            xs = xp[:, kh : kh + (Ho - 1) * SH + 1 : SH, kw : kw + (Wo - 1) * SW + 1 : SW]
+            out.append(xs.reshape(B * Ho * Wo, -1).t() @ gm)
+    return torch.stack(out).reshape(KH, KW, x.shape[3], C_out)
+
+
+def conv2d_wgrad(x, g, kernel_hw, stride=(1, 1), padding=(0, 0)):
+    """The weight gradient of ``conv2d_nhwc`` (see
+    ``conv2d_wgrad_reference``), on the card by ``csrc/conv2d.cu``: partial
+    sums over chunks of the B x H' x W' reduction, added in chunk order.
+    CPU tensors take the plain version."""
+    if not x.is_cuda:
+        return conv2d_wgrad_reference(x, g, kernel_hw, stride, padding)
+    kernels.require_cuda("conv2d_wgrad", x, g)
+    if x.dtype != torch.float32 or x.ndim != 4 or g.ndim != 4 or x.shape[0] != g.shape[0]:
+        raise ValueError(f"conv2d_wgrad: x {tuple(x.shape)}, g {tuple(g.shape)}: "
+                         "expected float32 [B, H, W, C_in] and [B, H', W', C_out]")
+    (KH, KW), (SH, SW), (PH, PW) = kernel_hw, stride, padding
+    B, H_in, W_in, C_in = x.shape
+    _, H_out, W_out, C_out = g.shape
+    lib = kernels.load_library("conv2d")
+    M = KH * KW * C_in
+    splits = lib.conv2d_wgrad_splits(M, C_out, B * H_out * W_out)
+    part = torch.empty((splits, M, C_out), dtype=x.dtype, device=x.device)
+    out = torch.empty((KH, KW, C_in, C_out), dtype=x.dtype, device=x.device)
+    kernels.check(
+        lib.conv2d_wgrad(x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(),
+                         B, H_in, W_in, H_out, W_out, C_in, C_out, KH, KW, SH, SW,
+                         PH, PW, splits, kernels.stream()),
+        "conv2d_wgrad",
+    )
+    kernels.count_launch("conv2d_wgrad")
+    return out
+
+
+class _Conv2dNHWC(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding)
+        return _conv2d_forward(x, weight, bias, stride, padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        stride, padding = ctx.conf
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv2d_input_grad(g, weight, x.shape[1:3], stride, padding)
+        if ctx.needs_input_grad[1]:
+            dw = conv2d_wgrad(x, g, weight.shape[2:], stride, padding).permute(3, 2, 0, 1)
+        if ctx.needs_input_grad[2]:
+            db = g.sum(dim=(0, 1, 2))
+        return dx, dw, db, None, None
+
+
+def conv2d_nhwc(x, weight, bias, stride=(1, 1), padding=(0, 0)):
+    """K6 2-D: x [B, H, W, C_in] (channels last), weight [C_out, C_in, KH, KW]
+    (torch layout), zero padding, ``(n + 2p - k) // s + 1`` outputs per axis
+    -> [B, H', W', C_out]. Differentiable: the input gradient is K6 2-D's
+    direct (stride 1) or transposed mode, the weight gradient
+    ``conv2d_wgrad``. CPU tensors take the plain versions."""
+    stride, padding = tuple(stride), tuple(padding)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or (bias is not None and bias.requires_grad)):
+        return _Conv2dNHWC.apply(x, weight, bias, stride, padding)
+    return _conv2d_forward(x, weight, bias, stride, padding)

@@ -1,5 +1,5 @@
-"""Host-side tensor glue (``fish_diffusion_tpu/ops/tensor.py:repeat_expand_np``,
-a copy)."""
+"""Length adaption (``fish_diffusion_tpu/ops/tensor.py``): the host-side
+``repeat_expand_np`` (a copy) and ``repeat_expand`` on tensors."""
 
 from __future__ import annotations
 
@@ -47,3 +47,20 @@ def repeat_expand_np(content, target_len: int, mode: str = "nearest"):
     if ndim == 2:
         return result[0]
     return result
+
+
+def repeat_expand(content, target_len: int):
+    """Stretch the last axis of a [C, T] (or [T], [B, C, T]) tensor to
+    ``target_len`` by linear interpolation
+    (``fish_diffusion_tpu/ops/tensor.py:repeat_expand`` in ``linear``
+    mode): ``F.interpolate`` with half-pixel sampling, align_corners False,
+    clamped at the edges; up and down alike, without antialiasing, as the
+    JAX function."""
+    import torch.nn.functional as F
+
+    ndim = content.ndim
+    if not 1 <= ndim <= 3:
+        raise ValueError(f"expected 1-3 axes, got {ndim}")
+    x = content.reshape((1,) * (3 - ndim) + tuple(content.shape))
+    out = F.interpolate(x, size=target_len, mode="linear", align_corners=False)
+    return out.reshape(tuple(content.shape[:-1]) + (target_len,))

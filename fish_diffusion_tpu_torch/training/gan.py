@@ -1,7 +1,12 @@
-"""The two-player GAN step (``fish_diffusion_tpu/training/gan.py``), flavor
-v1: MPD + MSD, LSGAN adversarial losses summed over discriminators, feature
-matching, 45 x multi-scale mel L1, multi-scale linear-STFT L1 and the
-envelope loss.
+"""The two-player GAN step (``fish_diffusion_tpu/training/gan.py``) and its
+two loss menus:
+
+- v1 (NSF-HiFiGAN): MPD + MSD, LSGAN adversarial losses summed over
+  discriminators, feature matching, 45 x multi-scale mel L1, multi-scale
+  linear-STFT L1 and the envelope loss;
+- v2 (RefineGAN): MPD + MRD, LSGAN adversarial losses averaged, 45 x
+  multi-scale mel smoothed-L1 and the envelope loss; no feature matching,
+  no STFT loss, no spectral norm.
 
 A step runs, in order:
 
@@ -15,12 +20,13 @@ A step runs, in order:
 4. the generator phase (``g_phase``) against the updated discriminators,
    whose parameters are frozen for it (no discriminator weight gradient is
    computed) and whose u/v are used as the discriminator phase left them.
-   The real pass contributes no gradient and runs under ``no_grad``;
+   The real pass contributes no gradient and runs under ``no_grad``, and
+   only in v1, whose feature matching reads its maps;
 5. the generator update.
 
-The generator's random inputs (``rand_ini`` and the noise) are passed in as
-``draws``, so that a caller draws them from a ``torch.Generator`` in a fixed
-order, or injects them.
+The generator's random inputs (NSF-HiFiGAN's ``rand_ini`` and noise,
+RefineGAN's list of noises) are passed in as ``draws``, so that a caller
+draws them from a ``torch.Generator`` in a fixed order, or injects them.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from torch import nn
 
 from ..models.discriminators import (
     MultiPeriodDiscriminator,
+    MultiResolutionDiscriminator,
     MultiScaleDiscriminator,
     _l2normalize,
     discriminator_loss,
@@ -57,15 +64,20 @@ class GANTrainState:
 
 
 class Discriminators(nn.Module):
-    """The discriminators of GAN flavor v1: MPD + MSD, in float32. Flavor v2
-    (MPD + MRD) waits for the 2-D K6 (ROADMAP)."""
+    """The discriminators of a GAN flavor, in float32: MPD + MSD (v1) or
+    MPD + MRD (v2)."""
 
-    flavor = "v1"
-
-    def __init__(self, mpd_cfg: Optional[dict] = None):
+    def __init__(self, flavor: str = "v1", mpd_cfg: Optional[dict] = None,
+                 mrd_cfg: Optional[dict] = None):
         super().__init__()
+        if flavor not in ("v1", "v2"):
+            raise ValueError(f"GAN flavor {flavor!r}: expected 'v1' or 'v2'")
+        self.flavor = flavor
         self.mpd = MultiPeriodDiscriminator(**(mpd_cfg or {}))
-        self.msd = MultiScaleDiscriminator()
+        if flavor == "v2":
+            self.mrd = MultiResolutionDiscriminator(**(mrd_cfg or {}))
+        else:
+            self.msd = MultiScaleDiscriminator()
 
     @torch.no_grad()
     def init(self, seed: int) -> dict:
@@ -82,7 +94,7 @@ class Discriminators(nn.Module):
             else:
                 p.zero_()
         spectral = {}
-        for i, d in enumerate(self.msd.discriminators):
+        for i, d in enumerate(self.msd.discriminators if self.flavor == "v1" else ()):
             if not d.use_spectral_norm:
                 continue
             convs = list(d.convs) + [d.conv_post]
@@ -95,10 +107,14 @@ class Discriminators(nn.Module):
         return {k: v.to(device) for k, v in spectral.items()}
 
     def apply(self, wav, spectral: Optional[dict] = None, update: bool = False):
-        """-> ((scores_mpd, fmaps_mpd), (scores_msd, fmaps_msd), spectral).
-        ``update=True`` runs one power iteration in the spectral-norm scale
-        (torch train-mode semantics) and returns the new u/v."""
+        """-> ((scores_mpd, fmaps_mpd), (scores_2, fmaps_2), spectral), the
+        second stack the MSD (v1) or the MRD (v2). ``update=True`` runs one
+        power iteration in the MSD's spectral-norm scale (torch train-mode
+        semantics) and returns the new u/v; v2 has no spectral state."""
         s1, f1 = self.mpd(wav)
+        if self.flavor == "v2":
+            s2, f2 = self.mrd(wav)
+            return (s1, f1), (s2, f2), dict(spectral or {})
         own = {k[len("msd."):]: v for k, v in (spectral or {}).items()}
         s2, f2, new = self.msd(wav, own, update)
         return (s1, f1), (s2, f2), {"msd." + k: v for k, v in new.items()}
@@ -120,8 +136,10 @@ class GANTrainStep:
     """``step(state, batch, draws) -> (state, metrics)``; the state is
     updated in place. ``generator_apply(generator, batch, draws) -> wav
     [B, T]``; ``batch["audio"]`` [B, T] is the ground truth. Metrics are
-    0-dim tensors (reading them waits for the card). The v1 losses: summed
-    LSGAN, feature matching, mel L1, STFT L1, envelope."""
+    0-dim tensors (reading them waits for the card). The loss menu follows
+    the discriminators' flavor: v1 sums its LSGAN losses and adds feature
+    matching, mel L1, STFT L1 and the envelope; v2 averages its LSGAN
+    losses and adds mel smoothed-L1 and the envelope."""
 
     def __init__(self, generator_apply: Callable, discriminators: Discriminators,
                  sampling_rate: int, multi_scale_mels: Sequence,
@@ -131,6 +149,7 @@ class GANTrainStep:
         self.sampling_rate = sampling_rate
         self.multi_scale_mels = tuple(tuple(s) for s in multi_scale_mels)
         self.mel_loss_weight = mel_loss_weight
+        self.v1 = discriminators.flavor == "v1"
 
     def generate(self, state: GANTrainState, batch, draws):
         return self.generator_apply(state.params_g, batch, draws)
@@ -142,7 +161,8 @@ class GANTrainStep:
         discs = self.discriminators
         (s1_r, _), (s2_r, _), spectral = discs.apply(y, state.spectral_d, update=True)
         (s1_g, _), (s2_g, _), spectral = discs.apply(y_hat.detach(), spectral, update=True)
-        loss_d = discriminator_loss(s1_r, s1_g) + discriminator_loss(s2_r, s2_g)
+        loss_d = (discriminator_loss(s1_r, s1_g, average=not self.v1)
+                  + discriminator_loss(s2_r, s2_g, average=not self.v1))
         state.opt_state_d.zero_grad()
         loss_d.backward()
         state.spectral_d = spectral
@@ -159,19 +179,24 @@ class GANTrainStep:
         discs = self.discriminators
         discs.requires_grad_(False)
         try:
-            with torch.no_grad():
-                (_, f1_r), (_, f2_r), _ = discs.apply(y, state.spectral_d)
             (s1_g, f1_g), (s2_g, f2_g), _ = discs.apply(y_hat, state.spectral_d)
             aux = {
-                "loss_mel": multi_scale_mel_loss(y, y_hat, self.sampling_rate,
-                                                 self.multi_scale_mels, loss="l1"),
+                "loss_mel": multi_scale_mel_loss(
+                    y, y_hat, self.sampling_rate, self.multi_scale_mels,
+                    loss="l1" if self.v1 else "smoothed-l1"),
                 "loss_env": envelope_loss(y, y_hat),
-                "loss_adv": generator_adv_loss(s1_g) + generator_adv_loss(s2_g),
-                "loss_fm": feature_loss(f1_r, f1_g) + feature_loss(f2_r, f2_g),
-                "loss_stft": multi_scale_stft_loss(y, y_hat),
+                "loss_adv": (generator_adv_loss(s1_g, average=not self.v1)
+                             + generator_adv_loss(s2_g, average=not self.v1)),
             }
-            loss = (self.mel_loss_weight * aux["loss_mel"] + aux["loss_env"]
-                    + aux["loss_adv"] + aux["loss_fm"] + aux["loss_stft"])
+            if self.v1:  # feature matching on the real pass's maps, the STFT loss
+                with torch.no_grad():
+                    (_, f1_r), (_, f2_r), _ = discs.apply(y, state.spectral_d)
+                aux["loss_fm"] = feature_loss(f1_r, f1_g) + feature_loss(f2_r, f2_g)
+                aux["loss_stft"] = multi_scale_stft_loss(y, y_hat)
+            loss = self.mel_loss_weight * aux["loss_mel"]
+            for k, v in aux.items():  # in the JAX step's order
+                if k != "loss_mel":
+                    loss = loss + v
             state.opt_state_g.zero_grad()
             loss.backward()
         finally:
@@ -198,5 +223,6 @@ def make_gan_train_step(generator_apply: Callable, discriminators: Discriminator
                                                       (2048, 270, 1080),
                                                       (4096, 540, 2160)),
                         mel_loss_weight: float = 45.0) -> GANTrainStep:
+    """The step with the loss menu of ``discriminators.flavor``."""
     return GANTrainStep(generator_apply, discriminators, sampling_rate,
                         multi_scale_mels, mel_loss_weight)

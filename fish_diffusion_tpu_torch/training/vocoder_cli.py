@@ -1,7 +1,11 @@
-"""Train the NSF-HiFiGAN vocoder on the card (``tools/nsf_hifigan/train.py``):
+"""Train a vocoder on the card (``tools/nsf_hifigan/train.py``,
+``tools/refinegan/train.py``): NSF-HiFiGAN (GAN flavor v1) or RefineGAN
+(flavor v2), as the config's generator type says.
 
     python -m fish_diffusion_tpu_torch.training.vocoder_cli \
         --config configs/vocoder_nsf_hifigan.py [--resume] [--log-dir DIR] [--device cuda]
+    python -m fish_diffusion_tpu_torch.training.vocoder_cli \
+        --config configs/vocoder_refinegan.py
 
 The config's ``dataset`` and ``dataloader`` sections give the training and
 validation data; the learning-rate schedule decays once per epoch of
@@ -36,7 +40,8 @@ def build_loader(dataset_cfg: dict, loader_cfg: dict) -> DataLoader:
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser(description="Train NSF-HiFiGAN (PyTorch port)")
+    parser = argparse.ArgumentParser(
+        description="Train NSF-HiFiGAN or RefineGAN (PyTorch port)")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--log-dir", type=str, default="logs/nsf_hifigan")

@@ -1,7 +1,8 @@
-"""Standalone NSF-HiFiGAN vocoder trainer
-(``fish_diffusion_tpu/training/vocoder_trainer.py``): the v1 GAN step
-(``training/gan.py``) over (audio, pitches) batches of
-``NaiveVOCODERDataset``, with validation, metrics and checkpoints.
+"""Standalone vocoder trainer (``fish_diffusion_tpu/training/vocoder_trainer.py``):
+NSF-HiFiGAN with the v1 GAN step, RefineGAN (generator type ``RefineGAN``
+or ``RefineGANGenerator``) with the v2 step (``training/gan.py``), over
+(audio, pitches) batches of ``NaiveVOCODERDataset``, with validation,
+metrics and checkpoints.
 
 Precision: this port trains in float32 throughout. It takes
 ``trainer.precision="32-true"`` and ``trainer.discriminator_dtype="float32"``
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..models.vocoders.nsf_hifigan import NsfHifiGANGenerator
+from ..models.vocoders.refinegan import RefineGANGenerator
 from ..ops.mel import LogMelSpectrogram
 from ..utils import init_random_, resolve_device
 from .checkpoint import CheckpointManager
@@ -53,16 +55,25 @@ class VocoderTrainer:
         mc = config.model
         gen_cfg = dict(mc.get("generator", {}))
         gen_type = gen_cfg.pop("type", "NsfHifiGAN")
-        if gen_type not in ("NsfHifiGAN", "NsfHifiGANGenerator"):
-            raise NotImplementedError(f"generator {gen_type!r}: only NSF-HiFiGAN "
-                                      "(GAN flavor v1) is ported")
-        self.generator = NsfHifiGANGenerator(**gen_cfg).to(self.device)
+        if gen_type in ("RefineGAN", "RefineGANGenerator"):
+            self.generator = RefineGANGenerator(**gen_cfg)
+            flavor = "v2"
+        elif gen_type in ("NsfHifiGAN", "NsfHifiGANGenerator"):
+            self.generator = NsfHifiGANGenerator(**gen_cfg)
+            flavor = "v1"
+        else:
+            raise NotImplementedError(f"generator {gen_type!r}: NSF-HiFiGAN and "
+                                      "RefineGAN are ported")
+        self.generator.to(self.device)
         self.sampling_rate = gen_cfg.get("sampling_rate", 44100)
-        self.hop_length = gen_cfg.get("hop_size", 512)
+        # the JAX trainer's rule: the generator's hop_size, else its hop_length
+        self.hop_length = getattr(self.generator, "hop_size",
+                                  getattr(self.generator, "hop_length", 512))
         self.mel_transform = LogMelSpectrogram(
             sample_rate=self.sampling_rate, hop_length=self.hop_length,
             n_mels=self.generator.num_mels, device=self.device)
-        self.discs = Discriminators(mpd_cfg=dict(mc.get("mpd", {})) or None)
+        self.discs = Discriminators(flavor, mpd_cfg=dict(mc.get("mpd", {})) or None,
+                                    mrd_cfg=dict(mc.get("mrd", {})) or None)
         self.discs.to(self.device)
 
         # GAN schedulers decay per epoch: steps_per_epoch = len(train_loader)
@@ -82,10 +93,15 @@ class VocoderTrainer:
     # -- the generator's inputs ------------------------------------------
 
     def draw(self, batch, generator: torch.Generator):
-        """The generator's random inputs, in this order: the harmonics'
-        initial phases rand_ini [B, 9] (column 0 is 0), then the noise
-        [B, frames * hop, 9]."""
+        """The generator's random inputs. NSF-HiFiGAN, in this order: the
+        harmonics' initial phases rand_ini [B, 9] (column 0 is 0), then the
+        noise [B, frames * hop, 9]. RefineGAN: the list of its noises in
+        call order (``RefineGANGenerator.noise_shapes``)."""
         B = batch["audio"].shape[0]
+        if isinstance(self.generator, RefineGANGenerator):
+            frames = batch["audio"].shape[1] // self.hop_length
+            return [torch.randn(s, generator=generator, device=self.device)
+                    for s in self.generator.noise_shapes(B, frames)]
         dim = self.generator.m_source.dim
         rand_ini = torch.rand((B, dim), generator=generator, device=self.device)
         rand_ini[:, 0] = 0.0
@@ -99,16 +115,21 @@ class VocoderTrainer:
         audio, pitches = batch["audio"], batch["pitches"]
         with torch.no_grad():
             mel = self.mel_transform.log_mel(audio).transpose(1, 2)
-        f0 = pitches[:, :: self.hop_length][:, : mel.shape[1]]
+        f0 = pitches[:, :: self.hop_length][:, : mel.shape[1]].contiguous()
+        if isinstance(generator, RefineGANGenerator):
+            return generator(mel, f0, draws)
         rand_ini, noise = draws
-        return generator(mel, f0.contiguous(), rand_ini, noise)
+        return generator(mel, f0, rand_ini, noise)
 
     # -- state -------------------------------------------------------------
 
     def init_state(self, seed: int = 42) -> GANTrainState:
-        """Random weights from ``seed`` (the generator by ``init_random_``,
-        the discriminators as the JAX package draws them)."""
-        init_random_(self.generator, seed)
+        """Random weights from ``seed`` (NSF-HiFiGAN by ``init_random_``,
+        RefineGAN and the discriminators as the JAX package draws them)."""
+        if isinstance(self.generator, RefineGANGenerator):
+            self.generator.init_weights(seed)
+        else:
+            init_random_(self.generator, seed)
         spectral = self.discs.init(seed + 7)
         return create_gan_state(self.generator, self.discs, self.tx_g, self.tx_d,
                                 spectral)

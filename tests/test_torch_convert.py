@@ -14,14 +14,19 @@ from fish_diffusion_tpu.models.diffsinger import DiffSinger as JDiffSinger
 from fish_diffusion_tpu.models.vocoders.nsf_hifigan import (
     NsfHifiGANGenerator as JGenerator,
 )
+from fish_diffusion_tpu.models.vocoders.refinegan import (
+    RefineGANGenerator as JRefineGAN,
+)
 from fish_diffusion_tpu_torch.convert import (
     diffsinger_from_jax,
     hubert_soft_from_jax,
     nsf_hifigan_from_jax,
+    refinegan_from_jax,
 )
 from fish_diffusion_tpu_torch.extractors.feature import HubertSoftModel
 from fish_diffusion_tpu_torch.models.diffsinger import DiffSinger
 from fish_diffusion_tpu_torch.models.vocoders.nsf_hifigan import NsfHifiGANGenerator
+from fish_diffusion_tpu_torch.models.vocoders.refinegan import RefineGANGenerator
 
 TOOLS = Path(__file__).resolve().parents[1] / "tools"
 
@@ -90,6 +95,22 @@ def test_nsf_hifigan_round_trip():
     sd = round_trip(NsfHifiGANGenerator(**gen_cfg), nsf_hifigan_from_jax(params))
     convert = load_tool("nsf_hifigan/convert_checkpoint.py", "nsf_convert_rt")
     assert_trees_equal(params, convert.convert(sd, n_ups=3))
+
+
+def test_refinegan_round_trip():
+    """RefineGAN in fish-diffusion's torch key layout, read back by
+    ``tools/refinegan/convert_checkpoint.py:convert_refinegan``."""
+    gen_cfg = dict(hop_length=16, downsample_rates=(2, 2, 2, 2),
+                   upsample_rates=(2, 2, 2, 2), num_mels=16, start_channels=4)
+    # the plain path declares the same parameter tree and compiles faster
+    jgen = JRefineGAN(**gen_cfg, blocked_tail=False)
+    params = numpy_tree(jax.jit(jgen.init)(
+        {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)},
+        jnp.zeros((1, 4, 16)), jnp.full((1, 4), 220.0),
+    )["params"])
+    sd = round_trip(RefineGANGenerator(**gen_cfg), refinegan_from_jax(params))
+    convert = load_tool("refinegan/convert_checkpoint.py", "refinegan_convert_rt")
+    assert_trees_equal(params, convert.convert_refinegan(sd))
 
 
 def test_hubert_soft_round_trip():

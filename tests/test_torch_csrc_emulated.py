@@ -1,5 +1,6 @@
 """The CUDA sources of K1, K4 (and its weight gradient), K5 (forward and
-backward), K6 and K8-cand, compiled for the host CPU and run against their
+backward), K6 (grouped and 2-D, with the 2-D weight gradient) and K8-cand,
+compiled for the host CPU and run against their
 plain PyTorch versions at small shapes.
 
 The card is the real test (``chip_smoke.py``, ``tests/test_torch_kernels_cuda.py``),
@@ -397,3 +398,63 @@ def test_conv1d_wgrad_source(host_libs, B, T_a, CA, T_b, CB, K, stride, dil, pad
     ref = blocked_conv.conv1d_wgrad_reference(a, bm, K, stride, dil, pad, groups,
                                               slope_a, slope_b)
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def _conv2d(lib, transposed, x, w_packed, bias, out_hw, stride, pad):
+    B, H_in, W_in, C_in = x.shape
+    KH, KW, _, C_out = w_packed.shape
+    out = torch.full((B, *out_hw, C_out), float("nan"))
+    assert lib.conv2d(int(transposed), x.data_ptr(), w_packed.data_ptr(),
+                      None if bias is None else bias.data_ptr(), out.data_ptr(), B,
+                      H_in, W_in, out_hw[0], out_hw[1], C_in, C_out, KH, KW, *stride,
+                      *pad, None) == 0
+    return out
+
+
+@pytest.mark.parametrize(
+    "C_in,C_out,k,stride,pad,H,W",
+    # the MRD's layers: 0 (C_in 1), 1-3 (stride 2 in frequency), 4, conv_post
+    # (C_out 1); W odd and even, so the transposed mode's classes are ragged
+    [(1, 32, (3, 9), (1, 1), (1, 4), 5, 33), (32, 32, (3, 9), (1, 2), (1, 4), 4, 17),
+     (32, 32, (3, 9), (1, 2), (1, 4), 3, 12), (32, 32, (3, 3), (1, 1), (1, 1), 4, 9),
+     (32, 1, (3, 3), (1, 1), (1, 1), 6, 9)],
+)
+def test_conv2d_source(host_libs, C_in, C_out, k, stride, pad, H, W):
+    """K6 2-D: the direct mode against ``F.conv2d``, the input gradient
+    (direct mode with flipped taps for stride 1, transposed mode for stride
+    2) and the weight gradient (partial sums over chunks added in order)
+    against autograd of the plain version: <= 1e-5 of each one's scale."""
+    gen = torch.Generator().manual_seed(C_in + C_out + W)
+    lib = host_libs["conv2d"]
+    x = rn(gen, 2, H, W, C_in)
+    w = rn(gen, C_out, C_in, *k, scale=(C_in * k[0] * k[1]) ** -0.5)
+    b = rn(gen, C_out)
+    out_hw = tuple(blocked_conv.conv2d_out_size(n, kk, s, p)
+                   for n, kk, s, p in zip((H, W), k, stride, pad))
+    got = _conv2d(lib, False, x, w.permute(2, 3, 1, 0).contiguous(), b, out_hw, stride, pad)
+    ref = blocked_conv.conv2d_nhwc_reference(x, w, b, stride, pad)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+    gy = rn(gen, *ref.shape)
+    xr = x.clone().requires_grad_()
+    wr = w.clone().requires_grad_()
+    ref_dx, ref_dw = torch.autograd.grad(
+        blocked_conv.conv2d_nhwc_reference(xr, wr, b, stride, pad), (xr, wr), gy)
+    if stride == (1, 1):
+        wp = w.flip(2, 3).permute(2, 3, 0, 1).contiguous()
+        dx = _conv2d(lib, False, gy, wp, None, (H, W), (1, 1),
+                     (k[0] - 1 - pad[0], k[1] - 1 - pad[1]))
+    else:
+        wp = torch.nn.functional.pad(w.permute(2, 3, 0, 1), (0, 0, 0, 0, 0, -k[1] % stride[1]))
+        dx = _conv2d(lib, True, gy, wp.contiguous(), None, (H, W), stride, pad)
+    assert (dx - ref_dx).abs().max().item() <= 1e-5 * ref_dx.abs().max().item()
+
+    M = k[0] * k[1] * C_in
+    splits = lib.conv2d_wgrad_splits(M, C_out, 2 * out_hw[0] * out_hw[1])
+    part = torch.empty(splits, M, C_out)
+    dw = torch.full((*k, C_in, C_out), float("nan"))
+    assert lib.conv2d_wgrad(x.data_ptr(), gy.contiguous().data_ptr(), part.data_ptr(),
+                            dw.data_ptr(), 2, H, W, *out_hw, C_in, C_out, *k, *stride,
+                            *pad, splits, None) == 0
+    ref_dw = ref_dw.permute(2, 3, 1, 0)
+    assert (dw - ref_dw).abs().max().item() <= 1e-5 * ref_dw.abs().max().item()

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of
-``fish_diffusion_tpu_torch`` (the training modules, the datasets and the
-discriminators among them) loads no JAX, flax, optax or
+``fish_diffusion_tpu_torch`` (the training modules, the datasets, the
+discriminators and the RefineGAN generator among them) loads no JAX, flax, optax or
 ``fish_diffusion_tpu`` module (checked in a fresh interpreter)."""
 
 import subprocess
@@ -20,7 +20,7 @@ bad = sorted(m for m in sys.modules
 assert len(names) >= 15, names
 for name in ("training.gan", "training.vocoder_trainer", "training.vocoder_cli",
              "training.optim", "training.checkpoint", "datasets.naive",
-             "models.discriminators", "ops.blocked_conv"):
+             "models.discriminators", "ops.blocked_conv", "models.vocoders.refinegan"):
     assert "fish_diffusion_tpu_torch." + name in names, name
 assert not bad, bad
 """

@@ -1,5 +1,5 @@
-"""The port's hand-written kernels (K1-K6, K8-cand, the weight gradient,
-and the backward kernels of K3 and K5) against their plain PyTorch versions
+"""The port's hand-written kernels (K1-K6 with K6 2-D, K8-cand, K9, the
+weight gradients, and the backward kernels of K3 and K5) against their plain PyTorch versions
 on an NVIDIA GPU, at small shapes that exercise the ragged edges.
 
 These need the card (the CUDA kernels have no CPU mode, and Triton needs a
@@ -281,3 +281,47 @@ def test_nsf_merge_backward(gen):
     for got, ref in zip(source.nsf_merge_backward(*args),
                         source.nsf_merge_backward_reference(*args)):
         torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize(
+    "C_in,C_out,k,stride,pad,H,W",
+    # the MRD's layers 0 (C_in 1), 1-3 (stride 2 in F), 4 and conv_post
+    # (C_out 1), with odd and even widths
+    [(1, 32, (3, 9), (1, 1), (1, 4), 37, 129), (32, 32, (3, 9), (1, 2), (1, 4), 21, 65),
+     (32, 32, (3, 9), (1, 2), (1, 4), 19, 64), (32, 32, (3, 3), (1, 1), (1, 1), 23, 17),
+     (32, 1, (3, 3), (1, 1), (1, 1), 30, 17)],
+)
+def test_conv2d_and_its_gradients(gen, C_in, C_out, k, stride, pad, H, W):
+    """K6 2-D forward, its input gradient (direct mode with flipped taps, or
+    the transposed mode) and its weight gradient (conv2d_wgrad) through
+    autograd, against the plain version's autograd: <= 1e-4 of each one's
+    scale."""
+    x = rn(gen, 2, H, W, C_in).requires_grad_()
+    w = rn(gen, C_out, C_in, *k, scale=(C_in * k[0] * k[1]) ** -0.5).requires_grad_()
+    b = rn(gen, C_out).requires_grad_()
+    out = blocked_conv.conv2d_nhwc(x, w, b, stride, pad)
+    gy = rn(gen, *out.shape)
+    got = torch.autograd.grad(out, (x, w, b), gy)
+    ref_out = blocked_conv.conv2d_nhwc_reference(x, w, b, stride, pad)
+    ref = torch.autograd.grad(ref_out, (x, w, b), gy)
+    for g_, r_ in zip((out,) + got, (ref_out,) + ref):
+        torch.testing.assert_close(g_, r_, atol=1e-4 * r_.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("hop", [16, 256])
+def test_comb_tooth(gen, hop):
+    """K9: K3's frame-phase scan in its linear mode (<= 1e-6, both sum in
+    float64) and comb_merge (<= 1e-5 on a 0.1-amplitude template), with
+    unvoiced frames, jumps and f0 near sr / 2."""
+    B, T, sr = 3, 70, 44100
+    f0 = torch.rand((B, T), generator=gen, device="cuda") * 700 + 80
+    f0 = f0 * (torch.rand((B, T), generator=gen, device="cuda") > 0.2)
+    f0[0, 10] = sr / 2 - 50
+    base = source.nsf_phase_base(f0, sr, hop, "linear")
+    ref_base = source.nsf_phase_base_reference(f0, sr, hop, "linear")
+    d = (base - ref_base).abs()
+    assert torch.minimum(d, 1 - d).max().item() <= 1e-6
+    noise = rn(gen, B, T * hop)
+    got = source.comb_merge(f0, ref_base, noise, sr, hop)
+    ref = source.comb_merge_reference(f0, ref_base, noise, sr, hop)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
