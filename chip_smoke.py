@@ -29,6 +29,17 @@ Phases, in order; any failure raises and the script exits non-zero:
             and K8-cand are held against their plain versions, and timed,
             on the inputs the shallow request gave them; a short shallow
             file is checked against the plain composition of every kernel.
+   pitch:   the same 24 s wav through ``inference`` once with each pitch
+            extractor a config can name (ParselMouth, pYIN, CREPE at full
+            capacity with seeded weights, DIO, YIN; UniPC): exact launches
+            per request (K8-cand for ParselMouth, K8 pYIN and K8 CREPE once
+            per segment), the median cents error of each segment's f0
+            against the phrases' known f0 (at most 50; CREPE's random
+            weights: finite only), stage seconds per segment (pitch with
+            CREPE's network apart, HubertSoft, sample, vocoder) and RTF;
+            K8 pYIN and K8 CREPE held against their plain versions on the
+            requests' own inputs (paths and path scores identical), timed
+            beside their bound, chip-wide and on one SM.
 5. train:   ``VocoderTrainer.fit`` on ``configs/vocoder_nsf_hifigan.py`` at
             full width (NSF-HiFiGAN 512, MPD 2/3/5/7/11, 3-scale MSD, batch
             16 x 32768, float32) over a synthetic dataset: 2 warm-up and 8
@@ -56,10 +67,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             timed beside its bound and library call.
 
 The line before the last is a JSON object with one entry per kernel (its
-``launches`` count the file-to-file path for the serving kernels and the
-training runs for the others, ``launches_by_path`` all three paths; K5's and
-K8-cand's times are those of the shallow request's own calls, with their
-B=4 times under ``batch4``); the last line is
+``launches`` count the file-to-file path for the serving kernels, the pitch
+path for K8 dense and the training runs for the others,
+``launches_by_path`` all four paths; K5's and K8-cand's times are those of
+the shallow request's own calls, with their B=4 times under ``batch4``; K8
+dense's those of one request's three calls); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -714,6 +726,37 @@ class StageClock:
                 delattr(obj, attr)
 
 
+# the file-to-file phases' song: (seconds, f0) of three phrases
+PHRASES = ((7.4, 220.0), (7.4, 247.0), (7.4, 196.0))
+VOCODER_LAUNCHES = {"conv_transpose1d": 5, "conv1d": 2 + 5 * (1 + 3 * 6),
+                    "nsf_phase_base": 1, "nsf_merge": 1}
+
+
+def expect_file_launches(layers, segments, evals, steps=None, predictor="unipc", stft=0,
+                         pitch_kernel="viterbi_candidates"):
+    """The launches of a request of ``segments`` segments: the denoiser's
+    two K1 kernels per block and eval, the sampler's K2 updates, one
+    vocoder pass, K5 for a shallow request and the pitch extractor's
+    decoder (Harvest's and ParselMouth's K8-cand, pYIN's and CREPE's K8
+    dense, none for DIO and YIN) once per segment."""
+    from fish_diffusion_tpu_torch import kernels
+
+    steps = evals if steps is None else steps
+    out = {name: 0 for name in kernels.LAUNCHES}
+    out.update({k: v * segments for k, v in VOCODER_LAUNCHES.items()})
+    out.update(wavenet_gate=layers * evals * segments, wavenet_out=layers * evals * segments,
+               stft_magnitude=stft * segments)
+    if pitch_kernel:
+        out[pitch_kernel] = segments
+    if predictor == "unipc":
+        out.update(unipc_predict=steps * segments, unipc_correct=steps * segments)
+    elif predictor == "plms":
+        out.update(plms_update=(steps + 1) * segments)
+    else:
+        out.update(ddpm_update=steps * segments)
+    return out
+
+
 def phase_file_to_file(report: Report, engine, seed: int):
     """The second slice's path: ``inference`` on a 24 s wav with Harvest
     pitch (UniPC; then shallow), ``forward`` with PLMS and naive, and a
@@ -732,7 +775,7 @@ def phase_file_to_file(report: Report, engine, seed: int):
                                  cfg.sampler_interval)
     rng = np.random.default_rng(seed + 20)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    song = make_song(rng, tmp / "song.wav", [(7.4, 220.0), (7.4, 247.0), (7.4, 196.0)])
+    song = make_song(rng, tmp / "song.wav", PHRASES)
     rms = np.sqrt(np.mean(song ** 2) + 1e-12)
     normed = np.clip(song * (10 ** (-23 / 20) / (rms + 1e-12)), -1, 1)
     n_seg = len(list(slice_audio(normed, SR)))
@@ -740,23 +783,8 @@ def phase_file_to_file(report: Report, engine, seed: int):
     print(f"[file] {len(song) / SR:.2f} s wav, {n_seg} segments (bucket 1024 each); "
           f"a {len(short) / SR:.2f} s segment for PLMS and naive")
 
-    vocoder = {"conv_transpose1d": 5, "conv1d": 2 + 5 * (1 + 3 * 6),
-               "nsf_phase_base": 1, "nsf_merge": 1}
-
-    def expect(segments, evals, steps=None, predictor="unipc", stft=0):
-        steps = evals if steps is None else steps
-        out = {name: 0 for name in kernels.LAUNCHES}
-        out.update({k: v * segments for k, v in vocoder.items()})
-        out.update(wavenet_gate=layers * evals * segments,
-                   wavenet_out=layers * evals * segments,
-                   viterbi_candidates=segments, stft_magnitude=stft * segments)
-        if predictor == "unipc":
-            out.update(unipc_predict=steps * segments, unipc_correct=steps * segments)
-        elif predictor == "plms":
-            out.update(plms_update=(steps + 1) * segments)
-        else:
-            out.update(ddpm_update=steps * segments)
-        return out
+    def expect(*args, **kwargs):
+        return expect_file_launches(layers, *args, **kwargs)
 
     full, shallow = T_steps // interval, max((T_steps - 500) // interval, 2)
     speakers = engine.parse_speaker(0)
@@ -875,6 +903,234 @@ def phase_file_to_file(report: Report, engine, seed: int):
     report.compare("file 1.5 s shallow with Harvest vs plain composition (wav)",
                    torch.from_numpy(got), torch.from_numpy(ref), 1e-2)
     report.finish("file to file")
+    return launches
+
+
+def song_f0_truth(t_abs: np.ndarray) -> np.ndarray:
+    """The known f0 of ``make_song(rng, path, PHRASES)`` at times ``t_abs``
+    (seconds), NaN outside the phrases' interiors (0.1 s from each end)."""
+    truth = np.full(len(t_abs), np.nan)
+    start = int(0.3 * SR)
+    for seconds, f0 in PHRASES:
+        t = t_abs - start / SR
+        inside = (t > 0.1) & (t < seconds - 0.1)
+        truth[inside] = f0 * (1 + 0.015 * np.sin(2 * np.pi * 5 * t[inside]))
+        start += int(seconds * SR) + int(0.6 * SR)
+    return truth
+
+
+class timed_calls:
+    """``obj``'s calls timed into ``clock.seconds[label]`` (a device sync on
+    each side); every other attribute passes through."""
+
+    def __init__(self, obj, clock, label):
+        self.obj, self.clock, self.label = obj, clock, label
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.obj(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.clock.seconds[self.label] += time.perf_counter() - t0
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.obj, name)
+
+
+def path_score(delta0, log_obs, log_A, path):
+    """The float32 score of one item's path [T] (the recursion's own sum)."""
+    import torch
+
+    p = path.long()
+    score = delta0[p[0]]
+    for t in range(1, len(p)):
+        score = score + log_A[p[t - 1], p[t]] + log_obs[t, p[t]]
+    return float(score) if torch.isfinite(score) else float("-inf")
+
+
+def measure_dense_viterbi(report: Report, name: str, log_obs, log_A, label: str):
+    """K8 dense (``pyin_viterbi`` or ``crepe_viterbi``) against its plain
+    version on one call's own inputs: the paths and their scores identical;
+    kernel and plain times beside the bound, chip-wide and on one SM (one
+    item is one dependent chain)."""
+    from fish_diffusion_tpu_torch.extractors import pitch
+
+    wrapper = getattr(pitch, name)
+    delta0 = (pitch.pyin_delta0 if name == "pyin_viterbi" else pitch.crepe_delta0)(log_obs)
+    got = wrapper(log_obs, log_A)
+    ref = pitch.viterbi_dense_reference(delta0, log_obs, log_A)
+    err = report.compare(f"{name} path {label} (identical)", got, ref, 0.0)
+    s_got = path_score(delta0[0], log_obs[0], log_A, got[0])
+    s_ref = path_score(delta0[0], log_obs[0], log_A, ref[0])
+    print(f"  {name} path score {label}: kernel {s_got!r}, plain {s_ref!r} "
+          f"{'ok' if s_got == s_ref else 'FAIL'}")
+    if s_got != s_ref:
+        report.failures.append(f"{name} path score {label}")
+    ms = cuda_ms(lambda: wrapper(log_obs, log_A), iters=5)
+    plain = cuda_ms(lambda: pitch.viterbi_dense_reference(delta0, log_obs, log_A),
+                    iters=2, warmup=1)
+    B_, T_, S_ = log_obs.shape
+    flops = 2 * B_ * (T_ - 1) * S_ * S_
+    one_sm = flops / (F32_FLOP_PER_S / 132) * 1e3
+    t_bound, by = bound(nbytes(delta0, log_obs, log_A, got), flops)
+    print(f"    kernel {ms:.4f} ms ({ms * 1e3 / max(T_ - 1, 1):.3f} us per frame), plain "
+          f"{plain:.4f} ms, bound {t_bound:.5f} ms ({by}), one SM {one_sm:.4f} ms")
+    return dict(err=err, ms=ms, plain=plain, one_sm=one_sm,
+                work=(nbytes(delta0, log_obs, log_A, got), flops))
+
+
+def phase_pitch(report: Report, engine, seed: int):
+    """The fifth slice's path: ``inference`` on the file phase's 24 s wav
+    with each pitch extractor a config can name (ParselMouth, pYIN, CREPE
+    at full capacity with seeded weights, DIO, YIN; UniPC): exact launches
+    per request, the median cents error of the f0 each segment was given
+    against the phrases' known f0 (CREPE's random weights: finite only),
+    stage seconds per segment and RTF; then K8 pYIN and K8 CREPE against
+    their plain versions on the requests' own inputs."""
+    import torch
+
+    from fish_diffusion_tpu_torch import kernels
+    from fish_diffusion_tpu_torch.extractors import crepe, pitch
+    from fish_diffusion_tpu_torch.registry import PITCH_EXTRACTORS
+    from fish_diffusion_tpu_torch.utils.audio import slice_audio
+
+    cfg = engine.config.model.diffusion
+    layers, evals = cfg.denoiser.residual_layers, cfg.timesteps // cfg.sampler_interval
+    rng = np.random.default_rng(seed + 20)  # the file phase's song, sample for sample
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pitch_"))
+    song = make_song(rng, tmp / "song.wav", PHRASES)
+    rms = np.sqrt(np.mean(song ** 2) + 1e-12)
+    normed = np.clip(song * (10 ** (-23 / 20) / (rms + 1e-12)), -1, 1)
+    segments = list(slice_audio(normed, SR))
+    n_seg = len(segments)
+    extractors = [
+        ("ParselMouth", dict(type="ParselMouthPitchExtractor"), "viterbi_candidates"),
+        ("pYIN", dict(type="PyinPitchExtractor"), "pyin_viterbi"),
+        ("CREPE", dict(type="CrepePitchExtractor", model="full", random_init=True,
+                       seed=seed + 3), "crepe_viterbi"),
+        ("DIO", dict(type="DioPitchExtractor"), None),
+        ("YIN", dict(type="YinPitchExtractor"), None),
+    ]
+    built = {label: PITCH_EXTRACTORS.build(dict(cfg_, keep_zeros=False), device=DEVICE)
+             for label, cfg_, _ in extractors}
+    harvest = engine.pitch_extractor
+    print(f"[pitch] {len(song) / SR:.2f} s wav, {n_seg} segments (bucket 1024 each), "
+          f"UniPC; extractors {', '.join(built)}")
+
+    def run(out_name):
+        return engine.inference(tmp / "song.wav", tmp / out_name, seed=seed)
+
+    # warm-up, not counted: plans the FFTs, designs DIO's filter bank, lets
+    # cuDNN pick CREPE's convolutions
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for label, ext in built.items():
+        engine.pitch_extractor = ext
+        run("warm.wav")
+    torch.cuda.synchronize()
+    print(f"[pitch] warm-up (each extractor once): {time.perf_counter() - t0:.3f} s")
+
+    given = {}  # label -> the f0 curve each segment was given, in order
+
+    def keep_pitches(label, fn):
+        def call(*args, **kwargs):
+            seg = fn(*args, **kwargs)
+            given[label].append(None if seg is None else seg["pitches_true"])
+            return seg
+        return call
+
+    kernels.reset_launches()
+    seconds = {}
+    for label, _, kernel in extractors:
+        engine.pitch_extractor = built[label]
+        given[label] = []
+        engine._prepare_segment = keep_pitches(label, engine._prepare_segment)
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(f"{label}.wav")
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        del engine._prepare_segment
+        grew = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+        expected = expect_file_launches(layers, n_seg, evals, pitch_kernel=kernel)
+        ok = (len(out) == len(song) and np.isfinite(out).all() and 0 < np.abs(out).max() <= 1.0
+              and grew == expected and len(given[label]) == n_seg
+              and all(g is not None and np.isfinite(g).all() for g in given[label]))
+        print(f"[pitch] inference 24 s, {label}: {seconds[label]:.3f} s, RTF "
+              f"{seconds[label] / (len(song) / SR):.4f}, peak |wav| {np.abs(out).max():.3f}, "
+              f"launches {({k: v for k, v in grew.items() if v})} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            print(f"  expected {({k: v for k, v in expected.items() if v})}")
+            report.failures.append(f"pitch: inference with {label}")
+    launches = dict(kernels.LAUNCHES)
+    print(f"[pitch] launches over the pitch path: {launches}")
+    for name in ("viterbi_candidates", "pyin_viterbi", "crepe_viterbi"):
+        if launches[name] <= 0:
+            report.failures.append(f"{name} never launched on the pitch path")
+
+    # each segment's f0 against the phrases' known f0, in the phrases'
+    # interiors
+    for label in built:
+        cents = []
+        for (start, _), f0 in zip(segments, given[label]):
+            truth = song_f0_truth((start + np.arange(len(f0)) * HOP) / SR)
+            inside = np.isfinite(truth)
+            cents.append(np.abs(1200 * np.log2(np.maximum(f0[inside], 1e-3) / truth[inside])))
+        cents = np.concatenate(cents)
+        median = float(np.median(cents))
+        if label == "CREPE":
+            print(f"[pitch] {label}: f0 finite over {len(cents)} frames (random weights: "
+                  f"median {median:.1f} cents from the known f0, not held)")
+            continue
+        ok = median <= 50.0
+        print(f"[pitch] {label}: median |f0 error| {median:.2f} cents over {len(cents)} "
+              f"frames (p90 {np.percentile(cents, 90):.2f}), limit 50 "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            report.failures.append(f"pitch: {label} median {median:.1f} cents")
+
+    # stage seconds per segment, with the K8 dense inputs recorded
+    print("[pitch] stage seconds per segment (synced host clock; a second run of each)")
+    pyin_calls = recording(pitch, "pyin_viterbi")
+    crepe_calls = recording(crepe, "crepe_viterbi")
+    for label in built:
+        clock = StageClock()
+        ext = built[label]
+        engine.pitch_extractor = timed_calls(ext, clock, "pitch")
+        if label == "CREPE":
+            clock.wrap(ext.model, "forward", "CREPE net")
+        clock.wrap(engine.text_features_extractor.model, "forward", "HubertSoft")
+        clock.wrap(engine.model, "sample", "sample")
+        clock.wrap(engine.vocoder, "spec2wav", "vocoder")
+        calls = {"pYIN": pyin_calls, "CREPE": crepe_calls}.get(label)
+        if calls:
+            calls.start()
+        run(f"{label}_clocked.wav")
+        if calls:
+            calls.stop()
+        clock.restore()
+        parts = ", ".join(f"{k} {v / n_seg:.4f}" for k, v in clock.seconds.items())
+        print(f"[pitch] {label}: {parts} s per segment")
+    engine.pitch_extractor = harvest
+
+    for name, calls in (("pyin_viterbi", pyin_calls), ("crepe_viterbi", crepe_calls)):
+        shapes = "+".join(str(a[0].shape[1]) for a, _ in calls.calls)
+        print(f"[pitch] {name} on the request's own inputs ({len(calls.calls)} calls, "
+              f"T = {shapes}, S = {calls.calls[0][0][0].shape[2]})")
+        one_sm = 0.0
+        for (log_obs, log_A), _ in calls.calls:
+            r = measure_dense_viterbi(report, name, log_obs, log_A,
+                                      f"B=1 T={log_obs.shape[1]}")
+            one_sm += r["one_sm"]
+            report.kernel(name, r["err"], r["ms"], r["plain"],
+                          f"sum of one 24 s request's {len(calls.calls)} calls at B=1, "
+                          f"T = {shapes}, S = {log_obs.shape[2]}", *r["work"])
+        report.extra[name] = dict(bound_one_sm_ms=one_sm)
+    report.finish("pitch")
     return launches
 
 
@@ -1580,6 +1836,7 @@ def main() -> int:
     phase_kernels_stft_viterbi(report, args.seed)
     engine = phase_serve(report, args.seed)
     launches = phase_file_to_file(report, engine, args.seed)
+    pitch_launches = phase_pitch(report, engine, args.seed)
     del engine
     torch.cuda.empty_cache()
     train_launches, train = phase_train(report, args.seed)
@@ -1588,13 +1845,14 @@ def main() -> int:
     v2_launches, train_v2 = phase_train_v2(report, args.seed)
     totals.update(train_v2)
 
-    by_path = {"file": launches, "train": train_launches, "train_v2": v2_launches}
+    by_path = {"file": launches, "pitch": pitch_launches, "train": train_launches,
+               "train_v2": v2_launches}
     entries = []
     for name, meta in kernels.KERNELS.items():
         k = report.kernels[name]
         # a kernel's launches on the first path that runs it: the
-        # file-to-file path for the serving kernels, then the NSF-HiFiGAN
-        # training run, then the RefineGAN one
+        # file-to-file path for the serving kernels, the pitch path for K8
+        # dense, then the NSF-HiFiGAN training run, then the RefineGAN one
         path = next(p for p, counts in by_path.items() if counts[name] or p == "train_v2")
         entries.append(dict(
             name=f"{meta['id']} {name}", route=meta["route"], source=meta["source"],

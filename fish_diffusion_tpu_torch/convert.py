@@ -18,7 +18,10 @@ converters in ``tools/``:
 - ``discriminators_from_jax``: the GAN discriminators of either flavor
   (MPD + MSD with its spectral-norm state, or MPD + MRD), in
   fish-diffusion's torch names (reference ``nsf_hifigan/models.py:525-613``,
-  ``refinegan/mrd.py``).
+  ``refinegan/mrd.py``);
+- ``crepe_from_jax``: the CREPE network (flax params and batch_stats) in
+  torchcrepe's keys (inverse of
+  ``tools/preprocessing/convert_crepe_checkpoint.py:convert_state_dict``).
 
 Layouts: flax Dense ``[in, out]`` is torch Linear ``[out, in]``; flax Conv
 ``[k, in, out]`` is torch ``[out, in, k]``; the flax ConvTranspose
@@ -273,3 +276,19 @@ def discriminators_from_jax(params_d: dict, spectral_d: dict,
             spectral[f"{torch_name}.weight_u"] = _t(uv[f"{name}_u"])
             spectral[f"{torch_name}.weight_v"] = _t(uv[f"{name}_v"])
     return sd, spectral
+
+
+def crepe_from_jax(variables: dict) -> dict:
+    """``{"params", "batch_stats"}`` of the JAX package's ``Crepe`` -> a
+    state dict in torchcrepe's layout (``conv{i}`` weights [out, in, k, 1],
+    ``conv{i}_BN`` with running statistics, ``classifier``)."""
+    p, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+    for i in range(1, 7):
+        _conv(sd, f"conv{i}", p[f"conv{i}"])
+        sd[f"conv{i}.weight"] = sd[f"conv{i}.weight"][..., None]
+        _norm(sd, f"conv{i}_BN", p[f"conv{i}_BN"])
+        sd[f"conv{i}_BN.running_mean"] = _t(stats[f"conv{i}_BN"]["mean"])
+        sd[f"conv{i}_BN.running_var"] = _t(stats[f"conv{i}_BN"]["var"])
+    _linear(sd, "classifier", p["classifier"])
+    return sd

@@ -1,2 +1,9 @@
+from .crepe import CrepePitchExtractor  # noqa: F401
 from .feature import HubertSoft  # noqa: F401
-from .world import HarvestPitchExtractor  # noqa: F401
+from .pitch import (  # noqa: F401
+    AutocorrPitchExtractor,
+    ParselMouthPitchExtractor,
+    PyinPitchExtractor,
+    YinPitchExtractor,
+)
+from .world import DioPitchExtractor, HarvestPitchExtractor  # noqa: F401

@@ -1,7 +1,8 @@
-"""Harvest pitch estimation (``fish_diffusion_tpu/extractors/world.py``).
+"""WORLD pitch estimation (``fish_diffusion_tpu/extractors/world.py``):
+Harvest, and DIO with StoneMask.
 
-The WORLD algorithm (Morise 2017, pyworld ``harvest.cpp``) as the JAX
-package implements it, stage for stage:
+Harvest (Morise 2017, pyworld ``harvest.cpp``) as the JAX package
+implements it, stage for stage:
 
 1. a dense bank of band-pass filters (a Nuttall window modulated by a
    cosine at each of ``channels_in_octave`` log-spaced centres per octave)
@@ -24,7 +25,14 @@ JAX package's ``associative_scan(maximum)`` is ``torch.cummax``,
 channels run in one batch (the JAX package mapped over chunks of 8 to bound
 TPU memory). Arithmetic stays float32 and complex64.
 
-DIO and StoneMask are not ported yet (ROADMAP Queue 1 item 9).
+DIO (``DioPitchExtractor``, pyworld ``dio.cpp``'s pipeline): a bank of
+Nuttall-windowed low-pass filters at half-octave cutoffs, the same four
+event-interval estimates per channel, each channel's candidate the mean of
+the four when they all exist and it lies within [cutoff / 2, cutoff] (and
+[f0_min, f0_max]), scored by their relative spread; per frame the best channel, voiced when its
+spread is under 0.12 and the frame is not silent, then a 3-frame median
+fix. StoneMask refines each frame by the same instantaneous-frequency pass
+as Harvest's stage 4 (``_if_estimate``), twice.
 """
 
 from __future__ import annotations
@@ -36,8 +44,7 @@ import numpy as np
 import torch
 
 from ..registry import PITCH_EXTRACTORS
-from ..utils import resolve_device
-from .pitch import BasePitchExtractor, viterbi_candidates
+from .pitch import DeviceExtractor, viterbi_candidates
 
 
 def _decimation_factor(sr: int, f0_max: float, hop_length: int) -> int:
@@ -311,20 +318,160 @@ def harvest_f0(x: torch.Tensor, sr: int, hop_length: int, f0_min: float,
 
 
 @PITCH_EXTRACTORS.register_module(name="HarvestPitchExtractor")
-class HarvestPitchExtractor(BasePitchExtractor):
-    """Harvest on ``device`` (the card unless the caller asks for the CPU):
-    host audio -> f0 [T // hop + 1] (or ``post_process``-ed to ``pad_to``
-    frames), numpy float32."""
+class HarvestPitchExtractor(DeviceExtractor):
+    """Harvest on ``device`` (the card unless the caller asks for the CPU)."""
 
     def __init__(self, channels_in_octave: int = 24, device="cuda", **kwargs):
-        super().__init__(**kwargs)
+        super().__init__(device, **kwargs)
         self.channels_in_octave = channels_in_octave
-        self.device = resolve_device(device)
 
-    @torch.inference_mode()
-    def __call__(self, x, sampling_rate=44100, pad_to=None):
-        x = torch.as_tensor(np.asarray(x, np.float32).reshape(-1), device=self.device)
-        f0 = harvest_f0(x, int(sampling_rate), self.hop_length,
-                        float(self.f0_min), float(self.f0_max),
-                        self.channels_in_octave)
-        return self.post_process(x, sampling_rate, f0.cpu().numpy(), pad_to)
+    def f0(self, x, sampling_rate):
+        return harvest_f0(x, sampling_rate, self.hop_length, float(self.f0_min),
+                          float(self.f0_max), self.channels_in_octave)
+
+
+# ---------------------------------------------------------------------------
+# DIO + StoneMask
+# ---------------------------------------------------------------------------
+
+
+def _nuttall_lowpass(cutoff_hz: float, sr: int) -> np.ndarray:
+    """Windowed-sinc low-pass FIR (a Nuttall window), unit DC gain, designed
+    on the host."""
+    half = int(round(2.0 * sr / cutoff_hz))
+    n = 2 * half + 1
+    t = np.arange(n) - half
+    h = np.sinc(2.0 * cutoff_hz / sr * t) * (2.0 * cutoff_hz / sr)
+    m = np.arange(n) / (n - 1)
+    w = (
+        0.355768
+        - 0.487396 * np.cos(2 * np.pi * m)
+        + 0.144232 * np.cos(4 * np.pi * m)
+        - 0.012604 * np.cos(6 * np.pi * m)
+    )
+    h = h * w
+    return (h / h.sum()).astype(np.float32)
+
+
+def _dio_cutoffs(f0_min: float, f0_max: float, channels_in_octave: int):
+    n_ch = max(1, int(math.ceil(math.log2(f0_max / f0_min) * channels_in_octave)))
+    return [f0_min * 2.0 ** ((i + 1) / channels_in_octave) for i in range(n_ch)]
+
+
+@functools.lru_cache(maxsize=4)
+def _lowpass_bank(sr_d: int, cutoffs: tuple, nfft_d: int, device: str):
+    """The channels' transfer functions [C, nfft_d // 2 + 1] complex64 (each
+    filter's float32 taps through ``torch.fft.rfft``) and their half
+    lengths, once per bucket."""
+    taps = [_nuttall_lowpass(c, sr_d) for c in cutoffs]
+    H = torch.stack([torch.fft.rfft(torch.from_numpy(h).to(device), n=nfft_d)
+                     for h in taps])
+    return H, [(len(h) - 1) // 2 for h in taps]
+
+
+def _dio_candidates(x: torch.Tensor, sr: int, hop_length: int, f0_min: float,
+                    f0_max: float, channels_in_octave: int = 2):
+    """DIO's stages 1-3 on the waveform decimated by rfft truncation:
+    (cands [C, F], costs [C, F] (the four estimates' relative spread, inf
+    where a channel has no candidate), frame_rms [F])."""
+    dev = x.device
+    T = x.shape[0]
+    n_frames = T // hop_length + 1
+    centers = torch.clamp(torch.arange(n_frames, device=dev) * hop_length, max=T - 1)
+
+    D = _decimation_factor(sr, f0_max, hop_length)
+    sr_d = sr // D
+    T_d = -(-T // D)
+    hop_d = hop_length // D
+    centers_d = torch.clamp(torch.arange(n_frames, device=dev) * hop_d, max=T_d - 1)
+
+    cutoffs = _dio_cutoffs(f0_min, f0_max, channels_in_octave)
+    max_len = max(2 * int(round(2.0 * sr_d / c)) + 1 for c in cutoffs)
+    nfft_d = 1 << int(math.ceil(math.log2(T_d + max_len)))
+    X = torch.fft.rfft(x, n=nfft_d * D)
+    X_d = X[: nfft_d // 2 + 1] / D
+
+    # the silence gate: the filter bank resonates on noise
+    frame_rms = _frame_rms(x, centers, hop_length)
+
+    H, halves = _lowpass_bank(sr_d, tuple(cutoffs), nfft_d, str(dev))
+    Y = torch.fft.irfft(X_d[None, :] * H, n=nfft_d)
+    y = torch.stack([Y[c, h : h + T_d] for c, h in enumerate(halves)])
+    dy = torch.diff(y, dim=1, append=y[:, -1:])
+    ests = torch.stack([_interval_f0(y, sr_d), _interval_f0(-y, sr_d),
+                        _interval_f0(dy, sr_d), _interval_f0(-dy, sr_d)], dim=1)
+    ests_f = ests[:, :, centers_d]
+    ests_n = ests[:, :, torch.clamp(centers_d + 1, max=T_d - 1)]
+    ests_f = torch.where(ests_f > 0, ests_f, ests_n)  # a centre on an event
+
+    mean = ests_f.mean(dim=1)
+    spread = torch.sqrt(torch.clamp(((ests_f - mean[:, None, :]) ** 2).mean(dim=1), min=0.0))
+    lo = torch.tensor([max(f0_min, c / 2) for c in cutoffs], device=dev)[:, None]
+    hi = torch.tensor([min(f0_max, c) for c in cutoffs], device=dev)[:, None]
+    ok = (ests_f > 0).all(dim=1) & (mean >= lo) & (mean <= hi)
+    cands = torch.where(ok, mean, 0.0)
+    costs = torch.where(ok, spread / torch.clamp(mean, min=1e-6), math.inf)
+    return cands, costs, frame_rms
+
+
+def _dio_select(cands, costs, frame_rms, stability_threshold: float = 0.12,
+                fix_range: float = 0.15, silence_threshold: float = 0.005):
+    """DIO's stage 4: the lowest-spread channel per frame, voiced when
+    stable and not silent; a voiced frame must agree with its 3-frame
+    median within ``fix_range``."""
+    idx = torch.arange(cands.shape[1], device=cands.device)
+    best = torch.argmin(costs, dim=0)
+    f0 = cands[best, idx]
+    cost = costs[best, idx]
+    voiced = torch.isfinite(cost) & (cost < stability_threshold) & (frame_rms > silence_threshold)
+    f0 = torch.where(voiced, f0, 0.0)
+    left, right = _neighbours(f0)
+    med = torch.median(torch.stack([left, f0, right]), dim=0).values
+    return torch.where((f0 - med).abs() <= fix_range * torch.clamp(med, min=1e-6), f0, 0.0)
+
+
+def _stonemask_refine(x: torch.Tensor, sr: int, f0: torch.Tensor, centers_hop: int,
+                      f0_min: float, n_harmonics: int = 6):
+    """StoneMask: each voiced frame refined twice by instantaneous
+    frequency over a 3-period Hann window; a refinement that moves more
+    than 12% keeps the DIO value. f0 [F] (0 = unvoiced) -> refined [F]."""
+    T = x.shape[0]
+    L = int(3.0 * sr / f0_min)
+    L += L % 2
+    half = L // 2
+    dev = x.device
+    centers = torch.clamp(torch.arange(f0.shape[0], device=dev) * centers_hop, max=T - 1)
+    xpad = torch.nn.functional.pad(x, (half, half))
+    frames = xpad[centers[:, None] + torch.arange(L, device=dev)[None, :]]
+    t_rel = (torch.arange(L, dtype=torch.float32, device=dev) - half) / sr
+
+    f0_safe = torch.clamp(f0, min=f0_min)
+    r1, _ = _if_estimate(frames, t_rel, sr, f0_safe, n_harmonics)
+    r1 = torch.where((r1 > 0.5 * f0_safe) & (r1 < 2.0 * f0_safe), r1, f0_safe)
+    r2, _ = _if_estimate(frames, t_rel, sr, r1, n_harmonics)
+    good = (f0 > 0) & ((r2 - f0).abs() <= 0.12 * f0) & (r2 > 0)
+    return torch.where(good, r2, f0)
+
+
+def dio_f0(x: torch.Tensor, sr: int, hop_length: int, f0_min: float, f0_max: float,
+           use_stonemask: bool = True) -> torch.Tensor:
+    """The whole DIO (+ StoneMask) pipeline: x [T] float32 -> f0 [T // hop + 1]."""
+    cands, costs, frame_rms = _dio_candidates(x, sr, hop_length, f0_min, f0_max)
+    f0 = _dio_select(cands, costs, frame_rms)
+    if use_stonemask:
+        f0 = _stonemask_refine(x, sr, f0, hop_length, f0_min)
+    return f0
+
+
+@PITCH_EXTRACTORS.register_module(name="DioPitchExtractor")
+class DioPitchExtractor(DeviceExtractor):
+    """DIO + StoneMask on ``device`` (the card unless the caller asks for
+    the CPU)."""
+
+    def __init__(self, use_stonemask: bool = True, device="cuda", **kwargs):
+        super().__init__(device, **kwargs)
+        self.use_stonemask = use_stonemask
+
+    def f0(self, x, sampling_rate):
+        return dio_f0(x, sampling_rate, self.hop_length, float(self.f0_min),
+                      float(self.f0_max), self.use_stonemask)

@@ -4,8 +4,8 @@
 normalisation, silence slicing, one request per segment (or batched by
 bucket), overlap-write. A request is one audio segment (``forward``) or
 several (``forward_batch``) with a target speaker. Each segment goes
-through the pitch extractor (Harvest, unless the caller gives the f0
-curve), HubertSoft content features, condition assembly, reverse diffusion
+through the pitch extractor (the config's: Harvest, ParselMouth, pYIN,
+CREPE, DIO or YIN; none when the caller gives the f0 curve), HubertSoft content features, condition assembly, reverse diffusion
 over the WaveNet denoiser (UniPC, PLMS or naive; shallow from the input's
 own mel when ``skip_steps`` > 0) and the NSF-HiFiGAN vocoder. Segments are
 padded to a frame bucket and masked, as in the JAX server.
@@ -160,8 +160,8 @@ class SVCInference:
         """Content features and f0 padded to ``bucket`` frames, and for a
         shallow request the segment's own mel (``original_mel`` [bucket, M]
         on the device); None for an unvoiced segment. Without ``pitches``
-        the pitch extractor runs on the bucket-padded audio, cropped to the
-        segment's frames."""
+        the pitch extractor runs on the bucket-padded audio, cropped to its
+        frames that cover the segment (``frame_count``)."""
         mel_len = len(audio) // self.hop_length
         audio_padded = np.pad(
             np.asarray(audio, np.float32),
@@ -180,7 +180,11 @@ class SVCInference:
             )
         else:
             f0_raw = self.pitch_extractor(audio_padded, self.sampling_rate, pad_to=None)
-            n_true = int(np.ceil(len(audio) / self.pitch_extractor.hop_length))
+            # the extractor's own frames that cover the segment: one per hop
+            # for most, CREPE's 5 ms frames for CREPE (the JAX server crops
+            # every curve to one frame per hop, which keeps only the first
+            # ~43% of CREPE's and stretches it over the segment)
+            n_true = self.pitch_extractor.frame_count(len(audio), self.sampling_rate)
             pitches = self.pitch_extractor.post_process(
                 audio, self.sampling_rate, f0_raw[:n_true], mel_len
             )
@@ -232,7 +236,7 @@ class SVCInference:
                 pitches: Optional[np.ndarray] = None) -> np.ndarray:
         """One segment -> converted audio of the same length. ``speakers``
         comes from ``parse_speaker``; ``pitches`` is the frame f0 curve
-        (Harvest's when None)."""
+        (the pitch extractor's when None)."""
         self._check_request()
         mel_len = len(audio) // self.hop_length
         bucket = _bucket_for(mel_len)

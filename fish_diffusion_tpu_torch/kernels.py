@@ -118,6 +118,14 @@ KERNELS = {
         id="K9", route="triton", source=_PORT + "models/vocoders/source.py",
         replaces=_TPU + "models/vocoders/source.py:172",
     ),
+    "pyin_viterbi": dict(
+        id="K8 pYIN", route="cuda", source=_PORT + "csrc/viterbi_dense.cu",
+        replaces=_TPU + "extractors/pitch.py:631",
+    ),
+    "crepe_viterbi": dict(
+        id="K8 CREPE", route="cuda", source=_PORT + "csrc/viterbi_dense.cu",
+        replaces=_TPU + "extractors/crepe.py:133",
+    ),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -149,6 +157,9 @@ SIGNATURES = {
     },
     "viterbi": {
         "viterbi_candidates": [_P] * 6 + [_I] * 3 + [_P],
+    },
+    "viterbi_dense": {
+        "viterbi_dense": [_P] * 5 + [_I] * 3 + [_P],
     },
     "conv2d": {
         "conv2d": [_I] + [_P] * 4 + [_I] * 13 + [_P],

@@ -9,6 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from fish_diffusion_tpu.extractors.crepe import CrepePitchExtractor as JCrepe
 from fish_diffusion_tpu.extractors.feature import HubertSoft as JHubertSoft
 from fish_diffusion_tpu.models.diffsinger import DiffSinger as JDiffSinger
 from fish_diffusion_tpu.models.vocoders.nsf_hifigan import (
@@ -18,11 +19,13 @@ from fish_diffusion_tpu.models.vocoders.refinegan import (
     RefineGANGenerator as JRefineGAN,
 )
 from fish_diffusion_tpu_torch.convert import (
+    crepe_from_jax,
     diffsinger_from_jax,
     hubert_soft_from_jax,
     nsf_hifigan_from_jax,
     refinegan_from_jax,
 )
+from fish_diffusion_tpu_torch.extractors.crepe import Crepe
 from fish_diffusion_tpu_torch.extractors.feature import HubertSoftModel
 from fish_diffusion_tpu_torch.models.diffsinger import DiffSinger
 from fish_diffusion_tpu_torch.models.vocoders.nsf_hifigan import NsfHifiGANGenerator
@@ -118,3 +121,13 @@ def test_hubert_soft_round_trip():
     sd = round_trip(HubertSoftModel(num_layers=1), hubert_soft_from_jax(params))
     convert = load_tool("preprocessing/convert_hubert_checkpoint.py", "hubert_convert_rt")
     assert_trees_equal(params, convert.convert_hf_hubert(sd))
+
+
+def test_crepe_round_trip():
+    """CREPE (full capacity) in torchcrepe's key layout, read back by
+    ``tools/preprocessing/convert_crepe_checkpoint.py:convert_state_dict``."""
+    variables = numpy_tree(JCrepe(model="full").init_random(jax.random.PRNGKey(0)))
+    sd = round_trip(Crepe("full"), crepe_from_jax(variables))
+    convert = load_tool("preprocessing/convert_crepe_checkpoint.py", "crepe_convert_rt")
+    assert set(k for k in sd if "num_batches_tracked" not in k) == set(convert.TORCHCREPE_KEYS)
+    assert_trees_equal(variables, convert.convert_state_dict(sd))

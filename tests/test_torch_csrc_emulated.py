@@ -1,6 +1,6 @@
 """The CUDA sources of K1, K4 (and its weight gradient), K5 (forward and
-backward), K6 (grouped and 2-D, with the 2-D weight gradient) and K8-cand,
-compiled for the host CPU and run against their
+backward), K6 (grouped and 2-D, with the 2-D weight gradient), K8-cand and
+K8 dense (pYIN's and CREPE's decoder), compiled for the host CPU and run against their
 plain PyTorch versions at small shapes.
 
 The card is the real test (``chip_smoke.py``, ``tests/test_torch_kernels_cuda.py``),
@@ -27,6 +27,7 @@ from fish_diffusion_tpu_torch.extractors import pitch
 from fish_diffusion_tpu_torch.models import wavenet
 from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan
 from fish_diffusion_tpu_torch.ops import blocked_conv, mel
+from tests.test_torch_kernels_cuda import dense_case
 
 SHIM = r"""
 #pragma once
@@ -293,6 +294,26 @@ def _check_viterbi(lib, freqs, strengths, unvoiced):
     torch.testing.assert_close(path, ref_path, atol=0, rtol=0)
     torch.testing.assert_close(f0, ref_f0, atol=0, rtol=0)
     return path
+
+
+@pytest.mark.parametrize("kind,B,T,ties", [
+    ("pyin", 2, 24, False), ("crepe", 2, 20, False), ("pyin", 1, 1, False),
+    ("crepe", 1, 2, False), ("pyin", 1, 12, True), ("crepe", 1, 12, True),
+    ("flat", 2, 12, False)])
+def test_viterbi_dense_source(host_libs, kind, B, T, ties):
+    """K8 dense at S = 430 (pYIN) and 360 (CREPE, with -inf bins and pad
+    rows): the path identical to the plain version's; the ``ties`` cases
+    tie in the recursion and in the final argmax, the ``flat`` one across
+    the previous-state parts of the kernel (``dense_case``)."""
+    delta0, log_obs, log_A = dense_case(kind, B, T, seed=T, ties=ties)
+    S = log_obs.shape[2]
+    backptr = torch.empty((B, max(T - 1, 1), S), dtype=torch.int16)
+    path = torch.full((B, T), -1, dtype=torch.int32)
+    assert host_libs["viterbi_dense"].viterbi_dense(
+        delta0.data_ptr(), log_obs.data_ptr(), log_A.data_ptr(), backptr.data_ptr(),
+        path.data_ptr(), B, T, S, None) == 0
+    ref = pitch.viterbi_dense_reference(delta0, log_obs, log_A)
+    torch.testing.assert_close(path, ref, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize(

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of
 ``fish_diffusion_tpu_torch`` (the training modules, the datasets, the
-discriminators and the RefineGAN generator among them) loads no JAX, flax, optax or
+discriminators, the RefineGAN generator and the pitch extractors among
+them) loads no JAX, flax, optax or
 ``fish_diffusion_tpu`` module (checked in a fresh interpreter)."""
 
 import subprocess
@@ -20,9 +21,15 @@ bad = sorted(m for m in sys.modules
 assert len(names) >= 15, names
 for name in ("training.gan", "training.vocoder_trainer", "training.vocoder_cli",
              "training.optim", "training.checkpoint", "datasets.naive",
-             "models.discriminators", "ops.blocked_conv", "models.vocoders.refinegan"):
+             "models.discriminators", "ops.blocked_conv", "models.vocoders.refinegan",
+             "extractors.pitch", "extractors.crepe", "extractors.world"):
     assert "fish_diffusion_tpu_torch." + name in names, name
 assert not bad, bad
+from fish_diffusion_tpu_torch.registry import PITCH_EXTRACTORS
+for name in ("HarvestPitchExtractor", "ParselMouthPitchExtractor", "AutocorrPitchExtractor",
+             "PyinPitchExtractor", "CrepePitchExtractor", "DioPitchExtractor",
+             "YinPitchExtractor"):
+    assert name in PITCH_EXTRACTORS, name
 """
 
 

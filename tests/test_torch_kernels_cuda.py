@@ -1,5 +1,5 @@
-"""The port's hand-written kernels (K1-K6 with K6 2-D, K8-cand, K9, the
-weight gradients, and the backward kernels of K3 and K5) against their plain PyTorch versions
+"""The port's hand-written kernels (K1-K6 with K6 2-D, K8-cand, K8 dense,
+K9, the weight gradients, and the backward kernels of K3 and K5) against their plain PyTorch versions
 on an NVIDIA GPU, at small shapes that exercise the ragged edges.
 
 These need the card (the CUDA kernels have no CPU mode, and Triton needs a
@@ -7,10 +7,12 @@ GPU); without one they skip. On the card:
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 The full-width check of every kernel is ``chip_smoke.py``."""
 
+import math
+
 import pytest
 import torch
 
-from fish_diffusion_tpu_torch.extractors import pitch
+from fish_diffusion_tpu_torch.extractors import crepe, pitch
 from fish_diffusion_tpu_torch.models import diffusion, wavenet
 from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, source
 from fish_diffusion_tpu_torch.ops import blocked_conv, mel
@@ -99,6 +101,69 @@ def test_viterbi_candidates(gen, B, T, K):
     ref = pitch.viterbi_candidates_reference(freqs, strengths, unvoiced)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, atol=0, rtol=0)
+
+
+def dense_case(kind: str, B: int, T: int, seed: int, ties: bool = False):
+    """Inputs of K8 dense as pYIN (S = 430, its transition matrix) or CREPE
+    (S = 360: bins outside 12-166 at -inf, the last quarter of the frames
+    uniform pad rows, delta_0 = -log(S) + obs_0) give them, observations on
+    a grid of 0.5; or ``flat`` (S = 430, a constant matrix). With ``ties``: every frame favours the even states by 8
+    but the last, which favours the odd ones; the states whose transition
+    rows are cut by an edge are kept out (pYIN: voiced bins 0-7 and from
+    207, and the unvoiced states, at -100; CREPE: its -inf bins), and CREPE
+    takes no pad rows. The matrices are then symmetric around every state
+    left, so an odd state's best predecessors j - 1 and j + 1 tie exactly,
+    as do the odd states of the last frame: the first index must win in the
+    recursion and in the final argmax."""
+    gen = torch.Generator().manual_seed(seed)
+    S = 360 if kind == "crepe" else 430
+    if kind == "flat":
+        # a constant matrix and observations on five values: the maximum
+        # of delta ties across the whole state range, every frame
+        log_obs = torch.round(torch.rand((B, T, S), generator=gen) * -4) / 2
+        log_A = torch.full((S, S), -math.log(S))
+        return pitch.pyin_delta0(log_obs), log_obs.contiguous(), log_A
+    log_obs = torch.round(torch.rand((B, T, S), generator=gen) * -16) / 2
+    if ties:
+        log_obs = torch.where(torch.arange(S) % 2 == 0, 0.0, -8.0).expand(B, T, S).clone()
+        log_obs[:, -1] = torch.where(torch.arange(S) % 2 == 1, 0.0, -8.0)
+        if kind == "pyin":
+            log_obs[:, :, :8] = -100.0
+            log_obs[:, :, 207:] = -100.0
+    if kind == "pyin":
+        log_A = torch.from_numpy(pitch._pyin_transition(215, 0.01, 8))
+        return pitch.pyin_delta0(log_obs), log_obs.contiguous(), log_A
+    log_A = torch.log(torch.clamp(torch.from_numpy(crepe._transition_matrix()), min=1e-12))
+    log_obs[:, :, :12] = -math.inf
+    log_obs[:, :, 166:] = -math.inf
+    if not ties:
+        log_obs[:, T - T // 4 :] = -math.log(360.0)
+    return pitch.crepe_delta0(log_obs), log_obs.contiguous(), log_A
+
+
+@pytest.mark.parametrize("kind,B,T,ties", [
+    ("pyin", 2, 300, False), ("crepe", 2, 256, False), ("pyin", 1, 1, False),
+    ("crepe", 1, 2, False), ("pyin", 1, 40, True), ("crepe", 1, 40, True),
+    ("flat", 2, 40, False)])
+def test_viterbi_dense(gen, kind, B, T, ties):
+    """K8 dense (pYIN: 430 states; CREPE: 360 with -inf bins and uniform
+    pad rows; observations on a grid of 0.5, so that many scores tie): the
+    path identical to the plain version's, one launch per call under each
+    wrapper's name."""
+    from fish_diffusion_tpu_torch import kernels
+
+    delta0, log_obs, log_A = (t.cuda() for t in dense_case(kind, B, T, seed=T, ties=ties))
+    wrapper = pitch.crepe_viterbi if kind == "crepe" else pitch.pyin_viterbi
+    name = "crepe_viterbi" if kind == "crepe" else "pyin_viterbi"
+    before = kernels.LAUNCHES[name]
+    got = wrapper(log_obs, log_A)
+    assert kernels.LAUNCHES[name] == before + 1
+    ref = pitch.viterbi_dense_reference(delta0, log_obs, log_A)
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    torch.testing.assert_close(
+        pitch._viterbi_dense(name, delta0, log_obs, log_A), ref, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="512 states"):
+        wrapper(torch.zeros((1, 3, 600), device="cuda"), torch.zeros((600, 600), device="cuda"))
 
 
 def test_nsf_source(gen):

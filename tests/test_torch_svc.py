@@ -4,8 +4,10 @@ to 1 layer, WaveNet 4 x 32, NSF-HiFiGAN initial channels 32 with one
 resblock fan; 100 UniPC evals as configured), with the same weights
 (carried across by ``fish_diffusion_tpu_torch.convert``) and the same random
 draws injected into both: ``forward``/``forward_batch`` with caller-supplied
-f0 or Harvest's, the file-to-file ``inference`` (Harvest or ``pitches_path``;
-UniPC, PLMS, naive; shallow diffusion), and the port's CLI."""
+f0 or Harvest's, the file-to-file ``inference`` (Harvest, ParselMouth, pYIN
+or ``pitches_path``; UniPC, PLMS, naive; shallow diffusion), CREPE's
+time-aligned crop (and the JAX server's crop that keeps the first ~43% of
+CREPE's curve), and the port's CLI."""
 
 import inspect
 import json
@@ -20,20 +22,34 @@ import pytest
 import torch
 
 from fish_diffusion_tpu.config import Config as JConfig
+from fish_diffusion_tpu.extractors import crepe as jcrepe
 from fish_diffusion_tpu.inference.svc import SVCInference as JSVCInference
+from fish_diffusion_tpu.registry import PITCH_EXTRACTORS as J_PITCH_EXTRACTORS
 from fish_diffusion_tpu_torch.config import Config
 from fish_diffusion_tpu_torch.convert import (
+    crepe_from_jax,
     diffsinger_from_jax,
     hubert_soft_from_jax,
     nsf_hifigan_from_jax,
 )
+from fish_diffusion_tpu_torch.extractors.crepe import CrepePitchExtractor
 from fish_diffusion_tpu_torch.extractors.feature import HubertSoft
-from fish_diffusion_tpu_torch.extractors.world import HarvestPitchExtractor
+from fish_diffusion_tpu_torch.extractors.pitch import (
+    ParselMouthPitchExtractor,
+    PyinPitchExtractor,
+    YinPitchExtractor,
+)
+from fish_diffusion_tpu_torch.extractors.world import (
+    DioPitchExtractor,
+    HarvestPitchExtractor,
+)
 from fish_diffusion_tpu_torch.inference import cli
 from fish_diffusion_tpu_torch.inference.svc import SVCInference
 from fish_diffusion_tpu_torch.models.vocoders.nsf_hifigan import NsfHifiGAN
 from fish_diffusion_tpu_torch.ops.mel import LogMelSpectrogram
+from fish_diffusion_tpu_torch.registry import PITCH_EXTRACTORS
 from fish_diffusion_tpu_torch.utils.audio import load_wav, save_wav
+from tests.test_torch_crepe import randomized_variables
 
 CONFIG = Path(__file__).resolve().parents[1] / "configs" / "svc_hubert_soft.py"
 SR, HOP, HIDDEN = 44100, 512, 32
@@ -173,11 +189,11 @@ def test_request_without_f0_raises(engines, monkeypatch):
     a request says so."""
     _, teng = engines
     monkeypatch.setattr(teng, "pitch_extractor", None)
-    monkeypatch.setattr(teng, "pitch_extractor_type", "CrepePitchExtractor")
+    monkeypatch.setattr(teng, "pitch_extractor_type", "RMVPitchExtractor")
     audio = np.zeros(20000, np.float32)
-    with pytest.raises(NotImplementedError, match="CrepePitchExtractor.*not ported"):
+    with pytest.raises(NotImplementedError, match="RMVPitchExtractor.*not ported"):
         teng.forward(audio, teng.parse_speaker(0))
-    with pytest.raises(NotImplementedError, match="CrepePitchExtractor"):
+    with pytest.raises(NotImplementedError, match="RMVPitchExtractor"):
         teng.forward_batch([audio], teng.parse_speaker(0))
 
 
@@ -301,6 +317,95 @@ def test_inference_matches_jax(engines, monkeypatch, tmp_path, predictor, skip_s
     assert sr == SR and written.shape == audio.shape
 
 
+@pytest.mark.parametrize("extractor", ["ParselMouthPitchExtractor", "PyinPitchExtractor"])
+def test_inference_with_config_extractor_matches_jax(engines, monkeypatch, tmp_path,
+                                                     extractor):
+    """File to file with ``preprocessing.pitch_extractor`` set to
+    ParselMouth (K8-cand's plain version on the CPU) or pYIN (K8 pYIN's):
+    wav <= 2e-3 max abs."""
+    jeng, teng = engines
+    cfg = dict(type=extractor, keep_zeros=False)
+    monkeypatch.setattr(jeng, "pitch_extractor", J_PITCH_EXTRACTORS.build(cfg))
+    monkeypatch.setattr(teng, "pitch_extractor", PITCH_EXTRACTORS.build(cfg, device="cpu"))
+    audio = two_phrase_song(tmp_path / "in.wav", seed=17)
+    rng = np.random.default_rng(18)
+    queue = inject_queue(monkeypatch, jeng, (1, 256, 128),
+                         mel_draws(rng, (1, 256, 128), "unipc", 0), calls=2, seed=19)
+    kw = dict(speaker=0, seed=5)
+    ref = jeng.inference(tmp_path / "in.wav", tmp_path / "ref.wav", **kw)
+    got = teng.inference(tmp_path / "in.wav", tmp_path / "out.wav", **kw)
+    assert not queue
+    assert got.shape == ref.shape == audio.shape and np.abs(ref).max() > 0.01
+    np.testing.assert_allclose(got, ref, atol=2e-3)
+
+
+@pytest.fixture(scope="module")
+def crepe_pair():
+    """CREPE tiny in both packages with the same (randomised) weights."""
+    variables = randomized_variables(seed=1)
+    jext = jcrepe.CrepePitchExtractor(model="tiny")
+    jext.variables = variables
+    ext = PITCH_EXTRACTORS.build(dict(type="CrepePitchExtractor", model="tiny"),
+                                 device="cpu")
+    ext.load_state_dict(crepe_from_jax(variables))
+    return jext, ext
+
+
+def crepe_segment(seed):
+    """A 1.8 s phrase at 44.1 kHz: 155 mel frames, bucket 256."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(1.8 * SR)) / SR
+    phase = 2 * np.pi * np.cumsum(230.0 * (1 + 0.01 * np.sin(2 * np.pi * 5 * t))) / SR
+    return (0.3 * np.sin(phase) + 0.004 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+def test_crepe_segment_f0_is_time_aligned(engines, crepe_pair, monkeypatch):
+    """With CREPE, the segment's f0 is the JAX extractor's curve on the
+    bucket-padded audio, cropped to the 5 ms frames that cover the segment
+    (ceil(n * 16000 / 44100 / 80)) and stretched to the mel frames:
+    voicing identical, f0 within 1 cent."""
+    _, teng = engines
+    jext, ext = crepe_pair
+    monkeypatch.setattr(teng, "pitch_extractor", ext)
+    audio = crepe_segment(20)
+    mel_len, bucket = len(audio) // HOP, 256
+    got = teng._prepare_segment(audio, 0.0, None, bucket)["pitches_true"]
+
+    padded = np.pad(audio, (0, bucket * HOP - len(audio)))
+    f0_raw = np.asarray(jext(padded, SR, pad_to=None))
+    n_true = int(np.ceil(len(audio) * 16000 / SR / 80))
+    assert n_true == ext.frame_count(len(audio), SR) == 360 and len(f0_raw) == 595
+    ref = jext.post_process(audio, SR, f0_raw[:n_true], mel_len)
+    assert got.shape == ref.shape == (mel_len,) and (ref > 0).sum() > 100
+    np.testing.assert_array_equal(got > 0, ref > 0)
+    voiced = ref > 0
+    assert np.abs(1200 * np.log2(got[voiced] / ref[voiced])).max() <= 1.0
+
+
+def test_jax_server_crops_crepe_to_its_first_frames(engines, crepe_pair, monkeypatch):
+    """The JAX server's crop (``fish_diffusion_tpu/inference/svc.py:255``)
+    keeps ceil(n / 512) frames of any extractor's curve. CREPE gives 200
+    frames a second (one per 80 samples at 16 kHz), so for a 1.8 s segment
+    it keeps 156 of the 360 that cover the segment (43%) and stretches them
+    over the whole segment; the port crops by the extractor's own frames
+    (the test above), and so departs from the JAX server here."""
+    jeng, teng = engines
+    jext, ext = crepe_pair
+    monkeypatch.setattr(jeng, "pitch_extractor", jext)
+    audio = crepe_segment(20)
+    mel_len, bucket = len(audio) // HOP, 256
+    ref = jeng._prepare_segment(audio, 0.0, None, bucket)["pitches_true"]
+
+    padded = np.pad(audio, (0, bucket * HOP - len(audio)))
+    f0_raw = np.asarray(jext(padded, SR, pad_to=None))
+    n_hop = int(np.ceil(len(audio) / HOP))
+    assert n_hop == 156 and n_hop / ext.frame_count(len(audio), SR) < 0.44
+    np.testing.assert_array_equal(ref, jext.post_process(audio, SR, f0_raw[:n_hop], mel_len))
+    monkeypatch.setattr(teng, "pitch_extractor", ext)
+    got = teng._prepare_segment(audio, 0.0, None, bucket)["pitches_true"]
+    assert not np.allclose(got, ref)
+
+
 @pytest.mark.parametrize("suffix", [".json", ".npy"])
 def test_inference_with_pitches_path_matches_jax(engines, monkeypatch, tmp_path, suffix):
     """The f0 curve from a file (a .json list or .npy array of frame f0s
@@ -380,14 +485,14 @@ model = dict(
 def test_entry_points_default_to_cuda():
     """Every entry point runs on the card unless the caller asks for the
     CPU; without a card, a default build raises rather than falling back."""
-    for cls in (SVCInference, HubertSoft, NsfHifiGAN, HarvestPitchExtractor,
-                LogMelSpectrogram):
+    extractors = (HarvestPitchExtractor, ParselMouthPitchExtractor, PyinPitchExtractor,
+                  CrepePitchExtractor, DioPitchExtractor, YinPitchExtractor)
+    for cls in (SVCInference, HubertSoft, NsfHifiGAN, LogMelSpectrogram) + extractors:
         assert inspect.signature(cls).parameters["device"].default == "cuda", cls
     assert cli.build_parser().get_default("device") == "cuda"
     if torch.cuda.is_available():
         assert LogMelSpectrogram().device.type == "cuda"
     else:
-        for build in (LogMelSpectrogram, HarvestPitchExtractor,
-                      lambda: HubertSoft(num_layers=1)):
+        for build in (LogMelSpectrogram, lambda: HubertSoft(num_layers=1)) + extractors:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 build()
