@@ -42,7 +42,7 @@ Phases, in order; any failure raises and the script exits non-zero:
             beside their bound, chip-wide and on one SM.
 5. train:   ``VocoderTrainer.fit`` on ``configs/vocoder_nsf_hifigan.py`` at
             full width (NSF-HiFiGAN 512, MPD 2/3/5/7/11, 3-scale MSD, batch
-            16 x 32768, float32) over a synthetic dataset: 2 warm-up and 8
+            16 x 32768, float32) over a synthetic dataset: 2 warm-up and 6
             timed steps (seconds, audio seconds per second, stage split,
             peak memory, losses, exact launches per step), validation and a
             checkpoint; a resume from it; one step through the kernels
@@ -58,18 +58,41 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. train_v2: the same on ``configs/vocoder_refinegan.py`` (RefineGAN
             start_channels 16, hop 256, GAN flavor v2: MPD 2/3/5/7/11 + MRD
             at (1024, 120, 600), (2048, 240, 1200), (512, 50, 240), batch 16
-            x 32768, float32): 2 warm-up and 6 timed steps, validation, a
+            x 32768, float32): 2 warm-up and 5 timed steps, validation, a
             checkpoint and a resume, the whole step against the plain
             versions (the same tolerances), then K6 2-D (forward, input
             gradient in its direct and transposed modes, weight gradient) at
             every layer of one MRD pass, K9 at the step's template and K5 at
             the step's MRD and mel shapes, each against its plain version and
             timed beside its bound and library call.
+   istft_net: (between pitch and train, on the serving engine) a
+            full-width ``ISTFTNet`` (512 channels, upsample 8.8, n_fft 16,
+            hop 8, seeded weights) set with ``set_vocoder``: ``forward_batch``
+            of 4 x ~11.9 s with f0 and ``inference`` on the 24 s wav
+            (Harvest, UniPC), exact launches (K5 istft once per vocoder
+            pass), finite audio of the input's length (no output tanh: the
+            peak is printed); a short request against the plain
+            composition; K5 istft on the batch request's own spectra
+            against its plain version and ``torch.istft``, and at n_fft 2048
+            / hop 512.
+7. train_sine: phase 6's path with ``template_generator="sine"``: 2
+            warm-up and 4 timed steps, exact launches (K9 sine once a
+            step), the whole step against the plain step (phase 6's
+            check), K9 sine at the step's template against its plain
+            version.
+8. align:   K7 at GlowTTS/VITS alignment shapes (B=32, T_y 1000, T_x 200,
+            lengths per item), paths bit-equal to the plain version on
+            random and on integer (tied) values; kernel and plain times.
+
+Each phase prints its wall time. The whole-step checks of phases 5-7 also
+print the relative L2 difference of each network's gradients and the
+plain step's own (not held).
 
 The line before the last is a JSON object with one entry per kernel (its
-``launches`` count the file-to-file path for the serving kernels, the pitch
-path for K8 dense and the training runs for the others,
-``launches_by_path`` all four paths; K5's and K8-cand's times are those of
+``launches`` count the first path that runs it: the file-to-file path for
+the serving kernels, the pitch path for K8 dense, the istft_net path for
+K5 istft, the training runs, the align phase for K7;
+``launches_by_path`` every path; K5's and K8-cand's times are those of
 the shallow request's own calls, with their B=4 times under ``batch4``; K8
 dense's those of one request's three calls); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -158,6 +181,23 @@ class Report:
         if not ok:
             self.failures.append(label)
         return err
+
+    def compare_local(self, label, got, ref, scale, tol):
+        """Every element against its own scale: |got - ref| <= tol * scale
+        + 1e-35 (scale >= 0, ref's shape; the floor lies below float32's
+        normal numbers, for scales that underflow). Returns the largest
+        |got - ref| / scale."""
+        err = (got.float() - ref.float()).abs()
+        ratio = float((err / scale.clamp(min=1e-35)).max())
+        ok = bool((err <= tol * scale + 1e-35).all()) and np.isfinite(ratio)
+        mag = ref.float().abs()
+        print(f"  {label}: max |err| / local scale {ratio:.3e} tol {tol:.0e} "
+              f"{'ok' if ok else 'FAIL'} (max_abs_err {float(err.max()):.3e}; |ref| peak "
+              f"{float(mag.max()):.3e}, median {float(mag.median()):.3e}; local scale "
+              f"median {float(scale.median()):.3e})")
+        if not ok:
+            self.failures.append(label)
+        return ratio
 
     def kernel(self, name, err, ms, plain_ms, shape="", n_bytes=0, flops=0,
                library_ms=None):
@@ -730,20 +770,25 @@ class StageClock:
 PHRASES = ((7.4, 220.0), (7.4, 247.0), (7.4, 196.0))
 VOCODER_LAUNCHES = {"conv_transpose1d": 5, "conv1d": 2 + 5 * (1 + 3 * 6),
                     "nsf_phase_base": 1, "nsf_merge": 1}
+# iSTFTNet: 2 levels of (transposed conv, noise conv, 3 fans x 6 convs),
+# conv_pre and conv_post; the source at trunk rate; one K5 istft
+ISTFT_NET_LAUNCHES = {"conv_transpose1d": 2, "conv1d": 2 + 2 * (1 + 3 * 6),
+                      "nsf_phase_base": 1, "nsf_merge": 1, "istft": 1}
 
 
 def expect_file_launches(layers, segments, evals, steps=None, predictor="unipc", stft=0,
-                         pitch_kernel="viterbi_candidates"):
+                         pitch_kernel="viterbi_candidates", vocoder=None):
     """The launches of a request of ``segments`` segments: the denoiser's
     two K1 kernels per block and eval, the sampler's K2 updates, one
-    vocoder pass, K5 for a shallow request and the pitch extractor's
-    decoder (Harvest's and ParselMouth's K8-cand, pYIN's and CREPE's K8
-    dense, none for DIO and YIN) once per segment."""
+    vocoder pass (``vocoder``: NSF-HiFiGAN's unless given), K5 for a
+    shallow request and the pitch extractor's decoder (Harvest's and
+    ParselMouth's K8-cand, pYIN's and CREPE's K8 dense, none for DIO and
+    YIN) once per segment."""
     from fish_diffusion_tpu_torch import kernels
 
     steps = evals if steps is None else steps
     out = {name: 0 for name in kernels.LAUNCHES}
-    out.update({k: v * segments for k, v in VOCODER_LAUNCHES.items()})
+    out.update({k: v * segments for k, v in (vocoder or VOCODER_LAUNCHES).items()})
     out.update(wavenet_gate=layers * evals * segments, wavenet_out=layers * evals * segments,
                stft_magnitude=stft * segments)
     if pitch_kernel:
@@ -1134,6 +1179,206 @@ def phase_pitch(report: Report, engine, seed: int):
     return launches
 
 
+def istft_work(real, out, n_fft: int):
+    """Bytes and float32 operations the inverse STFT needs, whatever the
+    kernel does: the spectrum read once, the audio written once; per frame
+    an inverse real FFT of n_fft points (2.5 n log2 n), the window's n
+    products and n overlap-add sums; a division per output sample."""
+    frames = real.shape[0] * real.shape[2]
+    flops = frames * (2.5 * n_fft * np.log2(n_fft) + 2 * n_fft) + out.numel()
+    return 2 * nbytes(real) + nbytes(out) + 4 * n_fft, flops
+
+
+def istft_scale(real, imag, n_fft: int, hop: int):
+    """Each output sample's own scale for the inverse STFT of real + i imag:
+    the window-weighted, envelope-divided overlap-add of each covering
+    frame's bound (2 / n_fft) sum_k (|re| + |im|) on its inverse DFT,
+    trimmed as the output is. A float32 inverse STFT errs by a small
+    multiple of eps times it; a wrong one by the order of it. It is the
+    plain istft of a spectrum whose frames hold only that bound, at DC."""
+    import torch
+
+    from fish_diffusion_tpu_torch.ops import mel
+
+    dc = torch.zeros_like(real)
+    dc[:, 0] = (real.abs() + imag.abs()).sum(1) * 2.0
+    return mel.istft_reference(dc, torch.zeros_like(imag), n_fft, hop)
+
+
+def measure_istft(report: Report, real, imag, n_fft: int, hop: int, label: str):
+    """K5 istft against its plain version on one input, every output sample
+    within 1e-5 of its own scale (``istft_scale``), timed beside
+    ``torch.istft`` and its bound."""
+    import torch
+
+    from fish_diffusion_tpu_torch.ops import mel
+
+    got = mel.istft(real, imag, n_fft, hop)
+    ref = mel.istft_reference(real, imag, n_fft, hop)
+    ratio = report.compare_local(f"istft {label}", got, ref,
+                                 istft_scale(real, imag, n_fft, hop), 1e-5)
+    window = torch.hann_window(n_fft, device=DEVICE)
+    spec = torch.complex(real, imag)
+    ms, plain, lib = timed_triple(lambda: mel.istft(real, imag, n_fft, hop),
+                                  lambda: mel.istft_reference(real, imag, n_fft, hop),
+                                  lambda: torch.istft(spec, n_fft, hop, n_fft, window,
+                                                      center=True))
+    work = istft_work(real, got, n_fft)
+    t_bound, by = bound(*work)
+    print(f"    kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.istft {lib:.4f} ms, bound "
+          f"{t_bound:.4f} ms ({by})")
+    return dict(err=max_err(got, ref), ratio=ratio, ms=ms, plain=plain, lib=lib, work=work)
+
+
+def phase_istft_net(report: Report, engine, seed: int):
+    """The sixth slice's serving path: a full-width ``ISTFTNet`` (seeded
+    random weights) set on the serving engine; ``forward_batch`` of 4 x
+    ~11.9 s with f0 and ``inference`` on the file phase's 24 s wav
+    (Harvest, UniPC), exact launches per request, finite audio of the
+    input's length; a short request through the kernels against the plain
+    composition, each spectrum element and wav sample against its own
+    scale; K5 istft against its plain version and ``torch.istft`` at the
+    batch request's shape on standard normal spectra and on the request's
+    own, and at n_fft 2048 / hop 512."""
+    import torch
+
+    from fish_diffusion_tpu_torch import kernels
+    from fish_diffusion_tpu_torch.models import wavenet
+    from fish_diffusion_tpu_torch.models.vocoders import istft_net, nsf_hifigan, source
+    from fish_diffusion_tpu_torch.ops import mel
+    from fish_diffusion_tpu_torch.utils.audio import load_wav, slice_audio
+
+    t0 = time.perf_counter()
+    vocoder = istft_net.ISTFTNet(
+        random_init=True, seed=seed + 6, sampling_rate=SR, mel_channels=MEL,
+        use_natural_log=engine.config.model.vocoder.get("use_natural_log", True),
+        device=DEVICE)
+    nsf = engine.vocoder
+    engine.set_vocoder(vocoder)
+    print(f"[istft_net] ISTFTNet (512 channels, upsample 8.8, ResBlock1 3/7/11, n_fft 16, "
+          f"hop 8) built in {time.perf_counter() - t0:.1f} s and set on the serving engine")
+    cfg = engine.config.model.diffusion
+    layers, evals = cfg.denoiser.residual_layers, cfg.timesteps // cfg.sampler_interval
+    rng = np.random.default_rng(seed + 70)
+    batch = [make_request_audio(rng, n) for n in (524288, 520000, 515000, 510000)]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_istft_"))
+    song = make_song(np.random.default_rng(seed + 20), tmp / "song.wav", PHRASES)
+    rms = np.sqrt(np.mean(song ** 2) + 1e-12)
+    n_seg = len(list(slice_audio(np.clip(song * (10 ** (-23 / 20) / (rms + 1e-12)), -1, 1),
+                                 SR)))
+    speakers = engine.parse_speaker(0)
+
+    def expect(segments, pitch_kernel):
+        return expect_file_launches(layers, segments, evals, pitch_kernel=pitch_kernel,
+                                    vocoder=ISTFT_NET_LAUNCHES)
+
+    requests = [
+        ("forward_batch 4 x ~11.9 s with f0 (bucket 1024)",
+         lambda: engine.forward_batch([a for a, _ in batch], speakers, seed=seed,
+                                      pitches_list=[f for _, f in batch]),
+         [len(a) for a, _ in batch], expect(1, None)),
+        ("inference 24 s, Harvest + UniPC",
+         lambda: [engine.inference(tmp / "song.wav", tmp / "out.wav", seed=seed)],
+         [len(song)], expect(n_seg, "viterbi_candidates")),
+    ]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _, run, _, _ in requests:
+        run()
+    torch.cuda.synchronize()
+    print(f"[istft_net] warm-up (each request once): {time.perf_counter() - t0:.3f} s")
+
+    istft_calls = recording(mel, "istft")
+    kernels.reset_launches()
+    for i, (label, run, lengths, expected) in enumerate(requests):
+        before = dict(kernels.LAUNCHES)
+        if i == 0:
+            istft_calls.start()
+        clock = StageClock()
+        clock.wrap(engine.model, "sample", "sample")
+        clock.wrap(vocoder, "spec2wav", "vocoder")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        clock.restore()
+        istft_calls.stop()
+        audio_secs = sum(lengths) / SR
+        if i == 1:  # the written file too
+            outs, lengths = outs + [load_wav(tmp / "out.wav")[0]], lengths * 2
+        grew = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+        peak = max(float(np.abs(o).max()) for o in outs)
+        ok = ([len(o) for o in outs] == lengths
+              and all(np.isfinite(o).all() and np.abs(o).max() > 0 for o in outs)
+              and grew == expected)
+        print(f"[istft_net] {label}: {secs:.3f} s for {audio_secs:.2f} s of audio, RTF "
+              f"{secs / audio_secs:.4f}, peak |wav| {peak:.3e} (no output tanh), launches "
+              f"{({k: v for k, v in grew.items() if v})} {'ok' if ok else 'FAIL'}; synced "
+              "stage clocks: " + ", ".join(f"{k} {v:.4f} s" for k, v in clock.seconds.items()))
+        if not ok:
+            print(f"  expected {({k: v for k, v in expected.items() if v})}")
+            report.failures.append(f"istft_net: {label}")
+    launches = dict(kernels.LAUNCHES)
+    print(f"[istft_net] launches over the path: {launches}")
+    for name in {k for *_, expected in requests for k, v in expected.items() if v}:
+        if launches[name] <= 0:
+            report.failures.append(f"{name} never launched on the istft_net path")
+
+    # a short request through the kernels and through the plain version of
+    # every kernel. The random iSTFTNet's spectrum is exp of a random conv
+    # (peaks near 1e15, most frames far below), so each element is held
+    # against its own scale: the spectrum against its magnitude, each wav
+    # sample against ``istft_scale`` of the plain run's spectrum
+    small, small_f0 = make_request_audio(rng, 96 * HOP)
+    run_small = lambda: engine.forward(small, speakers, seed=seed, pitches=small_f0)  # noqa: E731
+    with recording(mel, "istft") as got_calls:
+        got = run_small()
+    with plain_path({
+        (wavenet, "residual_block"): wavenet.residual_block_reference,
+        (nsf_hifigan, "conv1d"): nsf_hifigan.conv1d_reference,
+        (nsf_hifigan, "conv_transpose1d"): nsf_hifigan.conv_transpose1d_reference,
+        (source, "nsf_source"): source.nsf_source_reference,
+        (mel, "istft"): mel.istft_reference,
+    }), recording(mel, "istft") as ref_calls:
+        ref = run_small()
+    (g_re, g_im, n_fft, hop), _ = got_calls.calls[0]
+    (r_re, r_im, _, _), _ = ref_calls.calls[0]
+    mag = torch.sqrt(r_re * r_re + r_im * r_im)
+    report.compare_local("istft_net serve 1 x 1.1 s vs plain composition: the generator's "
+                         "spectrum (real, imag) against its magnitude",
+                         torch.cat([g_re, g_im]), torch.cat([r_re, r_im]),
+                         torch.cat([mag, mag]), 1e-3)
+    report.compare_local("istft_net serve 1 x 1.1 s vs plain composition: the wav against "
+                         "each sample's scale", torch.from_numpy(got), torch.from_numpy(ref),
+                         istft_scale(r_re, r_im, n_fft, hop)[0, : len(ref)].cpu(), 1e-3)
+
+    (real, imag, n_fft, hop), _ = istft_calls.calls[0]
+    shape = f"B={real.shape[0]} x {real.shape[2]} frames, n_fft {n_fft}, hop {hop}"
+    print(f"[istft_net] K5 istft at the forward_batch request's shape, {shape}: standard "
+          "normal spectra, then the request's own")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 71)
+    r = measure_istft(report, *[torch.randn(real.shape, generator=gen, device=DEVICE)
+                                for _ in range(2)], n_fft, hop, f"{shape}, randn")
+    report.kernel("istft", r["err"], r["ms"], r["plain"],
+                  f"the forward_batch request's shape, {shape}, standard normal spectra",
+                  *r["work"], r["lib"])
+    own = measure_istft(report, real, imag, n_fft, hop, f"{shape}, the request's own")
+    report.extra["istft"] = dict(request_spectra=dict(
+        shape=shape, max_abs_err=own["err"], max_err_over_local_scale=own["ratio"],
+        ms=own["ms"], plain_ms=own["plain"], library_ms=own["lib"]))
+    print("[istft_net] K5 istft at n_fft 2048, hop 512, B=4 x 1024 frames")
+    big = [torch.randn((B, 1025, T), generator=gen, device=DEVICE) for _ in range(2)]
+    r2 = measure_istft(report, *big, 2048, 512, "n_fft=2048 B=4 F=1024")
+    t2, by2 = bound(*r2["work"])
+    report.extra["istft"]["n_fft_2048"] = dict(
+        shape="B=4 x 1024 frames, n_fft 2048, hop 512", max_abs_err=r2["err"], ms=r2["ms"],
+        plain_ms=r2["plain"], library_ms=r2["lib"], bound_ms=t2, bound_by=by2)
+    engine.set_vocoder(nsf)
+    report.finish("istft_net")
+    return launches
+
+
 TRAIN_B, TRAIN_SEG = 16, 32768
 # relative changes of the audio whose gradient moves give a training step's
 # float32 noise floor (the largest; ``drive_training``)
@@ -1348,15 +1593,17 @@ def measure_train_kernels(report: Report, seed: int, stft_calls, k6_calls, conv_
 
 
 def drive_training(report: Report, seed: int, tag: str, config_file: str, describe,
-                   warm: int, timed: int, expected_fn, plain_fns: dict, record):
+                   warm: int, timed: int, expected_fn, plain_fns: dict, record,
+                   override=None):
     """One training path at full width (float32) on a synthetic dataset:
-    ``VocoderTrainer.fit`` for ``warm`` + ``timed`` steps with validation
-    and a checkpoint, every step's launches held to ``expected_fn(trainer)``
-    exactly; a resume from the checkpoint; then one step through the
-    kernels, during which the calls of the wrappers in ``record`` ((module,
-    name) pairs) are kept, against one through every plain version in
-    ``plain_fns``. Returns (launches over the fit, the path's numbers under
-    ``tag``, the recorded calls by name)."""
+    ``configs/<config_file>`` (changed in place by ``override(cfg)`` when
+    given), ``VocoderTrainer.fit`` for ``warm`` + ``timed`` steps with
+    validation and a checkpoint, every step's launches held to
+    ``expected_fn(trainer)`` exactly; a resume from the checkpoint; then
+    one step through the kernels, during which the calls of the wrappers in
+    ``record`` ((module, name) pairs) are kept, against one through every
+    plain version in ``plain_fns``. Returns (launches over the fit, the
+    path's numbers under ``tag``, the recorded calls by name)."""
     import copy
 
     import torch
@@ -1372,6 +1619,8 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
     tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_"))
     make_vocoder_dataset(rng, tmp / "data")
     cfg = Config.fromfile(ROOT / "configs" / config_file)
+    if override is not None:
+        override(cfg)
     cfg.trainer["precision"] = "32-true"
     cfg.trainer["discriminator_dtype"] = "float32"
     cfg.dataset.train["path"] = str(tmp / "data" / "train")
@@ -1508,6 +1757,13 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
         k = max(rel, key=rel.get)
         return k, rel[k]
 
+    def rel_l2(got, ref, prefix):
+        """||got - ref|| / ||ref|| over all of one network's gradients."""
+        keys = [k for k in ref if k.startswith(prefix)]
+        num = sum(float(((got[k] - ref[k]).double() ** 2).sum()) for k in keys)
+        den = sum(float((ref[k].double() ** 2).sum()) for k in keys)
+        return (num / max(den, 1e-300)) ** 0.5
+
     recorders = [recording(mod, name) for mod, name in record]
     for r in recorders:
         r.start()
@@ -1529,10 +1785,12 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
     # draw from the same spread, so the floor is the largest move over
     # several d, for the generator and the discriminators alike.
     moves = {"g.": [], "d.": []}
+    moves_l2 = {"g.": [], "d.": []}
     for d in FLOOR_SCALES:
         g_q, _, _ = one_step(plain_fns, 1.0 + d)
         for prefix, found in moves.items():
             found.append(worst_error(g_q, g_p, prefix))
+            moves_l2[prefix].append(rel_l2(g_q, g_p, prefix))
         del g_q
     for k, want in m_p.items():
         if k.startswith("loss"):
@@ -1556,6 +1814,14 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
         if not err <= tol:
             report.failures.append(f"{tag} step {whose} gradients vs plain: {err:.3e} > "
                                    f"tol {tol:.3e}")
+        # printed beside the gate, not held: a measure that one kink flip
+        # moves less than the largest element, for a tighter check later
+        l2, l2_floor = rel_l2(g_k, g_p, prefix), max(moves_l2[prefix])
+        held[prefix[0]] += (l2, l2_floor)
+        print(f"{say} whole step, the {whose} gradients' relative L2 difference, kernels vs "
+              f"plain: {l2:.3e}; the plain step's own under audio x (1 + d): "
+              + ", ".join(f"{m:.3e}" for m in moves_l2[prefix])
+              + f" (largest {l2_floor:.3e}; ratio {l2 / max(l2_floor, 1e-300):.2f})")
     restore()
     totals = {
         f"{tag}_step_s_median": median, f"{tag}_step_s": secs,
@@ -1564,7 +1830,8 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
         f"{tag}_losses_last": steps[-1][2],
         f"{tag}_launches_per_step": {k: v for k, v in expected.items() if v},
         f"{tag}_step_vs_plain": {f"{w}_{k}": v for w, row in held.items()
-                                 for k, v in zip(("max_rel_err", "noise_floor", "tol"), row)},
+                                 for k, v in zip(("max_rel_err", "noise_floor", "tol",
+                                                  "rel_l2", "rel_l2_floor"), row)},
     }
     return launches, totals, {r.name: r.calls for r in recorders}
 
@@ -1581,7 +1848,7 @@ def phase_train(report: Report, seed: int):
         report, seed, "train", "vocoder_nsf_hifigan.py",
         lambda cfg: (f"NSF-HiFiGAN 512 (upsample 8.8.2.2.2, ResBlock1 3/7/11), MPD "
                      f"periods {cfg.model.mpd.periods}, 3-scale MSD"),
-        2, 8,
+        2, 6,
         lambda trainer: train_launches_per_step(dict(trainer.config.model.generator),
                                                 len(trainer.config.model.multi_scale_mels)),
         {
@@ -1779,7 +2046,7 @@ def phase_train_v2(report: Report, seed: int):
         lambda cfg: (f"RefineGAN start_channels {cfg.model.generator.start_channels}, hop "
                      f"{cfg.model.generator.hop_length} (down 2.2.8.8, up 8.8.2.2), MPD periods "
                      f"{cfg.model.mpd.periods}, MRD {cfg.model.mrd.resolutions}"),
-        2, 6, train_v2_launches_per_step,
+        2, 5, train_v2_launches_per_step,
         {
             (nsf_hifigan, "conv1d"): nsf_hifigan.conv1d_reference,
             (source, "comb_tooth"): source.comb_tooth_reference,
@@ -1792,6 +2059,126 @@ def phase_train_v2(report: Report, seed: int):
                              calls["stft_backward"], calls["comb_tooth"])
     report.finish("train_v2")
     return launches, totals
+
+
+def train_sine_launches_per_step(trainer) -> dict:
+    """Kernel launches one v2 GAN step with the sine template implies: the
+    comb step's (``train_v2_launches_per_step``) with K9 sine in place of
+    K9 comb, and, since the template now depends on trained weights (the
+    merge), the input gradients of the two convs that read it:
+    ``template_conv`` (stride 1, K4) and ``source_conv`` (stride 64, K4's
+    transposed mode). The merge's own gradient is torch (``_SineMerge``)."""
+    out = train_v2_launches_per_step(trainer)
+    del out["comb_merge"]
+    out.update(sine_merge=1, conv1d=out["conv1d"] + 1, conv_transpose1d=1)
+    return out
+
+
+def phase_train_sine(report: Report, seed: int):
+    """The sixth slice's training path: ``VocoderTrainer.fit`` on
+    ``configs/vocoder_refinegan.py`` with ``template_generator="sine"`` at
+    full width (float32), a resume, the whole step through the kernels
+    against the plain step, exact launches per step (K9 sine once), and K9
+    sine at the step's template (B=16 x 128 frames, hop 256) against its
+    plain version."""
+    import torch
+
+    from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, source
+    from fish_diffusion_tpu_torch.ops import blocked_conv, mel
+
+    launches, totals, calls = drive_training(
+        report, seed, "train_sine", "vocoder_refinegan.py",
+        lambda cfg: (f"RefineGAN start_channels {cfg.model.generator.start_channels}, hop "
+                     f"{cfg.model.generator.hop_length}, template "
+                     f"{cfg.model.generator.template_generator!r}, MPD periods "
+                     f"{cfg.model.mpd.periods}, MRD {cfg.model.mrd.resolutions}"),
+        2, 4, train_sine_launches_per_step,
+        {
+            (nsf_hifigan, "conv1d"): nsf_hifigan.conv1d_reference,
+            (source, "sine_template"): source.sine_template_reference,
+            (mel, "stft_magnitude"): mel.stft_magnitude_reference,
+            (blocked_conv, "conv2d_nhwc"): blocked_conv.conv2d_nhwc_reference,
+        },
+        [(source, "sine_template")],
+        override=lambda cfg: cfg.model.generator.update(template_generator="sine"))
+
+    (f0, rand_ini, noise, weight, bias, sr, hop, *_), _ = calls["sine_template"][0]
+    weight, bias = weight.detach(), bias.detach()
+    print(f"[train_sine] K9 sine (sine_merge) at the step's template, B={f0.shape[0]} "
+          f"T={f0.shape[1]} hop={hop}, {rand_ini.shape[1]} harmonic")
+    base = source.nsf_phase_base_reference(f0, sr, hop, "linear")
+    args = (f0, base, rand_ini, noise, weight, bias, sr, hop)
+    with torch.no_grad():
+        got = source.sine_merge(*args)
+        err = report.compare(f"sine_merge B={f0.shape[0]} T={f0.shape[1]} hop={hop}", got,
+                             source.sine_merge_reference(*args), 1e-5)
+        ms, plain, _ = timed_triple(lambda: source.sine_merge(*args),
+                                    lambda: source.sine_merge_reference(*args))
+    print(f"    kernel {ms:.4f} ms, plain {plain:.4f} ms (no single PyTorch call)")
+    # per sample and harmonic: interpolated f0, the float64 phase, sin, the
+    # sr / 2 and voicing gates, noise, merge; tanh (~40)
+    report.kernel("sine_merge", err, ms, plain, f"B={f0.shape[0]} T={f0.shape[1]} hop={hop}",
+                  nbytes(f0, base, rand_ini, noise, weight, bias, got), 40 * noise.numel())
+    report.finish("train_sine")
+    return launches, totals
+
+
+def phase_align(report: Report, seed: int):
+    """The sixth slice's alignment op: K7 at GlowTTS/VITS alignment shapes
+    (B=32, T_y 1000 mel frames, T_x 200 text positions, lengths drawn per
+    item: t_y 500-1000, t_x 100-200, t_x <= t_y), once on random values and
+    once on integer values (ties), paths bit-equal to the plain version and
+    valid; kernel and plain times."""
+    import torch
+
+    from fish_diffusion_tpu_torch import kernels
+    from fish_diffusion_tpu_torch.ops import monotonic_align as ma
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 61)
+    B_, T_y, T_x = 32, 1000, 200
+    t_ys = torch.randint(500, T_y + 1, (B_,), generator=gen, device=DEVICE)
+    t_xs = torch.minimum(torch.randint(100, T_x + 1, (B_,), generator=gen, device=DEVICE),
+                         t_ys)
+    cases = {"random": torch.randn((B_, T_y, T_x), generator=gen, device=DEVICE) * 3,
+             "ties": torch.randint(0, 3, (B_, T_y, T_x), generator=gen,
+                                   device=DEVICE).float()}
+    label = f"B={B_} T_y={T_y} T_x={T_x}"
+    print(f"[align] K7 maximum_path, {label}, t_y {int(t_ys.min())}-{int(t_ys.max())}, "
+          f"t_x {int(t_xs.min())}-{int(t_xs.max())}")
+    kernels.reset_launches()
+    paths = {k: ma.maximum_path(v, t_ys, t_xs) for k, v in cases.items()}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches["maximum_path"] != len(cases):
+        report.failures.append(f"maximum_path launched {launches['maximum_path']} times")
+    err = 0.0
+    for kind, values in cases.items():
+        got = paths[kind]
+        err = max(err, report.compare(f"maximum_path {kind} {label} (identical)", got,
+                                      ma.maximum_path_reference(values, t_ys, t_xs), 0.0))
+        rows = got.sum(dim=2)
+        valid = all(
+            int(rows[b, : t_ys[b]].min()) == 1 and int(rows[b].sum()) == int(t_ys[b])
+            and int(got[b, 0, 0]) == 1 and int(got[b, t_ys[b] - 1, t_xs[b] - 1]) == 1
+            for b in range(B_))
+        print(f"  {kind}: every path monotonic from (0, 0) to (t_y - 1, t_x - 1), one "
+              f"position a frame: {'ok' if valid else 'FAIL'}")
+        if not valid:
+            report.failures.append(f"maximum_path {kind}: invalid path")
+    values = cases["random"]
+    ms, plain, _ = timed_triple(lambda: ma.maximum_path(values, t_ys, t_xs),
+                                lambda: ma.maximum_path_reference(values, t_ys, t_xs), iters=3)
+    # what the op must move: each item's t_y rows of values read once, the
+    # whole path written once; per cell an add, a max and a compare
+    cells = int((t_ys * T_x).sum())
+    work = (4 * cells + nbytes(paths["random"], t_ys, t_xs), 3 * cells)
+    t_bound, by = bound(*work)
+    print(f"    kernel {ms:.4f} ms ({ms * 1e3 / T_y:.3f} us per frame of the longest chain), "
+          f"plain {plain:.4f} ms, bound {t_bound:.5f} ms ({by}; the real limit is the "
+          f"chain of t_y dependent rows, then t_y backtrack steps)")
+    report.kernel("maximum_path", err, ms, plain, f"{label}, random values", *work)
+    report.finish("align")
+    return launches
 
 
 def main() -> int:
@@ -1832,28 +2219,48 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     report = Report()
-    totals = phase_kernels(report, args.seed)
-    phase_kernels_stft_viterbi(report, args.seed)
-    engine = phase_serve(report, args.seed)
-    launches = phase_file_to_file(report, engine, args.seed)
-    pitch_launches = phase_pitch(report, engine, args.seed)
+    wall = {}
+
+    def timed_phase(name, fn, *fn_args):
+        t_phase = time.perf_counter()
+        out = fn(report, *fn_args)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t_phase
+        print(f"[time] phase {name}: {wall[name]:.1f} s")
+        return out
+
+    totals = timed_phase("kernels", phase_kernels, args.seed)
+    timed_phase("kernels K5 K8", phase_kernels_stft_viterbi, args.seed)
+    engine = timed_phase("serve", phase_serve, args.seed)
+    launches = timed_phase("file", phase_file_to_file, engine, args.seed)
+    pitch_launches = timed_phase("pitch", phase_pitch, engine, args.seed)
+    istft_launches = timed_phase("istft_net", phase_istft_net, engine, args.seed)
     del engine
     torch.cuda.empty_cache()
-    train_launches, train = phase_train(report, args.seed)
+    train_launches, train = timed_phase("train", phase_train, args.seed)
     totals.update(train)
     torch.cuda.empty_cache()
-    v2_launches, train_v2 = phase_train_v2(report, args.seed)
+    v2_launches, train_v2 = timed_phase("train_v2", phase_train_v2, args.seed)
     totals.update(train_v2)
+    torch.cuda.empty_cache()
+    sine_launches, train_sine = timed_phase("train_sine", phase_train_sine, args.seed)
+    totals.update(train_sine)
+    align_launches = timed_phase("align", phase_align, args.seed)
+    totals["phase_wall_s"] = wall
 
-    by_path = {"file": launches, "pitch": pitch_launches, "train": train_launches,
-               "train_v2": v2_launches}
+    by_path = {"file": launches, "pitch": pitch_launches, "istft_net": istft_launches,
+               "train": train_launches, "train_v2": v2_launches, "train_sine": sine_launches,
+               "align": align_launches}
     entries = []
     for name, meta in kernels.KERNELS.items():
         k = report.kernels[name]
         # a kernel's launches on the first path that runs it: the
         # file-to-file path for the serving kernels, the pitch path for K8
-        # dense, then the NSF-HiFiGAN training run, then the RefineGAN one
-        path = next(p for p, counts in by_path.items() if counts[name] or p == "train_v2")
+        # dense, the iSTFTNet path for K5 istft, the training runs (NSF-
+        # HiFiGAN, RefineGAN comb, RefineGAN sine), then alignment for K7
+        path = next((p for p, counts in by_path.items() if counts[name]), None)
+        if path is None:
+            raise SystemExit(f"chip_smoke: {name} was launched on no path")
         entries.append(dict(
             name=f"{meta['id']} {name}", route=meta["route"], source=meta["source"],
             replaces=meta["replaces"], launches=by_path[path][name],

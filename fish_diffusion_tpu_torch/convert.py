@@ -9,12 +9,15 @@ converters in ``tools/``:
   ``tools/diffusion/convert_torch_checkpoint.py:convert_diffsinger``), and
   ``wavenet_from_jax`` for the denoiser alone;
 - ``nsf_hifigan_from_jax``: ``NsfHifiGANGenerator`` (inverse of
-  ``tools/nsf_hifigan/convert_checkpoint.py:convert``);
+  ``tools/nsf_hifigan/convert_checkpoint.py:convert``), and
+  ``istft_net_from_jax`` for ``ISTFTNetGenerator``, whose tree has the
+  same layout;
 - ``hubert_soft_from_jax``: the HubertSoft tower with HF ``HubertModel``
   keys (inverse of
   ``tools/preprocessing/convert_hubert_checkpoint.py:convert_hf_hubert``);
 - ``refinegan_from_jax``: ``RefineGANGenerator`` (inverse of
-  ``tools/refinegan/convert_checkpoint.py:convert_refinegan``);
+  ``tools/refinegan/convert_checkpoint.py:convert_refinegan``, plus the
+  sine template's ``template_gen.merge`` when the tree has one);
 - ``discriminators_from_jax``: the GAN discriminators of either flavor
   (MPD + MSD with its spectral-norm state, or MPD + MRD), in
   fish-diffusion's torch names (reference ``nsf_hifigan/models.py:525-613``,
@@ -145,6 +148,11 @@ def nsf_hifigan_from_jax(params: dict) -> dict:
     return sd
 
 
+# ``ISTFTNetGenerator``'s tree is NSF-HiFiGAN's (fewer levels, an n_fft + 2
+# channel ``conv_post``)
+istft_net_from_jax = nsf_hifigan_from_jax
+
+
 def hubert_soft_from_jax(params: dict) -> dict:
     """HubertSoft params: the ``HubertEncoder`` tree plus ``soft_proj``."""
     sd: dict = {}
@@ -206,6 +214,8 @@ def refinegan_from_jax(params: dict) -> dict:
     for name in ("template_conv", "mel_conv", "output_conv"):
         _wn_conv(sd, name, params, name, (2, 1, 0))
     _conv(sd, "source_conv", params["source_conv"])
+    if "merge" in params.get("template_gen", {}):  # the sine template
+        _linear(sd, "template_gen.merge", params["template_gen"]["merge"])
     i = 0
     while f"down_res_{i}" in params:
         _resblock(sd, f"downsample_blocks.{i}.1", params[f"down_res_{i}"])

@@ -89,9 +89,12 @@ class SVCInference:
     def load_checkpoint(self, path):
         """A pickle of the JAX package's DiffSinger params (``{"params":
         ...}``, ``{"ema_params": ...}`` or the bare tree), carried across by
-        ``convert.diffsinger_from_jax``. The JAX package's Orbax checkpoint
-        directories need JAX to read and are not taken here: export the
-        params to a pickle first."""
+        ``convert.diffsinger_from_jax``. The EMA is taken when it holds
+        params; a ``TrainState`` built without ``ema_momentum`` pickles
+        ``ema_params=None``, and then ``params`` is taken, as the JAX
+        server does. The JAX package's Orbax checkpoint directories need
+        JAX to read and are not taken here: export the params to a pickle
+        first."""
         from ..convert import diffsinger_from_jax
 
         if Path(path).is_dir():
@@ -102,7 +105,7 @@ class SVCInference:
         with open(path, "rb") as f:
             state = pickle.load(f)
         if isinstance(state, dict) and "ema_params" in state:
-            state = state["ema_params"]
+            state = state["ema_params"] or state["params"]
         self.load_state_dict(diffsinger_from_jax(state))
 
     def load_state_dict(self, state_dict: dict):

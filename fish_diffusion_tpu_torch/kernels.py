@@ -126,6 +126,18 @@ KERNELS = {
         id="K8 CREPE", route="cuda", source=_PORT + "csrc/viterbi_dense.cu",
         replaces=_TPU + "extractors/crepe.py:133",
     ),
+    "istft": dict(
+        id="K5 istft", route="cuda", source=_PORT + "csrc/istft.cu",
+        replaces=_TPU + "ops/mel.py:249",
+    ),
+    "sine_merge": dict(
+        id="K9 sine", route="triton", source=_PORT + "models/vocoders/source.py",
+        replaces=_TPU + "models/vocoders/nsf_hifigan.py:188",
+    ),
+    "maximum_path": dict(
+        id="K7", route="cuda", source=_PORT + "csrc/monotonic_align.cu",
+        replaces=_TPU + "ops/monotonic_align.py:30",
+    ),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -160,6 +172,12 @@ SIGNATURES = {
     },
     "viterbi_dense": {
         "viterbi_dense": [_P] * 5 + [_I] * 3 + [_P],
+    },
+    "istft": {
+        "istft": [_P] * 5 + [_I] * 7 + [_P],
+    },
+    "monotonic_align": {
+        "maximum_path": [_P] * 5 + [_I] * 3 + [_P],
     },
     "conv2d": {
         "conv2d": [_I] + [_P] * 4 + [_I] * 13 + [_P],

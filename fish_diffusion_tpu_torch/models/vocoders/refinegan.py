@@ -1,11 +1,13 @@
 """RefineGAN generator (``fish_diffusion_tpu/models/vocoders/refinegan.py``).
 
-A UNet over the waveform: the comb-tooth template of the frame f0 (K9,
-``source.py``), ``template_conv``, four levels of (leaky-relu, skip, linear
-downsampling, channel-doubling ``ResBlock``), the mel's ``mel_conv``
-concatenated, then four levels of (leaky-relu, linear upsampling, the
-template's strided ``source_conv`` added at the first, the skip
-concatenated, ``ParallelResBlock``), ``output_conv`` and tanh.
+A UNet over the waveform: a template of the frame f0 (``source.py``: the
+comb-tooth template, K9 comb, or with ``template_generator="sine"`` the
+merged sine template, K9 sine), ``template_conv``, four levels of
+(leaky-relu, skip, linear downsampling, channel-doubling ``ResBlock``),
+the mel's ``mel_conv`` concatenated, then four levels of (leaky-relu,
+linear upsampling, the template's strided ``source_conv`` added at the
+first, the skip concatenated, ``ParallelResBlock``), ``output_conv`` and
+tanh.
 
 Layout ``[B, T, C]``. Every convolution is K4 (``nsf_hifigan.conv1d``,
 ``csrc/conv1d.cu``), with its leaky-relu input activation, residual add and
@@ -18,12 +20,14 @@ linear resampling is ``F.interpolate`` (``ops/tensor.py:repeat_expand``),
 without antialiasing, as in the JAX module.
 
 Random draws, in the JAX module's call order: the template's noise
-``[B, T * hop]`` first, then one ``[B, T', C]`` draw per ``AdaIN`` in
-module order (``up_res_0``'s ``adain1_k3``, ``adain2_k3``, ``adain1_k7``,
+(``[B, T * hop]``, or ``[B, T * hop, 1]`` for the sine template, whose one
+harmonic has no random start phase) first, then one ``[B, T', C]`` draw
+per ``AdaIN`` in module order (``up_res_0``'s ``adain1_k3``, ``adain2_k3``, ``adain1_k7``,
 ...). ``noise_shapes`` lists them; ``forward`` takes them as a list, or
 draws them from a ``torch.Generator``. Parameters carry fish-diffusion's
-torch names, which ``tools/refinegan/convert_checkpoint.py`` reads.
-``template_generator="sine"`` (``RefineSineGen``) is not ported.
+torch names, which ``tools/refinegan/convert_checkpoint.py`` reads; the
+sine template adds its merge, ``template_gen.merge``
+(``convert.refinegan_from_jax`` carries it).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from ...ops.tensor import repeat_expand
 from ...registry import VOCODERS
 from ..discriminators import NormConv
 from . import nsf_hifigan
-from .source import CombToothSource
+from .source import CombToothSource, RefineSineSource
 
 
 def linear_resize(x: torch.Tensor, new_len: int) -> torch.Tensor:
@@ -130,10 +134,9 @@ class RefineGANGenerator(nn.Module):
                  start_channels: int = 16, template_generator: str = "comb",
                  template_noise_std: float = 0.003):
         super().__init__()
-        if template_generator != "comb":
-            raise NotImplementedError(
-                f"template_generator={template_generator!r}: only the comb-tooth "
-                "template is ported (the sine template is in ROADMAP.md)")
+        if template_generator not in ("comb", "sine"):
+            raise ValueError(f"template_generator={template_generator!r}: "
+                             "'comb' or 'sine'")
         if not int(np.prod(downsample_rates)) == int(np.prod(upsample_rates)) == hop_length:
             raise ValueError(f"rates {downsample_rates} and {upsample_rates} must "
                              f"multiply to hop_length {hop_length}")
@@ -142,8 +145,9 @@ class RefineGANGenerator(nn.Module):
         self.upsample_rates = tuple(upsample_rates)
         self.slope = leaky_relu_slope
         self.num_mels = num_mels
-        self.template_gen = CombToothSource(sampling_rate, hop_length,
-                                            noise_std=template_noise_std)
+        self.template_generator = template_generator
+        source = CombToothSource if template_generator == "comb" else RefineSineSource
+        self.template_gen = source(sampling_rate, hop_length, noise_std=template_noise_std)
         self.template_conv = NormConv(1, start_channels, (7,))
         channels = start_channels
         self.downsample_blocks = nn.ModuleList()
@@ -171,7 +175,8 @@ class RefineGANGenerator(nn.Module):
 
     def noise_shapes(self, batch: int, n_frames: int) -> List[tuple]:
         """The shapes of the random draws, in the JAX module's call order."""
-        shapes = [(batch, n_frames * self.hop_length)]
+        shapes = [(batch, n_frames * self.hop_length)
+                  + ((1,) if self.template_generator == "sine" else ())]
         length = n_frames * self.hop_length
         for rate in self.downsample_rates:
             length //= rate
@@ -189,8 +194,8 @@ class RefineGANGenerator(nn.Module):
         start; flax's scale of 1 gives every output channel a unit-norm
         kernel, and at full width the activations then grow until the
         output tanh saturates and every generator gradient is 0); plain
-        convs N(0, 1 / fan_in) (flax's lecun normal, untruncated), biases 0,
-        AdaIN weights 1."""
+        convs and the sine template's merge N(0, 1 / fan_in) (flax's lecun
+        normal, untruncated), biases 0, AdaIN weights 1."""
         gen = torch.Generator().manual_seed(seed)
         params = dict(self.named_parameters())
         for name, p in params.items():
@@ -199,7 +204,7 @@ class RefineGANGenerator(nn.Module):
                 g = params[name[: -len("weight_v")] + "weight_g"]
                 g.copy_(torch.linalg.vector_norm(p, dim=tuple(range(1, p.ndim)),
                                                  keepdim=True))
-            elif name.endswith("weight") and p.ndim == 3:
+            elif name.endswith("weight") and p.ndim >= 2:
                 p.copy_(torch.randn(p.shape, generator=gen) * p[0].numel() ** -0.5)
             elif name.endswith("weight"):
                 p.fill_(1.0)

@@ -51,6 +51,20 @@ noise, and writes only ``[B, T * hop]``; it needs no gradient (the template
 depends on f0 and noise alone). Bound by memory: f0 and noise in, the
 template out. ``comb_merge_reference`` is the plain version,
 ``CombToothSource`` the module.
+
+RefineGAN's sine template (K9 sine) replaces the JAX package's
+``RefineSineGen`` (``refinegan.py:252``), whose phase is a mod-1
+associative scan over samples (``nsf_hifigan.py:188 _mod1_phase_scan``)
+of linearly resized f0. ``sine_merge``, a Triton kernel, takes the frame
+base from K3's linear scan and forms per (row, tile of frames) the
+interpolated f0, the float64 phase (as K9 comb), each harmonic's sine
+with its start phase, 0 above sr // 2, the amplitude, the voicing gate,
+the injected noise and the Dense(H -> 1) merge with tanh, and writes only
+``[B, T * hop, 1]``. The sines are stop-gradient but the merge is
+trained: in training the kernel also writes the merge's inputs, and
+``_SineMerge``'s backward is the analytic tanh/merge gradient in torch.
+``sine_merge_reference`` is the plain version, ``RefineSineSource`` the
+module (key ``merge``).
 """
 
 from __future__ import annotations
@@ -185,6 +199,46 @@ def _comb_kernel(f0_ptr, base_ptr, coef_ptr, psum_ptr, noise_ptr, out_ptr, T, sr
     tl.store(out_ptr + samples, out, mask=smask)
 
 
+def _sine_kernel(f0_ptr, base_ptr, coef_ptr, psum_ptr, rand_ptr, noise_ptr, w_ptr,
+                 bias_ptr, out_ptr, sig_ptr, T, sr, sine_amp, noise_std, half_sr,
+                 HOP: tl.constexpr, FT: tl.constexpr, NH: tl.constexpr,
+                 SIGNALS: tl.constexpr):
+    b = tl.program_id(1)
+    frames = tl.program_id(0) * FT + tl.arange(0, FT)
+    fmask = frames < T
+    row = f0_ptr + b * T
+    f0 = tl.load(row + frames, mask=fmask, other=0.0)
+    f_prev = tl.load(row + tl.maximum(frames - 1, 0), mask=fmask, other=0.0)
+    f_next = tl.load(row + tl.minimum(frames + 1, T - 1), mask=fmask, other=0.0)
+    base = tl.load(base_ptr + b * T + frames, mask=fmask, other=0.0)
+    j = tl.arange(0, HOP)
+    fp, fc, fn = f_prev[:, None], f0[:, None], f_next[:, None]
+    f0s = (fp * tl.load(coef_ptr + j)[None, :] + fc * tl.load(coef_ptr + HOP + j)[None, :]
+           + fn * tl.load(coef_ptr + 2 * HOP + j)[None, :])
+    # the intra-frame prefix sum of rad = f0 / sr, in float64 (as K9 comb)
+    intra = (fp.to(tl.float64) * tl.load(psum_ptr + j)[None, :]
+             + fc.to(tl.float64) * tl.load(psum_ptr + HOP + j)[None, :]
+             + fn.to(tl.float64) * tl.load(psum_ptr + 2 * HOP + j)[None, :])
+    phase = base[:, None].to(tl.float64) + intra / sr.to(tl.float64)
+    voiced = f0s > 0.0
+    noise_amp = tl.where(voiced, noise_std, sine_amp / 3.0)
+    samples = (b * T + frames[:, None]) * HOP + j[None, :]
+    smask = fmask[:, None] & (j[None, :] < HOP)
+    acc = tl.zeros((FT, HOP), dtype=tl.float32)
+    for n in tl.static_range(NH):
+        ph = phase * (n + 1) + tl.load(rand_ptr + b * NH + n).to(tl.float64)
+        ph = (ph - tl.floor(ph)).to(tl.float32)
+        sine = libdevice.sin(6.283185307179586 * ph)
+        sine = tl.where(f0s * (n + 1) > half_sr, 0.0, sine) * sine_amp
+        nz = tl.load(noise_ptr + samples * NH + n, mask=smask, other=0.0)
+        s_n = tl.where(voiced, sine, 0.0) + noise_amp * nz
+        if SIGNALS:
+            tl.store(sig_ptr + samples * NH + n, s_n, mask=smask)
+        acc += s_n * tl.load(w_ptr + n)
+    out = libdevice.tanh(acc + tl.load(bias_ptr))
+    tl.store(out_ptr + samples, out, mask=smask)
+
+
 def _partials_sum_kernel(part_ptr, out_ptr, P, NH1: tl.constexpr,
                          BLOCK: tl.constexpr):
     n = tl.program_id(0)
@@ -211,6 +265,7 @@ def _triton_kernels() -> dict:
         _TRITON["source_bwd"] = triton.jit(_source_bwd_kernel)
         _TRITON["partials_sum"] = triton.jit(_partials_sum_kernel)
         _TRITON["comb"] = triton.jit(_comb_kernel)
+        _TRITON["sine"] = triton.jit(_sine_kernel)
     return _TRITON
 
 
@@ -563,3 +618,169 @@ class CombToothSource(nn.Module):
         out = comb_tooth(f0.float().contiguous(), noise.reshape(B, T * self.hop).contiguous(),
                          self.sampling_rate, self.hop, self.wave_amp, self.noise_std)
         return out[..., None]
+
+
+# ---------------------------------------------------------------------------
+# K9 sine: RefineGAN's sine template
+# ---------------------------------------------------------------------------
+
+
+def _sine_signals_reference(f0, base, rand_ini, noise, sampling_rate: int, hop: int,
+                            sine_amp: float, noise_std: float):
+    """The H gated sines plus noise that the merge mixes, [B, T, hop, H]."""
+    B, T = f0.shape
+    H = rand_ini.shape[1]
+    coef, psum = _coeff_tensors(hop, str(f0.device))
+    f_prev, f_next = _neighbours(f0)
+    fp, fc, fn = f_prev[..., None], f0[..., None], f_next[..., None]
+    f0s = fp * coef[0] + fc * coef[1] + fn * coef[2]
+    intra = fp.double() * psum[0] + fc.double() * psum[1] + fn.double() * psum[2]
+    phase = base[..., None].double() + intra / sampling_rate
+    harmonics = torch.arange(1, H + 1, dtype=torch.float64, device=f0.device)
+    ph = torch.remainder(phase[..., None] * harmonics + rand_ini[:, None, None, :].double(),
+                         1.0).float()
+    sines = torch.sin(2 * math.pi * ph)
+    f0_h = f0s[..., None] * harmonics.float()
+    sines = torch.where(f0_h > sampling_rate // 2, 0.0, sines) * sine_amp
+    voiced = (f0s > 0)[..., None]
+    noise_amp = torch.where(voiced, noise_std, sine_amp / 3)
+    return torch.where(voiced, sines, 0.0) + noise_amp * noise.view(B, T, hop, H)
+
+
+def sine_merge_reference(f0, base, rand_ini, noise, weight, bias, sampling_rate: int,
+                         hop: int, sine_amp: float = 0.1, noise_std: float = 0.003):
+    """Plain version of K9 sine. f0, base [B, T] (base from
+    ``nsf_phase_base(..., interp="linear")``); rand_ini [B, H] (column 0 is
+    0); noise [B, T * hop, H] standard normal; weight [H]; bias [1] ->
+    template [B, T * hop, 1]."""
+    return _sine_merge_plain(f0, base, rand_ini, noise, weight, bias, sampling_rate, hop,
+                             sine_amp, noise_std)[0]
+
+
+def _sine_merge_plain(f0, base, rand_ini, noise, weight, bias, sampling_rate: int,
+                      hop: int, sine_amp: float, noise_std: float):
+    """-> (template [B, T * hop, 1], the merge's inputs [B, T * hop, H])."""
+    B, T = f0.shape
+    signals = _sine_signals_reference(f0, base, rand_ini, noise, sampling_rate, hop,
+                                      sine_amp, noise_std).reshape(B, T * hop, -1)
+    return torch.tanh(signals @ weight + bias)[..., None], signals
+
+
+def _sine_merge_forward(f0, base, rand_ini, noise, weight, bias, sampling_rate: int,
+                        hop: int, sine_amp: float, noise_std: float,
+                        with_signals: bool = False):
+    """-> (template [B, T * hop, 1], the merge's inputs [B, T * hop, H] or
+    None). CPU tensors take the plain version."""
+    if not f0.is_cuda:
+        out, signals = _sine_merge_plain(f0, base, rand_ini, noise, weight, bias,
+                                         sampling_rate, hop, sine_amp, noise_std)
+        return out, (signals if with_signals else None)
+    B, T = f0.shape
+    H = rand_ini.shape[1]
+    kernels.require_cuda("sine_merge", f0, base, rand_ini, noise, weight, bias)
+    if f0.dtype != torch.float32 or f0.ndim != 2:
+        raise TypeError("sine_merge: takes float32 f0 [B, T]")
+    if (tuple(base.shape) != (B, T) or tuple(rand_ini.shape) != (B, H)
+            or tuple(noise.shape) != (B, T * hop, H)
+            or tuple(weight.shape) != (H,) or bias.numel() != 1):
+        raise ValueError("sine_merge: shapes do not match f0 [B, T]")
+    if hop & (hop - 1):
+        raise ValueError(f"sine_merge: hop {hop} is not a power of two")
+    out = torch.empty((B, T * hop, 1), dtype=f0.dtype, device=f0.device)
+    signals = torch.empty_like(noise) if with_signals else out
+    coef, psum = _coeff_tensors(hop, str(f0.device))
+    grid = (-(-T // _FRAMES_PER_PROGRAM), B)
+    _triton_kernels()["sine"][grid](
+        f0, base, coef, psum, rand_ini, noise, weight, bias, out, signals, T,
+        float(sampling_rate), float(sine_amp), float(noise_std),
+        float(sampling_rate // 2), HOP=hop, FT=_FRAMES_PER_PROGRAM, NH=H,
+        SIGNALS=with_signals, num_warps=8,
+    )
+    kernels.count_launch("sine_merge")
+    return out, (signals if with_signals else None)
+
+
+class _SineMerge(torch.autograd.Function):
+    """K9 sine with the gradient of its Dense(H -> 1) merge. The template
+    is stop-gradient (f0 is data, the draws are not differentiated), so
+    only ``weight`` and ``bias`` take gradients. The forward has the kernel
+    also write the merge's inputs s [B, T * hop, H]; the backward is the
+    analytic one in torch: gz = g (1 - out^2), dW = sum gz s, db = sum gz."""
+
+    @staticmethod
+    def forward(ctx, f0, base, rand_ini, noise, weight, bias, sampling_rate, hop,
+                sine_amp, noise_std):
+        out, signals = _sine_merge_forward(f0, base, rand_ini, noise, weight, bias,
+                                           sampling_rate, hop, sine_amp, noise_std,
+                                           with_signals=True)
+        ctx.save_for_backward(out, signals)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, signals = ctx.saved_tensors
+        gz = g * (1 - out * out)  # [B, T * hop, 1]
+        dw = (gz * signals).sum(dim=(0, 1))
+        return None, None, None, None, dw, gz.sum().reshape(1), None, None, None, None
+
+
+def sine_merge(f0, base, rand_ini, noise, weight, bias, sampling_rate: int, hop: int,
+               sine_amp: float = 0.1, noise_std: float = 0.003):
+    """K9 sine: one Triton program per (batch row, tile of frames) forms the
+    linearly interpolated f0, its float64 phase (the frame's base plus the
+    intra-frame prefix sum of f0 / sr), the harmonics' sines with their
+    start phases, the zero above sr // 2, the amplitude, the voicing gate,
+    the noise and the Dense(H -> 1) merge with tanh, and writes only the
+    ``[B, T * hop, 1]`` template; differentiable in ``weight`` and ``bias``
+    (``_SineMerge``). CPU tensors take ``sine_merge_reference``."""
+    args = (f0, base, rand_ini, noise, weight, bias, sampling_rate, hop, sine_amp,
+            noise_std)
+    if torch.is_grad_enabled() and (weight.requires_grad or bias.requires_grad):
+        return _SineMerge.apply(*args)
+    return _sine_merge_forward(*args)[0]
+
+
+def sine_template_reference(f0, rand_ini, noise, weight, bias, sampling_rate: int,
+                            hop: int, sine_amp: float = 0.1, noise_std: float = 0.003):
+    """Plain version of K9 sine with its phase scan: frame f0 [B, T] ->
+    template [B, T * hop, 1]."""
+    base = nsf_phase_base_reference(f0, sampling_rate, hop, "linear")
+    return sine_merge_reference(f0, base, rand_ini, noise, weight, bias, sampling_rate,
+                                hop, sine_amp, noise_std)
+
+
+def sine_template(f0, rand_ini, noise, weight, bias, sampling_rate: int, hop: int,
+                  sine_amp: float = 0.1, noise_std: float = 0.003):
+    """K9 sine: K3's frame-phase scan in its linear mode, then ``sine_merge``."""
+    base = nsf_phase_base(f0, sampling_rate, hop, "linear")
+    return sine_merge(f0, base, rand_ini, noise, weight, bias, sampling_rate, hop,
+                      sine_amp, noise_std)
+
+
+class RefineSineSource(nn.Module):
+    """RefineGAN's sine template (``RefineSineGen`` on linearly interpolated
+    f0): H = harmonic_num + 1 sines (1 as RefineGAN builds it) merged by a
+    Dense(H -> 1) (key ``merge``) and tanh. f0 [B, T] and standard normal
+    noise [B, T * hop, H] (drawn by the caller) -> [B, T * hop, 1]. The
+    start phases rand_ini [B, H] (column 0 is 0) are given by the caller
+    when H > 1; with one harmonic they are 0."""
+
+    def __init__(self, sampling_rate: int, hop: int, harmonic_num: int = 0,
+                 sine_amp: float = 0.1, noise_std: float = 0.003):
+        super().__init__()
+        self.sampling_rate, self.hop = sampling_rate, hop
+        self.dim = harmonic_num + 1
+        self.sine_amp, self.noise_std = sine_amp, noise_std
+        self.merge = nn.Linear(self.dim, 1)
+
+    def forward(self, f0: torch.Tensor, noise: torch.Tensor,
+                rand_ini: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, T = f0.shape
+        if rand_ini is None:
+            if self.dim > 1:
+                raise ValueError("RefineSineSource: give rand_ini [B, H] for H > 1")
+            rand_ini = torch.zeros((B, 1), device=f0.device)
+        return sine_template(
+            f0.float().contiguous(), rand_ini, noise.reshape(B, T * self.hop, self.dim),
+            self.merge.weight[0], self.merge.bias, self.sampling_rate, self.hop,
+            self.sine_amp, self.noise_std)

@@ -25,7 +25,14 @@ package (``ops/mel.py:184``) with ``stft_backward_reference`` beside it.
 ``linear_spectrogram`` is the JAX ``stft_magnitude`` with its ``center``
 option (the STFT loss). ``LogMelSpectrogram.log_mel`` is the
 differentiable log-mel; ``wav2spec``, which serving calls, stays under
-``torch.inference_mode``. ``istft`` is not ported yet (ROADMAP Queue 2, K5).
+``torch.inference_mode``.
+
+``istft`` (iSTFTNet's last step) is K5 istft, ``csrc/istft.cu``: the
+inverse DFT of each frame as a product with the forward's basis read by
+bin, and the overlap-add as a gather in frame order (no atomics), divided
+by the window-square envelope that ``_istft_envelope`` builds once per
+shape. ``istft_reference`` (``torch.fft.irfft`` and ``fold``) is the plain
+version.
 """
 
 from __future__ import annotations
@@ -267,6 +274,116 @@ def linear_spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,
         y = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
     return stft_magnitude(y.contiguous(), _dft_basis(n_fft, win_length, str(y.device)),
                           hop_length)
+
+
+# ---------------------------------------------------------------------------
+# K5 istft: the inverse STFT
+# ---------------------------------------------------------------------------
+
+
+def _padded_window(n_fft: int, win_length: int) -> np.ndarray:
+    """The Hann window of ``win_length`` centred in ``n_fft`` zeros, float32."""
+    pad = (n_fft - win_length) // 2
+    return np.pad(_hann_window(win_length), (pad, n_fft - win_length - pad))
+
+
+@functools.lru_cache(maxsize=16)
+def _idft_basis(n_fft: int, win_length: int, device: str) -> torch.Tensor:
+    """K5 istft's operand: the windowed DFT basis [2 * bins, n_fft] (the
+    transpose of ``_dft_basis``: a row per bin) as float32 on ``device``."""
+    k = _dft_kernel(n_fft, win_length)[:, 0, :]
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(k)).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _istft_envelope(n_fft: int, hop: int, win_length: int, frames: int,
+                    device: str) -> torch.Tensor:
+    """max(sum_f w[t - f * hop]^2, 1e-11) over the n_fft + hop * (frames - 1)
+    samples of an overlap-add, summed in float32 in frame order."""
+    wsq = _padded_window(n_fft, win_length) ** 2
+    k_ov = -(-n_fft // hop)
+    blocks = np.pad(wsq, (0, k_ov * hop - n_fft)).reshape(k_ov, hop)
+    acc = np.zeros((frames + k_ov - 1, hop), np.float32)
+    for j in range(k_ov - 1, -1, -1):  # block m sums frames m - j, in frame order
+        acc[j : j + frames] += blocks[j]
+    env = np.maximum(acc.reshape(-1)[: n_fft + hop * (frames - 1)], np.float32(1e-11))
+    with torch.inference_mode(False):
+        return torch.from_numpy(env).to(device)
+
+
+def istft_reference(real: torch.Tensor, imag: torch.Tensor, n_fft: int,
+                    hop_length: int, win_length: Optional[int] = None,
+                    center: bool = True) -> torch.Tensor:
+    """Plain version of K5 istft, the JAX package's formula: ``irfft`` of
+    every frame of the spectrum real + i imag [B, n_fft // 2 + 1, F], times
+    the window, overlap-added at ``f * hop`` and divided by the window-square
+    envelope (at least 1e-11); with ``center``, n_fft // 2 samples trimmed
+    from each end -> [B, hop * (F - 1)] (centred)."""
+    win_length = win_length or n_fft
+    window = torch.from_numpy(_padded_window(n_fft, win_length)).to(real.device)
+    # irfft reads neither the imaginary part of bin 0 nor, for an even
+    # n_fft, the Nyquist bin's (numpy's and so the JAX package's drop them;
+    # a C2R FFT on the card need not): zeroed, so that every device agrees
+    imag = imag.float().clone()
+    imag[:, 0] = 0.0
+    if n_fft % 2 == 0:
+        imag[:, n_fft // 2] = 0.0
+    spec = torch.complex(real.float(), imag).transpose(1, 2)
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * window  # [B, F, n_fft]
+    B, F_, _ = frames.shape
+    out_len = n_fft + hop_length * (F_ - 1)
+
+    def overlap_add(x):  # [N, F, n_fft] -> [N, out_len]
+        return F.fold(x.transpose(1, 2), (1, out_len), (1, n_fft),
+                      stride=(1, hop_length)).reshape(x.shape[0], out_len)
+
+    audio = overlap_add(frames)
+    norm = overlap_add((window * window).expand(1, F_, n_fft))
+    audio = audio / torch.clamp(norm, min=1e-11)
+    if center:
+        audio = audio[:, n_fft // 2 : out_len - n_fft // 2]
+    return audio
+
+
+def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
+          win_length: Optional[int] = None, center: bool = True) -> torch.Tensor:
+    """K5 istft (``csrc/istft.cu``): the inverse STFT of real + i imag
+    [B, n_fft // 2 + 1, F] by windowed overlap-add, ``torch.istft``'s
+    contract -> [B, hop * (F - 1)] when centred, else [B, n_fft + hop *
+    (F - 1)]. The window-square envelope is built once per shape. CPU
+    tensors take ``istft_reference``."""
+    win_length = win_length or n_fft
+    if not real.is_cuda:
+        return istft_reference(real, imag, n_fft, hop_length, win_length, center)
+    kernels.require_cuda("istft", real, imag)
+    if real.dtype != torch.float32:
+        raise TypeError(f"istft: takes float32, got {real.dtype}")
+    bins = n_fft // 2 + 1
+    if real.ndim != 3 or real.shape != imag.shape or real.shape[1] != bins:
+        raise ValueError(f"istft: real {tuple(real.shape)}, imag {tuple(imag.shape)}: "
+                         f"expected [B, {bins}, frames] each")
+    if hop_length < 1 or win_length > n_fft:
+        raise ValueError(f"istft: hop {hop_length}, win_length {win_length}, "
+                         f"n_fft {n_fft}")
+    B, _, n_frames = real.shape
+    device = str(real.device)
+    offset = n_fft // 2 if center else 0
+    L = n_fft + hop_length * (n_frames - 1) - 2 * offset
+    if L <= 0:
+        raise ValueError(f"istft: {n_frames} frames give no samples")
+    out = torch.empty((B, L), dtype=torch.float32, device=real.device)
+    env = _istft_envelope(n_fft, hop_length, win_length, n_frames, device)
+    kernels.check(
+        kernels.load_library("istft").istft(
+            real.data_ptr(), imag.data_ptr(),
+            _idft_basis(n_fft, win_length, device).data_ptr(), env.data_ptr(),
+            out.data_ptr(), B, n_frames, n_fft, hop_length, bins, L, offset,
+            kernels.stream()),
+        "istft",
+    )
+    kernels.count_launch("istft")
+    return out
 
 
 # ---------------------------------------------------------------------------

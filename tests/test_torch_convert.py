@@ -12,6 +12,9 @@ import numpy as np
 from fish_diffusion_tpu.extractors.crepe import CrepePitchExtractor as JCrepe
 from fish_diffusion_tpu.extractors.feature import HubertSoft as JHubertSoft
 from fish_diffusion_tpu.models.diffsinger import DiffSinger as JDiffSinger
+from fish_diffusion_tpu.models.vocoders.istft_net import (
+    ISTFTNetGenerator as JISTFTNet,
+)
 from fish_diffusion_tpu.models.vocoders.nsf_hifigan import (
     NsfHifiGANGenerator as JGenerator,
 )
@@ -22,12 +25,14 @@ from fish_diffusion_tpu_torch.convert import (
     crepe_from_jax,
     diffsinger_from_jax,
     hubert_soft_from_jax,
+    istft_net_from_jax,
     nsf_hifigan_from_jax,
     refinegan_from_jax,
 )
 from fish_diffusion_tpu_torch.extractors.crepe import Crepe
 from fish_diffusion_tpu_torch.extractors.feature import HubertSoftModel
 from fish_diffusion_tpu_torch.models.diffsinger import DiffSinger
+from fish_diffusion_tpu_torch.models.vocoders.istft_net import ISTFTNetGenerator
 from fish_diffusion_tpu_torch.models.vocoders.nsf_hifigan import NsfHifiGANGenerator
 from fish_diffusion_tpu_torch.models.vocoders.refinegan import RefineGANGenerator
 
@@ -114,6 +119,43 @@ def test_refinegan_round_trip():
     sd = round_trip(RefineGANGenerator(**gen_cfg), refinegan_from_jax(params))
     convert = load_tool("refinegan/convert_checkpoint.py", "refinegan_convert_rt")
     assert_trees_equal(params, convert.convert_refinegan(sd))
+
+
+def test_istft_net_round_trip():
+    """iSTFTNet's tree has NSF-HiFiGAN's layout: read back by
+    ``tools/nsf_hifigan/convert_checkpoint.py:convert`` with its two
+    levels."""
+    gen_cfg = dict(num_mels=16, hop_size=128, upsample_rates=(4, 4),
+                   upsample_kernel_sizes=(8, 8), upsample_initial_channel=32)
+    params = numpy_tree(jax.jit(JISTFTNet(**gen_cfg).init)(
+        {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)},
+        jnp.zeros((1, 4, 16)), jnp.full((1, 4), 220.0),
+    )["params"])
+    sd = round_trip(ISTFTNetGenerator(**gen_cfg), istft_net_from_jax(params))
+    assert sd["conv_post.weight"].shape == (18, 8, 7)
+    convert = load_tool("nsf_hifigan/convert_checkpoint.py", "istft_convert_rt")
+    assert_trees_equal(params, convert.convert(sd, n_ups=2))
+
+
+def test_refinegan_sine_round_trip():
+    """RefineGAN with the sine template: the tool reads back every key but
+    the template's merge, which ``refinegan_from_jax`` carries as
+    ``template_gen.merge`` (a Linear, [out, in])."""
+    gen_cfg = dict(hop_length=16, downsample_rates=(2, 2, 2, 2),
+                   upsample_rates=(2, 2, 2, 2), num_mels=16, start_channels=4,
+                   template_generator="sine")
+    jgen = JRefineGAN(**gen_cfg, blocked_tail=False)
+    params = numpy_tree(jax.jit(jgen.init)(
+        {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)},
+        jnp.zeros((1, 4, 16)), jnp.full((1, 4), 220.0),
+    )["params"])
+    sd = round_trip(RefineGANGenerator(**gen_cfg), refinegan_from_jax(params))
+    merge = params["template_gen"]["merge"]
+    np.testing.assert_array_equal(sd.pop("template_gen.merge.weight"), merge["kernel"].T)
+    np.testing.assert_array_equal(sd.pop("template_gen.merge.bias"), merge["bias"])
+    convert = load_tool("refinegan/convert_checkpoint.py", "refinegan_sine_convert_rt")
+    assert_trees_equal({k: v for k, v in params.items() if k != "template_gen"},
+                       convert.convert_refinegan(sd))
 
 
 def test_hubert_soft_round_trip():

@@ -1,6 +1,6 @@
-"""The CUDA sources of K1, K4 (and its weight gradient), K5 (forward and
-backward), K6 (grouped and 2-D, with the 2-D weight gradient), K8-cand and
-K8 dense (pYIN's and CREPE's decoder), compiled for the host CPU and run against their
+"""The CUDA sources of K1, K4 (and its weight gradient), K5 (forward,
+backward and istft), K6 (grouped and 2-D, with the 2-D weight gradient),
+K7, K8-cand and K8 dense (pYIN's and CREPE's decoder), compiled for the host CPU and run against their
 plain PyTorch versions at small shapes.
 
 The card is the real test (``chip_smoke.py``, ``tests/test_torch_kernels_cuda.py``),
@@ -19,6 +19,7 @@ import re
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -27,7 +28,8 @@ from fish_diffusion_tpu_torch.extractors import pitch
 from fish_diffusion_tpu_torch.models import wavenet
 from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan
 from fish_diffusion_tpu_torch.ops import blocked_conv, mel
-from tests.test_torch_kernels_cuda import dense_case
+from fish_diffusion_tpu_torch.ops import monotonic_align as ma
+from tests.test_torch_kernels_cuda import ALIGN_CASES, align_case, dense_case
 
 SHIM = r"""
 #pragma once
@@ -479,3 +481,66 @@ def test_conv2d_source(host_libs, C_in, C_out, k, stride, pad, H, W):
                             *pad, splits, None) == 0
     ref_dw = ref_dw.permute(2, 3, 1, 0)
     assert (dw - ref_dw).abs().max().item() <= 1e-5 * ref_dw.abs().max().item()
+
+
+@pytest.mark.parametrize(
+    "B,n_fft,win,hop,F,center",
+    # iSTFTNet's shape; a window shorter than n_fft without the trim; a hop
+    # that does not divide n_fft (3 frames over some samples, 2 over others);
+    # n_fft 2048 (1025 bins, 4 frames a sample)
+    [(2, 16, 16, 8, 30, True), (1, 16, 12, 4, 20, False), (1, 64, 48, 27, 7, True),
+     (1, 2048, 2048, 512, 3, True)],
+)
+def test_istft_source(host_libs, B, n_fft, win, hop, F, center):
+    """K5 istft: <= 1e-5 of the output's scale against the plain version
+    (inverse transforms by a float32 FFT and by the direct sum)."""
+    gen = torch.Generator().manual_seed(n_fft + hop + F)
+    bins = n_fft // 2 + 1
+    re, im = rn(gen, B, bins, F), rn(gen, B, bins, F)
+    offset = n_fft // 2 if center else 0
+    L = n_fft + hop * (F - 1) - 2 * offset
+    out = torch.full((B, L), float("nan"))
+    assert host_libs["istft"].istft(
+        re.data_ptr(), im.data_ptr(), mel._idft_basis(n_fft, win, "cpu").data_ptr(),
+        mel._istft_envelope(n_fft, hop, win, F, "cpu").data_ptr(), out.data_ptr(),
+        B, F, n_fft, hop, bins, L, offset, None) == 0
+    ref = mel.istft_reference(re, im, n_fft, hop, win, center)
+    assert ref.shape == out.shape
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def _maximum_path(lib, values, t_ys, t_xs):
+    B, T_y, T_x = values.shape
+    dec = torch.empty((B, T_y, T_x), dtype=torch.uint8)
+    path = torch.full((B, T_y, T_x), 7, dtype=torch.int32)
+    assert lib.maximum_path(values.data_ptr(), t_ys.data_ptr(), t_xs.data_ptr(),
+                            dec.data_ptr(), path.data_ptr(), B, T_y, T_x, None) == 0
+    return path
+
+
+@pytest.mark.parametrize("kind,seed", ALIGN_CASES)
+def test_maximum_path_source(host_libs, kind, seed):
+    """K7 on the parity test's cases (random values, exact ties, a flat
+    grid; t_x = t_y, t_x = 1, the full grid): paths identical to the plain
+    version and to ``maximum_path_numpy``."""
+    values, t_ys, t_xs = (torch.from_numpy(a) for a in align_case(kind, seed))
+    got = _maximum_path(host_libs["monotonic_align"], values, t_ys, t_xs)
+    torch.testing.assert_close(got, ma.maximum_path_reference(values, t_ys, t_xs),
+                               atol=0, rtol=0)
+    np.testing.assert_array_equal(
+        got.numpy(), ma.maximum_path_numpy(values.numpy(), t_ys.numpy(), t_xs.numpy()))
+
+
+@pytest.mark.parametrize("T_y,T_x", [(320, 300), (1150, 1100)])
+def test_maximum_path_source_wide(host_libs, T_y, T_x):
+    """K7 past one position per thread (300: a second prefetched position)
+    and past the four prefetched ones (1100: the tail loop), integer values
+    (ties), the path through every column: identical to the plain
+    version."""
+    gen = torch.Generator().manual_seed(T_x)
+    values = torch.randint(0, 3, (1, T_y, T_x), generator=gen).float()
+    t_ys = torch.tensor([T_y], dtype=torch.int32)
+    t_xs = torch.tensor([T_x], dtype=torch.int32)
+    got = _maximum_path(host_libs["monotonic_align"], values, t_ys, t_xs)
+    torch.testing.assert_close(got, ma.maximum_path_reference(values, t_ys, t_xs),
+                               atol=0, rtol=0)

@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of
 ``fish_diffusion_tpu_torch`` (the training modules, the datasets, the
-discriminators, the RefineGAN generator and the pitch extractors among
-them) loads no JAX, flax, optax or
+discriminators, the RefineGAN and iSTFTNet vocoders, monotonic alignment
+and the pitch extractors among them) loads no JAX, flax, optax or
 ``fish_diffusion_tpu`` module (checked in a fresh interpreter)."""
 
 import subprocess
@@ -22,10 +22,13 @@ assert len(names) >= 15, names
 for name in ("training.gan", "training.vocoder_trainer", "training.vocoder_cli",
              "training.optim", "training.checkpoint", "datasets.naive",
              "models.discriminators", "ops.blocked_conv", "models.vocoders.refinegan",
-             "extractors.pitch", "extractors.crepe", "extractors.world"):
+             "extractors.pitch", "extractors.crepe", "extractors.world",
+             "models.vocoders.istft_net", "ops.monotonic_align", "ops.mel"):
     assert "fish_diffusion_tpu_torch." + name in names, name
 assert not bad, bad
-from fish_diffusion_tpu_torch.registry import PITCH_EXTRACTORS
+from fish_diffusion_tpu_torch.registry import PITCH_EXTRACTORS, VOCODERS
+for name in ("NsfHifiGAN", "ISTFTNet", "RefineGANGenerator"):
+    assert name in VOCODERS, name
 for name in ("HarvestPitchExtractor", "ParselMouthPitchExtractor", "AutocorrPitchExtractor",
              "PyinPitchExtractor", "CrepePitchExtractor", "DioPitchExtractor",
              "YinPitchExtractor"):

@@ -1,5 +1,6 @@
-"""The port's hand-written kernels (K1-K6 with K6 2-D, K8-cand, K8 dense,
-K9, the weight gradients, and the backward kernels of K3 and K5) against their plain PyTorch versions
+"""The port's hand-written kernels (K1-K6 with K6 2-D and K5 istft, K7,
+K8-cand, K8 dense, K9 comb and sine, the weight gradients, and the
+backward kernels of K3 and K5) against their plain PyTorch versions
 on an NVIDIA GPU, at small shapes that exercise the ragged edges.
 
 These need the card (the CUDA kernels have no CPU mode, and Triton needs a
@@ -9,13 +10,16 @@ The full-width check of every kernel is ``chip_smoke.py``."""
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
+from fish_diffusion_tpu_torch import kernels
 from fish_diffusion_tpu_torch.extractors import crepe, pitch
 from fish_diffusion_tpu_torch.models import diffusion, wavenet
 from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, source
 from fish_diffusion_tpu_torch.ops import blocked_conv, mel
+from fish_diffusion_tpu_torch.ops import monotonic_align as ma
 
 pytestmark = pytest.mark.cuda
 
@@ -150,8 +154,6 @@ def test_viterbi_dense(gen, kind, B, T, ties):
     pad rows; observations on a grid of 0.5, so that many scores tie): the
     path identical to the plain version's, one launch per call under each
     wrapper's name."""
-    from fish_diffusion_tpu_torch import kernels
-
     delta0, log_obs, log_A = (t.cuda() for t in dense_case(kind, B, T, seed=T, ties=ties))
     wrapper = pitch.crepe_viterbi if kind == "crepe" else pitch.pyin_viterbi
     name = "crepe_viterbi" if kind == "crepe" else "pyin_viterbi"
@@ -390,3 +392,95 @@ def test_comb_tooth(gen, hop):
     got = source.comb_merge(f0, ref_base, noise, sr, hop)
     ref = source.comb_merge_reference(f0, ref_base, noise, sr, hop)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("B,n_fft,win,hop,F,center", [
+    (4, 16, 16, 8, 257, True), (1, 16, 12, 4, 40, False), (2, 64, 48, 27, 9, True),
+    (2, 2048, 2048, 512, 33, True)])
+def test_istft(gen, B, n_fft, win, hop, F, center):
+    """K5 istft: <= 1e-5 of the output's scale against the plain version
+    (cuFFT's float32 inverse against the direct sum); one launch a call."""
+    bins = n_fft // 2 + 1
+    re, im = rn(gen, B, bins, F), rn(gen, B, bins, F)
+    before = kernels.LAUNCHES["istft"]
+    got = mel.istft(re, im, n_fft, hop, win, center)
+    assert kernels.LAUNCHES["istft"] == before + 1
+    ref = mel.istft_reference(re, im, n_fft, hop, win, center)
+    torch.testing.assert_close(got, ref, atol=1e-5 * ref.abs().max().item(), rtol=0)
+    with pytest.raises(ValueError, match="expected"):
+        mel.istft(re[:, 1:].contiguous(), im[:, 1:].contiguous(), n_fft, hop)
+
+
+@pytest.mark.parametrize("H,hop", [(1, 256), (3, 16)])
+def test_sine_merge(gen, H, hop):
+    """K9 sine: the template <= 1e-5 of the plain version's on a voiced and
+    unvoiced f0 with a value near sr / 2; the merge's gradients (the
+    kernel's written signals, the analytic backward) <= 1e-4 relative."""
+    B, T, sr = 3, 70, 44100
+    f0 = torch.rand((B, T), generator=gen, device="cuda") * 700 + 80
+    f0 = f0 * (torch.rand((B, T), generator=gen, device="cuda") > 0.2)
+    f0[0, 10] = sr / 2 - 50
+    base = source.nsf_phase_base(f0, sr, hop, "linear")
+    rand_ini = torch.rand((B, H), generator=gen, device="cuda")
+    rand_ini[:, 0] = 0
+    noise = rn(gen, B, T * hop, H)
+    weight, bias = rn(gen, H, scale=H ** -0.5), rn(gen, 1, scale=0.1)
+    args = (f0, base, rand_ini, noise, weight, bias, sr, hop)
+    got = source.sine_merge(*args)
+    torch.testing.assert_close(got, source.sine_merge_reference(*args), atol=1e-5, rtol=0)
+    g = rn(gen, B, T * hop, 1)
+    grads = []
+    for fn in (source.sine_merge, source.sine_merge_reference):
+        w, b = weight.clone().requires_grad_(), bias.clone().requires_grad_()
+        (fn(f0, base, rand_ini, noise, w, b, sr, hop) * g).sum().backward()
+        grads.append((w.grad, b.grad))
+    for got_g, ref_g in zip(*grads):
+        torch.testing.assert_close(got_g, ref_g, atol=1e-4 * ref_g.abs().max().item(), rtol=0)
+
+
+ALIGN_B, ALIGN_T_Y, ALIGN_T_X = 4, 24, 10
+ALIGN_CASES = [("random", 0), ("random", 1), ("ties", 2), ("ties", 3), ("flat", 4)]
+
+
+def align_case(kind: str, seed: int):
+    """K7's inputs (values [4, 24, 10], t_ys, t_xs with t_x <= t_y) made
+    with numpy: random values, integer values (their float32 sums are
+    exact, so the backtrack's ``same < left`` meets equal operands) or a
+    flat grid; item 0 has t_x = t_y, item 1 t_x = 1, item 2 the full grid."""
+    rng = np.random.default_rng(seed)
+    shape = (ALIGN_B, ALIGN_T_Y, ALIGN_T_X)
+    values = {
+        "random": lambda: rng.standard_normal(shape),
+        "ties": lambda: rng.integers(0, 2, shape),
+        "flat": lambda: np.zeros(shape),
+    }[kind]().astype(np.float32)
+    t_xs = rng.integers(2, ALIGN_T_X + 1, ALIGN_B)
+    t_ys = np.maximum(rng.integers(ALIGN_T_X, ALIGN_T_Y + 1, ALIGN_B), t_xs)
+    t_ys[0], t_xs[1] = t_xs[0], 1
+    t_ys[2], t_xs[2] = ALIGN_T_Y, ALIGN_T_X
+    return values, t_ys.astype(np.int32), t_xs.astype(np.int32)
+
+
+@pytest.mark.parametrize("kind,seed", ALIGN_CASES)
+def test_maximum_path(gen, kind, seed):
+    """K7: paths identical to the plain version's and to the numpy golden
+    DP's, ties included (the parity test's cases)."""
+    values, t_ys, t_xs = (torch.from_numpy(a).cuda() for a in align_case(kind, seed))
+    got = ma.maximum_path(values, t_ys, t_xs)
+    ref = ma.maximum_path_reference(values, t_ys, t_xs)
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    assert (got.cpu().numpy() == ma.maximum_path_numpy(
+        values.cpu().numpy(), t_ys.cpu().numpy(), t_xs.cpu().numpy())).all()
+
+
+@pytest.mark.parametrize("B,T_y,T_x", [(32, 1000, 200), (2, 1200, 1100)])
+def test_maximum_path_wide(gen, B, T_y, T_x):
+    """K7 at the alignment phase's shape and past four positions a thread
+    (1100), integer values (ties), lengths drawn per item: identical."""
+    values = torch.randint(0, 3, (B, T_y, T_x), generator=gen, device="cuda").float()
+    t_xs = torch.randint(T_x // 2, T_x + 1, (B,), generator=gen, device="cuda")
+    t_ys = torch.maximum(torch.randint(T_y // 2, T_y + 1, (B,), generator=gen,
+                                       device="cuda"), t_xs)
+    got = ma.maximum_path(values, t_ys, t_xs)
+    torch.testing.assert_close(got, ma.maximum_path_reference(values, t_ys, t_xs),
+                               atol=0, rtol=0)

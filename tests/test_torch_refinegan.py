@@ -9,7 +9,8 @@
   template's noise, then the AdaINs' in module order; each ``AdaIN`` of a
   block draws the same shape, so a lookup by shape would give them all one
   noise);
-- the sine template is not ported and raises.
+- a template other than the comb and the sine raises (the sine template
+  is held in ``tests/test_torch_refinegan_sine.py``).
 
 On the CPU the wrappers run their kernels' plain versions. Inputs come
 from numpy with a seed.
@@ -236,12 +237,15 @@ def test_generator_gradients_match_jax_grad(generator_case):
 
 def test_generator_draws_from_a_generator_and_rejects_the_sine_template():
     """Without given noise the generator draws it from a ``torch.Generator``
-    (the same seed, the same audio); the sine template raises."""
-    gen = RefineGANGenerator(**GEN_CFG).init_weights(3)
+    (the same seed, the same audio), with either template. The sine
+    template, once refused, is ported now (K9 sine): what the generator
+    rejects is a template that is neither."""
     mel, f0 = torch.randn(1, 8, 16), torch.full((1, 8), 220.0)
-    with torch.no_grad():
-        a = gen(mel, f0, generator=torch.Generator().manual_seed(1))
-        b = gen(mel, f0, generator=torch.Generator().manual_seed(1))
-    assert torch.equal(a, b) and a.shape == (1, 128) and torch.isfinite(a).all()
-    with pytest.raises(NotImplementedError, match="sine"):
-        RefineGANGenerator(**GEN_CFG, template_generator="sine")
+    for template in ("comb", "sine"):
+        gen = RefineGANGenerator(**GEN_CFG, template_generator=template).init_weights(3)
+        with torch.no_grad():
+            a = gen(mel, f0, generator=torch.Generator().manual_seed(1))
+            b = gen(mel, f0, generator=torch.Generator().manual_seed(1))
+        assert torch.equal(a, b) and a.shape == (1, 128) and torch.isfinite(a).all()
+    with pytest.raises(ValueError, match="'comb' or 'sine'"):
+        RefineGANGenerator(**GEN_CFG, template_generator="saw")

@@ -45,6 +45,7 @@ from fish_diffusion_tpu_torch.extractors.world import (
 )
 from fish_diffusion_tpu_torch.inference import cli
 from fish_diffusion_tpu_torch.inference.svc import SVCInference
+from fish_diffusion_tpu_torch.models.vocoders.istft_net import ISTFTNet
 from fish_diffusion_tpu_torch.models.vocoders.nsf_hifigan import NsfHifiGAN
 from fish_diffusion_tpu_torch.ops.mel import LogMelSpectrogram
 from fish_diffusion_tpu_torch.registry import PITCH_EXTRACTORS
@@ -182,6 +183,61 @@ def test_forward_with_speaker_mix_matches_jax(engines, monkeypatch):
     got = teng.forward(audio, teng.parse_speaker(mix), pitches=f0)
     assert got.shape == ref.shape and np.abs(ref).max() > 0.01
     np.testing.assert_allclose(got, ref, atol=2e-3)
+
+
+def test_load_checkpoint_without_ema_matches_jax(engines, monkeypatch, tmp_path):
+    """A pickle of a ``TrainState`` built without ``ema_momentum``,
+    ``{"params": tree, "ema_params": None}``: both servers load ``params``
+    (the port's weights equal the tree's), and the same request gives the
+    same mel (<= 1e-3 of its scale) and wav (<= 2e-3). The request repeats
+    ``test_forward_with_speaker_mix_matches_jax``'s, draws included, so the
+    JAX server's compiled sampler serves both."""
+    jeng, teng = engines
+    tree = jax.tree_util.tree_map(np.asarray, jeng.params)
+    path = tmp_path / "state.pkl"
+    with open(path, "wb") as f:
+        pickle.dump({"params": tree, "ema_params": None}, f)
+    jeng.load_checkpoint(path)
+    teng.load_checkpoint(path)
+    for k, v in diffsinger_from_jax(tree).items():
+        assert torch.equal(teng.model.state_dict()[k], v), k
+
+    mels = defaultdict(list)
+    for side, eng in (("jax", jeng), ("port", teng)):
+        spec2wav = eng.vocoder.spec2wav
+
+        def keep(mel, *args, _side=side, _fn=spec2wav, **kwargs):
+            mels[_side].append(np.asarray(mel))
+            return _fn(mel, *args, **kwargs)
+
+        monkeypatch.setattr(eng.vocoder, "spec2wav", keep)
+    rng = np.random.default_rng(5)
+    audio, f0 = request(rng, 40000)
+    inject_draws(monkeypatch, rng, B=1, n_frames=40000 // HOP, mel_frames=128)
+    mix = "0:0.6,1:0.4"
+    ref = jeng.forward(audio, jeng.parse_speaker(mix), pitches=f0)
+    got = teng.forward(audio, teng.parse_speaker(mix), pitches=f0)
+    (mel_ref,), (mel_got,) = mels["jax"], mels["port"]
+    assert mel_got.shape == mel_ref.shape == (1, 40000 // HOP, 128)
+    assert np.abs(mel_got - mel_ref).max() <= 1e-3 * np.abs(mel_ref).max()
+    np.testing.assert_allclose(got, ref, atol=2e-3)
+
+
+def test_jax_server_cannot_load_a_bare_tree(engines, tmp_path):
+    """A JAX-package fault the port does not copy: the JAX server's
+    ``load_checkpoint`` reads ``state["params"]`` from any dict without an
+    EMA, so a pickle of the bare params tree raises ``KeyError`` there;
+    the port loads it."""
+    jeng, teng = engines
+    tree = jax.tree_util.tree_map(np.asarray, jeng.params)
+    path = tmp_path / "bare.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(tree, f)
+    with pytest.raises(KeyError, match="params"):
+        jeng.load_checkpoint(path)
+    teng.load_checkpoint(path)
+    for k, v in diffsinger_from_jax(tree).items():
+        assert torch.equal(teng.model.state_dict()[k], v), k
 
 
 def test_request_without_f0_raises(engines, monkeypatch):
@@ -487,12 +543,12 @@ def test_entry_points_default_to_cuda():
     CPU; without a card, a default build raises rather than falling back."""
     extractors = (HarvestPitchExtractor, ParselMouthPitchExtractor, PyinPitchExtractor,
                   CrepePitchExtractor, DioPitchExtractor, YinPitchExtractor)
-    for cls in (SVCInference, HubertSoft, NsfHifiGAN, LogMelSpectrogram) + extractors:
+    for cls in (SVCInference, HubertSoft, NsfHifiGAN, ISTFTNet, LogMelSpectrogram) + extractors:
         assert inspect.signature(cls).parameters["device"].default == "cuda", cls
     assert cli.build_parser().get_default("device") == "cuda"
     if torch.cuda.is_available():
         assert LogMelSpectrogram().device.type == "cuda"
     else:
-        for build in (LogMelSpectrogram, lambda: HubertSoft(num_layers=1)) + extractors:
+        for build in (LogMelSpectrogram, lambda: HubertSoft(num_layers=1), ISTFTNet) + extractors:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 build()
