@@ -1,360 +1,682 @@
-// K5: the STFT magnitude as one tiled SIMT product whose A tile is gathered
-// straight from the signal, and its backward (stft_backward, at the end).
+// K5: the STFT magnitude (stft_magnitude) and its backward (stft_backward)
+// as FFTs in shared memory, for any n_fft up to 8192.
 //
-// The forward replaces fish_diffusion_tpu/ops/mel.py:_stft_conv / _stft_conv_fwd, which
-// stacked hop-sized blocks of the signal into a frame matrix so that the
-// windowed DFT became one dense product on the TPU's matrix unit.
+// The forward replaces fish_diffusion_tpu/ops/mel.py:_stft_conv /
+// _stft_conv_fwd, which stacked hop-sized blocks of the signal into a frame
+// matrix so that the windowed DFT became one dense product on the TPU's
+// matrix unit:
 //
-//   out[b, k, f] = sqrt(re^2 + im^2 + 1e-9),
-//   re = sum_n y[b, f * hop + n] * basis[n, k],
-//   im = sum_n y[b, f * hop + n] * basis[n, bins + k],   n < n_fft
+//   out[b, k, f] = sqrt(re^2 + im^2 + 1e-9),  re + i im = X_f[k],
+//   X_f[k] = sum_{n < N} w[n] y[b, f * hop + n] e^{-2 pi i k n / N},  k < bins
 //
-// with y the reflect-padded signal [B, T_pad] and basis the windowed DFT
-// [n_fft, 2 * bins] (cos columns, then -sin columns), built on the host.
+// with y the reflect-padded signal [B, T_pad], w the periodic Hann window of
+// win_length centred in N = n_fft zeros and bins = N / 2 + 1. The backward
+// replaces _stft_conv_bwd, the hand VJP: for g = dL/d out,
 //
-// Bound on an H100: arithmetic. At B = 4 x 1024 frames and n_fft = 2048 the
-// product is 2 * 4096 * 2048 * 2050 = 34.4 GFLOP against ~42 MB of traffic,
-// far above the card's balance point; float32 on the SIMT units (no TF32:
-// the log10 after the 1e-5 clamp amplifies relative error in quiet bins).
-// Design: K1's tiling (shared-memory stages, register blocking, the next
-// stage prefetched into registers). Row m = (b, f) of A is read at
-// y[b, f * hop + n], so no frame matrix is ever written; frames overlap
-// n_fft / hop times and those rereads come from cache. Each thread owns
-// bin k and column bins + k, so the magnitude forms in the epilogue and
-// the complex spectrum never reaches device memory. n_fft, hop and the bin
-// count are runtime integers (key shifts give n_fft = 2299 and other sizes
-// that are not powers of two); reads past n_fft, past the signal's end and
-// past the last bin are masked. The tile shrinks with the row count, as in
-// K1, so that a short segment still gives every SM a block.
+//   G_k = g_k X_k / sqrt(|X_k|^2 + 1e-9)
+//   d frame_f[n] = w[n] Re sum_{k < bins} G_k e^{+2 pi i k n / N}
+//   grad_y[b, t] = sum_f d frame_f[t - f * hop]   (the frames covering t)
+//
+// because d|X_k| / d x_n = w_n (re_k cos + (-im_k)(-sin)) / |X_k| =
+// w_n Re(X_k e^{+i theta}) / |X_k|, theta = 2 pi k n / N. The real part of
+// that half-spectrum sum is the inverse DFT of a Hermitian spectrum H:
+// H_0 = Re G_0, H_{N/2} = Re G_{N/2} for even N (e^{i pi n} is real), and
+// H_k = G_k / 2, H_{N-k} = conj(G_k) / 2 otherwise, so that each pair sums
+// to Re(G_k e^{i theta}). The inverse runs on the forward core:
+// IDFT(Q) = conj(DFT(conj Q)), unnormalised.
+//
+// The FFT core. A power-of-two N runs as a Stockham auto-sort FFT of
+// L = N points in shared memory: radix-8 passes (radix 4 or 2 for the
+// last bits), each thread loading its butterflies' inputs into registers,
+// all threads meeting at __syncthreads, then writing the outputs in place,
+// so one buffer serves (a pass is read whole before it is written). Any
+// other N runs by Bluestein's chirp-z transform on the next power of two
+// L >= 2N - 1, with nk = (n^2 + k^2 - (k - n)^2) / 2:
+//
+//   X[k] = c_k sum_n (x_n c_n) conj(c_{k - n}),  c_m = e^{-i pi m^2 / N}
+//
+// a circular convolution of length L: the FFT of the chirped, zero-padded
+// input, times the filter spectrum FFT(conj c) / L, then the inverse FFT
+// as conj(FFT(conj .)), then the output chirp. So one power-of-two core
+// covers every N (key shifts give 2299 = 11 * 11 * 19, 1933 and 3251
+// prime). Two real frames go through one complex transform, as its real
+// and imaginary parts (z = x_f + i x_{f+1}), and are separated by conjugate
+// symmetry: X_f[k] = (Z[k] + conj Z[N-k]) / 2, X_{f+1}[k] = (Z[k] - conj
+// Z[N-k]) / 2i; an odd last frame pairs with zeros. The backward packs its
+// two Hermitian spectra the same way (Q = H_f + i H_{f+1}): the real and
+// imaginary parts of the inverse are the two frames' gradients. The FFT's
+// rounding error scales with its whole input, so each frame of a pair goes
+// in divided by a power of two above its own peak (|w y| forward, |G| for
+// the inverse; exact) and comes out multiplied back: a quiet frame packed
+// beside a loud one keeps its own relative accuracy.
+//
+// Precision. The forward runs in float32 (stft_magnitude) or, for
+// training, in float64 (stft_magnitude_f64: the same kernel on double
+// elements). The backward runs in float64: G needs the direction of X_k,
+// and where |X_k| is 1e-6 of its frame's peak (training spectra span that)
+// a float32 FFT's absolute error, ~1e-7 of the frame's norm, turns it by
+// ~0.1 rad; g is largest exactly there under a log-mel loss. In float32
+// any FFT (and the dense product) is then ~1e-4 of the gradient's scale
+// off the exact function; in float64 the kernel is exact to the output's
+// float32 rounding. The same error in a forward magnitude is a few percent
+// of such a bin, which a log-mel loss's 1 / mel turns into gradient errors
+// of 1e-3 of their scale and more: a training step's spectra are
+// therefore exact in both directions. In float64 the shared memory
+// doubles, so Bluestein sizes stop at L = 8192 (n_fft 4096).
+//
+// Tables built on the host in float64 (ops/mel.py _fft_tables), cast to
+// float32 for the forward: the padded window (float32 values, as the plain
+// version's basis uses), the twiddles e^{-2 pi i t / L}, and for Bluestein
+// the chirp (its exponent reduced mod 2N in integers) and the filter
+// spectrum with 1 / L folded in. No sine is computed on the card.
+//
+// Bound on an H100: at B = 4 x 1024 frames of n_fft 2048 the function needs
+// ~0.5 GFLOP (2.5 N log2 N a frame) against ~25 MB of traffic: bytes, a few
+// microseconds. Design: a block takes a run of FR consecutive frames
+// (FR/2 pairs, one after another) and stages the run's magnitudes in
+// shared memory, [bins][FR + 1] (a pad column keeps a warp's writes of
+// consecutive bins on distinct banks), so that the stores run along f (the
+// output is [B, bins, F]); the backward stages g the same way. The first
+// radix-8 pass runs on the values as they arrive from device memory.
+// Shared memory above 48 KB is dynamic; the buffer index is skewed by one
+// element in eight (pad), which keeps the radix-8 passes' strided writes
+// off common banks. The overlap-add of the backward is a gather in frame
+// order over a [B, F, N] scratch (each output sample sums the
+// <= ceil(N / hop) frames covering it, in increasing f), as K5 istft does:
+// no atomics, so the result does not depend on the schedule. Only plain C++
+// over threadIdx / blockIdx / blockDim, shared memory and __syncthreads,
+// so tests/test_torch_csrc_emulated.py runs this file on the host.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BK = 16;        // depth of one shared-memory stage
-constexpr float EPS = 1e-9f;  // inside the magnitude's square root
-constexpr int THREADS = 256;  // 16 x 16 threads
+constexpr double EPS = 1e-9;      // inside the magnitude's square root
+constexpr int MAX_SMEM = 232448;  // an H100 block's shared memory
+constexpr int MAX_L = 16384;      // Bluestein at n_fft 8192
 
-template <int N>
-__device__ __forceinline__ void load_smem(const float* p, float* v) {
-  if constexpr (N == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = p[i];
+template <class T>
+struct alignas(2 * sizeof(T)) cplx {
+  T x, y;
+};
+using cf = cplx<float>;
+using cd = cplx<double>;
+
+template <class T>
+__device__ __forceinline__ cplx<T> cmul(cplx<T> a, cplx<T> b) {
+  return {a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x};
+}
+template <class T>
+__device__ __forceinline__ cplx<T> cconj(cplx<T> a) { return {a.x, -a.y}; }
+template <class T>
+__device__ __forceinline__ cplx<T> cadd(cplx<T> a, cplx<T> b) {
+  return {a.x + b.x, a.y + b.y};
+}
+template <class T>
+__device__ __forceinline__ cplx<T> csub(cplx<T> a, cplx<T> b) {
+  return {a.x - b.x, a.y - b.y};
+}
+// -i a and +i a
+template <class T>
+__device__ __forceinline__ cplx<T> cmi(cplx<T> a) { return {a.y, -a.x}; }
+template <class T>
+__device__ __forceinline__ cplx<T> cpi(cplx<T> a) { return {-a.y, a.x}; }
+template <class T>
+__device__ __forceinline__ cplx<T> cscale(cplx<T> a, T s) { return {a.x * s, a.y * s}; }
+template <class T>
+__device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
+template <class T>
+__device__ __forceinline__ T tabs(T a) { return a < 0 ? -a : a; }
+__device__ __forceinline__ float tsqrt(float a) { return sqrtf(a); }
+__device__ __forceinline__ double tsqrt(double a) { return sqrt(a); }
+
+// The power of two s = 2^e > m (1 for m = 0) and 1 / s: scaling by either
+// is exact.
+__device__ __forceinline__ void pow2_above(float m, float& s, float& inv) {
+  int e;
+  frexpf(m, &e);
+  s = ldexpf(1.f, e);
+  inv = ldexpf(1.f, -e);
+}
+__device__ __forceinline__ void pow2_above(double m, double& s, double& inv) {
+  int e;
+  frexp(m, &e);
+  s = ldexp(1.0, e);
+  inv = ldexp(1.0, -e);
+}
+
+// the shared buffer's slot of element i: one pad element after every eight
+__host__ __device__ __forceinline__ int pad(int i) { return i + (i >> 3); }
+__host__ __device__ __forceinline__ int buf_size(int L) { return L + L / 8 + 1; }
+
+// the 4-point DFT in place (forward sign)
+template <class T>
+__device__ __forceinline__ void dft4(cplx<T>& a0, cplx<T>& a1, cplx<T>& a2, cplx<T>& a3) {
+  const cplx<T> t0 = cadd(a0, a2), t1 = csub(a0, a2);
+  const cplx<T> t2 = cadd(a1, a3), t3 = csub(a1, a3);
+  a0 = cadd(t0, t2);
+  a2 = csub(t0, t2);
+  a1 = cadd(t1, cmi(t3));
+  a3 = cadd(t1, cpi(t3));
+}
+
+template <int R, class T>
+__device__ __forceinline__ void butterfly(cplx<T>* v) {
+  if constexpr (R == 2) {
+    const cplx<T> t = v[0];
+    v[0] = cadd(t, v[1]);
+    v[1] = csub(t, v[1]);
+  } else if constexpr (R == 4) {
+    dft4(v[0], v[1], v[2], v[3]);
+  } else {  // 8 = 2 x 4: even and odd inputs, then the W8^q merge
+    const T H = (T)0.70710678118654752440;
+    cplx<T> e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
+    cplx<T> o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
+    dft4(e0, e1, e2, e3);
+    dft4(o0, o1, o2, o3);
+    o1 = {H * (o1.x + o1.y), H * (o1.y - o1.x)};   // x W8 = (1 - i) / sqrt 2
+    o2 = cmi(o2);                                   // x W8^2 = -i
+    o3 = {H * (o3.y - o3.x), -H * (o3.x + o3.y)};  // x W8^3 = -(1 + i) / sqrt 2
+    v[0] = cadd(e0, o0); v[4] = csub(e0, o0);
+    v[1] = cadd(e1, o1); v[5] = csub(e1, o1);
+    v[2] = cadd(e2, o2); v[6] = csub(e2, o2);
+    v[3] = cadd(e3, o3); v[7] = csub(e3, o3);
   }
 }
 
-// A block computes BM frames x BNH bins (BNH cos + BNH sin columns); each
-// thread TM frames x (TNH + TNH) columns.
-template <int BM, int BNH, int TM, int TNH>
-__global__ void __launch_bounds__(THREADS) stft_tile(
-    const float* __restrict__ y,      // [B, T_pad]
-    const float* __restrict__ basis,  // [n_fft, 2 * bins]
-    float* __restrict__ out,          // [B, bins, F]
-    float* __restrict__ phasor,       // [B, 2 * bins, F] or null
-    int T_pad, int n_fft, int hop, int bins, int F, int M) {
-  static_assert((BM / TM) * (BNH / TNH) == THREADS, "16 x 16 threads");
-  constexpr int A_PER = BM * BK / THREADS;       // A elements per thread
-  constexpr int B_PER = 2 * BNH * BK / THREADS;  // B elements per thread
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][2 * BNH];
-
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int j0 = blockIdx.y * BNH;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-
-  // A stage: each thread loads A_PER consecutive samples of one frame
-  const int a_row = tid / (BK / A_PER);
-  const int a_k = (tid % (BK / A_PER)) * A_PER;
-  const int a_m = m0 + a_row;
-  const int a_b = a_m < M ? a_m / F : 0;
-  const int a_f = a_m < M ? a_m - a_b * F : 0;
-  const float* a_src = y + (size_t)a_b * T_pad + (size_t)a_f * hop;
-  // samples n < a_lim of this frame exist (0 for a row past the last)
-  const int a_avail = T_pad - a_f * hop;
-  const int a_lim = a_m >= M ? 0 : (a_avail < n_fft ? a_avail : n_fft);
-
-  // B stage: each thread loads B_PER consecutive columns of one basis row;
-  // columns [0, BNH) of the tile are cos bins, [BNH, 2 BNH) the sin bins
-  const int b_k = tid / 16;
-  const int b_n = (tid % 16) * B_PER;
-  const int b_bin = j0 + (b_n < BNH ? b_n : b_n - BNH);
-  const int b_off = b_n < BNH ? 0 : bins;
-
-  float a_next[A_PER], b_next[B_PER];
-  auto fetch = [&](int k0) {
+// One Stockham pass of radix R over buf[0, L), sub-transform length p:
+// butterfly j reads x[j + r L/R], twiddles it by W_L^{r k L/(p R)} with
+// k = j mod p, and writes its outputs to (j - k) R + k + r p. Every thread
+// holds at most V values (blockDim.x >= L / V), read before the barrier
+// and written after it.
+template <int R, int V, class T>
+__device__ __forceinline__ void fft_pass(cplx<T>* buf, int L, int p,
+                                         const cplx<T>* __restrict__ tw) {
+  constexpr int PER = V / R;
+  static_assert(PER >= 1, "a thread holds at least one butterfly");
+  const int nb = L / R;
+  cplx<T> v[PER][R];
 #pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int n = k0 + a_k + i;
-      a_next[i] = n < a_lim ? a_src[n] : 0.f;
+  for (int i = 0; i < PER; ++i) {
+    const int j = threadIdx.x + i * blockDim.x;
+    if (j < nb) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[i][r] = buf[pad(j + r * nb)];
     }
-    const int n = k0 + b_k;
-    const float* row = basis + (size_t)n * (2 * bins) + b_off;
-#pragma unroll
-    for (int i = 0; i < B_PER; ++i)
-      b_next[i] = (n < n_fft && b_bin + i < bins) ? row[b_bin + i] : 0.f;
-  };
-
-  float acc[TM][2 * TNH];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 2 * TNH; ++j) acc[i][j] = 0.f;
-
-  fetch(0);
-  for (int k0 = 0; k0 < n_fft; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) As[a_k + i][a_row] = a_next[i];
-#pragma unroll
-    for (int i = 0; i < B_PER; ++i) Bs[b_k][b_n + i] = b_next[i];
-    __syncthreads();
-    if (k0 + BK < n_fft) fetch(k0 + BK);
-
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], bv[2 * TNH];
-      load_smem<TM / 2>(&As[kk][ty * (TM / 2)], a);
-      load_smem<TM / 2>(&As[kk][BM / 2 + ty * (TM / 2)], a + TM / 2);
-      load_smem<TNH>(&Bs[kk][tx * TNH], bv);
-      load_smem<TNH>(&Bs[kk][BNH + tx * TNH], bv + TNH);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 2 * TNH; ++j) acc[i][j] += a[i] * bv[j];
-    }
-    __syncthreads();
   }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int j = threadIdx.x + i * blockDim.x;
+    if (j < nb) {
+      const int k = j & (p - 1);
+      const int ts = k * (nb / p);
+      if constexpr (R == 8) {  // three loads; the rest one or two products
+        const cplx<T> w1 = tw[ts], w2 = tw[2 * ts], w4 = tw[4 * ts];
+        const cplx<T> w3 = cmul(w1, w2);
+        v[i][1] = cmul(v[i][1], w1);
+        v[i][2] = cmul(v[i][2], w2);
+        v[i][3] = cmul(v[i][3], w3);
+        v[i][4] = cmul(v[i][4], w4);
+        v[i][5] = cmul(v[i][5], cmul(w1, w4));
+        v[i][6] = cmul(v[i][6], cmul(w2, w4));
+        v[i][7] = cmul(v[i][7], cmul(w3, w4));
+      } else {
+#pragma unroll
+        for (int r = 1; r < R; ++r) v[i][r] = cmul(v[i][r], tw[r * ts]);
+      }
+      butterfly<R>(v[i]);
+      const int o = (j - k) * R + k;
+#pragma unroll
+      for (int r = 0; r < R; ++r) buf[pad(o + r * p)] = v[i][r];
+    }
+  }
+  __syncthreads();
+}
 
+// The forward FFT of buf[0, L) in place, natural order in and out, from
+// sub-transform length p on (the passes before done).
+template <int V, class T>
+__device__ __forceinline__ void fft(cplx<T>* buf, int L, const cplx<T>* __restrict__ tw,
+                                    int p = 1) {
+  while (p < L) {
+    const int left = L / p;
+    if (left >= 8) {
+      fft_pass<8, V>(buf, L, p, tw);
+      p *= 8;
+    } else if (left == 4) {
+      fft_pass<4, V>(buf, L, p, tw);
+      p *= 4;
+    } else {
+      fft_pass<2, V>(buf, L, p, tw);
+      p *= 2;
+    }
+  }
+}
+
+// The N-point DFT of what buf holds (already chirped and zero-padded to L
+// for Bluestein; its FFT's passes done up to sub-transform length p0).
+// Afterwards element k of the DFT is spectrum(buf, k).
+template <int V, class T>
+__device__ __forceinline__ void transform(cplx<T>* buf, int L, const cplx<T>* __restrict__ tw,
+                                          const cplx<T>* __restrict__ filt, int p0 = 1) {
+  fft<V>(buf, L, tw, p0);
+  if (filt) {
+    for (int k = threadIdx.x; k < L; k += blockDim.x) {
+      const int s = pad(k);
+      buf[s] = cconj(cmul(buf[s], filt[k]));
+    }
+    __syncthreads();
+    fft<V>(buf, L, tw);  // conj of the convolution
+  }
+}
+
+template <class T>
+__device__ __forceinline__ cplx<T> spectrum(const cplx<T>* buf, int k,
+                                            const cplx<T>* __restrict__ chirp) {
+  const cplx<T> z = buf[pad(k)];
+  return chirp ? cmul(chirp[k], cconj(z)) : z;
+}
+
+// The block-wide maxima of a.x and of a.y, returned to every thread: each
+// thread's pair in red[t], 32 partial maxima in red[T + i], read by all.
+// red holds blockDim.x + 32 values; two barriers.
+template <class T>
+__device__ __forceinline__ cplx<T> block_max(cplx<T> a, cplx<T>* red) {
+  const int nt = blockDim.x, t = threadIdx.x;
+  red[t] = a;
+  __syncthreads();
+  if (t < 32) {
+    cplx<T> m = {0, 0};
+    for (int i = t; i < nt; i += 32) m = {tmax(m.x, red[i].x), tmax(m.y, red[i].y)};
+    red[nt + t] = m;
+  }
+  __syncthreads();
+  cplx<T> m = red[nt];
+  for (int i = 1; i < 32; ++i) m = {tmax(m.x, red[nt + i].x), tmax(m.y, red[nt + i].y)};
+  return m;
+}
+
+// Frames f and f + 1 (zeros when second is false), windowed, as the real
+// and imaginary parts of the transform's input, each divided by a power of
+// two above its own peak (returned in scale). Chirped and zero-padded to L
+// for Bluestein. The FFT's first radix-8 pass (p = 1: no twiddles) runs on
+// the values as they arrive from device memory; returns the sub-transform
+// length the FFT goes on from (1 when L < 8).
+template <int V, class T>
+__device__ __forceinline__ int load_pair(cplx<T>* buf, cplx<T>* red,
+                                         const float* __restrict__ yb, int f, int hop,
+                                         bool second, int N, int L,
+                                         const float* __restrict__ window,
+                                         const cplx<T>* __restrict__ chirp, cplx<T>& scale) {
+  const float* y0 = yb + (size_t)f * hop;
+  const float* y1 = y0 + hop;
+  const int R = L < 8 ? 1 : 8;
+  const int nb = L / R;
+  T a[V / 8][8], c[V / 8][8];
+  cplx<T> m = {0, 0};
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = i < TM / 2 ? ty * (TM / 2) + i
-                               : BM / 2 + ty * (TM / 2) + (i - TM / 2);
-    const int m = m0 + row;
-    if (m >= M) continue;
-    const int b = m / F;
-    const int f = m - b * F;
+  for (int i = 0; i < V / 8; ++i) {
+    const int j = threadIdx.x + i * blockDim.x;
 #pragma unroll
-    for (int j = 0; j < TNH; ++j) {
-      const int bin = j0 + tx * TNH + j;
-      if (bin >= bins) continue;
-      const float re = acc[i][j];
-      const float im = acc[i][TNH + j];
-      const float mag = sqrtf(re * re + im * im + EPS);
-      out[((size_t)b * bins + bin) * F + f] = mag;
-      if (phasor) {  // training: d mag / d (re, im), for stft_backward
-        phasor[((size_t)b * 2 * bins + bin) * F + f] = re / mag;
-        phasor[((size_t)b * 2 * bins + bins + bin) * F + f] = im / mag;
+    for (int r = 0; r < 8; ++r) {
+      const int n = j + r * nb;
+      const bool in = j < nb && r < R && n < N;
+      const T w = in ? (T)window[n] : (T)0;
+      a[i][r] = in ? w * (T)y0[n] : (T)0;
+      c[i][r] = in && second ? w * (T)y1[n] : (T)0;
+      m = {tmax(m.x, tabs(a[i][r])), tmax(m.y, tabs(c[i][r]))};
+    }
+  }
+  m = block_max(m, red);
+  cplx<T> inv;
+  pow2_above(m.x, scale.x, inv.x);
+  pow2_above(m.y, scale.y, inv.y);
+#pragma unroll
+  for (int i = 0; i < V / 8; ++i) {
+    const int j = threadIdx.x + i * blockDim.x;
+    if (j < nb) {
+      cplx<T> v[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        v[r] = {a[i][r] * inv.x, c[i][r] * inv.y};
+        if (chirp && r < R && j + r * nb < N) v[r] = cmul(v[r], chirp[j + r * nb]);
+      }
+      if (R == 8) {
+        butterfly<8>(v);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) buf[pad(8 * j + r)] = v[r];
+      } else {
+        buf[pad(j)] = v[0];
       }
     }
   }
+  __syncthreads();
+  return R;
 }
 
-template <int BM, int BNH, int TM, int TNH>
-int launch_tile(const float* y, const float* basis, float* out, float* phasor,
-                int B, int T_pad, int n_fft, int hop, int bins, int F,
-                cudaStream_t stream) {
-  const int M = B * F;
-  dim3 grid((M + BM - 1) / BM, (bins + BNH - 1) / BNH);
-  stft_tile<BM, BNH, TM, TNH><<<grid, THREADS, 0, stream>>>(
-      y, basis, out, phasor, T_pad, n_fft, hop, bins, F, M);
+// The two frames' spectra at bin k from the packed transform, times their
+// scales (load_pair).
+template <class T>
+__device__ __forceinline__ void split(const cplx<T>* buf, int k, int N,
+                                      const cplx<T>* __restrict__ chirp, cplx<T> scale,
+                                      cplx<T>& xf, cplx<T>& xg) {
+  const cplx<T> zk = spectrum(buf, k, chirp);
+  const cplx<T> zm = spectrum(buf, k == 0 ? 0 : N - k, chirp);
+  const T hf = (T)0.5 * scale.x, hg = (T)0.5 * scale.y;
+  xf = {hf * (zk.x + zm.x), hf * (zk.y - zm.y)};
+  xg = {hg * (zk.y + zm.y), hg * (zm.x - zk.x)};
+}
+
+// The spectrum's gradients G = g X / sqrt(|X|^2 + 1e-9) of the two frames at
+// bin k, g from the staged run (column fi, and fi + 1 when second).
+template <class T>
+__device__ __forceinline__ void spectrum_grad(const cplx<T>* buf, const float* stage, int k,
+                                              int FR, int fi, bool second, int N,
+                                              const cplx<T>* __restrict__ chirp,
+                                              cplx<T> scale, cplx<T>& gf, cplx<T>& gg) {
+  cplx<T> xf, xg;
+  split(buf, k, N, chirp, scale, xf, xg);
+  const T eps = (T)EPS;
+  gf = cscale(xf, (T)stage[k * (FR + 1) + fi] / tsqrt(xf.x * xf.x + xf.y * xf.y + eps));
+  gg = second ? cscale(xg, (T)stage[k * (FR + 1) + fi + 1]
+                               / tsqrt(xg.x * xg.x + xg.y * xg.y + eps))
+              : cplx<T>{0, 0};
+}
+
+// The kernels' register budgets: a thread holds V values in an FFT pass
+// (blockDim.x = L / V threads, at least 64). Up to L = 2048, V = 8 and 3
+// blocks of 256 threads a SM (<= 85 registers); L = 4096 and 8192,
+// V = 16 and up to 128 registers for 512 threads; L = 16384 (the forward's
+// Bluestein above n_fft 4096, off every path), V = 16 and 1024 threads
+// (<= 64 registers).
+constexpr int SMALL_T = 256;
+constexpr int MID_T = 512;
+constexpr int LARGE_T = 1024;
+
+struct Geometry {
+  int L, bins, FR, threads, smem;
+};
+
+// Shared memory: the buffer [buf_size(L)] and the reduction's [threads +
+// 32] complex values of elem bytes, then the run's staging [bins][FR + 1]
+// floats. Frames per block: 4 (two pairs), or 2 where the staging of 4
+// does not fit; smem > MAX_SMEM when not even 2 do.
+Geometry geometry(int n_fft, int L, int elem) {
+  Geometry g;
+  g.L = L;
+  g.bins = n_fft / 2 + 1;
+  g.threads = L <= 8 * SMALL_T ? (L / 8 < 64 ? 64 : L / 8) : L / 16;
+  const int fixed = (buf_size(L) + g.threads + 32) * elem;
+  g.FR = 4;
+  while (g.FR > 2 && fixed + g.bins * (g.FR + 1) * (int)sizeof(float) > MAX_SMEM) g.FR /= 2;
+  g.smem = fixed + g.bins * (g.FR + 1) * (int)sizeof(float);
+  return g;
+}
+
+template <class T, int MAXT, int MINB, int V>
+__global__ void __launch_bounds__(MAXT, MINB) stft_fwd_kernel(
+    const float* __restrict__ y,       // [B, T_pad]
+    const float* __restrict__ window,  // [N]
+    const cplx<T>* __restrict__ tw,    // [L]
+    const cplx<T>* __restrict__ chirp, // [N] or null (power of two)
+    const cplx<T>* __restrict__ filt,  // [L] or null
+    float* __restrict__ out,           // [B, bins, F]
+    int T_pad, int N, int L, int hop, int F, int FR) {
+  extern __shared__ float smem[];
+  cplx<T>* buf = reinterpret_cast<cplx<T>*>(smem);
+  cplx<T>* red = buf + buf_size(L);
+  float* stage = reinterpret_cast<float*>(red + blockDim.x + 32);  // [bins][FR + 1]
+  const int b = blockIdx.y;
+  const int f0 = blockIdx.x * FR;
+  const int nv = F - f0 < FR ? F - f0 : FR;
+  const int bins = N / 2 + 1;
+  const float* yb = y + (size_t)b * T_pad;
+
+  for (int fi = 0; fi < nv; fi += 2) {
+    const bool second = fi + 1 < nv;
+    cplx<T> scale;
+    const int p0 = load_pair<V>(buf, red, yb, f0 + fi, hop, second, N, L, window, chirp,
+                                scale);
+    transform<V>(buf, L, tw, filt, p0);
+    for (int k = threadIdx.x; k < bins; k += blockDim.x) {
+      cplx<T> xf, xg;
+      split(buf, k, N, chirp, scale, xf, xg);
+      stage[k * (FR + 1) + fi] = (float)tsqrt(xf.x * xf.x + xf.y * xf.y + (T)EPS);
+      if (second)
+        stage[k * (FR + 1) + fi + 1] = (float)tsqrt(xg.x * xg.x + xg.y * xg.y + (T)EPS);
+    }
+    __syncthreads();  // buf is read whole before the next pair loads
+  }
+  float* ob = out + (size_t)b * bins * F + f0;
+  for (int e = threadIdx.x; e < bins * nv; e += blockDim.x) {
+    const int k = e / nv, i = e - k * nv;
+    ob[(size_t)k * F + i] = stage[k * (FR + 1) + i];
+  }
+}
+
+template <int MAXT, int MINB, int V>
+__global__ void __launch_bounds__(MAXT, MINB) stft_bwd_kernel(
+    const float* __restrict__ g,       // [B, bins, F]
+    const float* __restrict__ y,       // [B, T_pad]
+    const float* __restrict__ window,  // [N]
+    const cd* __restrict__ tw, const cd* __restrict__ chirp,
+    const cd* __restrict__ filt,       // float64 tables
+    float* __restrict__ frames,        // [B, F, N]: each frame's gradient
+    int T_pad, int N, int L, int hop, int F, int FR) {
+  extern __shared__ float smem[];
+  cd* buf = reinterpret_cast<cd*>(smem);
+  cd* red = buf + buf_size(L);
+  float* stage = reinterpret_cast<float*>(red + blockDim.x + 32);  // g, [bins][FR + 1]
+  const int b = blockIdx.y;
+  const int f0 = blockIdx.x * FR;
+  const int nv = F - f0 < FR ? F - f0 : FR;
+  const int bins = N / 2 + 1;
+  const float* yb = y + (size_t)b * T_pad;
+
+  const float* gb = g + (size_t)b * bins * F + f0;
+  for (int e = threadIdx.x; e < bins * nv; e += blockDim.x) {
+    const int k = e / nv, i = e - k * nv;
+    stage[k * (FR + 1) + i] = gb[(size_t)k * F + i];
+  }
+  for (int fi = 0; fi < nv; fi += 2) {
+    const bool second = fi + 1 < nv;
+    cd scale;
+    const int p0 = load_pair<V>(buf, red, yb, f0 + fi, hop, second, N, L, window, chirp,
+                                scale);
+    transform<V>(buf, L, tw, filt, p0);
+    // each frame's G peak, for the packed inverse's scales
+    cd m = {0, 0};
+    for (int k = threadIdx.x; k < bins; k += blockDim.x) {
+      cd gf, gg;
+      spectrum_grad(buf, stage, k, FR, fi, second, N, chirp, scale, gf, gg);
+      m = {tmax(m.x, tmax(tabs(gf.x), tabs(gf.y))), tmax(m.y, tmax(tabs(gg.x), tabs(gg.y)))};
+    }
+    m = block_max(m, red);
+    cd gs, inv;
+    pow2_above(m.x, gs.x, inv.x);
+    pow2_above(m.y, gs.y, inv.y);
+    // conj(Q), Q = H_f / gs.x + i H_{f+1} / gs.y; each thread reads and
+    // writes only slots k and N - k
+    for (int k = threadIdx.x; k < bins; k += blockDim.x) {
+      cd gf, gg;
+      spectrum_grad(buf, stage, k, FR, fi, second, N, chirp, scale, gf, gg);
+      gf = cscale(gf, inv.x);
+      gg = cscale(gg, inv.y);
+      if (k == 0 || 2 * k == N) {
+        cd q = {gf.x, -gg.x};
+        if (chirp) q = cmul(q, chirp[k]);
+        buf[pad(k)] = q;
+      } else {
+        cd q = {0.5 * (gf.x - gg.y), -0.5 * (gf.y + gg.x)};
+        cd qm = {0.5 * (gf.x + gg.y), 0.5 * (gf.y - gg.x)};
+        if (chirp) {
+          q = cmul(q, chirp[k]);
+          qm = cmul(qm, chirp[N - k]);
+        }
+        buf[pad(k)] = q;
+        buf[pad(N - k)] = qm;
+      }
+    }
+    for (int n = N + threadIdx.x; n < L; n += blockDim.x) buf[pad(n)] = {0, 0};
+    __syncthreads();
+    transform<V>(buf, L, tw, filt);
+    float* out0 = frames + ((size_t)b * F + f0 + fi) * N;
+    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+      const cd r = spectrum(buf, n, chirp);
+      const double w = window[n];
+      out0[n] = (float)(w * gs.x * r.x);
+      if (second) out0[N + n] = (float)(-w * gs.y * r.y);
+    }
+    __syncthreads();
+  }
+}
+
+constexpr int OLA_THREADS = 256;
+
+// grad[b, t] = sum over the frames f covering t, in increasing f, of
+// frames[b, f, t - f * hop]; 0 where no frame reads t.
+__global__ void __launch_bounds__(OLA_THREADS) overlap_add(
+    const float* __restrict__ frames, float* __restrict__ grad, int T_pad,
+    int N, int hop, int F) {
+  const int b = blockIdx.y;
+  const int t = blockIdx.x * OLA_THREADS + threadIdx.x;
+  if (t >= T_pad) return;
+  const int f_lo = t >= N ? (t - N) / hop + 1 : 0;
+  const int f_hi = t / hop < F - 1 ? t / hop : F - 1;
+  const float* fb = frames + (size_t)b * F * N;
+  float acc = 0.f;
+  for (int f = f_lo; f <= f_hi; ++f) acc += fb[(size_t)f * N + (t - f * hop)];
+  grad[(size_t)b * T_pad + t] = acc;
+}
+
+// Shared memory above 48 KB needs the kernel's attribute, set once.
+template <class K>
+void allow_smem(K kernel, bool& done) {
+  if (!done) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         MAX_SMEM);
+    done = true;
+  }
+}
+
+template <class T, int MAXT, int MINB, int V>
+void launch_forward(const Geometry& geo, dim3 grid, cudaStream_t s, const float* y,
+                    const float* window, const cplx<T>* tw, const cplx<T>* chirp,
+                    const cplx<T>* filt, float* out, int T_pad, int N, int hop, int F) {
+  static bool done = false;
+  allow_smem(stft_fwd_kernel<T, MAXT, MINB, V>, done);
+  stft_fwd_kernel<T, MAXT, MINB, V><<<grid, geo.threads, geo.smem, s>>>(
+      y, window, tw, chirp, filt, out, T_pad, N, geo.L, hop, F, geo.FR);
+}
+
+template <int MAXT, int MINB, int V>
+void launch_backward(const Geometry& geo, dim3 grid, cudaStream_t s, const float* g,
+                     const float* y, const float* window, const cd* tw,
+                     const cd* chirp, const cd* filt, float* frames, int T_pad,
+                     int N, int hop, int F) {
+  static bool done = false;
+  allow_smem(stft_bwd_kernel<MAXT, MINB, V>, done);
+  stft_bwd_kernel<MAXT, MINB, V><<<grid, geo.threads, geo.smem, s>>>(
+      g, y, window, tw, chirp, filt, frames, T_pad, N, geo.L, hop, F, geo.FR);
+}
+
+bool valid(int n_fft, int L) {
+  return n_fft >= 1 && L <= MAX_L && L >= n_fft && (L & (L - 1)) == 0
+         && (L == n_fft || L >= 2 * n_fft - 1);
+}
+
+}  // namespace
+
+// y [B, T_pad]; window [n_fft]; twiddle [L] complex; chirp [n_fft] and filt
+// [L] complex, or both null when L == n_fft (a power of two), all float32;
+// out [B, n_fft / 2 + 1, F] with F = (T_pad - n_fft) / hop + 1. Contiguous
+// (the Python wrapper checks). Returns the cudaError_t of the launch, or
+// cudaErrorInvalidValue for an L the kernel does not take.
+extern "C" int stft_magnitude(const void* y, const void* window,
+                              const void* twiddle, const void* chirp,
+                              const void* filt, void* out, int B, int T_pad,
+                              int n_fft, int L, int hop, int F, void* stream) {
+  const Geometry geo = geometry(n_fft, L, (int)sizeof(cf));
+  if (!valid(n_fft, L) || geo.smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const dim3 grid((F + geo.FR - 1) / geo.FR, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* yp = (const float*)y;
+  const float* wp = (const float*)window;
+  const cf* tp = (const cf*)twiddle;
+  const cf* cp = (const cf*)chirp;
+  const cf* fp = (const cf*)filt;
+  float* op = (float*)out;
+  if (L <= 8 * SMALL_T)
+    launch_forward<float, SMALL_T, 3, 8>(geo, grid, s, yp, wp, tp, cp, fp, op, T_pad, n_fft, hop, F);
+  else if (L <= 16 * MID_T)
+    launch_forward<float, MID_T, 1, 16>(geo, grid, s, yp, wp, tp, cp, fp, op, T_pad, n_fft, hop, F);
+  else
+    launch_forward<float, LARGE_T, 1, 16>(geo, grid, s, yp, wp, tp, cp, fp, op, T_pad, n_fft, hop, F);
   return (int)cudaGetLastError();
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
-// The rows of the tile for M = B * F frames: the largest tile whose grid
-// still has a block for every SM.
-int tile_rows(int M, int bins) {
-  const int sms = sm_count();
-  if (((M + 127) / 128) * ((bins + 63) / 64) >= sms) return 128;
-  if (((M + 63) / 64) * ((bins + 31) / 32) >= sms) return 64;
-  return 32;
-}
-
-}  // namespace
-
-// The tile stft_magnitude launches for M frames and bins bins, by its rows:
-// 128 (128 frames x 64 bins), 64 (64 x 32) or 32 (32 x 32).
-extern "C" int stft_tile(int M, int bins) { return tile_rows(M, bins); }
-
-// y [B, T_pad], basis [n_fft, 2 * bins], out [B, bins, F] with
-// F = (T_pad - n_fft) / hop + 1, all float32 and contiguous (the Python
-// wrapper checks). phasor [B, 2 * bins, F] receives re / mag and im / mag
-// when training needs the backward; it is null when serving. Returns the
-// cudaError_t of the launch.
-extern "C" int stft_magnitude(const void* y, const void* basis, void* out,
-                              void* phasor, int B, int T_pad, int n_fft,
-                              int hop, int bins, int F, void* stream) {
-  const float* yp = (const float*)y;
-  const float* bp = (const float*)basis;
-  float* op = (float*)out;
-  float* pp = (float*)phasor;
+// stft_magnitude in float64 (exact to the output's float32 rounding): the
+// same arguments, but twiddle, chirp and filt float64 and L at most 8192
+// (n_fft a power of two up to 8192, any other up to 4096), as for
+// stft_backward.
+extern "C" int stft_magnitude_f64(const void* y, const void* window,
+                                  const void* twiddle, const void* chirp,
+                                  const void* filt, void* out, int B, int T_pad,
+                                  int n_fft, int L, int hop, int F, void* stream) {
+  const Geometry geo = geometry(n_fft, L, (int)sizeof(cd));
+  if (!valid(n_fft, L) || L > 16 * MID_T || geo.smem > MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((F + geo.FR - 1) / geo.FR, B);
   cudaStream_t s = (cudaStream_t)stream;
-  switch (tile_rows(B * F, bins)) {
-    case 128:
-      return launch_tile<128, 64, 8, 4>(yp, bp, op, pp, B, T_pad, n_fft, hop,
-                                        bins, F, s);
-    case 64:
-      return launch_tile<64, 32, 4, 2>(yp, bp, op, pp, B, T_pad, n_fft, hop,
-                                       bins, F, s);
-    default:
-      return launch_tile<32, 32, 2, 2>(yp, bp, op, pp, B, T_pad, n_fft, hop,
-                                       bins, F, s);
-  }
+  const float* yp = (const float*)y;
+  const float* wp = (const float*)window;
+  const cd* tp = (const cd*)twiddle;
+  const cd* cp = (const cd*)chirp;
+  const cd* fp = (const cd*)filt;
+  float* op = (float*)out;
+  if (L <= 8 * SMALL_T)
+    launch_forward<double, SMALL_T, 3, 8>(geo, grid, s, yp, wp, tp, cp, fp, op, T_pad, n_fft,
+                                          hop, F);
+  else
+    launch_forward<double, MID_T, 1, 16>(geo, grid, s, yp, wp, tp, cp, fp, op, T_pad, n_fft,
+                                         hop, F);
+  return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// K5 backward: stft_backward
-//
-// Replaces fish_diffusion_tpu/ops/mel.py:_stft_conv_bwd (the hand VJP, a
-// DFT-transpose GEMM into a [B, F, n_fft] frame gradient, then an
-// overlap-add of ceil(n_fft / hop) shifted adds).
-//
-//   grad_y[b, j * hop + r] = sum_{i < k_ov} sum_{c < 2 bins}
-//                            gs[b, c, j - i] * basis[i * hop + r, c]
-//
-// with k_ov = ceil(n_fft / hop) and gs the spectrum's gradient, formed as
-// A is loaded from the magnitude's gradient g [B, bins, F] and the phasor
-// the forward kept: gs[b, k, f] = g[b, k, f] * re / mag,
-// gs[b, bins + k, f] = g[b, k, f] * im / mag.
-//
-// Bound on an H100: arithmetic, like the forward (the same dense DFT
-// product, 2 * B * T_pad * 2 bins * k_ov operations). Design: the mirror
-// of the forward's gathered-A product. Rows are output hop-blocks (b, j),
-// columns the r < hop samples of a block, and the reduction runs over
-// (i, c) with frame f = j - i masked to [0, F) and basis rows past n_fft
-// masked. Every output sample is one thread's sum: no atomics, no frame
-// gradient in device memory, and the result does not depend on the
-// schedule. The frame overlap the JAX VJP added in k_ov passes is the
-// i-loop of the reduction.
-// ---------------------------------------------------------------------------
-
-namespace {
-
-constexpr int BWD_BM = 64, BWD_BN = 64, BWD_TM = 4, BWD_TN = 4;
-constexpr int BWD_BNS = BWD_BN + 4;  // B tile row stride: spreads the stores
-
-__global__ void __launch_bounds__(THREADS) stft_bwd_tile(
-    const float* __restrict__ g,       // [B, bins, F]
-    const float* __restrict__ phasor,  // [B, 2 * bins, F]
-    const float* __restrict__ basis,   // [n_fft, 2 * bins]
-    float* __restrict__ grad,          // [B, T_pad]
-    int T_pad, int n_fft, int hop, int bins, int F, int NB, int k_ov,
-    int M) {
-  constexpr int TX = BWD_BN / BWD_TN;  // 16 threads along samples
-  __shared__ __align__(16) float As[BK][BWD_BM];
-  __shared__ __align__(16) float Bs[BK][BWD_BNS];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int m0 = blockIdx.x * BWD_BM;
-  const int r0 = blockIdx.y * BWD_BN;
-  const int C2 = 2 * bins;
-  const int KR = k_ov * C2;
-
-  // A: each thread one row (b, j), BK / 4 consecutive (i, c); neighbouring
-  // threads read neighbouring frames
-  const int a_row = tid % BWD_BM;
-  const int a_k = (tid / BWD_BM) * (BK * BWD_BM / THREADS);
-  const int a_m = m0 + a_row;
-  const int a_b = a_m < M ? a_m / NB : 0;
-  const int a_j = a_m < M ? a_m - a_b * NB : -(1 << 30);  // masks every f
-  const float* g_b = g + (size_t)a_b * bins * F;
-  const float* p_b = phasor + (size_t)a_b * C2 * F;
-  // B: each thread one sample column, BK / 4 consecutive (i, c); the 16
-  // threads of a column read 16 neighbouring basis entries
-  const int b_k = (tid % (BK / 4)) * 4;
-  const int b_col = tid / (BK / 4);
-
-  float acc[BWD_TM][BWD_TN];
-#pragma unroll
-  for (int i = 0; i < BWD_TM; ++i)
-#pragma unroll
-    for (int j = 0; j < BWD_TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < KR; k0 += BK) {
-#pragma unroll
-    for (int e = 0; e < BK * BWD_BM / THREADS; ++e) {
-      const int kk = k0 + a_k + e;
-      const int i = kk / C2;
-      const int c = kk - i * C2;
-      const int f = a_j - i;
-      float v = 0.f;
-      if (kk < KR && f >= 0 && f < F) {
-        const int bin = c < bins ? c : c - bins;
-        v = g_b[(size_t)bin * F + f] * p_b[(size_t)c * F + f];
-      }
-      As[a_k + e][a_row] = v;
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kk = k0 + b_k + e;
-      const int i = kk / C2;
-      const int c = kk - i * C2;
-      const int r = r0 + b_col;
-      const int n = i * hop + r;
-      Bs[b_k + e][b_col] = (kk < KR && r < hop && n < n_fft)
-                               ? basis[(size_t)n * C2 + c]
-                               : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[BWD_TM], bv[BWD_TN];
-      load_smem<BWD_TM>(&As[kk][ty * BWD_TM], a);
-      load_smem<BWD_TN>(&Bs[kk][tx * BWD_TN], bv);
-#pragma unroll
-      for (int i = 0; i < BWD_TM; ++i)
-#pragma unroll
-        for (int j = 0; j < BWD_TN; ++j) acc[i][j] += a[i] * bv[j];
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < BWD_TM; ++i) {
-    const int m = m0 + ty * BWD_TM + i;
-    if (m >= M) continue;
-    const int b = m / NB;
-    const int j = m - b * NB;
-#pragma unroll
-    for (int jj = 0; jj < BWD_TN; ++jj) {
-      const int r = r0 + tx * BWD_TN + jj;
-      const long t = (long)j * hop + r;
-      if (r < hop && t < T_pad) grad[(size_t)b * T_pad + t] = acc[i][jj];
-    }
-  }
-}
-
-}  // namespace
-
-// g [B, bins, F] (the magnitude's gradient), phasor [B, 2 * bins, F] (from
-// the forward), basis [n_fft, 2 * bins], grad [B, T_pad]: every sample is
-// written, those no frame reads with 0. All float32 and contiguous (the
-// Python wrapper checks). Returns the cudaError_t of the launch.
-extern "C" int stft_backward(const void* g, const void* phasor,
-                             const void* basis, void* grad, int B, int T_pad,
-                             int n_fft, int hop, int bins, int F,
+// g [B, n_fft / 2 + 1, F] (the magnitude's gradient), y [B, T_pad] (the
+// forward's signal), window [n_fft] float32, the other tables as for
+// stft_magnitude but float64, frames [B, F, n_fft] (scratch), grad
+// [B, T_pad]: every sample is written, those no frame reads with 0. Two
+// launches: the frames' gradients, then their overlap-add. Returns the
+// cudaError_t of the launches, or cudaErrorInvalidValue for an L the
+// kernel does not take (a float64 buffer of L = 16384 does not fit).
+extern "C" int stft_backward(const void* g, const void* y, const void* window,
+                             const void* twiddle, const void* chirp,
+                             const void* filt, void* frames, void* grad, int B,
+                             int T_pad, int n_fft, int L, int hop, int F,
                              void* stream) {
-  const int NB = (T_pad + hop - 1) / hop;
-  const int k_ov = (n_fft + hop - 1) / hop;
-  const int M = B * NB;
-  dim3 grid((M + BWD_BM - 1) / BWD_BM, (hop + BWD_BN - 1) / BWD_BN);
-  stft_bwd_tile<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)g, (const float*)phasor, (const float*)basis,
-      (float*)grad, T_pad, n_fft, hop, bins, F, NB, k_ov, M);
+  const Geometry geo = geometry(n_fft, L, (int)sizeof(cd));
+  if (!valid(n_fft, L) || geo.smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const dim3 grid((F + geo.FR - 1) / geo.FR, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* gp = (const float*)g;
+  const float* yp = (const float*)y;
+  const float* wp = (const float*)window;
+  const cd* tp = (const cd*)twiddle;
+  const cd* cp = (const cd*)chirp;
+  const cd* fp = (const cd*)filt;
+  float* fr = (float*)frames;
+  if (L <= 8 * SMALL_T)
+    launch_backward<SMALL_T, 3, 8>(geo, grid, s, gp, yp, wp, tp, cp, fp, fr, T_pad, n_fft,
+                                   hop, F);
+  else
+    launch_backward<MID_T, 1, 16>(geo, grid, s, gp, yp, wp, tp, cp, fp, fr, T_pad, n_fft,
+                                  hop, F);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const dim3 grid2((T_pad + OLA_THREADS - 1) / OLA_THREADS, B);
+  overlap_add<<<grid2, OLA_THREADS, 0, s>>>(fr, (float*)grad, T_pad, n_fft,
+                                            hop, F);
   return (int)cudaGetLastError();
 }

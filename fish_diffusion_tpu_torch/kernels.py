@@ -156,9 +156,9 @@ SIGNATURES = {
         "conv1d_forward": [_I, _I] + [_P] * 5 + [_I] * 9 + [_F, _I, _I, _P],
     },
     "stft": {
-        "stft_magnitude": [_P] * 4 + [_I] * 6 + [_P],
-        "stft_tile": [_I, _I],
-        "stft_backward": [_P] * 4 + [_I] * 6 + [_P],
+        "stft_magnitude": [_P] * 6 + [_I] * 6 + [_P],
+        "stft_magnitude_f64": [_P] * 6 + [_I] * 6 + [_P],
+        "stft_backward": [_P] * 8 + [_I] * 6 + [_P],
     },
     "grouped_conv1d": {
         "grouped_conv1d": [_I] + [_P] * 4 + [_I] * 9 + [_P],

@@ -24,7 +24,8 @@ by ``(n_fft - hop) // 2``, take K5's STFT magnitude without centring
 bins) and run their weight-normed 2-D convs channels-last ``[B, frames, F,
 C]`` through K6 2-D (``ops/blocked_conv.py:conv2d_nhwc``); their feature
 maps and scores have the JAX package's shapes. Discriminators compute in
-float32.
+float32; the STFTs here and in the losses run exact (K5 in float64,
+``stft_magnitude(..., exact=True)``).
 """
 
 from __future__ import annotations
@@ -228,7 +229,8 @@ class DiscriminatorR(nn.Module):
     def forward(self, x):
         pad = (self.n_fft - self.hop_length) // 2
         y = F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
-        mag = linear_spectrogram(y, self.n_fft, self.hop_length, self.win_length)
+        mag = linear_spectrogram(y, self.n_fft, self.hop_length, self.win_length,
+                                 exact=True)
         h = mag.transpose(1, 2)[..., None].contiguous()  # [B, frames, F, 1]
         fmap = []
         for (_, _, s, p), conv in zip(self.SPECS, self.convs):
@@ -332,7 +334,7 @@ def _smooth_l1(a, b):
 def _mel_transform(sampling_rate, n_fft, win, hop, f_min, f_max, n_mels, device):
     return LogMelSpectrogram(sample_rate=sampling_rate, n_fft=n_fft,
                              win_length=win, hop_length=hop, f_min=f_min,
-                             f_max=f_max, n_mels=n_mels, device=device)
+                             f_max=f_max, n_mels=n_mels, device=device, exact=True)
 
 
 def multi_scale_mel_loss(y, y_hat, sampling_rate: int,
@@ -355,7 +357,7 @@ def multi_scale_stft_loss(y, y_hat, scales: Sequence[Tuple[int, int, int]] = (
     """Multi-scale linear-STFT magnitude L1 (centred frames). y [B, T]."""
     losses = []
     for n_fft, hop, win in scales:
-        a = linear_spectrogram(y, n_fft, hop, win, center=True)
-        b = linear_spectrogram(y_hat, n_fft, hop, win, center=True)
+        a = linear_spectrogram(y, n_fft, hop, win, center=True, exact=True)
+        b = linear_spectrogram(y_hat, n_fft, hop, win, center=True, exact=True)
         losses.append(torch.mean(torch.abs(a - b)))
     return sum(losses) / len(losses)

@@ -2,11 +2,15 @@
 
 The windowed-DFT basis and the mel filter bank are built on the host in
 float64 and cast to float32, as in the JAX package. The STFT magnitude is
-K5, the hand-written CUDA product of ``csrc/stft.cu``: ``stft_magnitude``
-launches it for a CUDA tensor and takes ``stft_magnitude_reference`` (frames
-by ``unfold``, one float32 ``matmul``) for a CPU tensor. The mel projection
-``[n_mels, bins] @ spec`` stays ``torch.matmul`` in float32, as it stood
-outside the TPU kernel.
+K5, the hand-written CUDA FFT of ``csrc/stft.cu`` (a power-of-two n_fft as
+a Stockham FFT in shared memory, any other n_fft up to ``MAX_N_FFT`` by
+Bluestein's chirp-z transform on the same core, two frames per complex
+transform, each scaled to its own peak; tables from ``_fft_tables``; the
+backward in float64): ``stft_magnitude`` launches it for
+a CUDA tensor and takes ``stft_magnitude_reference`` (frames by ``unfold``,
+one float32 ``matmul`` with the DFT basis) for a CPU tensor. The mel
+projection ``[n_mels, bins] @ spec`` stays ``torch.matmul`` in float32, as
+it stood outside the TPU kernel.
 
 Conventions kept from the JAX package:
 - reflect padding of ``(win - hop) / 2`` samples each side, ``center=False``;
@@ -18,10 +22,11 @@ Conventions kept from the JAX package:
 - log compression: natural log of ``clamp(x, 1e-5)``, times 0.434294 for
   log10 mels.
 
-Training differentiates the magnitude (``_StftMagnitude``): in that mode
-the forward also writes the phasor ``re / mag``, ``im / mag``, and the
-backward is K5's second kernel, ``stft_backward``, the hand VJP of the JAX
-package (``ops/mel.py:184``) with ``stft_backward_reference`` beside it.
+Training differentiates the magnitude (``_StftMagnitude``): the forward
+saves the padded signal, and the backward is K5's second kernel,
+``stft_backward``, the hand VJP of the JAX package (``ops/mel.py:184``),
+which recomputes the spectrum by the same FFT, with
+``stft_backward_reference`` beside it.
 ``linear_spectrogram`` is the JAX ``stft_magnitude`` with its ``center``
 option (the STFT loss). ``LogMelSpectrogram.log_mel`` is the
 differentiable log-mel; ``wav2spec``, which serving calls, stays under
@@ -116,11 +121,18 @@ def _hann_window(win_length: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2 * np.pi * n / win_length)).astype(np.float32)
 
 
+def _padded_window(n_fft: int, win_length: int) -> np.ndarray:
+    """The Hann window of ``win_length`` centred in ``n_fft`` zeros, float32."""
+    pad = (n_fft - win_length) // 2
+    return np.pad(_hann_window(win_length), (pad, n_fft - win_length - pad))
+
+
 @functools.lru_cache(maxsize=None)
-def _dft_kernel(n_fft: int, win_length: int) -> np.ndarray:
+def _dft_kernel(n_fft: int, win_length: int, dtype=np.float32) -> np.ndarray:
     """Windowed DFT basis [2 * bins, 1, n_fft] (the JAX package's layout):
     row k < bins is the cos part of bin k, row bins + k its -sin part, each
-    times the centred, zero-padded Hann window."""
+    times the centred, zero-padded Hann window; computed in float64, then
+    rounded to ``dtype``."""
     bins = n_fft // 2 + 1
     window = np.zeros(n_fft, dtype=np.float64)
     pad = (n_fft - win_length) // 2
@@ -131,15 +143,18 @@ def _dft_kernel(n_fft: int, win_length: int) -> np.ndarray:
     angle = 2 * np.pi * k[:, None] * n[None, :] / n_fft
     real = np.cos(angle) * window[None, :]
     imag = -np.sin(angle) * window[None, :]
-    return np.concatenate([real, imag], axis=0)[:, None, :].astype(np.float32)
+    return np.concatenate([real, imag], axis=0)[:, None, :].astype(dtype)
 
 
 @functools.lru_cache(maxsize=16)
-def _dft_basis(n_fft: int, win_length: int, device: str) -> torch.Tensor:
-    """K5's operand: ``_dft_kernel`` as a contiguous [n_fft, 2 * bins]
-    float32 tensor on ``device``. Made outside inference mode, so that a
-    basis first built while serving can be saved for a backward later."""
-    k = _dft_kernel(n_fft, win_length)[:, 0, :]
+def _dft_basis(n_fft: int, win_length: int, device: str,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The operand of K5's plain versions: ``_dft_kernel`` as a contiguous
+    [n_fft, 2 * bins] tensor of ``dtype`` (float32, or float64 for the
+    exact function) on ``device``. Made outside inference mode, so that a
+    basis first built while serving can be used in a backward later."""
+    k = _dft_kernel(n_fft, win_length,
+                    np.float64 if dtype == torch.float64 else np.float32)[:, 0, :]
     with torch.inference_mode(False):
         return torch.from_numpy(np.ascontiguousarray(k.T)).to(device)
 
@@ -148,91 +163,168 @@ def _dft_basis(n_fft: int, win_length: int, device: str) -> torch.Tensor:
 # K5: the STFT magnitude
 # ---------------------------------------------------------------------------
 
+MAX_N_FFT = 8192  # K5's forward takes every n_fft up to this
+# in float64 (the backward, and the exact forward) a Bluestein buffer of
+# L = 16384 does not fit in shared memory: the largest n_fft there that is
+# not a power of two
+MAX_BLUESTEIN_F64 = 4096
 
-def _stft_reference(y: torch.Tensor, basis: torch.Tensor, hop: int,
-                    with_phasor: bool = False):
-    n_fft, two_bins = basis.shape
-    bins = two_bins // 2
+
+def _fft_size(n_fft: int) -> int:
+    """K5's FFT length: n_fft when it is a power of two, else the least
+    power of two >= 2 n_fft - 1 (Bluestein's convolution)."""
+    return n_fft if n_fft & (n_fft - 1) == 0 else 1 << (2 * n_fft - 2).bit_length()
+
+
+@functools.lru_cache(maxsize=None)
+def _fft_tables(n_fft: int, win_length: int):
+    """K5's host tables, built in float64: the padded window [n_fft]
+    (float32, the plain version's values), the twiddles exp(-2 pi i t / L)
+    [L, 2], and, when n_fft is not a power of two, Bluestein's chirp
+    exp(-i pi (n^2 mod 2 n_fft) / n_fft) [n_fft, 2] and the filter spectrum
+    FFT_L(conj chirp, wrapped circularly) / L [L, 2] (None otherwise).
+    Complex values as (re, im)."""
+    L = _fft_size(n_fft)
+
+    def pairs(z):
+        return np.ascontiguousarray(np.stack([z.real, z.imag], -1))
+
+    twiddle = pairs(np.exp(-2j * np.pi * np.arange(L) / L))
+    window = _padded_window(n_fft, win_length)
+    if L == n_fft:
+        return window, twiddle, None, None
+    n = np.arange(n_fft, dtype=np.int64)
+    chirp = np.exp(-1j * np.pi * ((n * n) % (2 * n_fft)) / n_fft)
+    b = np.zeros(L, np.complex128)
+    b[:n_fft] = np.conj(chirp)
+    b[L - n_fft + 1:] = np.conj(chirp[1:])[::-1]
+    return window, twiddle, pairs(chirp), pairs(np.fft.fft(b) / L)
+
+
+@functools.lru_cache(maxsize=32)
+def _fft_plan(n_fft: int, win_length: int, device: str, double: bool = False):
+    """``_fft_tables`` as tensors on ``device`` (None stays None): the
+    window float32, the others float32 (the forward) or float64 (the
+    backward, with ``double``). Made outside inference mode like
+    ``_dft_basis``."""
+    dtype = torch.float64 if double else torch.float32
+    window, *rest = _fft_tables(n_fft, win_length)
+    with torch.inference_mode(False):
+        return (torch.from_numpy(window).to(device),
+                *(None if t is None else torch.from_numpy(t).to(device, dtype) for t in rest))
+
+
+def _check_stft(name: str, y: torch.Tensor, n_fft: int, hop: int, win_length: int):
+    if y.dtype != torch.float32:
+        raise TypeError(f"{name}: takes float32, got {y.dtype}")
+    if y.ndim != 2:
+        raise ValueError(f"{name}: y {tuple(y.shape)}: expected [B, T]")
+    if not 1 <= n_fft <= MAX_N_FFT:
+        raise ValueError(f"{name}: n_fft {n_fft}: the kernel takes 1 to {MAX_N_FFT}")
+    if not 1 <= win_length <= n_fft or hop < 1 or y.shape[1] < n_fft:
+        raise ValueError(f"{name}: {y.shape[1]} samples, n_fft {n_fft}, hop {hop}, "
+                         f"win_length {win_length}")
+
+
+def _pointers(plan):
+    return [None if t is None else t.data_ptr() for t in plan]
+
+
+def _stft_reference(y: torch.Tensor, n_fft: int, hop: int, win_length: int):
+    """(magnitude [B, bins, F], spectrum [B, 2 * bins, F]: re rows, then
+    im rows) by the windowed-DFT basis product of the JAX package, in y's
+    dtype (float32; float64 gives the exact function)."""
+    basis = _dft_basis(n_fft, win_length, str(y.device), y.dtype)
+    bins = n_fft // 2 + 1
     spec = (y.unfold(-1, n_fft, hop) @ basis).transpose(1, 2)  # [B, 2 * bins, F]
     re, im = spec[:, :bins], spec[:, bins:]
-    mag = torch.sqrt(re * re + im * im + 1e-9)
-    return mag, (spec / mag.repeat(1, 2, 1) if with_phasor else None)
+    return torch.sqrt(re * re + im * im + 1e-9), spec
 
 
-def stft_magnitude_reference(y: torch.Tensor, basis: torch.Tensor,
-                             hop: int) -> torch.Tensor:
-    """Plain version of K5. y [B, T_pad], basis [n_fft, 2 * bins] ->
-    [B, bins, F] with F = (T_pad - n_fft) // hop + 1."""
-    return _stft_reference(y, basis, hop)[0]
+def stft_magnitude_reference(y: torch.Tensor, n_fft: int, hop: int,
+                             win_length: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K5. y [B, T_pad] -> [B, n_fft // 2 + 1, F] with
+    F = (T_pad - n_fft) // hop + 1 (frames by ``unfold``, one ``matmul``
+    with ``_dft_basis`` in y's dtype)."""
+    return _stft_reference(y, n_fft, hop, win_length or n_fft)[0]
 
 
-def _stft_forward(y: torch.Tensor, basis: torch.Tensor, hop: int,
-                  with_phasor: bool = False):
-    """K5's forward -> (magnitude [B, bins, F], phasor [B, 2 * bins, F] or
-    None). CPU tensors take the plain version."""
+def _check_f64(name: str, n_fft: int):
+    if _fft_size(n_fft) != n_fft and n_fft > MAX_BLUESTEIN_F64:
+        raise ValueError(f"{name}: n_fft {n_fft}: in float64 the kernel takes powers of two "
+                         f"up to {MAX_N_FFT} and other sizes up to {MAX_BLUESTEIN_F64}")
+
+
+def _stft_forward(y: torch.Tensor, n_fft: int, hop: int, win_length: int,
+                  exact: bool = False) -> torch.Tensor:
+    """K5's forward, [B, bins, F], in float64 when ``exact``. CPU tensors
+    take the plain version (in float64 when ``exact``)."""
     if not y.is_cuda:
-        return _stft_reference(y, basis, hop, with_phasor)
-    kernels.require_cuda("stft_magnitude", y, basis)
-    if y.dtype != torch.float32:
-        raise TypeError(f"stft_magnitude: takes float32, got {y.dtype}")
-    if y.ndim != 2 or basis.ndim != 2 or basis.shape[1] % 2:
-        raise ValueError(f"stft_magnitude: y {tuple(y.shape)}, basis "
-                         f"{tuple(basis.shape)}: expected [B, T] and [n_fft, 2 * bins]")
+        if exact:
+            return stft_magnitude_reference(y.double(), n_fft, hop, win_length).float()
+        return stft_magnitude_reference(y, n_fft, hop, win_length)
+    kernels.require_cuda("stft_magnitude", y)
+    _check_stft("stft_magnitude", y, n_fft, hop, win_length)
+    if exact:
+        _check_f64("stft_magnitude", n_fft)
     B, T_pad = y.shape
-    n_fft, bins = basis.shape[0], basis.shape[1] // 2
-    if T_pad < n_fft or hop < 1:
-        raise ValueError(f"stft_magnitude: {T_pad} samples, n_fft {n_fft}, hop {hop}")
     n_frames = (T_pad - n_fft) // hop + 1
-    out = torch.empty((B, bins, n_frames), dtype=torch.float32, device=y.device)
-    phasor = (torch.empty((B, 2 * bins, n_frames), dtype=torch.float32,
-                          device=y.device) if with_phasor else None)
+    out = torch.empty((B, n_fft // 2 + 1, n_frames), dtype=torch.float32, device=y.device)
     lib = kernels.load_library("stft")
     kernels.check(
-        lib.stft_magnitude(y.data_ptr(), basis.data_ptr(), out.data_ptr(),
-                           phasor.data_ptr() if with_phasor else None, B,
-                           T_pad, n_fft, hop, bins, n_frames, kernels.stream()),
+        (lib.stft_magnitude_f64 if exact else lib.stft_magnitude)(
+            y.data_ptr(), *_pointers(_fft_plan(n_fft, win_length, str(y.device), exact)),
+            out.data_ptr(), B, T_pad, n_fft, _fft_size(n_fft), hop, n_frames,
+            kernels.stream()),
         "stft_magnitude",
     )
     kernels.count_launch("stft_magnitude")
-    return out, phasor
+    return out
 
 
-def stft_backward_reference(g: torch.Tensor, phasor: torch.Tensor,
-                            basis: torch.Tensor, hop: int, T_pad: int) -> torch.Tensor:
+def stft_backward_reference(g: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
+                            win_length: Optional[int] = None) -> torch.Tensor:
     """Plain version of K5's backward: the magnitude's gradient g
-    [B, bins, F] and the phasor [B, 2 * bins, F] -> the signal's gradient
-    [B, T_pad] (the spectrum's gradient through the DFT basis, then the
+    [B, bins, F] and the forward's signal y [B, T_pad] -> the signal's
+    gradient [B, T_pad] (the spectrum recomputed by ``_stft_reference``,
+    its gradient g * spectrum / magnitude through the DFT basis, then the
     frames' overlap-add)."""
-    n_fft = basis.shape[0]
-    gs = g.repeat(1, 2, 1) * phasor  # [B, 2 * bins, F]
-    frames = basis @ gs  # [B, n_fft, F]
+    win_length = win_length or n_fft
+    mag, spec = _stft_reference(y, n_fft, hop, win_length)
+    gs = g.repeat(1, 2, 1) * (spec / mag.repeat(1, 2, 1))  # [B, 2 * bins, F]
+    frames = _dft_basis(n_fft, win_length, str(y.device), y.dtype) @ gs  # [B, n_fft, F]
     F_ = frames.shape[2]
     covered = (F_ - 1) * hop + n_fft
     out = torch.nn.functional.fold(frames, (1, covered), (1, n_fft), stride=(1, hop))
-    return F.pad(out.reshape(g.shape[0], covered), (0, T_pad - covered))
+    return F.pad(out.reshape(g.shape[0], covered), (0, y.shape[1] - covered))
 
 
-def stft_backward(g: torch.Tensor, phasor: torch.Tensor, basis: torch.Tensor,
-                  hop: int, T_pad: int) -> torch.Tensor:
+def stft_backward(g: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
+                  win_length: Optional[int] = None) -> torch.Tensor:
     """K5's backward (``csrc/stft.cu``): the signal's gradient [B, T_pad]
-    from the magnitude's gradient g [B, bins, F] and the forward's phasor.
+    from the magnitude's gradient g [B, bins, F] and the forward's signal
+    y, whose spectrum the kernel recomputes, in float64 (n_fft a power of
+    two up to ``MAX_N_FFT``, any other up to ``MAX_BLUESTEIN_F64``).
     CPU tensors take ``stft_backward_reference``."""
+    win_length = win_length or n_fft
     if not g.is_cuda:
-        return stft_backward_reference(g, phasor, basis, hop, T_pad)
-    kernels.require_cuda("stft_backward", g, phasor, basis)
-    B, bins, n_frames = g.shape
-    n_fft = basis.shape[0]
-    if (tuple(phasor.shape) != (B, 2 * bins, n_frames)
-            or tuple(basis.shape) != (n_fft, 2 * bins)
-            or T_pad < (n_frames - 1) * hop + n_fft):
-        raise ValueError(f"stft_backward: g {tuple(g.shape)}, phasor "
-                         f"{tuple(phasor.shape)}, basis {tuple(basis.shape)}, "
-                         f"{T_pad} samples")
+        return stft_backward_reference(g, y, n_fft, hop, win_length)
+    kernels.require_cuda("stft_backward", g, y)
+    _check_stft("stft_backward", y, n_fft, hop, win_length)
+    _check_f64("stft_backward", n_fft)
+    B, T_pad = y.shape
+    n_frames = (T_pad - n_fft) // hop + 1
+    if tuple(g.shape) != (B, n_fft // 2 + 1, n_frames):
+        raise ValueError(f"stft_backward: g {tuple(g.shape)} for y {tuple(y.shape)}, "
+                         f"n_fft {n_fft}, hop {hop}")
+    frames = torch.empty((B, n_frames, n_fft), dtype=torch.float32, device=g.device)
     grad = torch.empty((B, T_pad), dtype=torch.float32, device=g.device)
     kernels.check(
         kernels.load_library("stft").stft_backward(
-            g.data_ptr(), phasor.data_ptr(), basis.data_ptr(), grad.data_ptr(),
-            B, T_pad, n_fft, hop, bins, n_frames, kernels.stream()),
+            g.data_ptr(), y.data_ptr(),
+            *_pointers(_fft_plan(n_fft, win_length, str(y.device), double=True)),
+            frames.data_ptr(), grad.data_ptr(), B, T_pad, n_fft, _fft_size(n_fft), hop,
+            n_frames, kernels.stream()),
         "stft_backward",
     )
     kernels.count_launch("stft_backward")
@@ -241,50 +333,49 @@ def stft_backward(g: torch.Tensor, phasor: torch.Tensor, basis: torch.Tensor,
 
 class _StftMagnitude(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, basis, hop):
-        out, phasor = _stft_forward(y, basis, hop, with_phasor=True)
-        ctx.save_for_backward(phasor, basis)
-        ctx.conf = (hop, y.shape[1])
-        return out
+    def forward(ctx, y, n_fft, hop, win_length, exact):
+        ctx.save_for_backward(y)
+        ctx.conf = (n_fft, hop, win_length)
+        return _stft_forward(y, n_fft, hop, win_length, exact)
 
     @staticmethod
     def backward(ctx, g):
-        phasor, basis = ctx.saved_tensors
-        hop, T_pad = ctx.conf
-        return stft_backward(g.contiguous(), phasor, basis, hop, T_pad), None, None
+        (y,) = ctx.saved_tensors
+        return stft_backward(g.contiguous(), y, *ctx.conf), None, None, None, None
 
 
-def stft_magnitude(y: torch.Tensor, basis: torch.Tensor, hop: int) -> torch.Tensor:
+def stft_magnitude(y: torch.Tensor, n_fft: int, hop: int,
+                   win_length: Optional[int] = None, exact: bool = False) -> torch.Tensor:
     """K5: the STFT magnitude without centring, ``sqrt(re^2 + im^2 + 1e-9)``
-    of the windowed DFT (``basis`` from ``_dft_basis``) of every frame of
-    ``y`` [B, T_pad] -> [B, bins, F]. Differentiable in ``y``, with
-    ``stft_backward`` as its backward. CPU tensors take the plain versions."""
+    of the DFT of every frame of ``y`` [B, T_pad] times the Hann window of
+    ``win_length`` (default n_fft) centred in n_fft -> [B, n_fft // 2 + 1,
+    F]. ``exact`` computes it in float64 (training: a log-mel loss reads
+    bins at 1e-6 of a frame's peak, where a float32 FFT is off by a few
+    percent). Differentiable in ``y``, with ``stft_backward`` (float64) as
+    its backward, which recomputes the spectrum from the saved signal. CPU
+    tensors take the plain versions."""
+    win_length = win_length or n_fft
     if torch.is_grad_enabled() and y.requires_grad:
-        return _StftMagnitude.apply(y, basis, hop)
-    return _stft_forward(y, basis, hop)[0]
+        return _StftMagnitude.apply(y, n_fft, hop, win_length, exact)
+    return _stft_forward(y, n_fft, hop, win_length, exact)
 
 
 def linear_spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,
-                       win_length: Optional[int] = None, center: bool = False):
+                       win_length: Optional[int] = None, center: bool = False,
+                       exact: bool = False):
     """The JAX package's ``stft_magnitude``: [B, T] -> [B, n_fft // 2 + 1,
-    frames], reflect-padded by ``n_fft // 2`` on each side when ``center``."""
+    frames], reflect-padded by ``n_fft // 2`` on each side when ``center``;
+    in float64 when ``exact`` (``stft_magnitude``)."""
     win_length = win_length or n_fft
     if center:
         pad = n_fft // 2
         y = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
-    return stft_magnitude(y.contiguous(), _dft_basis(n_fft, win_length, str(y.device)),
-                          hop_length)
+    return stft_magnitude(y.contiguous(), n_fft, hop_length, win_length, exact=exact)
 
 
 # ---------------------------------------------------------------------------
 # K5 istft: the inverse STFT
 # ---------------------------------------------------------------------------
-
-
-def _padded_window(n_fft: int, win_length: int) -> np.ndarray:
-    """The Hann window of ``win_length`` centred in ``n_fft`` zeros, float32."""
-    pad = (n_fft - win_length) // 2
-    return np.pad(_hann_window(win_length), (pad, n_fft - win_length - pad))
 
 
 @functools.lru_cache(maxsize=16)
@@ -409,7 +500,8 @@ class LogMelSpectrogram:
     """Pitch-adjustable log-mel transform: the STFT magnitude (K5), the mel
     projection and the log compression that NSF-HiFiGAN's ``wav2spec``
     applies. Runs on ``device`` (the card unless the caller asks for the
-    CPU)."""
+    CPU). With ``exact`` (the training losses) the STFT runs in float64
+    (``stft_magnitude``)."""
 
     def __init__(
         self,
@@ -422,6 +514,7 @@ class LogMelSpectrogram:
         n_mels: int = 128,
         use_natural_log: bool = True,
         device="cuda",
+        exact: bool = False,
     ):
         self.sample_rate = sample_rate
         self.n_fft = n_fft
@@ -431,6 +524,7 @@ class LogMelSpectrogram:
         self.f_max = f_max
         self.n_mels = n_mels
         self.use_natural_log = use_natural_log
+        self.exact = exact
         self.device = resolve_device(device)
         self.mel_basis = torch.from_numpy(
             mel_filter_bank(sample_rate, n_fft, n_mels, f_min, f_max)
@@ -450,7 +544,7 @@ class LogMelSpectrogram:
         y = self._input(y)
         pad = int((win_new - hop) / 2)
         y = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0].contiguous()
-        spec = stft_magnitude(y, _dft_basis(n_fft_new, win_new, str(y.device)), hop)
+        spec = stft_magnitude(y, n_fft_new, hop, win_new, exact=self.exact)
 
         if key_shift != 0:
             size = self.n_fft // 2 + 1

@@ -69,9 +69,10 @@ class VocoderTrainer:
         # the JAX trainer's rule: the generator's hop_size, else its hop_length
         self.hop_length = getattr(self.generator, "hop_size",
                                   getattr(self.generator, "hop_length", 512))
+        # the STFTs of training run exact (float64; ops/mel.py stft_magnitude)
         self.mel_transform = LogMelSpectrogram(
             sample_rate=self.sampling_rate, hop_length=self.hop_length,
-            n_mels=self.generator.num_mels, device=self.device)
+            n_mels=self.generator.num_mels, device=self.device, exact=True)
         self.discs = Discriminators(flavor, mpd_cfg=dict(mc.get("mpd", {})) or None,
                                     mrd_cfg=dict(mc.get("mrd", {})) or None)
         self.discs.to(self.device)

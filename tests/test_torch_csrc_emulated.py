@@ -29,7 +29,8 @@ from fish_diffusion_tpu_torch.models import wavenet
 from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan
 from fish_diffusion_tpu_torch.ops import blocked_conv, mel
 from fish_diffusion_tpu_torch.ops import monotonic_align as ma
-from tests.test_torch_kernels_cuda import ALIGN_CASES, align_case, dense_case
+from tests.test_torch_kernels_cuda import (ALIGN_CASES, QUIET_CASES, align_case, dense_case,
+                                          quiet_case)
 
 SHIM = r"""
 #pragma once
@@ -45,7 +46,7 @@ SHIM = r"""
 #define __host__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
 struct alignas(16) float4 { float x, y, z, w; };
@@ -53,7 +54,7 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local dim3 threadIdx, blockIdx, blockDim;
 inline thread_local std::barrier<>* g_barrier;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
 // round-to-nearest arithmetic that nvcc never contracts into an FMA (g++
@@ -63,7 +64,7 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 inline int cudaGetLastError() { return 0; }
@@ -91,6 +92,7 @@ template <class F> void run_grid(dim3 grid, dim3 block, size_t smem, F body) {
   for (unsigned t = 0; t < n; ++t)
     threads.emplace_back([&, t] {
       threadIdx = dim3(t);
+      blockDim = block;
       g_barrier = &bar;
       for (unsigned z = 0; z < grid.z; ++z)
         for (unsigned y = 0; y < grid.y; ++y)
@@ -105,13 +107,16 @@ template <class F> void run_grid(dim3 grid, dim3 block, size_t smem, F body) {
 """
 
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", re.S)
+# dynamic shared memory, ``extern __shared__ [__align__(n)] T name[];``
+_EXTERN_SHARED = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];")
 
 
 def _host_source(cu: str) -> str:
     src = cu.replace("#include <cuda_runtime.h>", '#include "shim.h"')
     src = src.replace("#include <cuda_bf16.h>", "")
-    src = src.replace("extern __shared__ float smem[];",
-                      "float* smem = g_dynamic_smem.data();")
+    src = _EXTERN_SHARED.sub(
+        lambda m: f"{m.group(1)}* {m.group(2)} = "
+                  f"reinterpret_cast<{m.group(1)}*>(g_dynamic_smem.data());", src)
 
     def launch(m):
         grid, block, smem = (p.strip() for p in m.group(2).split(",")[:3])
@@ -236,28 +241,59 @@ def test_conv_transpose1d_source(host_libs, C_in, C_out, K, u):
     assert (got - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
 
 
+def _k5(n_fft, win, double=False):
+    """K5's tables on the CPU (float64 for the backward) and the FFT length."""
+    return mel._fft_plan(n_fft, win, "cpu", double), mel._fft_size(n_fft)
+
+
 @pytest.mark.parametrize(
-    "B,n_fft,win,hop,F,tile",
-    # with 8 SMs the rows M = B * F and the bins pick the tile: 128 x 64
-    # (n_fft 2048 and 2299), 64 x 32 (n_fft 300), 32 x 32 (n_fft 64)
-    [(1, 2048, 2048, 512, 5, 128), (2, 2299, 2299, 512, 3, 128),
-     (2, 300, 240, 75, 40, 64), (1, 64, 48, 16, 10, 32)],
+    "B,n_fft,win,hop,F",
+    # powers of two (Stockham: 2048 with 51 KB of dynamic shared memory,
+    # 4096 at the 4096 / 540 / 2160 mel scale, 64) and Bluestein (2299 =
+    # 11 * 11 * 19 at a key shift of +2, 1933 prime at -1, 1149 = 3 * 383 at
+    # -10, 300); odd frame counts leave the last frame unpaired; F = 40
+    # spans several runs of 8 frames, 21 and 13 a ragged last run
+    [(1, 2048, 2048, 512, 5), (2, 2299, 2299, 512, 3), (2, 300, 240, 75, 40),
+     (1, 64, 48, 16, 10), (1, 1933, 1933, 512, 4), (2, 1149, 1000, 300, 5),
+     (1, 4096, 2160, 540, 13), (1, 64, 64, 16, 21)],
 )
-def test_stft_source(host_libs, B, n_fft, win, hop, F, tile):
-    """K5: <= 1e-5 relative to the largest magnitude (sums of n_fft
-    products in another order); n_fft 2299 and 300 are not powers of two."""
+def test_stft_source(host_libs, B, n_fft, win, hop, F):
+    """K5: <= 1e-5 relative to the largest magnitude (an FFT against the
+    plain version's sums of n_fft products)."""
     gen = torch.Generator().manual_seed(n_fft + F)
     y = rn(gen, B, n_fft + (F - 1) * hop + hop // 3, scale=0.3)
-    basis = mel._dft_basis(n_fft, win, "cpu")
+    plan, L = _k5(n_fft, win)
     bins = n_fft // 2 + 1
-    assert host_libs["stft"].stft_tile(B * F, bins) == tile
     out = torch.full((B, bins, F), float("nan"))
     assert host_libs["stft"].stft_magnitude(
-        y.data_ptr(), basis.data_ptr(), out.data_ptr(), None, B, y.shape[1], n_fft,
-        hop, bins, F, None) == 0
-    ref = mel.stft_magnitude_reference(y, basis, hop)
+        y.data_ptr(), *mel._pointers(plan), out.data_ptr(), B, y.shape[1], n_fft, L,
+        hop, F, None) == 0
+    ref = mel.stft_magnitude_reference(y, n_fft, hop, win)
     assert ref.shape == out.shape
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize(
+    "B,n_fft,win,hop,F",
+    # the training scales (512 / 128, 2048 / 512), Bluestein (2299, 1933,
+    # 1149 with win 1000), 4096 / 540 / 2160 (the largest float64 buffer
+    # on the training path), an unpaired last frame
+    [(2, 512, 512, 128, 9), (1, 2048, 2048, 512, 5), (2, 2299, 2299, 512, 3),
+     (1, 1933, 1933, 512, 4), (2, 1149, 1000, 300, 5), (1, 4096, 2160, 540, 13),
+     (1, 64, 48, 16, 10)],
+)
+def test_stft_f64_source(host_libs, B, n_fft, win, hop, F):
+    """K5's exact forward (float64, the training losses'): every magnitude
+    within 1e-6 of its own value of the plain version run in float64."""
+    gen = torch.Generator().manual_seed(n_fft + F + 1)
+    y = rn(gen, B, n_fft + (F - 1) * hop + hop // 3, scale=0.3)
+    plan, L = _k5(n_fft, win, double=True)
+    out = torch.full((B, n_fft // 2 + 1, F), float("nan"))
+    assert host_libs["stft"].stft_magnitude_f64(
+        y.data_ptr(), *mel._pointers(plan), out.data_ptr(), B, y.shape[1], n_fft, L,
+        hop, F, None) == 0
+    ref = mel.stft_magnitude_reference(y.double(), n_fft, hop, win)
+    assert ((out.double() - ref).abs() / ref).max().item() <= 1e-6
 
 
 @pytest.mark.parametrize("B,T,K", [(3, 50, 4), (2, 1, 4), (1, 30, 2)])
@@ -320,31 +356,64 @@ def test_viterbi_dense_source(host_libs, kind, B, T, ties):
 
 @pytest.mark.parametrize(
     "B,n_fft,win,hop,F",
-    # k_ov = 4 (hop divides n_fft), 3 with basis rows past n_fft masked
-    # (hop 27 and 100), and two column tiles (hop 100 > 64)
-    [(1, 64, 64, 16, 9), (2, 64, 48, 27, 6), (1, 256, 200, 100, 4)],
+    # 4 frames cover a sample (hop divides n_fft), 3 (hop 27 and 100, which
+    # do not), a short scale with an odd frame count; Bluestein at 1933,
+    # 2299 and 1149 (odd F), and 4096 / 540 / 2160 (dynamic shared memory)
+    [(1, 64, 64, 16, 9), (2, 64, 48, 27, 6), (1, 256, 200, 100, 4),
+     (1, 1933, 1933, 512, 3), (1, 2299, 2299, 512, 4), (2, 1149, 1149, 300, 5),
+     (1, 4096, 2160, 540, 5)],
 )
 def test_stft_backward_source(host_libs, B, n_fft, win, hop, F):
-    """K5 in training: the forward's phasor equals the plain one (<= 1e-5);
-    the backward <= 1e-5 of the gradient's scale, every sample written."""
+    """K5 in training: the forward <= 1e-5 of the largest magnitude; the
+    backward (the spectrum recomputed from the signal) <= 1e-5 of the
+    gradient's scale, every sample written."""
     gen = torch.Generator().manual_seed(n_fft + hop)
     T_pad = n_fft + (F - 1) * hop + hop // 2
     y = rn(gen, B, T_pad, scale=0.3)
-    basis = mel._dft_basis(n_fft, win, "cpu")
+    plan, L = _k5(n_fft, win)
     bins = n_fft // 2 + 1
-    mag, phasor = mel._stft_reference(y, basis, hop, with_phasor=True)
-    got_mag = torch.empty(B, bins, F)
-    got_ph = torch.full((B, 2 * bins, F), float("nan"))
     lib = host_libs["stft"]
-    assert lib.stft_magnitude(y.data_ptr(), basis.data_ptr(), got_mag.data_ptr(),
-                              got_ph.data_ptr(), B, T_pad, n_fft, hop, bins, F, None) == 0
-    assert (got_ph - phasor).abs().max().item() <= 1e-5
+    mag = torch.empty(B, bins, F)
+    assert lib.stft_magnitude(y.data_ptr(), *mel._pointers(plan), mag.data_ptr(), B,
+                              T_pad, n_fft, L, hop, F, None) == 0
+    ref_mag = mel.stft_magnitude_reference(y, n_fft, hop, win)
+    assert (mag - ref_mag).abs().max().item() <= 1e-5 * ref_mag.abs().max().item()
     g = rn(gen, B, bins, F)
+    frames = torch.full((B, F, n_fft), float("nan"))
     grad = torch.full((B, T_pad), float("nan"))
-    assert lib.stft_backward(g.data_ptr(), phasor.contiguous().data_ptr(), basis.data_ptr(),
-                             grad.data_ptr(), B, T_pad, n_fft, hop, bins, F, None) == 0
-    ref = mel.stft_backward_reference(g, phasor, basis, hop, T_pad)
+    plan64 = mel._pointers(_k5(n_fft, win, double=True)[0])
+    assert lib.stft_backward(g.data_ptr(), y.data_ptr(), *plan64, frames.data_ptr(),
+                             grad.data_ptr(), B, T_pad, n_fft, L, hop, F, None) == 0
+    ref = mel.stft_backward_reference(g, y, n_fft, hop, win)
     assert (grad - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("n_fft,hop,F", QUIET_CASES)
+def test_stft_source_near_silence(host_libs, n_fft, hop, F):
+    """K5 where a quiet frame pairs with a loud one: every frame's
+    magnitudes within 1e-5 of that frame's own peak of the plain version's,
+    the exact forward's every magnitude within 1e-6 of its own value, and
+    the backward within 1e-5 of the gradient's scale."""
+    y, g = quiet_case(n_fft, hop, F, n_fft)
+    plan, L = _k5(n_fft, n_fft)
+    bins, T_pad = n_fft // 2 + 1, y.shape[1]
+    lib = host_libs["stft"]
+    mag = torch.empty(1, bins, F)
+    assert lib.stft_magnitude(y.data_ptr(), *mel._pointers(plan), mag.data_ptr(), 1, T_pad,
+                              n_fft, L, hop, F, None) == 0
+    ref = mel.stft_magnitude_reference(y, n_fft, hop)
+    peak = ref.abs().amax(dim=1, keepdim=True)  # each frame's own
+    assert ((mag - ref).abs() / peak).max().item() <= 1e-5
+    plan64 = mel._pointers(_k5(n_fft, n_fft, double=True)[0])
+    assert lib.stft_magnitude_f64(y.data_ptr(), *plan64, mag.data_ptr(), 1, T_pad,
+                                  n_fft, L, hop, F, None) == 0
+    ref64 = mel.stft_magnitude_reference(y.double(), n_fft, hop)
+    assert ((mag.double() - ref64).abs() / ref64).max().item() <= 1e-6
+    frames, grad = torch.empty(1, F, n_fft), torch.empty(1, T_pad)
+    assert lib.stft_backward(g.data_ptr(), y.data_ptr(), *plan64, frames.data_ptr(),
+                             grad.data_ptr(), 1, T_pad, n_fft, L, hop, F, None) == 0
+    ref_g = mel.stft_backward_reference(g, y, n_fft, hop)
+    assert (grad - ref_g).abs().max().item() <= 1e-5 * ref_g.abs().max().item()
 
 
 def _grouped(lib, transposed, x, w_packed, bias, T_out, stride, pad, groups):

@@ -77,19 +77,78 @@ def test_plms_and_ddpm_updates(gen):
 
 @pytest.mark.parametrize(
     "B,n_fft,win,hop,F",
-    # on an H100 (132 SMs) the rows M = B * F and the bins pick the tile:
-    # 32 x 32 for the short cases, 64 x 32 for one 7.4 s segment (637
-    # frames), 128 x 64 for one segment of 1024 frames
+    # powers of two (a segment of 637 and one of 1024 frames at 2048, the
+    # 4096 / 540 / 2160 mel scale with 102 KB of shared memory, 64) and
+    # Bluestein (2299 = 11 * 11 * 19, 1933 prime, 1149 = 3 * 383, 300);
+    # odd frame counts leave the last frame unpaired
     [(1, 2048, 2048, 512, 5), (2, 2299, 2299, 512, 33), (2, 300, 240, 75, 40),
-     (1, 64, 48, 16, 10), (1, 2048, 2048, 512, 637), (1, 2048, 2048, 512, 1024)],
+     (1, 64, 48, 16, 10), (1, 2048, 2048, 512, 637), (1, 2048, 2048, 512, 1024),
+     (1, 1933, 1933, 512, 21), (2, 1149, 1000, 300, 7), (2, 4096, 2160, 540, 13)],
 )
 def test_stft_magnitude(gen, B, n_fft, win, hop, F):
-    """K5: <= 1e-5 relative to the largest magnitude."""
+    """K5: <= 1e-5 relative to the largest magnitude, and its exact
+    forward (float64) within 1e-6 of every magnitude's own value of the
+    plain version run in float64; one launch a call."""
     y = rn(gen, B, n_fft + (F - 1) * hop + hop // 3, scale=0.3)
-    basis = mel._dft_basis(n_fft, win, str(y.device))
-    got = mel.stft_magnitude(y, basis, hop)
-    ref = mel.stft_magnitude_reference(y, basis, hop)
+    before = kernels.LAUNCHES["stft_magnitude"]
+    got = mel.stft_magnitude(y, n_fft, hop, win)
+    assert kernels.LAUNCHES["stft_magnitude"] == before + 1
+    ref = mel.stft_magnitude_reference(y, n_fft, hop, win)
     torch.testing.assert_close(got, ref, atol=1e-5 * ref.abs().max().item(), rtol=0)
+    exact = mel.stft_magnitude(y, n_fft, hop, win, exact=True)
+    assert kernels.LAUNCHES["stft_magnitude"] == before + 2
+    ref64 = mel.stft_magnitude_reference(y.double(), n_fft, hop, win)
+    assert ((exact.double() - ref64).abs() / ref64).max().item() <= 1e-6
+
+
+def test_stft_magnitude_raises_past_its_limit(gen):
+    """K5 takes n_fft up to ``MAX_N_FFT``, its backward and exact forward
+    (float64) other sizes than powers of two up to ``MAX_BLUESTEIN_F64``;
+    past them the wrappers raise."""
+    y = rn(gen, 1, 3 * mel.MAX_N_FFT)
+    with pytest.raises(ValueError, match=str(mel.MAX_N_FFT)):
+        mel.stft_magnitude(y, mel.MAX_N_FFT + 1, 512)
+    n_fft = mel.MAX_BLUESTEIN_F64 + 1
+    g = rn(gen, 1, n_fft // 2 + 1, (y.shape[1] - n_fft) // 512 + 1)
+    with pytest.raises(ValueError, match=str(mel.MAX_BLUESTEIN_F64)):
+        mel.stft_backward(g, y, n_fft, 512)
+    with pytest.raises(ValueError, match=str(mel.MAX_BLUESTEIN_F64)):
+        mel.stft_magnitude(y, n_fft, 512, exact=True)
+
+
+QUIET_CASES = [(2048, 512, 12), (1933, 512, 11), (512, 128, 21)]
+
+
+def quiet_case(n_fft, hop, F, seed, device="cpu"):
+    """A signal whose middle stretch is 1e-5 as loud as the rest, so that
+    a frame there pairs with a loud one (K5 packs two frames in one complex
+    transform), and a magnitude gradient that grows as 1 / |X| there, as a
+    log-mel loss's does: (y [1, T], g [1, bins, F])."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    T_pad = n_fft + (F - 1) * hop
+    y = torch.randn((1, T_pad), generator=gen, device=device) * 0.3
+    y[:, T_pad // 3: T_pad // 3 + n_fft + 2 * hop] *= 1e-5
+    mag = mel.stft_magnitude_reference(y, n_fft, hop)
+    g = torch.randn(mag.shape, generator=gen, device=device) / (mag + 1e-5) * 1e-6
+    return y, g.contiguous()
+
+
+@pytest.mark.parametrize("n_fft,hop,F", QUIET_CASES)
+def test_stft_near_silence(gen, n_fft, hop, F):
+    """K5 where a quiet frame pairs with a loud one: every frame's
+    magnitudes within 1e-5 of that frame's own peak of plain, the exact
+    forward's every magnitude within 1e-6 of its own value, the backward
+    within 1e-5 of the gradient's scale."""
+    y, g = quiet_case(n_fft, hop, F, n_fft, "cuda")
+    mag = mel.stft_magnitude(y, n_fft, hop)
+    ref = mel.stft_magnitude_reference(y, n_fft, hop)
+    assert ((mag - ref).abs() / ref.abs().amax(dim=1, keepdim=True)).max().item() <= 1e-5
+    ref64 = mel.stft_magnitude_reference(y.double(), n_fft, hop)
+    exact = mel.stft_magnitude(y, n_fft, hop, exact=True)
+    assert ((exact.double() - ref64).abs() / ref64).max().item() <= 1e-6
+    got = mel.stft_backward(g, y, n_fft, hop)
+    ref_g = mel.stft_backward_reference(g, y, n_fft, hop)
+    torch.testing.assert_close(got, ref_g, atol=1e-5 * ref_g.abs().max().item(), rtol=0)
 
 
 @pytest.mark.parametrize("B,T,K", [(3, 500, 4), (2, 1, 4), (1, 30, 2)])
@@ -237,27 +296,27 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
 
 @pytest.mark.parametrize(
     "B,n_fft,win,hop,F",
-    # the training losses' scales (hop 270 and 540 do not divide n_fft) and
-    # a short one with two column tiles
+    # the training losses' scales (hop 270 and 540 do not divide n_fft), a
+    # short one, and Bluestein at 1933, 2299 and 1149 (odd frame counts)
     [(2, 512, 512, 128, 33), (1, 2048, 1080, 270, 20), (2, 4096, 2160, 540, 9),
-     (1, 256, 200, 100, 4)],
+     (1, 256, 200, 100, 4), (1, 1933, 1933, 512, 7), (2, 2299, 2299, 512, 6),
+     (1, 1149, 1149, 300, 11)],
 )
 def test_stft_backward(gen, B, n_fft, win, hop, F):
-    """K5 in training: the magnitude and the spectrum re, im (= phasor x
-    magnitude; the phasor alone is ill-conditioned where a bin's magnitude
-    is near 0) <= 1e-5 of plain; the backward <= 1e-5 of the gradient's
-    scale."""
+    """K5 in training: the magnitude <= 1e-5 of plain; the backward, which
+    recomputes the spectrum from the signal, <= 1e-5 of the gradient's
+    scale; one launch of each a call."""
     T_pad = n_fft + (F - 1) * hop + hop // 2
-    y = rn(gen, B, T_pad, scale=0.3)
-    basis = mel._dft_basis(n_fft, win, "cuda")
-    mag, phasor = mel._stft_forward(y, basis, hop, with_phasor=True)
-    ref_mag, ref_phasor = mel._stft_reference(y, basis, hop, with_phasor=True)
+    y = rn(gen, B, T_pad, scale=0.3).requires_grad_()
+    before = dict(kernels.LAUNCHES)
+    mag = mel.stft_magnitude(y, n_fft, hop, win)
+    ref_mag = mel.stft_magnitude_reference(y.detach(), n_fft, hop, win)
     torch.testing.assert_close(mag, ref_mag, atol=1e-5 * ref_mag.abs().max().item(), rtol=0)
-    spec, ref_spec = phasor * mag.repeat(1, 2, 1), ref_phasor * ref_mag.repeat(1, 2, 1)
-    torch.testing.assert_close(spec, ref_spec, atol=1e-5 * ref_mag.abs().max().item(), rtol=0)
     g = rn(gen, *mag.shape)
-    got = mel.stft_backward(g, phasor, basis, hop, T_pad)
-    ref = mel.stft_backward_reference(g, phasor, basis, hop, T_pad)
+    (got,) = torch.autograd.grad(mag, y, g)
+    assert kernels.LAUNCHES["stft_magnitude"] == before["stft_magnitude"] + 1
+    assert kernels.LAUNCHES["stft_backward"] == before["stft_backward"] + 1
+    ref = mel.stft_backward_reference(g, y.detach(), n_fft, hop, win)
     torch.testing.assert_close(got, ref, atol=1e-5 * ref.abs().max().item(), rtol=0)
 
 

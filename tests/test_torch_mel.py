@@ -79,13 +79,50 @@ def test_stft_magnitude_matches_torch_stft(n_fft, win, hop):
     """The plain K5 against ``torch.stft(center=False, hann)``, the yardstick
     the card times beside the kernel: <= 1e-4 of the largest magnitude."""
     y = torch.from_numpy(audio(seconds=0.5, batch=2, seed=2))
-    got = tmel.stft_magnitude(y, tmel._dft_basis(n_fft, win, "cpu"), hop)
+    got = tmel.stft_magnitude(y, n_fft, hop, win)
     window = torch.hann_window(win)
     pad = (n_fft - win) // 2
     window = torch.nn.functional.pad(window, (pad, n_fft - win - pad))
     ref = torch.stft(y, n_fft, hop, n_fft, window, center=False, return_complex=True).abs()
     assert got.shape == ref.shape == (2, n_fft // 2 + 1, (y.shape[1] - n_fft) // hop + 1)
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("n_fft,win", [(2048, 2048), (2299, 2299), (1933, 1500)])
+def test_fft_tables_compose_the_dft(n_fft, win):
+    """K5's host tables (``_fft_tables``), composed in numpy as the kernel
+    composes them (float64 arithmetic on the tables rounded to float32, as
+    the forward takes them): two windowed frames as one complex transform,
+    Bluestein's chirp and filter spectrum when n_fft is not a power of two
+    (2299 = 11 * 11 * 19; 1933 prime), and the pair split by conjugate
+    symmetry, equal ``np.fft.rfft`` of each windowed frame in float64 within
+    1e-6 of the largest magnitude (the float32 rounding)."""
+    window, twiddle, chirp, filt = (None if t is None else t.astype(np.float32).astype(np.float64)
+                                    for t in tmel._fft_tables(n_fft, win))
+    L = tmel._fft_size(n_fft)
+    assert twiddle.shape == (L, 2) and (chirp is None) == (L == n_fft)
+    tw = twiddle[:, 0] + 1j * twiddle[:, 1]
+    # the twiddles are those of L: an FFT by them is numpy's FFT
+    np.testing.assert_allclose(tw, np.exp(-2j * np.pi * np.arange(L) / L), atol=1e-7)
+    rng = np.random.default_rng(n_fft)
+    x0, x1 = rng.standard_normal((2, n_fft))
+    z = window * (x0 + 1j * x1)
+    if chirp is None:
+        Z = np.fft.fft(z)
+    else:
+        c = chirp[:, 0] + 1j * chirp[:, 1]
+        h = filt[:, 0] + 1j * filt[:, 1]
+        a = np.zeros(L, np.complex128)
+        a[:n_fft] = z * c
+        conv = np.conj(np.fft.fft(np.conj(np.fft.fft(a) * h)))  # the inverse as the kernel runs it
+        Z = c * conv[:n_fft]
+    bins = n_fft // 2 + 1
+    k = np.arange(bins)
+    zk, zm = Z[k], Z[(n_fft - k) % n_fft]
+    X0, X1 = (zk + np.conj(zm)) / 2, (zk - np.conj(zm)) / 2j
+    for got, x in ((X0, x0), (X1, x1)):
+        ref = np.fft.rfft(window * x)
+        assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("center", [False, True])
