@@ -59,7 +59,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             gradient, K4's input gradient, K3 backward) against its plain
             version (K5's backward against the plain version in float64,
             the exact function), timed beside its bound and the PyTorch
-            call for the same function.
+            call for the same function; ``conv1d_wgrad`` at every distinct
+            shape of the step's NSF-HiFiGAN generator backward (102 calls);
+            each weight gradient launched twice, bit-equal.
 6. train_v2: the same on ``configs/vocoder_refinegan.py`` (RefineGAN
             start_channels 16, hop 256, GAN flavor v2: MPD 2/3/5/7/11 + MRD
             at (1024, 120, 600), (2048, 240, 1200), (512, 50, 240), batch 16
@@ -67,9 +69,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             checkpoint and a resume, the whole step against the plain
             versions (the same tolerances), then K6 2-D (forward, input
             gradient in its direct and transposed modes, weight gradient) at
-            every layer of one MRD pass, K9 at the step's template and K5 at
-            the step's MRD and mel shapes, each against its plain version and
-            timed beside its bound and library call.
+            every layer of one MRD pass (the weight gradient's ms, TFLOP/s,
+            share of its bound and cuDNN ms printed per layer and summed
+            over the pass), ``conv1d_wgrad`` at every distinct shape of the
+            step's RefineGAN generator backward (104 calls), K9 at the
+            step's template and K5 at the step's MRD and mel shapes, each
+            against its plain version and timed beside its bound and
+            library call; each weight gradient launched twice, bit-equal.
    istft_net: (between pitch and train, on the serving engine) a
             full-width ``ISTFTNet`` (512 channels, upsample 8.8, n_fft 16,
             hop 8, seeded weights) set with ``set_vocoder``: ``forward_batch``
@@ -1461,6 +1467,70 @@ def timed_triple(fn, ref, lib=None, iters=5):
             cuda_ms(lib, iters=iters) if lib is not None else None)
 
 
+def check_rerun(report: Report, label: str, got, again) -> bool:
+    """A kernel launched twice on the same inputs must give the same bits
+    (its partial sums are added in an order fixed by the shapes)."""
+    import torch
+
+    same = bool(torch.equal(got, again))
+    if not same:
+        print(f"  {label}: a second launch differs from the first FAIL")
+        report.failures.append(f"{label} rerun")
+    return same
+
+
+def measure_wgrad_calls(report: Report, calls, tag: str) -> dict:
+    """conv1d_wgrad at each distinct shape among a step's recorded calls
+    (``(x, g, K, stride, dilation, padding)``, ``slope_a`` / ``slope_b``):
+    within 1e-4 of the plain version's scale, a second launch bit-equal,
+    kernel, plain and cuDNN (``conv1d_weight``) times and the bound, each
+    shape weighted by its count in the step."""
+    import torch
+    import torch.nn.functional as F
+
+    from fish_diffusion_tpu_torch.ops import blocked_conv
+
+    keyed, first = defaultdict(int), {}
+    for args, kw in calls:
+        a, bm, K, stride, dil, pad = args
+        key = (tuple(a.shape), tuple(bm.shape), K, stride, dil, pad, kw.get("slope_a"),
+               kw.get("slope_b"))
+        keyed[key] += 1
+        first.setdefault(key, (a.detach(), bm.detach()))
+    rows, total = [], defaultdict(float)
+    for key, count in keyed.items():
+        (_, _, K, s, d, p, sa, sb), (a, bm) = key, first[key]
+        CA, CB = a.shape[2], bm.shape[2]
+        fn = lambda: blocked_conv.conv1d_wgrad(a, bm, K, s, d, p, 1, sa, sb)  # noqa: E731
+        ref_fn = lambda: blocked_conv.conv1d_wgrad_reference(a, bm, K, s, d, p, 1, sa, sb)  # noqa: E731
+        got, ref = fn(), ref_fn()
+        label = (f"conv1d_wgrad ({tag}) a{list(a.shape)} bm{list(bm.shape)} k{K} s{s} d{d}"
+                 + (f" act_a {sa}" if sa is not None else "")
+                 + (f" act_b {sb}" if sb is not None else ""))
+        err = report.compare(label, got, ref, 1e-4 * max_abs(ref))
+        check_rerun(report, label, got, fn())
+        at = (F.leaky_relu(a, sa) if sa is not None else a).transpose(1, 2).contiguous()
+        bt = (F.leaky_relu(bm, sb) if sb is not None else bm).transpose(1, 2).contiguous()
+        ms, plain, lib = timed_triple(
+            fn, ref_fn, lambda: torch.nn.grad.conv1d_weight(at, (CB, CA, K), bt, s, p, d))
+        flops = 2 * bm.shape[0] * bm.shape[1] * K * CA * CB
+        t_bound = bound(nbytes(a, bm, got), flops)[0]
+        print(f"    x{count}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{t_bound / ms:.0%} of its bound {t_bound:.4f}), plain {plain:.4f} ms, "
+              f"cuDNN {lib:.4f} ms")
+        rows.append(dict(shape=label, count=count, max_abs_err=err, ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=t_bound, tflops=flops / ms / 1e9))
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                     ("bound_ms", t_bound), ("gflop", flops / 1e9)):
+            total[k] += count * v
+    print(f"  conv1d_wgrad over the {sum(keyed.values())} calls of one {tag} step "
+          f"({len(keyed)} shapes): kernel {total['ms']:.4f} ms "
+          f"({total['gflop'] / total['ms']:.1f} TFLOP/s, {total['bound_ms'] / total['ms']:.0%} "
+          f"of its bound {total['bound_ms']:.4f}), cuDNN {total['library_ms']:.4f} ms, plain "
+          f"{total['plain_ms']:.4f} ms")
+    return dict(calls=sum(keyed.values()), shapes=rows, **total)
+
+
 def measure_stft_configs(report: Report, calls) -> dict:
     """K5's forward at each distinct configuration among a training step's
     recorded ``stft_magnitude`` calls (all exact, float64), held against its
@@ -1618,6 +1688,8 @@ def measure_train_kernels(report: Report, seed: int, stft_fwd_calls, stft_calls,
         dw = blocked_conv.conv1d_wgrad(x, gy, K, stride, 1, K // 2, groups)
         ref_dw = blocked_conv.conv1d_wgrad_reference(x, gy, K, stride, 1, K // 2, groups)
         err_w = report.compare(f"conv1d_wgrad (K6) {label}", dw, ref_dw, 1e-4 * max_abs(ref_dw))
+        check_rerun(report, f"conv1d_wgrad (K6) {label}", dw,
+                    blocked_conv.conv1d_wgrad(x, gy, K, stride, 1, K // 2, groups))
         ms_w = timed_triple(
             lambda: blocked_conv.conv1d_wgrad(x, gy, K, stride, 1, K // 2, groups),
             lambda: blocked_conv.conv1d_wgrad_reference(x, gy, K, stride, 1, K // 2, groups),
@@ -1632,6 +1704,7 @@ def measure_train_kernels(report: Report, seed: int, stft_fwd_calls, stft_calls,
                       f"{shape_note}", nbytes(x, w, b, out) + nbytes(gy, w, dx),
                       2 * flops, ms_f[2] + ms_d[2])
         wgrad_parts["K6 layers 1, 2, 5"] += ms_w[0]
+        wgrad_parts["K6 layers 1, 2, 5 cuDNN"] += ms_w[2]
         report.kernel("conv1d_wgrad", err_w, ms_w[0], ms_w[1],
                       "", nbytes(x, gy, dw), flops, ms_w[2])
 
@@ -1648,6 +1721,8 @@ def measure_train_kernels(report: Report, seed: int, stft_fwd_calls, stft_calls,
         ref = blocked_conv.conv1d_wgrad_reference(x, gy, K, 1, d, p, slope_a=slope)
         label = f"x{list(x.shape)} k{K} d{d}"
         err = report.compare(f"conv1d_wgrad (K4) {label}", dw, ref, 1e-4 * max_abs(ref))
+        check_rerun(report, f"conv1d_wgrad (K4) {label}", dw,
+                    blocked_conv.conv1d_wgrad(x, gy, K, 1, d, p, slope_a=slope))
         ms = timed_triple(lambda: blocked_conv.conv1d_wgrad(x, gy, K, 1, d, p, slope_a=slope),
                           lambda: blocked_conv.conv1d_wgrad_reference(x, gy, K, 1, d, p,
                                                                       slope_a=slope),
@@ -1656,6 +1731,7 @@ def measure_train_kernels(report: Report, seed: int, stft_fwd_calls, stft_calls,
         print(f"    wgrad {label}: kernel {ms[0]:.4f} ms ({flops / ms[0] / 1e9:.1f} TFLOP/s), "
               f"plain {ms[1]:.4f} ms, cuDNN {ms[2]:.4f} ms")
         wgrad_parts[f"generator C={C_in}"] += ms[0]
+        wgrad_parts[f"generator C={C_in} cuDNN"] += ms[2]
         report.kernel("conv1d_wgrad", err, ms[0], ms[1],
                       "K6 layers 1, 2, 5 of MSD scale 0 and the k=11, d=5 resblock conv "
                       f"of each generator level, {shape_note}", nbytes(x, gy, dw), flops, ms[2])
@@ -2003,10 +2079,13 @@ def phase_train(report: Report, seed: int):
             (blocked_conv, "grouped_conv1d"): blocked_conv.grouped_conv1d_reference,
         },
         [(mel, "stft_magnitude"), (mel, "stft_backward"), (blocked_conv, "grouped_conv1d"),
-         (nsf_hifigan, "conv1d")])
+         (nsf_hifigan, "conv1d"), (nsf_hifigan, "conv1d_wgrad")])
     conv = [c for c in calls["conv1d"] if c[0][1].shape[2] == 11 and c[1].get("dilation") == 5]
     measure_train_kernels(report, seed, calls["stft_magnitude"],
                           [c[0] for c in calls["stft_backward"]], calls["grouped_conv1d"], conv)
+    print("[train] conv1d_wgrad at the NSF-HiFiGAN generator's weight gradients of one step")
+    report.extra.setdefault("conv1d_wgrad", {})["train"] = measure_wgrad_calls(
+        report, calls["conv1d_wgrad"], "train")
     report.finish("train")
     return launches, totals
 
@@ -2067,7 +2146,7 @@ def measure_train_v2_kernels(report: Report, seed: int, conv2d_calls, stft_calls
     one_pass = conv2d_calls[: len(conv2d_calls) // 3]  # the D phase's real pass
     print(f"[train_v2] K6 2-D at the {len(one_pass)} layers of one MRD pass "
           f"(B={TRAIN_B} x {TRAIN_SEG} samples): forward, input gradient, weight gradient")
-    parts = defaultdict(float)
+    parts, wgrad_rows = defaultdict(float), []
     for i, ((x, w, b, stride, pad), _) in enumerate(one_pass):
         x, w, b = x.detach(), w.detach(), b.detach()
         stride, pad = tuple(stride), tuple(pad)
@@ -2099,6 +2178,8 @@ def measure_train_v2_kernels(report: Report, seed: int, conv2d_calls, stft_calls
         dw = blocked_conv.conv2d_wgrad(x, gy, (KH, KW), stride, pad)
         ref_dw = blocked_conv.conv2d_wgrad_reference(x, gy, (KH, KW), stride, pad)
         err_w = report.compare(f"conv2d_wgrad {label}", dw, ref_dw, 1e-4 * max_abs(ref_dw))
+        check_rerun(report, f"conv2d_wgrad {label}", dw,
+                    blocked_conv.conv2d_wgrad(x, gy, (KH, KW), stride, pad))
         ms_w = timed_triple(
             lambda: blocked_conv.conv2d_wgrad(x, gy, (KH, KW), stride, pad),
             lambda: blocked_conv.conv2d_wgrad_reference(x, gy, (KH, KW), stride, pad),
@@ -2118,7 +2199,22 @@ def measure_train_v2_kernels(report: Report, seed: int, conv2d_calls, stft_calls
         parts[f"layer {i % n_layers} fwd"] += ms_f[0]
         parts[f"layer {i % n_layers} dgrad"] += ms_d[0]
         parts[f"layer {i % n_layers} wgrad"] += ms_w[0]
+        t_w = bound(nbytes(x, gy, dw), flops)[0]
+        wgrad_rows.append(dict(layer=label, ms=ms_w[0], tflops=flops / ms_w[0] / 1e9,
+                               bound_ms=t_w, share_of_bound=t_w / ms_w[0], plain_ms=ms_w[1],
+                               library_ms=ms_w[2]))
     report.extra.setdefault("conv2d", {})["train_v2_ms_by_layer"] = dict(parts)
+    print(f"[train_v2] conv2d_wgrad by layer (ms, TFLOP/s, share of its bound, cuDNN ms):")
+    for r in wgrad_rows:
+        print(f"    {r['layer']}: {r['ms']:.4f} ms, {r['tflops']:.1f} TFLOP/s, "
+              f"{r['share_of_bound']:.0%} of {r['bound_ms']:.4f} ms, cuDNN {r['library_ms']:.4f}")
+    w_ms, w_lib = sum(r["ms"] for r in wgrad_rows), sum(r["library_ms"] for r in wgrad_rows)
+    w_bound = sum(r["bound_ms"] for r in wgrad_rows)
+    print(f"  conv2d_wgrad over one MRD pass: {w_ms:.4f} ms ({w_bound / w_ms:.0%} of its bound "
+          f"{w_bound:.4f}), cuDNN {w_lib:.4f} ms: "
+          f"{'no slower than' if w_ms <= w_lib else 'SLOWER than'} cuDNN")
+    report.extra["conv2d_wgrad"] = dict(by_layer=wgrad_rows, pass_ms=w_ms,
+                                        pass_library_ms=w_lib, pass_bound_ms=w_bound)
 
     print("[train_v2] K9 (K3's linear phase scan + comb_merge) at the step's template")
     (f0, noise, sr, hop, *_), _ = comb_calls[0]
@@ -2183,9 +2279,12 @@ def phase_train_v2(report: Report, seed: int):
             (blocked_conv, "conv2d_nhwc"): blocked_conv.conv2d_nhwc_reference,
         },
         [(blocked_conv, "conv2d_nhwc"), (mel, "stft_magnitude"), (mel, "stft_backward"),
-         (source, "comb_tooth")])
+         (source, "comb_tooth"), (nsf_hifigan, "conv1d_wgrad")])
     measure_train_v2_kernels(report, seed, calls["conv2d_nhwc"], calls["stft_magnitude"],
                              calls["stft_backward"], calls["comb_tooth"])
+    print("[train_v2] conv1d_wgrad at the RefineGAN generator's weight gradients of one step")
+    report.extra.setdefault("conv1d_wgrad", {})["train_v2"] = measure_wgrad_calls(
+        report, calls["conv1d_wgrad"], "train_v2")
     report.finish("train_v2")
     return launches, totals
 

@@ -1,5 +1,6 @@
 // The weight gradient of the port's 1-D convolutions: K4 (the NSF-HiFiGAN
-// generator's direct and transposed convs) and K6 (the MSD's grouped convs).
+// and RefineGAN generators' direct and transposed convs) and K6 (the MSD's
+// grouped convs).
 //
 // Replaces what XLA derives on the TPU for the weight of
 // fish_diffusion_tpu/ops/blocked_conv.py:blocked_apply (K4) and
@@ -15,225 +16,60 @@
 // gradient dy; a transposed conv's takes A = dy (gathered with the conv's
 // stride and padding) and Bm = x, which gives [K, C_out, C_in].
 //
-// Bound on an H100: arithmetic at the wide levels; at the narrow ones
-// (C = 16, B * T = 524288 at the trunk's last level) the output is small
-// (K * CA_g x CB_g, 176 x 16 for k = 11) and the reduction long, so one
-// block per output tile would leave the card idle. Design: rows (k, i) and
-// columns j tile the output as a GEMM with the (b, t) reduction as its
-// depth; the reduction is cut into ``splits`` chunks, each chunk's block
-// writes its partial tile, and a second kernel adds the partials in split
-// order. Both passes are fixed by the shapes, so the result is the same
-// on every run (no atomics). The A tile is gathered from x as it is
-// loaded (no im2col buffer), the activation applied on the way.
+// Bound on an H100: float32 operations (2 * B * T_b * K * CA_g * CB FLOP;
+// 88 GFLOP for the MSD's k = 41, 128 -> 128 layer at 16 x 32768 samples)
+// over the SIMT units' 67 TFLOP/s. The design is wgrad.cuh's, with one
+// spatial axis: a block stages the window of A that a strip of 32-64
+// positions reads for its taps (stride and dilation in the offsets, the
+// activation applied as it lands) and the strip of Bm, through a ring of
+// cp.async stages; a thread keeps 3 or 2 taps x 4 input channels x 8
+// output channels in registers; groups are tiles of their own. Measured
+// (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): the NSF-HiFiGAN step's 8
+// tracked shapes 5.98 ms, 52% of the bound (the first version, an im2col
+// row gathered from global memory for every tap, 16.09; cuDNN 13.21), C =
+// 16 at 0.145 ms (cuDNN 0.300); the weight gradients of a generator
+// backward 24.2 ms for NSF-HiFiGAN's 102 (cuDNN 45.3), 47.6 for
+// RefineGAN's 104 (cuDNN 119.8).
 
 #include <cuda_runtime.h>
 
+#include "wgrad.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BK = 16;  // reduction rows per shared-memory stage
-
-struct WgradArgs {
-  int B, T_a, T_b, CA, CB, K, stride, dil, pad, groups;
-  float slope_a, slope_b;
-  int act_a, act_b;
-  int splits, chunk;  // reduction rows per split: a multiple of BK
-};
-
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
-// the output tile's width for CB_g columns per group
-int tile_cols(int cb_g) {
-  if (cb_g >= 64) return 64;
-  if (cb_g >= 32) return 32;
-  if (cb_g >= 16) return 16;
-  return 1;
-}
-
-int tile_rows_for(int bn) { return bn == 64 ? 64 : bn == 1 ? 256 : 128; }
-
-// Block tile BM rows (k, i) x BN columns j; each thread TM x TN.
-template <int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(THREADS) wgrad_partial(
-    const float* __restrict__ a, const float* __restrict__ bm,
-    float* __restrict__ part, WgradArgs p) {
-  constexpr int TX = BN / TN;
-  static_assert((BM / TM) * TX == THREADS, "tile must use all threads");
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-  __shared__ int q_b[BK], q_t[BK];
-
-  const int CA_g = p.CA / p.groups;
-  const int CB_g = p.CB / p.groups;
-  const int M = p.K * CA_g;
-  const int R = p.B * p.T_b;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int r0 = blockIdx.x * BM;
-  const int j0 = blockIdx.y * BN;
-  const int g = blockIdx.z % p.groups;
-  const int split = blockIdx.z / p.groups;
-  const int q_lo = split * p.chunk;
-  const int q_hi = q_lo + p.chunk < R ? q_lo + p.chunk : R;
-
-  // rows and columns a thread loads stay fixed over the stages (BM and BN
-  // divide THREADS)
-  const int a_row = tid % BM;
-  const int a_r = r0 + a_row;
-  const int a_k = a_r < M ? a_r / CA_g : 0;
-  const int a_c = g * CA_g + (a_r < M ? a_r - a_k * CA_g : 0);
-  const int a_off = a_k * p.dil - p.pad;
-  const int b_col = tid % BN;
-  const bool b_ok = j0 + b_col < CB_g;
-  const int b_c = g * CB_g + j0 + b_col;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int q0 = q_lo; q0 < q_hi; q0 += BK) {
-    if (tid < BK) {
-      const int q = q0 + tid;
-      const int b = q < q_hi ? q / p.T_b : -1;
-      q_b[tid] = b;
-      q_t[tid] = q < q_hi ? q - b * p.T_b : 0;
-    }
-    __syncthreads();
-    for (int kk = tid / BM; kk < BK; kk += THREADS / BM) {
-      float v = 0.f;
-      const int b = q_b[kk];
-      const int ta = q_t[kk] * p.stride + a_off;
-      if (b >= 0 && a_r < M && ta >= 0 && ta < p.T_a) {
-        v = a[((size_t)b * p.T_a + ta) * p.CA + a_c];
-        if (p.act_a && v < 0.f) v *= p.slope_a;
-      }
-      As[kk][a_row] = v;
-    }
-    for (int kk = tid / BN; kk < BK; kk += THREADS / BN) {
-      float v = 0.f;
-      const int b = q_b[kk];
-      if (b >= 0 && b_ok) {
-        v = bm[((size_t)b * p.T_b + q_t[kk]) * p.CB + b_c];
-        if (p.act_b && v < 0.f) v *= p.slope_b;
-      }
-      Bs[kk][b_col] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
-  }
-
-  // part [splits, groups, M, CB_g]
-  float* out = part + ((size_t)split * p.groups + g) * M * CB_g;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + ty * TM + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = j0 + tx * TN + j;
-      if (col < CB_g) out[(size_t)r * CB_g + col] = acc[i][j];
-    }
-  }
-}
-
-// out[k, i, g * CB_g + j] = sum over splits, in order, of the partials
-__global__ void __launch_bounds__(THREADS) wgrad_reduce(
-    const float* __restrict__ part, float* __restrict__ out, WgradArgs p) {
-  const int CA_g = p.CA / p.groups;
-  const int CB_g = p.CB / p.groups;
-  const size_t M = (size_t)p.K * CA_g;
-  const size_t per_split = (size_t)p.groups * M * CB_g;
-  const size_t idx = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= per_split) return;
-  float s = 0.f;
-  for (int k = 0; k < p.splits; ++k) s += part[k * per_split + idx];
-  const size_t col = idx % CB_g;
-  const size_t r = (idx / CB_g) % M;
-  const size_t g = idx / (CB_g * M);
-  out[r * p.CB + g * CB_g + col] = s;
-}
-
-template <int BM, int BN, int TM, int TN>
-int launch(const float* a, const float* bm, float* part, float* out,
-           const WgradArgs& p, cudaStream_t stream) {
-  const int M = p.K * (p.CA / p.groups);
-  const int CB_g = p.CB / p.groups;
-  dim3 grid((M + BM - 1) / BM, (CB_g + BN - 1) / BN, p.groups * p.splits);
-  wgrad_partial<BM, BN, TM, TN><<<grid, THREADS, 0, stream>>>(a, bm, part, p);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const size_t n = (size_t)p.groups * M * CB_g;
-  wgrad_reduce<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0,
-                 stream>>>(part, out, p);
-  return (int)cudaGetLastError();
+wgrad::Args args_1d(int B, int T_a, int T_b, int CA, int CB, int K, int stride,
+                    int dil, int pad, int groups, float slope_a, int act_a,
+                    float slope_b, int act_b) {
+  return wgrad::Args{B,   1,      1,       1,       1,     0,     T_a,
+                     T_b, CA,     CB,      K,       stride, dil,  pad,
+                     groups, slope_a, slope_b, act_a, act_b};
 }
 
 }  // namespace
 
-// The number of reduction chunks conv1d_wgrad cuts B * T_b rows into, for
-// a [K * CA_g, CB_g] output per group: enough blocks for four per SM, with
-// at least 8 stages of BK rows in each chunk. The wrapper sizes the
-// partial-sum buffer [splits, groups, K * CA_g, CB_g] from it.
-extern "C" int conv1d_wgrad_splits(int M, int CB_g, int groups, int R) {
-  const int bn = tile_cols(CB_g);
-  const int bm = tile_rows_for(bn);
-  const long tiles = (long)((M + bm - 1) / bm) * ((CB_g + bn - 1) / bn) * groups;
-  const long want = (4L * sm_count() + tiles - 1) / tiles;
-  const long most = (R + 8 * BK - 1) / (8 * BK);
-  const long s = want < most ? want : most;
-  return (int)(s < 1 ? 1 : s);
+// The number of reduction chunks conv1d_wgrad plans for these shapes
+// (enough blocks to fill the card once); the wrapper sizes the partial
+// buffer [splits, K, CA / groups, CB] from it. Negative: a CUDA error.
+extern "C" int conv1d_wgrad_splits(int B, int T_a, int T_b, int CA, int CB,
+                                   int K, int stride, int dil, int pad,
+                                   int groups) {
+  return wgrad::splits_for(args_1d(B, T_a, T_b, CA, CB, K, stride, dil, pad,
+                                   groups, 0.f, 0, 0.f, 0));
 }
 
-// a [B, T_a, CA], bm [B, T_b, CB], part [splits, groups, K * CA / groups,
-// CB / groups] (scratch), out [K, CA / groups, CB]; float32, contiguous
-// (the Python wrapper checks). Returns the cudaError_t of the launches.
+// a [B, T_a, CA], bm [B, T_b, CB], part [splits, K, CA / groups, CB]
+// (scratch; any splits >= 1), out [K, CA / groups, CB]; float32,
+// contiguous (the Python wrapper checks). Returns the cudaError_t of the
+// launches.
 extern "C" int conv1d_wgrad(const void* a, const void* bm, void* part,
                             void* out, int B, int T_a, int T_b, int CA,
                             int CB, int K, int stride, int dil, int pad,
                             int groups, float slope_a, int act_a,
                             float slope_b, int act_b, int splits,
                             void* stream) {
-  const int R = B * T_b;
-  int chunk = (R + splits - 1) / splits;
-  chunk = (chunk + BK - 1) / BK * BK;
-  WgradArgs p{B,      T_a,     T_b,     CA,    CB,    K,      stride, dil,
-              pad,    groups,  slope_a, slope_b, act_a, act_b, splits, chunk};
-  const float* ap = (const float*)a;
-  const float* bp = (const float*)bm;
-  float* pp = (float*)part;
-  float* op = (float*)out;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (tile_cols(CB / groups)) {
-    case 64:
-      return launch<64, 64, 4, 4>(ap, bp, pp, op, p, s);
-    case 32:
-      return launch<128, 32, 4, 4>(ap, bp, pp, op, p, s);
-    case 16:
-      return launch<128, 16, 4, 2>(ap, bp, pp, op, p, s);
-    default:
-      return launch<256, 1, 1, 1>(ap, bp, pp, op, p, s);
-  }
+  return wgrad::run((const float*)a, (const float*)bm, (float*)part,
+                    (float*)out,
+                    args_1d(B, T_a, T_b, CA, CB, K, stride, dil, pad, groups,
+                            slope_a, act_a, slope_b, act_b),
+                    splits, (cudaStream_t)stream);
 }

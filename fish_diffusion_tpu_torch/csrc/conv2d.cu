@@ -37,13 +37,25 @@
 // (conv_post, and layer 0's input gradient) takes a tile of 1024
 // positions x 1 channel. The transposed mode runs one output residue class
 // (h mod SH, w mod SW) per block, as K4's and K6's transposed modes do.
-// The weight gradient is conv1d_wgrad.cu's design with a 2-D gather: rows
-// (kh, kw, c) and columns o tile the output as a GEMM with the (b, h, w)
-// reduction as its depth, cut into chunks for about 4 blocks per SM; a
-// second kernel adds the chunks' partial tiles in chunk order, so every run
-// gives the same result (no atomics).
+// The weight gradient (conv2d_wgrad) is wgrad.cuh's, the same core as
+// conv1d_wgrad.cu's: the 2-D problem is the 1-D one per input row, with
+// the lines (b, h) and the KH tap rows as a second tap axis. Its bound is
+// float32 operations too (378 GFLOP for one MRD pass at 16 x 32768
+// samples, 92% in the stride-(1, 2) 32 -> 32 layers: 5.77 ms at 67
+// TFLOP/s). A block owns one or all three tap rows and stages, per strip
+// of output columns of one line, the input rows' window (halo included)
+// and the gradient's strip through a cp.async ring; a thread keeps 3 taps
+// x 4 input channels x 8 output channels (layer 0's single input channel:
+// 9 taps x 8; conv_post's single output channel: 3 taps x 4). Partial
+// tiles over chunks of the B x H' x W' reduction are added in chunk order
+// (no atomics). Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W):
+// one MRD pass 10.67 ms, 54% of the bound, layers 1-3 at 36-40 TFLOP/s
+// (the first version, an im2col row gathered from global memory per tap,
+// 49.31 ms; cuDNN 20.29).
 
 #include <cuda_runtime.h>
+
+#include "wgrad.cuh"
 
 namespace {
 
@@ -247,154 +259,6 @@ int dispatch(const float* x, const float* w, const float* bias, float* out,
   return launch_tile<1, 4, 1, BCI, TRANSPOSED>(x, w, bias, out, p, stream);
 }
 
-// ---------------------------------------------------------------------------
-// the weight gradient
-// ---------------------------------------------------------------------------
-
-constexpr int BK = 16;  // reduction rows per shared-memory stage
-
-struct WgradArgs {
-  int B, H_in, W_in, H_out, W_out, C_in, C_out, KH, KW, SH, SW, PH, PW;
-  int splits, chunk;  // reduction rows per split: a multiple of BK
-};
-
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
-// the output tile (rows (kh, kw, c) x columns o) for M rows and N columns
-void wgrad_tile(int M, int N, int* bm, int* bn) {
-  if (N == 1) {
-    *bm = 256, *bn = 1;
-  } else if (M <= 32) {
-    *bm = 32, *bn = 32;
-  } else {
-    *bm = 128, *bn = 32;
-  }
-}
-
-template <int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(THREADS) wgrad_partial(
-    const float* __restrict__ x, const float* __restrict__ g,
-    float* __restrict__ part, WgradArgs p) {
-  constexpr int TX = BN / TN;
-  static_assert((BM / TM) * TX == THREADS, "tile must use all threads");
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-  __shared__ int q_b[BK], q_h[BK], q_w[BK];
-
-  const int M = p.KH * p.KW * p.C_in;
-  const int N = p.C_out;
-  const int R = p.B * p.H_out * p.W_out;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int r0 = blockIdx.x * BM;
-  const int j0 = blockIdx.y * BN;
-  const int split = blockIdx.z;
-  const int q_lo = split * p.chunk;
-  const int q_hi = q_lo + p.chunk < R ? q_lo + p.chunk : R;
-
-  // the row and column a thread loads stay fixed over the stages
-  const int a_row = tid % BM;
-  const int a_r = r0 + a_row;
-  const int a_c = a_r < M ? a_r % p.C_in : 0;
-  const int a_kw = a_r < M ? (a_r / p.C_in) % p.KW : 0;
-  const int a_kh = a_r < M ? a_r / (p.C_in * p.KW) : 0;
-  const int b_col = tid % BN;
-  const bool b_ok = j0 + b_col < N;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int q0 = q_lo; q0 < q_hi; q0 += BK) {
-    if (tid < BK) {
-      const int q = q0 + tid;
-      const int hw = p.H_out * p.W_out;
-      const int b = q < q_hi ? q / hw : -1;
-      const int rem = q < q_hi ? q - b * hw : 0;
-      q_b[tid] = b;
-      q_h[tid] = rem / p.W_out;
-      q_w[tid] = rem % p.W_out;
-    }
-    __syncthreads();
-    for (int kk = tid / BM; kk < BK; kk += THREADS / BM) {
-      float v = 0.f;
-      const int b = q_b[kk];
-      const int hh = q_h[kk] * p.SH + a_kh - p.PH;
-      const int ww = q_w[kk] * p.SW + a_kw - p.PW;
-      if (b >= 0 && a_r < M && hh >= 0 && hh < p.H_in && ww >= 0 && ww < p.W_in)
-        v = x[(((size_t)b * p.H_in + hh) * p.W_in + ww) * p.C_in + a_c];
-      As[kk][a_row] = v;
-    }
-    for (int kk = tid / BN; kk < BK; kk += THREADS / BN) {
-      float v = 0.f;
-      if (q_b[kk] >= 0 && b_ok) v = g[(size_t)(q0 + kk) * N + j0 + b_col];
-      Bs[kk][b_col] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
-  }
-
-  // part [splits, M, N]
-  float* o = part + (size_t)split * M * N;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + ty * TM + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = j0 + tx * TN + j;
-      if (col < N) o[(size_t)r * N + col] = acc[i][j];
-    }
-  }
-}
-
-// out[r, o] = sum over splits, in order, of the partials
-__global__ void __launch_bounds__(THREADS) wgrad_reduce(
-    const float* __restrict__ part, float* __restrict__ out, int n, int splits) {
-  const int idx = blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[(size_t)k * n + idx];
-  out[idx] = s;
-}
-
-template <int BM, int BN, int TM, int TN>
-int launch_wgrad(const float* x, const float* g, float* part, float* out,
-                 const WgradArgs& p, cudaStream_t stream) {
-  const int M = p.KH * p.KW * p.C_in;
-  dim3 grid((M + BM - 1) / BM, (p.C_out + BN - 1) / BN, p.splits);
-  wgrad_partial<BM, BN, TM, TN><<<grid, THREADS, 0, stream>>>(x, g, part, p);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const int n = M * p.C_out;
-  wgrad_reduce<<<(n + THREADS - 1) / THREADS, THREADS, 0, stream>>>(part, out, n,
-                                                                   p.splits);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // x [B, H_in, W_in, C_in], w [KH, KW, C_in, C_out], bias [C_out] or null,
@@ -417,40 +281,35 @@ extern "C" int conv2d(int transposed, const void* x, const void* w,
   return dispatch<8, false>(xp, wp, bp, op, p, s);
 }
 
-// The number of reduction chunks conv2d_wgrad cuts R = B * H_out * W_out
-// rows into, for an [M = KH * KW * C_in, N = C_out] output: enough blocks
-// for four per SM, with at least 8 stages of BK rows in each chunk. The
-// wrapper sizes the partial-sum buffer [splits, M, N] from it.
-extern "C" int conv2d_wgrad_splits(int M, int N, int R) {
-  int bm, bn;
-  wgrad_tile(M, N, &bm, &bn);
-  const long tiles = (long)((M + bm - 1) / bm) * ((N + bn - 1) / bn);
-  const long want = (4L * sm_count() + tiles - 1) / tiles;
-  const long most = (R + 8 * BK - 1) / (8 * BK);
-  const long s = want < most ? want : most;
-  return (int)(s < 1 ? 1 : s);
+namespace {
+
+wgrad::Args args_2d(int B, int H_in, int W_in, int H_out, int W_out, int C_in,
+                    int C_out, int KH, int KW, int SH, int SW, int PH, int PW) {
+  return wgrad::Args{B,     H_in,  H_out, KH, SH, PH,  W_in, W_out, C_in, C_out,
+                     KW,    SW,    1,     PW, 1,  0.f, 0.f,  0,     0};
 }
 
-// x [B, H_in, W_in, C_in], g [B, H_out, W_out, C_out], part [splits, M, N]
-// (scratch), out [KH, KW, C_in, C_out]; float32, contiguous. Returns the
-// cudaError_t of the launches.
+}  // namespace
+
+// The number of reduction chunks conv2d_wgrad plans for these shapes
+// (enough blocks to fill the card once); the wrapper sizes the partial
+// buffer [splits, KH, KW, C_in, C_out] from it. Negative: a CUDA error.
+extern "C" int conv2d_wgrad_splits(int B, int H_in, int W_in, int H_out,
+                                   int W_out, int C_in, int C_out, int KH,
+                                   int KW, int SH, int SW, int PH, int PW) {
+  return wgrad::splits_for(args_2d(B, H_in, W_in, H_out, W_out, C_in, C_out,
+                                   KH, KW, SH, SW, PH, PW));
+}
+
+// x [B, H_in, W_in, C_in], g [B, H_out, W_out, C_out], part [splits, KH,
+// KW, C_in, C_out] (scratch; any splits >= 1), out [KH, KW, C_in, C_out];
+// float32, contiguous. Returns the cudaError_t of the launches.
 extern "C" int conv2d_wgrad(const void* x, const void* g, void* part, void* out,
                             int B, int H_in, int W_in, int H_out, int W_out,
                             int C_in, int C_out, int KH, int KW, int SH, int SW,
                             int PH, int PW, int splits, void* stream) {
-  const int R = B * H_out * W_out;
-  int chunk = (R + splits - 1) / splits;
-  chunk = (chunk + BK - 1) / BK * BK;
-  WgradArgs p{B,  H_in, W_in, H_out, W_out, C_in,   C_out, KH,
-              KW, SH,   SW,   PH,    PW,    splits, chunk};
-  const float* xp = (const float*)x;
-  const float* gp = (const float*)g;
-  float* pp = (float*)part;
-  float* op = (float*)out;
-  cudaStream_t s = (cudaStream_t)stream;
-  int bm, bn;
-  wgrad_tile(KH * KW * C_in, C_out, &bm, &bn);
-  if (bn == 1) return launch_wgrad<256, 1, 1, 1>(xp, gp, pp, op, p, s);
-  if (bm == 32) return launch_wgrad<32, 32, 2, 2>(xp, gp, pp, op, p, s);
-  return launch_wgrad<128, 32, 4, 4>(xp, gp, pp, op, p, s);
+  return wgrad::run((const float*)x, (const float*)g, (float*)part, (float*)out,
+                    args_2d(B, H_in, W_in, H_out, W_out, C_in, C_out, KH, KW,
+                            SH, SW, PH, PW),
+                    splits, (cudaStream_t)stream);
 }

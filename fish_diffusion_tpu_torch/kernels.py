@@ -95,7 +95,7 @@ KERNELS = {
         replaces=_TPU + "ops/blocked_conv.py:137",
     ),
     "conv1d_wgrad": dict(
-        id="K4/K6", route="cuda", source=_PORT + "csrc/conv1d_wgrad.cu",
+        id="K4/K6", route="cuda", source=_PORT + "csrc/wgrad.cuh",
         replaces=_TPU + "ops/blocked_conv.py:84",
     ),
     "nsf_merge_backward": dict(
@@ -111,7 +111,7 @@ KERNELS = {
         replaces=_TPU + "ops/blocked_conv.py:99",
     ),
     "conv2d_wgrad": dict(
-        id="K6 2-D", route="cuda", source=_PORT + "csrc/conv2d.cu",
+        id="K6 2-D", route="cuda", source=_PORT + "csrc/wgrad.cuh",
         replaces=_TPU + "ops/blocked_conv.py:99",
     ),
     "comb_merge": dict(
@@ -165,7 +165,7 @@ SIGNATURES = {
     },
     "conv1d_wgrad": {
         "conv1d_wgrad": [_P] * 4 + [_I] * 10 + [_F, _I, _F, _I, _I, _P],
-        "conv1d_wgrad_splits": [_I] * 4,
+        "conv1d_wgrad_splits": [_I] * 10,
     },
     "viterbi": {
         "viterbi_candidates": [_P] * 6 + [_I] * 3 + [_P],
@@ -181,7 +181,7 @@ SIGNATURES = {
     },
     "conv2d": {
         "conv2d": [_I] + [_P] * 4 + [_I] * 13 + [_P],
-        "conv2d_wgrad_splits": [_I] * 3,
+        "conv2d_wgrad_splits": [_I] * 13,
         "conv2d_wgrad": [_P] * 4 + [_I] * 14 + [_P],
     },
 }
@@ -210,8 +210,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, tagged by its source, every shared header in
+    ``csrc/`` and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{tag.hexdigest()[:12]}.so"
 
 

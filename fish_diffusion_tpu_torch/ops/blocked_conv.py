@@ -13,8 +13,8 @@ plain functions those layouts computed, channels-last ``[B, T, C]``:
   ``blocked_apply_grouped`` computes. Its input gradient is the kernel's
   transposed mode (taps padded with zeros to a multiple of the stride);
 - ``conv1d_wgrad``: the weight gradient of K4's and K6's convolutions
-  (``csrc/conv1d_wgrad.cu``), partial sums over chunks of the batch and
-  time reduction added in a fixed order;
+  (``csrc/conv1d_wgrad.cu`` on ``csrc/wgrad.cuh``), partial sums over
+  chunks of the batch and time reduction added in a fixed order;
 - ``conv2d_nhwc``: K6 2-D, the multi-resolution discriminator's NHWC 2-D
   convolutions (``csrc/conv2d.cu``), what ``blocked_apply_2d`` computes
   once its block-padding columns are masked. Its input gradient is the
@@ -82,7 +82,8 @@ def conv1d_wgrad(a, bm, K: int, stride: int = 1, dilation: int = 1,
                  slope_a: Optional[float] = None,
                  slope_b: Optional[float] = None) -> torch.Tensor:
     """The weight gradient of a 1-D convolution (see
-    ``conv1d_wgrad_reference``), on the card by ``csrc/conv1d_wgrad.cu``.
+    ``conv1d_wgrad_reference``), on the card by ``csrc/conv1d_wgrad.cu``
+    on ``csrc/wgrad.cuh``.
     CPU tensors take the plain version."""
     if not a.is_cuda:
         return conv1d_wgrad_reference(a, bm, K, stride, dilation, padding,
@@ -98,10 +99,11 @@ def conv1d_wgrad(a, bm, K: int, stride: int = 1, dilation: int = 1,
     if CA % groups or CB % groups:
         raise ValueError(f"conv1d_wgrad: {CA} and {CB} channels, {groups} groups")
     lib = kernels.load_library("conv1d_wgrad")
-    M, cb_g = K * (CA // groups), CB // groups
-    splits = lib.conv1d_wgrad_splits(M, cb_g, groups, B * T_b)
-    part = torch.empty((splits, groups, M, cb_g), dtype=a.dtype, device=a.device)
+    splits = lib.conv1d_wgrad_splits(B, T_a, T_b, CA, CB, K, stride, dilation, padding,
+                                     groups)
+    kernels.check(min(splits, 0), "conv1d_wgrad")
     out = torch.empty((K, CA // groups, CB), dtype=a.dtype, device=a.device)
+    part = torch.empty((splits, *out.shape), dtype=a.dtype, device=a.device)
     kernels.check(
         lib.conv1d_wgrad(
             a.data_ptr(), bm.data_ptr(), part.data_ptr(), out.data_ptr(), B,
@@ -351,8 +353,9 @@ def conv2d_wgrad_reference(x, g, kernel_hw, stride=(1, 1), padding=(0, 0)):
 
 def conv2d_wgrad(x, g, kernel_hw, stride=(1, 1), padding=(0, 0)):
     """The weight gradient of ``conv2d_nhwc`` (see
-    ``conv2d_wgrad_reference``), on the card by ``csrc/conv2d.cu``: partial
-    sums over chunks of the B x H' x W' reduction, added in chunk order.
+    ``conv2d_wgrad_reference``), on the card by ``csrc/conv2d.cu`` on
+    ``csrc/wgrad.cuh``: partial sums over chunks of the B x H' x W'
+    reduction, added in chunk order.
     CPU tensors take the plain version."""
     if not x.is_cuda:
         return conv2d_wgrad_reference(x, g, kernel_hw, stride, padding)
@@ -364,10 +367,11 @@ def conv2d_wgrad(x, g, kernel_hw, stride=(1, 1), padding=(0, 0)):
     B, H_in, W_in, C_in = x.shape
     _, H_out, W_out, C_out = g.shape
     lib = kernels.load_library("conv2d")
-    M = KH * KW * C_in
-    splits = lib.conv2d_wgrad_splits(M, C_out, B * H_out * W_out)
-    part = torch.empty((splits, M, C_out), dtype=x.dtype, device=x.device)
+    splits = lib.conv2d_wgrad_splits(B, H_in, W_in, H_out, W_out, C_in, C_out, KH, KW, SH,
+                                     SW, PH, PW)
+    kernels.check(min(splits, 0), "conv2d_wgrad")
     out = torch.empty((KH, KW, C_in, C_out), dtype=x.dtype, device=x.device)
+    part = torch.empty((splits, *out.shape), dtype=x.dtype, device=x.device)
     kernels.check(
         lib.conv2d_wgrad(x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(),
                          B, H_in, W_in, H_out, W_out, C_in, C_out, KH, KW, SH, SW,

@@ -9,9 +9,11 @@ but the kernels' tiling, halos, masks and epilogues are plain C++ over
 arrays become function statics (blocks run one after another), each
 block's threads run as ``std::thread``s meeting at a ``std::barrier`` for
 ``__syncthreads``, and ``kernel<<<grid, block, smem, stream>>>(...)``
-becomes a call that runs the grid. The shim covers what the sources use
-(no warp intrinsics, PTX or tensor-core instructions). Needs ``g++``
-with C++20; skips without one.
+becomes a call that runs the grid; a shared header (``csrc/*.cuh``) is
+inlined. The shim covers what the sources use (no warp intrinsics or
+tensor-core instructions); PTX sits behind ``#if defined(__CUDA_ARCH__)``
+with a plain branch, so the weight gradient's ``cp.async`` copies run as
+plain copies here. Needs ``g++`` with C++20; skips without one.
 """
 
 import ctypes
@@ -72,6 +74,12 @@ inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 // 8 SMs: small grids then reach every tile shape K1 chooses from
 inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 8; return 0; }
 template <class T> int cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return 0; }
+// two blocks per SM, whatever the kernel: with 8 SMs a plan then splits a
+// small reduction into a few chunks
+template <class T> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T, int, size_t) {
+  *n = 2;
+  return 0;
+}
 struct __nv_bfloat16 { uint16_t v; };
 inline float __bfloat162float(__nv_bfloat16 b) {
   uint32_t u = (uint32_t)b.v << 16; float f; std::memcpy(&f, &u, 4); return f;
@@ -106,13 +114,16 @@ template <class F> void run_grid(dim3 grid, dim3 block, size_t smem, F body) {
 }
 """
 
+# a shared header, ``#include "name.cuh"``, inlined before the rewrites
+_HEADER = re.compile(r'#include "(\w+\.cuh)"')
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", re.S)
 # dynamic shared memory, ``extern __shared__ [__align__(n)] T name[];``
 _EXTERN_SHARED = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];")
 
 
 def _host_source(cu: str) -> str:
-    src = cu.replace("#include <cuda_runtime.h>", '#include "shim.h"')
+    src = _HEADER.sub(lambda m: (kernels.CSRC / m.group(1)).read_text(), cu)
+    src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
     src = src.replace("#include <cuda_bf16.h>", "")
     src = _EXTERN_SHARED.sub(
         lambda m: f"{m.group(1)}* {m.group(2)} = "
@@ -460,6 +471,23 @@ def test_grouped_conv1d_source(host_libs, C_in, C_out, groups, stride, T):
     assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
+def _wgrad1d(lib, a, bm, K, stride, dil, pad, groups, slope_a, slope_b, splits=None):
+    """conv1d_wgrad through the host library with the planned number of
+    reduction chunks, or ``splits``."""
+    B, T_a, CA = a.shape
+    T_b, CB = bm.shape[1:]
+    if splits is None:
+        splits = lib.conv1d_wgrad_splits(B, T_a, T_b, CA, CB, K, stride, dil, pad, groups)
+    part = torch.empty(splits, K, CA // groups, CB)
+    out = torch.full((K, CA // groups, CB), float("nan"))
+    assert lib.conv1d_wgrad(a.data_ptr(), bm.data_ptr(), part.data_ptr(), out.data_ptr(),
+                            B, T_a, T_b, CA, CB, K, stride, dil, pad, groups,
+                            float(slope_a or 0.0), int(slope_a is not None),
+                            float(slope_b or 0.0), int(slope_b is not None), splits,
+                            None) == 0
+    return out
+
+
 @pytest.mark.parametrize(
     "B,T_a,CA,T_b,CB,K,stride,dil,pad,groups,slope_a,slope_b",
     [
@@ -469,27 +497,68 @@ def test_grouped_conv1d_source(host_libs, C_in, C_out, groups, stride, T):
         (2, 200, 16, 200, 1, 7, 1, 1, 3, 1, 0.01, None),    # conv_post, 1 wide
         (1, 50, 4, 50, 64, 5, 1, 1, 2, 1, None, None),      # 64 wide
         (2, 256, 1, 32, 24, 16, 8, 1, 4, 1, None, None),    # noise conv, C_in = 1
+        (2, 300, 16, 300, 16, 11, 1, 5, 25, 1, 0.1, None),  # generator C = 16, dilation 5
+        (2, 90, 128, 45, 128, 41, 2, 1, 20, 4, None, None),  # MSD layer 1: groups 4,
+        #                                                      the 41 taps over 2 blocks
+        (2, 60, 128, 30, 256, 41, 2, 1, 20, 16, None, None),  # MSD layer 2: groups 16
+        (2, 70, 24, 70, 20, 7, 1, 1, 3, 1, 0.2, 0.1),       # both activations, ragged
+        (1, 50, 6, 50, 10, 5, 1, 2, 4, 1, None, 0.3),       # widths no multiple of 4
+        (2, 41 * 8, 32, 41, 48, 16, 8, 1, 4, 1, None, 0.1),  # transposed conv's, stride 8
+        (2, 600, 32, 300, 32, 41, 2, 1, 20, 1, None, None),  # k = 41 in 2-tap groups over
+        #                                                       3 blocks (the plan fills the SMs)
     ],
 )
 def test_conv1d_wgrad_source(host_libs, B, T_a, CA, T_b, CB, K, stride, dil, pad, groups,
                              slope_a, slope_b):
     """The weight gradient, partial sums over reduction chunks added in
-    order: <= 1e-5 of its scale."""
+    order: <= 1e-5 of its scale, with the planned chunks, with one, and
+    with 7 (chunk boundaries inside a batch row)."""
     gen = torch.Generator().manual_seed(T_a + CB + K)
     a, bm = rn(gen, B, T_a, CA), rn(gen, B, T_b, CB)
     lib = host_libs["conv1d_wgrad"]
-    M = K * (CA // groups)
-    splits = lib.conv1d_wgrad_splits(M, CB // groups, groups, B * T_b)
-    part = torch.empty(splits, groups, M, CB // groups)
-    out = torch.full((K, CA // groups, CB), float("nan"))
-    assert lib.conv1d_wgrad(a.data_ptr(), bm.data_ptr(), part.data_ptr(), out.data_ptr(),
-                            B, T_a, T_b, CA, CB, K, stride, dil, pad, groups,
-                            float(slope_a or 0.0), int(slope_a is not None),
-                            float(slope_b or 0.0), int(slope_b is not None), splits,
-                            None) == 0
     ref = blocked_conv.conv1d_wgrad_reference(a, bm, K, stride, dil, pad, groups,
                                               slope_a, slope_b)
-    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    for splits in (None, 1, 7):
+        out = _wgrad1d(lib, a, bm, K, stride, dil, pad, groups, slope_a, slope_b, splits)
+        assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item(), splits
+
+
+def _at_offset(t):
+    """A contiguous copy of ``t`` one float past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1)[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("kind", ["conv1d", "conv2d"])
+def test_wgrad_source_unaligned(host_libs, kind):
+    """The weight gradients on views that start off a 16-byte boundary
+    take 4-byte copies into the same window layout: the result equals the
+    aligned inputs' bit for bit (with the planned chunks and with 7)."""
+    gen = torch.Generator().manual_seed(16)
+    if kind == "conv1d":
+        a, bm = rn(gen, 2, 300, 16), rn(gen, 2, 300, 16)
+        lib = host_libs["conv1d_wgrad"]
+        for splits in (None, 7):
+            fn = lambda a_, bm_: _wgrad1d(lib, a_, bm_, 11, 1, 5, 25, 1, 0.1, None, splits)  # noqa: E731
+            aligned = fn(a, bm)
+            for a_, bm_ in ((_at_offset(a), bm), (a, _at_offset(bm))):
+                assert torch.equal(fn(a_, bm_), aligned), splits
+    else:
+        x, gy = rn(gen, 2, 4, 17, 32), rn(gen, 2, 4, 9, 32)
+        lib = host_libs["conv2d"]
+        args = (2, 4, 17, 4, 9, 32, 32, 3, 9, 1, 2, 1, 4)
+        for splits in (lib.conv2d_wgrad_splits(*args), 7):
+            def fn(x_, gy_):
+                part = torch.empty(splits, 3, 9, 32, 32)
+                dw = torch.full((3, 9, 32, 32), float("nan"))
+                assert lib.conv2d_wgrad(x_.data_ptr(), gy_.data_ptr(), part.data_ptr(),
+                                        dw.data_ptr(), *args, splits, None) == 0
+                return dw
+            aligned = fn(x, gy)
+            for x_, gy_ in ((_at_offset(x), gy), (x, _at_offset(gy))):
+                assert torch.equal(fn(x_, gy_), aligned), splits
 
 
 def _conv2d(lib, transposed, x, w_packed, bias, out_hw, stride, pad):
@@ -506,16 +575,19 @@ def _conv2d(lib, transposed, x, w_packed, bias, out_hw, stride, pad):
 @pytest.mark.parametrize(
     "C_in,C_out,k,stride,pad,H,W",
     # the MRD's layers: 0 (C_in 1), 1-3 (stride 2 in frequency), 4, conv_post
-    # (C_out 1); W odd and even, so the transposed mode's classes are ragged
+    # (C_out 1); W odd and even, so the transposed mode's classes are ragged;
+    # the weight gradient's window is clipped on all four sides, and W = 150
+    # gives three strips of output columns, the last past the edge
     [(1, 32, (3, 9), (1, 1), (1, 4), 5, 33), (32, 32, (3, 9), (1, 2), (1, 4), 4, 17),
      (32, 32, (3, 9), (1, 2), (1, 4), 3, 12), (32, 32, (3, 3), (1, 1), (1, 1), 4, 9),
-     (32, 1, (3, 3), (1, 1), (1, 1), 6, 9)],
+     (32, 1, (3, 3), (1, 1), (1, 1), 6, 9), (32, 32, (3, 9), (1, 2), (1, 4), 3, 150)],
 )
 def test_conv2d_source(host_libs, C_in, C_out, k, stride, pad, H, W):
     """K6 2-D: the direct mode against ``F.conv2d``, the input gradient
     (direct mode with flipped taps for stride 1, transposed mode for stride
-    2) and the weight gradient (partial sums over chunks added in order)
-    against autograd of the plain version: <= 1e-5 of each one's scale."""
+    2) and the weight gradient (partial sums over chunks added in order;
+    the planned chunks, one, and 7) against autograd of the plain version:
+    <= 1e-5 of each one's scale."""
     gen = torch.Generator().manual_seed(C_in + C_out + W)
     lib = host_libs["conv2d"]
     x = rn(gen, 2, H, W, C_in)
@@ -541,15 +613,15 @@ def test_conv2d_source(host_libs, C_in, C_out, k, stride, pad, H, W):
         dx = _conv2d(lib, True, gy, wp.contiguous(), None, (H, W), stride, pad)
     assert (dx - ref_dx).abs().max().item() <= 1e-5 * ref_dx.abs().max().item()
 
-    M = k[0] * k[1] * C_in
-    splits = lib.conv2d_wgrad_splits(M, C_out, 2 * out_hw[0] * out_hw[1])
-    part = torch.empty(splits, M, C_out)
-    dw = torch.full((*k, C_in, C_out), float("nan"))
-    assert lib.conv2d_wgrad(x.data_ptr(), gy.contiguous().data_ptr(), part.data_ptr(),
-                            dw.data_ptr(), 2, H, W, *out_hw, C_in, C_out, *k, *stride,
-                            *pad, splits, None) == 0
     ref_dw = ref_dw.permute(2, 3, 1, 0)
-    assert (dw - ref_dw).abs().max().item() <= 1e-5 * ref_dw.abs().max().item()
+    planned = lib.conv2d_wgrad_splits(2, H, W, *out_hw, C_in, C_out, *k, *stride, *pad)
+    for splits in (planned, 1, 7):  # 7: chunk boundaries inside a row of frames
+        part = torch.empty(splits, *k, C_in, C_out)
+        dw = torch.full((*k, C_in, C_out), float("nan"))
+        assert lib.conv2d_wgrad(x.data_ptr(), gy.contiguous().data_ptr(), part.data_ptr(),
+                                dw.data_ptr(), 2, H, W, *out_hw, C_in, C_out, *k, *stride,
+                                *pad, splits, None) == 0
+        assert (dw - ref_dw).abs().max().item() <= 1e-5 * ref_dw.abs().max().item(), splits
 
 
 @pytest.mark.parametrize(

@@ -434,6 +434,57 @@ def test_conv2d_and_its_gradients(gen, C_in, C_out, k, stride, pad, H, W):
         torch.testing.assert_close(g_, r_, atol=1e-4 * r_.abs().max().item(), rtol=0)
 
 
+@pytest.mark.parametrize("kind", ["mrd_layer_1", "msd_layer_1"])
+def test_weight_gradients_at_training_shapes(gen, kind):
+    """The weight gradients at a training step's own shapes (batch 16 x
+    32768 samples): the MRD's layer 1 at its first resolution (273 frames x
+    513 bins, 32 -> 32, k (3, 9), stride (1, 2)) through conv2d_wgrad, and
+    the MSD's layer 1 (128 -> 128, k 41, stride 2, 4 groups) through
+    conv1d_wgrad: <= 1e-4 of the plain version's scale, and a second
+    launch bit-equal to the first (partial sums added in a fixed order)."""
+    if kind == "mrd_layer_1":
+        x, g = rn(gen, 16, 273, 513, 32), rn(gen, 16, 273, 257, 32)
+        args = ((3, 9), (1, 2), (1, 4))
+        got, again = (blocked_conv.conv2d_wgrad(x, g, *args) for _ in range(2))
+        ref = blocked_conv.conv2d_wgrad_reference(x, g, *args)
+    else:
+        x, g = rn(gen, 16, 32768, 128), rn(gen, 16, 16384, 128)
+        args = (41, 2, 1, 20, 4)
+        got, again = (blocked_conv.conv1d_wgrad(x, g, *args) for _ in range(2))
+        ref = blocked_conv.conv1d_wgrad_reference(x, g, *args)
+    torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
+    assert torch.equal(got, again)
+
+
+def at_offset(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one float past a
+    16-byte boundary (a view into a larger buffer)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("kind", ["conv1d", "conv2d"])
+def test_weight_gradients_unaligned(gen, kind):
+    """The weight gradients on views at an offset (not 16-byte aligned):
+    their 16-byte copies give way to 4-byte ones, so the result is the
+    aligned inputs' bit for bit, and within 1e-4 of the plain version."""
+    if kind == "conv1d":
+        x, g = rn(gen, 4, 2048, 64), rn(gen, 4, 2048, 64)
+        fn = lambda x_, g_: blocked_conv.conv1d_wgrad(x_, g_, 11, 1, 5, 25, 1, 0.1)  # noqa: E731
+        ref = blocked_conv.conv1d_wgrad_reference(x, g, 11, 1, 5, 25, 1, 0.1)
+    else:
+        x, g = rn(gen, 2, 40, 129, 32), rn(gen, 2, 40, 65, 32)
+        fn = lambda x_, g_: blocked_conv.conv2d_wgrad(x_, g_, (3, 9), (1, 2), (1, 4))  # noqa: E731
+        ref = blocked_conv.conv2d_wgrad_reference(x, g, (3, 9), (1, 2), (1, 4))
+    aligned = fn(x, g)
+    for x_, g_ in ((at_offset(x), g), (x, at_offset(g)), (at_offset(x), at_offset(g))):
+        assert torch.equal(fn(x_, g_), aligned)
+    torch.testing.assert_close(aligned, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
+
+
 @pytest.mark.parametrize("hop", [16, 256])
 def test_comb_tooth(gen, hop):
     """K9: K3's frame-phase scan in its linear mode (<= 1e-6, both sum in
