@@ -15,9 +15,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             3.35 TB/s and the float32 operations it needs over 67 TFLOP/s)
             and, where one PyTorch call computes the same function, that
             call's time; K5 (an FFT) at n_fft 2048 and at the key shifts'
-            2299 and 1933 (Bluestein), and at B=1 over a segment; then the
-            whole 20-block denoiser eval and the whole vocoder against
-            their plain compositions.
+            2299 and 1933 (Bluestein), and at B=1 over a segment; K4 at
+            every shape of one vocoder pass (TFLOP/s, share of its bound,
+            cuDNN's convolution alone, a rerun bit-equal; summed by level
+            into ``conv1d.pass_by_level``); then the whole 20-block
+            denoiser eval and the whole vocoder against their plain
+            compositions.
 4. serve:   ``SVCInference`` built from ``configs/svc_hubert_soft.py`` at
             full width (HubertSoft 12x768, WaveNet 20x512, NSF-HiFiGAN 512,
             1000 steps at interval 10) with seeded random weights answers
@@ -61,7 +64,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             the exact function), timed beside its bound and the PyTorch
             call for the same function; ``conv1d_wgrad`` at every distinct
             shape of the step's NSF-HiFiGAN generator backward (102 calls);
-            each weight gradient launched twice, bit-equal.
+            K4 at every distinct shape of the generator's forward and input
+            gradients (``conv1d.train``: every launch of the step, within
+            1e-4 of the plain version's scale, beside cuDNN's convolution
+            alone and the bound); each weight gradient and K4 shape launched
+            twice, bit-equal.
 6. train_v2: the same on ``configs/vocoder_refinegan.py`` (RefineGAN
             start_channels 16, hop 256, GAN flavor v2: MPD 2/3/5/7/11 + MRD
             at (1024, 120, 600), (2048, 240, 1200), (512, 50, 240), batch 16
@@ -71,8 +78,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             gradient in its direct and transposed modes, weight gradient) at
             every layer of one MRD pass (the weight gradient's ms, TFLOP/s,
             share of its bound and cuDNN ms printed per layer and summed
-            over the pass), ``conv1d_wgrad`` at every distinct shape of the
-            step's RefineGAN generator backward (104 calls), K9 at the
+            over the pass; the forward's and the stride-1 input gradients'
+            share of their bound too, each launched twice, bit-equal),
+            ``conv1d_wgrad`` at every distinct shape of the step's RefineGAN
+            generator backward (104 calls), K4 at every distinct shape of
+            its forward and input gradients (``conv1d.train_v2``), K9 at the
             step's template and K5 at the step's MRD and mel shapes, each
             against its plain version and timed beside its bound and
             library call; each weight gradient launched twice, bit-equal.
@@ -396,11 +406,16 @@ def phase_kernels(report: Report, seed: int):
             nsf_hifigan.conv1d = real["conv1d"]
             nsf_hifigan.conv_transpose1d = real["conv_transpose1d"]
         library = {"conv1d": library_conv1d, "conv_transpose1d": library_conv_transpose1d}
+        # the pass summed by upsampling level (the output's length: conv_pre
+        # at the frame rate, then each level's transposed conv, noise conv
+        # and resblocks; conv_post with the last level)
+        levels = defaultdict(lambda: defaultdict(float))
         for (name, xs, ws, *_), (x, (args, kwargs), count) in calls.items():
+            label = f"{name} x{list(xs)} w{list(ws)} {kwargs_str(kwargs)}"
             got = real[name](x, *args, **kwargs)
             ref = refs[name](x, *args, **kwargs)
-            err = report.compare(f"{name} x{list(xs)} w{list(ws)} {kwargs_str(kwargs)}",
-                                 got, ref, 1e-4, relative=True)
+            err = report.compare(label, got, ref, 1e-4, relative=True)
+            check_rerun(report, label, got, real[name](x, *args, **kwargs))
             ms = cuda_ms(lambda: real[name](x, *args, **kwargs), iters=5)
             plain = cuda_ms(lambda: refs[name](x, *args, **kwargs), iters=5)
             lib = cuda_ms(library[name](x, *args, **kwargs), iters=5)
@@ -409,12 +424,28 @@ def phase_kernels(report: Report, seed: int):
                 else 2 * x.numel() * w.shape[1] * w.shape[2]
             io = nbytes(x, w, args[1], got) + (
                 nbytes(kwargs["residual"]) if kwargs.get("residual") is not None else 0)
-            print(f"    x{count} per pass: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            t_bound = bound(io, flops)[0]
+            print(f"    x{count} per pass: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                  f"{t_bound / ms:.0%} of its bound {t_bound:.4f}), plain {plain:.4f} ms, "
                   f"cuDNN alone {lib:.4f} ms")
             report.kernel(name, err, ms * count, plain * count,
                           "sum over one vocoder pass, B=4 x 1024 frames",
                           io * count, flops * count, lib * count)
+            level = levels[got.shape[1]]
+            for k, v in (("calls", 1), ("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("bound_ms", t_bound), ("gflop", flops / 1e9)):
+                level[k] += v * count
         calls.clear()
+        by_level = {}
+        print("  K4 over one pass by level (output length; kernel ms, TFLOP/s, share of "
+              "bound, cuDNN alone ms, plain ms):")
+        for T_out, d in sorted(levels.items()):
+            by_level[f"T_out {T_out}"] = dict(d, tflops=d["gflop"] / d["ms"],
+                                              share_of_bound=d["bound_ms"] / d["ms"])
+            print(f"    T_out {T_out} ({int(d['calls'])} calls): {d['ms']:.3f} ms, "
+                  f"{d['gflop'] / d['ms']:.1f} TFLOP/s, {d['bound_ms'] / d['ms']:.0%} of "
+                  f"{d['bound_ms']:.3f}, cuDNN {d['library_ms']:.3f}, plain {d['plain_ms']:.3f}")
+        report.extra.setdefault("conv1d", {})["pass_by_level"] = by_level
 
     print("[kernels] whole denoiser eval (20 x 512) and whole vocoder vs plain")
     denoiser = init_random_(wavenet.WaveNet(MEL, 256, R, 20, True, 4), seed + 2).to(DEVICE).eval()
@@ -592,15 +623,22 @@ def phase_kernels_stft_viterbi(report: Report, seed: int):
 class recording:
     """Swap ``module.name`` for a wrapper that calls it and keeps its
     arguments, (args, kwargs) per call (the tensors are not copied), between
-    ``start`` and ``stop``, or inside a ``with`` block."""
+    ``start`` and ``stop``, or inside a ``with`` block. With ``key``, only
+    the first call of each ``key(args, kwargs)`` is kept, with its count:
+    ``calls`` is then {key: [args, kwargs, count]}."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name, self.calls = module, name, []
+    def __init__(self, module, name: str, key=None):
+        self.module, self.name, self.key = module, name, key
+        self.calls = {} if key else []
         self.fn = getattr(module, name)
 
     def start(self):
         def call(*args, **kwargs):
-            self.calls.append((args, kwargs))
+            if self.key is None:
+                self.calls.append((args, kwargs))
+            else:
+                entry = self.calls.setdefault(self.key(args, kwargs), [args, kwargs, 0])
+                entry[2] += 1
             return self.fn(*args, **kwargs)
 
         setattr(self.module, self.name, call)
@@ -1531,6 +1569,84 @@ def measure_wgrad_calls(report: Report, calls, tag: str) -> dict:
     return dict(calls=sum(keyed.values()), shapes=rows, **total)
 
 
+def k4_key(args, kwargs):
+    """The shape of one ``nsf_hifigan._launch_conv`` call (every launch of
+    K4, the forward and the input gradients): name, transposed, the input's
+    and the packed weight's shapes, T_out, K, stride, dilation, padding,
+    the slope, a residual and the tanh."""
+    name, transposed, x, w, bias, res, *rest = args
+    return (name, transposed, tuple(x.shape), tuple(w.shape), res is not None, *rest)
+
+
+def measure_k4_calls(report: Report, calls, tag: str) -> dict:
+    """K4 at each distinct shape among a training step's recorded launches
+    (``k4_key``: the generator's forward, and its input gradients through
+    K4's direct and transposed modes): within 1e-4 of the plain version's
+    scale, a second launch bit-equal, kernel, plain and cuDNN (the
+    convolution alone) times and the bound, each shape weighted by its
+    count in the step."""
+    import torch
+    import torch.nn.functional as F
+
+    from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan
+
+    rows, total = [], defaultdict(float)
+    for key, (args, kwargs, count) in calls.items():
+        # copies: a packed weight can be a view of a parameter (a k = 1
+        # conv's permute is contiguous already) that the optimizer has
+        # updated in place since
+        with torch.no_grad():
+            args = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+        name, transposed, x, w_packed, bias, res, T_out, K, s, d, p, slope, tanh = args
+        B, T_in, C_in = x.shape
+        C_out = w_packed.shape[2]
+        fn = lambda: nsf_hifigan._launch_conv(*args)  # noqa: E731
+        if transposed:
+            weight = w_packed.permute(1, 2, 0)  # [C_in, C_out, K]
+            natural = (T_in - 1) * s - 2 * p + K
+            pad_out = max(0, min(s - 1, T_out - natural))
+
+            def ref_fn():
+                y = nsf_hifigan.conv_transpose1d_reference(x, weight, bias, s, p, slope,
+                                                           pad_out)[:, :T_out]
+                return F.pad(y, (0, 0, 0, T_out - y.shape[1]))
+
+            xt = x.transpose(1, 2).contiguous()
+            lib_fn = lambda: F.conv_transpose1d(xt, weight, bias, s, p, pad_out)  # noqa: E731
+            flops = 2 * B * T_out * C_out * C_in * (K // s)
+        else:
+            weight = w_packed.permute(2, 1, 0)  # [C_out, C_in, K]
+            ref_fn = lambda: nsf_hifigan.conv1d_reference(x, weight, bias, s, d, p, slope,  # noqa: E731
+                                                          res, tanh)
+            xt = x.transpose(1, 2).contiguous()
+            lib_fn = lambda: F.conv1d(xt, weight, bias, s, p, d)  # noqa: E731
+            flops = 2 * B * T_out * C_out * C_in * K
+        with torch.no_grad():
+            got, ref = fn(), ref_fn()
+            label = (f"{name} ({tag}) x{list(x.shape)} -> [{T_out}, {C_out}] k{K} s{s} d{d}"
+                     + (f" slope {slope}" if slope is not None else "")
+                     + (" +res" if res is not None else "") + (" tanh" if tanh else ""))
+            err = report.compare(label, got, ref, 1e-4 * max_abs(ref))
+            check_rerun(report, label, got, fn())
+            ms, plain, lib = timed_triple(fn, ref_fn, lib_fn)
+        t_bound = bound(nbytes(x, w_packed, bias, got) + (nbytes(res) if res is not None else 0),
+                        flops)[0]
+        print(f"    x{count}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{t_bound / ms:.0%} of its bound {t_bound:.4f}), plain {plain:.4f} ms, "
+              f"cuDNN alone {lib:.4f} ms")
+        rows.append(dict(shape=label, count=count, max_abs_err=err, ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=t_bound, tflops=flops / ms / 1e9))
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                     ("bound_ms", t_bound), ("gflop", flops / 1e9)):
+            total[k] += count * v
+    n = sum(c for _, _, c in calls.values())
+    print(f"  K4 over the {n} launches of one {tag} step ({len(calls)} shapes): kernel "
+          f"{total['ms']:.4f} ms ({total['gflop'] / total['ms']:.1f} TFLOP/s, "
+          f"{total['bound_ms'] / total['ms']:.0%} of its bound {total['bound_ms']:.4f}), cuDNN "
+          f"alone {total['library_ms']:.4f} ms, plain {total['plain_ms']:.4f} ms")
+    return dict(calls=n, shapes=rows, **total)
+
+
 def measure_stft_configs(report: Report, calls) -> dict:
     """K5's forward at each distinct configuration among a training step's
     recorded ``stft_magnitude`` calls (all exact, float64), held against its
@@ -1793,7 +1909,8 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
     validation and a checkpoint, every step's launches held to
     ``expected_fn(trainer)`` exactly; a resume from the checkpoint; then
     one step through the kernels, during which the calls of the wrappers in
-    ``record`` ((module, name) pairs) are kept, against one through every
+    ``record`` ((module, name) pairs, or (module, name, key) to keep the
+    first call of each key: ``recording``) are kept, against one through every
     plain version in ``plain_fns``. Returns (launches over the fit, the
     path's numbers under ``tag``, the recorded calls by name)."""
     import copy
@@ -1956,7 +2073,7 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
         den = sum(float((ref[k].double() ** 2).sum()) for k in keys)
         return (num / max(den, 1e-300)) ** 0.5
 
-    recorders = [recording(mod, name) for mod, name in record]
+    recorders = [recording(*entry) for entry in record]
     for r in recorders:
         r.start()
     try:
@@ -2079,13 +2196,18 @@ def phase_train(report: Report, seed: int):
             (blocked_conv, "grouped_conv1d"): blocked_conv.grouped_conv1d_reference,
         },
         [(mel, "stft_magnitude"), (mel, "stft_backward"), (blocked_conv, "grouped_conv1d"),
-         (nsf_hifigan, "conv1d"), (nsf_hifigan, "conv1d_wgrad")])
+         (nsf_hifigan, "conv1d"), (nsf_hifigan, "conv1d_wgrad"),
+         (nsf_hifigan, "_launch_conv", k4_key)])
     conv = [c for c in calls["conv1d"] if c[0][1].shape[2] == 11 and c[1].get("dilation") == 5]
     measure_train_kernels(report, seed, calls["stft_magnitude"],
                           [c[0] for c in calls["stft_backward"]], calls["grouped_conv1d"], conv)
     print("[train] conv1d_wgrad at the NSF-HiFiGAN generator's weight gradients of one step")
     report.extra.setdefault("conv1d_wgrad", {})["train"] = measure_wgrad_calls(
         report, calls["conv1d_wgrad"], "train")
+    print("[train] K4 at every shape of the NSF-HiFiGAN generator's forward and input "
+          "gradients of one step")
+    report.extra.setdefault("conv1d", {})["train"] = measure_k4_calls(
+        report, calls["_launch_conv"], "train")
     report.finish("train")
     return launches, totals
 
@@ -2146,7 +2268,7 @@ def measure_train_v2_kernels(report: Report, seed: int, conv2d_calls, stft_calls
     one_pass = conv2d_calls[: len(conv2d_calls) // 3]  # the D phase's real pass
     print(f"[train_v2] K6 2-D at the {len(one_pass)} layers of one MRD pass "
           f"(B={TRAIN_B} x {TRAIN_SEG} samples): forward, input gradient, weight gradient")
-    parts, wgrad_rows = defaultdict(float), []
+    parts, wgrad_rows, fwd_rows = defaultdict(float), [], []
     for i, ((x, w, b, stride, pad), _) in enumerate(one_pass):
         x, w, b = x.detach(), w.detach(), b.detach()
         stride, pad = tuple(stride), tuple(pad)
@@ -2157,6 +2279,9 @@ def measure_train_v2_kernels(report: Report, seed: int, conv2d_calls, stft_calls
         label = (f"res {i // n_layers} layer {i % n_layers} x{list(x.shape)} -> "
                  f"{w.shape[0]}, k({KH},{KW}) s{stride}")
         err_f = report.compare(f"conv2d fwd {label}", out, ref, 1e-4 * max_abs(ref))
+        with torch.no_grad():
+            check_rerun(report, f"conv2d fwd {label}", out,
+                        blocked_conv.conv2d_nhwc(x, w, b, stride, pad))
         xc = x.permute(0, 3, 1, 2).contiguous()
         ms_f = timed_triple(lambda: blocked_conv.conv2d_nhwc(x, w, b, stride, pad),
                             lambda: blocked_conv.conv2d_nhwc_reference(x, w, b, stride, pad),
@@ -2171,6 +2296,8 @@ def measure_train_v2_kernels(report: Report, seed: int, conv2d_calls, stft_calls
         dx = blocked_conv.conv2d_input_grad(gy, w, in_hw, stride, pad)
         mode = "conv2d" if stride == (1, 1) else "conv2d_transposed"
         err_d = report.compare(f"{mode} dgrad {label}", dx, ref_dx, 1e-4 * max_abs(ref_dx))
+        check_rerun(report, f"{mode} dgrad {label}", dx,
+                    blocked_conv.conv2d_input_grad(gy, w, in_hw, stride, pad))
         ms_d = timed_triple(
             lambda: blocked_conv.conv2d_input_grad(gy, w, in_hw, stride, pad),
             lambda: torch.autograd.grad(yr, xr, gy, retain_graph=True),
@@ -2184,9 +2311,20 @@ def measure_train_v2_kernels(report: Report, seed: int, conv2d_calls, stft_calls
             lambda: blocked_conv.conv2d_wgrad(x, gy, (KH, KW), stride, pad),
             lambda: blocked_conv.conv2d_wgrad_reference(x, gy, (KH, KW), stride, pad),
             lambda: torch.nn.grad.conv2d_weight(xc, w.shape, gyc, stride, pad))
-        for tag_, (ms, plain, lib) in (("fwd", ms_f), ("dgrad", ms_d), ("wgrad", ms_w)):
-            print(f"    {tag_} {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-                  f"plain {plain:.4f} ms, cuDNN {lib:.4f} ms")
+        t_f = bound(nbytes(x, w, b, out), flops)[0]
+        t_d = bound(nbytes(gy, w, dx), flops)[0]
+        for tag_, (ms, plain, lib), t_b in (("fwd", ms_f, t_f), ("dgrad", ms_d, t_d),
+                                            ("wgrad", ms_w, None)):
+            share = f", {t_b / ms:.0%} of its bound {t_b:.4f}" if t_b else ""
+            print(f"    {tag_} {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s"
+                  f"{share}), plain {plain:.4f} ms, cuDNN {lib:.4f} ms")
+        fwd_rows.append(dict(layer=label, fwd_ms=ms_f[0], fwd_tflops=flops / ms_f[0] / 1e9,
+                             fwd_share_of_bound=t_f / ms_f[0], fwd_library_ms=ms_f[2],
+                             fwd_plain_ms=ms_f[1]))
+        if mode == "conv2d":
+            fwd_rows[-1].update(dgrad_ms=ms_d[0], dgrad_tflops=flops / ms_d[0] / 1e9,
+                                dgrad_share_of_bound=t_d / ms_d[0], dgrad_library_ms=ms_d[2],
+                                dgrad_plain_ms=ms_d[1])
         note = f"sum over the {len(one_pass)} layers of one MRD pass, B={TRAIN_B} x {TRAIN_SEG}"
         report.kernel("conv2d", err_f, ms_f[0], ms_f[1],
                       f"forward {note}; with the stride-1 layers' input gradients",
@@ -2204,6 +2342,15 @@ def measure_train_v2_kernels(report: Report, seed: int, conv2d_calls, stft_calls
                                bound_ms=t_w, share_of_bound=t_w / ms_w[0], plain_ms=ms_w[1],
                                library_ms=ms_w[2]))
     report.extra.setdefault("conv2d", {})["train_v2_ms_by_layer"] = dict(parts)
+    c_ms = sum(r["fwd_ms"] + r.get("dgrad_ms", 0.0) for r in fwd_rows)
+    c_lib = sum(r["fwd_library_ms"] + r.get("dgrad_library_ms", 0.0) for r in fwd_rows)
+    c_bound = sum(r["fwd_ms"] * r["fwd_share_of_bound"]
+                  + r.get("dgrad_ms", 0.0) * r.get("dgrad_share_of_bound", 0.0) for r in fwd_rows)
+    print(f"  conv2d (the forward and the stride-1 input gradients) over one MRD pass: "
+          f"{c_ms:.4f} ms ({c_bound / c_ms:.0%} of its bound {c_bound:.4f}), cuDNN {c_lib:.4f} ms: "
+          f"{'no slower than' if c_ms <= c_lib else 'SLOWER than'} cuDNN")
+    report.extra["conv2d"].update(by_layer=fwd_rows, pass_ms=c_ms, pass_library_ms=c_lib,
+                                  pass_bound_ms=c_bound)
     print(f"[train_v2] conv2d_wgrad by layer (ms, TFLOP/s, share of its bound, cuDNN ms):")
     for r in wgrad_rows:
         print(f"    {r['layer']}: {r['ms']:.4f} ms, {r['tflops']:.1f} TFLOP/s, "
@@ -2279,12 +2426,17 @@ def phase_train_v2(report: Report, seed: int):
             (blocked_conv, "conv2d_nhwc"): blocked_conv.conv2d_nhwc_reference,
         },
         [(blocked_conv, "conv2d_nhwc"), (mel, "stft_magnitude"), (mel, "stft_backward"),
-         (source, "comb_tooth"), (nsf_hifigan, "conv1d_wgrad")])
+         (source, "comb_tooth"), (nsf_hifigan, "conv1d_wgrad"),
+         (nsf_hifigan, "_launch_conv", k4_key)])
     measure_train_v2_kernels(report, seed, calls["conv2d_nhwc"], calls["stft_magnitude"],
                              calls["stft_backward"], calls["comb_tooth"])
     print("[train_v2] conv1d_wgrad at the RefineGAN generator's weight gradients of one step")
     report.extra.setdefault("conv1d_wgrad", {})["train_v2"] = measure_wgrad_calls(
         report, calls["conv1d_wgrad"], "train_v2")
+    print("[train_v2] K4 at every shape of the RefineGAN generator's forward and input "
+          "gradients of one step")
+    report.extra.setdefault("conv1d", {})["train_v2"] = measure_k4_calls(
+        report, calls["_launch_conv"], "train_v2")
     report.finish("train_v2")
     return launches, totals
 

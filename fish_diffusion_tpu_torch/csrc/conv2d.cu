@@ -24,19 +24,24 @@
 //     w*SW + kw - PW, c] * g[b, h, w, o], out of range reading 0.
 //
 // Bound on an H100: arithmetic. One MRD forward over a batch of 16 x 32768
-// samples is ~0.38 TFLOP of float32, layer 1 alone ~62 GFLOP. Design: K4's
-// (csrc/conv1d.cu) in two dimensions. One block per (tile of output
-// positions x tile of output channels x batch row); the tile is tile_h
-// rows by tile_w columns (tile_w from 8 to 128, chosen by the host to waste
-// the fewest columns at the right edge). It stages the input window of the
-// tile, halo included, for 8 input channels at a time (1 for the
-// single-channel spectrogram, so that layer 0's 27 taps are not padded to
-// 8 channels), and those channels' taps, in shared memory, and keeps an
-// 8 x 4 (position x channel) register tile per thread with float32
-// accumulation: 32 FMAs for every 9 shared-memory loads. C_out = 1
-// (conv_post, and layer 0's input gradient) takes a tile of 1024
-// positions x 1 channel. The transposed mode runs one output residue class
-// (h mod SH, w mod SW) per block, as K4's and K6's transposed modes do.
+// samples is ~0.38 TFLOP of float32, layer 1 alone ~62 GFLOP. The direct
+// mode (the forward and the stride-1 layers' input gradients) is
+// conv_fwd.cuh's kernel, the one K4 (conv1d.cu) runs: the 2-D problem is
+// the 1-D one per line (b, h), with the KH tap rows as a second tap axis.
+// A block owns LH lines x TW columns (the tile that computes the fewest
+// positions at W' = 513, 257, 129, 65, 33) x 32 output channels; it stages
+// the tile's input window, halo included (the (LH - 1) * SH + KH input
+// rows), and the chunk's weights for all 27 taps, 4 to 16 input channels
+// a chunk, through a ring of cp.async stages; a thread keeps 8 positions x
+// 8 output channels (layer 0's single input channel: one channel a window
+// read; C_out = 1: 8 positions x 1). Measured (chip_smoke.py; NVIDIA H100
+// 80GB HBM3, 700 W): one pass's forward and stride-1 input gradients at
+// B=16 x 32768 samples 18.16 ms, 35% of the float32 bound, layers 1-3's
+// forward at 21-31 TFLOP/s (the first version, K4's synchronous 8-channel
+// staging with an 8 x 4 register tile, 24.71 ms; cuDNN 21.37).
+// The transposed mode (a strided layer's input gradient) keeps that first
+// design: one output residue class (h mod SH, w mod SW) per block, the
+// class's taps a stride-1 correlation.
 // The weight gradient (conv2d_wgrad) is wgrad.cuh's, the same core as
 // conv1d_wgrad.cu's: the 2-D problem is the 1-D one per input row, with
 // the lines (b, h) and the KH tap rows as a second tap axis. Its bound is
@@ -54,7 +59,9 @@
 // 49.31 ms; cuDNN 20.29).
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 
+#include "conv_fwd.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -66,27 +73,15 @@ struct Conv2dArgs {
   int tile_w;  // output columns per tile; tile_h = positions per block / tile_w
 };
 
-// taps per output along each axis: all of them, or (transposed) the K / S
-// taps of one residue class
-__host__ __device__ inline int taps_h(const Conv2dArgs& p, bool transposed) {
-  return transposed ? p.KH / p.SH : p.KH;
-}
-__host__ __device__ inline int taps_w(const Conv2dArgs& p, bool transposed) {
-  return transposed ? p.KW / p.SW : p.KW;
-}
-// the input window a tile of th x tw outputs reads
-__host__ __device__ inline int window_rows(const Conv2dArgs& p, bool transposed,
-                                           int th) {
-  return transposed ? th + taps_h(p, true) - 1 : (th - 1) * p.SH + p.KH;
-}
-__host__ __device__ inline int window_cols(const Conv2dArgs& p, bool transposed,
-                                           int tw) {
-  return transposed ? tw + taps_w(p, true) - 1 : (tw - 1) * p.SW + p.KW;
-}
-// outputs per residue class along an axis (transposed), or all of them
-__host__ __device__ inline int class_len(int n_out, int s, int pad,
-                                         bool transposed) {
-  return transposed ? (n_out - 1 + pad) / s + 1 : n_out;
+// The transposed mode (a strided conv's input gradient): one output
+// residue class (h mod SH, w mod SW) per block, the class's KH / SH x
+// KW / SW taps; per class the outputs (u, v) at h = u * SH + rh - PH,
+// w = v * SW + rw - PW read x[u - qh, v - qw] * W[rh + qh * SH, rw + qw * SW].
+__host__ __device__ inline int taps_h(const Conv2dArgs& p) { return p.KH / p.SH; }
+__host__ __device__ inline int taps_w(const Conv2dArgs& p) { return p.KW / p.SW; }
+// outputs per residue class along an axis
+__host__ __device__ inline int class_len(int n_out, int s, int pad) {
+  return (n_out - 1 + pad) / s + 1;
 }
 
 template <int N>
@@ -100,34 +95,39 @@ __device__ __forceinline__ void load_smem(const float* q, float* v) {
   }
 }
 
-template <int BCO, int TM, int TN, int BCI, bool TRANSPOSED>
-__global__ void __launch_bounds__(THREADS) conv2d_kernel(
+// A block stages the input window of its tile (th x tw outputs of one
+// class, halo included) for 8 input channels at a time and those
+// channels' taps in shared memory, and keeps an 8 x 4 (position x channel)
+// register tile per thread (C_out = 1: 4 positions x 1 channel).
+template <int BCO, int TM, int TN>
+__global__ void __launch_bounds__(THREADS) conv2d_transposed_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, float* __restrict__ out, Conv2dArgs p) {
   extern __shared__ float smem[];
+  constexpr int BCI = 8;
   constexpr int TX = BCO / TN;  // threads along out-channels
   constexpr int TY = THREADS / TX;  // threads along positions
   constexpr int BP = TY * TM;   // positions per block
-  constexpr int XS = BCI == 1 ? 1 : BCI + 1;  // window stride; +1 spreads banks
+  constexpr int XS = BCI + 1;   // window stride; +1 spreads banks
 
   const int tw = p.tile_w;
   const int th = BP / tw;
-  const int nw = class_len(p.W_out, p.SW, p.PW, TRANSPOSED);
+  const int nw = class_len(p.W_out, p.SW, p.PW);
   const int tiles_w = (nw + tw - 1) / tw;
-  const int h0 = (blockIdx.x / tiles_w) * th;  // first output row (or u)
-  const int w0 = (blockIdx.x % tiles_w) * tw;  // first output column (or v)
+  const int h0 = (blockIdx.x / tiles_w) * th;  // first u
+  const int w0 = (blockIdx.x % tiles_w) * tw;  // first v
   const int o0 = blockIdx.y * BCO;
-  const int classes = TRANSPOSED ? p.SH * p.SW : 1;
+  const int classes = p.SH * p.SW;
   const int b = blockIdx.z / classes;
-  const int rh = TRANSPOSED ? (blockIdx.z % classes) / p.SW : 0;
-  const int rw = TRANSPOSED ? (blockIdx.z % classes) % p.SW : 0;
-  const int qh_n = taps_h(p, TRANSPOSED);
-  const int qw_n = taps_w(p, TRANSPOSED);
+  const int rh = (blockIdx.z % classes) / p.SW;
+  const int rw = (blockIdx.z % classes) % p.SW;
+  const int qh_n = taps_h(p);
+  const int qw_n = taps_w(p);
   const int taps = qh_n * qw_n;
-  const int rows = window_rows(p, TRANSPOSED, th);
-  const int cols = window_cols(p, TRANSPOSED, tw);
-  const int lo_h = TRANSPOSED ? h0 - (qh_n - 1) : h0 * p.SH - p.PH;
-  const int lo_w = TRANSPOSED ? w0 - (qw_n - 1) : w0 * p.SW - p.PW;
+  const int rows = th + qh_n - 1;
+  const int cols = tw + qw_n - 1;
+  const int lo_h = h0 - (qh_n - 1);
+  const int lo_w = w0 - (qw_n - 1);
 
   float* xs = smem;                                  // [rows][cols][XS]
   float* ws = smem + ((rows * cols * XS + 3) & ~3);  // [taps][BCI][BCO]
@@ -141,9 +141,7 @@ __global__ void __launch_bounds__(THREADS) conv2d_kernel(
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int pos = ty + i * TY;
-    const int ph = pos / tw, pw = pos % tw;
-    off[i] = TRANSPOSED ? (ph * cols + pw) * XS
-                        : (ph * p.SH * cols + pw * p.SW) * XS;
+    off[i] = ((pos / tw) * cols + pos % tw) * XS;
   }
 
   float acc[TM][TN];
@@ -169,8 +167,8 @@ __global__ void __launch_bounds__(THREADS) conv2d_kernel(
       const int o = idx % BCO;
       const int c = (idx / BCO) % BCI;
       const int q = idx / (BCO * BCI);
-      const int kh = TRANSPOSED ? rh + (q / qw_n) * p.SH : q / qw_n;
-      const int kw = TRANSPOSED ? rw + (q % qw_n) * p.SW : q % qw_n;
+      const int kh = rh + (q / qw_n) * p.SH;
+      const int kw = rw + (q % qw_n) * p.SW;
       ws[idx] = (c0 + c < p.C_in && o0 + o < p.C_out)
                     ? w[(((size_t)kh * p.KW + kw) * p.C_in + c0 + c) * p.C_out +
                         o0 + o]
@@ -181,9 +179,7 @@ __global__ void __launch_bounds__(THREADS) conv2d_kernel(
     for (int q = 0; q < taps; ++q) {
       const int qh = q / qw_n, qw = q % qw_n;
       // window offset of this tap, less that of tap 0
-      const int toff = TRANSPOSED
-                           ? ((qh_n - 1 - qh) * cols + (qw_n - 1 - qw)) * XS
-                           : (qh * cols + qw) * XS;
+      const int toff = ((qh_n - 1 - qh) * cols + (qw_n - 1 - qw)) * XS;
 #pragma unroll
       for (int c = 0; c < BCI; ++c) {
         float bv[TN];
@@ -204,8 +200,8 @@ __global__ void __launch_bounds__(THREADS) conv2d_kernel(
   for (int i = 0; i < TM; ++i) {
     const int pos = ty + i * TY;
     const int u = h0 + pos / tw, v = w0 + pos % tw;
-    const int h = TRANSPOSED ? u * p.SH + rh - p.PH : u;
-    const int ww = TRANSPOSED ? v * p.SW + rw - p.PW : v;
+    const int h = u * p.SH + rh - p.PH;
+    const int ww = v * p.SW + rw - p.PW;
     if (h < 0 || h >= p.H_out || ww < 0 || ww >= p.W_out) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
@@ -217,12 +213,12 @@ __global__ void __launch_bounds__(THREADS) conv2d_kernel(
   }
 }
 
-template <int BCO, int TM, int TN, int BCI, bool TRANSPOSED>
-int launch_tile(const float* x, const float* w, const float* bias, float* out,
-                Conv2dArgs p, cudaStream_t stream) {
+template <int BCO, int TM, int TN>
+int launch_transposed(const float* x, const float* w, const float* bias, float* out,
+                      Conv2dArgs p, cudaStream_t stream) {
   constexpr int BP = (THREADS / (BCO / TN)) * TM;
-  const int nh = class_len(p.H_out, p.SH, p.PH, TRANSPOSED);
-  const int nw = class_len(p.W_out, p.SW, p.PW, TRANSPOSED);
+  const int nh = class_len(p.H_out, p.SH, p.PH);
+  const int nw = class_len(p.W_out, p.SW, p.PW);
   // the tile's width: the fewest columns computed past the right edge,
   // the wider tile on a tie
   int best = 0;
@@ -232,53 +228,52 @@ int launch_tile(const float* x, const float* w, const float* bias, float* out,
   }
   p.tile_w = best;
   const int th = BP / best;
-  const int rows = window_rows(p, TRANSPOSED, th);
-  const int cols = window_cols(p, TRANSPOSED, best);
-  constexpr int XS = BCI == 1 ? 1 : BCI + 1;
-  const int taps = taps_h(p, TRANSPOSED) * taps_w(p, TRANSPOSED);
+  const int rows = th + taps_h(p) - 1;
+  const int cols = best + taps_w(p) - 1;
+  constexpr int XS = 8 + 1;
+  const int taps = taps_h(p) * taps_w(p);
   const size_t smem =
-      sizeof(float) * (((rows * cols * XS + 3) & ~3) + taps * BCI * BCO);
-  auto kernel = conv2d_kernel<BCO, TM, TN, BCI, TRANSPOSED>;
+      sizeof(float) * (((rows * cols * XS + 3) & ~3) + taps * 8 * BCO);
+  auto kernel = conv2d_transposed_kernel<BCO, TM, TN>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int tiles = ((nh + th - 1) / th) * ((nw + best - 1) / best);
-  dim3 grid(tiles, (p.C_out + BCO - 1) / BCO,
-            TRANSPOSED ? p.B * p.SH * p.SW : p.B);
+  dim3 grid(tiles, (p.C_out + BCO - 1) / BCO, p.B * p.SH * p.SW);
   kernel<<<grid, THREADS, smem, stream>>>(x, w, bias, out, p);
   return (int)cudaGetLastError();
-}
-
-template <int BCI, bool TRANSPOSED>
-int dispatch(const float* x, const float* w, const float* bias, float* out,
-             const Conv2dArgs& p, cudaStream_t stream) {
-  if (p.C_out > 1)
-    return launch_tile<32, 8, 4, BCI, TRANSPOSED>(x, w, bias, out, p, stream);
-  return launch_tile<1, 4, 1, BCI, TRANSPOSED>(x, w, bias, out, p, stream);
 }
 
 }  // namespace
 
 // x [B, H_in, W_in, C_in], w [KH, KW, C_in, C_out], bias [C_out] or null,
 // out [B, H_out, W_out, C_out]; float32, contiguous (the Python wrapper
-// checks). For transposed = 1 the wrapper guarantees KH % SH == 0 and
-// KW % SW == 0. Returns the cudaError_t of the launch.
+// checks). The direct mode (transposed = 0) is conv_fwd.cuh's kernel; for
+// transposed = 1 the wrapper guarantees KH % SH == 0 and KW % SW == 0.
+// Returns the cudaError_t of the launch.
 extern "C" int conv2d(int transposed, const void* x, const void* w,
                       const void* bias, void* out, int B, int H_in, int W_in,
                       int H_out, int W_out, int C_in, int C_out, int KH, int KW,
                       int SH, int SW, int PH, int PW, void* stream) {
-  Conv2dArgs p{B,  H_in, W_in, H_out, W_out, C_in, C_out, KH,
-               KW, SH,   SW,   PH,    PW,    0};
   const float* xp = (const float*)x;
   const float* wp = (const float*)w;
   const float* bp = (const float*)bias;
   float* op = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  if (transposed) return dispatch<8, true>(xp, wp, bp, op, p, s);
-  if (C_in == 1) return dispatch<1, false>(xp, wp, bp, op, p, s);
-  return dispatch<8, false>(xp, wp, bp, op, p, s);
+  if (!transposed) {
+    convf::Args p{};
+    p.B = B, p.H_in = H_in, p.H_out = H_out, p.KH = KH, p.SH = SH, p.PH = PH;
+    p.T_in = W_in, p.T_out = W_out, p.C_in = C_in, p.C_out = C_out;
+    p.K = KW, p.S = SW, p.D = 1, p.P = PW, p.KW = KW;
+    p.flip = 0, p.classes = 1, p.pad_t = 0;
+    return convf::run<float>(xp, wp, bp, nullptr, op, p, s);
+  }
+  Conv2dArgs p{B,  H_in, W_in, H_out, W_out, C_in, C_out, KH,
+               KW, SH,   SW,   PH,    PW,    0};
+  if (C_out > 1) return launch_transposed<32, 8, 4>(xp, wp, bp, op, p, s);
+  return launch_transposed<1, 4, 1>(xp, wp, bp, op, p, s);
 }
 
 namespace {

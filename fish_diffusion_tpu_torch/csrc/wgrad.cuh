@@ -54,7 +54,11 @@
 #include <map>
 #include <mutex>
 
+#include "async_copy.cuh"
+
 namespace wgrad {
+
+using namespace acopy;
 
 constexpr int STAGES = 3;
 constexpr int MAX_THREADS = 256;
@@ -76,60 +80,6 @@ struct Plan {
   int threads, cols, x_floats, g_stride, stage_floats, smem_bytes;
   int vec_a, vec_b;  // 16-byte copies of A / Bm (the channels allow them)
 };
-
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// --- the asynchronous copies: PTX on the card, plain copies elsewhere ---
-
-// 16 bytes (ok) or zeros (!ok) into shared memory
-__device__ __forceinline__ void copy16(float* dst, const float* src, bool ok) {
-#if defined(__CUDA_ARCH__)
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-#else
-  for (int i = 0; i < 4; ++i) dst[i] = ok ? src[i] : 0.f;
-#endif
-}
-
-// 4 bytes (ok) or a zero (!ok) into shared memory
-__device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
-#if defined(__CUDA_ARCH__)
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-#else
-  *dst = ok ? *src : 0.f;
-#endif
-}
-
-__device__ __forceinline__ void copy_commit() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.commit_group;\n" ::);
-#endif
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-#endif
-}
-
-template <int N>
-__device__ __forceinline__ void load_vec(const float* q, float* v) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      const float4 f = *reinterpret_cast<const float4*>(q + i);
-      v[i] = f.x, v[i + 1] = f.y, v[i + 2] = f.z, v[i + 3] = f.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = q[i];
-  }
-}
 
 // The block's tile and the unit geometry, shared by the staging code.
 struct Tile {
@@ -377,17 +327,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
 }
 
 // --- planning (host) ---
-
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
 
 // tw_max: the widest strip to consider (prepare narrows it while the ring
 // costs blocks per SM)

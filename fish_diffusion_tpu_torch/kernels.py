@@ -63,11 +63,11 @@ KERNELS = {
         replaces=_TPU + "models/vocoders/source.py:92",
     ),
     "conv1d": dict(
-        id="K4", route="cuda", source=_PORT + "csrc/conv1d.cu",
+        id="K4", route="cuda", source=_PORT + "csrc/conv_fwd.cuh",
         replaces=_TPU + "ops/blocked_conv.py:84",
     ),
     "conv_transpose1d": dict(
-        id="K4", route="cuda", source=_PORT + "csrc/conv1d.cu",
+        id="K4", route="cuda", source=_PORT + "csrc/conv_fwd.cuh",
         replaces=_TPU + "models/vocoders/nsf_hifigan.py:359",
     ),
     "plms_update": dict(
@@ -103,7 +103,7 @@ KERNELS = {
         replaces=_TPU + "models/vocoders/source.py:92",
     ),
     "conv2d": dict(
-        id="K6 2-D", route="cuda", source=_PORT + "csrc/conv2d.cu",
+        id="K6 2-D", route="cuda", source=_PORT + "csrc/conv_fwd.cuh",
         replaces=_TPU + "ops/blocked_conv.py:99",
     ),
     "conv2d_transposed": dict(

@@ -10,7 +10,7 @@ arrays become function statics (blocks run one after another), each
 block's threads run as ``std::thread``s meeting at a ``std::barrier`` for
 ``__syncthreads``, and ``kernel<<<grid, block, smem, stream>>>(...)``
 becomes a call that runs the grid; a shared header (``csrc/*.cuh``) is
-inlined. The shim covers what the sources use (no warp intrinsics or
+inlined, with the headers it includes. The shim covers what the sources use (no warp intrinsics or
 tensor-core instructions); PTX sits behind ``#if defined(__CUDA_ARCH__)``
 with a plain branch, so the weight gradient's ``cp.async`` copies run as
 plain copies here. Needs ``g++`` with C++20; skips without one.
@@ -52,6 +52,7 @@ SHIM = r"""
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
 struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -122,7 +123,9 @@ _EXTERN_SHARED = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+
 
 
 def _host_source(cu: str) -> str:
-    src = _HEADER.sub(lambda m: (kernels.CSRC / m.group(1)).read_text(), cu)
+    src = cu
+    while _HEADER.search(src):  # headers include headers; each has a guard
+        src = _HEADER.sub(lambda m: (kernels.CSRC / m.group(1)).read_text(), src)
     src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
     src = src.replace("#include <cuda_bf16.h>", "")
     src = _EXTERN_SHARED.sub(
@@ -222,6 +225,23 @@ def _conv(lib, transposed, x, w_packed, bias, residual, T_out, K, stride, dil,
         (1, 256, 128, 64, 1, 32, None, True, False),  # noise conv, 49 KB smem
         (1, 24, 16, 8, 1, 4, None, False, False),    # noise conv
         (16, 1, 7, 1, 1, 3, 0.01, False, True),      # conv_post, 1-wide tile
+        # the forward core's plans: 8 chunks of 16 channels through a
+        # 3-stage ring (more chunks than stages), one chunk of 8 (fewer),
+        # two of 16 (a 2-stage ring); dilation 3 and 5 (positions a thread
+        # spaced by the dilation), k = 11 past the 8 taps a slide holds
+        (128, 64, 3, 1, 1, 1, 0.1, True, False),
+        (8, 16, 5, 1, 1, 2, None, False, False),
+        (24, 40, 7, 1, 3, 9, 0.1, True, False),
+        (64, 64, 11, 1, 5, 25, 0.1, True, False),
+        # stride 2 (the taps in two residue classes), stride 8 (eight)
+        (24, 40, 4, 2, 1, 1, None, False, False),
+        (16, 32, 16, 8, 1, 4, None, True, False),
+        # residual, tanh and slope together; widths no multiple of 4 (4-byte
+        # copies, masked channels); C_in = 1 with C_out = 1
+        (32, 16, 3, 1, 1, 1, 0.2, True, True),
+        (6, 10, 5, 1, 2, 4, 0.1, False, False),
+        (1, 1, 5, 1, 1, 2, None, True, True),
+        (20, 1, 9, 1, 2, 8, 0.1, True, False),
     ],
 )
 def test_conv1d_source(host_libs, C_in, C_out, K, stride, dil, pad, slope, res, tanh):
@@ -238,7 +258,11 @@ def test_conv1d_source(host_libs, C_in, C_out, K, stride, dil, pad, slope, res, 
     assert (got - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
 
 
-@pytest.mark.parametrize("C_in,C_out,K,u", [(96, 48, 16, 8), (32, 16, 4, 2), (4, 2, 4, 2)])
+@pytest.mark.parametrize("C_in,C_out,K,u", [
+    (96, 48, 16, 8), (32, 16, 4, 2), (4, 2, 4, 2),
+    # 3 taps a class, stride 1 (one class, taps reversed), C_out = 1, and a
+    # class count (16) past the classes' shared strip
+    (16, 8, 6, 2), (8, 12, 3, 1), (32, 1, 4, 2), (24, 20, 32, 16)])
 def test_conv_transpose1d_source(host_libs, C_in, C_out, K, u):
     """K4 transposed conv: <= 1e-4 relative to the output's scale."""
     gen = torch.Generator().manual_seed(C_in + K)
@@ -250,6 +274,93 @@ def test_conv_transpose1d_source(host_libs, C_in, C_out, K, u):
                 None, T_out, K, u, 1, pad, 0.1, False)
     ref = nsf_hifigan.conv_transpose1d_reference(x, w, b, u, pad, 0.1)
     assert (got - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("C_in,C_out,K,u,pad,extra", [
+    (16, 1, 16, 8, 4, -3), (16, 1, 16, 8, 4, 5), (24, 32, 4, 2, 1, 1), (64, 1, 128, 64, 32, 0),
+    (8, 1, 4, 2, 1, -1)])
+def test_conv_transpose1d_source_cut(host_libs, C_in, C_out, K, u, pad, extra):
+    """K4's transposed mode with its output cut or extended (``extra``
+    positions past the natural length, within the stride: torch's
+    ``output_padding``), as a strided conv's input gradient reaches it:
+    every residue class masks its own edges."""
+    gen = torch.Generator().manual_seed(C_in + K + extra)
+    x = rn(gen, 2, 29, C_in)
+    w, b = rn(gen, C_in, C_out, K, scale=(C_in * K / u) ** -0.5), rn(gen, C_out)
+    natural = (x.shape[1] - 1) * u - 2 * pad + K
+    T_out = natural + extra
+    got = _conv(host_libs["conv1d"], True, x, w.permute(2, 0, 1).contiguous(), b, None,
+                T_out, K, u, 1, pad, None, False)
+    ref = nsf_hifigan.conv_transpose1d_reference(x, w, b, u, pad, None,
+                                                 max(0, extra))[:, :T_out]
+    assert (got - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+def test_conv1d_source_bf16(host_libs):
+    """K4's bfloat16 entry (dtype 1): operands converted to float32 as
+    they land, float32 sums, one rounding on the store: within one bf16
+    rounding (2^-8 of the scale) of the plain version run in float32 on the
+    same bf16 inputs."""
+    gen = torch.Generator().manual_seed(7)
+    x = rn(gen, 2, 45, 32).bfloat16()
+    w = rn(gen, 24, 32, 11, scale=(32 * 11) ** -0.5).bfloat16()
+    b, r = rn(gen, 24).bfloat16(), rn(gen, 2, 45, 24).bfloat16()
+    out = torch.empty(2, 45, 24, dtype=torch.bfloat16)
+    w_packed = w.permute(2, 1, 0).contiguous()  # alive through the call
+    assert host_libs["conv1d"].conv1d_forward(
+        1, 0, x.data_ptr(), w_packed.data_ptr(), b.data_ptr(), r.data_ptr(), out.data_ptr(),
+        2, 45, 45, 32, 24, 11, 1, 5, 25, 0.1, 1, 0, None) == 0
+    ref = nsf_hifigan.conv1d_reference(x.float(), w.float(), b.float(), 1, 5, 25, 0.1,
+                                       r.float())
+    assert (out.float() - ref).abs().max().item() <= 2 ** -8 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("kind", ["conv1d", "conv_transpose1d", "conv2d"])
+def test_conv_fwd_source_unaligned(host_libs, kind):
+    """The forward core on views that start off a 16-byte boundary (input,
+    weights, residual, output): 4-byte copies into the same window layout
+    and scalar stores, so the result equals the aligned one bit for bit; a
+    second launch on the same inputs gives the same bits."""
+    gen = torch.Generator().manual_seed(11)
+    if kind == "conv2d":
+        x, w = rn(gen, 2, 5, 21, 32), rn(gen, 3, 9, 32, 32, scale=(32 * 27) ** -0.5)
+        lib = host_libs["conv2d"]
+
+        def fn(x_, w_, out):
+            assert lib.conv2d(0, x_.data_ptr(), w_.data_ptr(), None, out.data_ptr(), 2, 5, 21,
+                              5, 11, 32, 32, 3, 9, 1, 2, 1, 4, None) == 0
+            return out
+
+        shape, args = (2, 5, 11, 32), (x, w)
+    else:
+        transposed = kind == "conv_transpose1d"
+        x = rn(gen, 2, 40, 32)
+        w = rn(gen, 16 if transposed else 11, 32, 32, scale=(32 * 11) ** -0.5)
+        b, r = rn(gen, 32), rn(gen, 2, 320 if transposed else 40, 32)
+        lib = host_libs["conv1d"]
+        T_out = 320 if transposed else 40
+
+        def fn(x_, w_, out, r_=None):
+            assert lib.conv1d_forward(
+                0, int(transposed), x_.data_ptr(), w_.data_ptr(), b.data_ptr(),
+                None if transposed else r_.data_ptr(), out.data_ptr(), 2, 40, T_out, 32, 32,
+                16 if transposed else 11, 8 if transposed else 1, 1 if transposed else 5,
+                4 if transposed else 25, 0.1, 1, 0, None) == 0
+            return out
+
+        shape, args = (2, T_out, 32), (x, w)
+        if not transposed:
+            fn_res = fn
+            fn = lambda x_, w_, out, r_=r: fn_res(x_, w_, out, r_)  # noqa: E731
+    aligned = fn(*args, torch.full(shape, float("nan")))
+    assert torch.equal(fn(*args, torch.full(shape, float("nan"))), aligned)
+    views = [(_at_offset(args[0]), args[1]), (args[0], _at_offset(args[1]))]
+    for x_, w_ in views:
+        out = _at_offset(torch.full(shape, float("nan")))
+        assert torch.equal(fn(x_, w_, out), aligned)
+    if kind == "conv1d":
+        out = _at_offset(torch.full(shape, float("nan")))
+        assert torch.equal(fn(x, w, out, _at_offset(r)), aligned)
 
 
 def _k5(n_fft, win, double=False):
@@ -580,7 +691,12 @@ def _conv2d(lib, transposed, x, w_packed, bias, out_hw, stride, pad):
     # gives three strips of output columns, the last past the edge
     [(1, 32, (3, 9), (1, 1), (1, 4), 5, 33), (32, 32, (3, 9), (1, 2), (1, 4), 4, 17),
      (32, 32, (3, 9), (1, 2), (1, 4), 3, 12), (32, 32, (3, 3), (1, 1), (1, 1), 4, 9),
-     (32, 1, (3, 3), (1, 1), (1, 1), 6, 9), (32, 32, (3, 9), (1, 2), (1, 4), 3, 150)],
+     (32, 1, (3, 3), (1, 1), (1, 1), 6, 9), (32, 32, (3, 9), (1, 2), (1, 4), 3, 150),
+     # the forward core's 2-D tiles: many short lines a block (H = 11 at W'
+     # = 20), 12 channels (a chunk of 12, then 4-byte copies), C_in = C_out
+     # = 1, 16 -> 8 at 3 x 3 with a ragged last line tile
+     (32, 32, (3, 9), (1, 2), (1, 4), 11, 40), (12, 16, (3, 9), (1, 2), (1, 4), 4, 23),
+     (1, 1, (3, 3), (1, 1), (1, 1), 5, 12), (16, 8, (3, 3), (1, 1), (1, 1), 13, 7)],
 )
 def test_conv2d_source(host_libs, C_in, C_out, k, stride, pad, H, W):
     """K6 2-D: the direct mode against ``F.conv2d``, the input gradient

@@ -485,6 +485,62 @@ def test_weight_gradients_unaligned(gen, kind):
     torch.testing.assert_close(aligned, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
 
 
+def _forward_case(gen, kind):
+    """(fn, inputs, plain): the forward core at one of the shapes its
+    redesign targets; ``fn(*inputs)`` runs the kernel."""
+    if kind.startswith("k4_c"):  # the widest resblock convs of the vocoder pass
+        C, T = (256, 8192) if kind == "k4_c256" else (128, 16384)
+        x, r = rn(gen, 4, T, C), rn(gen, 4, T, C)
+        w, b = rn(gen, C, C, 11, scale=(C * 11) ** -0.5), rn(gen, C)
+        kw = dict(dilation=5, padding=25, in_slope=0.1)
+        return ((lambda r_, x_: nsf_hifigan.conv1d(x_, w, b, residual=r_, **kw)), (r, x),
+                nsf_hifigan.conv1d_reference(x, w, b, residual=r, **kw))
+    if kind == "k4_strided_dgrad":  # a noise conv's input gradient, the transposed mode
+        x = rn(gen, 2, 32768, 1).requires_grad_()
+        w, b = rn(gen, 128, 1, 16, scale=16 ** -0.5), rn(gen, 128)
+        gy = rn(gen, 2, 4096, 128)
+        (ref,) = torch.autograd.grad(nsf_hifigan.conv1d_reference(x, w, b, 8, 1, 4), x, gy)
+
+        def fn(g_):
+            return torch.autograd.grad(nsf_hifigan.conv1d(x, w, b, stride=8, padding=4), x, g_)[0]
+
+        return fn, (gy,), ref
+    if kind == "mrd_layer1_res0":
+        x, w, b = rn(gen, 16, 273, 513, 32), rn(gen, 32, 32, 3, 9, scale=864 ** -0.5), rn(gen, 32)
+        return ((lambda x_: blocked_conv.conv2d_nhwc(x_, w, b, (1, 2), (1, 4))), (x,),
+                blocked_conv.conv2d_nhwc_reference(x, w, b, (1, 2), (1, 4)))
+    # the stride-1 input gradients of MRD layer 0 (32 -> 1 channel) and of
+    # conv_post (1 -> 32), the direct mode with flipped taps
+    if kind == "mrd_layer0_dgrad":
+        shape, w, k, pad = (16, 273, 513, 1), rn(gen, 32, 1, 3, 9, scale=27 ** -0.5), 32, (1, 4)
+    else:
+        shape, w, k, pad = (16, 273, 65, 32), rn(gen, 1, 32, 3, 3, scale=288 ** -0.5), 1, (1, 1)
+    x = torch.zeros(shape, device="cuda", requires_grad=True)
+    gy = rn(gen, *shape[:3], k)
+    (ref,) = torch.autograd.grad(blocked_conv.conv2d_nhwc_reference(x, w, None, (1, 1), pad), x, gy)
+    return ((lambda g_: blocked_conv.conv2d_input_grad(g_, w, shape[1:3], (1, 1), pad)), (gy,),
+            ref)
+
+
+@pytest.mark.parametrize("kind", ["k4_c256", "k4_c128", "k4_strided_dgrad", "mrd_layer1_res0",
+                                  "mrd_layer0_dgrad", "mrd_post_dgrad"])
+def test_forward_convs_at_training_shapes(gen, kind):
+    """The forward core (csrc/conv_fwd.cuh) at the shapes its redesign
+    targets: NSF-HiFiGAN's widest convs (C = 256 and 128, k = 11, d = 5,
+    with the residual), a noise conv's strided input gradient through K4's
+    transposed mode, MRD layer 1 at its first resolution (batch 16 x 32768
+    samples), and layer 0's and conv_post's stride-1 input gradients:
+    within 1e-4 of the plain version's scale, a second launch bit-equal
+    (one float32 sum per output, in a fixed order), and the same bits with
+    each input at an offset (4-byte copies, scalar stores)."""
+    fn, inputs, ref = _forward_case(gen, kind)
+    got = fn(*inputs)
+    torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
+    assert torch.equal(fn(*inputs), got)
+    for i in range(len(inputs)):
+        assert torch.equal(fn(*inputs[:i], at_offset(inputs[i]), *inputs[i + 1:]), got)
+
+
 @pytest.mark.parametrize("hop", [16, 256])
 def test_comb_tooth(gen, hop):
     """K9: K3's frame-phase scan in its linear mode (<= 1e-6, both sum in
