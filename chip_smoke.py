@@ -62,7 +62,10 @@ Phases, in order; any failure raises and the script exits non-zero:
             gradient, K4's input gradient, K3 backward) against its plain
             version (K5's backward against the plain version in float64,
             the exact function), timed beside its bound and the PyTorch
-            call for the same function; ``conv1d_wgrad`` at every distinct
+            call for the same function; K6 at every launch of the step (MSD
+            layers 1, 2, 5 at the three scales, forward and input gradient:
+            63 launches, per layer and mode and summed over the step, each
+            launched twice, bit-equal); ``conv1d_wgrad`` at every distinct
             shape of the step's NSF-HiFiGAN generator backward (102 calls);
             K4 at every distinct shape of the generator's forward and input
             gradients (``conv1d.train``: every launch of the step, within
@@ -76,10 +79,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             checkpoint and a resume, the whole step against the plain
             versions (the same tolerances), then K6 2-D (forward, input
             gradient in its direct and transposed modes, weight gradient) at
-            every layer of one MRD pass (the weight gradient's ms, TFLOP/s,
-            share of its bound and cuDNN ms printed per layer and summed
-            over the pass; the forward's and the stride-1 input gradients'
-            share of their bound too, each launched twice, bit-equal),
+            every layer of one MRD pass (the weight gradient's and the
+            transposed mode's ms, TFLOP/s, share of their bound and cuDNN ms
+            printed per layer and summed over the pass and the step; the
+            forward's and the stride-1 input gradients' share of their bound
+            too, each launched twice, bit-equal),
             ``conv1d_wgrad`` at every distinct shape of the step's RefineGAN
             generator backward (104 calls), K4 at every distinct shape of
             its forward and input gradients (``conv1d.train_v2``), K9 at the
@@ -1758,6 +1762,7 @@ def measure_train_kernels(report: Report, seed: int, stft_fwd_calls, stft_calls,
     import torch
     import torch.nn.functional as F
 
+    from fish_diffusion_tpu_torch.models.discriminators import DiscriminatorS
     from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, source
     from fish_diffusion_tpu_torch.ops import blocked_conv
 
@@ -1774,19 +1779,27 @@ def measure_train_kernels(report: Report, seed: int, stft_fwd_calls, stft_calls,
         report.kernel("stft_backward", r["err"], r["ms"], r["plain"],
                       f"sum of the step's 6 calls, {shape_note}", *r["work"], r["lib"])
 
-    print("[train] K6 (grouped_conv1d) forward and input gradient, and its weight "
-          "gradient (conv1d_wgrad), at MSD scale 0 layers 1, 2, 5")
+    print("[train] K6 (grouped_conv1d) at every launch of a step: MSD layers 1, 2, 5 at the "
+          "three scales, forward (4 passes) and input gradient (3 passes); its weight gradient "
+          "(conv1d_wgrad) at scale 0")
     wgrad_parts = defaultdict(float)
-    for (x, w, b, stride, groups), _ in k6_calls[:3]:
+    k6_rows, k6_step, scale0 = [], defaultdict(float), defaultdict(float)
+    passes = {"fwd": 4, "dgrad": 3}  # D real, D fake, G real, G fake; the three with a graph
+    n_k6 = 3 * len(DiscriminatorS.K6_LAYERS)
+    for i, ((x, w, b, stride, groups), _) in enumerate(k6_calls[:n_k6]):  # one pass
+        scale, layer = divmod(i, len(DiscriminatorS.K6_LAYERS))
+        layer = DiscriminatorS.K6_LAYERS[layer]
         x, w, b = x.detach(), w.detach(), b.detach()
         K, T_in, C_out = w.shape[2], x.shape[1], w.shape[0]
+        fwd = lambda: blocked_conv.grouped_conv1d(x, w, b, stride, groups)  # noqa: E731
         with torch.no_grad():
-            out = blocked_conv.grouped_conv1d(x, w, b, stride, groups)
+            out = fwd()
             ref = blocked_conv.grouped_conv1d_reference(x, w, b, stride, groups)
-        label = f"x{list(x.shape)} -> {C_out}, s{stride} g{groups}"
-        err_f = report.compare(f"grouped_conv1d fwd {label}", out, ref, 1e-4 * max_abs(ref))
+            label = f"scale {scale} layer {layer} x{list(x.shape)} -> {C_out}, s{stride} g{groups}"
+            err_f = report.compare(f"grouped_conv1d fwd {label}", out, ref, 1e-4 * max_abs(ref))
+            check_rerun(report, f"grouped_conv1d fwd {label}", out, fwd())
         xt = x.transpose(1, 2).contiguous()
-        ms_f = timed_triple(lambda: blocked_conv.grouped_conv1d(x, w, b, stride, groups),
+        ms_f = timed_triple(fwd,
                             lambda: blocked_conv.grouped_conv1d_reference(x, w, b, stride, groups),
                             lambda: F.conv1d(xt, w, b, stride, K // 2, 1, groups))
         gy = torch.randn(out.shape, generator=gen, device=DEVICE)
@@ -1794,13 +1807,40 @@ def measure_train_kernels(report: Report, seed: int, stft_fwd_calls, stft_calls,
         xr = x.clone().requires_grad_()
         yr = blocked_conv.grouped_conv1d_reference(xr, w, b, stride, groups)
         (ref_dx,) = torch.autograd.grad(yr, xr, gy, retain_graph=True)
-        dx = blocked_conv._grouped_input_grad(gy, w, T_in, stride, groups)
+        dgrad = lambda: blocked_conv._grouped_input_grad(gy, w, T_in, stride, groups)  # noqa: E731
+        dx = dgrad()
         err_d = report.compare(f"grouped_conv1d dgrad {label}", dx, ref_dx,
                                1e-4 * max_abs(ref_dx))
+        check_rerun(report, f"grouped_conv1d dgrad {label}", dx, dgrad())
         ms_d = timed_triple(
-            lambda: blocked_conv._grouped_input_grad(gy, w, T_in, stride, groups),
-            lambda: torch.autograd.grad(yr, xr, gy, retain_graph=True),
+            dgrad, lambda: torch.autograd.grad(yr, xr, gy, retain_graph=True),
             lambda: torch.nn.grad.conv1d_input(xt.shape, w, gyt, stride, K // 2, 1, groups))
+        flops = 2 * out.numel() * w.shape[1] * K
+        io = {"fwd": nbytes(x, w, b, out), "dgrad": nbytes(gy, w, dx)}
+        for mode, (ms, plain, lib), err in (("fwd", ms_f, err_f), ("dgrad", ms_d, err_d)):
+            t_b = bound(io[mode], flops)[0]
+            print(f"    {mode} {label} x{passes[mode]} a step: kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s, {t_b / ms:.0%} of its bound {t_b:.4f}), "
+                  f"plain {plain:.4f} ms, cuDNN {lib:.4f} ms")
+            k6_rows.append(dict(scale=scale, layer=layer, mode=mode, shape=label,
+                                launches_per_step=passes[mode], max_abs_err=err, ms=ms,
+                                tflops=flops / ms / 1e9, bound_ms=t_b, share_of_bound=t_b / ms,
+                                plain_ms=plain, library_ms=lib))
+            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("bound_ms", t_b), ("gflop", flops / 1e9)):
+                k6_step[k] += passes[mode] * v
+                if scale == 0:
+                    scale0[k] += v
+        report.kernel("grouped_conv1d", max(err_f, err_d),
+                      passes["fwd"] * ms_f[0] + passes["dgrad"] * ms_d[0],
+                      passes["fwd"] * ms_f[1] + passes["dgrad"] * ms_d[1],
+                      f"every launch of a train step ({n_k6 * sum(passes.values())}): MSD layers "
+                      f"1, 2, 5 at its 3 scales, 4 forward + 3 input-gradient passes, {shape_note}",
+                      passes["fwd"] * io["fwd"] + passes["dgrad"] * io["dgrad"],
+                      sum(passes.values()) * flops,
+                      passes["fwd"] * ms_f[2] + passes["dgrad"] * ms_d[2])
+        if scale:
+            continue
         dw = blocked_conv.conv1d_wgrad(x, gy, K, stride, 1, K // 2, groups)
         ref_dw = blocked_conv.conv1d_wgrad_reference(x, gy, K, stride, 1, K // 2, groups)
         err_w = report.compare(f"conv1d_wgrad (K6) {label}", dw, ref_dw, 1e-4 * max_abs(ref_dw))
@@ -1810,19 +1850,21 @@ def measure_train_kernels(report: Report, seed: int, stft_fwd_calls, stft_calls,
             lambda: blocked_conv.conv1d_wgrad(x, gy, K, stride, 1, K // 2, groups),
             lambda: blocked_conv.conv1d_wgrad_reference(x, gy, K, stride, 1, K // 2, groups),
             lambda: torch.nn.grad.conv1d_weight(xt, w.shape, gyt, stride, K // 2, 1, groups))
-        flops = 2 * out.numel() * w.shape[1] * K
-        for tag, (ms, plain, lib) in (("fwd", ms_f), ("dgrad", ms_d), ("wgrad", ms_w)):
-            print(f"    {tag} {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-                  f"plain {plain:.4f} ms, cuDNN {lib:.4f} ms")
-        report.kernel("grouped_conv1d", max(err_f, err_d),
-                      ms_f[0] + ms_d[0], ms_f[1] + ms_d[1],
-                      f"one forward + one input gradient of MSD scale 0 layers 1, 2, 5, "
-                      f"{shape_note}", nbytes(x, w, b, out) + nbytes(gy, w, dx),
-                      2 * flops, ms_f[2] + ms_d[2])
+        print(f"    wgrad {label}: kernel {ms_w[0]:.4f} ms ({flops / ms_w[0] / 1e9:.1f} TFLOP/s), "
+              f"plain {ms_w[1]:.4f} ms, cuDNN {ms_w[2]:.4f} ms")
         wgrad_parts["K6 layers 1, 2, 5"] += ms_w[0]
         wgrad_parts["K6 layers 1, 2, 5 cuDNN"] += ms_w[2]
         report.kernel("conv1d_wgrad", err_w, ms_w[0], ms_w[1],
                       "", nbytes(x, gy, dw), flops, ms_w[2])
+    n = sum(r["launches_per_step"] for r in k6_rows)
+    print(f"  K6 over the {n} launches of one train step: kernel {k6_step['ms']:.4f} ms "
+          f"({k6_step['gflop'] / k6_step['ms']:.1f} TFLOP/s, "
+          f"{k6_step['bound_ms'] / k6_step['ms']:.0%} of its bound {k6_step['bound_ms']:.4f}), "
+          f"cuDNN {k6_step['library_ms']:.4f} ms, plain {k6_step['plain_ms']:.4f} ms; scale 0's "
+          f"forward + input gradient of layers 1, 2, 5 (one of each) {scale0['ms']:.4f} ms "
+          f"(bound {scale0['bound_ms']:.4f}, cuDNN {scale0['library_ms']:.4f})")
+    report.extra["grouped_conv1d"] = dict(by_layer=k6_rows, step=dict(launches=n, **k6_step),
+                                          scale0_fwd_dgrad=dict(scale0))
 
     print("[train] conv1d_wgrad and K4's input gradient at the k=11, d=5 resblock "
           "conv of each generator level")
@@ -2268,7 +2310,7 @@ def measure_train_v2_kernels(report: Report, seed: int, conv2d_calls, stft_calls
     one_pass = conv2d_calls[: len(conv2d_calls) // 3]  # the D phase's real pass
     print(f"[train_v2] K6 2-D at the {len(one_pass)} layers of one MRD pass "
           f"(B={TRAIN_B} x {TRAIN_SEG} samples): forward, input gradient, weight gradient")
-    parts, wgrad_rows, fwd_rows = defaultdict(float), [], []
+    parts, wgrad_rows, fwd_rows, tr_rows = defaultdict(float), [], [], []
     for i, ((x, w, b, stride, pad), _) in enumerate(one_pass):
         x, w, b = x.detach(), w.detach(), b.detach()
         stride, pad = tuple(stride), tuple(pad)
@@ -2325,6 +2367,11 @@ def measure_train_v2_kernels(report: Report, seed: int, conv2d_calls, stft_calls
             fwd_rows[-1].update(dgrad_ms=ms_d[0], dgrad_tflops=flops / ms_d[0] / 1e9,
                                 dgrad_share_of_bound=t_d / ms_d[0], dgrad_library_ms=ms_d[2],
                                 dgrad_plain_ms=ms_d[1])
+        else:
+            tr_rows.append(dict(layer=label, max_abs_err=err_d, ms=ms_d[0],
+                                tflops=flops / ms_d[0] / 1e9, bound_ms=t_d,
+                                share_of_bound=t_d / ms_d[0], plain_ms=ms_d[1],
+                                library_ms=ms_d[2]))
         note = f"sum over the {len(one_pass)} layers of one MRD pass, B={TRAIN_B} x {TRAIN_SEG}"
         report.kernel("conv2d", err_f, ms_f[0], ms_f[1],
                       f"forward {note}; with the stride-1 layers' input gradients",
@@ -2351,6 +2398,22 @@ def measure_train_v2_kernels(report: Report, seed: int, conv2d_calls, stft_calls
           f"{'no slower than' if c_ms <= c_lib else 'SLOWER than'} cuDNN")
     report.extra["conv2d"].update(by_layer=fwd_rows, pass_ms=c_ms, pass_library_ms=c_lib,
                                   pass_bound_ms=c_bound)
+    print("[train_v2] conv2d_transposed (the stride-(1, 2) layers' input gradients) by layer "
+          "(ms, TFLOP/s, share of its bound, cuDNN conv2d_input ms, plain ms):")
+    for r in tr_rows:
+        print(f"    {r['layer']}: {r['ms']:.4f} ms, {r['tflops']:.1f} TFLOP/s, "
+              f"{r['share_of_bound']:.0%} of {r['bound_ms']:.4f} ms, cuDNN {r['library_ms']:.4f}, "
+              f"plain {r['plain_ms']:.4f}")
+    t_ms, t_lib = sum(r["ms"] for r in tr_rows), sum(r["library_ms"] for r in tr_rows)
+    t_bound = sum(r["bound_ms"] for r in tr_rows)
+    mrd_passes = 3  # D real, D fake, G fake: each with its input gradients
+    print(f"  conv2d_transposed over one MRD pass ({len(tr_rows)} launches): {t_ms:.4f} ms "
+          f"({t_bound / t_ms:.0%} of its bound {t_bound:.4f}), cuDNN {t_lib:.4f} ms; a step's "
+          f"{mrd_passes * len(tr_rows)} launches {mrd_passes * t_ms:.4f} ms")
+    report.extra["conv2d_transposed"] = dict(
+        by_layer=tr_rows, pass_ms=t_ms, pass_library_ms=t_lib, pass_bound_ms=t_bound,
+        step=dict(launches=mrd_passes * len(tr_rows), ms=mrd_passes * t_ms,
+                  library_ms=mrd_passes * t_lib, bound_ms=mrd_passes * t_bound))
     print(f"[train_v2] conv2d_wgrad by layer (ms, TFLOP/s, share of its bound, cuDNN ms):")
     for r in wgrad_rows:
         print(f"    {r['layer']}: {r['ms']:.4f} ms, {r['tflops']:.1f} TFLOP/s, "

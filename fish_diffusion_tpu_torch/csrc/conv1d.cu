@@ -52,18 +52,9 @@ int conv1d(int transposed, const void* x, const void* w, const void* bias,
            const void* res, void* out, int B, int T_in, int T_out, int C_in,
            int C_out, int K, int stride, int dil, int pad, float slope,
            int has_slope, int do_tanh, cudaStream_t stream) {
-  convf::Args p{};
-  p.B = B, p.H_in = p.H_out = p.KH = p.SH = 1, p.PH = 0;
-  p.T_in = T_in, p.T_out = T_out, p.C_in = C_in, p.C_out = C_out, p.KW = K;
+  convf::Args p =
+      convf::line_args(transposed, B, T_in, T_out, C_in, C_out, K, stride, dil, pad, 1);
   p.slope = slope, p.has_slope = has_slope, p.do_tanh = do_tanh;
-  if (transposed) {
-    // class r: outputs t = u * s + r - pad read x[u - q'] * W[r + q' * s]
-    p.K = K / stride, p.S = 1, p.D = 1, p.P = K / stride - 1;
-    p.flip = 1, p.classes = stride, p.pad_t = pad;
-  } else {
-    p.K = K, p.S = stride, p.D = dil, p.P = pad;
-    p.flip = 0, p.classes = 1, p.pad_t = 0;
-  }
   return convf::run<T>((const T*)x, (const T*)w, (const T*)bias, (const T*)res, (T*)out, p,
                        stream);
 }

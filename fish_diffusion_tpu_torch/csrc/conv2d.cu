@@ -39,9 +39,14 @@
 // B=16 x 32768 samples 18.16 ms, 35% of the float32 bound, layers 1-3's
 // forward at 21-31 TFLOP/s (the first version, K4's synchronous 8-channel
 // staging with an 8 x 4 register tile, 24.71 ms; cuDNN 21.37).
-// The transposed mode (a strided layer's input gradient) keeps that first
-// design: one output residue class (h mod SH, w mod SW) per block, the
-// class's taps a stride-1 correlation.
+// The transposed mode (the stride-(1, 2) layers' input gradients, stride 1
+// in time as in every MRD layer and in blocked_apply_2d) runs the same
+// core: one residue class w mod 2 a block, a stride-1 correlation over the
+// class's 5 taps (KW padded to 10 by the wrapper) and the 3 tap rows
+// reversed. Measured (chip_smoke.py, as above): one pass's 9 launches
+// 14.14 ms, 37% of the float32 bound (the first version, one residue
+// class per block with K4's synchronous 8-channel staging and an 8 x 4
+// register tile, 18.61 ms; cuDNN's conv2d_input 48.07).
 // The weight gradient (conv2d_wgrad) is wgrad.cuh's, the same core as
 // conv1d_wgrad.cu's: the 2-D problem is the 1-D one per input row, with
 // the lines (b, h) and the KH tap rows as a second tap axis. Its bound is
@@ -64,216 +69,34 @@
 #include "conv_fwd.cuh"
 #include "wgrad.cuh"
 
-namespace {
-
-constexpr int THREADS = 256;
-
-struct Conv2dArgs {
-  int B, H_in, W_in, H_out, W_out, C_in, C_out, KH, KW, SH, SW, PH, PW;
-  int tile_w;  // output columns per tile; tile_h = positions per block / tile_w
-};
-
-// The transposed mode (a strided conv's input gradient): one output
-// residue class (h mod SH, w mod SW) per block, the class's KH / SH x
-// KW / SW taps; per class the outputs (u, v) at h = u * SH + rh - PH,
-// w = v * SW + rw - PW read x[u - qh, v - qw] * W[rh + qh * SH, rw + qw * SW].
-__host__ __device__ inline int taps_h(const Conv2dArgs& p) { return p.KH / p.SH; }
-__host__ __device__ inline int taps_w(const Conv2dArgs& p) { return p.KW / p.SW; }
-// outputs per residue class along an axis
-__host__ __device__ inline int class_len(int n_out, int s, int pad) {
-  return (n_out - 1 + pad) / s + 1;
-}
-
-template <int N>
-__device__ __forceinline__ void load_smem(const float* q, float* v) {
-  if constexpr (N == 4) {
-    const float4 f = *reinterpret_cast<const float4*>(q);
-    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = q[i];
-  }
-}
-
-// A block stages the input window of its tile (th x tw outputs of one
-// class, halo included) for 8 input channels at a time and those
-// channels' taps in shared memory, and keeps an 8 x 4 (position x channel)
-// register tile per thread (C_out = 1: 4 positions x 1 channel).
-template <int BCO, int TM, int TN>
-__global__ void __launch_bounds__(THREADS) conv2d_transposed_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ bias, float* __restrict__ out, Conv2dArgs p) {
-  extern __shared__ float smem[];
-  constexpr int BCI = 8;
-  constexpr int TX = BCO / TN;  // threads along out-channels
-  constexpr int TY = THREADS / TX;  // threads along positions
-  constexpr int BP = TY * TM;   // positions per block
-  constexpr int XS = BCI + 1;   // window stride; +1 spreads banks
-
-  const int tw = p.tile_w;
-  const int th = BP / tw;
-  const int nw = class_len(p.W_out, p.SW, p.PW);
-  const int tiles_w = (nw + tw - 1) / tw;
-  const int h0 = (blockIdx.x / tiles_w) * th;  // first u
-  const int w0 = (blockIdx.x % tiles_w) * tw;  // first v
-  const int o0 = blockIdx.y * BCO;
-  const int classes = p.SH * p.SW;
-  const int b = blockIdx.z / classes;
-  const int rh = (blockIdx.z % classes) / p.SW;
-  const int rw = (blockIdx.z % classes) % p.SW;
-  const int qh_n = taps_h(p);
-  const int qw_n = taps_w(p);
-  const int taps = qh_n * qw_n;
-  const int rows = th + qh_n - 1;
-  const int cols = tw + qw_n - 1;
-  const int lo_h = h0 - (qh_n - 1);
-  const int lo_w = w0 - (qw_n - 1);
-
-  float* xs = smem;                                  // [rows][cols][XS]
-  float* ws = smem + ((rows * cols * XS + 3) & ~3);  // [taps][BCI][BCO]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-
-  // window offset of each of the thread's positions (tap 0, channel 0)
-  int off[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int pos = ty + i * TY;
-    off[i] = ((pos / tw) * cols + pos % tw) * XS;
-  }
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  const float* xb = x + (size_t)b * p.H_in * p.W_in * p.C_in;
-
-  for (int c0 = 0; c0 < p.C_in; c0 += BCI) {
-    for (int idx = tid; idx < rows * cols * BCI; idx += THREADS) {
-      const int c = idx % BCI;
-      const int rc = idx / BCI;
-      const int gr = lo_h + rc / cols;
-      const int gc = lo_w + rc % cols;
-      xs[rc * XS + c] =
-          (gr >= 0 && gr < p.H_in && gc >= 0 && gc < p.W_in && c0 + c < p.C_in)
-              ? xb[((size_t)gr * p.W_in + gc) * p.C_in + c0 + c]
-              : 0.f;
-    }
-    for (int idx = tid; idx < taps * BCI * BCO; idx += THREADS) {
-      const int o = idx % BCO;
-      const int c = (idx / BCO) % BCI;
-      const int q = idx / (BCO * BCI);
-      const int kh = rh + (q / qw_n) * p.SH;
-      const int kw = rw + (q % qw_n) * p.SW;
-      ws[idx] = (c0 + c < p.C_in && o0 + o < p.C_out)
-                    ? w[(((size_t)kh * p.KW + kw) * p.C_in + c0 + c) * p.C_out +
-                        o0 + o]
-                    : 0.f;
-    }
-    __syncthreads();
-
-    for (int q = 0; q < taps; ++q) {
-      const int qh = q / qw_n, qw = q % qw_n;
-      // window offset of this tap, less that of tap 0
-      const int toff = ((qh_n - 1 - qh) * cols + (qw_n - 1 - qw)) * XS;
-#pragma unroll
-      for (int c = 0; c < BCI; ++c) {
-        float bv[TN];
-        load_smem<TN>(&ws[(q * BCI + c) * BCO + tx * TN], bv);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float a = xs[off[i] + toff + c];
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] += a * bv[j];
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  float* ob = out + (size_t)b * p.H_out * p.W_out * p.C_out;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int pos = ty + i * TY;
-    const int u = h0 + pos / tw, v = w0 + pos % tw;
-    const int h = u * p.SH + rh - p.PH;
-    const int ww = v * p.SW + rw - p.PW;
-    if (h < 0 || h >= p.H_out || ww < 0 || ww >= p.W_out) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int o = o0 + tx * TN + j;
-      if (o >= p.C_out) continue;
-      ob[((size_t)h * p.W_out + ww) * p.C_out + o] =
-          acc[i][j] + (bias ? bias[o] : 0.f);
-    }
-  }
-}
-
-template <int BCO, int TM, int TN>
-int launch_transposed(const float* x, const float* w, const float* bias, float* out,
-                      Conv2dArgs p, cudaStream_t stream) {
-  constexpr int BP = (THREADS / (BCO / TN)) * TM;
-  const int nh = class_len(p.H_out, p.SH, p.PH);
-  const int nw = class_len(p.W_out, p.SW, p.PW);
-  // the tile's width: the fewest columns computed past the right edge,
-  // the wider tile on a tie
-  int best = 0;
-  for (int tw = 8; tw <= 128 && tw <= BP; tw *= 2) {
-    const int waste = (nw + tw - 1) / tw * tw;
-    if (best == 0 || waste <= (nw + best - 1) / best * best) best = tw;
-  }
-  p.tile_w = best;
-  const int th = BP / best;
-  const int rows = th + taps_h(p) - 1;
-  const int cols = best + taps_w(p) - 1;
-  constexpr int XS = 8 + 1;
-  const int taps = taps_h(p) * taps_w(p);
-  const size_t smem =
-      sizeof(float) * (((rows * cols * XS + 3) & ~3) + taps * 8 * BCO);
-  auto kernel = conv2d_transposed_kernel<BCO, TM, TN>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int tiles = ((nh + th - 1) / th) * ((nw + best - 1) / best);
-  dim3 grid(tiles, (p.C_out + BCO - 1) / BCO, p.B * p.SH * p.SW);
-  kernel<<<grid, THREADS, smem, stream>>>(x, w, bias, out, p);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
 // x [B, H_in, W_in, C_in], w [KH, KW, C_in, C_out], bias [C_out] or null,
 // out [B, H_out, W_out, C_out]; float32, contiguous (the Python wrapper
-// checks). The direct mode (transposed = 0) is conv_fwd.cuh's kernel; for
-// transposed = 1 the wrapper guarantees KH % SH == 0 and KW % SW == 0.
-// Returns the cudaError_t of the launch.
+// checks). Both modes run conv_fwd.cuh's kernel. transposed = 1 takes
+// stride 1 in H (every MRD layer's) and KW % SW == 0 (the wrapper pads KW
+// with zero taps); other strides return cudaErrorInvalidValue and launch
+// nothing. Returns the cudaError_t of the launch.
 extern "C" int conv2d(int transposed, const void* x, const void* w,
                       const void* bias, void* out, int B, int H_in, int W_in,
                       int H_out, int W_out, int C_in, int C_out, int KH, int KW,
                       int SH, int SW, int PH, int PW, void* stream) {
-  const float* xp = (const float*)x;
-  const float* wp = (const float*)w;
-  const float* bp = (const float*)bias;
-  float* op = (float*)out;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (!transposed) {
-    convf::Args p{};
-    p.B = B, p.H_in = H_in, p.H_out = H_out, p.KH = KH, p.SH = SH, p.PH = PH;
-    p.T_in = W_in, p.T_out = W_out, p.C_in = C_in, p.C_out = C_out;
-    p.K = KW, p.S = SW, p.D = 1, p.P = PW, p.KW = KW;
+  convf::Args p{};
+  p.B = B, p.H_in = H_in, p.H_out = H_out, p.KH = KH, p.SH = SH, p.PH = PH;
+  p.T_in = W_in, p.T_out = W_out, p.C_in = C_in, p.C_out = C_out, p.KW = KW;
+  p.groups = 1;
+  if (transposed) {
+    if (SH != 1 || KW % SW) return (int)cudaErrorInvalidValue;
+    // rows: a correlation with the tap rows reversed, at padding KH - 1 -
+    // PH; columns: K4's transposed mode, one residue class w mod SW a block
+    // over its KW / SW taps (conv_fwd.cuh)
+    p.PH = KH - 1 - PH;
+    p.K = KW / SW, p.S = 1, p.D = 1, p.P = KW / SW - 1;
+    p.flip = 1, p.classes = SW, p.pad_t = PW;
+  } else {
+    p.K = KW, p.S = SW, p.D = 1, p.P = PW;
     p.flip = 0, p.classes = 1, p.pad_t = 0;
-    return convf::run<float>(xp, wp, bp, nullptr, op, p, s);
   }
-  Conv2dArgs p{B,  H_in, W_in, H_out, W_out, C_in, C_out, KH,
-               KW, SH,   SW,   PH,    PW,    0};
-  if (C_out > 1) return launch_transposed<32, 8, 4>(xp, wp, bp, op, p, s);
-  return launch_transposed<1, 4, 1>(xp, wp, bp, op, p, s);
+  return convf::run<float>((const float*)x, (const float*)w, (const float*)bias, nullptr,
+                           (float*)out, p, (cudaStream_t)stream);
 }
 
 namespace {

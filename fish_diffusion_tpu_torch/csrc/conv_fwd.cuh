@@ -1,12 +1,15 @@
-// The forward convolutions of the port, shared by conv1d.cu (K4: the
-// NSF-HiFiGAN / RefineGAN trunk's direct and transposed 1-D convs, and
-// their input gradients) and conv2d.cu (K6 2-D's direct mode: the MRD's
-// 2-D convs and their stride-1 input gradients). Include after
+// The forward convolutions of the port and their input gradients, shared
+// by conv1d.cu (K4: the NSF-HiFiGAN / RefineGAN trunk's direct and
+// transposed 1-D convs), conv2d.cu (K6 2-D: the MRD's 2-D convs, the
+// stride-1 layers' input gradients in the direct mode, the stride-(1, 2)
+// layers' in the transposed mode) and grouped_conv1d.cu (K6: the MSD's
+// grouped k = 41 convs and their input gradients). Include after
 // <cuda_runtime.h> and <cuda_bf16.h>.
 //
-// Replaces fish_diffusion_tpu/ops/blocked_conv.py:blocked_apply (K4) and
-// blocked_apply_2d (K6 2-D), the space-to-depth GEMMs that filled the
-// TPU's 128-lane matrix unit at 16-64 channels. One problem covers both:
+// Replaces fish_diffusion_tpu/ops/blocked_conv.py:blocked_apply (K4),
+// blocked_apply_2d (K6 2-D) and blocked_apply_grouped (K6), the
+// space-to-depth GEMMs that filled the TPU's 128-lane matrix unit at 8-64
+// channels a group. One problem covers all three:
 // the lines are (b, h) over B x H_out (1-D: H = KH = 1, the lines are the
 // batch rows), and output position u of a line reads, for tap row kh and
 // tap q, input row h * SH + kh - PH at column u * S + q * D - P:
@@ -16,19 +19,27 @@
 //
 // then tanh where asked; act is leaky-relu(slope) where has_slope, else the
 // identity; inputs outside the tensor read 0. W is packed [KH, KW, C_in,
-// C_out]. The direct conv has t(u) = u and kw(q) = q. The transposed 1-D
-// conv (torch ConvTranspose1d semantics, KW a multiple of the stride s)
-// runs one output residue class r per block: its outputs t = u * s + r -
-// pad all read the K / s taps kw = r + q' * s at input rows u - q', so it
-// is a stride-1 correlation with P = K / s - 1 and the taps taken in
-// reverse (kw(q) = r + (K / s - 1 - q) * s); the u of a class start where
-// t >= 0, so that every class has its own whole strips.
+// C_out]. The direct conv has t(u) = u and kw(q) = q. The transposed conv
+// (torch ConvTranspose semantics, KW a multiple of the stride s along the
+// line, stride 1 across lines) runs one output residue class r per block:
+// its outputs t = u * s + r - pad all read the K / s taps kw = r + q' * s
+// at input columns u - q', so it is a stride-1 correlation with P = K / s
+// - 1 and the taps taken in reverse (kw(q) = r + (K / s - 1 - q) * s); the
+// u of a class start where t >= 0, so that every class has its own whole
+// strips (the classes are ragged at odd widths). Across lines (2-D) it is
+// a correlation with the tap rows reversed (weight row KH - 1 - kh) at
+// padding KH - 1 - PH. Grouped (groups > 1, W packed [KW, C_in / groups,
+// C_out]): output o reads only group o / (C_out / groups)'s input
+// channels; a block's output tile lies in one group (BO divides C_out /
+// groups, one 8-channel lane at 8) and its chunks walk that group's
+// channels.
 //
 // Bound on an H100: float32 operations on the SIMT units (67 TFLOP/s) at
 // the wide levels (one NSF-HiFiGAN pass at B=4 x 1024 frames: ~2.6 TFLOP,
 // 80% of it at C = 128-256; one MRD pass ~0.4 TFLOP, 92% of it in the
-// stride-(1, 2) 32 -> 32 layers), memory at the narrow ones (C = 16, up to
-// 2.1 M positions a conv at B=4). Design, the weight gradient's
+// stride-(1, 2) 32 -> 32 layers, and as much again in their input
+// gradients; a vocoder training step's 63 MSD launches ~1.9 TFLOP), memory
+// at the narrow ones (C = 16, up to 2.1 M positions a conv at B=4). Design, the weight gradient's
 // (wgrad.cuh) turned around, with the reduction over input channels and
 // taps:
 // - A block owns LH lines x TW positions x BO output channels. Its threads
@@ -60,7 +71,10 @@
 // - The plan (tile, lanes, lines, strip width, BC, ring depth) is a
 //   function of the shapes and the card: a block of at least 3/4 of 256
 //   threads first (small blocks with a large ring left an SM a few warps),
-//   then the most channels a chunk and the deepest ring that fit; the tile
+//   then the most channels a chunk and the deepest ring that fit (where
+//   the weights of every tap fill a stage, as at k = 41, a 2-stage ring
+//   that holds a larger block: MSD layer 1 at scale 0 in 256-thread blocks
+//   in place of 192); the tile
 //   that launches the fewest warps (the 2-D tile spans several short lines
 //   at W' = 513 ... 33); while the grid would not fill the card once,
 //   smaller blocks and the 4 x 4 tile are weighed by a model of their time
@@ -82,7 +96,9 @@
 // (PERF.md §6). Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): 30-31
 // TFLOP/s at NSF-HiFiGAN's wide levels, one B=4 vocoder pass 90.6 ms
 // against the first version's 117.5, one MRD pass of conv2d 18.16 ms
-// against 24.71 (conv1d.cu, conv2d.cu).
+// against 24.71, its transposed mode 14.14 ms against 18.61, a vocoder
+// training step's 63 grouped launches 65.78 ms against 72.08 (conv1d.cu,
+// conv2d.cu, grouped_conv1d.cu).
 
 #ifndef FDT_CONV_FWD_CUH
 #define FDT_CONV_FWD_CUH
@@ -112,10 +128,34 @@ struct Args {
   int B, H_in, H_out, KH, SH, PH;  // 1-D: H_in = H_out = KH = SH = 1, PH = 0
   int T_in, T_out, C_in, C_out;    // columns of an input / output line
   int K, S, D, P, KW;              // taps along a line; the packed weight's KW
-  int flip, classes, pad_t;        // transposed 1-D: 1, the stride, its padding
+  int flip, classes, pad_t;        // transposed: 1, the stride along a line, its padding
+  int groups;                      // 1, or the grouped conv's groups
   float slope;
   int has_slope, do_tanh;
 };
+
+// the input channels of a group (the packed weight's channel axis)
+__host__ __device__ inline int group_in(const Args& p) { return p.C_in / p.groups; }
+
+// A 1-D problem (K4, K6 grouped): x [B, T_in, C_in], w [K, C_in / groups,
+// C_out]; the direct conv (stride, dilation, padding), or the transposed one
+// (torch ConvTranspose1d semantics, K a multiple of the stride): class r's
+// outputs t = u * s + r - pad read x[u - q'] * W[r + q' * s].
+inline Args line_args(int transposed, int B, int T_in, int T_out, int C_in, int C_out, int K,
+                      int stride, int dil, int pad, int groups) {
+  Args p{};
+  p.B = B, p.H_in = p.H_out = p.KH = p.SH = 1, p.PH = 0;
+  p.T_in = T_in, p.T_out = T_out, p.C_in = C_in, p.C_out = C_out, p.KW = K;
+  p.groups = groups;
+  if (transposed) {
+    p.K = K / stride, p.S = 1, p.D = 1, p.P = K / stride - 1;
+    p.flip = 1, p.classes = stride, p.pad_t = pad;
+  } else {
+    p.K = K, p.S = stride, p.D = dil, p.P = pad;
+    p.flip = 0, p.classes = 1, p.pad_t = 0;
+  }
+  return p;
+}
 
 // The tiling of one problem: a function of its shapes and of the card.
 struct Plan {
@@ -161,7 +201,7 @@ __host__ __device__ inline int class_len(const Args& p, int cls) {
 
 // The block's tile, decoded once.
 struct Tile {
-  int b, cls, o0, h0, u0, c0, kw0, kw_step;
+  int b, cls, o0, g, h0, u0, c0, kw0, kw_step;
 };
 
 // Walk the elements (r, c, v) of an R x C x V grid that this thread owns:
@@ -200,12 +240,12 @@ __device__ __forceinline__ void stage(const T* __restrict__ x,
   constexpr bool F32 = std::is_same<T, float>::value;
   const int row_lo = t.h0 * p.SH - p.PH;
   const int col_lo = t.u0 * p.S - p.P;
-  const T* xb = x + (size_t)t.b * p.H_in * p.T_in * p.C_in + t.c0;
+  const int ci = group_in(p);
+  const T* xb = x + (size_t)t.b * p.H_in * p.T_in * p.C_in + t.g * ci + t.c0;
   const int va = CV == 4 && q.vec_x && F32 ? 4 : 1;
   walk(q.rows, q.cols, q.BC / va, [&](int r, int c, int v) {
     const int gr = row_lo + r, gc = col_lo + c, ch = v * va;
-    const bool in = gr >= 0 && gr < p.H_in && gc >= 0 && gc < p.T_in &&
-                    t.c0 + ch < p.C_in;
+    const bool in = gr >= 0 && gr < p.H_in && gc >= 0 && gc < p.T_in && t.c0 + ch < ci;
     const T* src = in ? xb + ((size_t)gr * p.T_in + gc) * p.C_in + ch : x;
     float* dst = slot + (r * q.cols + c) * q.XS + ch;
     if constexpr (F32) {
@@ -220,15 +260,18 @@ __device__ __forceinline__ void stage(const T* __restrict__ x,
     }
   });
   // the weights: row (kh, q, c) of BO channels; a thread walks its rows
-  // keeping q and kh beside the row index
+  // keeping q and kh beside the row index. The transposed conv takes the
+  // tap rows in reverse too (a correlation over rows h + kh - (KH - 1 - PH)
+  // with weight row KH - 1 - kh)
   float* ws = slot + q.x_floats;
   const int vb = q.vec_w && F32 ? 4 : 1;
   const int per_row = q.BO / vb;
   auto copy_w = [&](int kh, int qq, int c, int o) {
     const int kw = t.kw0 + qq * t.kw_step;
-    const bool ok = t.c0 + c < p.C_in && t.o0 + o < p.C_out;
+    const int khw = p.flip ? p.KH - 1 - kh : kh;
+    const bool ok = t.c0 + c < ci && t.o0 + o < p.C_out;
     const T* src =
-        ok ? w + (((size_t)kh * p.KW + kw) * p.C_in + t.c0 + c) * p.C_out + t.o0 + o : w;
+        ok ? w + (((size_t)khw * p.KW + kw) * ci + t.c0 + c) * p.C_out + t.o0 + o : w;
     float* dst = ws + ((kh * p.K + qq) * q.BC + c) * q.BO + o;
     if constexpr (F32) {
       if (vb == 4) {
@@ -294,6 +337,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MINB) fwd_kernel(
   t.cls = bi % p.classes;
   t.b = bi / p.classes;
   t.o0 = ot * q.BO;
+  t.g = t.o0 / (p.C_out / p.groups);  // a tile lies in one group
   t.h0 = lt * q.LH;
   t.u0 = class_start(p, t.cls) + st * q.TW;
   t.kw0 = p.flip ? t.cls + (p.K - 1) * p.classes : 0;
@@ -429,7 +473,7 @@ template <int QP, int QO, int CV, int MINB>
 bool geometry(const Args& p, int lanes_max, int min_threads, int BC, int stages, Plan* q) {
   q->BC = BC;
   q->XS = CV == 1 ? 1 : BC;
-  q->chunks = cdiv(p.C_in, BC);
+  q->chunks = cdiv(group_in(p), BC);
   q->stages = stages;
   int n_max = 1;
   for (int c = 0; c < p.classes; ++c) n_max = n_max > class_len(p, c) ? n_max : class_len(p, c);
@@ -504,9 +548,11 @@ int prepare(const Args& p, int variant, Plan* q) {
   q->variant = variant;
   const int wo_max = QO == 1 ? 1 : 64 / QO;  // at most 64 output channels a block
   q->WO = cdiv(p.C_out, QO) < wo_max ? cdiv(p.C_out, QO) : wo_max;
+  if (p.groups > 1)  // BO divides a group's C_out / groups (a multiple of QO)
+    while ((p.C_out / p.groups / QO) % q->WO) --q->WO;
   q->BO = q->WO * QO;
   q->o_tiles = cdiv(p.C_out, q->BO);
-  const int c4 = cdiv(p.C_in, 4) * 4;
+  const int c4 = cdiv(group_in(p), 4) * 4;
   const int bc_max = CV == 1 ? 1 : (c4 < 16 ? c4 : 16);
   Plan best{};
   double best_cost = -1;
@@ -517,6 +563,13 @@ int prepare(const Args& p, int variant, Plan* q) {
       for (int bc = bc_max; !fit; bc = bc > 8 ? 8 : 4) {
         for (int stages = 3; stages >= 2 && !fit; --stages)
           fit = geometry<QP, QO, CV, MINB>(p, lanes, min_threads, bc, stages, q);
+        // where the weights for every tap, not the window, fill a stage (k
+        // = 41), a shallower ring if it holds a larger block
+        Plan two = *q;
+        if (fit && q->stages == 3 && q->w_floats >= q->x_floats &&
+            geometry<QP, QO, CV, MINB>(p, lanes, min_threads, bc, 2, &two) &&
+            two.threads > q->threads)
+          *q = two;
         if (bc <= 4) break;
       }
       if (fit) break;
@@ -547,8 +600,8 @@ int prepare(const Args& p, int variant, Plan* q) {
     }
     if (q->blocks >= per * sms) break;
   }
-  if (best_cost < 0) return (int)cudaErrorInvalidValue;
   *q = best;
+  q->cost = best_cost;  // < 0: no block of this tile fits
   return 0;
 }
 
@@ -568,15 +621,18 @@ int prepare(const Args& p, int variant, Plan* q) {
 #define CONVF_V3 4, 4, 4, 4
 template <typename T>
 int plan_for(const Args& p, Plan* q) {
-  if (p.C_out == 1) return prepare<T, CONVF_V2>(p, 2, q);
-  if (p.C_in == 1) return prepare<T, CONVF_V1>(p, 1, q);
-  int err = prepare<T, CONVF_V0>(p, 0, q);
+  int err = p.C_out == 1  ? prepare<T, CONVF_V2>(p, 2, q)
+            : p.C_in == 1 ? prepare<T, CONVF_V1>(p, 1, q)
+                          : prepare<T, CONVF_V0>(p, 0, q);
   if (err) return err;
-  // the small tile where it models faster (a problem that leaves SMs idle)
+  if (q->cost < 0) return (int)cudaErrorInvalidValue;
+  if (p.C_out == 1 || p.C_in == 1) return 0;
+  // the small tile where it models faster (a problem that leaves SMs idle;
+  // at k = 41 and 64 output channels its weights do not fit four blocks)
   Plan small;
   err = prepare<T, CONVF_V3>(p, 3, &small);
   if (err) return err;
-  if (small.cost < q->cost) *q = small;
+  if (small.cost >= 0 && small.cost < q->cost) *q = small;
   return 0;
 }
 
@@ -584,10 +640,10 @@ int plan_for(const Args& p, Plan* q) {
 // caller holds lock().
 template <typename T>
 int cached_plan(const Args& p, Plan* q) {
-  static std::map<std::array<int, 18>, Plan> plans;
-  const std::array<int, 18> key{p.B,  p.H_in, p.H_out, p.KH, p.SH,   p.PH,
-                                p.T_in, p.T_out, p.C_in, p.C_out, p.K, p.S,
-                                p.D,  p.P,    p.KW,    p.flip, p.classes, p.pad_t};
+  static std::map<std::array<int, 19>, Plan> plans;
+  const std::array<int, 19> key{p.B,  p.H_in, p.H_out, p.KH, p.SH,   p.PH,      p.T_in,
+                                p.T_out, p.C_in, p.C_out, p.K, p.S, p.D,       p.P,
+                                p.KW, p.flip, p.classes, p.pad_t, p.groups};
   auto it = plans.find(key);
   if (it == plans.end()) {
     Plan fresh;
@@ -620,11 +676,15 @@ inline bool aligned16(const void* ptr) {
 template <typename T>
 int run(const T* x, const T* w, const T* bias, const T* res, T* out, const Args& p,
         cudaStream_t stream) {
+  // a group's output channels are whole 8-channel tiles
+  if (p.groups < 1 || p.C_in % p.groups || p.C_out % p.groups ||
+      (p.groups > 1 && (p.C_out / p.groups) % 8))
+    return (int)cudaErrorInvalidValue;
   std::lock_guard<std::mutex> hold(lock());
   Plan q;
   int err = cached_plan<T>(p, &q);
   if (err) return err;
-  q.vec_x = p.C_in % 4 == 0 && aligned16(x);
+  q.vec_x = p.C_in % 4 == 0 && group_in(p) % 4 == 0 && aligned16(x);
   q.vec_w = p.C_out % 4 == 0 && q.BO % 4 == 0 && aligned16(w);
   q.vec_o = p.C_out % 4 == 0 && aligned16(out) && (!res || aligned16(res)) &&
             (!bias || aligned16(bias));

@@ -91,7 +91,7 @@ KERNELS = {
         replaces=_TPU + "ops/mel.py:184",
     ),
     "grouped_conv1d": dict(
-        id="K6", route="cuda", source=_PORT + "csrc/grouped_conv1d.cu",
+        id="K6", route="cuda", source=_PORT + "csrc/conv_fwd.cuh",
         replaces=_TPU + "ops/blocked_conv.py:137",
     ),
     "conv1d_wgrad": dict(
@@ -107,7 +107,7 @@ KERNELS = {
         replaces=_TPU + "ops/blocked_conv.py:99",
     ),
     "conv2d_transposed": dict(
-        id="K6 2-D", route="cuda", source=_PORT + "csrc/conv2d.cu",
+        id="K6 2-D", route="cuda", source=_PORT + "csrc/conv_fwd.cuh",
         replaces=_TPU + "ops/blocked_conv.py:99",
     ),
     "conv2d_wgrad": dict(

@@ -294,8 +294,9 @@ def _conv2d(transposed: bool, x, w_packed, bias, out_hw, stride, padding):
     (SH, SW), (PH, PW) = stride, padding
     if ci != C_in or (bias is not None and bias.shape != (C_out,)):
         raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w_packed.shape)}")
-    if transposed and (KH % SH or KW % SW):
-        raise ValueError(f"{name}: taps ({KH}, {KW}), stride ({SH}, {SW})")
+    if transposed and (SH != 1 or KW % SW):
+        raise ValueError(f"{name}: taps ({KH}, {KW}), stride ({SH}, {SW}): the "
+                         "transposed mode takes stride 1 in H and KW a multiple of SW")
     out = torch.empty((B, *out_hw, C_out), dtype=x.dtype, device=x.device)
     kernels.check(
         kernels.load_library("conv2d").conv2d(

@@ -315,23 +315,44 @@ def test_conv1d_source_bf16(host_libs):
     assert (out.float() - ref).abs().max().item() <= 2 ** -8 * ref.abs().max().item()
 
 
-@pytest.mark.parametrize("kind", ["conv1d", "conv_transpose1d", "conv2d"])
+@pytest.mark.parametrize("kind", ["conv1d", "conv_transpose1d", "conv2d", "conv2d_transposed",
+                                  "grouped", "grouped_transposed"])
 def test_conv_fwd_source_unaligned(host_libs, kind):
     """The forward core on views that start off a 16-byte boundary (input,
     weights, residual, output): 4-byte copies into the same window layout
     and scalar stores, so the result equals the aligned one bit for bit; a
-    second launch on the same inputs gives the same bits."""
+    second launch on the same inputs gives the same bits. Every mode: K4's
+    two, K6 2-D's two (MRD layer 1 and its input gradient), K6 grouped's
+    two (MSD layer 1's widths, 4 groups)."""
     gen = torch.Generator().manual_seed(11)
-    if kind == "conv2d":
-        x, w = rn(gen, 2, 5, 21, 32), rn(gen, 3, 9, 32, 32, scale=(32 * 27) ** -0.5)
+    if kind.startswith("conv2d"):
+        transposed = kind == "conv2d_transposed"
+        x = rn(gen, 2, 5, 11 if transposed else 21, 32)
+        w = rn(gen, 3, 10 if transposed else 9, 32, 32, scale=(32 * 27) ** -0.5)
         lib = host_libs["conv2d"]
+        W_in, W_out = (11, 21) if transposed else (21, 11)
 
         def fn(x_, w_, out):
-            assert lib.conv2d(0, x_.data_ptr(), w_.data_ptr(), None, out.data_ptr(), 2, 5, 21,
-                              5, 11, 32, 32, 3, 9, 1, 2, 1, 4, None) == 0
+            assert lib.conv2d(int(transposed), x_.data_ptr(), w_.data_ptr(), None,
+                              out.data_ptr(), 2, 5, W_in, 5, W_out, 32, 32, 3, w.shape[1], 1,
+                              2, 1, 4, None) == 0
             return out
 
-        shape, args = (2, 5, 11, 32), (x, w)
+        shape, args = (2, 5, W_out, 32), (x, w)
+    elif kind.startswith("grouped"):
+        transposed = kind == "grouped_transposed"
+        T_in, T_out = (23, 45) if transposed else (45, 23)
+        x, b = rn(gen, 2, T_in, 128), rn(gen, 128)
+        w = rn(gen, 42 if transposed else 41, 32, 128, scale=(32 * 41) ** -0.5)
+        lib = host_libs["grouped_conv1d"]
+
+        def fn(x_, w_, out):
+            assert lib.grouped_conv1d(int(transposed), x_.data_ptr(), w_.data_ptr(),
+                                      b.data_ptr(), out.data_ptr(), 2, T_in, T_out, 128, 128,
+                                      w.shape[0], 2, 20, 4, None) == 0
+            return out
+
+        shape, args = (2, T_out, 128), (x, w)
     else:
         transposed = kind == "conv_transpose1d"
         x = rn(gen, 2, 40, 32)
@@ -551,9 +572,14 @@ def _grouped(lib, transposed, x, w_packed, bias, T_out, stride, pad, groups):
 
 @pytest.mark.parametrize(
     "C_in,C_out,groups,stride,T",
-    # the tiles by output width per group: 8 (1024 x 8), 16, 32, 64; the
-    # transposed mode's widths are C_in / groups
-    [(16, 16, 2, 2, 21), (32, 32, 2, 2, 19), (32, 64, 2, 1, 9), (64, 128, 2, 4, 30)],
+    # output widths a group (the transposed mode's are C_in / groups) of 8
+    # (a single output-channel lane), 16, 32 and 64 at strides 1, 2 and 4;
+    # MSD layer 1's (128 -> 128 in 4 groups: the 4 x 4 tile) and layer 2's
+    # (128 -> 256 in 16: 16 wide, 8 in the transposed mode); 64 wide at
+    # stride 1, 16 chunks of 4 channels through a 2-stage ring, 4 strips
+    [(16, 16, 2, 2, 21), (32, 32, 2, 2, 19), (32, 64, 2, 1, 9), (64, 128, 2, 4, 30),
+     (128, 128, 4, 2, 45), (128, 256, 16, 2, 40), (64, 64, 8, 4, 33), (128, 128, 2, 1, 26),
+     (64, 128, 2, 2, 70)],
 )
 def test_grouped_conv1d_source(host_libs, C_in, C_out, groups, stride, T):
     """K6, k = 41: the forward against the plain grouped conv, the
@@ -561,19 +587,35 @@ def test_grouped_conv1d_source(host_libs, C_in, C_out, groups, stride, T):
     input gradient of the plain version (T = 30 at stride 4: its last
     sample lies past ``conv_transpose1d``'s natural length): <= 1e-5 of the
     output's scale."""
+    _check_grouped(host_libs["grouped_conv1d"], 1, C_in, C_out, groups, stride, T)
+
+
+@pytest.mark.parametrize(
+    "B,C_in,C_out,groups,stride,T",
+    # 8 x 8 tiles: MSD layer 1's widths over lines of 1024 outputs (a
+    # 2-stage ring of 256-thread blocks, where a 3-stage one holds 192),
+    # and 64 wide a group at stride 1
+    [(2, 128, 128, 4, 2, 2048), (8, 128, 128, 2, 1, 200)],
+)
+def test_grouped_conv1d_source_batched(host_libs, B, C_in, C_out, groups, stride, T):
+    """K6 as ``test_grouped_conv1d_source`` at batch sizes and lengths that
+    fill the emulated SMs with the 8 x 8 tile."""
+    _check_grouped(host_libs["grouped_conv1d"], B, C_in, C_out, groups, stride, T)
+
+
+def _check_grouped(lib, B, C_in, C_out, groups, stride, T):
     gen = torch.Generator().manual_seed(C_in + C_out + stride)
     K = 41
-    x = rn(gen, 1, T, C_in)
+    x = rn(gen, B, T, C_in)
     w = rn(gen, C_out, C_in // groups, K, scale=(K * C_in / groups) ** -0.5)
     b = rn(gen, C_out)
-    lib = host_libs["grouped_conv1d"]
     T_out = blocked_conv.grouped_out_len(T, stride)
     got = _grouped(lib, False, x, w.permute(2, 1, 0).contiguous(), b, T_out, stride,
                    K // 2, groups)
     ref = blocked_conv.grouped_conv1d_reference(x, w, b, stride, groups)
     assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
-    dy = rn(gen, 1, T_out, C_out)
+    dy = rn(gen, B, T_out, C_out)
     got = _grouped(lib, True, dy, blocked_conv.grouped_transposed_weight(w, stride, groups),
                    None, T, stride, K // 2, groups)
     xr = x.clone().requires_grad_()
@@ -696,7 +738,14 @@ def _conv2d(lib, transposed, x, w_packed, bias, out_hw, stride, pad):
      # = 20), 12 channels (a chunk of 12, then 4-byte copies), C_in = C_out
      # = 1, 16 -> 8 at 3 x 3 with a ragged last line tile
      (32, 32, (3, 9), (1, 2), (1, 4), 11, 40), (12, 16, (3, 9), (1, 2), (1, 4), 4, 23),
-     (1, 1, (3, 3), (1, 1), (1, 1), 5, 12), (16, 8, (3, 3), (1, 1), (1, 1), 13, 7)],
+     (1, 1, (3, 3), (1, 1), (1, 1), 5, 12), (16, 8, (3, 3), (1, 1), (1, 1), 13, 7),
+     # the transposed mode's tiles: 8 x 8 over 12 short lines and two strips
+     # (W = 150), 4 x 4 over three strips and two line tiles at odd W, 6
+     # channels (4-byte copies), row padding 0 and 2 (the tap rows reversed
+     # at padding KH - 1 - PH), a single output-channel lane
+     (32, 32, (3, 9), (1, 2), (1, 4), 12, 150), (32, 32, (3, 9), (1, 2), (1, 4), 16, 65),
+     (12, 6, (3, 9), (1, 2), (1, 4), 5, 19), (32, 16, (3, 9), (1, 2), (0, 4), 4, 25),
+     (8, 8, (3, 9), (1, 2), (2, 4), 3, 14)],
 )
 def test_conv2d_source(host_libs, C_in, C_out, k, stride, pad, H, W):
     """K6 2-D: the direct mode against ``F.conv2d``, the input gradient
@@ -738,6 +787,16 @@ def test_conv2d_source(host_libs, C_in, C_out, k, stride, pad, H, W):
                                 dw.data_ptr(), 2, H, W, *out_hw, C_in, C_out, *k, *stride,
                                 *pad, splits, None) == 0
         assert (dw - ref_dw).abs().max().item() <= 1e-5 * ref_dw.abs().max().item(), splits
+
+
+def test_conv2d_source_transposed_takes_stride_1_in_h(host_libs):
+    """The transposed mode runs stride 1 in H (every MRD layer's): a call
+    with SH = 2 returns an error and writes nothing."""
+    x, w = torch.zeros(1, 4, 5, 8), torch.zeros(2, 2, 8, 8)
+    out = torch.full((1, 8, 10, 8), float("nan"))
+    assert host_libs["conv2d"].conv2d(1, x.data_ptr(), w.data_ptr(), None, out.data_ptr(), 1, 4,
+                                      5, 8, 10, 8, 8, 2, 2, 2, 2, 0, 0, None) != 0
+    assert out.isnan().all()
 
 
 @pytest.mark.parametrize(

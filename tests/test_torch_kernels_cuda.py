@@ -292,6 +292,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(TypeError, match="float32"):
         diffusion.unipc_predict(*(rn(gen, 4, 4).double() for _ in range(4)),
                                 1.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+    # K6 2-D's transposed mode runs stride 1 in H: a strided input gradient
+    # with stride 2 there raises before any launch
+    before = kernels.LAUNCHES["conv2d_transposed"]
+    with pytest.raises(ValueError, match="stride 1 in H"):
+        blocked_conv.conv2d_input_grad(rn(gen, 2, 4, 5, 8), rn(gen, 8, 8, 3, 9), (8, 9),
+                                       (2, 2), (1, 4))
+    assert kernels.LAUNCHES["conv2d_transposed"] == before
 
 
 @pytest.mark.parametrize(
@@ -509,6 +516,29 @@ def _forward_case(gen, kind):
         x, w, b = rn(gen, 16, 273, 513, 32), rn(gen, 32, 32, 3, 9, scale=864 ** -0.5), rn(gen, 32)
         return ((lambda x_: blocked_conv.conv2d_nhwc(x_, w, b, (1, 2), (1, 4))), (x,),
                 blocked_conv.conv2d_nhwc_reference(x, w, b, (1, 2), (1, 4)))
+    if kind == "mrd_layer1_res0_dgrad":  # the transposed mode, stride (1, 2)
+        x = torch.zeros((16, 273, 513, 32), device="cuda", requires_grad=True)
+        w, gy = rn(gen, 32, 32, 3, 9, scale=864 ** -0.5), rn(gen, 16, 273, 257, 32)
+        (ref,) = torch.autograd.grad(blocked_conv.conv2d_nhwc_reference(x, w, None, (1, 2), (1, 4)),
+                                     x, gy)
+        return ((lambda g_: blocked_conv.conv2d_input_grad(g_, w, (273, 513), (1, 2), (1, 4))),
+                (gy,), ref)
+    if kind.startswith("msd_layer"):  # scale 0 of the MSD: (T_in, C_in, C_out, stride, groups)
+        T_in, C_in, C_out, stride, groups = {"1": (32768, 128, 128, 2, 4),
+                                             "2": (16384, 128, 256, 2, 16),
+                                             "5": (512, 1024, 1024, 1, 16)}[kind[9]]
+        x = rn(gen, 16, T_in, C_in)
+        w = rn(gen, C_out, C_in // groups, 41, scale=(41 * C_in / groups) ** -0.5)
+        if not kind.endswith("dgrad"):
+            b = rn(gen, C_out)
+            return ((lambda x_: blocked_conv.grouped_conv1d(x_, w, b, stride, groups)), (x,),
+                    blocked_conv.grouped_conv1d_reference(x, w, b, stride, groups))
+        x.requires_grad_()
+        out = blocked_conv.grouped_conv1d_reference(x, w, None, stride, groups)
+        gy = rn(gen, *out.shape)
+        (ref,) = torch.autograd.grad(out, x, gy)
+        return ((lambda g_: blocked_conv._grouped_input_grad(g_, w, T_in, stride, groups)), (gy,),
+                ref)
     # the stride-1 input gradients of MRD layer 0 (32 -> 1 channel) and of
     # conv_post (1 -> 32), the direct mode with flipped taps
     if kind == "mrd_layer0_dgrad":
@@ -523,13 +553,17 @@ def _forward_case(gen, kind):
 
 
 @pytest.mark.parametrize("kind", ["k4_c256", "k4_c128", "k4_strided_dgrad", "mrd_layer1_res0",
-                                  "mrd_layer0_dgrad", "mrd_post_dgrad"])
+                                  "mrd_layer0_dgrad", "mrd_post_dgrad", "mrd_layer1_res0_dgrad",
+                                  "msd_layer1", "msd_layer1_dgrad", "msd_layer2",
+                                  "msd_layer2_dgrad", "msd_layer5", "msd_layer5_dgrad"])
 def test_forward_convs_at_training_shapes(gen, kind):
-    """The forward core (csrc/conv_fwd.cuh) at the shapes its redesign
-    targets: NSF-HiFiGAN's widest convs (C = 256 and 128, k = 11, d = 5,
+    """The forward core (csrc/conv_fwd.cuh) at the shapes of a training
+    step: NSF-HiFiGAN's widest convs (C = 256 and 128, k = 11, d = 5,
     with the residual), a noise conv's strided input gradient through K4's
     transposed mode, MRD layer 1 at its first resolution (batch 16 x 32768
-    samples), and layer 0's and conv_post's stride-1 input gradients:
+    samples) and its input gradient (K6 2-D's transposed mode), layer 0's
+    and conv_post's stride-1 input gradients, and MSD scale 0's grouped
+    layers 1, 2 and 5, forward and input gradient (K6's transposed mode):
     within 1e-4 of the plain version's scale, a second launch bit-equal
     (one float32 sum per output, in a fixed order), and the same bits with
     each input at an offset (4-byte copies, scalar stores)."""
