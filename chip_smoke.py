@@ -15,7 +15,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             3.35 TB/s and the float32 operations it needs over 67 TFLOP/s)
             and, where one PyTorch call computes the same function, that
             call's time; K5 (an FFT) at n_fft 2048 and at the key shifts'
-            2299 and 1933 (Bluestein), and at B=1 over a segment; K4 at
+            2299 and 1933 (Bluestein), and at B=1 over a segment, and
+            past shared memory (the four-step split path: n_fft 6000 in
+            float64, forward and backward, n_fft 16384 in float32); K4 at
             every shape of one vocoder pass (TFLOP/s, share of its bound,
             cuDNN's convolution alone, a rerun bit-equal; summed by level
             into ``conv1d.pass_by_level``); then the whole 20-block
@@ -44,6 +46,27 @@ Phases, in order; any failure raises and the script exits non-zero:
             K8 pYIN and K8 CREPE held against their plain versions on the
             requests' own inputs (paths and path scores identical), timed
             beside their bound, chip-wide and on one SM.
+   diffusion_train: (after istft_net) ``DiffusionTrainer.fit`` on
+            ``configs/svc_hubert_soft.py`` at full width (WaveNet 20 x 512,
+            batch 20 x 512 frames, float32, warmup-cosine AdamW, clip 0.5)
+            over a synthetic SVC dataset: 12 steps (seconds per step and
+            mel frames per second over the last 10, the ``wall_*``
+            breakdown, peak memory, exact K1 launches per step), validation
+            (loss, UniPC at interval 100, both mels vocoded by a random
+            NSF-HiFiGAN) and a checkpoint at steps 6 and 12, a resume for 2
+            more steps; 3 steps under ``torch.profiler`` (device time by
+            kernel, idle share); the whole step through the kernels against
+            the plain step (loss within 1e-5 relative; the backward through
+            K1's kernels against the plain backward on one forward, every
+            gradient within 1e-4 relative L2; the whole step's gradients
+            within max(1e-4, 3 x the plain step's own move under mel x
+            (1 + d)), the median of six paired comparisons, since the
+            denoiser's ReLUs flip under float32 differences); K1's training
+            kernels at the step's inputs for each dilation against their
+            plain versions (1e-4 of scale, bit-equal on rerun, timed beside
+            their bound; one block's forward and backward against torch
+            autograd of the plain block), and K1's weight gradients through
+            ``conv1d_wgrad``.
 5. train:   ``VocoderTrainer.fit`` on ``configs/vocoder_nsf_hifigan.py`` at
             full width (NSF-HiFiGAN 512, MPD 2/3/5/7/11, 3-scale MSD, batch
             16 x 32768, float32) over a synthetic dataset: 2 warm-up and 6
@@ -114,7 +137,8 @@ Each phase prints its wall time.
 The line before the last is a JSON object with one entry per kernel (its
 ``launches`` count the first path that runs it: the file-to-file path for
 the serving kernels, the pitch path for K8 dense, the istft_net path for
-K5 istft, the training runs, the align phase for K7;
+K5 istft, the vocoder training runs, the diffusion_train path for K1's
+training kernels, the align phase for K7;
 ``launches_by_path`` every path; K5's and K8-cand's times are those of
 the shallow request's own calls, with their B=4 times under ``batch4``; K8
 dense's those of one request's three calls); the last line is
@@ -585,6 +609,8 @@ def phase_kernels_stft_viterbi(report: Report, seed: int):
     import torch
     import torch.nn.functional as F
 
+    from fish_diffusion_tpu_torch.ops import mel
+
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
 
     def padded(y, n_fft):
@@ -612,6 +638,39 @@ def phase_kernels_stft_viterbi(report: Report, seed: int):
         r = measure_stft(report, padded(y1, 2048), 2048, HOP, 2048,
                          f"B=1 {seconds:.2f} s", timed=False)
         report.kernel("stft_magnitude", r["err"], 0.0, 0.0)
+
+    # the sizes shared memory does not hold (the split path: four-step FFTs
+    # through device memory), which the kernel once refused
+    print("[kernels] K5 past shared memory: n_fft 6000 in float64 (Bluestein, L 16384), "
+          "forward and backward; n_fft 16384 in float32, forward; B=2 x 4 s")
+    split = {}
+    y2 = torch.randn((2, 4 * SR), generator=gen, device=DEVICE) * 0.3
+    for n_fft, exact in ((6000, True), (16384, False)):
+        yp = padded(y2, n_fft)
+        fwd = lambda: mel.stft_magnitude(yp, n_fft, HOP, n_fft, exact=exact)  # noqa: E731
+        ref_fwd = lambda: mel.stft_magnitude_reference(  # noqa: E731
+            yp.double() if exact else yp, n_fft, HOP, n_fft)
+        got, ref = fwd(), ref_fwd()
+        label = f"stft_magnitude n_fft={n_fft} {'float64' if exact else 'float32'}"
+        err = report.compare(label, got.double(), ref.double(), 1e-5 * max_abs(ref))
+        ms, plain, _ = timed_triple(fwd, ref_fwd, iters=3)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+        print(f"    kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        if exact:
+            g = torch.randn(got.shape, generator=gen, device=DEVICE)
+            bwd = lambda: mel.stft_backward(g, yp, n_fft, HOP, n_fft)  # noqa: E731
+            ref_bwd = lambda: mel.stft_backward_reference(  # noqa: E731
+                g.double(), yp.double(), n_fft, HOP, n_fft)
+            got_g, ref_g = bwd(), ref_bwd()
+            row["backward_max_abs_err"] = report.compare(
+                f"stft_backward n_fft={n_fft} float64", got_g.double(), ref_g,
+                1e-5 * max_abs(ref_g))
+            row["backward_ms"], row["backward_plain_ms"], _ = timed_triple(bwd, ref_bwd,
+                                                                           iters=3)
+            print(f"    backward: kernel {row['backward_ms']:.4f} ms, plain "
+                  f"{row['backward_plain_ms']:.4f} ms")
+        split[f"n_fft {n_fft}"] = row
+    report.extra.setdefault("stft_magnitude", {})["split_path"] = split
 
     print(f"[kernels] K8-cand candidate Viterbi, B={B} T={T} K=4")
     freqs = torch.rand((B, T, 4), generator=gen, device=DEVICE) * 1050 + 50
@@ -2566,6 +2625,465 @@ def phase_train_sine(report: Report, seed: int):
     return launches, totals
 
 
+# The diffusion training phase: configs/svc_hubert_soft.py at full width,
+# batch 20 x 512 frames (the config's batch, bucketed), float32
+DIFF_B, DIFF_FRAMES = 20, (400, 512)
+DIFF_WARM, DIFF_TIMED = 2, 10
+# K1's launches in one training step of the 20-block WaveNet: the training
+# forward, the output product, both backward kernels, and two weight
+# gradients a block (dW_conv at K = 3, dW_out at K = 1)
+DIFF_LAUNCHES = {"wavenet_gate_train": 20, "wavenet_out": 20, "wavenet_gate_backward": 20,
+                 "wavenet_input_backward": 20, "conv1d_wgrad": 40}
+
+
+def make_svc_dataset(rng, root: Path):
+    """60 training and 4 validation items of 400-512 frames in the SVC
+    preprocessing contract (``.npy`` dicts): mel [128, T] in [-5, 0],
+    contents [256, T], pitches [T] at 80-600 Hz, key_shift 0, time_stretch 1."""
+    for split, n in (("train", 60), ("valid", 4)):
+        (root / split).mkdir(parents=True)
+        for i in range(n):
+            T = int(rng.integers(DIFF_FRAMES[0], DIFF_FRAMES[1] + 1))
+            np.save(root / split / f"{i}.npy", {
+                "path": f"{split}/{i}.wav", "time_stretch": 1.0, "key_shift": 0.0,
+                "mel": rng.uniform(-5, 0, (MEL, T)).astype(np.float32),
+                "contents": rng.standard_normal((256, T)).astype(np.float32),
+                "pitches": rng.uniform(80, 600, T).astype(np.float32)})
+
+
+def phase_diffusion_train(report: Report, seed: int):
+    """The eleventh slice's path: ``DiffusionTrainer.fit`` on
+    ``configs/svc_hubert_soft.py`` at full width (WaveNet 20 x 512, batch 20
+    x 512 frames, float32, the config's warmup-cosine AdamW and clip 0.5)
+    over a synthetic dataset: 12 steps with validation (one batch: its loss,
+    UniPC at interval 100, both mels vocoded by a random NSF-HiFiGAN) and a
+    checkpoint at steps 6 and 12, exact K1 launches every step; a resume
+    for 2 more steps; the whole step (loss and every gradient) through the
+    kernels against the plain step on the same parameters, batch, t and
+    noise; then K1's training kernels at the step's shapes for each
+    dilation against their plain versions, timed, bit-equal on rerun, and
+    K1's weight gradients through ``conv1d_wgrad``."""
+    import torch
+
+    from fish_diffusion_tpu_torch import kernels
+    from fish_diffusion_tpu_torch.config import Config
+    from fish_diffusion_tpu_torch.datasets.loader import build_loader
+    from fish_diffusion_tpu_torch.models import wavenet
+    from fish_diffusion_tpu_torch.ops import blocked_conv
+    from fish_diffusion_tpu_torch.training.diffusion_state import batch_to_device, model_kwargs
+    from fish_diffusion_tpu_torch.training.diffusion_trainer import DiffusionTrainer
+
+    say = "[diffusion_train]"
+    rng = np.random.default_rng(seed + 60)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_diffusion_"))
+    make_svc_dataset(rng, tmp / "data")
+    cfg = Config.fromfile(ROOT / "configs" / "svc_hubert_soft.py")
+    cfg.trainer.update(precision="32-true", max_steps=DIFF_WARM + DIFF_TIMED,
+                       val_check_interval=(DIFF_WARM + DIFF_TIMED) // 2, limit_val_batches=1,
+                       val_sampler_interval=100, log_every_n_steps=1)
+    cfg.model["vocoder"] = dict(type="NsfHifiGAN", random_init=True, seed=seed + 61,
+                                sampling_rate=SR, mel_channels=MEL, use_natural_log=False)
+    cfg.dataset.train["path"] = str(tmp / "data" / "train")
+    cfg.dataset.valid["path"] = str(tmp / "data" / "valid")
+    # the loaders read in this process (no worker processes to stop)
+    loader = build_loader(cfg.dataset.train, {**cfg.dataloader.train, "num_workers": 0})
+    valid = build_loader(cfg.dataset.valid, {**cfg.dataloader.valid, "num_workers": 0})
+    assert cfg.dataloader.train.batch_size == DIFF_B
+    den = cfg.model.diffusion.denoiser
+    print(f"{say} configs/svc_hubert_soft.py: WaveNet {den.residual_layers} x "
+          f"{den.residual_channels} (dilation cycle {den.dilation_cycle}), noise loss "
+          f"{cfg.model.diffusion.noise_loss!r}, batch {DIFF_B} x {DIFF_FRAMES[0]}-"
+          f"{DIFF_FRAMES[1]} frames (bucketed to 512), float32, clip "
+          f"{cfg.trainer.gradient_clip_val}, {len(loader)} steps per epoch")
+
+    t0 = time.perf_counter()
+    trainer = DiffusionTrainer(cfg, log_dir=str(tmp / "logs"), steps_per_epoch=len(loader),
+                               device=DEVICE)
+    print(f"{say} trainer built in {time.perf_counter() - t0:.1f} s")
+    expected = {name: 0 for name in kernels.LAUNCHES}
+    expected.update(DIFF_LAUNCHES)
+    step_fn = trainer._train_step
+    steps, peak, shapes = [], {}, []
+
+    def timed_step(state, batch, generator):
+        if len(steps) == DIFF_WARM:
+            torch.cuda.reset_peak_memory_stats()
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        state, metrics = step_fn(state, batch, generator)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t_step
+        shapes.append(tuple(batch["mel"].shape))
+        steps.append((seconds, {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES},
+                      {k: float(v) for k, v in metrics.items()}))
+        if len(steps) == DIFF_WARM + DIFF_TIMED:
+            peak["bytes"] = torch.cuda.max_memory_allocated()
+        return state, metrics
+
+    trainer._train_step = timed_step
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state = trainer.fit(loader, valid, seed=seed)
+    torch.cuda.synchronize()
+    fit_seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    trainer._train_step = step_fn
+
+    secs = [s for s, _, _ in steps[DIFF_WARM:]]
+    median = statistics.median(secs)
+    frames = DIFF_B * 512
+    print(f"{say} fit: {len(steps)} steps + 2 validations + 2 checkpoints in "
+          f"{fit_seconds:.1f} s; steps {DIFF_WARM + 1}-{DIFF_WARM + DIFF_TIMED}: median "
+          f"{median:.4f} s per step (min {min(secs):.4f}, max {max(secs):.4f}), "
+          f"{frames / median:.0f} mel frames trained per s (batch {shapes[-1]}), "
+          f"{1 / median:.3f} steps/s")
+    wall = trainer.last_wall_breakdown
+    print(f"{say} wall breakdown: " + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
+    print(f"{say} peak device memory over the timed steps {peak['bytes'] / 2**30:.2f} GiB")
+    for i, (s, grew, metrics) in enumerate(steps):
+        ok = (grew == expected and all(np.isfinite(v) for v in metrics.values())
+              and shapes[i] == (DIFF_B, 512, MEL))
+        print(f"  step {i + 1}: {s:.4f} s, " + ", ".join(f"{k} {v:.5f}" for k, v in
+                                                        metrics.items())
+              + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            print(f"    launches {({k: v for k, v in grew.items() if v})}, "
+                  f"expected {({k: v for k, v in expected.items() if v})}, batch {shapes[i]}")
+            report.failures.append(f"diffusion_train step {i + 1}")
+    print(f"{say} launches per step: {DIFF_LAUNCHES} (every step exactly)")
+    rows = [json.loads(line) for line in open(tmp / "logs" / "metrics.jsonl")]
+    val = [(r["step"], r["valid_loss"]) for r in rows if "valid_loss" in r]
+    wavs = sorted(p.name for p in (tmp / "logs").glob("*.wav"))
+    mels = sorted(p.name for p in (tmp / "logs").glob("*.npy"))
+    ckpts = trainer.ckpt.all_steps()
+    print(f"{say} validation loss {val}; {len(wavs)} wav files, {len(mels)} mel files; "
+          f"checkpoints at steps {ckpts}")
+    if (state.step != DIFF_WARM + DIFF_TIMED or len(val) != 2
+            or not all(np.isfinite(v) for _, v in val) or len(wavs) != 8 or len(mels) != 8
+            or ckpts != [6, 12]):
+        report.failures.append("diffusion_train fit / validation / checkpoints")
+    for name, n in DIFF_LAUNCHES.items():
+        if launches[name] <= 0:
+            report.failures.append(f"{name} never launched on the diffusion_train path")
+
+    # resume from the checkpoint of the last step, for two more steps
+    saved = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    totals_profile = profile_steps(state, step_fn, batch_to_device(next(iter(loader)), DEVICE),
+                                   seed)
+    cfg.trainer["max_steps"] = DIFF_WARM + DIFF_TIMED + 2
+    resumed = DiffusionTrainer(cfg, log_dir=str(tmp / "logs"), steps_per_epoch=len(loader),
+                               device=DEVICE)
+    restored = resumed.ckpt.restore(resumed.init_state(seed + 1))
+    same = all(torch.equal(v.cpu(), saved[k]) for k, v in restored.model.state_dict().items())
+    count = restored.optimizer.count
+    after = resumed.fit(loader, valid, resume=True, seed=seed)
+    ok = same and count == DIFF_WARM + DIFF_TIMED and after.step == DIFF_WARM + DIFF_TIMED + 2
+    print(f"{say} resume: checkpoint of step {DIFF_WARM + DIFF_TIMED} restored (parameters "
+          f"{'identical' if same else 'DIFFER'}, {count} updates), two more steps -> step "
+          f"{after.step} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        report.failures.append("diffusion_train resume")
+    del resumed, restored, after
+    torch.cuda.empty_cache()
+
+    # the whole step, through the kernels and through every plain version,
+    # from the same parameters, batch, t and noise
+    model = state.model
+    batch = batch_to_device(next(iter(loader)), DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 62)
+    t = torch.randint(0, cfg.model.diffusion.timesteps, (DIFF_B,), generator=gen, device=DEVICE)
+    noise = torch.randn(batch["mel"].shape, generator=gen, device=DEVICE)
+    plain_fns = {
+        (wavenet, "residual_gate_train"): wavenet.residual_gate_train_reference,
+        (wavenet, "residual_out"): wavenet.residual_out_reference,
+        (wavenet, "residual_gate_backward"): wavenet.residual_gate_backward_reference,
+        (wavenet, "residual_input_backward"): wavenet.residual_input_backward_reference,
+        (blocked_conv, "conv1d_wgrad"): blocked_conv.conv1d_wgrad_reference,
+    }
+
+    def one_step(swaps, order=None, mel_scale=1.0):
+        """Loss, gradients and launches of one step from the same state;
+        ``order`` permutes the batch's items (the same function, its sums
+        over the batch taken in another order); ``mel_scale`` scales the
+        mel."""
+        b, tt, nn_ = batch, t, noise
+        if order is not None:
+            b = {k: v[order] for k, v in batch.items()}
+            tt, nn_ = t[order], noise[order]
+        b = {**b, "mel": b["mel"] * mel_scale}
+        model.zero_grad(set_to_none=True)
+        kernels.reset_launches()
+        with plain_path(swaps):
+            loss = model(**model_kwargs(b), t=tt, noise=nn_)["loss"]
+            loss.backward()
+        torch.cuda.synchronize()
+        return (float(loss.detach()),
+                {k: p.grad.detach().clone() for k, p in model.named_parameters()},
+                dict(kernels.LAUNCHES))
+
+    def rel_l2(got, ref):
+        return {k: float((got[k] - ref[k]).double().norm() / ref[k].double().norm())
+                for k in ref if float(ref[k].abs().max()) > 0}
+
+    def summary(d):
+        k = max(d, key=d.get)
+        return f"median {statistics.median(d.values()):.2e}, max {d[k]:.2e} ({k})"
+
+    recorders = [recording(wavenet, "residual_gate_train", key=lambda a, kw: a[5]),
+                 recording(wavenet, "residual_gate_backward", key=lambda a, kw: 0),
+                 recording(wavenet, "residual_input_backward", key=lambda a, kw: a[3]),
+                 recording(blocked_conv, "conv1d_wgrad")]
+    for r in recorders:
+        r.start()
+    try:
+        loss_k, g_k, launched_k = one_step({})
+    finally:
+        for r in recorders:
+            r.stop()
+    loss_p, g_p, launched_p = one_step(plain_fns)
+    if any(launched_p.values()):
+        report.failures.append(f"diffusion_train: plain step launched kernels: {launched_p}")
+    if {k: v for k, v in launched_k.items() if v} != DIFF_LAUNCHES:
+        report.failures.append(f"diffusion_train: kernel step launched {launched_k}")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"{say} whole step, kernels vs plain: loss {loss_k:.7f} vs {loss_p:.7f}, relative "
+          f"{rel:.2e} (tol 1e-5) {'ok' if rel <= 1e-5 else 'FAIL'}")
+    if not rel <= 1e-5:
+        report.failures.append(f"diffusion_train step loss vs plain: {rel:.2e}")
+    zero = [k for k in g_p if float(g_p[k].abs().max()) == 0]
+    if any(float(g_k[k].abs().max()) != 0 for k in zero):
+        report.failures.append("diffusion_train: a gradient that is 0 in the plain step is not")
+
+    # (1) K1's backward alone: the same forward (K1's kernels), the backward
+    # through its kernels against the backward through the plain versions.
+    # Both differentiate one forward, so every ReLU mask and every saved
+    # tensor are the same: the gradients may differ by rounding only.
+    backward_plain = {key: fn for key, fn in plain_fns.items()
+                      if key[1] not in ("residual_gate_train", "residual_out")}
+    _, g_h, launched_h = one_step(backward_plain)
+    l2_bwd = rel_l2(g_k, g_h)
+    bad = [k for k, v in l2_bwd.items() if not v <= 1e-4]
+    print(f"{say} whole step, the backward through K1's kernels vs through the plain versions "
+          f"(one forward, K1's): every gradient's relative L2 (tol 1e-4): {summary(l2_bwd)} "
+          f"over {len(l2_bwd)} tensors ({len(zero)} all-zero in both) "
+          f"{'ok' if not bad else 'FAIL'}")
+    if bad or launched_h["wavenet_gate_train"] != 20 or launched_h["wavenet_gate_backward"]:
+        report.failures.append(f"diffusion_train backward vs plain backward: {bad[:5]}")
+
+    # (2) the whole step, kernels vs plain. The denoiser has ReLUs (after the
+    # input and the skip projections): the forwards' float32 differences
+    # can flip a unit within ~1e-6 of 0, and a flip moves one row's
+    # gradient, which reaches every parameter through the skip path (~1e-3
+    # relative L2 on every tensor, seen at some states and not others). The
+    # floor is the plain step's own move when its mel changes by a relative
+    # 1e-6 to 3e-6 (FLOOR_SCALES); the gate reads, for each tensor, the
+    # median of six paired comparisons, kernels vs plain at mel x (1 + d),
+    # d = 0 and FLOOR_SCALES, against 1e-4 or 3 x the largest move,
+    # whichever is larger. The plain step with its batch reversed (the same
+    # function, its sums in another order) shows the rounding without
+    # flips.
+    l2 = rel_l2(g_k, g_p)
+    moves = {k: 0.0 for k in l2}
+    paired = {k: [v] for k, v in l2.items()}
+    for d in FLOOR_SCALES:
+        _, g_d, _ = one_step(plain_fns, mel_scale=1.0 + d)
+        _, g_kd, _ = one_step({}, mel_scale=1.0 + d)
+        for k, v in rel_l2(g_d, g_p).items():
+            moves[k] = max(moves[k], v)
+        for k, v in rel_l2(g_kd, g_d).items():
+            paired[k].append(v)
+        del g_d, g_kd
+    order = torch.arange(DIFF_B - 1, -1, -1, device=DEVICE)
+    _, g_q, _ = one_step(plain_fns, order)
+    reordered = rel_l2(g_q, g_p)
+    del g_q
+    held = {k: statistics.median(v) for k, v in paired.items()}
+    tol = {k: max(1e-4, 3 * moves[k]) for k in l2}
+    ratio = {k: held[k] / tol[k] for k in l2}
+    bad = [k for k in l2 if not held[k] <= tol[k]]
+    print(f"{say} whole step, every parameter's gradient, relative L2 kernels vs plain: at "
+          f"d = 0 {summary(l2)}; the median of the six pairs {summary(held)}; the plain "
+          f"step's own under mel x (1 + d): {summary(moves)}; tol max(1e-4, 3 x that), the "
+          f"median over it {summary(ratio)} {'ok' if not bad else 'FAIL'}")
+    print(f"{say} the plain step with its batch reversed (rounding without flips): "
+          f"{summary(reordered)}")
+    if bad:
+        report.failures.append(f"diffusion_train step gradients vs plain: {bad[:5]}")
+    totals = {
+        "diffusion_train_step_s_median": median, "diffusion_train_step_s": secs,
+        "diffusion_train_frames_per_s": frames / median,
+        "diffusion_train_peak_gib": peak["bytes"] / 2**30,
+        "diffusion_train_wall": wall, "diffusion_train_losses_last": steps[-1][2],
+        "diffusion_train_launches_per_step": DIFF_LAUNCHES,
+        "diffusion_train_profile": totals_profile,
+        "diffusion_train_step_vs_plain": {
+            "loss_rel": rel, "backward_rel_l2_max": max(l2_bwd.values()),
+            "backward_rel_l2_median": statistics.median(l2_bwd.values()),
+            "grad_rel_l2_max": max(l2.values()),
+            "grad_rel_l2_median": statistics.median(l2.values()),
+            "grad_rel_l2_paired_median_max": max(held.values()),
+            "plain_move_rel_l2_max": max(moves.values()),
+            "plain_move_rel_l2_median": statistics.median(moves.values()),
+            "held_over_tol_max": max(ratio.values()),
+            "reordered_rel_l2_max": max(reordered.values())},
+    }
+    del g_k, g_p, g_h
+    model.zero_grad(set_to_none=True)
+    measure_k1_training(report, {r.name: r.calls for r in recorders}, totals)
+    report.extra.setdefault("conv1d_wgrad", {})["diffusion_train"] = measure_wgrad_calls(
+        report, recorders[3].calls, "diffusion_train (K1 dW)")
+    report.finish("diffusion_train")
+    return launches, totals
+
+
+def profile_steps(state, step_fn, batch, seed: int, n: int = 3) -> dict:
+    """``n`` training steps under ``torch.profiler``: the device time by
+    kernel (per step), the device's busy time and its idle share of the
+    window's wall time. Returns them, or ``{"device": "not measured"}``
+    when the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 63)
+    state, _ = step_fn(state, batch, gen)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:  # the kernels, not the ops that launch them
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        if dev > 0:
+            rows.append((dev / 1e3 / n, e.count // n, e.key))
+    if not rows:
+        print("[diffusion_train] profile: the trace holds no device time (not measured)")
+        return {"device": "not measured"}
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"[diffusion_train] profile of {n} steps (torch.profiler): device busy "
+          f"{busy:.2f} ms a step of {wall / n * 1e3:.2f} ms wall (idle share "
+          f"{1 - busy / (wall / n * 1e3):.3f}); device ms a step by kernel:")
+    for ms, count, name in rows[:14]:
+        print(f"    {ms:8.3f} ms  x{count:<4d} {name[:90]}")
+    return {"busy_ms_per_step": busy, "wall_ms_per_step": wall / n * 1e3,
+            "idle_share": 1 - busy / (wall / n * 1e3),
+            "top": [(name[:90], ms, count) for ms, count, name in rows[:14]]}
+
+
+def measure_k1_training(report: Report, calls: dict, totals: dict):
+    """K1's training kernels at the step's recorded inputs (B=20 x 512 x
+    512), for each dilation: within 1e-4 of the plain version's scale, a
+    rerun bit-equal, CUDA-event times of kernel and plain beside the bound,
+    summed over a step's launches (5 blocks a dilation); and one block's
+    forward and backward through the kernels against torch autograd of the
+    plain block (the cuBLAS composition; no one PyTorch call computes it)."""
+    import torch
+
+    from fish_diffusion_tpu_torch.models import wavenet
+
+    print("[diffusion_train] K1's training kernels at the step's inputs (B=20 T=512 R=512)")
+    per_block = {}
+    for d, (args, _, count) in sorted(calls["residual_gate_train"].items()):
+        x, step, cond, w_conv, b_conv, _ = (a.detach() if torch.is_tensor(a) else a
+                                            for a in args)
+        B_, T_, R_ = x.shape
+        M = B_ * T_
+        with torch.no_grad():
+            fn = lambda: wavenet.residual_gate_train(x, step, cond, w_conv, b_conv, d)  # noqa: E731
+            ref_fn = lambda: wavenet.residual_gate_train_reference(  # noqa: E731
+                x, step, cond, w_conv, b_conv, d)
+            (g, z), (ref_g, ref_z) = fn(), ref_fn()
+            label = f"wavenet_gate_train d={d}"
+            err = max(report.compare(f"{label} g", g, ref_g, 1e-4 * max_abs(ref_g)),
+                      report.compare(f"{label} z", z, ref_z, 1e-4 * max_abs(ref_z)))
+            again = fn()
+            check_rerun(report, label, torch.cat([g.flatten(), z.flatten()]),
+                        torch.cat([again[0].flatten(), again[1].flatten()]))
+            ms, plain, _ = timed_triple(fn, ref_fn)
+        flops = 2 * M * 3 * R_ * 2 * R_
+        work = (nbytes(x, step, cond, w_conv, b_conv, g, z), flops)
+        t_bound = bound(*work)[0]
+        print(f"    x{count}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{t_bound / ms:.0%} of its bound {t_bound:.4f}), plain {plain:.4f} ms")
+        report.kernel("wavenet_gate_train", err, ms * count, plain * count,
+                      "a step's 20 launches, B=20 T=512 R=512", work[0] * count, flops * count)
+        per_block[d] = (x, step, cond, w_conv, b_conv)
+
+    (dx_out, dskip_out, z, w_out), _, count = calls["residual_gate_backward"][0]
+    dx_out, dskip_out, z, w_out = (a.detach() for a in (dx_out, dskip_out, z, w_out))
+    M, R_ = dx_out.shape[0] * dx_out.shape[1], dx_out.shape[2]
+    with torch.no_grad():
+        fn = lambda: wavenet.residual_gate_backward(dx_out, dskip_out, z, w_out)  # noqa: E731
+        ref_fn = lambda: wavenet.residual_gate_backward_reference(  # noqa: E731
+            dx_out, dskip_out, z, w_out)
+        got, ref = fn(), ref_fn()
+        err = report.compare("wavenet_gate_backward", got, ref, 1e-4 * max_abs(ref))
+        check_rerun(report, "wavenet_gate_backward", got, fn())
+        ms, plain, _ = timed_triple(fn, ref_fn)
+    flops = 2 * M * 2 * R_ * R_
+    work = (nbytes(dx_out, dskip_out, z, w_out, got), flops)
+    t_bound = bound(*work)[0]
+    print(f"    wavenet_gate_backward x{count}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s, {t_bound / ms:.0%} of its bound {t_bound:.4f}), plain {plain:.4f} ms")
+    report.kernel("wavenet_gate_backward", err, ms * count, plain * count,
+                  "a step's 20 launches, B=20 T=512 R=512", work[0] * count, flops * count)
+
+    for d, (args, _, count) in sorted(calls["residual_input_backward"].items()):
+        dz, dxo, w_conv, _ = (a.detach() if torch.is_tensor(a) else a for a in args)
+        with torch.no_grad():
+            fn = lambda: wavenet.residual_input_backward(dz, dxo, w_conv, d)  # noqa: E731
+            ref_fn = lambda: wavenet.residual_input_backward_reference(  # noqa: E731
+                dz, dxo, w_conv, d)
+            (dx, ds), (ref_dx, ref_ds) = fn(), ref_fn()
+            label = f"wavenet_input_backward d={d}"
+            err = max(report.compare(f"{label} dx", dx, ref_dx, 1e-4 * max_abs(ref_dx)),
+                      report.compare(f"{label} ds", ds, ref_ds, 1e-4 * max_abs(ref_ds)))
+            again = fn()
+            check_rerun(report, label, torch.cat([dx.flatten(), ds.flatten()]),
+                        torch.cat([again[0].flatten(), again[1].flatten()]))
+            ms, plain, _ = timed_triple(fn, ref_fn)
+        flops = 2 * M * 6 * R_ * R_
+        work = (nbytes(dz, dxo, w_conv, dx, ds), flops)
+        t_bound = bound(*work)[0]
+        print(f"    x{count}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{t_bound / ms:.0%} of its bound {t_bound:.4f}), plain {plain:.4f} ms")
+        report.kernel("wavenet_input_backward", err, ms * count, plain * count,
+                      "a step's 20 launches, B=20 T=512 R=512", work[0] * count, flops * count)
+
+    # one block forward and backward: K1's kernels (conv1d_wgrad included)
+    # against torch autograd of the plain block, at each dilation
+    block = {}
+    for d, (x, step, cond, w_conv, b_conv) in per_block.items():
+        skip = torch.zeros_like(x)
+        b_out = torch.zeros(2 * R_, device=x.device)
+        leaves = [t.clone().requires_grad_(True) for t in (x, skip, step, cond, w_conv, b_conv,
+                                                            w_out, b_out)]
+
+        def fwd_bwd(fn):
+            def run():
+                for leaf in leaves:
+                    leaf.grad = None
+                torch.autograd.backward(fn(*leaves, d), (dx_out, dskip_out))
+            return run
+
+        ms = cuda_ms(fwd_bwd(wavenet.ResidualBlockFunction.apply), iters=5)
+        plain = cuda_ms(fwd_bwd(wavenet.residual_block_reference), iters=5)
+        block[d] = {"kernels_ms": ms, "plain_autograd_ms": plain}
+        print(f"    one block forward + backward, d={d}: K1's kernels {ms:.3f} ms, torch "
+              f"autograd of the plain block (cuBLAS) {plain:.3f} ms")
+    totals["diffusion_train_block_fwd_bwd"] = block
+    report.extra.setdefault("wavenet_gate_backward", {})["block_fwd_bwd"] = block
+
+
 def phase_align(report: Report, seed: int):
     """The sixth slice's alignment op: K7 at GlowTTS/VITS alignment shapes
     (B=32, T_y 1000 mel frames, T_x 200 text positions, lengths drawn per
@@ -2680,6 +3198,10 @@ def main() -> int:
     istft_launches = timed_phase("istft_net", phase_istft_net, engine, args.seed)
     del engine
     torch.cuda.empty_cache()
+    diff_launches, diff_train = timed_phase("diffusion_train", phase_diffusion_train,
+                                            args.seed)
+    totals.update(diff_train)
+    torch.cuda.empty_cache()
     train_launches, train = timed_phase("train", phase_train, args.seed)
     totals.update(train)
     torch.cuda.empty_cache()
@@ -2693,14 +3215,15 @@ def main() -> int:
 
     by_path = {"file": launches, "pitch": pitch_launches, "istft_net": istft_launches,
                "train": train_launches, "train_v2": v2_launches, "train_sine": sine_launches,
-               "align": align_launches}
+               "diffusion_train": diff_launches, "align": align_launches}
     entries = []
     for name, meta in kernels.KERNELS.items():
         k = report.kernels[name]
         # a kernel's launches on the first path that runs it: the
         # file-to-file path for the serving kernels, the pitch path for K8
-        # dense, the iSTFTNet path for K5 istft, the training runs (NSF-
-        # HiFiGAN, RefineGAN comb, RefineGAN sine), then alignment for K7
+        # dense, the iSTFTNet path for K5 istft, the vocoder training runs
+        # (NSF-HiFiGAN, RefineGAN comb, RefineGAN sine), the diffusion
+        # training for K1's training kernels, then alignment for K7
         path = next((p for p, counts in by_path.items() if counts[name]), None)
         if path is None:
             raise SystemExit(f"chip_smoke: {name} was launched on no path")

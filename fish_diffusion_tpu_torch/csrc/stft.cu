@@ -1,5 +1,6 @@
 // K5: the STFT magnitude (stft_magnitude) and its backward (stft_backward)
-// as FFTs in shared memory, for any n_fft up to 8192.
+// as FFTs in shared memory, and, where the FFT does not fit there, as
+// four-step FFTs through device memory (any n_fft up to 2^21).
 //
 // The forward replaces fish_diffusion_tpu/ops/mel.py:_stft_conv /
 // _stft_conv_fwd, which stacked hop-sized blocks of the signal into a frame
@@ -63,6 +64,25 @@
 // of 1e-3 of their scale and more: a training step's spectra are
 // therefore exact in both directions. In float64 the shared memory
 // doubles, so Bluestein sizes stop at L = 8192 (n_fft 4096).
+//
+// Lengths that do not fit in shared memory (the exact float64 transforms of
+// L > 8192, so Bluestein above n_fft 4096; the float32 forward of a power
+// of two above 8192) take the split path (stft_magnitude_split,
+// stft_backward_split): the FFT of L = L1 L2 points as the four-step
+// algorithm through a scratch buffer [pairs, L] in device memory. Transform
+// A (natural order in): each of the L2 columns (stride L2) an L1-point FFT,
+// times W_L^(n2 k1), then each row an L2-point FFT, which leaves X[k1 + L1
+// k2] at k1 L2 + k2. Transform B takes that order in and gives the natural
+// order out: each row an L2-point FFT times W_L^(n1 m2), then each column
+// an L1-point FFT. A power of two runs A and reads X[k] at (k mod L1) L2 +
+// k / L1; Bluestein runs A, the pointwise product with the filter spectrum
+// (indexed by the element each position holds), then B. Each column or
+// row is one block running the shared-memory Stockham core on its L1 or L2
+// <= 2048 points, with that length's twiddles (every L2-th or L1-th entry
+// of the L-point table) staged in shared memory. The loads, the spectra's
+// split into magnitudes, the backward's spectrum gradient and its frames
+// are one block per pair of frames, as in the shared-memory kernels, with
+// the same scales; the overlap-add is the same gather.
 //
 // Tables built on the host in float64 (ops/mel.py _fft_tables), cast to
 // float32 for the forward: the padded window (float32 values, as the plain
@@ -586,6 +606,272 @@ bool valid(int n_fft, int L) {
          && (L == n_fft || L >= 2 * n_fft - 1);
 }
 
+// ---------------------------------------------------------------------------
+// The split path: four-step FFTs through device memory
+// ---------------------------------------------------------------------------
+
+constexpr int MAX_SUB = 2048;        // the largest L1 or L2
+constexpr int SPLIT_T = 512;         // threads of the per-pair kernels
+constexpr int MAX_L_SPLIT = MAX_SUB * MAX_SUB;
+
+// the position of X[k] after transform A
+__host__ __device__ __forceinline__ size_t pos_a(int k, int L1, int L2) {
+  return (size_t)(k % L1) * L2 + k / L1;
+}
+
+// One L1-point FFT of column c (stride L2) or one L2-point FFT of row r of
+// pair blockIdx.x's buffer, in place; optionally times W_L^(line * k) after.
+// Shared memory: the padded buffer, then the S-point twiddles.
+template <class T, bool COLUMN, bool TWIDDLE>
+__global__ void __launch_bounds__(MAX_SUB / 8) split_pass(
+    cplx<T>* __restrict__ work, const cplx<T>* __restrict__ tw, int L1, int L2) {
+  extern __shared__ float smem_split[];
+  const int S = COLUMN ? L1 : L2;
+  cplx<T>* buf = reinterpret_cast<cplx<T>*>(smem_split);
+  cplx<T>* tws = buf + buf_size(S);
+  const int L = L1 * L2;
+  const int line = blockIdx.y;
+  cplx<T>* base = work + (size_t)blockIdx.x * L + (COLUMN ? line : (size_t)line * L2);
+  const size_t stride = COLUMN ? L2 : 1;
+  const int tw_stride = L / S;
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    buf[pad(i)] = base[i * stride];
+    tws[i] = tw[(size_t)i * tw_stride];
+  }
+  __syncthreads();
+  fft<8>(buf, S, tws);
+  for (int k = threadIdx.x; k < S; k += blockDim.x) {
+    cplx<T> v = buf[pad(k)];
+    if (TWIDDLE) v = cmul(v, tw[(size_t)line * k]);
+    base[k * stride] = v;
+  }
+}
+
+// Pointwise conj(X[k] filt[k]) over the pairs' buffers after transform A
+// (position p holds X[p / L2 + L1 (p mod L2)]).
+template <class T>
+__global__ void split_filter(cplx<T>* __restrict__ work, const cplx<T>* __restrict__ filt,
+                             int L1, int L2, size_t total) {
+  const size_t L = (size_t)L1 * L2;
+  const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const size_t p = i % L;
+  const int k = (int)(p / L2) + L1 * (int)(p % L2);
+  work[i] = cconj(cmul(work[i], filt[k]));
+}
+
+// The N-point DFT of what a pair's buffer held (after the transforms),
+// element k: transposed order for a power of two, natural for Bluestein
+// (with the output chirp).
+template <class T>
+__device__ __forceinline__ cplx<T> split_spectrum(const cplx<T>* buf, int k,
+                                                  const cplx<T>* __restrict__ chirp,
+                                                  int L1, int L2) {
+  if (chirp) return cmul(chirp[k], cconj(buf[k]));
+  return buf[pos_a(k, L1, L2)];
+}
+
+// Frames f and f + 1 of pair (blockIdx.x, batch item blockIdx.y), windowed,
+// each divided by a power of two above its own peak (scales), chirped for
+// Bluestein, zero-padded to L, into the pair's buffer in natural order.
+template <class T>
+__global__ void __launch_bounds__(SPLIT_T) split_load(
+    const float* __restrict__ y, const float* __restrict__ window,
+    const cplx<T>* __restrict__ chirp, cplx<T>* __restrict__ work,
+    cplx<T>* __restrict__ scales, int T_pad, int N, int L, int hop, int F) {
+  __shared__ cplx<T> red[SPLIT_T + 32];
+  const int pairs = (F + 1) / 2;
+  const int f = 2 * blockIdx.x;
+  const bool second = f + 1 < F;
+  const size_t pi = (size_t)blockIdx.y * pairs + blockIdx.x;
+  const float* y0 = y + (size_t)blockIdx.y * T_pad + (size_t)f * hop;
+  const float* y1 = y0 + hop;
+  cplx<T> m = {0, 0};
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const T w = (T)window[n];
+    m = {tmax(m.x, tabs(w * (T)y0[n])), second ? tmax(m.y, tabs(w * (T)y1[n])) : m.y};
+  }
+  m = block_max(m, red);
+  cplx<T> scale, inv;
+  pow2_above(m.x, scale.x, inv.x);
+  pow2_above(m.y, scale.y, inv.y);
+  if (threadIdx.x == 0) scales[pi] = scale;
+  cplx<T>* buf = work + pi * L;
+  for (int n = threadIdx.x; n < L; n += blockDim.x) {
+    cplx<T> v = {0, 0};
+    if (n < N) {
+      const T w = (T)window[n];
+      v = {w * (T)y0[n] * inv.x, second ? w * (T)y1[n] * inv.y : (T)0};
+      if (chirp) v = cmul(v, chirp[n]);
+    }
+    buf[n] = v;
+  }
+}
+
+// The two frames' spectra at bin k of pair pi, times their scales.
+template <class T>
+__device__ __forceinline__ void split_split(const cplx<T>* buf, int k, int N,
+                                            const cplx<T>* __restrict__ chirp, int L1, int L2,
+                                            cplx<T> scale, cplx<T>& xf, cplx<T>& xg) {
+  const cplx<T> zk = split_spectrum(buf, k, chirp, L1, L2);
+  const cplx<T> zm = split_spectrum(buf, k == 0 ? 0 : N - k, chirp, L1, L2);
+  const T hf = (T)0.5 * scale.x, hg = (T)0.5 * scale.y;
+  xf = {hf * (zk.x + zm.x), hf * (zk.y - zm.y)};
+  xg = {hg * (zk.y + zm.y), hg * (zm.x - zk.x)};
+}
+
+template <class T>
+__global__ void __launch_bounds__(SPLIT_T) split_magnitude(
+    const cplx<T>* __restrict__ work, const cplx<T>* __restrict__ chirp,
+    const cplx<T>* __restrict__ scales, float* __restrict__ out, int N, int L1, int L2,
+    int F) {
+  const int pairs = (F + 1) / 2;
+  const int f = 2 * blockIdx.x;
+  const bool second = f + 1 < F;
+  const size_t pi = (size_t)blockIdx.y * pairs + blockIdx.x;
+  const int bins = N / 2 + 1;
+  const cplx<T>* buf = work + pi * ((size_t)L1 * L2);
+  float* ob = out + (size_t)blockIdx.y * bins * F + f;
+  for (int k = threadIdx.x; k < bins; k += blockDim.x) {
+    cplx<T> xf, xg;
+    split_split(buf, k, N, chirp, L1, L2, scales[pi], xf, xg);
+    ob[(size_t)k * F] = (float)tsqrt(xf.x * xf.x + xf.y * xf.y + (T)EPS);
+    if (second) ob[(size_t)k * F + 1] = (float)tsqrt(xg.x * xg.x + xg.y * xg.y + (T)EPS);
+  }
+}
+
+// The spectrum gradients G = g X / |X| of pair pi's two frames at bin k.
+__device__ __forceinline__ void split_grad(const cd* buf, const float* __restrict__ g, int k,
+                                           int N, const cd* __restrict__ chirp, int L1, int L2,
+                                           cd scale, size_t gi, int F, bool second, cd& gf,
+                                           cd& gg) {
+  cd xf, xg;
+  split_split(buf, k, N, chirp, L1, L2, scale, xf, xg);
+  gf = cscale(xf, (double)g[gi + (size_t)k * F] / tsqrt(xf.x * xf.x + xf.y * xf.y + EPS));
+  gg = second ? cscale(xg, (double)g[gi + (size_t)k * F + 1]
+                               / tsqrt(xg.x * xg.x + xg.y * xg.y + EPS))
+              : cd{0, 0};
+}
+
+// The backward's inverse input: conj(Q), Q = H_f / gs.x + i H_{f+1} / gs.y
+// (the Hermitian spectra of the two frames' gradients, each scaled to its
+// own peak), chirped for Bluestein, zero-padded, into work2 in natural order.
+__global__ void __launch_bounds__(SPLIT_T) split_grad_spectrum(
+    const cd* __restrict__ work, const float* __restrict__ g, const cd* __restrict__ chirp,
+    const cd* __restrict__ scales, cd* __restrict__ work2, cd* __restrict__ gscales, int N,
+    int L1, int L2, int F) {
+  __shared__ cd red[SPLIT_T + 32];
+  const int pairs = (F + 1) / 2;
+  const int f = 2 * blockIdx.x;
+  const bool second = f + 1 < F;
+  const size_t pi = (size_t)blockIdx.y * pairs + blockIdx.x;
+  const int bins = N / 2 + 1;
+  const int L = L1 * L2;
+  const cd* buf = work + pi * L;
+  const size_t gi = (size_t)blockIdx.y * bins * F + f;
+  const cd scale = scales[pi];
+  cd m = {0, 0};
+  for (int k = threadIdx.x; k < bins; k += blockDim.x) {
+    cd gf, gg;
+    split_grad(buf, g, k, N, chirp, L1, L2, scale, gi, F, second, gf, gg);
+    m = {tmax(m.x, tmax(tabs(gf.x), tabs(gf.y))), tmax(m.y, tmax(tabs(gg.x), tabs(gg.y)))};
+  }
+  m = block_max(m, red);
+  cd gs, inv;
+  pow2_above(m.x, gs.x, inv.x);
+  pow2_above(m.y, gs.y, inv.y);
+  if (threadIdx.x == 0) gscales[pi] = gs;
+  cd* out = work2 + pi * L;
+  for (int k = threadIdx.x; k < bins; k += blockDim.x) {
+    cd gf, gg;
+    split_grad(buf, g, k, N, chirp, L1, L2, scale, gi, F, second, gf, gg);
+    gf = cscale(gf, inv.x);
+    gg = cscale(gg, inv.y);
+    if (k == 0 || 2 * k == N) {
+      cd q = {gf.x, -gg.x};
+      if (chirp) q = cmul(q, chirp[k]);
+      out[k] = q;
+    } else {
+      cd q = {0.5 * (gf.x - gg.y), -0.5 * (gf.y + gg.x)};
+      cd qm = {0.5 * (gf.x + gg.y), 0.5 * (gf.y - gg.x)};
+      if (chirp) {
+        q = cmul(q, chirp[k]);
+        qm = cmul(qm, chirp[N - k]);
+      }
+      out[k] = q;
+      out[N - k] = qm;
+    }
+  }
+  for (int n = N + threadIdx.x; n < L; n += blockDim.x) out[n] = {0, 0};
+}
+
+// Each frame's gradient w[n] gs Re / -Im of the inverse, into frames
+// [B, F, N].
+__global__ void __launch_bounds__(SPLIT_T) split_frames(
+    const cd* __restrict__ work2, const cd* __restrict__ chirp,
+    const float* __restrict__ window, const cd* __restrict__ gscales,
+    float* __restrict__ frames, int N, int L1, int L2, int F) {
+  const int pairs = (F + 1) / 2;
+  const int f = 2 * blockIdx.x;
+  const bool second = f + 1 < F;
+  const size_t pi = (size_t)blockIdx.y * pairs + blockIdx.x;
+  const cd* buf = work2 + pi * ((size_t)L1 * L2);
+  const cd gs = gscales[pi];
+  float* out0 = frames + ((size_t)blockIdx.y * F + f) * N;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const cd r = split_spectrum(buf, n, chirp, L1, L2);
+    const double w = window[n];
+    out0[n] = (float)(w * gs.x * r.x);
+    if (second) out0[N + n] = (float)(-w * gs.y * r.y);
+  }
+}
+
+// The L-point transform of every pair's buffer: A, or for Bluestein A,
+// the filter, then B. Returns the cudaError_t of the launches.
+template <class T>
+int split_transform(cplx<T>* work, const cplx<T>* tw, const cplx<T>* filt, int pairs, int L1,
+                    int L2, cudaStream_t s) {
+  static bool done[4] = {false, false, false, false};
+  allow_smem(split_pass<T, true, true>, done[0]);
+  allow_smem(split_pass<T, false, false>, done[1]);
+  allow_smem(split_pass<T, false, true>, done[2]);
+  allow_smem(split_pass<T, true, false>, done[3]);
+  const dim3 cols(pairs, L2), rows(pairs, L1);
+  const int t1 = L1 / 8 < 64 ? 64 : L1 / 8, t2 = L2 / 8 < 64 ? 64 : L2 / 8;
+  const int s1 = (buf_size(L1) + L1) * (int)sizeof(cplx<T>);
+  const int s2 = (buf_size(L2) + L2) * (int)sizeof(cplx<T>);
+  split_pass<T, true, true><<<cols, t1, s1, s>>>(work, tw, L1, L2);
+  split_pass<T, false, false><<<rows, t2, s2, s>>>(work, tw, L1, L2);
+  if (filt) {
+    const size_t total = (size_t)pairs * L1 * L2;
+    const int blocks = (int)((total + 255) / 256);
+    split_filter<T><<<blocks, 256, 0, s>>>(work, filt, L1, L2, total);
+    split_pass<T, false, true><<<rows, t2, s2, s>>>(work, tw, L1, L2);
+    split_pass<T, true, false><<<cols, t1, s1, s>>>(work, tw, L1, L2);
+  }
+  return (int)cudaGetLastError();
+}
+
+bool split_valid(int n_fft, int L, int L1) {
+  return n_fft >= 1 && L >= n_fft && (L & (L - 1)) == 0 && L <= MAX_L_SPLIT
+         && (L == n_fft || L >= 2 * n_fft - 1) && L1 >= 1 && (L1 & (L1 - 1)) == 0
+         && L % L1 == 0 && L1 <= MAX_SUB && L / L1 <= MAX_SUB;
+}
+
+template <class T>
+int split_forward(const float* y, const float* window, const cplx<T>* tw,
+                  const cplx<T>* chirp, const cplx<T>* filt, cplx<T>* work, cplx<T>* scales,
+                  float* out, int B, int T_pad, int N, int L, int L1, int hop, int F,
+                  cudaStream_t s) {
+  const int pairs = (F + 1) / 2;
+  const dim3 grid(pairs, B);
+  split_load<T><<<grid, SPLIT_T, 0, s>>>(y, window, chirp, work, scales, T_pad, N, L, hop, F);
+  const int err = split_transform<T>(work, tw, filt, pairs * B, L1, L / L1, s);
+  if (err != 0) return err;
+  split_magnitude<T><<<grid, SPLIT_T, 0, s>>>(work, chirp, scales, out, N, L1, L / L1, F);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // y [B, T_pad]; window [n_fft]; twiddle [L] complex; chirp [n_fft] and filt
@@ -677,6 +963,71 @@ extern "C" int stft_backward(const void* g, const void* y, const void* window,
   if (err != 0) return err;
   const dim3 grid2((T_pad + OLA_THREADS - 1) / OLA_THREADS, B);
   overlap_add<<<grid2, OLA_THREADS, 0, s>>>(fr, (float*)grad, T_pad, n_fft,
+                                            hop, F);
+  return (int)cudaGetLastError();
+}
+
+// 1 when stft_magnitude (elem 8: float32 tables), stft_magnitude_f64 and
+// stft_backward (elem 16) take (n_fft, L) in shared memory, else 0: then
+// the *_split entries do.
+extern "C" int stft_fits_shared(int n_fft, int L, int elem) {
+  const Geometry geo = geometry(n_fft, L, elem);
+  return valid(n_fft, L) && geo.smem <= MAX_SMEM && (elem == (int)sizeof(cf) || L <= 16 * MID_T);
+}
+
+// stft_magnitude (double = 0: float32 tables) or stft_magnitude_f64
+// (double = 1: float64 tables) on the split path, L = L1 x (L / L1), both
+// at most 2048. work [B, (F + 1) / 2, L] and scales [B, (F + 1) / 2]
+// complex of the tables' type are scratch. Returns the cudaError_t of the
+// launches, or cudaErrorInvalidValue for a split the kernels do not take.
+extern "C" int stft_magnitude_split(const void* y, const void* window, const void* twiddle,
+                                    const void* chirp, const void* filt, void* work,
+                                    void* scales, void* out, int B, int T_pad, int n_fft,
+                                    int L, int L1, int hop, int F, int is_double,
+                                    void* stream) {
+  if (!split_valid(n_fft, L, L1)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_double)
+    return split_forward<double>((const float*)y, (const float*)window, (const cd*)twiddle,
+                                 (const cd*)chirp, (const cd*)filt, (cd*)work, (cd*)scales,
+                                 (float*)out, B, T_pad, n_fft, L, L1, hop, F, s);
+  return split_forward<float>((const float*)y, (const float*)window, (const cf*)twiddle,
+                              (const cf*)chirp, (const cf*)filt, (cf*)work, (cf*)scales,
+                              (float*)out, B, T_pad, n_fft, L, L1, hop, F, s);
+}
+
+// stft_backward on the split path (float64 tables): work and work2
+// [B, (F + 1) / 2, L], scales and gscales [B, (F + 1) / 2] complex float64
+// are scratch; frames and grad as for stft_backward.
+extern "C" int stft_backward_split(const void* g, const void* y, const void* window,
+                                   const void* twiddle, const void* chirp, const void* filt,
+                                   void* work, void* work2, void* scales, void* gscales,
+                                   void* frames, void* grad, int B, int T_pad, int n_fft,
+                                   int L, int L1, int hop, int F, void* stream) {
+  if (!split_valid(n_fft, L, L1)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int pairs = (F + 1) / 2;
+  const int L2 = L / L1;
+  const cd* tw = (const cd*)twiddle;
+  const cd* cp = (const cd*)chirp;
+  const cd* fp = (const cd*)filt;
+  cd* w1 = (cd*)work;
+  cd* w2 = (cd*)work2;
+  const dim3 grid(pairs, B);
+  split_load<double><<<grid, SPLIT_T, 0, s>>>((const float*)y, (const float*)window, cp, w1,
+                                              (cd*)scales, T_pad, n_fft, L, hop, F);
+  int err = split_transform<double>(w1, tw, fp, pairs * B, L1, L2, s);
+  if (err != 0) return err;
+  split_grad_spectrum<<<grid, SPLIT_T, 0, s>>>(w1, (const float*)g, cp, (const cd*)scales, w2,
+                                               (cd*)gscales, n_fft, L1, L2, F);
+  err = split_transform<double>(w2, tw, fp, pairs * B, L1, L2, s);
+  if (err != 0) return err;
+  split_frames<<<grid, SPLIT_T, 0, s>>>(w2, cp, (const float*)window, (const cd*)gscales,
+                                        (float*)frames, n_fft, L1, L2, F);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const dim3 grid2((T_pad + OLA_THREADS - 1) / OLA_THREADS, B);
+  overlap_add<<<grid2, OLA_THREADS, 0, s>>>((const float*)frames, (float*)grad, T_pad, n_fft,
                                             hop, F);
   return (int)cudaGetLastError();
 }

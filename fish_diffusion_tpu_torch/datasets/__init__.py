@@ -1,5 +1,7 @@
-"""Training data: the vocoder dataset, registered in ``DATASETS``."""
+"""Training data, registered in ``DATASETS``: the vocoder's and the SVC
+model's ``.npy`` datasets, and ``ConcatDataset``."""
 
-from .naive import NaiveDataset, NaiveVOCODERDataset
+from .naive import NaiveDataset, NaiveSVCDataset, NaiveVOCODERDataset
+from .wrappers import ConcatDataset
 
-__all__ = ["NaiveDataset", "NaiveVOCODERDataset"]
+__all__ = ["ConcatDataset", "NaiveDataset", "NaiveSVCDataset", "NaiveVOCODERDataset"]

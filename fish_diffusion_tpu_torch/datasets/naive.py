@@ -1,8 +1,10 @@
-"""The vocoder's training data (``fish_diffusion_tpu/datasets/naive.py``):
-one ``.npy`` file per clip holding a pickled dict ``{path, audio, pitches,
-sampling_rate}`` (the preprocessing contract). The files are the
-repository's own preprocessing output, so ``np.load(allow_pickle=True)``
-reads only what this program wrote."""
+"""Training data (``fish_diffusion_tpu/datasets/naive.py``): one ``.npy``
+file per clip holding a pickled dict (the preprocessing contract): the
+vocoder's ``{path, audio, pitches, sampling_rate}``, the SVC model's
+``{path, mel [M, T], contents [C, T], pitches [T], key_shift,
+time_stretch}``. Every item carries the dataset's ``speaker_id``. The
+files are the repository's own preprocessing output, so
+``np.load(allow_pickle=True)`` reads only what this program wrote."""
 
 from __future__ import annotations
 
@@ -19,8 +21,9 @@ class NaiveDataset:
     collating_pipeline: list = []
     bucket = DEFAULT_BUCKET
 
-    def __init__(self, path="dataset"):
+    def __init__(self, path="dataset", speaker_id=0):
         self.paths = list_files(path, {".npy"})
+        self.speaker_id = speaker_id
         if not self.paths:
             raise FileNotFoundError(f"No files found in {path}, check your path.")
 
@@ -29,6 +32,7 @@ class NaiveDataset:
 
     def get_item(self, idx):
         x = np.load(self.paths[idx], allow_pickle=True).item()
+        x["speaker"] = self.speaker_id
         return transform_pipeline(self.processing_pipeline, x)
 
     def __getitem__(self, idx):
@@ -42,6 +46,27 @@ class NaiveDataset:
     def collate_fn(cls, data):
         data = [x for x in data if x is not None]
         return transform_pipeline(cls.collating_pipeline, data, bucket=cls.bucket)
+
+
+@DATASETS.register_module()
+class NaiveSVCDataset(NaiveDataset):
+    """SVC training items: mel and contents time-major [T, C], padded to a
+    bucket of 128 frames in a batch; pitches [B, T, 1]; key_shift and
+    time_stretch [B, 1]; speaker [B]."""
+
+    processing_pipeline = [
+        dict(type="PickKeys", keys=["path", "time_stretch", "mel", "contents", "pitches",
+                                    "key_shift", "speaker"]),
+        dict(type="Transpose", keys=[("mel", 1, 0), ("contents", 1, 0)]),
+    ]
+    collating_pipeline = [
+        dict(type="ListToDict"),
+        dict(type="PadStack", keys=[("mel", -2), ("contents", -2), ("pitches", -1)]),
+        dict(type="ToTensor", keys=[("time_stretch", "float32"), ("key_shift", "float32"),
+                                    ("speaker", "int64")]),
+        dict(type="UnSqueeze", keys=[("pitches", -1), ("time_stretch", -1),
+                                     ("key_shift", -1)]),
+    ]
 
 
 @DATASETS.register_module()

@@ -1,7 +1,9 @@
 """Dataset helpers (``fish_diffusion_tpu/datasets/utils.py``): the file
 listing and the declarative pipeline interpreter with the ops the vocoder
-dataset uses (``PickKeys``, ``ListToDict``, ``PadStack``). ``PadStack``
-pads to a multiple of ``bucket``, as the JAX package does."""
+and SVC datasets use (``PickKeys``, ``ListToDict``, ``PadStack``,
+``ToTensor``, a numpy cast as in the JAX package, ``Transpose`` and
+``UnSqueeze``). ``PadStack`` pads to a multiple of ``bucket``, as the JAX
+package does."""
 
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 DEFAULT_BUCKET = 128
+_DTYPES = {"float32": np.float32, "float": np.float32, "int64": np.int64,
+           "long": np.int64, "int32": np.int32, "bool": np.bool_}
 
 
 def list_files(path, extensions=frozenset({".npy"})) -> List[Path]:
@@ -54,6 +58,15 @@ def transform_pipeline(pipeline: List[Dict[str, Any]], data,
                 data[k] = stacked
                 data[k + "_lens"] = lens
                 data[k + "_max_len"] = max_len
+        elif kind == "ToTensor":
+            for k, t in step["keys"]:
+                data[k] = np.asarray(data[k], dtype=_DTYPES[t] if isinstance(t, str) else t)
+        elif kind == "Transpose":
+            for k, *axes in step["keys"]:
+                data[k] = np.swapaxes(data[k], *axes)
+        elif kind == "UnSqueeze":
+            for k, *axes in step["keys"]:
+                data[k] = np.expand_dims(data[k], *axes)
         else:
             raise NotImplementedError(f"Unknown transform type: {kind}")
     return data

@@ -20,7 +20,7 @@ interpolation over the voiced ones (host numpy, as in the JAX package);
 
 Every kernel wrapper takes its plain version (``*_reference``) for CPU
 tensors. RMVPE is the one pitch extractor of the JAX package that is not
-ported yet (ROADMAP Queue 1 item 15).
+ported yet (ROADMAP Queue 1, The rest: RMVPE).
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ The flags are those of ``tools/diffusion/inference.py`` (the JAX CLI) plus
 ``--device``; ``--batch`` treats input and output as directories. The
 checkpoint is a pickle of the JAX package's params (see
 ``SVCInference.load_checkpoint``). Multi-GPU data parallelism (the JAX
-CLI's ``--data-parallel``) is not ported yet (ROADMAP Queue 1 item 11).
+CLI's ``--data-parallel``) is not ported yet (ROADMAP Queue 1, The rest:
+``parallel/``).
 """
 
 from __future__ import annotations

@@ -12,7 +12,8 @@ padded to a frame bucket and masked, as in the JAX server.
 
 Everything runs on ``device``, the card unless the caller asks for the CPU.
 Not ported: vocal separation (``extract_vocals``), energy extractors, and
-the JAX server's multi-device mesh (ROADMAP Queue 1 items 9 and 11).
+the JAX server's multi-device mesh (ROADMAP Queue 1: "The rest" for vocal
+separation and the mesh, "The SVC front ends" for the energy extractors).
 """
 
 from __future__ import annotations
@@ -178,7 +179,7 @@ class SVCInference:
             raise NotImplementedError(
                 f"no f0 given and the pitch extractor "
                 f"{self.pitch_extractor_type!r} is not ported yet (ROADMAP "
-                "Queue 1 item 15): pass the f0 curve as pitches= or "
+                "Queue 1, The rest: RMVPE): pass the f0 curve as pitches= or "
                 "pitches_list="
             )
         else:
@@ -356,7 +357,7 @@ class SVCInference:
         if extract_vocals:
             raise NotImplementedError(
                 "vocal separation needs demucs and is not ported (ROADMAP "
-                "Queue 1 item 9): run without extract_vocals"
+                "Queue 1, The rest: vocal separation): run without extract_vocals"
             )
 
         audio, sr = load_wav(input_path)

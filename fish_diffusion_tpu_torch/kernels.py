@@ -46,6 +46,20 @@ KERNELS = {
         id="K1", route="cuda", source=_PORT + "csrc/wavenet_block.cu",
         replaces=_TPU + "models/wavenet.py:59",
     ),
+    "wavenet_gate_train": dict(
+        id="K1 train", route="cuda", source=_PORT + "csrc/wavenet_block.cu",
+        replaces=_TPU + "models/wavenet.py:59",
+    ),
+    # XLA's derivative of ResidualBlock.__call__ and models/common.py:103
+    # DilatedConvK3 (the weight gradients go through conv1d_wgrad)
+    "wavenet_gate_backward": dict(
+        id="K1 bwd", route="cuda", source=_PORT + "csrc/wavenet_block.cu",
+        replaces=_TPU + "models/wavenet.py:59",
+    ),
+    "wavenet_input_backward": dict(
+        id="K1 bwd", route="cuda", source=_PORT + "csrc/wavenet_block.cu",
+        replaces=_TPU + "models/common.py:103",
+    ),
     "unipc_predict": dict(
         id="K2", route="triton", source=_PORT + "models/diffusion.py",
         replaces=_TPU + "models/diffusion.py:462",
@@ -151,6 +165,10 @@ SIGNATURES = {
     "wavenet_block": {
         "wavenet_gate": [_I] + [_P] * 6 + [_I] * 5 + [_P],
         "wavenet_out": [_I] + [_P] * 7 + [_I] * 3 + [_P],
+        "wavenet_gate_train": [_P] * 7 + [_I] * 4 + [_P],
+        "wavenet_backward_rows": [_I] * 3,
+        "wavenet_gate_backward": [_P] * 5 + [_I] * 3 + [_P],
+        "wavenet_input_backward": [_P] * 5 + [_I] * 4 + [_P],
     },
     "conv1d": {
         "conv1d_forward": [_I, _I] + [_P] * 5 + [_I] * 9 + [_F, _I, _I, _P],
@@ -159,6 +177,9 @@ SIGNATURES = {
         "stft_magnitude": [_P] * 6 + [_I] * 6 + [_P],
         "stft_magnitude_f64": [_P] * 6 + [_I] * 6 + [_P],
         "stft_backward": [_P] * 8 + [_I] * 6 + [_P],
+        "stft_fits_shared": [_I] * 3,
+        "stft_magnitude_split": [_P] * 8 + [_I] * 8 + [_P],
+        "stft_backward_split": [_P] * 12 + [_I] * 7 + [_P],
     },
     "grouped_conv1d": {
         "grouped_conv1d": [_I] + [_P] * 4 + [_I] * 9 + [_P],

@@ -98,6 +98,43 @@ class DiffSinger(nn.Module):
             cond_masks=mel_masks,
         )
 
+    def forward(
+        self,
+        speakers,
+        contents,
+        contents_lens=None,
+        mel=None,
+        mel_lens=None,
+        mel_max_len=None,
+        pitches=None,
+        pitch_shift=None,
+        energy=None,
+        generator: Optional[torch.Generator] = None,
+        t: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> dict:
+        """The training forward (the JAX ``DiffSinger.__call__``): condition
+        assembly, then ``GaussianDiffusion.train_step`` on ``mel`` [B, T, M]
+        with t and the noise from ``generator`` unless passed in. Returns
+        loss, noised_mels, epsilon, t, features and the masks."""
+        features = self.forward_features(
+            speakers=speakers,
+            contents=contents,
+            contents_lens=contents_lens,
+            mel_lens=mel_lens,
+            mel_max_len=mel_max_len,
+            pitches=pitches,
+            pitch_shift=pitch_shift,
+            energy=energy,
+        )
+        output = self.diffusion.train_step(
+            features["features"], mel, x_masks=features["x_masks"],
+            cond_masks=features["cond_masks"], generator=generator, t=t, noise=noise,
+        )
+        output.update(features=features["features"], x_masks=features["x_masks"],
+                      x_lens=features["x_lens"], cond_masks=features["cond_masks"])
+        return output
+
     def sample(
         self,
         speakers,

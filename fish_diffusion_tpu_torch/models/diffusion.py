@@ -39,12 +39,21 @@ Random draws come from one ``torch.Generator``, in this order: x_T (unless
 ``original_mel`` is given), the warm-start noise (when ``skip_steps``), then
 one noise per naive step, in step order (t = 0 included, where it is
 multiplied by 0).
+
+Training (``GaussianDiffusion.train_step``, the JAX ``train_step`` at
+``diffusion.py:331``): t [B] uniform over the timesteps, then the noise, each
+drawn from the generator in that order unless passed in; the denoiser
+predicts the noise of ``q_sample``, and ``mel_loss`` (l1, smoothed-l1, l2, a
+weighted list, or a callable; the JAX ``mel_loss`` at ``:215``) compares
+them. As in the JAX package (and unlike fish-diffusion), noise, prediction
+and noised mel are all zeroed at padding, and the mean runs over every
+element, padding included.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -492,6 +501,33 @@ def sample_naive(x, denoise, ts, table: dict, generator=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def _smooth_l1(pred, target, beta: float = 1.0):
+    diff = torch.abs(pred - target)
+    return torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
+
+
+def mel_loss(loss_fn: Union[str, Sequence], noise: torch.Tensor,
+             epsilon: torch.Tensor) -> torch.Tensor:
+    """The noise-prediction loss: ``"l1"``, ``"smoothed-l1"`` (beta 1),
+    ``"l2"``, a list of (weight, loss) pairs, or a callable (noise, epsilon)."""
+    if isinstance(loss_fn, (list, tuple)):
+        return sum(weight * mel_loss(fn, noise, epsilon) for weight, fn in loss_fn)
+    if loss_fn == "l1":
+        return torch.mean(torch.abs(noise - epsilon))
+    if loss_fn == "smoothed-l1":
+        return torch.mean(_smooth_l1(epsilon, noise))
+    if loss_fn == "l2":
+        return torch.mean((noise - epsilon) ** 2)
+    if callable(loss_fn):
+        return loss_fn(noise, epsilon)
+    raise NotImplementedError(loss_fn)
+
+
+# ---------------------------------------------------------------------------
 # The diffusion module
 # ---------------------------------------------------------------------------
 
@@ -509,7 +545,7 @@ class GaussianDiffusion(nn.Module):
         timesteps: int = 1000,
         max_beta: float = 0.01,
         s: float = 0.008,
-        noise_loss="l1",  # the training loss; accepted for the configs
+        noise_loss="l1",
         sampler_interval: int = 10,
         spec_stats_path: str = "dataset/stats.json",
         spec_min: Optional[Sequence[float]] = None,
@@ -525,6 +561,7 @@ class GaussianDiffusion(nn.Module):
             raise ValueError(f"unsupported unipc_order {unipc_order}")
         self.mel_channels = mel_channels
         self.timesteps = timesteps
+        self.noise_loss = noise_loss
         self.sampler_interval = sampler_interval
         self.unipc_variant = unipc_variant
         self.unipc_order = unipc_order
@@ -569,6 +606,40 @@ class GaussianDiffusion(nn.Module):
         sqrt_1macp = torch.tensor(c.sqrt_one_minus_alphas_cumprod,
                                   dtype=torch.float32, device=x_start.device)
         return sqrt_acp[t].view(shape) * x_start + sqrt_1macp[t].view(shape) * noise
+
+    def train_step(
+        self,
+        features: torch.Tensor,
+        mel: torch.Tensor,
+        x_masks: Optional[torch.Tensor] = None,
+        cond_masks: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        t: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> dict:
+        """One training evaluation: features [B, T, C], mel [B, T, M] ->
+        {loss, noised_mels, epsilon, t}. t [B] and the noise [B, T, M] are
+        drawn from ``generator`` (t first) unless passed in."""
+        b = features.shape[0]
+        if t is None:
+            t = torch.randint(0, self.timesteps, (b,), generator=generator,
+                              device=features.device)
+        x = self.norm_spec(mel.float())
+        if noise is None:
+            noise = torch.randn(x.shape, generator=generator, device=x.device)
+
+        noised_mel = self.q_sample(x, t, noise)
+        epsilon = self.denoise_fn(noised_mel, t, features, x_masks=x_masks,
+                                  cond_masks=cond_masks)
+
+        if x_masks is not None:
+            pad = x_masks[:, :, None]
+            noise = noise.masked_fill(pad, 0.0)
+            epsilon = epsilon.masked_fill(pad, 0.0)
+            noised_mel = noised_mel.masked_fill(pad, 0.0)
+
+        loss = mel_loss(self.noise_loss, noise, epsilon)
+        return dict(loss=loss, noised_mels=noised_mel, epsilon=epsilon, t=t)
 
     def forward(
         self,

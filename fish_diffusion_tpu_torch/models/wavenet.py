@@ -7,6 +7,15 @@ and ``residual_out`` (the output product with the residual update and the
 skip sum). ``residual_gate_reference`` and ``residual_out_reference`` are
 their plain PyTorch versions, which the wrappers take for CPU tensors.
 
+Training goes through ``ResidualBlockFunction`` whenever grad is enabled:
+its forward is ``residual_gate_train`` (K1's gate in its training mode,
+which also writes the pre-activation z) and ``residual_out``; its backward
+is K1's backward, ``residual_gate_backward`` (dz from dx', dskip' and z),
+``residual_input_backward`` (dx and the step's gradient from dz) and the
+weight gradients through ``ops.blocked_conv.conv1d_wgrad``, each with its
+plain version beside it (``*_reference``). Serving (grad disabled) keeps
+``residual_block``.
+
 The per-block conditioner projections ``[L, B, T, 2R]`` are constant across
 the reverse-diffusion steps, so ``prepare`` computes them once per sampling
 call (the JAX ``project_conditioner`` hoist), together with the blocks'
@@ -23,16 +32,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import kernels
+from ..ops import blocked_conv
 from ..registry import DENOISERS
 from .common import ConvNorm, LinearNorm, diffusion_embedding, mish, shift_time
 
 _RSQRT2 = 1.0 / math.sqrt(2.0)
 
 
-def residual_gate_reference(x, step, cond, w_conv, b_conv, dilation: int):
-    """Plain version of K1's first kernel. x [B, T, R]; step [B, R]; cond
-    [B, T, 2R]; w_conv [3R, 2R] (taps x[t-d], x[t], x[t+d] stacked on the
-    input axis); b_conv [2R] -> g [B, T, R]."""
+def gate_preactivation_reference(x, step, cond, w_conv, b_conv, dilation: int):
+    """K1's pre-activation z [B, T, 2R]: the dilated k=3 product of
+    y = x + step[b] (zero outside [0, T)) with bias and conditioner."""
     R = x.shape[-1]
     y = x + step[:, None, :]
     z = (
@@ -41,9 +50,25 @@ def residual_gate_reference(x, step, cond, w_conv, b_conv, dilation: int):
         + shift_time(y, -dilation) @ w_conv[2 * R :]
     )
     z = z + b_conv
-    z = z + cond
+    return z + cond
+
+
+def _gate(z):
     gate, filt = z.chunk(2, dim=-1)
     return torch.sigmoid(gate) * torch.tanh(filt)
+
+
+def residual_gate_reference(x, step, cond, w_conv, b_conv, dilation: int):
+    """Plain version of K1's first kernel. x [B, T, R]; step [B, R]; cond
+    [B, T, 2R]; w_conv [3R, 2R] (taps x[t-d], x[t], x[t+d] stacked on the
+    input axis); b_conv [2R] -> g [B, T, R]."""
+    return _gate(gate_preactivation_reference(x, step, cond, w_conv, b_conv, dilation))
+
+
+def residual_gate_train_reference(x, step, cond, w_conv, b_conv, dilation: int):
+    """Plain version of K1's gate in its training mode -> (g, z)."""
+    z = gate_preactivation_reference(x, step, cond, w_conv, b_conv, dilation)
+    return _gate(z), z
 
 
 def residual_out_reference(g, x, skip, w_out, b_out):
@@ -126,6 +151,163 @@ def residual_block(x, skip, step, cond, w_conv, b_conv, w_out, b_out,
     return residual_out(g, x, skip, w_out, b_out)
 
 
+def residual_gate_train(x, step, cond, w_conv, b_conv, dilation: int):
+    """K1's gate in its training mode (float32): ``residual_gate`` that also
+    returns the pre-activation z [B, T, 2R] -> (g, z). CPU tensors take
+    ``residual_gate_train_reference``."""
+    if not x.is_cuda:
+        return residual_gate_train_reference(x, step, cond, w_conv, b_conv, dilation)
+    kernels.require_cuda("residual_gate_train", x, step, cond, w_conv, b_conv)
+    _check_f32("residual_gate_train", x)
+    B, T, R = x.shape
+    _check_shapes("residual_gate_train", {
+        "step": (step, (B, R)), "cond": (cond, (B, T, 2 * R)),
+        "w_conv": (w_conv, (3 * R, 2 * R)), "b_conv": (b_conv, (2 * R,)),
+    }, R, x, step, cond, w_conv, b_conv)
+    g = torch.empty_like(x)
+    z = torch.empty_like(cond)
+    kernels.check(
+        kernels.load_library("wavenet_block").wavenet_gate_train(
+            x.data_ptr(), step.data_ptr(), w_conv.data_ptr(), b_conv.data_ptr(),
+            cond.data_ptr(), g.data_ptr(), z.data_ptr(), B, T, R, int(dilation),
+            kernels.stream(),
+        ),
+        "wavenet_gate_train",
+    )
+    kernels.count_launch("wavenet_gate_train")
+    return g, z
+
+
+def _check_f32(name, t):
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: takes float32, got {t.dtype}")
+
+
+def residual_gate_backward_reference(dx_out, dskip_out, z, w_out):
+    """Plain version of K1's gate backward: dx', dskip' [B, T, R], z
+    [B, T, 2R], w_out [R, 2R] -> dz [B, T, 2R] through the output product
+    (do = [dx' / sqrt(2) | dskip']) and the gate."""
+    do = torch.cat([dx_out * _RSQRT2, dskip_out], dim=-1)
+    dg = do @ w_out.t()
+    s, tf = torch.sigmoid(z[..., : dg.shape[-1]]), torch.tanh(z[..., dg.shape[-1] :])
+    return torch.cat([dg * tf * s * (1 - s), dg * s * (1 - tf * tf)], dim=-1)
+
+
+def residual_gate_backward(dx_out, dskip_out, z, w_out):
+    """K1's gate backward, ``csrc/wavenet_block.cu`` ``wavenet_gate_backward``
+    (see ``residual_gate_backward_reference``, which CPU tensors take)."""
+    if not dx_out.is_cuda:
+        return residual_gate_backward_reference(dx_out, dskip_out, z, w_out)
+    kernels.require_cuda("residual_gate_backward", dx_out, dskip_out, z, w_out)
+    _check_f32("residual_gate_backward", dx_out)
+    B, T, R = dx_out.shape
+    _check_shapes("residual_gate_backward", {
+        "dskip_out": (dskip_out, (B, T, R)), "z": (z, (B, T, 2 * R)),
+        "w_out": (w_out, (R, 2 * R)),
+    }, R, dx_out, dskip_out, z, w_out)
+    dz = torch.empty_like(z)
+    kernels.check(
+        kernels.load_library("wavenet_block").wavenet_gate_backward(
+            dx_out.data_ptr(), dskip_out.data_ptr(), w_out.data_ptr(), z.data_ptr(),
+            dz.data_ptr(), B, T, R, kernels.stream(),
+        ),
+        "wavenet_gate_backward",
+    )
+    kernels.count_launch("wavenet_gate_backward")
+    return dz
+
+
+def residual_input_backward_reference(dz, dx_out, w_conv, dilation: int):
+    """Plain version of K1's input backward: dz [B, T, 2R], dx' [B, T, R],
+    w_conv [3R, 2R] -> (dx [B, T, R], ds [B, R]) with
+    dy[t] = dz[t+d] W_l^T + dz[t] W_c^T + dz[t-d] W_r^T (zero outside
+    [0, T)), dx = dx' / sqrt(2) + dy and ds = sum_t dy."""
+    R = dx_out.shape[-1]
+    dy = (
+        shift_time(dz, -dilation) @ w_conv[:R].t()
+        + dz @ w_conv[R : 2 * R].t()
+        + shift_time(dz, dilation) @ w_conv[2 * R :].t()
+    )
+    return dx_out * _RSQRT2 + dy, dy.sum(dim=1)
+
+
+def residual_input_backward(dz, dx_out, w_conv, dilation: int):
+    """K1's input backward, ``csrc/wavenet_block.cu`` ``wavenet_input_backward``:
+    dx, and ds as the kernel's per-tile column sums added in order (see
+    ``residual_input_backward_reference``, which CPU tensors take)."""
+    if not dz.is_cuda:
+        return residual_input_backward_reference(dz, dx_out, w_conv, dilation)
+    kernels.require_cuda("residual_input_backward", dz, dx_out, w_conv)
+    _check_f32("residual_input_backward", dz)
+    B, T, R = dx_out.shape
+    _check_shapes("residual_input_backward", {
+        "dz": (dz, (B, T, 2 * R)), "w_conv": (w_conv, (3 * R, 2 * R)),
+    }, R, dz, dx_out, w_conv)
+    lib = kernels.load_library("wavenet_block")
+    rows = lib.wavenet_backward_rows(B, T, R)
+    dx = torch.empty_like(dx_out)
+    part = torch.empty((B, -(-T // rows), R), dtype=dz.dtype, device=dz.device)
+    kernels.check(
+        lib.wavenet_input_backward(
+            dz.data_ptr(), dx_out.data_ptr(), w_conv.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), B, T, R, int(dilation), kernels.stream(),
+        ),
+        "wavenet_input_backward",
+    )
+    kernels.count_launch("wavenet_input_backward")
+    return dx, part.sum(dim=1)
+
+
+def residual_block_backward(x, step, z, g, dx_out, dskip_out, w_conv, w_out,
+                            dilation: int):
+    """K1's backward: the gradients of (x, skip, step, cond, w_conv, b_conv,
+    w_out, b_out) from those of (x', skip'). dz and dx come from K1's
+    backward kernels; dW_conv from ``conv1d_wgrad(y, dz, 3, d, d)``
+    (y = x + step[b], rebuilt), which is the packed [3R, 2R] layout, and
+    dW_out from ``conv1d_wgrad(g, do, 1)`` with do = [dx' / sqrt(2) | dskip']
+    (one launch of 2R columns); the bias gradients are column sums."""
+    R = x.shape[-1]
+    dx_out, dskip_out = dx_out.contiguous(), dskip_out.contiguous()
+    dz = residual_gate_backward(dx_out, dskip_out, z, w_out)
+    dx, ds = residual_input_backward(dz, dx_out, w_conv, dilation)
+    y = x + step[:, None, :]
+    do = torch.cat([dx_out * _RSQRT2, dskip_out], dim=-1)
+    wgrad = blocked_conv.conv1d_wgrad
+    # (a, bm, K, stride, dilation, padding)
+    dw_conv = wgrad(y, dz, 3, 1, dilation, dilation).reshape(3 * R, 2 * R)
+    dw_out = wgrad(g, do, 1, 1, 1, 0)[0]
+    return dx, dskip_out, ds, dz, dw_conv, dz.sum(dim=(0, 1)), dw_out, do.sum(dim=(0, 1))
+
+
+class ResidualBlockFunction(torch.autograd.Function):
+    """K1 with a gradient: (x, skip, step, cond, w_conv, b_conv, w_out,
+    b_out, dilation) -> (x', skip'). The forward saves x, step, z and g
+    (~4 activations of [B, T, R] a block); the backward is
+    ``residual_block_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, skip, step, cond, w_conv, b_conv, w_out, b_out, dilation):
+        g, z = residual_gate_train(x, step, cond, w_conv, b_conv, dilation)
+        x_out, skip_out = residual_out(g, x, skip, w_out, b_out)
+        ctx.save_for_backward(x, step, z, g, w_conv, w_out)
+        ctx.dilation = dilation
+        return x_out, skip_out
+
+    @staticmethod
+    def backward(ctx, dx_out, dskip_out):
+        x, step, z, g, w_conv, w_out = ctx.saved_tensors
+        grads = residual_block_backward(x, step, z, g, dx_out, dskip_out, w_conv,
+                                        w_out, ctx.dilation)
+        return (*grads, None)
+
+
+def residual_block_train(x, skip, step, cond, w_conv, b_conv, w_out, b_out,
+                         dilation: int):
+    """K1 with its backward: one residual block -> (x', skip')."""
+    return ResidualBlockFunction.apply(x, skip, step, cond, w_conv, b_conv, w_out,
+                                       b_out, dilation)
+
+
 class Mish(nn.Module):
     def forward(self, x):
         return mish(x)
@@ -188,31 +370,33 @@ class WaveNet(nn.Module):
         self.skip_projection = ConvNorm(r, r)
         self.output_projection = ConvNorm(r, mel_channels)
 
-    def prepare(self, conditioner: torch.Tensor,
-                cond_masks: Optional[torch.Tensor] = None) -> dict:
-        """Per-sampling-call constants: the conditioner projections
-        ``cond [L, B, T, 2R]`` and the blocks' packed weights."""
+    @staticmethod
+    def _conditioner(conditioner, cond_masks):
         c = conditioner.float()
         if cond_masks is not None:
             c = c.masked_fill(cond_masks[:, :, None], 0.0)
+        return c
+
+    def _layer_plan(self, layer, c) -> dict:
+        """One block's conditioner projection ``cond [B, T, 2R]`` and its
+        weights packed in the layout the kernel reads."""
         r = self.residual_channels
-        layers = self.residual_layers
         return {
-            "cond": torch.stack([
-                F.linear(c, l.conditioner_projection.conv.weight[:, :, 0],
-                         l.conditioner_projection.conv.bias)
-                for l in layers
-            ]),
-            "w_conv": torch.stack([
-                l.conv_layer.conv.weight.permute(2, 1, 0).reshape(3 * r, 2 * r)
-                for l in layers
-            ]).contiguous(),
-            "b_conv": torch.stack([l.conv_layer.conv.bias for l in layers]),
-            "w_out": torch.stack([
-                l.output_projection.conv.weight[:, :, 0].t() for l in layers
-            ]).contiguous(),
-            "b_out": torch.stack([l.output_projection.conv.bias for l in layers]),
+            "cond": F.linear(c, layer.conditioner_projection.conv.weight[:, :, 0],
+                             layer.conditioner_projection.conv.bias),
+            "w_conv": layer.conv_layer.conv.weight.permute(2, 1, 0).reshape(3 * r, 2 * r),
+            "b_conv": layer.conv_layer.conv.bias,
+            "w_out": layer.output_projection.conv.weight[:, :, 0].t(),
+            "b_out": layer.output_projection.conv.bias,
         }
+
+    def prepare(self, conditioner: torch.Tensor,
+                cond_masks: Optional[torch.Tensor] = None) -> dict:
+        """Per-sampling-call constants: the conditioner projections
+        ``cond [L, B, T, 2R]`` and the blocks' packed weights, stacked."""
+        c = self._conditioner(conditioner, cond_masks)
+        plans = [self._layer_plan(layer, c) for layer in self.residual_layers]
+        return {k: torch.stack([q[k] for q in plans]).contiguous() for k in plans[0]}
 
     def forward(
         self,
@@ -223,19 +407,27 @@ class WaveNet(nn.Module):
         cond_masks: Optional[torch.Tensor] = None,
         plan: Optional[dict] = None,
     ) -> torch.Tensor:
-        if plan is None:
+        """With grad enabled (training) each block's conditioner projection
+        and packed weights are made in the loop, so that their gradients are
+        each block's own (indexing a stacked plan would make every block's
+        backward write a zero-filled gradient of the whole stack)."""
+        training = torch.is_grad_enabled()
+        if plan is None and not training:
             plan = self.prepare(conditioner, cond_masks)
+        c = None if plan is not None else self._conditioner(conditioner, cond_masks)
         x = F.relu(self.input_projection(x.float()))
         step = self.mlp(diffusion_embedding(diffusion_step, self.residual_channels))
         if x_masks is not None:
             x = x.masked_fill(x_masks[:, :, None], 0.0)
 
         skip = torch.zeros_like(x)
+        block = residual_block_train if training else residual_block
         for i, layer in enumerate(self.residual_layers):
-            x, skip = residual_block(
-                x, skip, layer.diffusion_projection(step), plan["cond"][i],
-                plan["w_conv"][i], plan["b_conv"][i], plan["w_out"][i],
-                plan["b_out"][i], layer.dilation,
+            q = ({k: v[i] for k, v in plan.items()} if plan is not None
+                 else {k: v.contiguous() for k, v in self._layer_plan(layer, c).items()})
+            x, skip = block(
+                x, skip, layer.diffusion_projection(step), q["cond"], q["w_conv"],
+                q["b_conv"], q["w_out"], q["b_out"], layer.dilation,
             )
 
         x = skip * (1.0 / math.sqrt(len(self.residual_layers)))

@@ -6,7 +6,8 @@ K5, the hand-written CUDA FFT of ``csrc/stft.cu`` (a power-of-two n_fft as
 a Stockham FFT in shared memory, any other n_fft up to ``MAX_N_FFT`` by
 Bluestein's chirp-z transform on the same core, two frames per complex
 transform, each scaled to its own peak; tables from ``_fft_tables``; the
-backward in float64): ``stft_magnitude`` launches it for
+backward in float64; an FFT too long for shared memory as a four-step FFT
+through device memory, ``_split``): ``stft_magnitude`` launches it for
 a CUDA tensor and takes ``stft_magnitude_reference`` (frames by ``unfold``,
 one float32 ``matmul`` with the DFT basis) for a CPU tensor. The mel
 projection ``[n_mels, bins] @ spec`` stays ``torch.matmul`` in float32, as
@@ -163,11 +164,16 @@ def _dft_basis(n_fft: int, win_length: int, device: str,
 # K5: the STFT magnitude
 # ---------------------------------------------------------------------------
 
-MAX_N_FFT = 8192  # K5's forward takes every n_fft up to this
-# in float64 (the backward, and the exact forward) a Bluestein buffer of
-# L = 16384 does not fit in shared memory: the largest n_fft there that is
-# not a power of two
-MAX_BLUESTEIN_F64 = 4096
+# K5 takes every n_fft up to this, in float32 and float64: FFTs that do not
+# fit in shared memory run as four-step FFTs of L = L1 x L2 <= 2048 x 2048
+# points through device memory
+MAX_N_FFT = 1 << 21
+
+
+def _split(L: int) -> int:
+    """L1 of the four-step FFT L = L1 x L2 (L1 the larger half of the bits)."""
+    bits = L.bit_length() - 1
+    return 1 << ((bits + 1) // 2)
 
 
 def _fft_size(n_fft: int) -> int:
@@ -249,12 +255,6 @@ def stft_magnitude_reference(y: torch.Tensor, n_fft: int, hop: int,
     return _stft_reference(y, n_fft, hop, win_length or n_fft)[0]
 
 
-def _check_f64(name: str, n_fft: int):
-    if _fft_size(n_fft) != n_fft and n_fft > MAX_BLUESTEIN_F64:
-        raise ValueError(f"{name}: n_fft {n_fft}: in float64 the kernel takes powers of two "
-                         f"up to {MAX_N_FFT} and other sizes up to {MAX_BLUESTEIN_F64}")
-
-
 def _stft_forward(y: torch.Tensor, n_fft: int, hop: int, win_length: int,
                   exact: bool = False) -> torch.Tensor:
     """K5's forward, [B, bins, F], in float64 when ``exact``. CPU tensors
@@ -265,19 +265,25 @@ def _stft_forward(y: torch.Tensor, n_fft: int, hop: int, win_length: int,
         return stft_magnitude_reference(y, n_fft, hop, win_length)
     kernels.require_cuda("stft_magnitude", y)
     _check_stft("stft_magnitude", y, n_fft, hop, win_length)
-    if exact:
-        _check_f64("stft_magnitude", n_fft)
     B, T_pad = y.shape
     n_frames = (T_pad - n_fft) // hop + 1
     out = torch.empty((B, n_fft // 2 + 1, n_frames), dtype=torch.float32, device=y.device)
     lib = kernels.load_library("stft")
-    kernels.check(
-        (lib.stft_magnitude_f64 if exact else lib.stft_magnitude)(
-            y.data_ptr(), *_pointers(_fft_plan(n_fft, win_length, str(y.device), exact)),
-            out.data_ptr(), B, T_pad, n_fft, _fft_size(n_fft), hop, n_frames,
-            kernels.stream()),
-        "stft_magnitude",
-    )
+    L = _fft_size(n_fft)
+    plan = _pointers(_fft_plan(n_fft, win_length, str(y.device), exact))
+    if lib.stft_fits_shared(n_fft, L, 16 if exact else 8):
+        status = (lib.stft_magnitude_f64 if exact else lib.stft_magnitude)(
+            y.data_ptr(), *plan, out.data_ptr(), B, T_pad, n_fft, L, hop, n_frames,
+            kernels.stream())
+    else:
+        dtype = torch.float64 if exact else torch.float32
+        pairs = B * ((n_frames + 1) // 2)
+        work = torch.empty((pairs, L, 2), dtype=dtype, device=y.device)
+        scales = torch.empty((pairs, 2), dtype=dtype, device=y.device)
+        status = lib.stft_magnitude_split(
+            y.data_ptr(), *plan, work.data_ptr(), scales.data_ptr(), out.data_ptr(), B, T_pad,
+            n_fft, L, _split(L), hop, n_frames, int(exact), kernels.stream())
+    kernels.check(status, "stft_magnitude")
     kernels.count_launch("stft_magnitude")
     return out
 
@@ -303,15 +309,14 @@ def stft_backward(g: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
                   win_length: Optional[int] = None) -> torch.Tensor:
     """K5's backward (``csrc/stft.cu``): the signal's gradient [B, T_pad]
     from the magnitude's gradient g [B, bins, F] and the forward's signal
-    y, whose spectrum the kernel recomputes, in float64 (n_fft a power of
-    two up to ``MAX_N_FFT``, any other up to ``MAX_BLUESTEIN_F64``).
+    y, whose spectrum the kernel recomputes, in float64 (four-step FFTs
+    through device memory where the FFT does not fit in shared memory).
     CPU tensors take ``stft_backward_reference``."""
     win_length = win_length or n_fft
     if not g.is_cuda:
         return stft_backward_reference(g, y, n_fft, hop, win_length)
     kernels.require_cuda("stft_backward", g, y)
     _check_stft("stft_backward", y, n_fft, hop, win_length)
-    _check_f64("stft_backward", n_fft)
     B, T_pad = y.shape
     n_frames = (T_pad - n_fft) // hop + 1
     if tuple(g.shape) != (B, n_fft // 2 + 1, n_frames):
@@ -319,14 +324,24 @@ def stft_backward(g: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int,
                          f"n_fft {n_fft}, hop {hop}")
     frames = torch.empty((B, n_frames, n_fft), dtype=torch.float32, device=g.device)
     grad = torch.empty((B, T_pad), dtype=torch.float32, device=g.device)
-    kernels.check(
-        kernels.load_library("stft").stft_backward(
-            g.data_ptr(), y.data_ptr(),
-            *_pointers(_fft_plan(n_fft, win_length, str(y.device), double=True)),
-            frames.data_ptr(), grad.data_ptr(), B, T_pad, n_fft, _fft_size(n_fft), hop,
-            n_frames, kernels.stream()),
-        "stft_backward",
-    )
+    lib = kernels.load_library("stft")
+    L = _fft_size(n_fft)
+    plan = _pointers(_fft_plan(n_fft, win_length, str(y.device), double=True))
+    if lib.stft_fits_shared(n_fft, L, 16):
+        status = lib.stft_backward(g.data_ptr(), y.data_ptr(), *plan, frames.data_ptr(),
+                                   grad.data_ptr(), B, T_pad, n_fft, L, hop, n_frames,
+                                   kernels.stream())
+    else:
+        pairs = B * ((n_frames + 1) // 2)
+        work, work2 = (torch.empty((pairs, L, 2), dtype=torch.float64, device=g.device)
+                       for _ in range(2))
+        scales, gscales = (torch.empty((pairs, 2), dtype=torch.float64, device=g.device)
+                           for _ in range(2))
+        status = lib.stft_backward_split(
+            g.data_ptr(), y.data_ptr(), *plan, work.data_ptr(), work2.data_ptr(),
+            scales.data_ptr(), gscales.data_ptr(), frames.data_ptr(), grad.data_ptr(), B,
+            T_pad, n_fft, L, _split(L), hop, n_frames, kernels.stream())
+    kernels.check(status, "stft_backward")
     kernels.count_launch("stft_backward")
     return grad
 

@@ -17,26 +17,10 @@ over the config's values.
 from __future__ import annotations
 
 import argparse
-import multiprocessing
-
-from torch.utils.data import DataLoader
 
 from ..config import Config
-from ..registry import DATASETS
+from ..datasets.loader import build_loader
 from .vocoder_trainer import DISCRIMINATOR_DTYPE, PRECISION, VocoderTrainer
-
-
-def build_loader(dataset_cfg: dict, loader_cfg: dict) -> DataLoader:
-    from .. import datasets  # noqa: F401  (registers the dataset types)
-
-    dataset = DATASETS.build(dict(dataset_cfg))
-    cfg = dict(loader_cfg)
-    workers = int(cfg.pop("num_workers", 0))
-    return DataLoader(
-        dataset, collate_fn=dataset.collate_fn, drop_last=True, num_workers=workers,
-        multiprocessing_context=multiprocessing.get_context("spawn") if workers else None,
-        **cfg,
-    )
 
 
 def main(argv=None):

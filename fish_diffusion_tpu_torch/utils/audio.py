@@ -5,7 +5,7 @@
 duration. WAV IO uses the standard library. Pure numpy.
 
 Vocal separation (``separate_vocals`` in the JAX package) is not ported:
-it needs demucs and its weights (ROADMAP Queue 1 item 9).
+it needs demucs and its weights (ROADMAP Queue 1, The rest: vocal separation).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""The CUDA sources of K1, K4 (and its weight gradient), K5 (forward,
+"""The CUDA sources of K1 (with its training mode and backward), K4 (and its weight gradient), K5 (forward,
 backward and istft), K6 (grouped and 2-D, with the 2-D weight gradient),
 K7, K8-cand and K8 dense (pYIN's and CREPE's decoder), compiled for the host CPU and run against their
 plain PyTorch versions at small shapes.
@@ -200,6 +200,78 @@ def test_wavenet_block_source(host_libs, B, T, R, d, dtype):
     tol = 1e-4 if dtype == torch.float32 else 0.125
     for got, ref in ((x_out, ref_x), (skip_out, ref_skip)):
         assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+def _k1_training(gen, B, T, R):
+    """Inputs of one block of K1 with its gradient, float32."""
+    return dict(x=rn(gen, B, T, R), step=rn(gen, B, R), cond=rn(gen, B, T, 2 * R),
+                w_conv=rn(gen, 3 * R, 2 * R, scale=(3 * R) ** -0.5),
+                b_conv=rn(gen, 2 * R, scale=0.1), w_out=rn(gen, R, 2 * R, scale=R ** -0.5),
+                dx_out=rn(gen, B, T, R), dskip_out=rn(gen, B, T, R))
+
+
+@pytest.mark.parametrize(
+    "B,T,R,d",
+    # with 8 SMs: the backward's 128 x 128 tile (R=128, B*T rows fill 8
+    # blocks), 128 x 64 (R=64), 64 x 64 (few rows); T <= 2d (the halo is all
+    # zeros) and a ragged last tile
+    [
+        (2, 300, 128, 1),
+        (2, 150, 64, 2),
+        (1, 40, 64, 8),
+        (3, 13, 64, 4),
+        (1, 7, 64, 4),
+    ],
+)
+def test_wavenet_training_source(host_libs, B, T, R, d):
+    """K1's training mode (g and z), gate backward (dz) and input backward
+    (dx, and ds from the tiles' column sums) against their plain versions:
+    <= 1e-4 of each output's scale, float32."""
+    gen = torch.Generator().manual_seed(B * T + R + d)
+    a = _k1_training(gen, B, T, R)
+    lib = host_libs["wavenet_block"]
+    g, z = torch.empty(B, T, R), torch.empty(B, T, 2 * R)
+    assert lib.wavenet_gate_train(a["x"].data_ptr(), a["step"].data_ptr(),
+                                  a["w_conv"].data_ptr(), a["b_conv"].data_ptr(),
+                                  a["cond"].data_ptr(), g.data_ptr(), z.data_ptr(),
+                                  B, T, R, d, None) == 0
+    ref_g, ref_z = wavenet.residual_gate_train_reference(
+        a["x"], a["step"], a["cond"], a["w_conv"], a["b_conv"], d)
+    dz = torch.empty(B, T, 2 * R)
+    assert lib.wavenet_gate_backward(a["dx_out"].data_ptr(), a["dskip_out"].data_ptr(),
+                                     a["w_out"].data_ptr(), ref_z.data_ptr(), dz.data_ptr(),
+                                     B, T, R, None) == 0
+    ref_dz = wavenet.residual_gate_backward_reference(a["dx_out"], a["dskip_out"], ref_z,
+                                                      a["w_out"])
+    rows = lib.wavenet_backward_rows(B, T, R)
+    dx, part = torch.empty(B, T, R), torch.full((B, -(-T // rows), R), float("nan"))
+    assert lib.wavenet_input_backward(ref_dz.data_ptr(), a["dx_out"].data_ptr(),
+                                      a["w_conv"].data_ptr(), dx.data_ptr(),
+                                      part.data_ptr(), B, T, R, d, None) == 0
+    ref_dx, ref_ds = wavenet.residual_input_backward_reference(ref_dz, a["dx_out"],
+                                                               a["w_conv"], d)
+    for name, got, ref in (("g", g, ref_g), ("z", z, ref_z), ("dz", dz, ref_dz),
+                           ("dx", dx, ref_dx), ("ds", part.sum(1), ref_ds)):
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("T,R,d", [(40, 64, 1), (40, 64, 8), (12, 32, 8)])
+def test_wavenet_weight_gradients_source(host_libs, T, R, d):
+    """K1's weight gradients through ``conv1d_wgrad``: dW_conv at K = 3 and
+    dilation d (padding d, the packed [3R, 2R] layout) and dW_out at K = 1,
+    against the products they stand for, <= 1e-5 of their scale."""
+    gen = torch.Generator().manual_seed(T + R + d)
+    B = 2
+    y, dz, g, do = rn(gen, B, T, R), rn(gen, B, T, 2 * R), rn(gen, B, T, R), rn(gen, B, T, R)
+    lib = host_libs["conv1d_wgrad"]
+    got = _wgrad1d(lib, y, dz, 3, 1, d, d, 1, None, None, None).reshape(3 * R, 2 * R)
+    shifted = (wavenet.shift_time(y, d), y, wavenet.shift_time(y, -d))
+    ref = torch.cat([(s.reshape(-1, R).t() @ dz.reshape(-1, 2 * R)) for s in shifted])
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    got = _wgrad1d(lib, g, do, 1, 1, 1, 0, 1, None, None, None)[0]
+    ref = g.reshape(-1, R).t() @ do.reshape(-1, R)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
 def _conv(lib, transposed, x, w_packed, bias, residual, T_out, K, stride, dil,
@@ -437,6 +509,63 @@ def test_stft_f64_source(host_libs, B, n_fft, win, hop, F):
         hop, F, None) == 0
     ref = mel.stft_magnitude_reference(y.double(), n_fft, hop, win)
     assert ((out.double() - ref).abs() / ref).max().item() <= 1e-6
+
+
+@pytest.mark.parametrize(
+    "B,n_fft,win,hop,F,L1",
+    # the split path (four-step FFTs through device memory) at small
+    # splits: a power of two (256 = 16 x 16, 128 = 16 x 8), Bluestein (300:
+    # L = 1024 = 32 x 32; 97: 256 = 16 x 16), an odd frame count
+    [(2, 256, 200, 64, 5, 16), (1, 128, 128, 32, 4, 16), (1, 300, 300, 100, 4, 32),
+     (2, 97, 80, 20, 3, 16)],
+)
+def test_stft_split_source(host_libs, B, n_fft, win, hop, F, L1):
+    """K5's split path: the float32 forward <= 1e-5 of the largest
+    magnitude, the float64 forward every magnitude within 1e-6 of its own
+    value, the backward <= 1e-5 of the gradient's scale, each against the
+    plain version; every sample of the gradient written."""
+    gen = torch.Generator().manual_seed(n_fft + F + L1)
+    T_pad = n_fft + (F - 1) * hop + hop // 3
+    y = rn(gen, B, T_pad, scale=0.3)
+    lib = host_libs["stft"]
+    bins, pairs = n_fft // 2 + 1, B * ((F + 1) // 2)
+    for double in (False, True):
+        plan, L = _k5(n_fft, win, double=double)
+        dtype = torch.float64 if double else torch.float32
+        work, scales = torch.empty(pairs, L, 2, dtype=dtype), torch.empty(pairs, 2, dtype=dtype)
+        out = torch.full((B, bins, F), float("nan"))
+        assert lib.stft_magnitude_split(y.data_ptr(), *mel._pointers(plan), work.data_ptr(),
+                                        scales.data_ptr(), out.data_ptr(), B, T_pad, n_fft, L,
+                                        L1, hop, F, int(double), None) == 0
+        if double:
+            ref = mel.stft_magnitude_reference(y.double(), n_fft, hop, win)
+            assert ((out.double() - ref).abs() / ref).max().item() <= 1e-6
+        else:
+            ref = mel.stft_magnitude_reference(y, n_fft, hop, win)
+            assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    g = rn(gen, B, bins, F)
+    work, work2 = (torch.empty(pairs, L, 2, dtype=torch.float64) for _ in range(2))
+    scales, gscales = (torch.empty(pairs, 2, dtype=torch.float64) for _ in range(2))
+    frames = torch.full((B, F, n_fft), float("nan"))
+    grad = torch.full((B, T_pad), float("nan"))
+    assert lib.stft_backward_split(
+        g.data_ptr(), y.data_ptr(), *mel._pointers(plan), work.data_ptr(), work2.data_ptr(),
+        scales.data_ptr(), gscales.data_ptr(), frames.data_ptr(), grad.data_ptr(), B, T_pad,
+        n_fft, L, L1, hop, F, None) == 0
+    ref = mel.stft_backward_reference(g, y, n_fft, hop, win)
+    assert (grad - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_stft_split_takes_what_shared_memory_does_not(host_libs):
+    """The wrappers' rule: shared memory up to its limits (float32 Bluestein
+    up to n_fft 8192, float64 up to L = 8192), the split path beyond, and
+    the split path refuses a split it cannot run."""
+    lib = host_libs["stft"]
+    assert lib.stft_fits_shared(8192, 16384, 8) and not lib.stft_fits_shared(16384, 16384, 8)
+    assert lib.stft_fits_shared(4096, 8192, 16) and not lib.stft_fits_shared(6000, 16384, 16)
+    assert mel._split(16384) == 128 and mel._split(1 << 22) == 2048
+    assert lib.stft_magnitude_split(None, None, None, None, None, None, None, None, 1, 40000,
+                                    6000, 16384, 4096, 512, 1, 1, None) != 0
 
 
 @pytest.mark.parametrize("B,T,K", [(3, 50, 4), (2, 1, 4), (1, 30, 2)])

@@ -23,7 +23,10 @@ for name in ("training.gan", "training.vocoder_trainer", "training.vocoder_cli",
              "training.optim", "training.checkpoint", "datasets.naive",
              "models.discriminators", "ops.blocked_conv", "models.vocoders.refinegan",
              "extractors.pitch", "extractors.crepe", "extractors.world",
-             "models.vocoders.istft_net", "ops.monotonic_align", "ops.mel"):
+             "models.vocoders.istft_net", "ops.monotonic_align", "ops.mel",
+             "training.diffusion_trainer", "training.diffusion_cli",
+             "training.diffusion_state", "training.diffusion_checkpoint",
+             "datasets.loader", "datasets.wrappers"):
     assert "fish_diffusion_tpu_torch." + name in names, name
 assert not bad, bad
 from fish_diffusion_tpu_torch.registry import PITCH_EXTRACTORS, VOCODERS

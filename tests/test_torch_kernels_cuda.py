@@ -1,4 +1,5 @@
-"""The port's hand-written kernels (K1-K6 with K6 2-D and K5 istft, K7,
+"""The port's hand-written kernels (K1 with its training mode and backward,
+K2-K6 with K6 2-D and K5 istft, K7,
 K8-cand, K8 dense, K9 comb and sine, the weight gradients, and the
 backward kernels of K3 and K5) against their plain PyTorch versions
 on an NVIDIA GPU, at small shapes that exercise the ragged edges.
@@ -48,6 +49,71 @@ def test_residual_block(gen, B, T, R, d):
     ref = wavenet.residual_block_reference(*args)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, atol=1e-4, rtol=0)
+
+
+def k1_training_inputs(gen, B, T, R):
+    return dict(x=rn(gen, B, T, R), skip=rn(gen, B, T, R), step=rn(gen, B, R),
+                cond=rn(gen, B, T, 2 * R), w_conv=rn(gen, 3 * R, 2 * R, scale=(3 * R) ** -0.5),
+                b_conv=rn(gen, 2 * R, scale=0.1), w_out=rn(gen, R, 2 * R, scale=R ** -0.5),
+                b_out=rn(gen, 2 * R, scale=0.1), dx_out=rn(gen, B, T, R),
+                dskip_out=rn(gen, B, T, R))
+
+
+def assert_scaled(got, ref, tol=1e-4):
+    err = float((got - ref).abs().max())
+    assert err <= tol * float(ref.abs().max()), err
+
+
+@pytest.mark.parametrize("B,T,R", [(20, 512, 512), (2, 70, 64), (3, 17, 128)])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_residual_block_training_kernels(gen, B, T, R, d):
+    """K1's training mode (g, z), gate backward (dz) and input backward (dx,
+    ds) against their plain versions: <= 1e-4 of each output's scale, and a
+    second launch bit-equal (B=20 x 512 x 512 is a training step's shape)."""
+    a = k1_training_inputs(gen, B, T, R)
+    gate = (a["x"], a["step"], a["cond"], a["w_conv"], a["b_conv"], d)
+    g, z = wavenet.residual_gate_train(*gate)
+    ref_g, ref_z = wavenet.residual_gate_train_reference(*gate)
+    assert_scaled(g, ref_g)
+    assert_scaled(z, ref_z)
+    assert torch.equal(g, wavenet.residual_gate(*gate))  # serving's kernel, same tile
+    dz = wavenet.residual_gate_backward(a["dx_out"], a["dskip_out"], ref_z, a["w_out"])
+    ref_dz = wavenet.residual_gate_backward_reference(a["dx_out"], a["dskip_out"], ref_z,
+                                                      a["w_out"])
+    assert_scaled(dz, ref_dz)
+    assert torch.equal(dz, wavenet.residual_gate_backward(a["dx_out"], a["dskip_out"], ref_z,
+                                                          a["w_out"]))
+    dx, ds = wavenet.residual_input_backward(ref_dz, a["dx_out"], a["w_conv"], d)
+    ref_dx, ref_ds = wavenet.residual_input_backward_reference(ref_dz, a["dx_out"],
+                                                               a["w_conv"], d)
+    assert_scaled(dx, ref_dx)
+    assert_scaled(ds, ref_ds)
+    dx2, ds2 = wavenet.residual_input_backward(ref_dz, a["dx_out"], a["w_conv"], d)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.parametrize("d", [1, 8])
+def test_residual_block_function_on_the_card(gen, d):
+    """``ResidualBlockFunction`` through the kernels against torch autograd
+    of ``residual_block_reference``: every gradient <= 1e-4 of its scale."""
+    B, T, R = 2, 96, 128
+    a = k1_training_inputs(gen, B, T, R)
+    names = ("x", "skip", "step", "cond", "w_conv", "b_conv", "w_out", "b_out")
+
+    def grads(fn):
+        leaves = [a[n].clone().requires_grad_(True) for n in names]
+        out = fn(*leaves, d)
+        torch.autograd.backward(out, (a["dx_out"], a["dskip_out"]))
+        return [t.detach() for t in out] + [t.grad for t in leaves]
+
+    kernels.reset_launches()
+    got = grads(wavenet.ResidualBlockFunction.apply)
+    for name in ("wavenet_gate_train", "wavenet_out", "wavenet_gate_backward",
+                 "wavenet_input_backward"):
+        assert kernels.LAUNCHES[name] == 1, name
+    assert kernels.LAUNCHES["conv1d_wgrad"] == 2
+    for got_t, ref_t in zip(got, grads(wavenet.residual_block_reference)):
+        assert_scaled(got_t, ref_t)
 
 
 def test_unipc_step(gen):
@@ -102,18 +168,44 @@ def test_stft_magnitude(gen, B, n_fft, win, hop, F):
 
 
 def test_stft_magnitude_raises_past_its_limit(gen):
-    """K5 takes n_fft up to ``MAX_N_FFT``, its backward and exact forward
-    (float64) other sizes than powers of two up to ``MAX_BLUESTEIN_F64``;
-    past them the wrappers raise."""
-    y = rn(gen, 1, 3 * mel.MAX_N_FFT)
+    """K5 takes every n_fft up to ``MAX_N_FFT`` (the split path past shared
+    memory); past it the wrappers raise."""
+    y = rn(gen, 1, mel.MAX_N_FFT + 512)
     with pytest.raises(ValueError, match=str(mel.MAX_N_FFT)):
         mel.stft_magnitude(y, mel.MAX_N_FFT + 1, 512)
-    n_fft = mel.MAX_BLUESTEIN_F64 + 1
-    g = rn(gen, 1, n_fft // 2 + 1, (y.shape[1] - n_fft) // 512 + 1)
-    with pytest.raises(ValueError, match=str(mel.MAX_BLUESTEIN_F64)):
-        mel.stft_backward(g, y, n_fft, 512)
-    with pytest.raises(ValueError, match=str(mel.MAX_BLUESTEIN_F64)):
-        mel.stft_magnitude(y, n_fft, 512, exact=True)
+    g = rn(gen, 1, (mel.MAX_N_FFT + 1) // 2 + 1, 1)
+    with pytest.raises(ValueError, match=str(mel.MAX_N_FFT)):
+        mel.stft_backward(g, y, mel.MAX_N_FFT + 1, 512)
+
+
+@pytest.mark.parametrize("n_fft,win,hop,F,exact", [
+    (6000, 6000, 512, 9, True),     # Bluestein, L = 16384: float64 past shared memory
+    (16384, 16384, 4096, 6, False),  # a power of two past shared memory, float32
+    (16384, 12000, 4096, 5, True),
+])
+def test_stft_split_path(gen, n_fft, win, hop, F, exact):
+    """The sizes shared memory does not hold, once refused: the forward
+    against the plain version (float32: <= 1e-5 of the largest magnitude;
+    float64: every magnitude within 1e-6 of its own value) and, with
+    ``exact``, the backward (float64) <= 1e-5 of the gradient's scale,
+    each one launch."""
+    B = 2
+    T_pad = n_fft + (F - 1) * hop + hop // 3
+    y = rn(gen, B, T_pad, scale=0.3)
+    before = dict(kernels.LAUNCHES)
+    got = mel.stft_magnitude(y, n_fft, hop, win, exact=exact)
+    assert kernels.LAUNCHES["stft_magnitude"] == before["stft_magnitude"] + 1
+    if exact:
+        ref = mel.stft_magnitude_reference(y.double(), n_fft, hop, win)
+        assert ((got.double() - ref).abs() / ref).max().item() <= 1e-6
+        g = rn(gen, *got.shape)
+        grad = mel.stft_backward(g, y, n_fft, hop, win)
+        assert kernels.LAUNCHES["stft_backward"] == before["stft_backward"] + 1
+        ref_g = mel.stft_backward_reference(g.double(), y.double(), n_fft, hop, win)
+        assert (grad.double() - ref_g).abs().max().item() <= 1e-5 * ref_g.abs().max().item()
+    else:
+        ref = mel.stft_magnitude_reference(y, n_fft, hop, win)
+        assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
 QUIET_CASES = [(2048, 512, 12), (1933, 512, 11), (512, 128, 21)]
