@@ -46,7 +46,23 @@ Phases, in order; any failure raises and the script exits non-zero:
             K8 pYIN and K8 CREPE held against their plain versions on the
             requests' own inputs (paths and path scores identical), timed
             beside their bound, chip-wide and on one SM.
-   diffusion_train: (after istft_net) ``DiffusionTrainer.fit`` on
+   convnext: (after istft_net) ``SVCInference`` from
+            ``configs/denoiser_cn_hubert.py`` at full width with seeded
+            weights (ChineseHubertSoft 12 x 768 with its gate of 10, ConvNext
+            20 x 512 x 4: K10 in every block, NSF-HiFiGAN 512, ParselMouth):
+            ``forward_batch`` of 4 x ~11.9 s with f0, a 2.97 s ``forward``,
+            ``inference`` on the file phase's 24 s wav in full and shallow
+            (``skip_steps`` 500); exact launches per request (K10 20 per
+            eval), finite audio of the input's length, |wav| <= 1, request
+            seconds, RTF, stage seconds per segment, peak memory; a short
+            shallow file against the plain composition of every kernel
+            (1e-2); K10 against its plain version on the batch request's own
+            inputs at dilations 1, 2, 4, 8 (masked rows included; 1e-4 of
+            scale, a rerun bit-equal), timed beside its bound and cuDNN's
+            depthwise conv1d + F.layer_norm (two calls); the whole 20-block
+            eval against its plain composition; then a 2.97 s ``forward``
+            through ``configs/svc_cn_hubert_soft.py`` (gate 25, K1).
+   diffusion_train: (after convnext) ``DiffusionTrainer.fit`` on
             ``configs/svc_hubert_soft.py`` at full width (WaveNet 20 x 512,
             batch 20 x 512 frames, float32, warmup-cosine AdamW, clip 0.5)
             over a synthetic SVC dataset: 12 steps (seconds per step and
@@ -137,7 +153,7 @@ Each phase prints its wall time.
 The line before the last is a JSON object with one entry per kernel (its
 ``launches`` count the first path that runs it: the file-to-file path for
 the serving kernels, the pitch path for K8 dense, the istft_net path for
-K5 istft, the vocoder training runs, the diffusion_train path for K1's
+K5 istft, the convnext path for K10, the vocoder training runs, the diffusion_train path for K1's
 training kernels, the align phase for K7;
 ``launches_by_path`` every path; K5's and K8-cand's times are those of
 the shallow request's own calls, with their B=4 times under ``batch4``; K8
@@ -177,6 +193,30 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2, reps: int = 1) -> float:
         fn()
     events = []
     for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events) / reps
+
+
+def device_ms(fn, reps: int = 40, iters: int = 5) -> float:
+    """Median device milliseconds of one call of ``fn``: the stream is held
+    by ``torch.cuda._sleep`` while the host enqueues ``reps`` calls between
+    two CUDA events, so that the host's launch overhead (tens of
+    microseconds a ctypes launch) does not show in a kernel that takes less.
+    For kernels shorter than their launch; ``cuda_ms`` times the host's
+    pace too."""
+    import torch
+
+    fn()
+    events = []
+    for _ in range(iters):
+        torch.cuda._sleep(20_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1506,6 +1546,301 @@ def phase_istft_net(report: Report, engine, seed: int):
     engine.set_vocoder(nsf)
     report.finish("istft_net")
     return launches
+
+
+def k10_work(x, out, C: int):
+    """Bytes and float32 operations K10 needs: x, cond and out once, the
+    step projections, the mask and the parameters; per element the pre-add
+    (2), 7 taps and the bias (14) and the norm (8: the sum, the squared
+    deviation, the normalisation with scale and bias)."""
+    B_, T_, _ = x.shape
+    return 3 * nbytes(x) + 4 * B_ * C + B_ * T_ + 4 * 10 * C, 24 * out.numel()
+
+
+def measure_k10(report: Report, args, d: int, label: str) -> dict:
+    """K10 against its plain version on one call's own inputs (1e-4 of the
+    plain version's scale, a rerun bit-equal), timed beside its bound and
+    beside cuDNN's depthwise ``F.conv1d(groups=C)`` + ``F.layer_norm`` (two
+    calls, on the pre-added and masked input laid out [B, C, T])."""
+    import torch
+    import torch.nn.functional as F
+
+    from fish_diffusion_tpu_torch.models import convnext
+
+    x, step, cond, mask, k, b, ln_w, ln_b = args
+    got = convnext.depthwise_conv7_norm(*args, d)
+    ref = convnext.depthwise_conv7_norm_reference(*args, d)
+    err = report.compare(f"depthwise_conv7_norm {label}", got, ref, 1e-4, relative=True)
+    check_rerun(report, f"depthwise_conv7_norm {label}", got,
+                convnext.depthwise_conv7_norm(*args, d))
+    C = x.shape[-1]
+    y = x + step[:, None, :] + cond
+    if mask is not None:
+        y = y.masked_fill(mask[:, :, None], 0.0)
+    y_t = y.transpose(1, 2).contiguous()
+    w = k.t().contiguous()[:, None, :]
+
+    def library():
+        h = F.conv1d(y_t, w, b, padding=3 * d, dilation=d, groups=C)
+        return F.layer_norm(h.transpose(1, 2), (C,), ln_w, ln_b, convnext.LN_EPS)
+
+    lib_err = max_err(library(), ref)
+    ms = device_ms(lambda: convnext.depthwise_conv7_norm(*args, d))
+    plain = device_ms(lambda: convnext.depthwise_conv7_norm_reference(*args, d), reps=10)
+    lib = device_ms(library)
+    events_ms = cuda_ms(lambda: convnext.depthwise_conv7_norm(*args, d), iters=20)
+    work = k10_work(x, got, C)
+    t_bound, by = bound(*work)
+    print(f"    device: kernel {ms:.4f} ms ({work[1] / ms / 1e9:.2f} TFLOP/s, {t_bound / ms:.0%} "
+          f"of its bound {t_bound:.4f} ms, {by}), plain {plain:.4f} ms, cuDNN depthwise "
+          f"conv1d + F.layer_norm {lib:.4f} ms (two calls; max_abs_err {lib_err:.2e}); one "
+          f"launch between events, host pace included: {events_ms:.4f} ms")
+    return dict(err=err, ms=ms, plain=plain, lib=lib, work=work, bound=t_bound, by=by,
+                events_ms=events_ms)
+
+
+def expect_convnext_launches(layers, segments, evals, **kwargs):
+    """``expect_file_launches`` with K10 once a block and eval in place of
+    K1's two kernels."""
+    out = expect_file_launches(0, segments, evals, **kwargs)
+    out["depthwise_conv7_norm"] = layers * evals * segments
+    return out
+
+
+def phase_convnext(report: Report, seed: int):
+    """The twelfth slice's path: ``SVCInference`` from
+    ``configs/denoiser_cn_hubert.py`` at full width with seeded weights
+    (ChineseHubertSoft 12 x 768 with its gate of 10, ConvNext 20 x 512 x 4,
+    NSF-HiFiGAN 512, ParselMouth pitch): ``forward_batch`` of 4 x ~11.9 s
+    with f0, a 2.97 s ``forward``, ``inference`` on the file phase's 24 s
+    wav in full and shallow (``skip_steps`` 500), and a 2.97 s ``forward``
+    through ``configs/svc_cn_hubert_soft.py`` (WaveNet, gate 25): exact
+    launches per request, finite audio of the input's length, |wav| <= 1,
+    request seconds, RTF, stage seconds, peak memory; a short shallow file
+    against the plain composition of every kernel; K10 against its plain
+    version on the batch request's own inputs at each dilation; the whole
+    20-block eval against its plain composition."""
+    import torch
+
+    from fish_diffusion_tpu_torch import kernels
+    from fish_diffusion_tpu_torch.config import Config
+    from fish_diffusion_tpu_torch.extractors import pitch
+    from fish_diffusion_tpu_torch.inference.svc import SVCInference
+    from fish_diffusion_tpu_torch.models import convnext, diffusion
+    from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, source
+    from fish_diffusion_tpu_torch.ops import mel
+    from fish_diffusion_tpu_torch.utils.audio import load_wav, slice_audio
+
+    def build(config, offset):
+        cfg = Config.fromfile(ROOT / "configs" / config)
+        cfg.preprocessing.text_features_extractor.update(
+            checkpoint_path=None, random_init=True, seed=seed + offset)
+        cfg.model.vocoder.update(checkpoint_path=None, random_init=True, seed=seed + offset + 1)
+        engine = SVCInference(cfg, device=DEVICE)
+        engine.init_random(seed + offset + 2)
+        return engine
+
+    t0 = time.perf_counter()
+    engine = build("denoiser_cn_hubert.py", 80)
+    torch.cuda.synchronize()
+    den_cfg = engine.config.model.diffusion
+    layers, evals = den_cfg.denoiser.num_layers, den_cfg.timesteps // den_cfg.sampler_interval
+    hubert = engine.text_features_extractor.model
+    print(f"[convnext] engine built at full width in {time.perf_counter() - t0:.1f} s "
+          f"(ChineseHubertSoft {len(hubert.encoder.layers)}x768 gate {hubert.gate_size}, "
+          f"ConvNext {layers}x{den_cfg.denoiser.dim}x{den_cfg.denoiser.mlp_factor}, "
+          f"NSF-HiFiGAN 512, {type(engine.pitch_extractor).__name__})")
+
+    rng = np.random.default_rng(seed + 80)
+    batch = [make_request_audio(rng, n) for n in (524288, 520000, 515000, 510000)]
+    short, short_f0 = make_request_audio(rng, 256 * HOP)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_convnext_"))
+    song = make_song(np.random.default_rng(seed + 20), tmp / "song.wav", PHRASES)
+    rms = np.sqrt(np.mean(song ** 2) + 1e-12)
+    n_seg = len(list(slice_audio(np.clip(song * (10 ** (-23 / 20) / (rms + 1e-12)), -1, 1),
+                                 SR)))
+    speakers = engine.parse_speaker(0)
+    shallow = max((den_cfg.timesteps - 500) // den_cfg.sampler_interval, 2)
+
+    def expect(*args, **kwargs):
+        return expect_convnext_launches(layers, *args, **kwargs)
+
+    requests = [
+        ("forward_batch 4 x ~11.9 s with f0 (bucket 1024)",
+         lambda: engine.forward_batch([a for a, _ in batch], speakers, seed=seed,
+                                      pitches_list=[f for _, f in batch]),
+         [len(a) for a, _ in batch], None, expect(1, evals, pitch_kernel=None)),
+        ("forward 2.97 s with f0 (bucket 256)",
+         lambda: [engine.forward(short, speakers, seed=seed, pitches=short_f0)],
+         [len(short)], None, expect(1, evals, pitch_kernel=None)),
+        ("inference 24 s, ParselMouth + UniPC",
+         lambda: [engine.inference(tmp / "song.wav", tmp / "a.wav", seed=seed)],
+         [len(song)], tmp / "a.wav", expect(n_seg, evals)),
+        ("inference 24 s, ParselMouth, shallow skip_steps=500",
+         lambda: [engine.inference(tmp / "song.wav", tmp / "b.wav", skip_steps=500,
+                                   seed=seed)],
+         [len(song)], tmp / "b.wav", expect(n_seg, shallow, stft=1)),
+    ]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _, run, *_ in requests:
+        run()
+    torch.cuda.synchronize()
+    print(f"[convnext] warm-up (each request once): {time.perf_counter() - t0:.3f} s")
+
+    k10_calls = recording(convnext, "depthwise_conv7_norm",
+                          key=lambda args, kwargs: int(args[8]))
+    seconds = {}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    for i, (label, run, lengths, written, expected) in enumerate(requests):
+        before = dict(kernels.LAUNCHES)
+        if i == 0:
+            k10_calls.start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = run()
+        torch.cuda.synchronize()
+        secs = seconds[label] = time.perf_counter() - t0
+        k10_calls.stop()
+        audio_secs = sum(lengths) / SR
+        if written:
+            outs, lengths = outs + [load_wav(written)[0]], lengths * 2
+        grew = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+        peak = max(float(np.abs(o).max()) for o in outs)
+        ok = ([len(o) for o in outs] == lengths
+              and all(np.isfinite(o).all() and 0 < np.abs(o).max() <= 1.0 for o in outs)
+              and grew == expected)
+        print(f"[convnext] {label}: {secs:.3f} s for {audio_secs:.2f} s of audio, RTF "
+              f"{secs / audio_secs:.4f}, peak |wav| {peak:.3f}, launches "
+              f"{({k: v for k, v in grew.items() if v})} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            print(f"  expected {({k: v for k, v in expected.items() if v})}")
+            report.failures.append(f"convnext: {label}")
+    launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[convnext] launches over the path: {launches}; peak device memory "
+          f"{peak_gib:.2f} GiB")
+    for name in {k for *_, expected in requests for k, v in expected.items() if v}:
+        if launches[name] <= 0:
+            report.failures.append(f"{name} never launched on the convnext path")
+
+    # where the file requests' time goes (a second, clocked run of each)
+    stages = {}
+    for label, kwargs in (("full", {}), ("shallow", dict(skip_steps=500))):
+        clock = StageClock()
+        engine.pitch_extractor = timed_calls(engine.pitch_extractor, clock, "ParselMouth")
+        clock.wrap(engine.text_features_extractor.model, "forward", "ChineseHubertSoft")
+        clock.wrap(engine.model, "sample", "sample")
+        clock.wrap(engine.vocoder, "spec2wav", "vocoder")
+        if kwargs:
+            clock.wrap(engine.vocoder, "wav2spec", "wav2spec (K5)")
+        engine.inference(tmp / "song.wav", tmp / "clocked.wav", seed=seed, **kwargs)
+        clock.restore()
+        engine.pitch_extractor = engine.pitch_extractor.obj
+        stages[label] = {k: v / n_seg for k, v in clock.seconds.items()}
+        print(f"[convnext] inference 24 s {label}, seconds per segment (synced host clock): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in stages[label].items()))
+
+    # a short shallow file through the kernels and through the plain
+    # version of every kernel
+    rng_small = np.random.default_rng(seed + 81)
+    make_song(rng_small, tmp / "small.wav", [(1.5, 208.0)])
+    run_small = lambda: engine.inference(tmp / "small.wav", tmp / "small_out.wav",  # noqa: E731
+                                         skip_steps=500, seed=seed)
+    got = run_small()
+    with plain_path({
+        (convnext, "depthwise_conv7_norm"): convnext.depthwise_conv7_norm_reference,
+        (diffusion, "unipc_predict"): diffusion.unipc_predict_reference,
+        (diffusion, "unipc_correct"): diffusion.unipc_correct_reference,
+        (nsf_hifigan, "conv1d"): nsf_hifigan.conv1d_reference,
+        (nsf_hifigan, "conv_transpose1d"): nsf_hifigan.conv_transpose1d_reference,
+        (source, "nsf_source"): source.nsf_source_reference,
+        (mel, "stft_magnitude"): plain_stft_magnitude,
+        (pitch, "viterbi_candidates"): pitch.viterbi_candidates_reference,
+    }):
+        ref = run_small()
+    report.compare("convnext file 1.5 s shallow with ParselMouth vs plain composition (wav)",
+                   torch.from_numpy(got), torch.from_numpy(ref), 1e-2)
+
+    # K10 on the batch request's own inputs, one launch at each dilation
+    n_calls = sum(count for *_, count in k10_calls.calls.values())
+    print(f"[convnext] K10 on the forward_batch request's own inputs: the first block of "
+          f"each dilation (of {n_calls} launches)")
+    by_dilation = {}
+    for d in sorted(k10_calls.calls):
+        args, _, _ = k10_calls.calls[d]
+        x = args[0]
+        padded = int(args[3].sum()) if args[3] is not None else 0
+        label = f"d={d} B={x.shape[0]} T={x.shape[1]} C={x.shape[2]}, {padded} masked rows"
+        with torch.inference_mode():  # the parameters require grad; K10 has no backward
+            r = measure_k10(report, args[:8], d, label)
+        by_dilation[f"d={d}"] = dict(ms=r["ms"], events_ms=r["events_ms"],
+                                     plain_ms=r["plain"], library_ms=r["lib"],
+                                     bound_ms=r["bound"], bound_by=r["by"],
+                                     tflops=r["work"][1] / r["ms"] / 1e9,
+                                     share_of_bound=r["bound"] / r["ms"],
+                                     max_abs_err=r["err"])
+        report.kernel("depthwise_conv7_norm", r["err"], r["ms"], r["plain"],
+                      f"sum of one launch at each dilation 1, 2, 4, 8 on the forward_batch "
+                      f"request's own inputs, B={x.shape[0]} T={x.shape[1]} C={x.shape[2]}",
+                      *r["work"], r["lib"])
+    if sorted(by_dilation) != ["d=1", "d=2", "d=4", "d=8"]:
+        report.failures.append(f"K10 recorded at dilations {sorted(by_dilation)}")
+    report.extra["depthwise_conv7_norm"] = dict(
+        by_dilation=by_dilation, timing="device_ms: the stream held while 40 launches "
+        "are enqueued; events_ms: one launch between events, host pace included",
+        library="cuDNN depthwise F.conv1d(groups=C) + F.layer_norm: two calls")
+
+    # the whole 20-block eval against its plain composition
+    denoiser = engine.model.diffusion.denoise_fn
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 82)
+    lens = torch.tensor([len(a) // HOP for a, _ in batch], device=DEVICE)
+    masks = torch.arange(T, device=DEVICE)[None, :] >= lens[:, None]
+    feats = torch.randn((B, T, 256), generator=gen, device=DEVICE)
+    x_t = torch.randn((B, T, MEL), generator=gen, device=DEVICE)
+    steps = torch.full((B,), 500.0, device=DEVICE)
+    with torch.inference_mode():
+        plan = denoiser.prepare(feats, masks)
+        run_den = lambda: denoiser(x_t, steps, None, x_masks=masks, plan=plan)  # noqa: E731
+        got_den = run_den()
+        ms_den = cuda_ms(run_den)
+        with plain_path({(convnext, "depthwise_conv7_norm"):
+                         convnext.depthwise_conv7_norm_reference}):
+            ref_den = run_den()
+            plain_den = cuda_ms(run_den)
+    report.compare("convnext denoiser eval (20 x 512 x 4, B=4 x 1024)", got_den, ref_den, 1e-3,
+                   relative=True)
+    print(f"  convnext denoiser eval: kernels {ms_den:.3f} ms, plain {plain_den:.3f} ms")
+    del engine, plan
+    torch.cuda.empty_cache()
+
+    # configs/svc_cn_hubert_soft.py: ChineseHubertSoft (gate 25) before WaveNet
+    soft = build("svc_cn_hubert_soft.py", 90)
+    gate = soft.text_features_extractor.model.gate_size
+    w_cfg = soft.config.model.diffusion.denoiser
+    w_layers = w_cfg.residual_layers
+    soft.forward(short, soft.parse_speaker(0), seed=seed, pitches=short_f0)  # warm-up
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = soft.forward(short, soft.parse_speaker(0), seed=seed, pitches=short_f0)
+    torch.cuda.synchronize()
+    secs = seconds["svc_cn_hubert_soft forward 2.97 s"] = time.perf_counter() - t0
+    soft_launches = dict(kernels.LAUNCHES)
+    expected = expect_file_launches(w_layers, 1, evals, pitch_kernel=None)
+    ok = (len(out) == len(short) and np.isfinite(out).all() and 0 < np.abs(out).max() <= 1.0
+          and soft_launches == expected and gate == 25)
+    print(f"[convnext] svc_cn_hubert_soft.py (ChineseHubertSoft gate {gate}, WaveNet "
+          f"{w_layers}x{w_cfg.residual_channels}) forward 2.97 s with f0: {secs:.3f} s, RTF "
+          f"{secs / (len(short) / SR):.4f}, peak |wav| {np.abs(out).max():.3f}, launches "
+          f"{({k: v for k, v in soft_launches.items() if v})} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        report.failures.append("convnext: svc_cn_hubert_soft.py forward")
+    del soft
+    report.finish("convnext")
+    return launches, dict(request_s=seconds, peak_gib=peak_gib, stage_s_per_segment=stages,
+                          denoiser_eval_ms=ms_den, denoiser_eval_plain_ms=plain_den)
 
 
 TRAIN_B, TRAIN_SEG = 16, 32768
@@ -3198,6 +3533,8 @@ def main() -> int:
     istft_launches = timed_phase("istft_net", phase_istft_net, engine, args.seed)
     del engine
     torch.cuda.empty_cache()
+    convnext_launches, totals["convnext"] = timed_phase("convnext", phase_convnext, args.seed)
+    torch.cuda.empty_cache()
     diff_launches, diff_train = timed_phase("diffusion_train", phase_diffusion_train,
                                             args.seed)
     totals.update(diff_train)
@@ -3214,14 +3551,16 @@ def main() -> int:
     totals["phase_wall_s"] = wall
 
     by_path = {"file": launches, "pitch": pitch_launches, "istft_net": istft_launches,
-               "train": train_launches, "train_v2": v2_launches, "train_sine": sine_launches,
+               "convnext": convnext_launches, "train": train_launches,
+               "train_v2": v2_launches, "train_sine": sine_launches,
                "diffusion_train": diff_launches, "align": align_launches}
     entries = []
     for name, meta in kernels.KERNELS.items():
         k = report.kernels[name]
         # a kernel's launches on the first path that runs it: the
         # file-to-file path for the serving kernels, the pitch path for K8
-        # dense, the iSTFTNet path for K5 istft, the vocoder training runs
+        # dense, the iSTFTNet path for K5 istft, the ConvNeXt path for K10,
+        # the vocoder training runs
         # (NSF-HiFiGAN, RefineGAN comb, RefineGAN sine), the diffusion
         # training for K1's training kernels, then alignment for K7
         path = next((p for p, counts in by_path.items() if counts[name]), None)

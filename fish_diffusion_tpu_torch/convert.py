@@ -5,15 +5,19 @@ JAX package and returns a ``state_dict`` for the matching port module. The
 keys are fish-diffusion's torch keys, the inverse of the torch -> JAX
 converters in ``tools/``:
 
-- ``diffsinger_from_jax``: ``DiffSinger``/``DiffSVC`` (inverse of
-  ``tools/diffusion/convert_torch_checkpoint.py:convert_diffsinger``), and
-  ``wavenet_from_jax`` for the denoiser alone;
+- ``diffsinger_from_jax``: ``DiffSinger``/``DiffSVC`` with the WaveNet or
+  the ConvNeXt denoiser (inverse of
+  ``tools/diffusion/convert_torch_checkpoint.py:convert_diffsinger`` and
+  ``convert_convnext``), and ``wavenet_from_jax`` and ``convnext_from_jax``
+  for the denoisers alone;
 - ``nsf_hifigan_from_jax``: ``NsfHifiGANGenerator`` (inverse of
   ``tools/nsf_hifigan/convert_checkpoint.py:convert``), and
   ``istft_net_from_jax`` for ``ISTFTNetGenerator``, whose tree has the
   same layout;
-- ``hubert_soft_from_jax``: the HubertSoft tower with HF ``HubertModel``
-  keys (inverse of
+- ``hubert_from_jax`` (alias ``hubert_soft_from_jax``): the HuBERT tower in
+  either order (post-norm, as HubertSoft, or pre-norm, as ChineseHubert,
+  ChineseHubertSoft and ContentVec) with its head, if any, in HF
+  ``HubertModel`` keys (inverse of
   ``tools/preprocessing/convert_hubert_checkpoint.py:convert_hf_hubert``);
 - ``refinegan_from_jax``: ``RefineGANGenerator`` (inverse of
   ``tools/refinegan/convert_checkpoint.py:convert_refinegan``, plus the
@@ -29,7 +33,9 @@ converters in ``tools/``:
 Layouts: flax Dense ``[in, out]`` is torch Linear ``[out, in]``; flax Conv
 ``[k, in, out]`` is torch ``[out, in, k]``; the flax ConvTranspose
 ``transpose_kernel`` layout ``[k, out, in]`` is torch ``[in, out, k]``; the
-WaveNet blocks are stacked on a leading ``[L]`` axis; flax attention kernels
+WaveNet and ConvNeXt blocks are stacked on a leading ``[L]`` axis (a
+ConvNeXt depthwise kernel ``[L, 7, C]`` is torch ``[C, 1, 7]`` a block);
+flax attention kernels
 are ``[dim, heads, head_dim]`` (out: ``[heads, head_dim, dim]``).
 """
 
@@ -111,15 +117,60 @@ def wavenet_from_jax(params: dict) -> dict:
     return {k.lstrip("."): v for k, v in sd.items()}
 
 
+def _convnext(sd, prefix, p):
+    if "block" not in p.get("residual_layers", {}):
+        raise NotImplementedError(
+            "a ConvNext tree without the scanned residual_layers stack (the "
+            "cross-attention layout) is not ported yet (ROADMAP Queue 1, Other "
+            "denoisers: ConvNeXt cross-attention)")
+    _conv1x1(sd, f"{prefix}.input_projection", p["input_projection"]["Dense_0"])
+    _linear(sd, f"{prefix}.diffusion_embedding.1", p["diff_mlp1"])
+    _linear(sd, f"{prefix}.diffusion_embedding.3", p["diff_mlp2"])
+    _conv1x1(sd, f"{prefix}.conditioner_projection.0", p["cond_proj1"]["Dense_0"])
+    _conv1x1(sd, f"{prefix}.conditioner_projection.2", p["cond_proj2"]["Dense_0"])
+    _conv1x1(sd, f"{prefix}.output_projection.0", p["out_proj1"]["Dense_0"])
+    _conv1x1(sd, f"{prefix}.output_projection.2", p["out_proj2"]["Dense_0"])
+
+    blk = p["residual_layers"]["block"]
+    dw = np.asarray(blk["dwconv"]["kernel"])  # [L, 7, C]
+    for i in range(dw.shape[0]):
+        q = f"{prefix}.residual_layers.{i}"
+
+        def layer(tree):
+            return {k: np.asarray(v)[i] for k, v in tree.items()}
+
+        sd[f"{q}.dwconv.weight"] = _t(dw[i].T[:, None, :])
+        sd[f"{q}.dwconv.bias"] = _t(np.asarray(blk["dwconv"]["bias"])[i])
+        _norm(sd, f"{q}.norm", layer(blk["norm"]))
+        _linear(sd, f"{q}.pwconv1", layer(blk["pwconv1"]))
+        _linear(sd, f"{q}.pwconv2", layer(blk["pwconv2"]))
+        sd[f"{q}.gamma"] = _t(np.asarray(blk["gamma"])[i])
+        for name in ("diffusion_step_projection", "condition_projection"):
+            _conv1x1(sd, f"{q}.{name}", layer(blk[name]["Dense_0"]))
+
+
+def convnext_from_jax(params: dict) -> dict:
+    """``ConvNext`` denoiser params (the scanned stack) -> its state dict."""
+    sd: dict = {}
+    _convnext(sd, "", params)
+    return {k.lstrip("."): v for k, v in sd.items()}
+
+
 def diffsinger_from_jax(params: dict) -> dict:
-    """``DiffSinger`` params (with or without a ``{"params": ...}`` wrap)."""
+    """``DiffSinger`` params (with or without a ``{"params": ...}`` wrap);
+    the denoiser is a ConvNext when its stack has a ``dwconv``, else a
+    WaveNet."""
     params = params.get("params", params)
     sd: dict = {}
     for enc in ("text_encoder", "speaker_encoder", "pitch_encoder",
                 "pitch_shift_encoder", "energy_encoder"):
         if f"{enc}_mod" in params:
             _encoder(sd, enc, params[f"{enc}_mod"])
-    _wavenet(sd, "diffusion.denoise_fn", params["diffusion_mod"]["denoise_fn"])
+    den = params["diffusion_mod"]["denoise_fn"]
+    if "dwconv" in den.get("residual_layers", {}).get("block", {}):
+        _convnext(sd, "diffusion.denoise_fn", den)
+    else:
+        _wavenet(sd, "diffusion.denoise_fn", den)
     return sd
 
 
@@ -153,8 +204,11 @@ def nsf_hifigan_from_jax(params: dict) -> dict:
 istft_net_from_jax = nsf_hifigan_from_jax
 
 
-def hubert_soft_from_jax(params: dict) -> dict:
-    """HubertSoft params: the ``HubertEncoder`` tree plus ``soft_proj``."""
+def hubert_from_jax(params: dict) -> dict:
+    """A HuBERT extractor's params: the ``HubertEncoder`` tree, post-norm
+    (with ``pre_norm``, HF's ``encoder.layer_norm``) or pre-norm (without),
+    and its head: ``soft_proj`` (HF ``proj``; HubertSoft, ChineseHubertSoft),
+    ``final_proj`` (ContentVec) or none (ChineseHubert)."""
     sd: dict = {}
     fe = params["feature_extractor"]
     i = 0
@@ -165,7 +219,8 @@ def hubert_soft_from_jax(params: dict) -> dict:
     _norm(sd, "feature_projection.layer_norm", params["feat_norm"])
     _linear(sd, "feature_projection.projection", params["feature_projection"])
     _conv(sd, "encoder.pos_conv_embed.conv", params["pos_conv"])
-    _norm(sd, "encoder.layer_norm", params["pre_norm"])
+    if "pre_norm" in params:
+        _norm(sd, "encoder.layer_norm", params["pre_norm"])
 
     i = 0
     while f"layer_{i}" in params:
@@ -185,8 +240,13 @@ def hubert_soft_from_jax(params: dict) -> dict:
         _norm(sd, f"{q}.final_layer_norm", lp["norm2"])
         i += 1
 
-    _linear(sd, "proj", params["soft_proj"])
+    for name, key in (("soft_proj", "proj"), ("final_proj", "final_proj")):
+        if name in params:
+            _linear(sd, key, params[name])
     return sd
+
+
+hubert_soft_from_jax = hubert_from_jax
 
 
 def _wn_conv(sd, prefix, p, name, kernel_axes):

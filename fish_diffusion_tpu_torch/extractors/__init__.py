@@ -1,5 +1,5 @@
 from .crepe import CrepePitchExtractor  # noqa: F401
-from .feature import HubertSoft  # noqa: F401
+from .feature import ChineseHubert, ChineseHubertSoft, ContentVec, HubertSoft  # noqa: F401
 from .pitch import (  # noqa: F401
     AutocorrPitchExtractor,
     ParselMouthPitchExtractor,

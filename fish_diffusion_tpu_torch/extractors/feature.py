@@ -1,11 +1,15 @@
-"""Content features: HuBERT-Soft (``fish_diffusion_tpu/extractors/feature.py``).
+"""Content features: the HuBERT front ends
+(``fish_diffusion_tpu/extractors/feature.py``): HubertSoft, ContentVec,
+ChineseHubert and ChineseHubertSoft.
 
 Plain PyTorch. Module and parameter names are those of HF
-``transformers.HubertModel`` (plus ``proj``, the soft-unit head), so that
-``tools/preprocessing/convert_hubert_checkpoint.py:convert_hf_hubert`` reads
-a port state dict. Attention is a plain matmul and softmax, as flax's
-``MultiHeadDotProductAttention`` computes it. Only the post-norm tower that
-HubertSoft uses is ported.
+``transformers.HubertModel`` (plus the heads ``proj`` and ``final_proj``),
+so that ``tools/preprocessing/convert_hubert_checkpoint.py:convert_hf_hubert``
+reads a port state dict. Attention is a plain matmul and softmax, as flax's
+``MultiHeadDotProductAttention`` computes it. The tower runs in either
+order: post-norm (HubertSoft) or pre-norm (``layer_norm_first``: the
+others), which, as in the JAX package, has no norm after the positional
+conv and none after the last layer.
 """
 
 from __future__ import annotations
@@ -134,17 +138,22 @@ class _FeedForward(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    """Post-norm transformer layer (the JAX ``TransformerLayer`` with
-    ``layer_norm_first=False``)."""
+    """The JAX ``TransformerLayer``: post-norm, or pre-norm with
+    ``layer_norm_first`` (``layer_norm`` before the attention,
+    ``final_layer_norm`` before the feed-forward, both residuals outside)."""
 
-    def __init__(self, dim: int, heads: int, ffn_dim: int):
+    def __init__(self, dim: int, heads: int, ffn_dim: int, layer_norm_first: bool = False):
         super().__init__()
+        self.layer_norm_first = layer_norm_first
         self.attention = _Attention(dim, heads)
         self.layer_norm = nn.LayerNorm(dim, eps=1e-5)
         self.feed_forward = _FeedForward(dim, ffn_dim)
         self.final_layer_norm = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, x):
+        if self.layer_norm_first:
+            x = x + self.attention(self.layer_norm(x))
+            return x + self.feed_forward(self.final_layer_norm(x))
         x = self.layer_norm(x + self.attention(x))
         return self.final_layer_norm(x + self.feed_forward(x))
 
@@ -161,30 +170,34 @@ class _PosConv(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, dim: int, num_layers: int, heads: int, ffn_dim: int):
+    def __init__(self, dim: int, num_layers: int, heads: int, ffn_dim: int,
+                 layer_norm_first: bool):
         super().__init__()
         self.pos_conv_embed = _PosConv(dim)
-        self.layer_norm = nn.LayerNorm(dim, eps=1e-5)
+        # post-norm only: the norm after the positional conv (JAX ``pre_norm``)
+        self.layer_norm = None if layer_norm_first else nn.LayerNorm(dim, eps=1e-5)
         self.layers = nn.ModuleList(
-            TransformerLayer(dim, heads, ffn_dim) for _ in range(num_layers)
+            TransformerLayer(dim, heads, ffn_dim, layer_norm_first)
+            for _ in range(num_layers)
         )
 
 
 class HubertEncoder(nn.Module):
-    """Post-norm HuBERT tower: [B, T_samples] -> the hidden states of every
+    """HuBERT tower: [B, T_samples] -> the hidden states of every
     transformer layer (list of [B, T_frames, dim])."""
 
     def __init__(self, dim: int = 768, num_layers: int = 12, heads: int = 12,
-                 ffn_dim: int = 3072):
+                 ffn_dim: int = 3072, layer_norm_first: bool = False):
         super().__init__()
         self.feature_extractor = ConvFeatureExtractor()
         self.feature_projection = _FeatureProjection(512, dim)
-        self.encoder = _Encoder(dim, num_layers, heads, ffn_dim)
+        self.encoder = _Encoder(dim, num_layers, heads, ffn_dim, layer_norm_first)
 
     def forward(self, audio: torch.Tensor) -> list:
         x = self.feature_projection(self.feature_extractor(audio))
         x = x + self.encoder.pos_conv_embed(x)
-        x = self.encoder.layer_norm(x)
+        if self.encoder.layer_norm is not None:
+            x = self.encoder.layer_norm(x)
         hiddens = []
         for layer in self.encoder.layers:
             x = layer(x)
@@ -192,40 +205,57 @@ class HubertEncoder(nn.Module):
         return hiddens
 
 
-class HubertSoftModel(HubertEncoder):
-    """The tower + the 256-d soft-unit head ``proj``."""
+class HubertHeadModel(HubertEncoder):
+    """The tower, the hidden state ``hiddens[layer]`` and an optional
+    256-d head named ``head`` (``"proj"`` or ``"final_proj"``), then, with
+    ``gate_size``, the top-k gate: each frame keeps its values at or above
+    its ``gate_size``-th largest (ties keep more) and zeroes the rest."""
 
-    def __init__(self, dim: int = 768, **kwargs):
+    def __init__(self, dim: int = 768, head: Optional[str] = None, layer: int = -1,
+                 gate_size: Optional[int] = None, **kwargs):
         super().__init__(dim=dim, **kwargs)
-        self.proj = nn.Linear(dim, 256)
+        self.head, self.layer, self.gate_size = head, layer, gate_size
+        if head is not None:
+            setattr(self, head, nn.Linear(dim, 256))
 
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
-        return self.proj(super().forward(audio)[-1])
+        feats = super().forward(audio)[self.layer]
+        if self.head is not None:
+            feats = getattr(self, self.head)(feats)
+        if self.gate_size is not None:
+            threshold = feats.topk(self.gate_size, dim=-1).values[..., -1:]
+            feats = torch.where(feats >= threshold, feats, torch.zeros_like(feats))
+        return feats
 
 
-@FEATURE_EXTRACTORS.register_module()
-class HubertSoft(BaseFeatureExtractor):
-    """bshall HuBERT-Soft: host audio -> soft units [1, 256, T_frames].
+class HubertSoftModel(HubertHeadModel):
+    """The post-norm tower + the 256-d soft-unit head ``proj``."""
+
+    def __init__(self, dim: int = 768, **kwargs):
+        super().__init__(dim=dim, head="proj", **kwargs)
+
+
+class _HubertExtractor(BaseFeatureExtractor):
+    """Host audio -> features [1, C, T_frames] through ``model``.
 
     ``checkpoint_path`` names a pickle of the JAX package's params (the
     format ``tools/preprocessing/convert_hubert_checkpoint.py`` writes),
-    carried across by ``convert.hubert_soft_from_jax``; without one,
+    carried across by ``convert.hubert_from_jax``; without one,
     ``random_init`` draws every parameter from ``seed``. Runs on ``device``,
     the card unless the caller asks for the CPU."""
 
     sampling_rate = 16000
 
-    def __init__(self, checkpoint_path: Optional[str] = None,
-                 random_init: bool = False, seed: int = 0, device="cuda",
-                 **encoder_kwargs):
+    def __init__(self, model: nn.Module, checkpoint_path: Optional[str],
+                 random_init: bool, seed: int, device):
         self.device = resolve_device(device)
-        self.model = HubertSoftModel(**encoder_kwargs)
+        self.model = model
         self.has_weights = False
         if checkpoint_path:
-            from ..convert import hubert_soft_from_jax
+            from ..convert import hubert_from_jax
 
             with open(checkpoint_path, "rb") as f:
-                self.load_state_dict(hubert_soft_from_jax(pickle.load(f)))
+                self.load_state_dict(hubert_from_jax(pickle.load(f)))
         elif random_init:
             self.init_random(seed)
         self.model.to(self.device).eval()
@@ -244,8 +274,61 @@ class HubertSoft(BaseFeatureExtractor):
     def __call__(self, audio, sampling_rate=44100) -> np.ndarray:
         if not self.has_weights:
             raise RuntimeError(
-                "HubertSoft has no weights: give checkpoint_path or random_init"
+                f"{type(self).__name__} has no weights: give checkpoint_path or "
+                "random_init"
             )
         audio = self.preprocess(audio, sampling_rate)
         x = torch.from_numpy(audio)[None].to(self.device)
         return self.model(x).transpose(1, 2).float().cpu().numpy()
+
+
+@FEATURE_EXTRACTORS.register_module()
+class HubertSoft(_HubertExtractor):
+    """bshall HuBERT-Soft: the post-norm tower and the soft-unit head ->
+    [1, 256, T_frames]."""
+
+    def __init__(self, checkpoint_path: Optional[str] = None,
+                 random_init: bool = False, seed: int = 0, device="cuda",
+                 **encoder_kwargs):
+        super().__init__(HubertSoftModel(**encoder_kwargs), checkpoint_path,
+                         random_init, seed, device)
+
+
+@FEATURE_EXTRACTORS.register_module()
+class ContentVec(_HubertExtractor):
+    """ContentVec: the pre-norm tower's layer ``output_layer`` (1-based),
+    then ``final_proj`` to 256 unless ``use_projection`` is False."""
+
+    def __init__(self, checkpoint_path: Optional[str] = None, output_layer: int = 9,
+                 use_projection: bool = True, random_init: bool = False, seed: int = 0,
+                 device="cuda", **encoder_kwargs):
+        model = HubertHeadModel(head="final_proj" if use_projection else None,
+                                layer=output_layer - 1, layer_norm_first=True,
+                                **encoder_kwargs)
+        super().__init__(model, checkpoint_path, random_init, seed, device)
+
+
+@FEATURE_EXTRACTORS.register_module()
+class ChineseHubert(_HubertExtractor):
+    """Chinese HuBERT: the pre-norm tower's hidden state
+    ``hiddens[output_layer]`` (the last by default)."""
+
+    def __init__(self, checkpoint_path: Optional[str] = None, output_layer: int = -1,
+                 random_init: bool = False, seed: int = 0, device="cuda",
+                 **encoder_kwargs):
+        model = HubertHeadModel(layer=output_layer, layer_norm_first=True,
+                                **encoder_kwargs)
+        super().__init__(model, checkpoint_path, random_init, seed, device)
+
+
+@FEATURE_EXTRACTORS.register_module()
+class ChineseHubertSoft(_HubertExtractor):
+    """Chinese HuBERT-Soft: the pre-norm tower, the soft-unit head ``proj``
+    and the top-k gate of ``gate_size`` over the 256 channels of a frame."""
+
+    def __init__(self, checkpoint_path: Optional[str] = None, gate_size: int = 10,
+                 random_init: bool = False, seed: int = 0, device="cuda",
+                 **encoder_kwargs):
+        model = HubertHeadModel(head="proj", gate_size=gate_size, layer_norm_first=True,
+                                **encoder_kwargs)
+        super().__init__(model, checkpoint_path, random_init, seed, device)

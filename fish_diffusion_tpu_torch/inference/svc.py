@@ -5,10 +5,13 @@ normalisation, silence slicing, one request per segment (or batched by
 bucket), overlap-write. A request is one audio segment (``forward``) or
 several (``forward_batch``) with a target speaker. Each segment goes
 through the pitch extractor (the config's: Harvest, ParselMouth, pYIN,
-CREPE, DIO or YIN; none when the caller gives the f0 curve), HubertSoft content features, condition assembly, reverse diffusion
-over the WaveNet denoiser (UniPC, PLMS or naive; shallow from the input's
-own mel when ``skip_steps`` > 0) and the NSF-HiFiGAN vocoder. Segments are
-padded to a frame bucket and masked, as in the JAX server.
+CREPE, DIO or YIN; none when the caller gives the f0 curve), the config's
+content features (HubertSoft, ChineseHubertSoft, ChineseHubert or
+ContentVec), condition assembly, reverse diffusion over the config's
+denoiser (WaveNet or ConvNeXt; UniPC, PLMS or naive; shallow from the
+input's own mel when ``skip_steps`` > 0) and the vocoder (NSF-HiFiGAN or
+iSTFTNet). Segments are padded to a frame bucket and masked, as in the JAX
+server.
 
 Everything runs on ``device``, the card unless the caller asks for the CPU.
 Not ported: vocal separation (``extract_vocals``), energy extractors, and

@@ -152,6 +152,10 @@ KERNELS = {
         id="K7", route="cuda", source=_PORT + "csrc/monotonic_align.cu",
         replaces=_TPU + "ops/monotonic_align.py:30",
     ),
+    "depthwise_conv7_norm": dict(
+        id="K10", route="cuda", source=_PORT + "csrc/convnext_block.cu",
+        replaces=_TPU + "models/convnext.py:47",
+    ),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -204,6 +208,9 @@ SIGNATURES = {
         "conv2d": [_I] + [_P] * 4 + [_I] * 13 + [_P],
         "conv2d_wgrad_splits": [_I] * 13,
         "conv2d_wgrad": [_P] * 4 + [_I] * 14 + [_P],
+    },
+    "convnext_block": {
+        "depthwise_conv7_norm": [_P] * 9 + [_I] * 4 + [_F, _P],
     },
 }
 

@@ -1,4 +1,4 @@
-from . import encoders, vocoders, wavenet  # noqa: F401
+from . import convnext, encoders, vocoders, wavenet  # noqa: F401
 from .diffsinger import DiffSinger  # noqa: F401
 from .diffusion import GaussianDiffusion  # noqa: F401
 

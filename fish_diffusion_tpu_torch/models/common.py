@@ -36,6 +36,8 @@ def shift_time(x: torch.Tensor, shift: int) -> torch.Tensor:
         return x
     T = x.shape[1]
     out = torch.zeros_like(x)
+    if abs(shift) >= T:
+        return out
     if shift > 0:
         out[:, shift:] = x[:, : T - shift]
     else:

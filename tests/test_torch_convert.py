@@ -9,6 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from fish_diffusion_tpu.extractors import feature as jfeature
 from fish_diffusion_tpu.extractors.crepe import CrepePitchExtractor as JCrepe
 from fish_diffusion_tpu.extractors.feature import HubertSoft as JHubertSoft
 from fish_diffusion_tpu.models.diffsinger import DiffSinger as JDiffSinger
@@ -22,8 +23,10 @@ from fish_diffusion_tpu.models.vocoders.refinegan import (
     RefineGANGenerator as JRefineGAN,
 )
 from fish_diffusion_tpu_torch.convert import (
+    convnext_from_jax,
     crepe_from_jax,
     diffsinger_from_jax,
+    hubert_from_jax,
     hubert_soft_from_jax,
     istft_net_from_jax,
     nsf_hifigan_from_jax,
@@ -31,10 +34,12 @@ from fish_diffusion_tpu_torch.convert import (
 )
 from fish_diffusion_tpu_torch.extractors.crepe import Crepe
 from fish_diffusion_tpu_torch.extractors.feature import HubertSoftModel
+from fish_diffusion_tpu_torch.models.convnext import ConvNext
 from fish_diffusion_tpu_torch.models.diffsinger import DiffSinger
 from fish_diffusion_tpu_torch.models.vocoders.istft_net import ISTFTNetGenerator
 from fish_diffusion_tpu_torch.models.vocoders.nsf_hifigan import NsfHifiGANGenerator
 from fish_diffusion_tpu_torch.models.vocoders.refinegan import RefineGANGenerator
+from fish_diffusion_tpu_torch.registry import FEATURE_EXTRACTORS
 
 TOOLS = Path(__file__).resolve().parents[1] / "tools"
 
@@ -87,6 +92,41 @@ def test_diffsinger_round_trip():
     sd = round_trip(DiffSinger(**cfg), diffsinger_from_jax(params))
     convert = load_tool("diffusion/convert_torch_checkpoint.py", "diffsinger_convert")
     assert_trees_equal(params, convert.convert_diffsinger(sd))
+
+
+def test_convnext_diffsinger_round_trip():
+    """DiffSinger with the ConvNeXt denoiser (the scanned block stack ->
+    per-block tensors): ``diffsinger_from_jax`` dispatches on the tree, and
+    ``convert_diffsinger`` (through ``convert_convnext``) reads the port's
+    state dict back, bit-equal; ``convnext_from_jax`` gives the denoiser's
+    own keys."""
+    cfg = dict(
+        text_encoder=dict(type="NaiveProjectionEncoder", input_size=24, output_size=16),
+        speaker_encoder=dict(type="NaiveProjectionEncoder", input_size=4,
+                             output_size=16, use_embedding=True),
+        pitch_encoder=dict(type="NaiveProjectionEncoder", input_size=1,
+                           output_size=16, preprocessing="pitch_to_scale"),
+        diffusion=dict(
+            type="GaussianDiffusion", mel_channels=8, timesteps=100,
+            spec_min=[-5], spec_max=[0],
+            denoiser=dict(type="ConvNextDenoiser", mel_channels=8, dim=16, mlp_factor=2,
+                          condition_dim=16, num_layers=3, dilation_cycle=2),
+        ),
+    )
+    params = numpy_tree(jax.jit(JDiffSinger(**cfg).init)(
+        {"params": jax.random.PRNGKey(0), "diffusion": jax.random.PRNGKey(1)},
+        jnp.zeros((1,), jnp.int32), jnp.ones((1, 6, 24)),
+        mel=jnp.zeros((1, 6, 8)), pitches=jnp.full((1, 6), 200.0),
+    )["params"])
+    sd = round_trip(DiffSinger(**cfg), diffsinger_from_jax(params))
+    assert sd["diffusion.denoise_fn.residual_layers.2.dwconv.weight"].shape == (16, 1, 7)
+    convert = load_tool("diffusion/convert_torch_checkpoint.py", "convnext_convert_rt")
+    assert_trees_equal(params, convert.convert_diffsinger(sd))
+    den = round_trip(ConvNext(mel_channels=8, dim=16, mlp_factor=2, condition_dim=16,
+                              num_layers=3, dilation_cycle=2),
+                     convnext_from_jax(params["diffusion_mod"]["denoise_fn"]))
+    prefix = "diffusion.denoise_fn."
+    assert den.keys() == {k[len(prefix):] for k in sd if k.startswith(prefix)}
 
 
 def test_nsf_hifigan_round_trip():
@@ -163,6 +203,26 @@ def test_hubert_soft_round_trip():
     sd = round_trip(HubertSoftModel(num_layers=1), hubert_soft_from_jax(params))
     convert = load_tool("preprocessing/convert_hubert_checkpoint.py", "hubert_convert_rt")
     assert_trees_equal(params, convert.convert_hf_hubert(sd))
+
+
+def test_pre_norm_hubert_round_trip():
+    """The pre-norm front ends (ChineseHubertSoft's ``soft_proj``,
+    ContentVec's ``final_proj``, ChineseHubert's no head) through
+    ``hubert_from_jax`` into the port's models and back through
+    ``tools/preprocessing/convert_hubert_checkpoint.py:convert_hf_hubert``:
+    the tool reads a tower without ``encoder.layer_norm`` as pre-norm (no
+    ``pre_norm``), and the heads by their HF keys (``proj``,
+    ``final_proj``): bit-equal."""
+    convert = load_tool("preprocessing/convert_hubert_checkpoint.py", "hubert_pre_rt")
+    for name in ("ChineseHubertSoft", "ContentVec", "ChineseHubert"):
+        jext = getattr(jfeature, name)(num_layers=1, random_init=True)
+        params = numpy_tree(jext.params)
+        assert "pre_norm" not in params
+        port = FEATURE_EXTRACTORS.build(dict(type=name, num_layers=1, output_layer=1)
+                                        if name == "ContentVec"
+                                        else dict(type=name, num_layers=1), device="cpu")
+        sd = round_trip(port.model, hubert_from_jax(params))
+        assert_trees_equal(params, convert.convert_hf_hubert(sd))
 
 
 def test_crepe_round_trip():

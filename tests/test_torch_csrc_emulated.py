@@ -1,6 +1,6 @@
 """The CUDA sources of K1 (with its training mode and backward), K4 (and its weight gradient), K5 (forward,
 backward and istft), K6 (grouped and 2-D, with the 2-D weight gradient),
-K7, K8-cand and K8 dense (pYIN's and CREPE's decoder), compiled for the host CPU and run against their
+K7, K8-cand, K8 dense (pYIN's and CREPE's decoder) and K10, compiled for the host CPU and run against their
 plain PyTorch versions at small shapes.
 
 The card is the real test (``chip_smoke.py``, ``tests/test_torch_kernels_cuda.py``),
@@ -27,12 +27,12 @@ import torch
 
 from fish_diffusion_tpu_torch import kernels
 from fish_diffusion_tpu_torch.extractors import pitch
-from fish_diffusion_tpu_torch.models import wavenet
+from fish_diffusion_tpu_torch.models import convnext, wavenet
 from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan
 from fish_diffusion_tpu_torch.ops import blocked_conv, mel
 from fish_diffusion_tpu_torch.ops import monotonic_align as ma
-from tests.test_torch_kernels_cuda import (ALIGN_CASES, QUIET_CASES, align_case, dense_case,
-                                          quiet_case)
+from tests.test_torch_kernels_cuda import (ALIGN_CASES, QUIET_CASES, align_case,
+                                          convnext_case, dense_case, quiet_case)
 
 SHIM = r"""
 #pragma once
@@ -989,3 +989,52 @@ def test_maximum_path_source_wide(host_libs, T_y, T_x):
     got = _maximum_path(host_libs["monotonic_align"], values, t_ys, t_xs)
     torch.testing.assert_close(got, ma.maximum_path_reference(values, t_ys, t_xs),
                                atol=0, rtol=0)
+
+
+def _dwconv7_norm(lib, x, step, cond, mask, k, b, ln_scale, ln_bias, d):
+    B, T, C = x.shape
+    out = torch.full_like(x, float("nan"))
+    assert lib.depthwise_conv7_norm(
+        x.data_ptr(), step.data_ptr(), cond.data_ptr(),
+        None if mask is None else mask.data_ptr(), k.data_ptr(), b.data_ptr(),
+        ln_scale.data_ptr(), ln_bias.data_ptr(), out.data_ptr(), B, T, C, d,
+        convnext.LN_EPS, None) == 0
+    return out
+
+
+@pytest.mark.parametrize("C", [8, 24, 64])
+@pytest.mark.parametrize("T", [5, 37, 130])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_convnext_block_source(host_libs, C, T, d):
+    """K10 with and without a mask: residue classes of one row to 17 rows
+    (one tile of 16 and a ragged second), T shorter than the halo, C below,
+    between and above the threads' stride over channels: <= 1e-5 of the
+    plain version's scale, every row written, a rerun bit-equal."""
+    lib = host_libs["convnext_block"]
+    for masked in (False, True):
+        args = convnext_case(2, T, C, T * C + d, masked)
+        got = _dwconv7_norm(lib, *args, d)
+        ref = convnext.depthwise_conv7_norm_reference(*args, d)
+        assert torch.isfinite(got).all()
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), (masked, err)
+        assert torch.equal(got, _dwconv7_norm(lib, *args, d))
+
+
+def test_convnext_block_source_wide_and_padded(host_libs):
+    """K10 past one channel per thread (C = 300 > 256 threads) and with a
+    zero conv bias, as at init: a padded row whose taps all lie in padding
+    has h = 0 and variance 0, and gives the ln bias exactly (not NaN)."""
+    lib = host_libs["convnext_block"]
+    x, step, cond, mask, k, b, ln_scale, ln_bias = convnext_case(3, 70, 300, 1, True,
+                                                                 zero_bias=True)
+    got = _dwconv7_norm(lib, x, step, cond, mask, k, b, ln_scale, ln_bias, 4)
+    ref = convnext.depthwise_conv7_norm_reference(x, step, cond, mask, k, b, ln_scale,
+                                                  ln_bias, 4)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    # rows whose 7 taps at dilation 4 (t - 12 .. t + 12) all read padding
+    rows = [(bi, t) for bi in range(3) for t in range(70)
+            if all(t + o < 0 or t + o >= 70 or mask[bi, t + o] for o in range(-12, 13))]
+    assert rows
+    for bi, t in rows:
+        assert torch.equal(got[bi, t], ln_bias), (bi, t)

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of
 ``fish_diffusion_tpu_torch`` (the training modules, the datasets, the
-discriminators, the RefineGAN and iSTFTNet vocoders, monotonic alignment
-and the pitch extractors among them) loads no JAX, flax, optax or
+discriminators, the RefineGAN and iSTFTNet vocoders, monotonic alignment,
+the pitch extractors, the ConvNeXt denoiser and the HuBERT front ends among
+them) loads no JAX, flax, optax or
 ``fish_diffusion_tpu`` module (checked in a fresh interpreter)."""
 
 import subprocess
@@ -26,10 +27,16 @@ for name in ("training.gan", "training.vocoder_trainer", "training.vocoder_cli",
              "models.vocoders.istft_net", "ops.monotonic_align", "ops.mel",
              "training.diffusion_trainer", "training.diffusion_cli",
              "training.diffusion_state", "training.diffusion_checkpoint",
-             "datasets.loader", "datasets.wrappers"):
+             "datasets.loader", "datasets.wrappers", "models.convnext",
+             "extractors.feature"):
     assert "fish_diffusion_tpu_torch." + name in names, name
 assert not bad, bad
-from fish_diffusion_tpu_torch.registry import PITCH_EXTRACTORS, VOCODERS
+from fish_diffusion_tpu_torch.registry import (DENOISERS, FEATURE_EXTRACTORS,
+                                               PITCH_EXTRACTORS, VOCODERS)
+for name in ("WaveNetDenoiser", "ConvNextDenoiser"):
+    assert name in DENOISERS, name
+for name in ("HubertSoft", "ChineseHubertSoft", "ChineseHubert", "ContentVec"):
+    assert name in FEATURE_EXTRACTORS, name
 for name in ("NsfHifiGAN", "ISTFTNet", "RefineGANGenerator"):
     assert name in VOCODERS, name
 for name in ("HarvestPitchExtractor", "ParselMouthPitchExtractor", "AutocorrPitchExtractor",

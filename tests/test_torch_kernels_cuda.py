@@ -1,6 +1,6 @@
 """The port's hand-written kernels (K1 with its training mode and backward,
 K2-K6 with K6 2-D and K5 istft, K7,
-K8-cand, K8 dense, K9 comb and sine, the weight gradients, and the
+K8-cand, K8 dense, K9 comb and sine, K10, the weight gradients, and the
 backward kernels of K3 and K5) against their plain PyTorch versions
 on an NVIDIA GPU, at small shapes that exercise the ragged edges.
 
@@ -17,7 +17,7 @@ import torch
 
 from fish_diffusion_tpu_torch import kernels
 from fish_diffusion_tpu_torch.extractors import crepe, pitch
-from fish_diffusion_tpu_torch.models import diffusion, wavenet
+from fish_diffusion_tpu_torch.models import convnext, diffusion, wavenet
 from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, source
 from fish_diffusion_tpu_torch.ops import blocked_conv, mel
 from fish_diffusion_tpu_torch.ops import monotonic_align as ma
@@ -776,3 +776,51 @@ def test_maximum_path_wide(gen, B, T_y, T_x):
     got = ma.maximum_path(values, t_ys, t_xs)
     torch.testing.assert_close(got, ma.maximum_path_reference(values, t_ys, t_xs),
                                atol=0, rtol=0)
+
+
+def convnext_case(B: int, T: int, C: int, seed: int, masked: bool, zero_bias: bool = False,
+                  device="cpu"):
+    """K10's inputs (x, step, cond, mask, k, b, ln_scale, ln_bias), float32:
+    item 0 unpadded, the others padded from about 3/5 of T (with
+    ``masked``); with ``zero_bias`` the conv's bias is 0, as at init, so
+    the rows whose taps all lie in padding have variance 0."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+
+    x, step, cond = rn(B, T, C), rn(B, C), rn(B, T, C)
+    lens = torch.tensor([T] + [max(1, (3 * T) // 5 - i) for i in range(1, B)])
+    mask = torch.arange(T)[None, :] >= lens[:, None] if masked else None
+    k = rn(convnext.TAPS, C, scale=convnext.TAPS ** -0.5)
+    b = torch.zeros(C) if zero_bias else rn(C, scale=0.1)
+    ln_scale, ln_bias = 1.0 + rn(C, scale=0.1), rn(C, scale=0.1)
+    args = (x, step, cond, mask, k, b, ln_scale, ln_bias)
+    return tuple(None if a is None else a.to(device) for a in args)
+
+
+@pytest.mark.parametrize("B,T,C", [(4, 1024, 512), (2, 37, 24), (3, 5, 64), (1, 130, 520)])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_depthwise_conv7_norm(gen, B, T, C, d):
+    """K10 with and without a mask (padded rows whose taps all lie in
+    padding and a zero conv bias give the ln bias): <= 1e-4 of the plain
+    version's scale, and a second launch bit-equal (B=4 x 1024 x 512 is the
+    batch request's shape; T=5 is shorter than the halo)."""
+    for masked, zero_bias in ((False, False), (True, False), (True, True)):
+        args = convnext_case(B, T, C, B * T + C + d, masked, zero_bias, device="cuda")
+        got = convnext.depthwise_conv7_norm(*args, d)
+        ref = convnext.depthwise_conv7_norm_reference(*args, d)
+        assert torch.isfinite(got).all()
+        assert_scaled(got, ref)
+        assert torch.equal(got, convnext.depthwise_conv7_norm(*args, d))
+
+
+def test_depthwise_conv7_norm_raises_under_grad(gen):
+    """K10 has no backward yet: under grad with an input that requires it,
+    the wrapper raises instead of running the plain version."""
+    args = list(convnext_case(2, 40, 64, 0, True, device="cuda"))
+    args[4] = args[4].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        convnext.depthwise_conv7_norm(*args, 2)
+    with torch.no_grad():
+        convnext.depthwise_conv7_norm(*args, 2)

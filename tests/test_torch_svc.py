@@ -33,7 +33,12 @@ from fish_diffusion_tpu_torch.convert import (
     nsf_hifigan_from_jax,
 )
 from fish_diffusion_tpu_torch.extractors.crepe import CrepePitchExtractor
-from fish_diffusion_tpu_torch.extractors.feature import HubertSoft
+from fish_diffusion_tpu_torch.extractors.feature import (
+    ChineseHubert,
+    ChineseHubertSoft,
+    ContentVec,
+    HubertSoft,
+)
 from fish_diffusion_tpu_torch.extractors.pitch import (
     ParselMouthPitchExtractor,
     PyinPitchExtractor,
@@ -543,12 +548,14 @@ def test_entry_points_default_to_cuda():
     CPU; without a card, a default build raises rather than falling back."""
     extractors = (HarvestPitchExtractor, ParselMouthPitchExtractor, PyinPitchExtractor,
                   CrepePitchExtractor, DioPitchExtractor, YinPitchExtractor)
-    for cls in (SVCInference, HubertSoft, NsfHifiGAN, ISTFTNet, LogMelSpectrogram) + extractors:
+    hubert = (HubertSoft, ChineseHubertSoft, ChineseHubert, ContentVec)
+    for cls in (SVCInference, NsfHifiGAN, ISTFTNet, LogMelSpectrogram) + hubert + extractors:
         assert inspect.signature(cls).parameters["device"].default == "cuda", cls
     assert cli.build_parser().get_default("device") == "cuda"
     if torch.cuda.is_available():
         assert LogMelSpectrogram().device.type == "cuda"
     else:
-        for build in (LogMelSpectrogram, lambda: HubertSoft(num_layers=1), ISTFTNet) + extractors:
+        front_ends = tuple(lambda cls=cls: cls(num_layers=1) for cls in hubert)
+        for build in (LogMelSpectrogram, ISTFTNet) + front_ends + extractors:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 build()
