@@ -83,6 +83,21 @@ Phases, in order; any failure raises and the script exits non-zero:
             their bound; one block's forward and backward against torch
             autograd of the plain block), and K1's weight gradients through
             ``conv1d_wgrad``.
+   convnext_train: (after diffusion_train) the same on
+            ``configs/denoiser_cn_hubert.py`` (ConvNext 20 x 512 x 4, its
+            dataset set to ``NaiveSVCDataset``: the config's
+            ``NaiveDenoiserDataset`` carries no pitches, which its DiffSVC
+            model needs): 12 steps, validation and checkpoints at 6 and 12
+            (K10 serving, K2, K3, K4), a resume, 3 profiled steps, exact
+            K10 launches per step (the forward and both backward kernels 20
+            each), the whole step against the plain step (the same three
+            gates); K10's backward kernels on the step's own inputs at each
+            dilation against their plain versions (1e-4 of scale, bit-equal
+            on rerun), timed beside their bound and cuDNN's (the layer
+            norm's autograd and the depthwise conv's weight and input
+            gradients), and one block's forward and backward at each
+            dilation against torch autograd of the plain block (1e-4
+            relative L2).
 5. train:   ``VocoderTrainer.fit`` on ``configs/vocoder_nsf_hifigan.py`` at
             full width (NSF-HiFiGAN 512, MPD 2/3/5/7/11, 3-scale MSD, batch
             16 x 32768, float32) over a synthetic dataset: 2 warm-up and 6
@@ -154,7 +169,7 @@ The line before the last is a JSON object with one entry per kernel (its
 ``launches`` count the first path that runs it: the file-to-file path for
 the serving kernels, the pitch path for K8 dense, the istft_net path for
 K5 istft, the convnext path for K10, the vocoder training runs, the diffusion_train path for K1's
-training kernels, the align phase for K7;
+training kernels, the convnext_train path for K10's backward, the align phase for K7;
 ``launches_by_path`` every path; K5's and K8-cand's times are those of
 the shallow request's own calls, with their B=4 times under ``batch4``; K8
 dense's those of one request's three calls); the last line is
@@ -2960,8 +2975,9 @@ def phase_train_sine(report: Report, seed: int):
     return launches, totals
 
 
-# The diffusion training phase: configs/svc_hubert_soft.py at full width,
-# batch 20 x 512 frames (the config's batch, bucketed), float32
+# The diffusion training phases: configs/svc_hubert_soft.py (WaveNet) and
+# configs/denoiser_cn_hubert.py (ConvNeXt) at full width, batch 20 x 512
+# frames (the configs' batch, bucketed), float32
 DIFF_B, DIFF_FRAMES = 20, (400, 512)
 DIFF_WARM, DIFF_TIMED = 2, 10
 # K1's launches in one training step of the 20-block WaveNet: the training
@@ -2969,6 +2985,10 @@ DIFF_WARM, DIFF_TIMED = 2, 10
 # gradients a block (dW_conv at K = 3, dW_out at K = 1)
 DIFF_LAUNCHES = {"wavenet_gate_train": 20, "wavenet_out": 20, "wavenet_gate_backward": 20,
                  "wavenet_input_backward": 20, "conv1d_wgrad": 40}
+# K10's launches in one training step of the 20-block ConvNeXt: the forward
+# and both backward kernels once a block
+CONVNEXT_TRAIN_LAUNCHES = {"depthwise_conv7_norm": 20, "depthwise_conv7_norm_backward_rows": 20,
+                           "depthwise_conv7_backward_taps": 20}
 
 
 def make_svc_dataset(rng, root: Path):
@@ -2986,57 +3006,60 @@ def make_svc_dataset(rng, root: Path):
                 "pitches": rng.uniform(80, 600, T).astype(np.float32)})
 
 
-def phase_diffusion_train(report: Report, seed: int):
-    """The eleventh slice's path: ``DiffusionTrainer.fit`` on
-    ``configs/svc_hubert_soft.py`` at full width (WaveNet 20 x 512, batch 20
-    x 512 frames, float32, the config's warmup-cosine AdamW and clip 0.5)
-    over a synthetic dataset: 12 steps with validation (one batch: its loss,
-    UniPC at interval 100, both mels vocoded by a random NSF-HiFiGAN) and a
-    checkpoint at steps 6 and 12, exact K1 launches every step; a resume
-    for 2 more steps; the whole step (loss and every gradient) through the
-    kernels against the plain step on the same parameters, batch, t and
-    noise; then K1's training kernels at the step's shapes for each
-    dilation against their plain versions, timed, bit-equal on rerun, and
-    K1's weight gradients through ``conv1d_wgrad``."""
-    import torch
-
-    from fish_diffusion_tpu_torch import kernels
+def diffusion_config(seed: int, config_file: str, tmp: Path, dataset_type=None):
+    """The config at full width over a synthetic SVC dataset under ``tmp``
+    (read by ``dataset_type`` when given): 12 steps, validation (one batch,
+    UniPC at interval 100, a random NSF-HiFiGAN) at 6 and 12, metrics every
+    step; the loaders read in this process (no worker processes to stop)."""
     from fish_diffusion_tpu_torch.config import Config
     from fish_diffusion_tpu_torch.datasets.loader import build_loader
-    from fish_diffusion_tpu_torch.models import wavenet
-    from fish_diffusion_tpu_torch.ops import blocked_conv
-    from fish_diffusion_tpu_torch.training.diffusion_state import batch_to_device, model_kwargs
-    from fish_diffusion_tpu_torch.training.diffusion_trainer import DiffusionTrainer
 
-    say = "[diffusion_train]"
-    rng = np.random.default_rng(seed + 60)
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_diffusion_"))
-    make_svc_dataset(rng, tmp / "data")
-    cfg = Config.fromfile(ROOT / "configs" / "svc_hubert_soft.py")
+    make_svc_dataset(np.random.default_rng(seed + 60), tmp / "data")
+    cfg = Config.fromfile(ROOT / "configs" / config_file)
     cfg.trainer.update(precision="32-true", max_steps=DIFF_WARM + DIFF_TIMED,
                        val_check_interval=(DIFF_WARM + DIFF_TIMED) // 2, limit_val_batches=1,
                        val_sampler_interval=100, log_every_n_steps=1)
     cfg.model["vocoder"] = dict(type="NsfHifiGAN", random_init=True, seed=seed + 61,
                                 sampling_rate=SR, mel_channels=MEL, use_natural_log=False)
-    cfg.dataset.train["path"] = str(tmp / "data" / "train")
-    cfg.dataset.valid["path"] = str(tmp / "data" / "valid")
-    # the loaders read in this process (no worker processes to stop)
+    for split, part in (("train", cfg.dataset.train), ("valid", cfg.dataset.valid)):
+        part["path"] = str(tmp / "data" / split)
+        if dataset_type:
+            part["type"] = dataset_type
     loader = build_loader(cfg.dataset.train, {**cfg.dataloader.train, "num_workers": 0})
     valid = build_loader(cfg.dataset.valid, {**cfg.dataloader.valid, "num_workers": 0})
     assert cfg.dataloader.train.batch_size == DIFF_B
-    den = cfg.model.diffusion.denoiser
-    print(f"{say} configs/svc_hubert_soft.py: WaveNet {den.residual_layers} x "
-          f"{den.residual_channels} (dilation cycle {den.dilation_cycle}), noise loss "
-          f"{cfg.model.diffusion.noise_loss!r}, batch {DIFF_B} x {DIFF_FRAMES[0]}-"
-          f"{DIFF_FRAMES[1]} frames (bucketed to 512), float32, clip "
-          f"{cfg.trainer.gradient_clip_val}, {len(loader)} steps per epoch")
+    return cfg, loader, valid
 
+
+def drive_diffusion_training(report: Report, seed: int, tag: str, cfg, loader, valid,
+                             per_step: dict, forward: dict, plain_fns: dict, backward_fns,
+                             recorders):
+    """``DiffusionTrainer.fit`` on ``cfg``: 12 steps with validation and a
+    checkpoint at steps 6 and 12, exactly ``per_step`` launches every step;
+    3 profiled steps; a resume for 2 more steps; then the whole step through
+    the kernels against the plain step (``plain_fns``: every kernel wrapper
+    to its plain version) on the same parameters, batch, t and noise: the
+    loss within 1e-5 relative; the backward through the kernels against the
+    backward through their plain versions (``backward_fns``, the keys of
+    ``plain_fns`` that the backward calls) on one forward (which launches
+    the ``forward`` kernels alone), every gradient within 1e-4 relative L2; the whole step's gradients within max(1e-4,
+    3 x the plain step's own move under mel x (1 + d)), the median of six
+    paired comparisons. ``recorders`` keep the kernel step's calls. Returns
+    (the fit's launches, totals)."""
+    import torch
+
+    from fish_diffusion_tpu_torch import kernels
+    from fish_diffusion_tpu_torch.training.diffusion_state import batch_to_device, model_kwargs
+    from fish_diffusion_tpu_torch.training.diffusion_trainer import DiffusionTrainer
+
+    say = f"[{tag}]"
+    tmp = Path(cfg.dataset.train["path"]).parents[1]
     t0 = time.perf_counter()
     trainer = DiffusionTrainer(cfg, log_dir=str(tmp / "logs"), steps_per_epoch=len(loader),
                                device=DEVICE)
     print(f"{say} trainer built in {time.perf_counter() - t0:.1f} s")
     expected = {name: 0 for name in kernels.LAUNCHES}
-    expected.update(DIFF_LAUNCHES)
+    expected.update(per_step)
     step_fn = trainer._train_step
     steps, peak, shapes = [], {}, []
 
@@ -3085,8 +3108,8 @@ def phase_diffusion_train(report: Report, seed: int):
         if not ok:
             print(f"    launches {({k: v for k, v in grew.items() if v})}, "
                   f"expected {({k: v for k, v in expected.items() if v})}, batch {shapes[i]}")
-            report.failures.append(f"diffusion_train step {i + 1}")
-    print(f"{say} launches per step: {DIFF_LAUNCHES} (every step exactly)")
+            report.failures.append(f"{tag} step {i + 1}")
+    print(f"{say} launches per step: {per_step} (every step exactly)")
     rows = [json.loads(line) for line in open(tmp / "logs" / "metrics.jsonl")]
     val = [(r["step"], r["valid_loss"]) for r in rows if "valid_loss" in r]
     wavs = sorted(p.name for p in (tmp / "logs").glob("*.wav"))
@@ -3097,15 +3120,15 @@ def phase_diffusion_train(report: Report, seed: int):
     if (state.step != DIFF_WARM + DIFF_TIMED or len(val) != 2
             or not all(np.isfinite(v) for _, v in val) or len(wavs) != 8 or len(mels) != 8
             or ckpts != [6, 12]):
-        report.failures.append("diffusion_train fit / validation / checkpoints")
-    for name, n in DIFF_LAUNCHES.items():
+        report.failures.append(f"{tag} fit / validation / checkpoints")
+    for name in per_step:
         if launches[name] <= 0:
-            report.failures.append(f"{name} never launched on the diffusion_train path")
+            report.failures.append(f"{name} never launched on the {tag} path")
 
     # resume from the checkpoint of the last step, for two more steps
     saved = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
     totals_profile = profile_steps(state, step_fn, batch_to_device(next(iter(loader)), DEVICE),
-                                   seed)
+                                   seed, tag)
     cfg.trainer["max_steps"] = DIFF_WARM + DIFF_TIMED + 2
     resumed = DiffusionTrainer(cfg, log_dir=str(tmp / "logs"), steps_per_epoch=len(loader),
                                device=DEVICE)
@@ -3118,7 +3141,7 @@ def phase_diffusion_train(report: Report, seed: int):
           f"{'identical' if same else 'DIFFER'}, {count} updates), two more steps -> step "
           f"{after.step} {'ok' if ok else 'FAIL'}")
     if not ok:
-        report.failures.append("diffusion_train resume")
+        report.failures.append(f"{tag} resume")
     del resumed, restored, after
     torch.cuda.empty_cache()
 
@@ -3129,13 +3152,6 @@ def phase_diffusion_train(report: Report, seed: int):
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 62)
     t = torch.randint(0, cfg.model.diffusion.timesteps, (DIFF_B,), generator=gen, device=DEVICE)
     noise = torch.randn(batch["mel"].shape, generator=gen, device=DEVICE)
-    plain_fns = {
-        (wavenet, "residual_gate_train"): wavenet.residual_gate_train_reference,
-        (wavenet, "residual_out"): wavenet.residual_out_reference,
-        (wavenet, "residual_gate_backward"): wavenet.residual_gate_backward_reference,
-        (wavenet, "residual_input_backward"): wavenet.residual_input_backward_reference,
-        (blocked_conv, "conv1d_wgrad"): blocked_conv.conv1d_wgrad_reference,
-    }
 
     def one_step(swaps, order=None, mel_scale=1.0):
         """Loss, gradients and launches of one step from the same state;
@@ -3155,7 +3171,7 @@ def phase_diffusion_train(report: Report, seed: int):
         torch.cuda.synchronize()
         return (float(loss.detach()),
                 {k: p.grad.detach().clone() for k, p in model.named_parameters()},
-                dict(kernels.LAUNCHES))
+                {k: v for k, v in kernels.LAUNCHES.items() if v})
 
     def rel_l2(got, ref):
         return {k: float((got[k] - ref[k]).double().norm() / ref[k].double().norm())
@@ -3165,10 +3181,6 @@ def phase_diffusion_train(report: Report, seed: int):
         k = max(d, key=d.get)
         return f"median {statistics.median(d.values()):.2e}, max {d[k]:.2e} ({k})"
 
-    recorders = [recording(wavenet, "residual_gate_train", key=lambda a, kw: a[5]),
-                 recording(wavenet, "residual_gate_backward", key=lambda a, kw: 0),
-                 recording(wavenet, "residual_input_backward", key=lambda a, kw: a[3]),
-                 recording(blocked_conv, "conv1d_wgrad")]
     for r in recorders:
         r.start()
     try:
@@ -3177,39 +3189,38 @@ def phase_diffusion_train(report: Report, seed: int):
         for r in recorders:
             r.stop()
     loss_p, g_p, launched_p = one_step(plain_fns)
-    if any(launched_p.values()):
-        report.failures.append(f"diffusion_train: plain step launched kernels: {launched_p}")
-    if {k: v for k, v in launched_k.items() if v} != DIFF_LAUNCHES:
-        report.failures.append(f"diffusion_train: kernel step launched {launched_k}")
+    if launched_p:
+        report.failures.append(f"{tag}: plain step launched kernels: {launched_p}")
+    if launched_k != per_step:
+        report.failures.append(f"{tag}: kernel step launched {launched_k}")
     rel = abs(loss_k - loss_p) / abs(loss_p)
     print(f"{say} whole step, kernels vs plain: loss {loss_k:.7f} vs {loss_p:.7f}, relative "
           f"{rel:.2e} (tol 1e-5) {'ok' if rel <= 1e-5 else 'FAIL'}")
     if not rel <= 1e-5:
-        report.failures.append(f"diffusion_train step loss vs plain: {rel:.2e}")
+        report.failures.append(f"{tag} step loss vs plain: {rel:.2e}")
     zero = [k for k in g_p if float(g_p[k].abs().max()) == 0]
     if any(float(g_k[k].abs().max()) != 0 for k in zero):
-        report.failures.append("diffusion_train: a gradient that is 0 in the plain step is not")
+        report.failures.append(f"{tag}: a gradient that is 0 in the plain step is not")
 
-    # (1) K1's backward alone: the same forward (K1's kernels), the backward
+    # (1) the backward alone: the same forward (the kernels), the backward
     # through its kernels against the backward through the plain versions.
-    # Both differentiate one forward, so every ReLU mask and every saved
-    # tensor are the same: the gradients may differ by rounding only.
-    backward_plain = {key: fn for key, fn in plain_fns.items()
-                      if key[1] not in ("residual_gate_train", "residual_out")}
+    # Both differentiate one forward, so every saved tensor is the same: the
+    # gradients may differ by rounding only.
+    backward_plain = {key: plain_fns[key] for key in backward_fns}
     _, g_h, launched_h = one_step(backward_plain)
     l2_bwd = rel_l2(g_k, g_h)
     bad = [k for k, v in l2_bwd.items() if not v <= 1e-4]
-    print(f"{say} whole step, the backward through K1's kernels vs through the plain versions "
-          f"(one forward, K1's): every gradient's relative L2 (tol 1e-4): {summary(l2_bwd)} "
-          f"over {len(l2_bwd)} tensors ({len(zero)} all-zero in both) "
+    print(f"{say} whole step, the backward through the kernels vs through the plain versions "
+          f"(one forward, the kernels'): every gradient's relative L2 (tol 1e-4): "
+          f"{summary(l2_bwd)} over {len(l2_bwd)} tensors ({len(zero)} all-zero in both) "
           f"{'ok' if not bad else 'FAIL'}")
-    if bad or launched_h["wavenet_gate_train"] != 20 or launched_h["wavenet_gate_backward"]:
-        report.failures.append(f"diffusion_train backward vs plain backward: {bad[:5]}")
+    if bad or launched_h != forward:
+        report.failures.append(f"{tag} backward vs plain backward: {bad[:5]} {launched_h}")
 
-    # (2) the whole step, kernels vs plain. The denoiser has ReLUs (after the
-    # input and the skip projections): the forwards' float32 differences
-    # can flip a unit within ~1e-6 of 0, and a flip moves one row's
-    # gradient, which reaches every parameter through the skip path (~1e-3
+    # (2) the whole step, kernels vs plain. A kink in the network (the
+    # WaveNet's ReLUs after the input and the skip projections) can flip a
+    # unit within ~1e-6 of 0 under the forwards' float32 differences, and a
+    # flip moves one row's gradient, which reaches every parameter (~1e-3
     # relative L2 on every tensor, seen at some states and not others). The
     # floor is the plain step's own move when its mel changes by a relative
     # 1e-6 to 3e-6 (FLOOR_SCALES); the gate reads, for each tensor, the
@@ -3244,15 +3255,15 @@ def phase_diffusion_train(report: Report, seed: int):
     print(f"{say} the plain step with its batch reversed (rounding without flips): "
           f"{summary(reordered)}")
     if bad:
-        report.failures.append(f"diffusion_train step gradients vs plain: {bad[:5]}")
+        report.failures.append(f"{tag} step gradients vs plain: {bad[:5]}")
     totals = {
-        "diffusion_train_step_s_median": median, "diffusion_train_step_s": secs,
-        "diffusion_train_frames_per_s": frames / median,
-        "diffusion_train_peak_gib": peak["bytes"] / 2**30,
-        "diffusion_train_wall": wall, "diffusion_train_losses_last": steps[-1][2],
-        "diffusion_train_launches_per_step": DIFF_LAUNCHES,
-        "diffusion_train_profile": totals_profile,
-        "diffusion_train_step_vs_plain": {
+        f"{tag}_step_s_median": median, f"{tag}_step_s": secs,
+        f"{tag}_frames_per_s": frames / median,
+        f"{tag}_peak_gib": peak["bytes"] / 2**30,
+        f"{tag}_wall": wall, f"{tag}_losses_last": steps[-1][2],
+        f"{tag}_launches_per_step": per_step,
+        f"{tag}_profile": totals_profile,
+        f"{tag}_step_vs_plain": {
             "loss_rel": rel, "backward_rel_l2_max": max(l2_bwd.values()),
             "backward_rel_l2_median": statistics.median(l2_bwd.values()),
             "grad_rel_l2_max": max(l2.values()),
@@ -3265,14 +3276,102 @@ def phase_diffusion_train(report: Report, seed: int):
     }
     del g_k, g_p, g_h
     model.zero_grad(set_to_none=True)
+    return launches, totals, state
+
+
+def phase_diffusion_train(report: Report, seed: int):
+    """The eleventh slice's path: ``DiffusionTrainer.fit`` on
+    ``configs/svc_hubert_soft.py`` at full width (WaveNet 20 x 512, batch 20
+    x 512 frames, float32, the config's warmup-cosine AdamW and clip 0.5)
+    over a synthetic dataset (``drive_diffusion_training``: exact K1
+    launches every step, validation, checkpoints, a resume, the whole step
+    against the plain step); then K1's training kernels at the step's
+    shapes for each dilation against their plain versions, timed, bit-equal
+    on rerun, and K1's weight gradients through ``conv1d_wgrad``."""
+    from fish_diffusion_tpu_torch.models import wavenet
+    from fish_diffusion_tpu_torch.ops import blocked_conv
+
+    tag = "diffusion_train"
+    cfg, loader, valid = diffusion_config(
+        seed, "svc_hubert_soft.py", Path(tempfile.mkdtemp(prefix="chip_smoke_diffusion_")))
+    den = cfg.model.diffusion.denoiser
+    print(f"[{tag}] configs/svc_hubert_soft.py: WaveNet {den.residual_layers} x "
+          f"{den.residual_channels} (dilation cycle {den.dilation_cycle}), noise loss "
+          f"{cfg.model.diffusion.noise_loss!r}, batch {DIFF_B} x {DIFF_FRAMES[0]}-"
+          f"{DIFF_FRAMES[1]} frames (bucketed to 512), float32, clip "
+          f"{cfg.trainer.gradient_clip_val}, {len(loader)} steps per epoch")
+    plain_fns = {
+        (wavenet, "residual_gate_train"): wavenet.residual_gate_train_reference,
+        (wavenet, "residual_out"): wavenet.residual_out_reference,
+        (wavenet, "residual_gate_backward"): wavenet.residual_gate_backward_reference,
+        (wavenet, "residual_input_backward"): wavenet.residual_input_backward_reference,
+        (blocked_conv, "conv1d_wgrad"): blocked_conv.conv1d_wgrad_reference,
+    }
+    backward = [key for key in plain_fns
+                if key[1] not in ("residual_gate_train", "residual_out")]
+    recorders = [recording(wavenet, "residual_gate_train", key=lambda a, kw: a[5]),
+                 recording(wavenet, "residual_gate_backward", key=lambda a, kw: 0),
+                 recording(wavenet, "residual_input_backward", key=lambda a, kw: a[3]),
+                 recording(blocked_conv, "conv1d_wgrad")]
+    forward = {k: DIFF_LAUNCHES[k] for k in ("wavenet_gate_train", "wavenet_out")}
+    launches, totals, _ = drive_diffusion_training(report, seed, tag, cfg, loader, valid,
+                                                   DIFF_LAUNCHES, forward, plain_fns,
+                                                   backward, recorders)
     measure_k1_training(report, {r.name: r.calls for r in recorders}, totals)
     report.extra.setdefault("conv1d_wgrad", {})["diffusion_train"] = measure_wgrad_calls(
         report, recorders[3].calls, "diffusion_train (K1 dW)")
-    report.finish("diffusion_train")
+    report.finish(tag)
     return launches, totals
 
 
-def profile_steps(state, step_fn, batch, seed: int, n: int = 3) -> dict:
+def phase_convnext_train(report: Report, seed: int):
+    """The thirteenth slice's path: ``DiffusionTrainer.fit`` on
+    ``configs/denoiser_cn_hubert.py`` at full width (ConvNext 20 x 512 x 4,
+    batch 20 x 512 frames, float32, the config's warmup-cosine AdamW and
+    clip 0.5) over the synthetic SVC dataset, with the dataset set to
+    ``NaiveSVCDataset`` (``drive_diffusion_training``: K10's forward and
+    both backward kernels 20 times every step, validation with K10 serving,
+    checkpoints, a resume, the whole step against the plain step); then
+    K10's backward kernels on the step's own inputs at each dilation
+    against their plain versions (1e-4 of scale, bit-equal on rerun),
+    timed beside their bound and cuDNN's, and one block's forward and
+    backward against torch autograd of the plain block."""
+    from fish_diffusion_tpu_torch.models import convnext
+
+    tag = "convnext_train"
+    print(f"[{tag}] configs/denoiser_cn_hubert.py names NaiveDenoiserDataset, whose batches "
+          f"carry no pitches; its DiffSVC model has a pitch encoder, so it trains here on "
+          f"NaiveSVCDataset (the dataset of its base, configs/_base_/datasets/naive_svc.py)")
+    cfg, loader, valid = diffusion_config(
+        seed, "denoiser_cn_hubert.py", Path(tempfile.mkdtemp(prefix="chip_smoke_cn_")),
+        dataset_type="NaiveSVCDataset")
+    den = cfg.model.diffusion.denoiser
+    print(f"[{tag}] ConvNext {den.num_layers} x {den.dim} x {den.mlp_factor} (dilation cycle "
+          f"{den.dilation_cycle}, condition {den.condition_dim}), noise loss "
+          f"{cfg.model.diffusion.noise_loss!r}, batch {DIFF_B} x {DIFF_FRAMES[0]}-"
+          f"{DIFF_FRAMES[1]} frames (bucketed to 512), float32, clip "
+          f"{cfg.trainer.gradient_clip_val}, {len(loader)} steps per epoch")
+    plain_fns = {
+        (convnext, "depthwise_conv7_norm"): convnext.depthwise_conv7_norm_reference,
+        (convnext, "depthwise_conv7_norm_backward_rows"):
+            convnext.depthwise_conv7_norm_backward_rows_reference,
+        (convnext, "depthwise_conv7_backward_taps"):
+            convnext.depthwise_conv7_backward_taps_reference,
+    }
+    backward = list(plain_fns)[1:]
+    recorders = [recording(convnext, "depthwise_conv7_norm_backward_rows",
+                           key=lambda a, kw: a[8]),
+                 recording(convnext, "depthwise_conv7_backward_taps", key=lambda a, kw: a[3])]
+    launches, totals, state = drive_diffusion_training(
+        report, seed, tag, cfg, loader, valid, CONVNEXT_TRAIN_LAUNCHES,
+        {"depthwise_conv7_norm": CONVNEXT_TRAIN_LAUNCHES["depthwise_conv7_norm"]}, plain_fns,
+        backward, recorders)
+    measure_k10_training(report, {r.name: r.calls for r in recorders}, state.model, totals)
+    report.finish(tag)
+    return launches, totals
+
+
+def profile_steps(state, step_fn, batch, seed: int, tag: str, n: int = 3) -> dict:
     """``n`` training steps under ``torch.profiler``: the device time by
     kernel (per step), the device's busy time and its idle share of the
     window's wall time. Returns them, or ``{"device": "not measured"}``
@@ -3300,11 +3399,11 @@ def profile_steps(state, step_fn, batch, seed: int, n: int = 3) -> dict:
         if dev > 0:
             rows.append((dev / 1e3 / n, e.count // n, e.key))
     if not rows:
-        print("[diffusion_train] profile: the trace holds no device time (not measured)")
+        print(f"[{tag}] profile: the trace holds no device time (not measured)")
         return {"device": "not measured"}
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"[diffusion_train] profile of {n} steps (torch.profiler): device busy "
+    print(f"[{tag}] profile of {n} steps (torch.profiler): device busy "
           f"{busy:.2f} ms a step of {wall / n * 1e3:.2f} ms wall (idle share "
           f"{1 - busy / (wall / n * 1e3):.3f}); device ms a step by kernel:")
     for ms, count, name in rows[:14]:
@@ -3312,6 +3411,175 @@ def profile_steps(state, step_fn, batch, seed: int, n: int = 3) -> dict:
     return {"busy_ms_per_step": busy, "wall_ms_per_step": wall / n * 1e3,
             "idle_share": 1 - busy / (wall / n * 1e3),
             "top": [(name[:90], ms, count) for ms, count, name in rows[:14]]}
+
+
+def k10_backward_work(x, C: int, taps: bool):
+    """Bytes and float32 operations K10's backward kernels need. Kernel A
+    (``taps`` False) reads x, cond and go and writes dh (16 bytes an
+    element; the step projections, mask, parameters and the [10, C]
+    gradients besides); per element the pre-add (2), the conv (14), the
+    statistics (3), n and g (3), the two row sums (3), dh (4), the column
+    sums of go n, go and dh (4) and dk (14): 47. Kernel B reads dh and
+    writes dy (8 bytes an element, the mask, the taps and dstep besides);
+    per element 7 taps (14) and the sum for dstep (1): 15."""
+    B_, T_, _ = x.shape
+    if taps:
+        return 2 * nbytes(x) + B_ * T_ + 4 * 7 * C + 4 * B_ * C, 15 * x.numel()
+    return 4 * nbytes(x) + 4 * B_ * C + B_ * T_ + 4 * 20 * C, 47 * x.numel()
+
+
+def measure_k10_training(report: Report, calls: dict, model, totals: dict):
+    """K10's backward kernels at the step's recorded inputs (B=20 x 512 x
+    512), at each dilation: kernel A (dh and the column sums) and kernel B
+    (dy, dstep, on the step's own dh) against their plain versions (1e-4 of
+    each output's scale), a rerun bit-equal, device times of kernel and
+    plain beside the bound and cuDNN's (kernel A: autograd of
+    ``F.layer_norm`` and ``conv1d_weight`` of the depthwise conv, two
+    calls; kernel B: the depthwise ``conv1d_input``, one call; and the
+    whole backward as autograd of the depthwise ``F.conv1d(groups=C)`` +
+    ``F.layer_norm``), summed over a step's launches (5 blocks a
+    dilation); then one block's forward and backward through the kernels
+    against torch autograd of the plain block at each dilation."""
+    import torch
+    import torch.nn.functional as F
+
+    from fish_diffusion_tpu_torch.models import convnext
+
+    tag = "[convnext_train]"
+    print(f"{tag} K10's backward kernels at the step's inputs (B=20 T=512 C=512)")
+    whole_lib, by_d = {}, {}
+    for d, (args, _, count) in sorted(calls["depthwise_conv7_norm_backward_rows"].items()):
+        go, x, step, cond, mask, k, b, ln_w, _ = (a.detach() if torch.is_tensor(a) else a
+                                                  for a in args)
+        C = x.shape[-1]
+        masked = 0 if mask is None else int(mask.sum())
+        label = f"d={d}, {masked} masked rows"
+        with torch.no_grad():
+            fn = lambda: convnext.depthwise_conv7_norm_backward_rows(  # noqa: E731
+                go, x, step, cond, mask, k, b, ln_w, d)
+            ref_fn = lambda: convnext.depthwise_conv7_norm_backward_rows_reference(  # noqa: E731
+                go, x, step, cond, mask, k, b, ln_w, d)
+            got, ref = fn(), ref_fn()
+            err = max(report.compare(f"depthwise_conv7_norm_backward_rows {label} {name}", g,
+                                     r, 1e-4 * max_abs(r))
+                      for name, g, r in zip(("dh", "dk", "db", "dln_scale", "dln_bias"),
+                                            got, ref))
+            check_rerun(report, f"depthwise_conv7_norm_backward_rows {label}",
+                        torch.cat([t.flatten() for t in got]),
+                        torch.cat([t.flatten() for t in fn()]))
+            ms = device_ms(fn)
+            plain = device_ms(ref_fn, reps=10)
+        # cuDNN: the pre-added, masked input and dh laid out [B, C, T]
+        y_t = convnext._pre_add(x, step, cond, mask).transpose(1, 2).contiguous()
+        w = k.t().contiguous()[:, None, :]
+        h = F.conv1d(y_t, w, b, padding=3 * d, dilation=d, groups=C).transpose(1, 2)
+        h_leaf = h.detach().requires_grad_(True)
+        lw, lb = ln_w.detach().requires_grad_(True), torch.zeros_like(ln_w).requires_grad_(True)
+        ln_out = F.layer_norm(h_leaf, (C,), lw, lb, convnext.LN_EPS)
+        dh_t = ref[0].transpose(1, 2).contiguous()
+
+        def library_a():
+            torch.autograd.grad(ln_out, (h_leaf, lw, lb), go, retain_graph=True)
+            return torch.nn.grad.conv1d_weight(y_t, w.shape, dh_t, padding=3 * d,
+                                               dilation=d, groups=C)
+
+        lib_err = max_err(library_a()[:, 0, :].t(), ref[1])
+        lib = device_ms(library_a)
+        work = k10_backward_work(x, C, taps=False)
+        t_bound, by = bound(*work)
+        print(f"    x{count}: kernel {ms:.4f} ms ({t_bound / ms:.0%} of its bound "
+              f"{t_bound:.4f} ms, {by}), plain {plain:.4f} ms, cuDNN (autograd of "
+              f"F.layer_norm + conv1d_weight: two calls) {lib:.4f} ms (dk max_abs_err "
+              f"{lib_err:.2e})")
+        report.kernel("depthwise_conv7_norm_backward_rows", err, ms * count, plain * count,
+                      "a step's 20 launches, B=20 T=512 C=512", work[0] * count,
+                      work[1] * count, library_ms=lib * count)
+        by_d[d] = {"rows_ms": ms, "rows_plain_ms": plain, "rows_cudnn_ms": lib,
+                   "rows_bound_ms": t_bound}
+
+        # the whole K10 backward through cuDNN: autograd of its forward
+        y_leaf = y_t.clone().requires_grad_(True)
+        wl, bl = w.clone().requires_grad_(True), b.detach().clone().requires_grad_(True)
+        out = F.layer_norm(F.conv1d(y_leaf, wl, bl, padding=3 * d, dilation=d,
+                                    groups=C).transpose(1, 2), (C,), lw, lb, convnext.LN_EPS)
+        whole_lib[d] = device_ms(lambda: torch.autograd.grad(
+            out, (y_leaf, wl, bl, lw, lb), go, retain_graph=True))
+        del out, ln_out, h, h_leaf
+
+    for d, (args, _, count) in sorted(calls["depthwise_conv7_backward_taps"].items()):
+        dh, mask, k, _ = (a.detach() if torch.is_tensor(a) else a for a in args)
+        C = dh.shape[-1]
+        with torch.no_grad():
+            fn = lambda: convnext.depthwise_conv7_backward_taps(dh, mask, k, d)  # noqa: E731
+            ref_fn = lambda: convnext.depthwise_conv7_backward_taps_reference(  # noqa: E731
+                dh, mask, k, d)
+            (dy, ds), (ref_dy, ref_ds) = fn(), ref_fn()
+            label = f"depthwise_conv7_backward_taps d={d}"
+            err = max(report.compare(f"{label} dy", dy, ref_dy, 1e-4 * max_abs(ref_dy)),
+                      report.compare(f"{label} dstep", ds, ref_ds, 1e-4 * max_abs(ref_ds)))
+            again = fn()
+            check_rerun(report, label, torch.cat([dy.flatten(), ds.flatten()]),
+                        torch.cat([again[0].flatten(), again[1].flatten()]))
+            ms = device_ms(fn)
+            plain = device_ms(ref_fn, reps=10)
+            dh_t = dh.transpose(1, 2).contiguous()
+            w = k.t().contiguous()[:, None, :]
+            lib = device_ms(lambda: torch.nn.grad.conv1d_input(
+                dh_t.shape, w, dh_t, padding=3 * d, dilation=d, groups=C))
+        work = k10_backward_work(dh, C, taps=True)
+        t_bound, by = bound(*work)
+        print(f"    x{count}: {label}: kernel {ms:.4f} ms ({t_bound / ms:.0%} of its bound "
+              f"{t_bound:.4f} ms, {by}), plain {plain:.4f} ms, cuDNN depthwise conv1d_input "
+              f"{lib:.4f} ms; the whole backward through cuDNN (autograd of F.conv1d + "
+              f"F.layer_norm) {whole_lib[d]:.4f} ms")
+        report.kernel("depthwise_conv7_backward_taps", err, ms * count, plain * count,
+                      "a step's 20 launches, B=20 T=512 C=512", work[0] * count,
+                      work[1] * count, library_ms=lib * count)
+        by_d[d].update(taps_ms=ms, taps_plain_ms=plain, taps_cudnn_ms=lib, taps_bound_ms=t_bound,
+                       whole_cudnn_autograd_ms=whole_lib[d])
+
+    # one block forward and backward: K10's kernels (the MLP on cuBLAS)
+    # against torch autograd of the plain block, at each dilation
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    block = {}
+    for layer in model.diffusion.denoise_fn.residual_layers[:4]:
+        args, _, _ = calls["depthwise_conv7_norm_backward_rows"][layer.dilation]
+        _, x, _, cond, mask, k = (a.detach() for a in args[:6])
+        step = torch.randn((x.shape[0], x.shape[2]), generator=gen, device=DEVICE)
+        g_out = torch.randn(x.shape, generator=gen, device=DEVICE)
+        leaves = [t.clone().requires_grad_(True) for t in (x, step, cond, k)]
+
+        def fwd_bwd():
+            layer.zero_grad(set_to_none=True)
+            for leaf in leaves:
+                leaf.grad = None
+            torch.autograd.backward(layer(*leaves, mask), g_out)
+            # (the block's dwconv.weight and condition_projection take no part: k
+            # and cond come in made)
+            return [p.grad.clone() for p in layer.parameters() if p.grad is not None] + \
+                [t.grad.clone() for t in leaves]
+
+        got = fwd_bwd()
+        ms = cuda_ms(fwd_bwd, iters=5)
+        swap = {(convnext, "depthwise_conv7_norm"): convnext.depthwise_conv7_norm_reference}
+        with plain_path(swap):
+            ref = fwd_bwd()
+            plain = cuda_ms(fwd_bwd, iters=5)
+        worst = max(float((a - b).double().norm() / b.double().norm())
+                    for a, b in zip(got, ref) if float(b.abs().max()) > 0)
+        ok = worst <= 1e-4
+        print(f"    one block forward + backward, d={layer.dilation}: K10's kernels {ms:.3f} ms, "
+              f"torch autograd of the plain block {plain:.3f} ms; every gradient's relative "
+              f"L2 {worst:.2e} (tol 1e-4) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            report.failures.append(f"convnext_train block d={layer.dilation} vs plain")
+        block[layer.dilation] = {"kernels_ms": ms, "plain_autograd_ms": plain,
+                                 "grad_rel_l2_max": worst}
+        layer.zero_grad(set_to_none=True)
+    totals["convnext_train_k10_backward"] = by_d
+    totals["convnext_train_block_fwd_bwd"] = block
+    report.extra.setdefault("depthwise_conv7_norm_backward_rows", {})["by_dilation"] = by_d
+    report.extra["depthwise_conv7_norm_backward_rows"]["block_fwd_bwd"] = block
 
 
 def measure_k1_training(report: Report, calls: dict, totals: dict):
@@ -3539,6 +3807,10 @@ def main() -> int:
                                             args.seed)
     totals.update(diff_train)
     torch.cuda.empty_cache()
+    cn_train_launches, cn_train = timed_phase("convnext_train", phase_convnext_train,
+                                              args.seed)
+    totals.update(cn_train)
+    torch.cuda.empty_cache()
     train_launches, train = timed_phase("train", phase_train, args.seed)
     totals.update(train)
     torch.cuda.empty_cache()
@@ -3553,7 +3825,8 @@ def main() -> int:
     by_path = {"file": launches, "pitch": pitch_launches, "istft_net": istft_launches,
                "convnext": convnext_launches, "train": train_launches,
                "train_v2": v2_launches, "train_sine": sine_launches,
-               "diffusion_train": diff_launches, "align": align_launches}
+               "diffusion_train": diff_launches, "convnext_train": cn_train_launches,
+               "align": align_launches}
     entries = []
     for name, meta in kernels.KERNELS.items():
         k = report.kernels[name]
@@ -3562,7 +3835,8 @@ def main() -> int:
         # dense, the iSTFTNet path for K5 istft, the ConvNeXt path for K10,
         # the vocoder training runs
         # (NSF-HiFiGAN, RefineGAN comb, RefineGAN sine), the diffusion
-        # training for K1's training kernels, then alignment for K7
+        # training for K1's training kernels, the ConvNeXt training for
+        # K10's backward, then alignment for K7
         path = next((p for p, counts in by_path.items() if counts[name]), None)
         if path is None:
             raise SystemExit(f"chip_smoke: {name} was launched on no path")

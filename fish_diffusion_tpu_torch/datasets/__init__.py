@@ -1,7 +1,8 @@
-"""Training data, registered in ``DATASETS``: the vocoder's and the SVC
-model's ``.npy`` datasets, and ``ConcatDataset``."""
+"""Training data, registered in ``DATASETS``: the vocoder's, the SVC
+model's and the denoiser's ``.npy`` datasets, and ``ConcatDataset``."""
 
-from .naive import NaiveDataset, NaiveSVCDataset, NaiveVOCODERDataset
+from .naive import NaiveDataset, NaiveDenoiserDataset, NaiveSVCDataset, NaiveVOCODERDataset
 from .wrappers import ConcatDataset
 
-__all__ = ["ConcatDataset", "NaiveDataset", "NaiveSVCDataset", "NaiveVOCODERDataset"]
+__all__ = ["ConcatDataset", "NaiveDataset", "NaiveDenoiserDataset", "NaiveSVCDataset",
+           "NaiveVOCODERDataset"]

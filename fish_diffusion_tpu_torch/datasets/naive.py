@@ -2,7 +2,8 @@
 file per clip holding a pickled dict (the preprocessing contract): the
 vocoder's ``{path, audio, pitches, sampling_rate}``, the SVC model's
 ``{path, mel [M, T], contents [C, T], pitches [T], key_shift,
-time_stretch}``. Every item carries the dataset's ``speaker_id``. The
+time_stretch}`` (of which the denoiser's dataset reads path, mel and
+contents). Every item carries the dataset's ``speaker_id``. The
 files are the repository's own preprocessing output, so
 ``np.load(allow_pickle=True)`` reads only what this program wrote."""
 
@@ -66,6 +67,22 @@ class NaiveSVCDataset(NaiveDataset):
                                     ("speaker", "int64")]),
         dict(type="UnSqueeze", keys=[("pitches", -1), ("time_stretch", -1),
                                      ("key_shift", -1)]),
+    ]
+
+
+@DATASETS.register_module()
+class NaiveDenoiserDataset(NaiveDataset):
+    """Denoiser training pairs: mel and contents time-major [T, C], padded to
+    a bucket of 128 frames in a batch. No pitches and no speaker: a model
+    with a pitch encoder (DiffSVC) cannot train on it."""
+
+    processing_pipeline = [
+        dict(type="PickKeys", keys=["path", "mel", "contents"]),
+        dict(type="Transpose", keys=[("mel", 1, 0), ("contents", 1, 0)]),
+    ]
+    collating_pipeline = [
+        dict(type="ListToDict"),
+        dict(type="PadStack", keys=[("mel", -2), ("contents", -2)]),
     ]
 
 

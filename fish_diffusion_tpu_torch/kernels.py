@@ -156,6 +156,16 @@ KERNELS = {
         id="K10", route="cuda", source=_PORT + "csrc/convnext_block.cu",
         replaces=_TPU + "models/convnext.py:47",
     ),
+    # XLA's derivative of DepthwiseConv7 and of the nn.LayerNorm that
+    # ConvNeXtBlock (:105) applies after it
+    "depthwise_conv7_norm_backward_rows": dict(
+        id="K10 bwd norm", route="cuda", source=_PORT + "csrc/convnext_block.cu",
+        replaces=_TPU + "models/convnext.py:47",
+    ),
+    "depthwise_conv7_backward_taps": dict(
+        id="K10 bwd taps", route="cuda", source=_PORT + "csrc/convnext_block.cu",
+        replaces=_TPU + "models/convnext.py:47",
+    ),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -211,6 +221,9 @@ SIGNATURES = {
     },
     "convnext_block": {
         "depthwise_conv7_norm": [_P] * 9 + [_I] * 4 + [_F, _P],
+        "depthwise_conv7_backward_tiles": [_I] * 2,
+        "depthwise_conv7_norm_backward_rows": [_P] * 10 + [_I] * 4 + [_F, _P],
+        "depthwise_conv7_backward_taps": [_P] * 5 + [_I] * 4 + [_P],
     },
 }
 

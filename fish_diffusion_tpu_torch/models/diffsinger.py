@@ -83,6 +83,12 @@ class DiffSinger(nn.Module):
             features = features + self._with_time_axis(speaker_embed)
 
         if self.pitch_encoder is not None:
+            if pitches is None:
+                # the JAX package fails here with a TypeError (pitch_to_scale of None)
+                raise ValueError(
+                    "the model has a pitch_encoder but the batch has no 'pitches' "
+                    "(NaiveDenoiserDataset carries none: train such a model on "
+                    "NaiveSVCDataset)")
             features = features + self.pitch_encoder(pitches)
         if pitch_shift is not None and self.pitch_shift_encoder is not None:
             features = features + self._with_time_axis(

@@ -6,7 +6,9 @@
         [--only-train-speaker-embeddings] [--seed 42] [--device cuda]
 
 The config's ``dataset`` and ``dataloader`` sections give the training and
-validation data; logs and checkpoints go to ``<log-dir>/<name or the
+validation data (a DiffSVC model needs pitches in its batches: train
+``configs/denoiser_cn_hubert.py`` with its dataset set to
+``NaiveSVCDataset``); logs and checkpoints go to ``<log-dir>/<name or the
 config's stem>``. The port trains in float32, so the CLI sets
 ``trainer.precision="32-true"`` over the config's value.
 
@@ -14,7 +16,8 @@ config's stem>``. The port trains in float32, so the CLI sets
   given, else of the run's ``checkpoints``).
 - ``--pretrained`` warm-starts the parameters (and the EMA) from a
   checkpoint of this trainer (``.pt``) or a pickle of the JAX package's
-  DiffSVC parameters, with the surgery of ``load_pretrained_params``
+  DiffSVC parameters (WaveNet or ConvNeXt denoiser, ``convert.diffsinger_from_jax``),
+  with the surgery of ``load_pretrained_params``
   (unexpected keys dropped, shape mismatches skipped, each printed), saves
   that state as step 0 and trains from it.
 - ``--only-train-speaker-embeddings`` freezes every parameter outside
@@ -44,7 +47,7 @@ from .diffusion_trainer import PRECISION, DiffusionTrainer
 def load_pretrained_file(path) -> dict:
     """A state dict from a checkpoint of this trainer (``.pt``: its
     parameters) or from a pickle of the JAX package's DiffSVC parameters
-    (the files this repository's tools write)."""
+    with either denoiser (the files this repository's tools write)."""
     path = Path(path)
     if path.suffix == ".pt":
         return torch.load(path, map_location="cpu", weights_only=True)["params"]

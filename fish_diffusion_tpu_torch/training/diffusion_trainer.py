@@ -1,5 +1,9 @@
 """The diffusion trainer (``fish_diffusion_tpu/training/trainer.py:Trainer``):
-DiffSVC (``configs/svc_hubert_soft.py``) on one card.
+DiffSVC on one card, with the WaveNet denoiser (``configs/svc_hubert_soft.py``)
+or the ConvNeXt (``configs/denoiser_cn_hubert.py``; its model has a pitch
+encoder, so it trains on ``NaiveSVCDataset``: the config's
+``NaiveDenoiserDataset`` carries no pitches, and the model raises on its
+batches).
 
 - the train step of ``training/diffusion_state.py`` (AdamW with the
   configured schedule, clip by global norm, accumulation, optional EMA), t

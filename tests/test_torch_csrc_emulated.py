@@ -1,6 +1,6 @@
 """The CUDA sources of K1 (with its training mode and backward), K4 (and its weight gradient), K5 (forward,
 backward and istft), K6 (grouped and 2-D, with the 2-D weight gradient),
-K7, K8-cand, K8 dense (pYIN's and CREPE's decoder) and K10, compiled for the host CPU and run against their
+K7, K8-cand, K8 dense (pYIN's and CREPE's decoder) and K10 (with its backward), compiled for the host CPU and run against their
 plain PyTorch versions at small shapes.
 
 The card is the real test (``chip_smoke.py``, ``tests/test_torch_kernels_cuda.py``),
@@ -1038,3 +1038,56 @@ def test_convnext_block_source_wide_and_padded(host_libs):
     assert rows
     for bi, t in rows:
         assert torch.equal(got[bi, t], ln_bias), (bi, t)
+
+
+def _dwconv7_norm_backward(lib, go, x, step, cond, mask, k, b, ln_scale, d):
+    """Kernels A and B as the wrappers launch them -> (dx, dstep, dcond, dk,
+    db, dln_scale, dln_bias), the partials added over the tiles."""
+    B, T, C = x.shape
+    tiles = lib.depthwise_conv7_backward_tiles(T, d)
+    part_a = torch.full((B * tiles, 10, C), float("nan"))
+    part_b = torch.full((B * tiles, C), float("nan"))
+    dh, dy = torch.full_like(x, float("nan")), torch.full_like(x, float("nan"))
+    m = None if mask is None else mask.data_ptr()
+    assert lib.depthwise_conv7_norm_backward_rows(
+        go.data_ptr(), x.data_ptr(), step.data_ptr(), cond.data_ptr(), m, k.data_ptr(),
+        b.data_ptr(), ln_scale.data_ptr(), dh.data_ptr(), part_a.data_ptr(), B, T, C, d,
+        convnext.LN_EPS, None) == 0
+    assert lib.depthwise_conv7_backward_taps(dh.data_ptr(), m, k.data_ptr(), dy.data_ptr(),
+                                             part_b.data_ptr(), B, T, C, d, None) == 0
+    sums = part_a.sum(0)
+    return dy, part_b.view(B, tiles, C).sum(1), dy, sums[3:], sums[2], sums[0], sums[1]
+
+
+def _check_k10_backward(lib, args, d, seed):
+    go = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(seed))
+    got = _dwconv7_norm_backward(lib, go, *args[:-1], d)
+    ref = convnext.depthwise_conv7_norm_backward_reference(go, *args, d)
+    for name, g, r in zip(("dx", "dstep", "dcond", "dk", "db", "dln_scale", "dln_bias"),
+                          got, ref):
+        assert torch.isfinite(g).all(), name
+        err = (g - r).abs().max().item()
+        assert err <= 1e-5 * r.abs().max().item(), (name, err)
+    again = _dwconv7_norm_backward(lib, go, *args[:-1], d)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("T", [5, 37, 130])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_convnext_backward_source(host_libs, T, d):
+    """K10's backward, kernels A and B, with and without a mask (go
+    nonzero at padded rows): classes of one row to 17 rows (a ragged
+    second tile, whose rows past the class add nothing), T shorter than the
+    halo: every gradient <= 1e-5 of the plain backward's scale, a rerun
+    bit-equal."""
+    lib = host_libs["convnext_block"]
+    for masked in (False, True):
+        _check_k10_backward(lib, convnext_case(2, T, 24, T * 3 + d, masked), d, T + d)
+
+
+def test_convnext_backward_source_wide_and_padded(host_libs):
+    """K10's backward past one channel per thread (C = 300) with a zero
+    conv bias: padded rows of variance 0 (r = 1000) with a nonzero go."""
+    lib = host_libs["convnext_block"]
+    args = convnext_case(3, 70, 300, 1, True, zero_bias=True)
+    _check_k10_backward(lib, args, 4, 2)

@@ -3,11 +3,14 @@
 - the loss of ``DiffSinger.forward`` (``GaussianDiffusion.train_step``) and
   every parameter's gradient against ``jax.value_and_grad`` of the JAX
   ``DiffSinger.__call__``, on ``__graft_entry__``'s tiny DiffSVC (R 64, 4
-  layers) with padded items, t and the noise injected into both: loss
-  within 1e-5 relative, each gradient within 1e-4 relative L2;
+  layers) and on a DiffSVC with the ConvNeXt denoiser (dim 32, 5 blocks,
+  dilations 1, 2, 4, 8, 1) with padded items, t and the noise injected
+  into both: loss within 1e-5 relative, each gradient within 1e-4
+  relative L2;
 - ``mel_loss`` of every kind against the JAX ``mel_loss``;
 - three steps of the port's ``make_train_step`` against the JAX
-  ``make_train_step`` (warmup-cosine AdamW, clip 0.5, EMA 0.9): loss and
+  ``make_train_step`` (warmup-cosine AdamW, clip 0.5, EMA 0.9), for both
+  denoisers: loss and
   ``grad_norm`` within 1e-3 relative, parameters and EMA within
   2 * lr * steps (AdamW with eps = 1e-9 makes a first update about
   lr * sign(g));
@@ -26,6 +29,7 @@ import pytest
 import torch
 
 from __graft_entry__ import _model_and_batch
+from fish_diffusion_tpu.models import build_model as j_build_model
 from fish_diffusion_tpu.models.diffusion import mel_loss as j_mel_loss
 from fish_diffusion_tpu.training import optim as j_optim
 from fish_diffusion_tpu.training.state import TrainState as JTrainState
@@ -77,6 +81,46 @@ def setup():
     return jmodel, batch, params, t, noise, cfg
 
 
+@pytest.fixture(scope="module")
+def convnext_setup():
+    """The JAX DiffSVC with the ConvNeXt denoiser (dim 32, 5 blocks: dilations
+    1, 2, 4, 8, 1; ``build_model(training=True)``'s static dilation shifts),
+    seeded random parameters, a batch whose second item is padded (mel_lens
+    128, 90), t and the noise."""
+    hidden, B, T = 32, 2, 128
+    denoiser = dict(type="ConvNextDenoiser", mel_channels=128, dim=32, mlp_factor=2,
+                    condition_dim=hidden, num_layers=5, dilation_cycle=4)
+    cfg = dict(
+        type="DiffSVC",
+        diffusion=dict(type="GaussianDiffusion", mel_channels=128, noise_schedule="linear",
+                       timesteps=1000, noise_loss="smoothed-l1", denoiser=denoiser,
+                       sampler_interval=10, spec_min=[-5], spec_max=[0]),
+        text_encoder=dict(type="NaiveProjectionEncoder", input_size=256, output_size=hidden),
+        speaker_encoder=dict(type="NaiveProjectionEncoder", input_size=10, output_size=hidden,
+                             use_embedding=True),
+        pitch_encoder=dict(type="NaiveProjectionEncoder", input_size=1, output_size=hidden,
+                           use_embedding=False, preprocessing="pitch_to_scale"),
+    )
+    jmodel = j_build_model(cfg, training=True)
+    assert jmodel.diffusion["denoiser"]["static_dilation_shifts"]
+    rng = np.random.default_rng(12)
+    lens = jnp.asarray([T, 90], jnp.int32)
+    batch = {
+        "speakers": jnp.asarray([0, 3], jnp.int32),
+        "contents": jnp.asarray(rng.standard_normal((B, T, 256)), jnp.float32),
+        "contents_lens": lens,
+        "mel": jnp.asarray(rng.uniform(-4, 0, (B, T, 128)), jnp.float32),
+        "mel_lens": lens,
+        "pitches": jnp.asarray(rng.uniform(80, 600, (B, T)), jnp.float32),
+    }
+    variables = jax.jit(jmodel.init)(
+        {"params": jax.random.PRNGKey(0), "diffusion": jax.random.PRNGKey(1)}, **batch)
+    params = randomize(variables["params"], 6)
+    t = np.array([650, 17], np.int32)
+    noise = rng.standard_normal((B, T, 128)).astype(np.float32)
+    return jmodel, batch, params, t, noise, cfg
+
+
 @contextlib.contextmanager
 def injected(t, noise):
     """``jax.random.randint`` / ``normal`` replaced by the given draws at
@@ -110,10 +154,9 @@ def torch_batch(batch):
             else torch.from_numpy(np.array(v)) for k, v in batch.items()}
 
 
-def test_loss_and_gradients_match_jax(setup):
-    """The config's smoothed-l1 loss and every gradient (the masked items'
-    padding included): loss <= 1e-5 relative, each parameter's gradient
-    <= 1e-4 relative L2."""
+def check_loss_and_gradients(setup):
+    """The loss <= 1e-5 relative and each parameter's gradient <= 1e-4
+    relative L2 of ``jax.value_and_grad`` (one compile)."""
     jmodel, batch, params, t, noise, cfg = setup
 
     def loss_fn(p):
@@ -137,6 +180,20 @@ def test_loss_and_gradients_match_jax(setup):
         assert err <= 1e-4, (name, err)
 
 
+def test_loss_and_gradients_match_jax(setup):
+    """The config's smoothed-l1 loss and every gradient (the masked items'
+    padding included): loss <= 1e-5 relative, each parameter's gradient
+    <= 1e-4 relative L2."""
+    check_loss_and_gradients(setup)
+
+
+def test_convnext_loss_and_gradients_match_jax(convnext_setup):
+    """The same with the ConvNeXt denoiser (K10's forward and backward run
+    their plain versions on the CPU): every block's gradient, the depthwise
+    taps and the norms included, <= 1e-4 relative L2, the loss <= 1e-5."""
+    check_loss_and_gradients(convnext_setup)
+
+
 @pytest.mark.parametrize("kind", ["l1", "smoothed-l1", "l2", "weighted", "callable"])
 def test_mel_loss_matches_jax(kind):
     """Every ``noise_loss`` on the same masked noise and prediction:
@@ -154,11 +211,11 @@ def test_mel_loss_matches_jax(kind):
     assert abs(got - want) <= 1e-6 * abs(want), (got, want)
 
 
-@pytest.mark.parametrize("clip", [CLIP, 0.05])
-def test_three_steps_match_jax(setup, clip):
-    """Three steps from the same parameters on the same batch and draws:
-    warmup-cosine AdamW, EMA 0.9, and the clip of the configs (0.5, above
-    this model's gradient norm) or one that the norm exceeds (0.05)."""
+def check_three_steps(setup, clip):
+    """Three steps of the JAX ``make_train_step`` (one compile) and of the
+    port's from the same parameters on the same batch and draws: loss and
+    ``grad_norm`` <= 1e-3 relative, parameters and EMA within
+    2 * lr * steps."""
     jmodel, batch, params, t, noise, cfg = setup
     tx = j_optim.build_optimizer(OPTIMIZER, SCHEDULER, grad_clip_val=clip)
     jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params,
@@ -180,7 +237,6 @@ def test_three_steps_match_jax(setup, clip):
         state, m = step(state, tb, t=torch.from_numpy(t).long(), noise=torch.from_numpy(noise))
         for key in ("loss", "grad_norm"):
             assert abs(float(m[key]) - ref[i][key]) <= 1e-3 * abs(ref[i][key]), (i, key)
-    assert (ref[0]["grad_norm"] > 2 * clip) == (clip < CLIP)
     assert state.step == STEPS and state.optimizer.count == STEPS
 
     lr = max(state.optimizer.schedule(c) for c in range(STEPS))
@@ -189,6 +245,22 @@ def test_three_steps_match_jax(setup, clip):
         for name, p in got.state_dict().items():
             err = float((p - want[name]).abs().max())
             assert err <= 2 * lr * STEPS, (name, err)
+    return ref
+
+
+@pytest.mark.parametrize("clip", [CLIP, 0.05])
+def test_three_steps_match_jax(setup, clip):
+    """Three steps from the same parameters on the same batch and draws:
+    warmup-cosine AdamW, EMA 0.9, and the clip of the configs (0.5, above
+    this model's gradient norm) or one that the norm exceeds (0.05)."""
+    ref = check_three_steps(setup, clip)
+    assert (ref[0]["grad_norm"] > 2 * clip) == (clip < CLIP)
+
+
+def test_convnext_three_steps_match_jax(convnext_setup):
+    """Three steps of the ConvNeXt DiffSVC at the configs' clip (0.5)
+    against the JAX step, with the WaveNet case's tolerances."""
+    check_three_steps(convnext_setup, CLIP)
 
 
 @pytest.mark.parametrize("name,kwargs", [

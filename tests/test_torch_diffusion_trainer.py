@@ -1,8 +1,14 @@
 """The port's diffusion training around the step, on the CPU at tiny dims:
 
-- ``NaiveSVCDataset`` with its collate, and ``ConcatDataset``, against the
-  JAX package's on the same ``.npy`` dicts (keys, shapes, dtypes, values,
-  padding to a bucket of 128 frames);
+- ``NaiveSVCDataset`` and ``NaiveDenoiserDataset`` with their collates,
+  and ``ConcatDataset``, against the JAX package's on the same ``.npy``
+  dicts (keys, shapes, dtypes, values, padding to a bucket of 128 frames);
+- the ConvNeXt DiffSVC (``configs/denoiser_cn_hubert.py``'s model) at tiny
+  dims: ``fit`` and ``--resume`` over ``NaiveSVCDataset`` items,
+  ``--pretrained`` from a pickle of the JAX package's parameters, and the
+  config's own ``NaiveDenoiserDataset`` batches, which carry no pitches:
+  the JAX model fails on them with a ``TypeError``, the port raises a
+  ``ValueError`` that says why;
 - ``DiffusionTrainer.fit`` (validation with samples and vocoded audio,
   checkpoints, ``metrics.jsonl``), the CLI's ``--resume``, ``--pretrained``
   (the same skips as the JAX ``load_pretrained_params``) and
@@ -24,14 +30,20 @@ import torch
 
 from fish_diffusion_tpu.datasets import naive as j_naive
 from fish_diffusion_tpu.datasets import wrappers as j_wrappers
+from fish_diffusion_tpu.models import build_model as j_build_model
 from fish_diffusion_tpu.training.checkpoint import (
     load_pretrained_params as j_load_pretrained_params,
 )
 from fish_diffusion_tpu_torch.config import Config
-from fish_diffusion_tpu_torch.datasets import ConcatDataset, NaiveSVCDataset
+from fish_diffusion_tpu_torch.convert import diffsinger_from_jax
+from fish_diffusion_tpu_torch.datasets import (ConcatDataset, NaiveDenoiserDataset,
+                                               NaiveSVCDataset)
+from fish_diffusion_tpu_torch.models import build_model
 from fish_diffusion_tpu_torch.training import diffusion_cli
 from fish_diffusion_tpu_torch.training.diffusion_checkpoint import load_pretrained_params
+from fish_diffusion_tpu_torch.training.diffusion_state import batch_to_device, model_kwargs
 from fish_diffusion_tpu_torch.training.diffusion_trainer import DiffusionTrainer
+from tests.test_torch_wavenet import randomize
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -292,3 +304,118 @@ def test_trainer_defaults_to_the_card(tmp_path, data):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DiffusionTrainer(Config(**cfg), log_dir=str(tmp_path))
+
+
+def test_denoiser_dataset_matches_jax(tmp_path):
+    """``NaiveDenoiserDataset`` picks path, mel and contents (time-major)
+    and pads them to a bucket of 128 frames, as the JAX dataset does."""
+    write_items(tmp_path / "d", [100, 150, 37])
+    port, ref = NaiveDenoiserDataset(str(tmp_path / "d")), \
+        j_naive.NaiveDenoiserDataset(str(tmp_path / "d"))
+    assert len(port) == len(ref) == 3
+    for i in range(3):
+        assert_same_batch(port[i], ref[i])
+        assert set(port[i]) == {"path", "mel", "contents"}
+    got = NaiveDenoiserDataset.collate_fn([port[i] for i in range(3)])
+    want = j_naive.NaiveDenoiserDataset.collate_fn([ref[i] for i in range(3)])
+    assert_same_batch(got, want)
+    assert got["mel"].shape == (3, 256, 128) and got["contents"].shape == (3, 256, 256)
+    assert "pitches" not in got and "speaker" not in got
+
+
+def convnext_config(data: Path, **trainer):
+    """``tiny_config`` with ``configs/denoiser_cn_hubert.py``'s denoiser at
+    tiny dims (dim 32, mlp 2, 3 blocks, dilation cycle 2)."""
+    cfg = tiny_config(data, **trainer)
+    cfg["model"]["diffusion"]["denoiser"] = dict(
+        type="ConvNextDenoiser", mel_channels=128, dim=32, mlp_factor=2, condition_dim=32,
+        num_layers=3, dilation_cycle=2)
+    return cfg
+
+
+def test_convnext_cli_fits_validates_and_resumes(tmp_path, data):
+    """The ConvNeXt DiffSVC through the CLI over ``NaiveSVCDataset``: 4
+    steps with validation (samples, vocoded audio) and checkpoints at 2 and
+    4, finite losses; ``--resume`` restores the last checkpoint and goes on
+    to step 6."""
+    cfg = convnext_config(data, max_steps=4, val_check_interval=2)
+    state = run_cli(tmp_path, cfg)
+    run = tmp_path / "logs" / "run"
+    assert state.step == 4 and state.optimizer.count == 4
+    rows = [json.loads(line) for line in open(run / "metrics.jsonl")]
+    assert len([r for r in rows if "valid_loss" in r]) == 2
+    assert all(np.isfinite(r["train_loss"]) for r in rows if "train_loss" in r)
+    assert sorted(p.name for p in (run / "checkpoints").glob("*.pt")) == ["2.pt", "4.pt"]
+    pred = np.load(run / "sample-1_mel_pred_4.npy")
+    assert pred.shape == (40, 128) and np.isfinite(pred).all()
+    assert (run / "sample-0_wav_pred_4.wav").exists()
+    saved = torch.load(run / "checkpoints" / "4.pt", weights_only=True)
+    resumed = run_cli(tmp_path, convnext_config(data, max_steps=6, val_check_interval=2),
+                      "--resume")
+    assert resumed.step == 6 and resumed.optimizer.count == 6
+    moved = [not torch.equal(v, saved["params"][k])
+             for k, v in resumed.model.state_dict().items()]
+    assert any(moved)
+
+
+def jax_convnext_params(cfg: dict, seed: int):
+    """Seeded random parameters of the JAX DiffSVC of ``cfg`` (the vocoder
+    is not part of it), as numpy arrays."""
+    model_cfg = {k: v for k, v in cfg["model"].items() if k != "vocoder"}
+    jmodel = j_build_model(model_cfg, training=True)
+    B, T = 2, 16
+    batch = {"speakers": jnp.zeros((B,), jnp.int32),
+             "contents": jnp.zeros((B, T, 256), jnp.float32),
+             "contents_lens": jnp.full((B,), T, jnp.int32),
+             "mel": jnp.zeros((B, T, 128), jnp.float32),
+             "mel_lens": jnp.full((B,), T, jnp.int32),
+             "pitches": jnp.full((B, T), 200.0, jnp.float32)}
+    variables = jax.jit(jmodel.init)(
+        {"params": jax.random.PRNGKey(0), "diffusion": jax.random.PRNGKey(1)}, **batch)
+    return jmodel, jax.tree_util.tree_map(np.asarray, randomize(variables["params"], seed))
+
+
+def test_convnext_pretrained_from_a_jax_pickle(tmp_path, data):
+    """``--pretrained`` with a pickle of the JAX ConvNeXt DiffSVC's
+    parameters: the step-0 checkpoint holds them (through
+    ``diffsinger_from_jax``) bit for bit, the EMA too, and training goes
+    on from them."""
+    import pickle
+
+    cfg = convnext_config(data, max_steps=1, val_check_interval=100)
+    _, params = jax_convnext_params(cfg, 21)
+    with open(tmp_path / "jax_params.pkl", "wb") as f:
+        pickle.dump(params, f)
+    state = run_cli(tmp_path, cfg, "--pretrained", str(tmp_path / "jax_params.pkl"))
+    init = torch.load(tmp_path / "logs" / "run" / "checkpoints" / "0.pt", weights_only=True)
+    want = diffsinger_from_jax(params)
+    assert set(init["params"]) == set(want)
+    for k, v in want.items():
+        assert torch.equal(init["params"][k], v) and torch.equal(init["ema"][k], v), k
+    assert state.step == 1
+
+
+def test_denoiser_dataset_batches_fail_in_both_packages(tmp_path):
+    """``configs/denoiser_cn_hubert.py`` pairs DiffSVC (which has a pitch
+    encoder) with ``NaiveDenoiserDataset``, whose batches carry no pitches:
+    the JAX model fails with a ``TypeError`` at ``models/diffsinger.py:104``
+    (the pitch encoder of None), the port raises a ``ValueError`` that
+    names the missing key and the dataset."""
+    write_items(tmp_path / "d", [40, 30])
+    data = NaiveDenoiserDataset(str(tmp_path / "d"))
+    batch = NaiveDenoiserDataset.collate_fn([data[0], data[1]])
+    cfg = convnext_config(tmp_path)
+    jmodel, params = jax_convnext_params(cfg, 22)
+    jbatch = {"contents": jnp.asarray(batch["contents"]), "mel": jnp.asarray(batch["mel"]),
+              "contents_lens": jnp.asarray(batch["mel_lens"]),
+              "mel_lens": jnp.asarray(batch["mel_lens"]), "speakers": None}
+    with pytest.raises(TypeError) as err:
+        jmodel.apply({"params": params}, **jbatch, rngs={"diffusion": jax.random.PRNGKey(0)})
+    assert any(e.path.name == "diffsinger.py" and e.path.parent.parent.name ==
+               "fish_diffusion_tpu" and e.lineno + 1 == 104 for e in err.traceback)
+
+    model = build_model({k: v for k, v in cfg["model"].items() if k != "vocoder"})
+    kwargs = model_kwargs(batch_to_device(batch, "cpu"))
+    assert "pitches" not in kwargs
+    with pytest.raises(ValueError, match="'pitches'.*NaiveDenoiserDataset"):
+        model(**{"speakers": None, **kwargs})

@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of
 ``fish_diffusion_tpu_torch`` (the training modules, the datasets, the
 discriminators, the RefineGAN and iSTFTNet vocoders, monotonic alignment,
-the pitch extractors, the ConvNeXt denoiser and the HuBERT front ends among
-them) loads no JAX, flax, optax or
+the pitch extractors, the ConvNeXt denoiser with K10's backward, the
+denoiser's dataset and the HuBERT front ends among them) loads no JAX, flax, optax or
 ``fish_diffusion_tpu`` module (checked in a fresh interpreter)."""
 
 import subprocess
@@ -39,6 +39,20 @@ for name in ("HubertSoft", "ChineseHubertSoft", "ChineseHubert", "ContentVec"):
     assert name in FEATURE_EXTRACTORS, name
 for name in ("NsfHifiGAN", "ISTFTNet", "RefineGANGenerator"):
     assert name in VOCODERS, name
+from fish_diffusion_tpu_torch.datasets import NaiveDenoiserDataset
+from fish_diffusion_tpu_torch.registry import DATASETS
+for name in ("NaiveSVCDataset", "NaiveDenoiserDataset", "NaiveVOCODERDataset"):
+    assert name in DATASETS, name
+from fish_diffusion_tpu_torch import kernels
+from fish_diffusion_tpu_torch.models import convnext
+for name in ("depthwise_conv7_norm_backward_reference", "depthwise_conv7_norm_backward",
+             "depthwise_conv7_norm_backward_rows", "depthwise_conv7_backward_taps",
+             "DepthwiseConv7NormFunction"):
+    assert hasattr(convnext, name), name
+for name in ("depthwise_conv7_norm_backward_rows", "depthwise_conv7_backward_taps"):
+    assert name in kernels.KERNELS, name
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "fish_diffusion_tpu")]
 for name in ("HarvestPitchExtractor", "ParselMouthPitchExtractor", "AutocorrPitchExtractor",
              "PyinPitchExtractor", "CrepePitchExtractor", "DioPitchExtractor",
              "YinPitchExtractor"):

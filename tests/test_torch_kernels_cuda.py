@@ -1,6 +1,6 @@
 """The port's hand-written kernels (K1 with its training mode and backward,
 K2-K6 with K6 2-D and K5 istft, K7,
-K8-cand, K8 dense, K9 comb and sine, K10, the weight gradients, and the
+K8-cand, K8 dense, K9 comb and sine, K10 with its backward, the weight gradients, and the
 backward kernels of K3 and K5) against their plain PyTorch versions
 on an NVIDIA GPU, at small shapes that exercise the ragged edges.
 
@@ -815,12 +815,68 @@ def test_depthwise_conv7_norm(gen, B, T, C, d):
         assert torch.equal(got, convnext.depthwise_conv7_norm(*args, d))
 
 
-def test_depthwise_conv7_norm_raises_under_grad(gen):
-    """K10 has no backward yet: under grad with an input that requires it,
-    the wrapper raises instead of running the plain version."""
-    args = list(convnext_case(2, 40, 64, 0, True, device="cuda"))
-    args[4] = args[4].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        convnext.depthwise_conv7_norm(*args, 2)
+K10_GRADS = ("dx", "dstep", "dcond", "dk", "db", "dln_scale", "dln_bias")
+
+
+@pytest.mark.parametrize("B,T,C", [(20, 512, 512), (2, 37, 24), (3, 5, 64), (1, 130, 520)])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_depthwise_conv7_norm_backward(gen, B, T, C, d):
+    """K10's backward kernels with and without a mask (go nonzero at padded
+    rows; a zero conv bias gives padded rows of variance 0): kernel A (dh
+    and the column partials) and kernel B (dy, dstep, on the plain dh)
+    each <= 1e-4 of the plain version's scale, and bit-equal on a second
+    launch (B=20 x 512 x 512 is a training step's shape)."""
+    for masked, zero_bias in ((False, False), (True, False), (True, True)):
+        args = convnext_case(B, T, C, B * T + C + d, masked, zero_bias, device="cuda")
+        x, step, cond, mask, k, b, w, lb = args
+        go = rn(gen, B, T, C)
+        rows = (go, x, step, cond, mask, k, b, w, d)
+        got = convnext.depthwise_conv7_norm_backward_rows(*rows)
+        ref = convnext.depthwise_conv7_norm_backward_rows_reference(*rows)
+        for g, r in zip(got, ref):
+            assert torch.isfinite(g).all()
+            assert_scaled(g, r)
+        again = convnext.depthwise_conv7_norm_backward_rows(*rows)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        taps = (ref[0], mask, k, d)
+        got = convnext.depthwise_conv7_backward_taps(*taps)
+        ref = convnext.depthwise_conv7_backward_taps_reference(*taps)
+        for g, r in zip(got, ref):
+            assert_scaled(g, r)
+        again = convnext.depthwise_conv7_backward_taps(*taps)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        full = convnext.depthwise_conv7_norm_backward(go, *args, d)
+        for name, g, r in zip(K10_GRADS, full,
+                              convnext.depthwise_conv7_norm_backward_reference(go, *args, d)):
+            assert float((g - r).norm() / r.norm()) <= 1e-4, name
+
+
+@pytest.mark.parametrize("d", [1, 8])
+def test_depthwise_conv7_norm_function_on_the_card(gen, d):
+    """Under grad the wrapper takes ``DepthwiseConv7NormFunction``: K10's
+    forward and both backward kernels once each, every gradient <= 1e-4
+    of its scale against torch autograd of the plain version; with grad
+    off, the serving kernel alone."""
+    args = convnext_case(2, 96, 128, d, True, device="cuda")
+    go = rn(gen, 2, 96, 128)
+
+    def grads(fn):
+        x, step, cond, mask, k, b, w, lb = args
+        leaves = [t.clone().requires_grad_(True) for t in (x, step, cond, k, b, w, lb)]
+        x, step, cond, k, b, w, lb = leaves
+        out = fn(x, step, cond, mask, k, b, w, lb, d)
+        out.backward(go)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    kernels.reset_launches()
+    got = grads(convnext.depthwise_conv7_norm)
+    for name in ("depthwise_conv7_norm", "depthwise_conv7_norm_backward_rows",
+                 "depthwise_conv7_backward_taps"):
+        assert kernels.LAUNCHES[name] == 1, name
+    for got_t, ref_t in zip(got, grads(convnext.depthwise_conv7_norm_reference)):
+        assert_scaled(got_t, ref_t)
+    kernels.reset_launches()
     with torch.no_grad():
-        convnext.depthwise_conv7_norm(*args, 2)
+        convnext.depthwise_conv7_norm(*args, d)
+    assert kernels.LAUNCHES["depthwise_conv7_norm"] == 1
+    assert kernels.LAUNCHES["depthwise_conv7_norm_backward_rows"] == 0
