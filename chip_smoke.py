@@ -224,23 +224,30 @@ def device_ms(fn, reps: int = 40, iters: int = 5) -> float:
     by ``torch.cuda._sleep`` while the host enqueues ``reps`` calls between
     two CUDA events, so that the host's launch overhead (tens of
     microseconds a ctypes launch) does not show in a kernel that takes less.
-    For kernels shorter than their launch; ``cuda_ms`` times the host's
-    pace too."""
+    Where the device has reached the first event before the host has
+    enqueued the last call (an autograd call's host work outlasting the
+    hold), the host's pace would show: that run is dropped and the hold
+    doubled. For kernels shorter than their launch; ``cuda_ms`` times the
+    host's pace too."""
     import torch
 
     fn()
-    events = []
-    for _ in range(iters):
-        torch.cuda._sleep(20_000_000)
+    hold, times = 20_000_000, []
+    while len(times) < iters:
+        torch.cuda._sleep(hold)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
             fn()
         end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events) / reps
+        if start.query() and hold < 2**31:  # the hold ran out first
+            torch.cuda.synchronize()
+            hold *= 2
+            continue
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
 
 
 def nbytes(*tensors) -> int:
@@ -3128,7 +3135,7 @@ def drive_diffusion_training(report: Report, seed: int, tag: str, cfg, loader, v
     # resume from the checkpoint of the last step, for two more steps
     saved = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
     totals_profile = profile_steps(state, step_fn, batch_to_device(next(iter(loader)), DEVICE),
-                                   seed, tag)
+                                   seed, tag, median)
     cfg.trainer["max_steps"] = DIFF_WARM + DIFF_TIMED + 2
     resumed = DiffusionTrainer(cfg, log_dir=str(tmp / "logs"), steps_per_epoch=len(loader),
                                device=DEVICE)
@@ -3371,11 +3378,16 @@ def phase_convnext_train(report: Report, seed: int):
     return launches, totals
 
 
-def profile_steps(state, step_fn, batch, seed: int, tag: str, n: int = 3) -> dict:
+def profile_steps(state, step_fn, batch, seed: int, tag: str, step_s: float,
+                  n: int = 3) -> dict:
     """``n`` training steps under ``torch.profiler``: the device time by
-    kernel (per step), the device's busy time and its idle share of the
-    window's wall time. Returns them, or ``{"device": "not measured"}``
-    when the trace holds no device time."""
+    kernel (per step), the device's busy time (kernels, copies and fills:
+    not the device-side spans of ``record_function`` annotations such as
+    the optimizer's step, which cover kernels counted on their own rows) and
+    its idle share of the window's wall time, and of ``step_s``, the step's
+    time without the profiler (whose host work lengthens the window).
+    Returns them, or ``{"device": "not measured"}`` when the trace holds no
+    device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3389,27 +3401,38 @@ def profile_steps(state, step_fn, batch, seed: int, tag: str, n: int = 3) -> dic
             state, _ = step_fn(state, batch, gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
+    events = prof.key_averages()
+    host_keys = {e.key for e in events if e.device_type != DeviceType.CUDA}
+    rows, spans = [], 0.0
+    for e in events:
         if e.device_type != DeviceType.CUDA:  # the kernels, not the ops that launch them
             continue
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
             dev = getattr(e, "self_cuda_time_total", 0)
-        if dev > 0:
-            rows.append((dev / 1e3 / n, e.count // n, e.key))
+        if dev <= 0:
+            continue
+        # an annotation's device-side twin shares its key with the host-side span
+        if getattr(e, "is_user_annotation", False) or e.key in host_keys:
+            spans += dev / 1e3 / n
+            continue
+        rows.append((dev / 1e3 / n, e.count // n, e.key))
     if not rows:
         print(f"[{tag}] profile: the trace holds no device time (not measured)")
         return {"device": "not measured"}
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"[{tag}] profile of {n} steps (torch.profiler): device busy "
-          f"{busy:.2f} ms a step of {wall / n * 1e3:.2f} ms wall (idle share "
-          f"{1 - busy / (wall / n * 1e3):.3f}); device ms a step by kernel:")
+    window = wall / n * 1e3
+    print(f"[{tag}] profile of {n} steps (torch.profiler): device busy {busy:.2f} ms a step "
+          f"(kernels, copies, fills; annotation spans {spans:.2f} ms left out) of "
+          f"{window:.2f} ms wall (idle share {1 - busy / window:.3f}); of the unprofiled "
+          f"step's {step_s * 1e3:.2f} ms: idle share {1 - busy / (step_s * 1e3):.3f}; "
+          f"device ms a step by kernel:")
     for ms, count, name in rows[:14]:
         print(f"    {ms:8.3f} ms  x{count:<4d} {name[:90]}")
-    return {"busy_ms_per_step": busy, "wall_ms_per_step": wall / n * 1e3,
-            "idle_share": 1 - busy / (wall / n * 1e3),
+    return {"busy_ms_per_step": busy, "wall_ms_per_step": window,
+            "idle_share": 1 - busy / window, "step_ms": step_s * 1e3,
+            "idle_share_of_step": 1 - busy / (step_s * 1e3), "annotation_spans_ms": spans,
             "top": [(name[:90], ms, count) for ms, count, name in rows[:14]]}
 
 

@@ -19,11 +19,11 @@ and ``depthwise_conv7_backward_taps`` (the taps transposed: the pre-add's
 gradient, which is x's and cond's, and the step's). Each has its plain
 version beside it (``*_reference``), which CPU tensors take.
 
-The per-block condition projections ``[L, B, T, C]`` and the depthwise
-kernels in the layout K10 reads ``[L, 7, C]`` are constant across the
+The per-block condition projections ``[B, T, C]`` and the depthwise
+kernels in the layout K10 reads ``[7, C]`` are constant across the
 reverse-diffusion steps, so ``prepare`` computes them once per sampling
-call; in training each block's are made in the loop. Module and parameter
-names are fish-diffusion's torch layout, which
+call (and once per forward in training, where each block's gradient
+flows back through its own entry). Module and parameter names are fish-diffusion's torch layout, which
 ``tools/diffusion/convert_torch_checkpoint.py:convert_convnext`` reads.
 
 Not ported: the interleaved cross-attention blocks (``cross_attention``;
@@ -379,15 +379,14 @@ class ConvNext(nn.Module):
 
     def prepare(self, conditioner: torch.Tensor,
                 cond_masks: Optional[torch.Tensor] = None) -> dict:
-        """Per-sampling-call constants: each block's condition projection
-        ``cond [L, B, T, C]`` of the masked conditioner projection, and the
-        depthwise kernels ``k [L, 7, C]``."""
+        """Per-sampling-call constants, one entry a block: ``cond``, the
+        block's condition projection ``[B, T, C]`` of the masked conditioner
+        projection, and ``k``, its depthwise kernel ``[7, C]``."""
         c = self._condition(conditioner, cond_masks)
         layers = self.residual_layers
         return {
-            "cond": torch.stack([_pointwise(layer.condition_projection, c)
-                                 for layer in layers]),
-            "k": torch.stack([self._kernel(layer) for layer in layers]).contiguous(),
+            "cond": [_pointwise(layer.condition_projection, c) for layer in layers],
+            "k": [self._kernel(layer).contiguous() for layer in layers],
         }
 
     def forward(
@@ -399,24 +398,12 @@ class ConvNext(nn.Module):
         cond_masks: Optional[torch.Tensor] = None,
         plan: Optional[dict] = None,
     ) -> torch.Tensor:
-        """With grad enabled (training) each block's condition projection
-        and kernel are made in the loop, so that their gradients are each
-        block's own (indexing a stacked plan would make every block's
-        backward write a zero-filled gradient of the whole stack)."""
-        training = torch.is_grad_enabled()
-        if plan is None and not training:
-            plan = self.prepare(conditioner, cond_masks)
-        c = None if plan is not None else self._condition(conditioner, cond_masks)
+        plan = plan or self.prepare(conditioner, cond_masks)
         x = F.gelu(_pointwise(self.input_projection, x.float()))
         step = self.diffusion_embedding(diffusion_embedding(diffusion_step, self.dim))
         if x_masks is not None:
             x = x.masked_fill(x_masks[:, :, None], 0.0)
-        for i, layer in enumerate(self.residual_layers):
-            if plan is not None:
-                cond, k = plan["cond"][i], plan["k"][i]
-            else:
-                cond = _pointwise(layer.condition_projection, c)
-                k = self._kernel(layer).contiguous()
+        for layer, cond, k in zip(self.residual_layers, plan["cond"], plan["k"]):
             x = layer(x, step, cond, k, x_masks)
         proj = self.output_projection
         x = _pointwise(proj[2], F.gelu(_pointwise(proj[0], x)))
