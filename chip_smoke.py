@@ -8,13 +8,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device:  require CUDA, print the card's name and power limit, turn TF32
             off for every comparison.
 2. build:   compile the CUDA sources in ``fish_diffusion_tpu_torch/csrc``,
-            one ``nvcc`` each, all started together.
+            one ``nvcc`` each, all started together; print each kernel's
+            registers and spills, and the TF32 tensor-core products in the
+            SASS of K1's 3xTF32 kernels (none fails).
 3. kernels: every hand-written kernel against its plain PyTorch version at
-            B=4 x 1024 frames, with median CUDA-event times of both, its
-            bound (the larger of the bytes the function must move over
-            3.35 TB/s and the float32 operations it needs over 67 TFLOP/s)
-            and, where one PyTorch call computes the same function, that
-            call's time; K5 (an FFT) at n_fft 2048 and at the key shifts'
+            B=4 x 1024 frames, with median CUDA-event times of both (K2's and
+            K3's Triton kernels by device time, ``device_ms``, with the
+            host-paced reading beside), its bound (the larger of the bytes
+            the function must move over 3.35 TB/s and the float32
+            operations it needs over 67 TFLOP/s; over 495 / 3 TFLOP/s for
+            the 3xTF32 tensor-core kernels) and, where one PyTorch call
+            computes the same function, that call's time; K5 (an FFT) at n_fft 2048 and at the key shifts'
             2299 and 1933 (Bluestein), and at B=1 over a segment, and
             past shared memory (the four-step split path: n_fft 6000 in
             float64, forward and backward, n_fft 16384 in float32); K4 at
@@ -80,9 +84,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             denoiser's ReLUs flip under float32 differences); K1's training
             kernels at the step's inputs for each dilation against their
             plain versions (1e-4 of scale, bit-equal on rerun, timed beside
-            their bound; one block's forward and backward against torch
-            autograd of the plain block), and K1's weight gradients through
-            ``conv1d_wgrad``.
+            their bound; the input backward and the weight gradients, 3xTF32
+            on the tensor cores, beside both bounds and cuDNN's
+            ``conv1d_input`` / ``conv1d_weight``, and the weight gradients
+            beside ``conv1d_wgrad`` on the same shapes, the route they
+            replace; one block's forward and backward against torch
+            autograd of the plain block).
    convnext_train: (after diffusion_train) the same on
             ``configs/denoiser_cn_hubert.py`` (ConvNext 20 x 512 x 4, its
             dataset set to ``NaiveSVCDataset``: the config's
@@ -195,8 +202,11 @@ DEVICE = "cuda"
 SR, HOP, MEL = 44100, 512, 128
 B, T, R = 4, 1024, 512
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s and float32 FLOP/s outside the
-# tensor cores (the kernels here are float32 SIMT)
+# tensor cores (the SIMT kernels), and the float32 rate of a 3xTF32 product
+# on the tensor cores (three TF32 products of 495 TFLOP/s dense per float32
+# product: K1's input backward and weight gradients)
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
+TF32X3_FLOP_PER_S = 495e12 / 3
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2, reps: int = 1) -> float:
@@ -250,14 +260,27 @@ def device_ms(fn, reps: int = 40, iters: int = 5) -> float:
     return statistics.median(times)
 
 
+def timed_device_and_host(report, name: str, fn, ref):
+    """(kernel ms, plain ms) of device time (``device_ms``), printed beside
+    the host-paced readings (CUDA events around 20 back-to-back calls,
+    ``cuda_ms``), which ``report.extra[name]`` keeps."""
+    ms, plain = device_ms(fn), device_ms(ref, reps=10)
+    host, plain_host = cuda_ms(fn, reps=20), cuda_ms(ref, reps=20)
+    print(f"  {name}: kernel {ms:.4f} ms of device time (host-paced {host:.4f}), plain "
+          f"{plain:.4f} (host-paced {plain_host:.4f})")
+    report.extra.setdefault(name, {}).update(host_paced_ms=host, plain_host_paced_ms=plain_host)
+    return ms, plain
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: float, flops: float):
-    """(ms, "bytes" | "operations"): the least time the card could take."""
+def bound(n_bytes: float, flops: float, rate: float = F32_FLOP_PER_S):
+    """(ms, "bytes" | "operations"): the least time the card could take, its
+    ``flops`` at ``rate`` FLOP/s."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -309,9 +332,10 @@ class Report:
         return ratio
 
     def kernel(self, name, err, ms, plain_ms, shape="", n_bytes=0, flops=0,
-               library_ms=None):
+               library_ms=None, rate=F32_FLOP_PER_S):
         """Accumulate one measured call (times, bound and library time add
-        up over the calls of one entry; errors take the maximum)."""
+        up over the calls of one entry; errors take the maximum); the bound
+        counts ``flops`` at ``rate``."""
         entry = self.kernels.setdefault(name, dict(
             max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
             bound_time=defaultdict(float), library_ms=None, shape=""))
@@ -320,7 +344,7 @@ class Report:
         entry["ms"] += ms
         entry["plain_ms"] += plain_ms
         if n_bytes or flops:
-            t, by = bound(n_bytes, flops)
+            t, by = bound(n_bytes, flops, rate)
             entry["bound_ms"] += t
             entry["bound_time"][by] += t
         if library_ms is not None:
@@ -398,8 +422,9 @@ def phase_kernels(report: Report, seed: int):
                 report.kernel(name, 0.0, ms, plain, "one block, B=4 T=1024 R=512 f32",
                               traffic[name], flops)
 
-    print("[kernels] K2 steps (UniPC, PLMS, naive), [4, 1024, 128] f32; times "
-          "per launch over 20 back-to-back launches")
+    print("[kernels] K2 steps (UniPC, PLMS, naive), [4, 1024, 128] f32; times per "
+          "launch: device time (device_ms) and host-paced (CUDA events around 20 "
+          "back-to-back launches, which a Triton launch's host work paces)")
     coeffs = diffusion.ScheduleCoefficients(np.linspace(1e-4, 0.01, 1000))
     table = diffusion.unipc_step_table(coeffs, 100)
     i = 50
@@ -431,9 +456,8 @@ def phase_kernels(report: Report, seed: int):
          ddpm, 4, 10 * elems),
     ):
         err = report.compare(name, fn(*args), ref(*args), 1e-5, relative=True)
-        ms = cuda_ms(lambda: fn(*args), reps=20)
-        plain = cuda_ms(lambda: ref(*args), reps=20)
-        print(f"  {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        ms, plain = timed_device_and_host(report, name, lambda: fn(*args),
+                                          lambda: ref(*args))
         report.kernel(name, err, ms, plain, "one step, [4, 1024, 128] f32",
                       n_io * elems * 4, flops)
 
@@ -447,17 +471,16 @@ def phase_kernels(report: Report, seed: int):
     base_ref = source.nsf_phase_base_reference(f0, SR, HOP)
     err = report.compare("nsf_phase_base", source.nsf_phase_base(f0, SR, HOP),
                          base_ref, 1e-6)
-    ms = cuda_ms(lambda: source.nsf_phase_base(f0, SR, HOP))
-    plain = cuda_ms(lambda: source.nsf_phase_base_reference(f0, SR, HOP))
-    print(f"  nsf_phase_base: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+    ms, plain = timed_device_and_host(
+        report, "nsf_phase_base", lambda: source.nsf_phase_base(f0, SR, HOP),
+        lambda: source.nsf_phase_base_reference(f0, SR, HOP))
     report.kernel("nsf_phase_base", err, ms, plain, "B=4 T=1024",
                   nbytes(f0, base_ref), 4 * B * T)
     margs = (f0, base_ref, rand_ini, noise, weight, bias, SR, HOP)
     err = report.compare("nsf_merge", source.nsf_merge(*margs),
                          source.nsf_merge_reference(*margs), 1e-4)
-    ms = cuda_ms(lambda: source.nsf_merge(*margs))
-    plain = cuda_ms(lambda: source.nsf_merge_reference(*margs))
-    print(f"  nsf_merge: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+    ms, plain = timed_device_and_host(report, "nsf_merge", lambda: source.nsf_merge(*margs),
+                                      lambda: source.nsf_merge_reference(*margs))
     # per sample and harmonic: phase, sin, uv gate, noise, weight (~8)
     report.kernel("nsf_merge", err, ms, plain, "B=4 T=1024 hop=512",
                   nbytes(f0, base_ref, rand_ini, noise, weight, bias) + 4 * B * T * HOP,
@@ -2988,10 +3011,11 @@ def phase_train_sine(report: Report, seed: int):
 DIFF_B, DIFF_FRAMES = 20, (400, 512)
 DIFF_WARM, DIFF_TIMED = 2, 10
 # K1's launches in one training step of the 20-block WaveNet: the training
-# forward, the output product, both backward kernels, and two weight
-# gradients a block (dW_conv at K = 3, dW_out at K = 1)
+# forward, the output product, the gate and input backward and the weight
+# gradients (dW_conv and dW_out in one launch) once a block; no
+# conv1d_wgrad
 DIFF_LAUNCHES = {"wavenet_gate_train": 20, "wavenet_out": 20, "wavenet_gate_backward": 20,
-                 "wavenet_input_backward": 20, "conv1d_wgrad": 40}
+                 "wavenet_input_backward": 20, "wavenet_weight_grad": 20}
 # K10's launches in one training step of the 20-block ConvNeXt: the forward
 # and both backward kernels once a block
 CONVNEXT_TRAIN_LAUNCHES = {"depthwise_conv7_norm": 20, "depthwise_conv7_norm_backward_rows": 20,
@@ -3294,9 +3318,9 @@ def phase_diffusion_train(report: Report, seed: int):
     launches every step, validation, checkpoints, a resume, the whole step
     against the plain step); then K1's training kernels at the step's
     shapes for each dilation against their plain versions, timed, bit-equal
-    on rerun, and K1's weight gradients through ``conv1d_wgrad``."""
+    on rerun, with ``conv1d_wgrad`` (the route the weight gradients took
+    before) timed on the same shapes."""
     from fish_diffusion_tpu_torch.models import wavenet
-    from fish_diffusion_tpu_torch.ops import blocked_conv
 
     tag = "diffusion_train"
     cfg, loader, valid = diffusion_config(
@@ -3312,21 +3336,19 @@ def phase_diffusion_train(report: Report, seed: int):
         (wavenet, "residual_out"): wavenet.residual_out_reference,
         (wavenet, "residual_gate_backward"): wavenet.residual_gate_backward_reference,
         (wavenet, "residual_input_backward"): wavenet.residual_input_backward_reference,
-        (blocked_conv, "conv1d_wgrad"): blocked_conv.conv1d_wgrad_reference,
+        (wavenet, "residual_weight_grad"): wavenet.residual_weight_grad_reference,
     }
     backward = [key for key in plain_fns
                 if key[1] not in ("residual_gate_train", "residual_out")]
     recorders = [recording(wavenet, "residual_gate_train", key=lambda a, kw: a[5]),
                  recording(wavenet, "residual_gate_backward", key=lambda a, kw: 0),
                  recording(wavenet, "residual_input_backward", key=lambda a, kw: a[3]),
-                 recording(blocked_conv, "conv1d_wgrad")]
+                 recording(wavenet, "residual_weight_grad", key=lambda a, kw: a[5])]
     forward = {k: DIFF_LAUNCHES[k] for k in ("wavenet_gate_train", "wavenet_out")}
     launches, totals, _ = drive_diffusion_training(report, seed, tag, cfg, loader, valid,
                                                    DIFF_LAUNCHES, forward, plain_fns,
                                                    backward, recorders)
     measure_k1_training(report, {r.name: r.calls for r in recorders}, totals)
-    report.extra.setdefault("conv1d_wgrad", {})["diffusion_train"] = measure_wgrad_calls(
-        report, recorders[3].calls, "diffusion_train (K1 dW)")
     report.finish(tag)
     return launches, totals
 
@@ -3609,9 +3631,14 @@ def measure_k1_training(report: Report, calls: dict, totals: dict):
     """K1's training kernels at the step's recorded inputs (B=20 x 512 x
     512), for each dilation: within 1e-4 of the plain version's scale, a
     rerun bit-equal, CUDA-event times of kernel and plain beside the bound,
-    summed over a step's launches (5 blocks a dilation); and one block's
-    forward and backward through the kernels against torch autograd of the
-    plain block (the cuBLAS composition; no one PyTorch call computes it)."""
+    summed over a step's launches (5 blocks a dilation). The input backward
+    and the weight gradients (3xTF32 on the tensor cores) are bound at
+    ``TF32X3_FLOP_PER_S`` with the float32 SIMT bound beside, and timed
+    beside cuDNN (``conv1d_input`` for dy; ``conv1d_weight`` at K = 3 and at
+    K = 1) and, for the weight gradients, beside ``conv1d_wgrad`` on the
+    same shapes (the route they took before). Then one block's forward and
+    backward through the kernels against torch autograd of the plain block
+    (the cuBLAS composition; no one PyTorch call computes it)."""
     import torch
 
     from fish_diffusion_tpu_torch.models import wavenet
@@ -3663,8 +3690,12 @@ def measure_k1_training(report: Report, calls: dict, totals: dict):
     report.kernel("wavenet_gate_backward", err, ms * count, plain * count,
                   "a step's 20 launches, B=20 T=512 R=512", work[0] * count, flops * count)
 
+    # the input backward and the weight gradients: 3xTF32 on the tensor
+    # cores, their bound at TF32X3_FLOP_PER_S (the float32 SIMT bound beside)
+    ib = {}
     for d, (args, _, count) in sorted(calls["residual_input_backward"].items()):
         dz, dxo, w_conv, _ = (a.detach() if torch.is_tensor(a) else a for a in args)
+        B_, T_ = dxo.shape[:2]
         with torch.no_grad():
             fn = lambda: wavenet.residual_input_backward(dz, dxo, w_conv, d)  # noqa: E731
             ref_fn = lambda: wavenet.residual_input_backward_reference(  # noqa: E731
@@ -3676,17 +3707,92 @@ def measure_k1_training(report: Report, calls: dict, totals: dict):
             again = fn()
             check_rerun(report, label, torch.cat([dx.flatten(), ds.flatten()]),
                         torch.cat([again[0].flatten(), again[1].flatten()]))
-            ms, plain, _ = timed_triple(fn, ref_fn)
+            # cuDNN's dy alone: the conv's input gradient, [B, R, T] layout
+            dz_t = dz.transpose(1, 2).contiguous()
+            w_t = w_conv.reshape(3, R_, 2 * R_).permute(2, 1, 0).contiguous()
+            lib_fn = lambda: torch.nn.grad.conv1d_input(  # noqa: E731
+                (B_, R_, T_), w_t, dz_t, padding=d, dilation=d)
+            lib_err = max_err(lib_fn().transpose(1, 2), ref_dx - dxo * (2 ** -0.5))
+            ms, plain, lib = timed_triple(fn, ref_fn, lib_fn)
         flops = 2 * M * 6 * R_ * R_
         work = (nbytes(dz, dxo, w_conv, dx, ds), flops)
-        t_bound = bound(*work)[0]
+        t_bound = bound(*work, TF32X3_FLOP_PER_S)[0]
+        t_f32 = bound(*work)[0]
         print(f"    x{count}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
-              f"{t_bound / ms:.0%} of its bound {t_bound:.4f}), plain {plain:.4f} ms")
+              f"{t_bound / ms:.0%} of its 3xTF32 bound {t_bound:.4f}, {t_f32 / ms:.0%} of the "
+              f"float32 SIMT bound {t_f32:.4f}), plain {plain:.4f} ms, cuDNN conv1d_input "
+              f"(dy alone) {lib:.4f} ms (dy max_abs_err {lib_err:.2e})")
         report.kernel("wavenet_input_backward", err, ms * count, plain * count,
-                      "a step's 20 launches, B=20 T=512 R=512", work[0] * count, flops * count)
+                      "a step's 20 launches, B=20 T=512 R=512", work[0] * count, flops * count,
+                      library_ms=lib * count, rate=TF32X3_FLOP_PER_S)
+        ib[d] = dict(count=count, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=t_bound,
+                     bound_f32_simt_ms=t_f32, tflops=flops / ms / 1e9)
+    report.extra.setdefault("wavenet_input_backward", {}).update(
+        by_dilation=ib, bound_f32_simt_ms=sum(v["bound_f32_simt_ms"] * v["count"]
+                                              for v in ib.values()))
 
-    # one block forward and backward: K1's kernels (conv1d_wgrad included)
-    # against torch autograd of the plain block, at each dilation
+    wg, wgrad_calls = {}, []
+    for d, (args, _, count) in sorted(calls["residual_weight_grad"].items()):
+        y, dz, g, dxo, dso, _ = (a.detach() if torch.is_tensor(a) else a for a in args)
+        B_, T_ = y.shape[:2]
+        with torch.no_grad():
+            fn = lambda: wavenet.residual_weight_grad(y, dz, g, dxo, dso, d)  # noqa: E731
+            ref_fn = lambda: wavenet.residual_weight_grad_reference(  # noqa: E731
+                y, dz, g, dxo, dso, d)
+            got, ref = fn(), ref_fn()
+            label = f"wavenet_weight_grad d={d}"
+            err = max(report.compare(f"{label} {name}", a, r, 1e-4 * max_abs(r))
+                      for name, a, r in zip(("dW_conv", "dW_out"), got, ref))
+            again = fn()
+            check_rerun(report, label, torch.cat([a.flatten() for a in got]),
+                        torch.cat([a.flatten() for a in again]))
+            ms, plain, _ = timed_triple(fn, ref_fn)
+            # cuDNN: conv1d_weight at K = 3 (dW_conv) and at K = 1 (dW_out)
+            do = torch.cat([dxo * 2 ** -0.5, dso], dim=-1)
+            y_t, dz_t = y.transpose(1, 2).contiguous(), dz.transpose(1, 2).contiguous()
+            g_t, do_t = g.transpose(1, 2).contiguous(), do.transpose(1, 2).contiguous()
+            lib3_fn = lambda: torch.nn.grad.conv1d_weight(  # noqa: E731
+                y_t, (2 * R_, R_, 3), dz_t, padding=d, dilation=d)
+            lib1_fn = lambda: torch.nn.grad.conv1d_weight(g_t, (2 * R_, R_, 1), do_t)  # noqa: E731
+            lib_err = max(max_err(lib3_fn().permute(2, 1, 0).reshape(3 * R_, 2 * R_), ref[0]),
+                          max_err(lib1_fn()[:, :, 0].t(), ref[1]))
+            lib3, lib1 = cuda_ms(lib3_fn, iters=5), cuda_ms(lib1_fn, iters=5)
+        flops3, flops1 = 2 * M * 3 * R_ * 2 * R_, 2 * M * R_ * 2 * R_
+        flops = flops3 + flops1
+        work = (nbytes(y, dz, g, dxo, dso, *got), flops)
+        t_bound = bound(*work, TF32X3_FLOP_PER_S)[0]
+        t_f32 = bound(*work)[0]
+        print(f"    x{count}: {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{t_bound / ms:.0%} of its 3xTF32 bound {t_bound:.4f}, {t_f32 / ms:.0%} of the "
+              f"float32 SIMT bound {t_f32:.4f}), plain {plain:.4f} ms, cuDNN conv1d_weight "
+              f"{lib3 + lib1:.4f} ms: K = 3 {lib3:.4f} beside dW_conv's {flops3 / 1e9:.1f} "
+              f"GFLOP, K = 1 {lib1:.4f} beside dW_out's {flops1 / 1e9:.1f} (max_abs_err "
+              f"{lib_err:.2e})")
+        report.kernel("wavenet_weight_grad", err, ms * count, plain * count,
+                      "a step's 20 launches, B=20 T=512 R=512", work[0] * count, flops * count,
+                      library_ms=(lib3 + lib1) * count, rate=TF32X3_FLOP_PER_S)
+        wg[d] = dict(count=count, ms=ms, plain_ms=plain, library_k3_ms=lib3,
+                     library_k1_ms=lib1, bound_ms=t_bound, bound_f32_simt_ms=t_f32,
+                     tflops=flops / ms / 1e9)
+        # the route it replaces: conv1d_wgrad's two calls a block, (a, bm,
+        # K, stride, dilation, padding)
+        wgrad_calls += [((y, dz, 3, 1, d, d), {})] * count + [((g, do, 1, 1, 1, 0), {})] * count
+    old = measure_wgrad_calls(report, wgrad_calls, "diffusion_train (K1 shapes)")
+    new_ms = sum(v["ms"] * v["count"] for v in wg.values())
+    faster = new_ms < old["ms"]
+    print(f"  K1's weight gradients over a step: wavenet_weight_grad {new_ms:.4f} ms against "
+          f"conv1d_wgrad's {old['ms']:.4f} ms on the same shapes (cuDNN conv1d_weight "
+          f"{old['library_ms']:.4f}) {'ok' if faster else 'SLOWER'}")
+    report.extra.setdefault("wavenet_weight_grad", {}).update(
+        by_dilation=wg, bound_f32_simt_ms=sum(v["bound_f32_simt_ms"] * v["count"]
+                                              for v in wg.values()),
+        conv1d_wgrad_same_shapes=old)
+    totals["diffusion_train_k1_dw"] = dict(wavenet_weight_grad_ms=new_ms,
+                                           conv1d_wgrad_ms=old["ms"],
+                                           cudnn_ms=old["library_ms"])
+
+    # one block forward and backward: K1's kernels against torch autograd of
+    # the plain block, at each dilation
     block = {}
     for d, (x, step, cond, w_conv, b_conv) in per_block.items():
         skip = torch.zeros_like(x)
@@ -3768,6 +3874,31 @@ def phase_align(report: Report, seed: int):
     return launches
 
 
+def tensor_core_products(kernels):
+    """The SASS of K1's 3xTF32 kernels (``cuobjdump -sass`` of the built
+    ``wavenet_block`` library): each kernel's TF32 tensor-core products
+    (HMMA.1688.F32.TF32, three per m16n8k8 step) printed; a kernel with none
+    is a failure. Where the toolkit has no cuobjdump: not measured."""
+    cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        print("[build] cuobjdump not found: tensor-core products not measured")
+        return
+    sass = subprocess.run([str(cuobjdump), "-sass", str(kernels._library_path("wavenet_block"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "k1x3" in fn and "_sum" not in fn:
+                counts[fn] = 0
+        elif fn in counts and "HMMA.1688.F32.TF32" in line:
+            counts[fn] += 1
+    for fn, n in counts.items():
+        print(f"[build] wavenet_block {fn}: {n} HMMA.1688.F32.TF32 in its SASS")
+    if len(counts) != 2 or not all(counts.values()):
+        raise SystemExit("chip_smoke: K1's 3xTF32 kernels hold no tensor-core products")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3804,6 +3935,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    tensor_core_products(kernels)
 
     report = Report()
     wall = {}

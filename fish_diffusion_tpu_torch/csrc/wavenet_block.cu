@@ -39,26 +39,34 @@
 //                           (zero outside [0, T)), dx = dx' / sqrt(2) + dy,
 //                           and per tile of rows the column sums of dy,
 //                           which the wrapper adds in a fixed order (ds[b])
+//   wavenet_weight_grad:    dW_conv[tap R + i, n] = sum_{b,t} y[b, t + (tap - 1) d, i] dz[b, t, n]
+//                           (y = x + step[b], zero outside [0, T)) and
+//                           dW_out = g^T do, both in one launch
 //
-// The weight gradients go through conv1d_wgrad (csrc/wgrad.cuh): dW_conv is
-// conv1d_wgrad(y, dz, K = 3, dilation = d, padding = d), which is this
-// file's packed [3R, 2R] layout, and dW_out one K = 1 call on g and do. Bound:
-// arithmetic, as the forward (at B = 20, T = 512, R = 512 the two products
-// are 10.7 and 32.2 GFLOP a block). Design: the forward's tiles, with both
-// operands read along K. The A tile is gathered in the prologue: from dx'
-// (scaled by 1 / sqrt(2)) and dskip' for the gate's backward, with no
-// concatenated copy of do, and from dz at t + (1 - tap) d with a zero halo for the
-// input's backward, so no shifted copy is written. The weights are read
-// transposed, rows of W_out or of W_conv's tap blocks, 16-byte loads along
-// K. A block's rows lie in one batch item (tiles of BM time steps), so its
-// column sums of dy are one item's partial sum of ds; they are reduced over
-// the block's threads in a fixed order in shared memory, with no atomics,
-// so a rerun gives the same bits.
+// Bound: arithmetic, as the forward (at B = 20, T = 512, R = 512 the gate
+// backward's product is 10.7 GFLOP a block, the input backward's 32.2,
+// dW_conv 32.2 and dW_out 10.7). The gate backward runs the forward's SIMT
+// tiles with both operands read along K: the A tile gathered in the
+// prologue from dx' (scaled by 1 / sqrt(2)) and dskip', with no
+// concatenated copy of do, W_out read transposed. The input backward and
+// the weight gradients run on the 3xTF32 tensor-core core (tf32x3.cuh, the
+// k1x3 namespace below): the input backward gathers its A tile from dz at t
+// + (1 - tap) d with a zero halo, so no shifted copy is written; a block's
+// rows lie in one batch item, so its column sums of dy are one item's
+// partial sum of ds, reduced over the block in a fixed order in shared
+// memory. The weight gradients gather y at t + (tap - 1) d and do from dx'
+// and dskip' the same way, split the B T rows into chunks (128 output tiles
+// of the two products are fewer than the card's SMs) and add the chunks'
+// partial tiles in chunk order. No atomics anywhere, so a rerun gives the
+// same bits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include <type_traits>
+
+#include "async_copy.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -251,16 +259,6 @@ int launch_tile(const void* a_src, const void* step, const void* w,
   return (int)cudaGetLastError();
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
 // The largest tile whose grid still has a block for every SM.
 template <typename T, int MODE, bool SAVE_Z = false>
 int launch(const void* a_src, const void* step, const void* w,
@@ -268,7 +266,7 @@ int launch(const void* a_src, const void* step, const void* w,
            const void* skip_in, void* out0, void* out1, int B, int T_len,
            int C, int R, int d, void* stream) {
   const int M = B * T_len;
-  const int sms = sm_count();
+  const int sms = acopy::sm_count();
   cudaStream_t s = (cudaStream_t)stream;
   if (((M + 127) / 128) * (R / 64) >= sms)
     return launch_tile<T, MODE, 128, 64, 8, 4, SAVE_Z>(a_src, step, w, bias, cond, x_in,
@@ -283,35 +281,29 @@ int launch(const void* a_src, const void* step, const void* w,
                                             R, d, s);
 }
 
-// The backward's products, float32: C[m, n] = sum_k A[m, k] Bt[n, k] over
-// the rows m of one batch item (a block takes BM consecutive time steps of
-// item b = blockIdx.x / tiles) and N = R columns; both tiles are loaded
-// along K (16-byte loads) and stored K-major in shared memory.
-// MODE 0 (gate backward): A = [dx' / sqrt 2 | dskip'] (K = 2R), Bt = W_out
-//   [R, 2R]; epilogue dz from z.
-// MODE 1 (input backward): A[m, k] = dz[b, t + (1 - k / 2R) d, k % 2R]
-//   (zero outside [0, T); K = 6R), Bt[n, tap * 2R + c] = W_conv[tap R + n, c];
-//   epilogue dx = dx' / sqrt 2 + dy and the tile's column sums of dy.
-// A thread owns TM rows (two runs of TM / 2, BM / 2 apart) x TN columns (two
-// runs of TN / 2, BN / 2 apart), so its shared-memory reads are 16-byte
-// runs on distinct banks across a quarter-warp.
-template <int MODE, int BM, int BN, int TM, int TN>
+// The gate backward's product, float32: dg[m, n] = sum_k A[m, k] W_out[n, k]
+// over the rows m of one batch item (a block takes BM consecutive time
+// steps of item b = blockIdx.x / tiles) and N = R columns, with A = [dx' /
+// sqrt 2 | dskip'] (K = 2R); both tiles are loaded along K (16-byte loads)
+// and stored K-major in shared memory; epilogue dz from z. A thread owns TM
+// rows (two runs of TM / 2, BM / 2 apart) x TN columns (two runs of TN / 2,
+// BN / 2 apart), so its shared-memory reads are 16-byte runs on distinct
+// banks across a quarter-warp.
+template <int BM, int BN, int TM, int TN>
 __global__ void __launch_bounds__(THREADS) bwd_gemm(
-    const float* __restrict__ a0,  // MODE 0: dx' [M, R]; MODE 1: dz [M, 2R]
-    const float* __restrict__ a1,  // MODE 0: dskip' [M, R]; MODE 1: dx' [M, R]
-    const float* __restrict__ w,   // MODE 0: W_out [R, 2R]; MODE 1: W_conv [3R, 2R]
-    const float* __restrict__ z,   // MODE 0: z [M, 2R]
-    float* __restrict__ out,       // MODE 0: dz [M, 2R]; MODE 1: dx [M, R]
-    float* __restrict__ part,      // MODE 1: [B, tiles, R] column sums of dy
-    int T_len, int R, int d, int tiles) {
+    const float* __restrict__ a0,  // dx' [M, R]
+    const float* __restrict__ a1,  // dskip' [M, R]
+    const float* __restrict__ w,   // W_out [R, 2R]
+    const float* __restrict__ z,   // z [M, 2R]
+    float* __restrict__ out,       // dz [M, 2R]
+    int T_len, int R, int tiles) {
   static_assert((BM / TM) * (BN / TN) == THREADS, "16 x 16 threads");
   constexpr int A_PER = BM * BK / THREADS;
   constexpr int B_PER = BN * BK / THREADS;
   constexpr float RSQRT2 = 0.70710678118654752f;
-  const int K = MODE == 0 ? 2 * R : 6 * R;
+  const int K = 2 * R;
   __shared__ __align__(16) float As[BK][BM];
   __shared__ __align__(16) float Bs[BK][BN];
-  __shared__ float red[MODE == 1 ? THREADS / 16 : 1][MODE == 1 ? BN : 1];
 
   const int tid = threadIdx.x;
   const int b = blockIdx.x / tiles;
@@ -333,26 +325,17 @@ __global__ void __launch_bounds__(THREADS) bwd_gemm(
     const int k = k0 + a_k;
 #pragma unroll
     for (int i = 0; i < A_PER; ++i) a_next[i] = 0.f;
-    if (MODE == 0) {
-      if (a_ok) {
-        const size_t row = (size_t)b * T_len + a_t;
-        if (k < R) {
-          load_row<float, A_PER>(a0 + row * R + k, a_next);
+    if (a_ok) {
+      const size_t row = (size_t)b * T_len + a_t;
+      if (k < R) {
+        load_row<float, A_PER>(a0 + row * R + k, a_next);
 #pragma unroll
-          for (int i = 0; i < A_PER; ++i) a_next[i] *= RSQRT2;
-        } else {
-          load_row<float, A_PER>(a1 + row * R + (k - R), a_next);
-        }
+        for (int i = 0; i < A_PER; ++i) a_next[i] *= RSQRT2;
+      } else {
+        load_row<float, A_PER>(a1 + row * R + (k - R), a_next);
       }
-      load_row<float, B_PER>(w + (size_t)b_n * (2 * R) + k0 + b_k, b_next);
-    } else {
-      const int tap = k0 / (2 * R);
-      const int c0 = k0 - tap * 2 * R;
-      const int ts = a_t + (1 - tap) * d;
-      if (a_ok && ts >= 0 && ts < T_len)
-        load_row<float, A_PER>(a0 + ((size_t)b * T_len + ts) * (2 * R) + c0 + a_k, a_next);
-      load_row<float, B_PER>(w + ((size_t)tap * R + b_n) * (2 * R) + c0 + b_k, b_next);
     }
+    load_row<float, B_PER>(w + (size_t)b_n * (2 * R) + k0 + b_k, b_next);
   };
 
   float acc[TM][TN];
@@ -385,9 +368,6 @@ __global__ void __launch_bounds__(THREADS) bwd_gemm(
     __syncthreads();
   }
 
-  float colsum[TN];
-#pragma unroll
-  for (int j = 0; j < TN; ++j) colsum[j] = 0.f;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int row = i < TM / 2 ? ty * (TM / 2) + i
@@ -399,66 +379,358 @@ __global__ void __launch_bounds__(THREADS) bwd_gemm(
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + (j < TN / 2 ? tx * (TN / 2) + j
                                      : BN / 2 + tx * (TN / 2) + (j - TN / 2));
-      if (MODE == 0) {
-        const float s = 1.f / (1.f + expf(-z[m * 2 * R + n]));
-        const float tf = tanhf(z[m * 2 * R + R + n]);
-        out[m * 2 * R + n] = acc[i][j] * tf * s * (1.f - s);
-        out[m * 2 * R + R + n] = acc[i][j] * s * (1.f - tf * tf);
-      } else {
-        out[m * R + n] = a1[m * R + n] * RSQRT2 + acc[i][j];
-        colsum[j] += acc[i][j];
-      }
-    }
-  }
-  if (MODE == 1) {
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      red[ty][j < TN / 2 ? tx * (TN / 2) + j : BN / 2 + tx * (TN / 2) + (j - TN / 2)] =
-          colsum[j];
-    __syncthreads();
-    for (int c = tid; c < BN; c += THREADS) {
-      float sum = 0.f;
-      for (int r = 0; r < THREADS / 16; ++r) sum += red[r][c];
-      part[((size_t)b * tiles + (t0 / BM)) * R + n0 + c] = sum;
+      const float s = 1.f / (1.f + expf(-z[m * 2 * R + n]));
+      const float tf = tanhf(z[m * 2 * R + R + n]);
+      out[m * 2 * R + n] = acc[i][j] * tf * s * (1.f - s);
+      out[m * 2 * R + R + n] = acc[i][j] * s * (1.f - tf * tf);
     }
   }
 }
 
-template <int MODE, int BM, int BN, int TM, int TN>
+template <int BM, int BN, int TM, int TN>
 int launch_bwd_tile(const float* a0, const float* a1, const float* w, const float* z,
-                    float* out, float* part, int B, int T_len, int R, int d,
-                    cudaStream_t stream) {
+                    float* out, int B, int T_len, int R, cudaStream_t stream) {
   const int tiles = (T_len + BM - 1) / BM;
   dim3 grid(B * tiles, R / BN);
-  bwd_gemm<MODE, BM, BN, TM, TN><<<grid, THREADS, 0, stream>>>(a0, a1, w, z, out, part,
-                                                               T_len, R, d, tiles);
+  bwd_gemm<BM, BN, TM, TN><<<grid, THREADS, 0, stream>>>(a0, a1, w, z, out, T_len, R, tiles);
   return (int)cudaGetLastError();
 }
 
-// The backward's tile: 128 x 128 (8 x 8 a thread) when R allows it and the
-// grid has a block for every SM, else 128 x 64 under the same rule, else
-// 64 x 64. Returns BM (the rows of a tile, which size the partial sums).
-int bwd_rows(int B, int T_len, int R, int& BN) {
-  const int sms = sm_count();
+// The gate backward's tile: 128 x 128 (8 x 8 a thread) when R allows it and
+// the grid has a block for every SM, else 128 x 64 under the same rule,
+// else 64 x 64.
+int launch_gate_bwd(const float* a0, const float* a1, const float* w, const float* z,
+                    float* out, int B, int T_len, int R, void* stream) {
+  const int sms = acopy::sm_count();
   const int t128 = (T_len + 127) / 128;
-  if (R % 128 == 0 && B * t128 * (R / 128) >= sms) { BN = 128; return 128; }
-  if (B * t128 * (R / 64) >= sms) { BN = 64; return 128; }
-  BN = 64;
-  return 64;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (R % 128 == 0 && B * t128 * (R / 128) >= sms)
+    return launch_bwd_tile<128, 128, 8, 8>(a0, a1, w, z, out, B, T_len, R, s);
+  if (B * t128 * (R / 64) >= sms)
+    return launch_bwd_tile<128, 64, 8, 4>(a0, a1, w, z, out, B, T_len, R, s);
+  return launch_bwd_tile<64, 64, 4, 4>(a0, a1, w, z, out, B, T_len, R, s);
 }
 
-template <int MODE>
-int launch_bwd(const float* a0, const float* a1, const float* w, const float* z,
-               float* out, float* part, int B, int T_len, int R, int d, void* stream) {
-  int BN;
-  const int BM = bwd_rows(B, T_len, R, BN);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (BM == 128 && BN == 128)
-    return launch_bwd_tile<MODE, 128, 128, 8, 8>(a0, a1, w, z, out, part, B, T_len, R, d, s);
-  if (BM == 128)
-    return launch_bwd_tile<MODE, 128, 64, 8, 4>(a0, a1, w, z, out, part, B, T_len, R, d, s);
-  return launch_bwd_tile<MODE, 64, 64, 4, 4>(a0, a1, w, z, out, part, B, T_len, R, d, s);
+// K1's input backward and weight gradients on the 3xTF32 tensor-core core
+// (tf32x3.cuh). Both are 128 x 128 output tiles over 8 warps (2 x 4, a
+// warp 64 x 32: 4 x 4 m16n8k8 products a step), fed by a ring of STAGES
+// shared-memory stages of TK reduction steps each, filled by 16-byte
+// cp.async copies (zeros outside the operands, so halos and ragged edges
+// need no branch in the products). 110 KB (input backward) and 104 KB
+// (weight gradient) of shared memory and at most 128 registers a thread
+// keep two blocks on an SM.
+namespace k1x3 {
+
+constexpr int TM = 128, TN = 128, TK = 32, STAGES = 3;
+constexpr int WARPS_N = 4;            // warps along N; 2 along M
+constexpr int MI = 4, NJ = 4;         // m16 x n8 products of a warp's tile
+constexpr int WM = 16 * MI, WN = 8 * NJ;
+constexpr int LDK = TK + 4;           // K-major tiles: rows of TK + 4
+constexpr int LDR = TM + 8;           // reduction-major tiles: rows of TM + 8
+constexpr float RSQRT2 = 0.70710678118654752f;
+constexpr int IB_SMEM = STAGES * (TM + TN) * LDK * 4;
+constexpr int WG_SMEM = STAGES * TK * 2 * LDR * 4;
+static_assert((TM / WM) * (TN / WN) * 32 == THREADS, "8 warps");
+
+// The input backward: dy = A W' over M = B T rows (a block takes TM time
+// steps of item b = blockIdx.x / tiles) and N = R columns, K = 6R, with
+// A[m, k] = dz[b, t + (1 - tap) d, c] (zero outside [0, T)) and W'[k, n] =
+// W_conv[tap R + n, c], k = tap 2R + c; both tiles K-major, rows of LDK
+// floats (tf32x3.cuh's K-major layout: ldmatrix, conflict-free). Epilogue: dx = dx' / sqrt 2 + dy, and the tile's column sums of dy
+// (the lanes' rows, then the 16 rows of partials in order through shared
+// memory) as part[b, tile, n].
+__global__ void __launch_bounds__(THREADS, 2) input_backward_kernel(
+    const float* __restrict__ dz,      // [B, T, 2R]
+    const float* __restrict__ dx_out,  // [B, T, R]
+    const float* __restrict__ w,       // W_conv [3R, 2R]
+    float* __restrict__ dx,            // [B, T, R]
+    float* __restrict__ part,          // [B, tiles, R]
+    int T_len, int R, int d, int tiles) {
+  extern __shared__ __align__(16) float k1x3_smem[];
+  float* As = k1x3_smem;                       // [STAGES][TM][LDK]
+  float* Bs = k1x3_smem + STAGES * TM * LDK;   // [STAGES][TN][LDK]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x / tiles;
+  const int tile = blockIdx.x - b * tiles;
+  const int t0 = tile * TM;
+  const int n0 = blockIdx.y * TN;
+  const int two_r = 2 * R;
+  const int nk = 6 * R / TK;
+  // this thread's copies: rows cr + 32 i of both tiles, 4 floats at cc
+  const int cr = tid >> 3, cc = (tid & 7) * 4;
+
+  auto load = [&](int slot, int kt) {
+    const int k0 = kt * TK;
+    const int tap = k0 / two_r;
+    const int c = k0 - tap * two_r + cc;
+    float* as = As + slot * TM * LDK;
+    float* bs = Bs + slot * TN * LDK;
+#pragma unroll
+    for (int i = 0; i < TM / 32; ++i) {
+      const int r = cr + 32 * i;
+      const int t = t0 + r, ts = t + (1 - tap) * d;
+      const bool ok = t < T_len && ts >= 0 && ts < T_len;
+      acopy::copy16(as + r * LDK + cc, ok ? dz + ((size_t)b * T_len + ts) * two_r + c : dz, ok);
+      const int n = n0 + r;
+      acopy::copy16(bs + r * LDK + cc, n < R ? w + ((size_t)tap * R + n) * two_r + c : w,
+                    n < R);
+    }
+  };
+
+  float acc[MI][NJ][4] = {};
+  const int wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    acopy::copy_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    acopy::copy_wait<STAGES - 2>();
+    __syncthreads();
+    if (kt + STAGES - 1 < nk) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    acopy::copy_commit();
+    const int slot = kt % STAGES;
+    tf32x3::warp_stage_kmajor<MI, NJ, TK, LDK>(acc, As + (slot * TM + wm) * LDK,
+                                               Bs + (slot * TN + wn) * LDK, lane);
+  }
+  acopy::copy_wait<0>();
+  __syncthreads();
+
+  const int g = lane >> 2, c = lane & 3;
+  float colsum[NJ][2] = {};
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = t0 + wm + i * 16 + g + 8 * h;
+      if (t >= T_len) continue;
+      const size_t m = (size_t)b * T_len + t;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int n = n0 + wn + j * 8 + 2 * c;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        colsum[j][0] += v0;
+        colsum[j][1] += v1;
+        if (n < R) {
+          const float2 o = *reinterpret_cast<const float2*>(dx_out + m * R + n);
+          *reinterpret_cast<float2*>(dx + m * R + n) =
+              make_float2(o.x * RSQRT2 + v0, o.y * RSQRT2 + v1);
+        }
+      }
+    }
+  // the column sums: [2 x 8 (warp row, g)][TN] partials, added in order
+  float* red = k1x3_smem;
+  const int rrow = (warp / WARPS_N) * 8 + g;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) red[rrow * TN + wn + j * 8 + 2 * c + h] = colsum[j][h];
+  __syncthreads();
+  if (tid < TN && n0 + tid < R) {
+    float sum = 0.f;
+    for (int r = 0; r < (TM / WM) * 8; ++r) sum += red[r * TN + tid];
+    part[((size_t)b * tiles + tile) * R + n0 + tid] = sum;
+  }
 }
+
+// The weight gradients, one launch for both products, over the B T rows
+// (the reduction), cut into chunks of rows_per rows (a multiple of TK;
+// blockIdx.y is the chunk):
+//   conv tiles: dW_conv[tap R + i, n] = sum_rows y[b, t + (tap - 1) d, i] dz[b, t, n]
+//               (y zero outside [0, T)), M = 3R, N = 2R;
+//   out tiles:  dW_out[i, n] = sum_rows g[b, t, i] do[b, t, n], M = R, N = 2R,
+//               do = [dx' / sqrt 2 | dskip'] gathered from dx' and dskip'
+//               (the 1 / sqrt 2 applied to the partial sums).
+// Every operand is [rows, C], so both tiles are reduction-major: TK rows of
+// LDR floats (tf32x3.cuh's reduction-major layout: a warp's m16 tiles read
+// with their rows interleaved, its n8 tile pairs with their columns
+// interleaved, which the epilogue undoes). A row's time step advances with
+// the chunk, so a chunk may cross batch items. Each block writes its
+// partial tile, part[chunk, row, n] (rows 0..3R-1 dW_conv, 3R..4R-1
+// dW_out); weight_grad_sum adds the chunks in order.
+__global__ void __launch_bounds__(THREADS, 2) weight_grad_kernel(
+    const float* __restrict__ y,          // x + step[b], [B, T, R]
+    const float* __restrict__ dz,         // [B, T, 2R]
+    const float* __restrict__ g_act,      // g [B, T, R]
+    const float* __restrict__ dx_out,     // [B, T, R]
+    const float* __restrict__ dskip_out,  // [B, T, R]
+    float* __restrict__ part,             // [chunks, 4R, 2R]
+    int M, int T_len, int R, int d, int conv_tiles, int tiles_n, int rows_per) {
+  extern __shared__ __align__(16) float k1x3_smem[];
+  float* As = k1x3_smem;                     // [STAGES][TK][LDR]
+  float* Bs = k1x3_smem + STAGES * TK * LDR; // [STAGES][TK][LDR]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool out = (int)blockIdx.x >= conv_tiles;
+  const int tile = out ? blockIdx.x - conv_tiles : blockIdx.x;
+  const int m0 = (tile / tiles_n) * TM, n0 = (tile % tiles_n) * TN;
+  const int rows_m = out ? R : 3 * R;
+  const int two_r = 2 * R;
+  const int r0 = blockIdx.y * rows_per;
+  const int r1 = r0 + rows_per < M ? r0 + rows_per : M;
+  const int nk = r1 > r0 ? (r1 - r0 + TK - 1) / TK : 0;
+
+  // this thread's copies: reduction rows kr + 8 i of both tiles, 4 floats at
+  // column cc, from a_src and b_src a row apart by R and b_stride floats; a
+  // conv tile's A row is the row shifted by (tap - 1) d, live where the
+  // row's time step t does not leave [0, T) (t advances with the stage)
+  const int kr = tid >> 5, cc = (tid & 31) * 4;
+  const int m = m0 + cc, n = n0 + cc;
+  const int tap = out ? 1 : m / R;
+  const int shift = (tap - 1) * d;
+  const bool m_ok = m < rows_m, n_ok = n < two_r;
+  const float* a_src = out ? g_act + m : y + (m - tap * R);
+  const float* b_src = !out ? dz + n : n < R ? dx_out + n : dskip_out + (n - R);
+  const int b_stride = out ? R : two_r;
+  const int tk_mod = TK % T_len;
+  int t_of[TK / 8];
+#pragma unroll
+  for (int i = 0; i < TK / 8; ++i) t_of[i] = (r0 + kr + 8 * i) % T_len;
+
+  auto load = [&](int slot, int kt) {
+    float* as = As + slot * TK * LDR;
+    float* bs = Bs + slot * TK * LDR;
+#pragma unroll
+    for (int i = 0; i < TK / 8; ++i) {
+      const int r = kr + 8 * i;
+      const int row = r0 + kt * TK + r;
+      const int ts = t_of[i] + shift;
+      const bool row_ok = row < r1;
+      const bool a_ok = row_ok && m_ok && ts >= 0 && ts < T_len;
+      acopy::copy16(as + r * LDR + cc, a_ok ? a_src + (size_t)(row + shift) * R : y, a_ok);
+      const bool b_ok = row_ok && n_ok;
+      acopy::copy16(bs + r * LDR + cc, b_ok ? b_src + (size_t)row * b_stride : dz, b_ok);
+      t_of[i] += tk_mod;
+      if (t_of[i] >= T_len) t_of[i] -= T_len;
+    }
+  };
+
+  float acc[MI][NJ][4] = {};
+  const int wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    acopy::copy_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    acopy::copy_wait<STAGES - 2>();
+    __syncthreads();
+    if (kt + STAGES - 1 < nk) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    acopy::copy_commit();
+    const int slot = kt % STAGES;
+    tf32x3::warp_stage_rmajor<MI, NJ, TK, LDR>(acc, As + slot * TK * LDR + wm,
+                                               Bs + slot * TK * LDR + wn, lane);
+  }
+  acopy::copy_wait<0>();
+
+  // the interleave undone: acc[i][j][e] is row 16 i + 2 g + e / 2 and,
+  // for the n8 tile pair p = j / 2, column 16 p + 4 c + 2 (e % 2) + j % 2,
+  // so tiles 2p and 2p + 1 give a column pair
+  const int g = lane >> 2, c = lane & 3;
+  const size_t base = ((size_t)blockIdx.y * 4 * R + (out ? 3 * R : 0)) * two_r;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int mr = m0 + wm + i * 16 + 2 * g + h;
+      if (mr >= rows_m) continue;
+#pragma unroll
+      for (int j = 0; j < NJ; j += 2)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int nc = n0 + wn + 8 * j + 4 * c + 2 * q;
+          if (nc >= two_r) continue;
+          const float scale = out && nc < R ? RSQRT2 : 1.f;
+          *reinterpret_cast<float2*>(part + base + (size_t)mr * two_r + nc) = make_float2(
+              acc[i][j][2 * h + q] * scale, acc[i][j + 1][2 * h + q] * scale);
+        }
+    }
+}
+
+// dW_conv and dW_out: the chunks' partials added in chunk order, 4 floats a
+// thread.
+__global__ void __launch_bounds__(THREADS) weight_grad_sum(
+    const float* __restrict__ part, float* __restrict__ dw_conv, float* __restrict__ dw_out,
+    int R, int chunks) {
+  const size_t per_chunk = (size_t)8 * R * R, conv = (size_t)6 * R * R;
+  const size_t q = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (q >= per_chunk) return;
+  float4 sum = *reinterpret_cast<const float4*>(part + q);
+  for (int s = 1; s < chunks; ++s) {
+    const float4 v = *reinterpret_cast<const float4*>(part + s * per_chunk + q);
+    sum.x += v.x;
+    sum.y += v.y;
+    sum.z += v.z;
+    sum.w += v.w;
+  }
+  *reinterpret_cast<float4*>(q < conv ? dw_conv + q : dw_out + (q - conv)) = sum;
+}
+
+using acopy::cdiv;
+
+// The shared-memory limit, set before every launch (as wgrad.cuh does: a
+// plan over 48 KB set once ran up to 14% slower on an H100).
+template <class K>
+int set_smem(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+int weight_grad_tiles(int R, int& conv_tiles, int& tiles_n) {
+  tiles_n = cdiv(2 * R, TN);
+  conv_tiles = cdiv(3 * R, TM) * tiles_n;
+  return conv_tiles + cdiv(R, TM) * tiles_n;
+}
+
+// The chunks of the weight gradient's reduction: as many as fill the card
+// once with the tiles of both products (two blocks an SM: 2 chunks of 5120
+// rows at B = 20, T = 512, R = 512, 256 blocks on 132 SMs), at least one
+// stage of rows each.
+int weight_grad_chunks(int B, int T_len, int R) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    int err = set_smem(weight_grad_kernel, WG_SMEM);
+    if (!err)
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, weight_grad_kernel,
+                                                               THREADS, (size_t)WG_SMEM);
+    if (err || per_sm < 1) per_sm = 1;
+  }
+  int conv_tiles, tiles_n;
+  const int tiles = weight_grad_tiles(R, conv_tiles, tiles_n);
+  const int stages = cdiv(B * T_len, TK);
+  const int s = per_sm * acopy::sm_count() / tiles;
+  return s < 1 ? 1 : s < stages ? s : stages;
+}
+
+int launch_input_backward(const float* dz, const float* dx_out, const float* w, float* dx,
+                          float* part, int B, int T_len, int R, int d, void* stream) {
+  int err = set_smem(input_backward_kernel, IB_SMEM);
+  if (err) return err;
+  const int tiles = cdiv(T_len, TM);
+  const dim3 grid(B * tiles, cdiv(R, TN));
+  input_backward_kernel<<<grid, THREADS, IB_SMEM, (cudaStream_t)stream>>>(
+      dz, dx_out, w, dx, part, T_len, R, d, tiles);
+  return (int)cudaGetLastError();
+}
+
+int launch_weight_grad(const float* y, const float* dz, const float* g, const float* dx_out,
+                       const float* dskip_out, float* part, float* dw_conv, float* dw_out,
+                       int B, int T_len, int R, int d, int chunks, void* stream) {
+  int err = set_smem(weight_grad_kernel, WG_SMEM);
+  if (err) return err;
+  int conv_tiles, tiles_n;
+  const int tiles = weight_grad_tiles(R, conv_tiles, tiles_n);
+  const int M = B * T_len;
+  const int rows_per = cdiv(cdiv(M, TK), chunks) * TK;
+  const dim3 grid(tiles, chunks);
+  cudaStream_t s = (cudaStream_t)stream;
+  weight_grad_kernel<<<grid, THREADS, WG_SMEM, s>>>(y, dz, g, dx_out, dskip_out, part, M,
+                                                    T_len, R, d, conv_tiles, tiles_n,
+                                                    rows_per);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const int sum_blocks = cdiv(2 * R * R, THREADS);  // 8 R^2 floats, 4 a thread
+  weight_grad_sum<<<sum_blocks, THREADS, 0, s>>>(part, dw_conv, dw_out, R, chunks);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k1x3
 
 }  // namespace
 
@@ -498,19 +770,16 @@ extern "C" int wavenet_gate_train(const void* x, const void* step, const void* w
                                 T_len, R, R, d, stream);
 }
 
-// The rows of the backward's tiles for these shapes: ``part`` of
+// The rows of the input backward's tiles: ``part`` of
 // wavenet_input_backward is [B, ceil(T / rows), R].
-extern "C" int wavenet_backward_rows(int B, int T_len, int R) {
-  int BN;
-  return bwd_rows(B, T_len, R, BN);
-}
+extern "C" int wavenet_backward_rows(int B, int T_len, int R) { return k1x3::TM; }
 
 // dz [B, T, 2R] from dx', dskip' [B, T, R], W_out [R, 2R] and z [B, T, 2R].
 extern "C" int wavenet_gate_backward(const void* dx_out, const void* dskip_out,
                                      const void* w_out, const void* z, void* dz, int B,
                                      int T_len, int R, void* stream) {
-  return launch_bwd<0>((const float*)dx_out, (const float*)dskip_out, (const float*)w_out,
-                       (const float*)z, (float*)dz, nullptr, B, T_len, R, 0, stream);
+  return launch_gate_bwd((const float*)dx_out, (const float*)dskip_out, (const float*)w_out,
+                         (const float*)z, (float*)dz, B, T_len, R, stream);
 }
 
 // dx [B, T, R] and part [B, ceil(T / rows), R] (each tile's column sums of
@@ -518,6 +787,25 @@ extern "C" int wavenet_gate_backward(const void* dx_out, const void* dskip_out,
 extern "C" int wavenet_input_backward(const void* dz, const void* dx_out, const void* w_conv,
                                       void* dx, void* part, int B, int T_len, int R, int d,
                                       void* stream) {
-  return launch_bwd<1>((const float*)dz, (const float*)dx_out, (const float*)w_conv,
-                       nullptr, (float*)dx, (float*)part, B, T_len, R, d, stream);
+  return k1x3::launch_input_backward((const float*)dz, (const float*)dx_out,
+                                     (const float*)w_conv, (float*)dx, (float*)part, B, T_len,
+                                     R, d, stream);
+}
+
+// The chunks of wavenet_weight_grad's reduction: its ``part`` is
+// [chunks, 4R, 2R].
+extern "C" int wavenet_weight_grad_chunks(int B, int T_len, int R) {
+  return k1x3::weight_grad_chunks(B, T_len, R);
+}
+
+// dW_conv [3R, 2R] and dW_out [R, 2R] from y = x + step[b], dz [B, T, 2R],
+// g, dx', dskip' [B, T, R]; part [chunks, 4R, 2R] is scratch.
+extern "C" int wavenet_weight_grad(const void* y, const void* dz, const void* g,
+                                   const void* dx_out, const void* dskip_out, void* part,
+                                   void* dw_conv, void* dw_out, int B, int T_len, int R, int d,
+                                   int chunks, void* stream) {
+  return k1x3::launch_weight_grad((const float*)y, (const float*)dz, (const float*)g,
+                                  (const float*)dx_out, (const float*)dskip_out, (float*)part,
+                                  (float*)dw_conv, (float*)dw_out, B, T_len, R, d, chunks,
+                                  stream);
 }

@@ -51,7 +51,7 @@ KERNELS = {
         replaces=_TPU + "models/wavenet.py:59",
     ),
     # XLA's derivative of ResidualBlock.__call__ and models/common.py:103
-    # DilatedConvK3 (the weight gradients go through conv1d_wgrad)
+    # DilatedConvK3
     "wavenet_gate_backward": dict(
         id="K1 bwd", route="cuda", source=_PORT + "csrc/wavenet_block.cu",
         replaces=_TPU + "models/wavenet.py:59",
@@ -59,6 +59,10 @@ KERNELS = {
     "wavenet_input_backward": dict(
         id="K1 bwd", route="cuda", source=_PORT + "csrc/wavenet_block.cu",
         replaces=_TPU + "models/common.py:103",
+    ),
+    "wavenet_weight_grad": dict(
+        id="K1 dW", route="cuda", source=_PORT + "csrc/wavenet_block.cu",
+        replaces=_TPU + "models/wavenet.py:59",
     ),
     "unipc_predict": dict(
         id="K2", route="triton", source=_PORT + "models/diffusion.py",
@@ -183,6 +187,8 @@ SIGNATURES = {
         "wavenet_backward_rows": [_I] * 3,
         "wavenet_gate_backward": [_P] * 5 + [_I] * 3 + [_P],
         "wavenet_input_backward": [_P] * 5 + [_I] * 4 + [_P],
+        "wavenet_weight_grad_chunks": [_I] * 3,
+        "wavenet_weight_grad": [_P] * 8 + [_I] * 5 + [_P],
     },
     "conv1d": {
         "conv1d_forward": [_I, _I] + [_P] * 5 + [_I] * 9 + [_F, _I, _I, _P],

@@ -11,15 +11,17 @@ Training goes through ``ResidualBlockFunction`` whenever grad is enabled:
 its forward is ``residual_gate_train`` (K1's gate in its training mode,
 which also writes the pre-activation z) and ``residual_out``; its backward
 is K1's backward, ``residual_gate_backward`` (dz from dx', dskip' and z),
-``residual_input_backward`` (dx and the step's gradient from dz) and the
-weight gradients through ``ops.blocked_conv.conv1d_wgrad``, each with its
-plain version beside it (``*_reference``). Serving (grad disabled) keeps
-``residual_block``.
+``residual_input_backward`` (dx and the step's gradient from dz) and
+``residual_weight_grad`` (dW_conv and dW_out in one launch), each with its
+plain version beside it (``*_reference``). The input backward and the
+weight gradients run on the 3xTF32 tensor-core core (``csrc/tf32x3.cuh``).
+Serving (grad disabled) keeps ``residual_block``.
 
-The per-block conditioner projections ``[L, B, T, 2R]`` are constant across
+The per-block conditioner projections ``[B, T, 2R]`` are constant across
 the reverse-diffusion steps, so ``prepare`` computes them once per sampling
 call (the JAX ``project_conditioner`` hoist), together with the blocks'
-weights packed in the layout the kernel reads.
+weights packed in the layout the kernel reads; one list entry a block, so
+that training takes the same path.
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import kernels
-from ..ops import blocked_conv
 from ..registry import DENOISERS
 from .common import ConvNorm, LinearNorm, diffusion_embedding, mish, shift_time
 
@@ -258,25 +259,64 @@ def residual_input_backward(dz, dx_out, w_conv, dilation: int):
     return dx, part.sum(dim=1)
 
 
+def residual_weight_grad_reference(y, dz, g, dx_out, dskip_out, dilation: int):
+    """Plain version of K1's weight gradients: y = x + step[b], g, dx',
+    dskip' [B, T, R], dz [B, T, 2R] -> (dW_conv [3R, 2R], dW_out [R, 2R])
+    with dW_conv's tap blocks the products of y[t - d], y[t], y[t + d] (zero
+    outside [0, T)) with dz, and dW_out = g^T do, do = [dx' / sqrt(2) | dskip']."""
+    R = y.shape[-1]
+    dz2 = dz.reshape(-1, 2 * R)
+    taps = (shift_time(y, dilation), y, shift_time(y, -dilation))
+    dw_conv = torch.cat([a.reshape(-1, R).t() @ dz2 for a in taps])
+    do = torch.cat([dx_out * _RSQRT2, dskip_out], dim=-1)
+    return dw_conv, g.reshape(-1, R).t() @ do.reshape(-1, 2 * R)
+
+
+def residual_weight_grad(y, dz, g, dx_out, dskip_out, dilation: int):
+    """K1's weight gradients, ``csrc/wavenet_block.cu`` ``wavenet_weight_grad``
+    (both products in one launch on the 3xTF32 tensor-core core, the rows cut
+    into chunks whose partial tiles are added in chunk order; see
+    ``residual_weight_grad_reference``, which CPU tensors take)."""
+    if not y.is_cuda:
+        return residual_weight_grad_reference(y, dz, g, dx_out, dskip_out, dilation)
+    kernels.require_cuda("residual_weight_grad", y, dz, g, dx_out, dskip_out)
+    _check_f32("residual_weight_grad", y)
+    B, T, R = y.shape
+    _check_shapes("residual_weight_grad", {
+        "dz": (dz, (B, T, 2 * R)), "g": (g, (B, T, R)), "dx_out": (dx_out, (B, T, R)),
+        "dskip_out": (dskip_out, (B, T, R)),
+    }, R, y, dz, g, dx_out, dskip_out)
+    lib = kernels.load_library("wavenet_block")
+    chunks = lib.wavenet_weight_grad_chunks(B, T, R)
+    part = torch.empty((chunks, 4 * R, 2 * R), dtype=y.dtype, device=y.device)
+    dw_conv = torch.empty((3 * R, 2 * R), dtype=y.dtype, device=y.device)
+    dw_out = torch.empty((R, 2 * R), dtype=y.dtype, device=y.device)
+    kernels.check(
+        lib.wavenet_weight_grad(
+            y.data_ptr(), dz.data_ptr(), g.data_ptr(), dx_out.data_ptr(),
+            dskip_out.data_ptr(), part.data_ptr(), dw_conv.data_ptr(), dw_out.data_ptr(),
+            B, T, R, int(dilation), chunks, kernels.stream(),
+        ),
+        "wavenet_weight_grad",
+    )
+    kernels.count_launch("wavenet_weight_grad")
+    return dw_conv, dw_out
+
+
 def residual_block_backward(x, step, z, g, dx_out, dskip_out, w_conv, w_out,
                             dilation: int):
     """K1's backward: the gradients of (x, skip, step, cond, w_conv, b_conv,
-    w_out, b_out) from those of (x', skip'). dz and dx come from K1's
-    backward kernels; dW_conv from ``conv1d_wgrad(y, dz, 3, d, d)``
-    (y = x + step[b], rebuilt), which is the packed [3R, 2R] layout, and
-    dW_out from ``conv1d_wgrad(g, do, 1)`` with do = [dx' / sqrt(2) | dskip']
-    (one launch of 2R columns); the bias gradients are column sums."""
-    R = x.shape[-1]
+    w_out, b_out) from those of (x', skip'). dz, dx and the weight gradients
+    come from K1's backward kernels (``residual_gate_backward``,
+    ``residual_input_backward``, ``residual_weight_grad`` on y = x + step[b],
+    rebuilt); the bias gradients are column sums."""
     dx_out, dskip_out = dx_out.contiguous(), dskip_out.contiguous()
     dz = residual_gate_backward(dx_out, dskip_out, z, w_out)
     dx, ds = residual_input_backward(dz, dx_out, w_conv, dilation)
-    y = x + step[:, None, :]
-    do = torch.cat([dx_out * _RSQRT2, dskip_out], dim=-1)
-    wgrad = blocked_conv.conv1d_wgrad
-    # (a, bm, K, stride, dilation, padding)
-    dw_conv = wgrad(y, dz, 3, 1, dilation, dilation).reshape(3 * R, 2 * R)
-    dw_out = wgrad(g, do, 1, 1, 1, 0)[0]
-    return dx, dskip_out, ds, dz, dw_conv, dz.sum(dim=(0, 1)), dw_out, do.sum(dim=(0, 1))
+    dw_conv, dw_out = residual_weight_grad(x + step[:, None, :], dz, g, dx_out, dskip_out,
+                                           dilation)
+    db_out = torch.cat([(dx_out * _RSQRT2).sum(dim=(0, 1)), dskip_out.sum(dim=(0, 1))])
+    return dx, dskip_out, ds, dz, dw_conv, dz.sum(dim=(0, 1)), dw_out, db_out
 
 
 class ResidualBlockFunction(torch.autograd.Function):
@@ -377,26 +417,26 @@ class WaveNet(nn.Module):
             c = c.masked_fill(cond_masks[:, :, None], 0.0)
         return c
 
-    def _layer_plan(self, layer, c) -> dict:
-        """One block's conditioner projection ``cond [B, T, 2R]`` and its
-        weights packed in the layout the kernel reads."""
-        r = self.residual_channels
-        return {
-            "cond": F.linear(c, layer.conditioner_projection.conv.weight[:, :, 0],
-                             layer.conditioner_projection.conv.bias),
-            "w_conv": layer.conv_layer.conv.weight.permute(2, 1, 0).reshape(3 * r, 2 * r),
-            "b_conv": layer.conv_layer.conv.bias,
-            "w_out": layer.output_projection.conv.weight[:, :, 0].t(),
-            "b_out": layer.output_projection.conv.bias,
-        }
-
     def prepare(self, conditioner: torch.Tensor,
                 cond_masks: Optional[torch.Tensor] = None) -> dict:
-        """Per-sampling-call constants: the conditioner projections
-        ``cond [L, B, T, 2R]`` and the blocks' packed weights, stacked."""
+        """Per-sampling-call constants, one entry a block: ``cond``, the
+        block's conditioner projection ``[B, T, 2R]``, and its weights packed
+        in the layout the kernel reads (``w_conv [3R, 2R]``, ``b_conv``,
+        ``w_out [R, 2R]``, ``b_out``). Lists, not stacks, so that under grad
+        each block's gradient is its own."""
         c = self._conditioner(conditioner, cond_masks)
-        plans = [self._layer_plan(layer, c) for layer in self.residual_layers]
-        return {k: torch.stack([q[k] for q in plans]).contiguous() for k in plans[0]}
+        r = self.residual_channels
+        layers = self.residual_layers
+        return {
+            "cond": [F.linear(c, layer.conditioner_projection.conv.weight[:, :, 0],
+                              layer.conditioner_projection.conv.bias) for layer in layers],
+            "w_conv": [layer.conv_layer.conv.weight.permute(2, 1, 0).reshape(3 * r, 2 * r)
+                       .contiguous() for layer in layers],
+            "b_conv": [layer.conv_layer.conv.bias for layer in layers],
+            "w_out": [layer.output_projection.conv.weight[:, :, 0].t().contiguous()
+                      for layer in layers],
+            "b_out": [layer.output_projection.conv.bias for layer in layers],
+        }
 
     def forward(
         self,
@@ -407,28 +447,22 @@ class WaveNet(nn.Module):
         cond_masks: Optional[torch.Tensor] = None,
         plan: Optional[dict] = None,
     ) -> torch.Tensor:
-        """With grad enabled (training) each block's conditioner projection
-        and packed weights are made in the loop, so that their gradients are
-        each block's own (indexing a stacked plan would make every block's
-        backward write a zero-filled gradient of the whole stack)."""
-        training = torch.is_grad_enabled()
-        if plan is None and not training:
-            plan = self.prepare(conditioner, cond_masks)
-        c = None if plan is not None else self._conditioner(conditioner, cond_masks)
+        """With grad enabled (training) each block runs K1 with its backward
+        (``residual_block_train``), else K1 (``residual_block``)."""
+        plan = plan or self.prepare(conditioner, cond_masks)
         x = F.relu(self.input_projection(x.float()))
         step = self.mlp(diffusion_embedding(diffusion_step, self.residual_channels))
         if x_masks is not None:
             x = x.masked_fill(x_masks[:, :, None], 0.0)
 
         skip = torch.zeros_like(x)
-        block = residual_block_train if training else residual_block
-        for i, layer in enumerate(self.residual_layers):
-            q = ({k: v[i] for k, v in plan.items()} if plan is not None
-                 else {k: v.contiguous() for k, v in self._layer_plan(layer, c).items()})
-            x, skip = block(
-                x, skip, layer.diffusion_projection(step), q["cond"], q["w_conv"],
-                q["b_conv"], q["w_out"], q["b_out"], layer.dilation,
-            )
+        block = residual_block_train if torch.is_grad_enabled() else residual_block
+        for layer, cond, w_conv, b_conv, w_out, b_out in zip(
+            self.residual_layers, plan["cond"], plan["w_conv"], plan["b_conv"], plan["w_out"],
+            plan["b_out"],
+        ):
+            x, skip = block(x, skip, layer.diffusion_projection(step), cond, w_conv, b_conv,
+                            w_out, b_out, layer.dilation)
 
         x = skip * (1.0 / math.sqrt(len(self.residual_layers)))
         x = F.relu(self.skip_projection(x))

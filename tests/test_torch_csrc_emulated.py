@@ -1,4 +1,4 @@
-"""The CUDA sources of K1 (with its training mode and backward), K4 (and its weight gradient), K5 (forward,
+"""The CUDA sources of K1 (with its training mode, backward and weight gradients), K4 (and its weight gradient), K5 (forward,
 backward and istft), K6 (grouped and 2-D, with the 2-D weight gradient),
 K7, K8-cand, K8 dense (pYIN's and CREPE's decoder) and K10 (with its backward), compiled for the host CPU and run against their
 plain PyTorch versions at small shapes.
@@ -13,7 +13,9 @@ becomes a call that runs the grid; a shared header (``csrc/*.cuh``) is
 inlined, with the headers it includes. The shim covers what the sources use (no warp intrinsics or
 tensor-core instructions); PTX sits behind ``#if defined(__CUDA_ARCH__)``
 with a plain branch, so the weight gradient's ``cp.async`` copies run as
-plain copies here. Needs ``g++`` with C++20; skips without one.
+plain copies here, and K1's 3xTF32 products (``csrc/tf32x3.cuh``) as each
+lane's own accumulator elements computed from the same shared-memory tiles
+with the same TF32 rounding. Needs ``g++`` with C++20; skips without one.
 """
 
 import ctypes
@@ -53,6 +55,8 @@ SHIM = r"""
 #define __align__(n) __attribute__((aligned(n)))
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -221,6 +225,10 @@ def _k1_training(gen, B, T, R):
         (1, 40, 64, 8),
         (3, 13, 64, 4),
         (1, 7, 64, 4),
+        # the input backward's 128-row tiles: a ragged last tile of each
+        # item at R = 128 (one column tile), and d >= T
+        (2, 131, 128, 2),
+        (2, 20, 64, 32),
     ],
 )
 def test_wavenet_training_source(host_libs, B, T, R, d):
@@ -272,6 +280,102 @@ def test_wavenet_weight_gradients_source(host_libs, T, R, d):
     got = _wgrad1d(lib, g, do, 1, 1, 1, 0, 1, None, None, None)[0]
     ref = g.reshape(-1, R).t() @ do.reshape(-1, R)
     assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize(
+    "B,T,R,d",
+    # with 8 SMs the rows are cut into chunks of 32 (R = 64: 3 output tiles,
+    # 4 chunks) or 64 (R = 128: 8 tiles, 2 chunks); T = 37 and 29 put an
+    # item's edge inside a chunk and T off the 32-row stage; d >= T
+    [
+        (3, 37, 64, 1),
+        (2, 45, 64, 8),
+        (3, 29, 128, 8),
+        (2, 20, 64, 32),
+    ],
+)
+def test_wavenet_weight_grad_source(host_libs, B, T, R, d):
+    """K1's weight gradients on the 3xTF32 core, ``wavenet_weight_grad``:
+    dW_conv and dW_out in one launch, the chunks' partial tiles added in
+    order, against ``residual_weight_grad_reference``: <= 1e-5 of scale."""
+    gen = torch.Generator().manual_seed(B * T + R + d)
+    y, dz, g = rn(gen, B, T, R), rn(gen, B, T, 2 * R), rn(gen, B, T, R)
+    dx_out, dskip_out = rn(gen, B, T, R), rn(gen, B, T, R)
+    lib = host_libs["wavenet_block"]
+    chunks = lib.wavenet_weight_grad_chunks(B, T, R)
+    assert chunks > 1
+    part = torch.full((chunks, 4 * R, 2 * R), float("nan"))
+    dw_conv, dw_out = torch.empty(3 * R, 2 * R), torch.empty(R, 2 * R)
+    assert lib.wavenet_weight_grad(y.data_ptr(), dz.data_ptr(), g.data_ptr(),
+                                   dx_out.data_ptr(), dskip_out.data_ptr(), part.data_ptr(),
+                                   dw_conv.data_ptr(), dw_out.data_ptr(), B, T, R, d, chunks,
+                                   None) == 0
+    refs = wavenet.residual_weight_grad_reference(y, dz, g, dx_out, dskip_out, d)
+    for name, got, ref in (("dW_conv", dw_conv, refs[0]), ("dW_out", dw_out, refs[1])):
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), (name, err)
+
+
+SPLIT_SOURCE = r"""
+#include <cuda_runtime.h>
+#include "tf32x3.cuh"
+extern "C" void split_all(const float* x, float* big, float* small, int n) {
+  for (int i = 0; i < n; ++i) tf32x3::split(x[i], big[i], small[i]);
+}
+"""
+
+
+def tf32_rna(x: np.ndarray) -> np.ndarray:
+    """x (normal float32 numbers) to 11 significant bits, to nearest, ties
+    away from zero."""
+    m, e = np.frexp(x.astype(np.float64))  # x = m 2^e, 0.5 <= |m| < 1
+    return (np.sign(m) * np.floor(np.abs(m) * 2.0**11 + 0.5) * 2.0 ** (e - 11)).astype(
+        np.float32)
+
+
+def test_tf32_split_source(tmp_path):
+    """``tf32x3::split`` on the host (the emulation's rounding; the card's is
+    ``cvt.rna.tf32.f32``): big = x to 10 mantissa bits, to nearest with ties
+    away from zero, and small = the same of x - big, against numpy; and
+    the three products small a big b + big a small b + big a big b within
+    2^-20 of a b (float64)."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the CUDA sources for the host")
+    (tmp_path / "shim.h").write_text(SHIM)
+    (tmp_path / "split.cpp").write_text(_host_source(SPLIT_SOURCE))
+    so = tmp_path / "libsplit.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                    f"-I{tmp_path}", "-o", str(so), str(tmp_path / "split.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    lib.split_all.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+
+    rng = np.random.default_rng(14)
+    n = 1 << 14
+    # normal numbers whose tails x - big are normal too
+    x = (rng.standard_normal(n) * 10.0 ** rng.uniform(-25, 25, n)).astype(np.float32)
+    # exact ties: the 13 dropped bits 1 followed by zeros, both signs
+    ties = (rng.integers(0x0c000000, 0x72000000, 4096, dtype=np.uint32) & 0xffffe000) | 0x1000
+    ties |= rng.integers(0, 2, 4096, dtype=np.uint32) << 31
+    x = np.concatenate([x, ties.view(np.float32)])
+    big, small = np.empty_like(x), np.empty_like(x)
+    lib.split_all(x.ctypes.data, big.ctypes.data, small.ctypes.data, x.size)
+    want_big = tf32_rna(x)
+    np.testing.assert_array_equal(big, want_big)
+    tail = x.astype(np.float64) - want_big  # exact in float32
+    live = tail != 0
+    np.testing.assert_array_equal(small[live], tf32_rna(tail[live].astype(np.float32)))
+    assert not small[~live].any()
+    assert np.all(np.abs(big[-4096:]) > np.abs(x[-4096:]))  # ties away from zero
+
+    a, b = x[: n // 2], x[n // 2 : n]
+    keep = np.abs(np.log2(np.abs(a.astype(np.float64) * b))) < 120  # normal products
+    ba, sa, bb, sb = (v.astype(np.float64) for v in (big[: n // 2], small[: n // 2],
+                                                     big[n // 2 : n], small[n // 2 : n]))
+    three = sa * bb + ba * sb + ba * bb
+    exact = a.astype(np.float64) * b
+    rel = np.abs(three - exact)[keep] / np.abs(exact)[keep]
+    assert rel.max() <= 2.0**-20, rel.max()
 
 
 def _conv(lib, transposed, x, w_packed, bias, residual, T_out, K, stride, dil,

@@ -109,11 +109,38 @@ def test_residual_block_function_on_the_card(gen, d):
     kernels.reset_launches()
     got = grads(wavenet.ResidualBlockFunction.apply)
     for name in ("wavenet_gate_train", "wavenet_out", "wavenet_gate_backward",
-                 "wavenet_input_backward"):
+                 "wavenet_input_backward", "wavenet_weight_grad"):
         assert kernels.LAUNCHES[name] == 1, name
-    assert kernels.LAUNCHES["conv1d_wgrad"] == 2
+    assert kernels.LAUNCHES["conv1d_wgrad"] == 0
     for got_t, ref_t in zip(got, grads(wavenet.residual_block_reference)):
         assert_scaled(got_t, ref_t)
+
+
+@pytest.mark.parametrize("B,T", [(3, 333), (20, 512)])
+@pytest.mark.parametrize("d", [1, 8, 400])
+def test_k1_backward_on_the_tensor_cores(gen, B, T, d):
+    """K1's weight gradients (``wavenet_weight_grad``) and input backward
+    (``wavenet_input_backward``), both 3xTF32 on the tensor cores, at R =
+    512: <= 1e-4 of each output's scale against their plain versions, and a
+    second launch bit-equal (T = 333: ragged tiles and chunks that cross
+    items; d = 400 >= T there)."""
+    R = 512
+    y, dz, g = rn(gen, B, T, R), rn(gen, B, T, 2 * R), rn(gen, B, T, R)
+    dx_out, dskip_out = rn(gen, B, T, R), rn(gen, B, T, R)
+    w_conv = rn(gen, 3 * R, 2 * R, scale=(3 * R) ** -0.5)
+    before = kernels.LAUNCHES["wavenet_weight_grad"]
+    got = wavenet.residual_weight_grad(y, dz, g, dx_out, dskip_out, d)
+    assert kernels.LAUNCHES["wavenet_weight_grad"] == before + 1
+    for a, r in zip(got, wavenet.residual_weight_grad_reference(y, dz, g, dx_out, dskip_out, d)):
+        assert_scaled(a, r)
+    again = wavenet.residual_weight_grad(y, dz, g, dx_out, dskip_out, d)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    dx, ds = wavenet.residual_input_backward(dz, dx_out, w_conv, d)
+    ref_dx, ref_ds = wavenet.residual_input_backward_reference(dz, dx_out, w_conv, d)
+    assert_scaled(dx, ref_dx)
+    assert_scaled(ds, ref_ds)
+    dx2, ds2 = wavenet.residual_input_backward(dz, dx_out, w_conv, d)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
 
 
 def test_unipc_step(gen):
@@ -378,6 +405,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="multiple of 64"):
         wavenet.residual_gate(x, rn(gen, 2, 96), rn(gen, 2, 8, 192),
                               rn(gen, 288, 192), rn(gen, 192), 1)
+    with pytest.raises(TypeError, match="float32"):
+        wavenet.residual_weight_grad(*(rn(gen, 2, 8, c).double() for c in (64, 128, 64, 64, 64)),
+                                     1)
+    with pytest.raises(ValueError, match="dz"):
+        wavenet.residual_weight_grad(*(rn(gen, 2, 8, 64) for _ in range(5)), 1)
     with pytest.raises(ValueError, match="contiguous"):
         nsf_hifigan.conv1d(rn(gen, 2, 16, 8).transpose(1, 2), rn(gen, 4, 16, 3),
                            rn(gen, 4))

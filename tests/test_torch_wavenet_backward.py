@@ -86,6 +86,52 @@ def test_block_backward_matches_jax_vjp(d, T):
         assert rel_err(got, want) <= 1e-5, (name, rel_err(got, want))
 
 
+@pytest.mark.parametrize("d,T", [(1, 37), (2, 37), (4, 37), (8, 37), (40, 37)])
+def test_block_backward_eight_gradients_match_jax_vjp(d, T):
+    """``residual_block_backward``'s eight outputs on the CPU (the plain
+    versions, ``residual_weight_grad_reference`` among them) against
+    ``jax.vjp`` of the JAX ``ResidualBlock`` at B = 3, R = 128 and T = 37 (d
+    = 40 >= T: the outer taps read only zeros), each within 1e-5 of its
+    scale: dx, dskip, ds (through the step embedding's gradient, ds W^T),
+    dcond, dW_conv (the three taps), db_conv, dW_out, db_out."""
+    B, R = 3, 128
+    rng = np.random.default_rng(1000 + d)
+    x, skip = (rng.standard_normal((B, T, R)).astype(np.float32) for _ in range(2))
+    cond = rng.standard_normal((B, T, 2 * R)).astype(np.float32)
+    step_emb = rng.standard_normal((B, R)).astype(np.float32)
+    dx_out, dskip_out = (rng.standard_normal((B, T, R)).astype(np.float32) for _ in range(2))
+
+    block = ResidualBlock(residual_channels=R, use_linear_bias=True, cond_is_projected=True,
+                          dilation_values=(d,))
+    args = (jnp.asarray(x), jnp.asarray(skip), jnp.asarray(cond), jnp.asarray(step_emb))
+    params = block.init(jax.random.PRNGKey(0), (args[0], args[1]), 0, args[2], args[3])
+    params = randomize(params["params"], d + 7)
+
+    def fn(p, x_, skip_, cond_, step_):
+        return block.apply({"params": p}, (x_, skip_), 0, cond_, step_)[0]
+
+    _, vjp = jax.vjp(fn, params, *args)
+    gp, gx, gskip, gcond, gstep = vjp((jnp.asarray(dx_out), jnp.asarray(dskip_out)))
+
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    conv, out_p = params["conv_layer"], params["output_projection"]["Dense_0"]
+    dp = params["diffusion_projection"]["Dense_0"]
+    w_conv = torch.cat([t(conv[k]["kernel"]) for k in ("w_left", "w_center", "w_right")])
+    step = t(step_emb) @ t(dp["kernel"]) + t(dp["bias"])
+    g, z = wavenet.residual_gate_train_reference(t(x), step, t(cond), w_conv, t(conv["bias"]), d)
+    got = wavenet.residual_block_backward(t(x), step, z, g, t(dx_out), t(dskip_out), w_conv,
+                                          t(out_p["kernel"]), d)
+    gconv, gout = gp["conv_layer"], gp["output_projection"]["Dense_0"]
+    want = (gx, gskip, None, gcond,
+            np.concatenate([gconv[k]["kernel"] for k in ("w_left", "w_center", "w_right")]),
+            gconv["bias"], gout["kernel"], gout["bias"])
+    names = ("dx", "dskip", "ds", "dcond", "dW_conv", "db_conv", "dW_out", "db_out")
+    for name, got_t, want_t in zip(names, got, want):
+        if name == "ds":
+            got_t, want_t = got_t @ t(dp["kernel"]).t(), gstep
+        assert rel_err(got_t, want_t) <= 1e-5, (name, rel_err(got_t, want_t))
+
+
 @pytest.mark.parametrize("d,T", [(1, 20), (4, 20), (8, 9)])
 def test_autograd_function_matches_plain_autograd(d, T):
     """``ResidualBlockFunction`` (the plain backward functions on the CPU)
