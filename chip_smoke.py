@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build:   compile the CUDA sources in ``fish_diffusion_tpu_torch/csrc``,
             one ``nvcc`` each, all started together; print each kernel's
             registers and spills, and the TF32 tensor-core products in the
-            SASS of K1's 3xTF32 kernels (none fails).
+            SASS of K1's 3xTF32 kernels (mma.sync in the backward, wgmma in
+            the forward; none fails).
 3. kernels: every hand-written kernel against its plain PyTorch version at
             B=4 x 1024 frames, with median CUDA-event times of both (K2's and
             K3's Triton kernels by device time, ``device_ms``, with the
@@ -18,7 +19,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             the function must move over 3.35 TB/s and the float32
             operations it needs over 67 TFLOP/s; over 495 / 3 TFLOP/s for
             the 3xTF32 tensor-core kernels) and, where one PyTorch call
-            computes the same function, that call's time; K5 (an FFT) at n_fft 2048 and at the key shifts'
+            computes the same function, that call's time; K1's forward
+            (gate and output product, 3xTF32 wgmma with prepare's split
+            weights) beside the products alone by cuDNN / cuBLAS, its error
+            against float64 no larger than the plain float32 version's, the
+            split timed on its own, and the L2 traffic of its tiles; K5 (an FFT) at n_fft 2048 and at the key shifts'
             2299 and 1933 (Bluestein), and at B=1 over a segment, and
             past shared memory (the four-step split path: n_fft 6000 in
             float64, forward and backward, n_fft 16384 in float32); K4 at
@@ -80,11 +85,15 @@ Phases, in order; any failure raises and the script exits non-zero:
             K1's kernels against the plain backward on one forward, every
             gradient within 1e-4 relative L2; the whole step's gradients
             within max(1e-4, 3 x the plain step's own move under mel x
-            (1 + d)), the median of six paired comparisons, since the
-            denoiser's ReLUs flip under float32 differences); K1's training
+            (1 + d)), the median of six paired comparisons, the plain step
+            of each pair on the kernel step's side of every ReLU and the two
+            forwards within 1e-4 of scale at the ReLUs' inputs; the state's
+            digest, the training order drawn from the seed); K1's training
             kernels at the step's inputs for each dilation against their
             plain versions (1e-4 of scale, bit-equal on rerun, timed beside
-            their bound; the input backward and the weight gradients, 3xTF32
+            their bound; the training gate, serving's bits, beside
+            ``F.conv1d``, and the output product at the step's
+            shapes; the input backward and the weight gradients, 3xTF32
             on the tensor cores, beside both bounds and cuDNN's
             ``conv1d_input`` / ``conv1d_weight``, and the weight gradients
             beside ``conv1d_wgrad`` on the same shapes, the route they
@@ -186,6 +195,8 @@ dense's those of one request's three calls); the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
 import json
 import statistics
 import subprocess
@@ -296,6 +307,15 @@ def max_abs(a) -> float:
     return float(a.float().abs().max())
 
 
+def digest(tensors) -> str:
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes, in
+    order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 class Report:
     """Collects comparisons; ``finish`` fails if any was out of tolerance."""
 
@@ -380,6 +400,7 @@ def phase_kernels(report: Report, seed: int):
                 cond=rn(B, T, 2 * R), w_conv=rn(3 * R, 2 * R, scale=(3 * R) ** -0.5),
                 b_conv=rn(2 * R, scale=0.1), w_out=rn(R, 2 * R, scale=R ** -0.5),
                 b_out=rn(2 * R, scale=0.1))
+    k1_forward = measure_k1_forward(report, base)
     # f32 is the config's type; bf16 differs from its plain version by the
     # rounding of z and g to bf16, which the kernel keeps in float32
     for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 1.25e-1)):
@@ -399,6 +420,8 @@ def phase_kernels(report: Report, seed: int):
                               "one block, B=4 T=1024 R=512 f32")
                 report.kernel("wavenet_out", err_o, 0.0, 0.0,
                               "one block, B=4 T=1024 R=512 f32")
+        if dtype == torch.float32:
+            continue  # measure_k1_forward times the float32 kernels
         gate_args = (a["x"], a["step"], a["cond"], a["w_conv"], a["b_conv"], 1)
         out_args = (wavenet.residual_gate_reference(*gate_args), a["x"], a["skip"],
                     a["w_out"], a["b_out"])
@@ -416,11 +439,9 @@ def phase_kernels(report: Report, seed: int):
         }
         for name, (ms, plain) in times.items():
             flops = 2 * B * T * (3 * R if name == "wavenet_gate" else R) * 2 * R
-            print(f"  {name} {tag}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-                  f"TFLOP/s), plain {plain:.4f} ms")
-            if dtype == torch.float32:
-                report.kernel(name, 0.0, ms, plain, "one block, B=4 T=1024 R=512 f32",
-                              traffic[name], flops)
+            print(f"  {name} {tag} (the SIMT kernel, block_gemm): kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s, {traffic[name] / ms / 1e9:.0f} GB/s), "
+                  f"plain {plain:.4f} ms")
 
     print("[kernels] K2 steps (UniPC, PLMS, naive), [4, 1024, 128] f32; times per "
           "launch: device time (device_ms) and host-paced (CUDA events around 20 "
@@ -584,9 +605,128 @@ def phase_kernels(report: Report, seed: int):
     print(f"  denoiser eval: kernels {ms_den:.3f} ms, plain {plain_den:.3f} ms")
     report.compare("vocoder", got_voc, ref_voc, 1e-3)
     print(f"  vocoder: kernels {ms_voc:.3f} ms, plain {plain_voc:.3f} ms")
+    with torch.inference_mode():
+        ws = plan["w_conv"] + plan["w_out"]
+        split_ms = cuda_ms(lambda: [wavenet.tf32_split(w) for w in ws], iters=5)
+        prepare_ms = cuda_ms(lambda: denoiser.prepare(feats), iters=5)
+    print(f"  prepare (20 blocks, B=4 T=1024): {prepare_ms:.3f} ms, of which the split of "
+          f"the 40 weights (tf32_split) {split_ms:.3f} ms, once a sampling call")
     report.finish("kernels")
     return dict(denoiser_eval_ms=ms_den, denoiser_eval_plain_ms=plain_den,
-                vocoder_ms=ms_voc, vocoder_plain_ms=plain_voc)
+                vocoder_ms=ms_voc, vocoder_plain_ms=plain_voc, k1_forward=k1_forward,
+                prepare_ms=prepare_ms, prepare_split_ms=split_ms)
+
+
+def measure_k1_forward(report: Report, a: dict) -> dict:
+    """K1's float32 forward at B=4 T=1024 R=512 (the batch request's
+    shapes): the gate (``wavenet_gate``) and the output product
+    (``wavenet_out``) on the 3xTF32 wgmma core with ``prepare``'s split
+    weights, each within 1e-3 of its plain version at d = 1, 2, 4, 8,
+    reruns bit-equal, its largest error against the float64 product no
+    larger than the plain float32 version's (cuBLAS) at the same inputs;
+    device times of kernel, plain version and the products alone by cuBLAS
+    / cuDNN (``torch.addmm`` and ``F.conv1d``, TF32 off; neither computes
+    the kernel's whole function, so ``library_ms`` stays null); the split
+    timed on its own; bound at ``TF32X3_FLOP_PER_S`` with the float32 SIMT
+    bound beside; what the rule's plan reads from L2."""
+    import torch
+    import torch.nn.functional as F
+
+    from fish_diffusion_tpu_torch import kernels
+    from fish_diffusion_tpu_torch.models import wavenet
+
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    x, skip, step, cond = a["x"], a["skip"], a["step"], a["cond"]
+    w_conv, b_conv, w_out, b_out = a["w_conv"], a["b_conv"], a["w_out"], a["b_out"]
+    cs, os_ = wavenet.tf32_split(w_conv), wavenet.tf32_split(w_out)
+    split_ms = {"w_conv": cuda_ms(lambda: wavenet.tf32_split(w_conv)),
+                "w_out": cuda_ms(lambda: wavenet.tf32_split(w_out))}
+    print(f"  tf32_split on its own (once a prepare call, per block): w_conv "
+          f"{split_ms['w_conv']:.4f} ms, w_out {split_ms['w_out']:.4f} ms")
+    out = {"split_ms": split_ms}
+    for d in (1, 2, 4, 8):
+        gate_args = (x, step, cond, w_conv, b_conv, d)
+        g_ref = wavenet.residual_gate_reference(*gate_args)
+        g = wavenet.residual_gate(*gate_args, cs)
+        err_g = report.compare(f"wavenet_gate f32 d={d}", g, g_ref, 1e-3)
+        check_rerun(report, f"wavenet_gate d={d}", g, wavenet.residual_gate(*gate_args, cs))
+        out_args = (g_ref, x, skip, w_out, b_out)
+        o = wavenet.residual_out(*out_args, os_)
+        err_o = report.compare(f"wavenet_out f32 d={d}", o,
+                               wavenet.residual_out_reference(*out_args), 1e-3)
+        check_rerun(report, f"wavenet_out d={d}", torch.cat(o), torch.cat(
+            wavenet.residual_out(*out_args, os_)))
+        report.kernel("wavenet_gate", err_g, 0.0, 0.0, "one block, B=4 T=1024 R=512 f32")
+        report.kernel("wavenet_out", err_o, 0.0, 0.0, "one block, B=4 T=1024 R=512 f32")
+        # against the float64 product: the kernel and the plain float32 version
+        z64 = wavenet.gate_preactivation_reference(
+            *(t.double() for t in (x, step, cond, w_conv, b_conv)), d)
+        zk = wavenet.residual_gate_train(x, step, cond, w_conv, b_conv, d, cs)[1]
+        zp = wavenet.gate_preactivation_reference(x, step, cond, w_conv, b_conv, d)
+        o64 = wavenet.residual_out_reference(*(t.double() for t in out_args))
+        o_plain = wavenet.residual_out_reference(*out_args)
+        errs = dict(z_kernel=max_err(zk.double(), z64) / max_abs(z64),
+                    z_plain=max_err(zp.double(), z64) / max_abs(z64),
+                    out_kernel=max_err([t.double() for t in o], o64) / max_abs(o64),
+                    out_plain=max_err([t.double() for t in o_plain], o64) / max_abs(o64))
+        ok = errs["z_kernel"] <= errs["z_plain"] and errs["out_kernel"] <= errs["out_plain"]
+        print(f"    d={d}: largest error / scale against float64: z {errs['z_kernel']:.3e} "
+              f"(plain float32 {errs['z_plain']:.3e}), x' and skip' {errs['out_kernel']:.3e} "
+              f"(plain float32 {errs['out_plain']:.3e}) {'ok' if ok else 'FAIL'}")
+        out[f"f64_errors_d{d}"] = errs
+        if not ok:
+            report.failures.append(f"K1 forward d={d}: error against float64 above the plain "
+                                   f"float32 version's")
+
+    g = wavenet.residual_gate_reference(x, step, cond, w_conv, b_conv, 1)
+    y_t = (x + step[:, None, :]).transpose(1, 2).contiguous()
+    w_t = w_conv.reshape(3, R, 2 * R).permute(2, 1, 0).contiguous()
+    g2, b_rep = g.reshape(-1, R), b_out
+    fns = {
+        "wavenet_gate": dict(
+            kernel=lambda: wavenet.residual_gate(x, step, cond, w_conv, b_conv, 1, cs),
+            plain=lambda: wavenet.residual_gate_reference(x, step, cond, w_conv, b_conv, 1),
+            product=lambda: F.conv1d(y_t, w_t, padding=1, dilation=1),
+            work=(nbytes(x, step, cond, w_conv, b_conv, x), 2 * B * T * 3 * R * 2 * R),
+            product_is="F.conv1d, the dilated product alone"),
+        "wavenet_out": dict(
+            kernel=lambda: wavenet.residual_out(g, x, skip, w_out, b_out, os_),
+            plain=lambda: wavenet.residual_out_reference(g, x, skip, w_out, b_out),
+            product=lambda: torch.addmm(b_rep, g2, w_out),
+            work=(nbytes(g, x, skip, w_out, b_out, x, skip), 2 * B * T * R * 2 * R),
+            product_is="torch.addmm, the output product alone"),
+    }
+    for name, f in fns.items():
+        ms, plain, product = (device_ms(f[k], reps=20) for k in ("kernel", "plain", "product"))
+        t_bound, t_simt = bound(*f["work"], TF32X3_FLOP_PER_S)[0], bound(*f["work"])[0]
+        flops = f["work"][1]
+        print(f"  {name} f32: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{t_bound / ms:.0%} of its 3xTF32 bound {t_bound:.4f}, {t_simt / ms:.0%} of the "
+              f"float32 SIMT bound {t_simt:.4f}); plain {plain:.4f} ms; {f['product_is']} "
+              f"{product:.4f} ms (TF32 off)")
+        report.kernel(name, 0.0, ms, plain, "one block, B=4 T=1024 R=512 f32", *f["work"],
+                      rate=TF32X3_FLOP_PER_S)
+        report.extra.setdefault(name, {}).update(
+            bound_f32_simt_ms=t_simt, library_product_ms=product,
+            library_product=f["product_is"], plan=kernels.load_library(
+                "wavenet_block").wavenet_forward_plan(B, T, R))
+        out[name] = dict(ms=ms, plain_ms=plain, product_ms=product,
+                         bound_ms=t_bound, bound_f32_simt_ms=t_simt)
+
+    # what the tiles read from L2 (every block reads its rows' A and its
+    # columns' B, big and small, over all of K) and the rate at the time
+    traffic = {}
+    p = kernels.load_library("wavenet_block").wavenet_forward_plan(B, T, R)
+    for name, K in (("wavenet_gate", 3 * R), ("wavenet_out", R)):
+        bm = bn = 128 if p == 2 else 64
+        blocks = -(-B * T // bm) * (2 * R // bn)
+        tile_bytes = blocks * (bm + 2 * bn) * K * 4
+        tb_s = tile_bytes / (out[name]["ms"] * 1e-3) / 1e12
+        traffic[name] = dict(plan=p, tile_bytes=tile_bytes, tb_per_s=tb_s)
+        print(f"  {name}: plan {p} reads {tile_bytes / 1e6:.0f} MB of tiles from L2 a launch, "
+              f"{tb_s:.2f} TB/s at its time")
+    out["l2_tiles"] = traffic
+    return out
 
 
 def library_conv1d(x, weight, bias, stride=1, dilation=1, padding=0, **_):
@@ -821,6 +961,40 @@ class plain_path:
     def __exit__(self, *exc):
         for (mod, name), fn in self.saved.items():
             setattr(mod, name, fn)
+
+
+class pinned_relu:
+    """A network's ReLUs (``module.F.relu``) with their inputs kept, in call
+    order, in ``inputs``; given ``decisions`` (another run's ``input > 0``
+    in the same call order), each call returns its input times the
+    decisions: the branch the other run took, with its gradient, so that
+    two forwards whose float32 rounding differs are differentiated on the
+    same side of every kink."""
+
+    def __init__(self, module, decisions=None):
+        self.module, self.decisions, self.inputs = module, decisions, []
+
+    def relu(self, x, inplace=False):
+        self.inputs.append(x.detach())
+        if self.decisions is None:
+            return self.saved.relu(x)
+        return x * self.decisions[len(self.inputs) - 1]
+
+    def __enter__(self):
+        import types
+
+        self.saved = self.module.F
+        view = types.SimpleNamespace(**{k: getattr(self.saved, k) for k in dir(self.saved)
+                                        if not k.startswith("__")})
+        view.relu = self.relu
+        self.module.F = view
+        return self
+
+    def __exit__(self, *exc):
+        self.module.F = self.saved
+
+    def taken(self):
+        return [x > 0 for x in self.inputs]
 
 
 def make_request_audio(rng, n_samples: int):
@@ -3042,6 +3216,8 @@ def diffusion_config(seed: int, config_file: str, tmp: Path, dataset_type=None):
     (read by ``dataset_type`` when given): 12 steps, validation (one batch,
     UniPC at interval 100, a random NSF-HiFiGAN) at 6 and 12, metrics every
     step; the loaders read in this process (no worker processes to stop)."""
+    import torch
+
     from fish_diffusion_tpu_torch.config import Config
     from fish_diffusion_tpu_torch.datasets.loader import build_loader
 
@@ -3056,7 +3232,11 @@ def diffusion_config(seed: int, config_file: str, tmp: Path, dataset_type=None):
         part["path"] = str(tmp / "data" / split)
         if dataset_type:
             part["type"] = dataset_type
-    loader = build_loader(cfg.dataset.train, {**cfg.dataloader.train, "num_workers": 0})
+    # the training order from the seed, not from the process's global
+    # generator, whose state here depends on what ran before
+    order = torch.Generator().manual_seed(seed + 64)
+    loader = build_loader(cfg.dataset.train, {**cfg.dataloader.train, "num_workers": 0,
+                                              "generator": order})
     valid = build_loader(cfg.dataset.valid, {**cfg.dataloader.valid, "num_workers": 0})
     assert cfg.dataloader.train.batch_size == DIFF_B
     return cfg, loader, valid
@@ -3064,7 +3244,7 @@ def diffusion_config(seed: int, config_file: str, tmp: Path, dataset_type=None):
 
 def drive_diffusion_training(report: Report, seed: int, tag: str, cfg, loader, valid,
                              per_step: dict, forward: dict, plain_fns: dict, backward_fns,
-                             recorders):
+                             recorders, kinks=None):
     """``DiffusionTrainer.fit`` on ``cfg``: 12 steps with validation and a
     checkpoint at steps 6 and 12, exactly ``per_step`` launches every step;
     3 profiled steps; a resume for 2 more steps; then the whole step through
@@ -3073,10 +3253,13 @@ def drive_diffusion_training(report: Report, seed: int, tag: str, cfg, loader, v
     loss within 1e-5 relative; the backward through the kernels against the
     backward through their plain versions (``backward_fns``, the keys of
     ``plain_fns`` that the backward calls) on one forward (which launches
-    the ``forward`` kernels alone), every gradient within 1e-4 relative L2; the whole step's gradients within max(1e-4,
-    3 x the plain step's own move under mel x (1 + d)), the median of six
-    paired comparisons. ``recorders`` keep the kernel step's calls. Returns
-    (the fit's launches, totals)."""
+    the ``forward`` kernels alone), every gradient within 1e-4 relative L2;
+    the whole step's gradients within max(1e-4, 3 x the plain step's own
+    move under mel x (1 + d)), the median of six paired comparisons, the
+    plain step of each pair on the kernel step's side of every ReLU of the
+    module ``kinks`` (``pinned_relu``) and the two forwards within 1e-4 of
+    scale at those ReLUs' inputs. ``recorders`` keep the kernel step's
+    calls. Returns (the fit's launches, totals, the state)."""
     import torch
 
     from fish_diffusion_tpu_torch import kernels
@@ -3184,11 +3367,16 @@ def drive_diffusion_training(report: Report, seed: int, tag: str, cfg, loader, v
     t = torch.randint(0, cfg.model.diffusion.timesteps, (DIFF_B,), generator=gen, device=DEVICE)
     noise = torch.randn(batch["mel"].shape, generator=gen, device=DEVICE)
 
-    def one_step(swaps, order=None, mel_scale=1.0):
+    print(f"{say} the gate's state: parameters {digest(model.parameters())}, batch "
+          f"{digest(batch[k] for k in sorted(batch) if torch.is_tensor(batch[k]))}, t and "
+          f"noise {digest((t, noise))} (the first 16 hex digits of the SHA-256 of their bytes: "
+          f"two runs from one seed that agree here start the gate from the same state)")
+
+    def one_step(swaps, order=None, mel_scale=1.0, relu=None):
         """Loss, gradients and launches of one step from the same state;
         ``order`` permutes the batch's items (the same function, its sums
         over the batch taken in another order); ``mel_scale`` scales the
-        mel."""
+        mel; ``relu``, a ``pinned_relu``, is entered around the step."""
         b, tt, nn_ = batch, t, noise
         if order is not None:
             b = {k: v[order] for k, v in batch.items()}
@@ -3196,7 +3384,7 @@ def drive_diffusion_training(report: Report, seed: int, tag: str, cfg, loader, v
         b = {**b, "mel": b["mel"] * mel_scale}
         model.zero_grad(set_to_none=True)
         kernels.reset_launches()
-        with plain_path(swaps):
+        with plain_path(swaps), relu or contextlib.nullcontext():
             loss = model(**model_kwargs(b), t=tt, noise=nn_)["loss"]
             loss.backward()
         torch.cuda.synchronize()
@@ -3212,10 +3400,28 @@ def drive_diffusion_training(report: Report, seed: int, tag: str, cfg, loader, v
         k = max(d, key=d.get)
         return f"median {statistics.median(d.values()):.2e}, max {d[k]:.2e} ({k})"
 
+    def kernel_step(mel_scale=1.0):
+        """The kernel step at mel x ``mel_scale``, its ReLUs recorded."""
+        relu = pinned_relu(kinks) if kinks is not None else None
+        return (*one_step({}, mel_scale=mel_scale, relu=relu), relu)
+
+    def pinned_plain_step(relu_k, mel_scale=1.0):
+        """The plain step at mel x ``mel_scale`` on the kernel step's side of
+        each ReLU (``relu_k``, the kernel step's record) -> (gradients, the
+        forwards' largest difference at the ReLUs' inputs over their scale,
+        the units the two forwards decided differently)."""
+        relu = pinned_relu(kinks, relu_k.taken())
+        grads = one_step(plain_fns, mel_scale=mel_scale, relu=relu)[1]
+        pairs = list(zip(relu_k.inputs, relu.inputs))
+        assert len(pairs) == len(relu_k.inputs) == len(relu.inputs) > 0
+        gap = max(max_err(a, b) / max_abs(b) for a, b in pairs)
+        flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in pairs)
+        return grads, gap, flips
+
     for r in recorders:
         r.start()
     try:
-        loss_k, g_k, launched_k = one_step({})
+        loss_k, g_k, launched_k, relu_k = kernel_step()
     finally:
         for r in recorders:
             r.stop()
@@ -3249,28 +3455,49 @@ def drive_diffusion_training(report: Report, seed: int, tag: str, cfg, loader, v
         report.failures.append(f"{tag} backward vs plain backward: {bad[:5]} {launched_h}")
 
     # (2) the whole step, kernels vs plain. A kink in the network (the
-    # WaveNet's ReLUs after the input and the skip projections) can flip a
-    # unit within ~1e-6 of 0 under the forwards' float32 differences, and a
-    # flip moves one row's gradient, which reaches every parameter (~1e-3
-    # relative L2 on every tensor, seen at some states and not others). The
-    # floor is the plain step's own move when its mel changes by a relative
-    # 1e-6 to 3e-6 (FLOOR_SCALES); the gate reads, for each tensor, the
-    # median of six paired comparisons, kernels vs plain at mel x (1 + d),
-    # d = 0 and FLOOR_SCALES, against 1e-4 or 3 x the largest move,
-    # whichever is larger. The plain step with its batch reversed (the same
-    # function, its sums in another order) shows the rounding without
-    # flips.
-    l2 = rel_l2(g_k, g_p)
+    # WaveNet's ReLUs after the input and the skip projections) puts a unit
+    # that lies within the two forwards' float32 difference of 0 on one
+    # side in one step and on the other in the other, and such a flip moves
+    # one row's gradient, which reaches every parameter (~1e-3 relative L2
+    # on every tensor, at some states and not others: a comparison across a
+    # discontinuity, not of the kernels). So the plain step of each pair
+    # takes the kernel step's side of every ReLU (``pinned_relu``), and the
+    # two forwards are held at those ReLUs' inputs: their largest difference
+    # within 1e-4 of its scale, so that a unit decided differently lies
+    # within rounding of 0. The floor is the plain step's own move when its
+    # mel changes by a relative 1e-6 to 3e-6 (FLOOR_SCALES); the gate reads,
+    # for each tensor, the median of six paired comparisons, kernels vs
+    # plain at mel x (1 + d), d = 0 and FLOOR_SCALES, against 1e-4 or 3 x
+    # the largest move, whichever is larger. The plain step with its batch
+    # reversed (the same function, its sums in another order) shows the
+    # rounding without flips.
+    g_pp, gap, flips = pinned_plain_step(relu_k) if kinks is not None else (g_p, 0.0, 0)
+    l2 = rel_l2(g_k, g_pp)
+    del g_pp, relu_k
     moves = {k: 0.0 for k in l2}
     paired = {k: [v] for k, v in l2.items()}
+    kink_gaps, kink_flips = [gap], [flips]
     for d in FLOOR_SCALES:
         _, g_d, _ = one_step(plain_fns, mel_scale=1.0 + d)
-        _, g_kd, _ = one_step({}, mel_scale=1.0 + d)
         for k, v in rel_l2(g_d, g_p).items():
             moves[k] = max(moves[k], v)
-        for k, v in rel_l2(g_kd, g_d).items():
+        _, g_kd, _, relu_kd = kernel_step(1.0 + d)
+        g_pd, gap, flips = (pinned_plain_step(relu_kd, 1.0 + d) if kinks is not None
+                            else (g_d, 0.0, 0))
+        for k, v in rel_l2(g_kd, g_pd).items():
             paired[k].append(v)
-        del g_d, g_kd
+        kink_gaps.append(gap)
+        kink_flips.append(flips)
+        del g_d, g_kd, g_pd, relu_kd
+    if kinks is not None:
+        ok = max(kink_gaps) <= 1e-4
+        print(f"{say} the ReLUs' inputs, kernel forward vs plain forward, the six pairs: "
+              f"largest difference / scale {', '.join(f'{v:.2e}' for v in kink_gaps)} (tol "
+              f"1e-4); units on opposite sides {kink_flips}, each pinned to the kernel "
+              f"step's side {'ok' if ok else 'FAIL'}")
+        if not ok:
+            report.failures.append(f"{tag}: the forwards differ at the ReLUs' inputs by "
+                                   f"{max(kink_gaps):.2e} of their scale")
     order = torch.arange(DIFF_B - 1, -1, -1, device=DEVICE)
     _, g_q, _ = one_step(plain_fns, order)
     reordered = rel_l2(g_q, g_p)
@@ -3303,7 +3530,8 @@ def drive_diffusion_training(report: Report, seed: int, tag: str, cfg, loader, v
             "plain_move_rel_l2_max": max(moves.values()),
             "plain_move_rel_l2_median": statistics.median(moves.values()),
             "held_over_tol_max": max(ratio.values()),
-            "reordered_rel_l2_max": max(reordered.values())},
+            "reordered_rel_l2_max": max(reordered.values()),
+            "relu_input_gap_max": max(kink_gaps), "relu_units_opposite": kink_flips},
     }
     del g_k, g_p, g_h
     model.zero_grad(set_to_none=True)
@@ -3341,14 +3569,16 @@ def phase_diffusion_train(report: Report, seed: int):
     backward = [key for key in plain_fns
                 if key[1] not in ("residual_gate_train", "residual_out")]
     recorders = [recording(wavenet, "residual_gate_train", key=lambda a, kw: a[5]),
+                 recording(wavenet, "residual_out", key=lambda a, kw: 0),
                  recording(wavenet, "residual_gate_backward", key=lambda a, kw: 0),
                  recording(wavenet, "residual_input_backward", key=lambda a, kw: a[3]),
                  recording(wavenet, "residual_weight_grad", key=lambda a, kw: a[5])]
     forward = {k: DIFF_LAUNCHES[k] for k in ("wavenet_gate_train", "wavenet_out")}
-    launches, totals, _ = drive_diffusion_training(report, seed, tag, cfg, loader, valid,
-                                                   DIFF_LAUNCHES, forward, plain_fns,
-                                                   backward, recorders)
+    launches, totals, state = drive_diffusion_training(
+        report, seed, tag, cfg, loader, valid, DIFF_LAUNCHES, forward, plain_fns, backward,
+        recorders, kinks=wavenet)
     measure_k1_training(report, {r.name: r.calls for r in recorders}, totals)
+    measure_training_split(state.model.diffusion.denoise_fn, totals, tag)
     report.finish(tag)
     return launches, totals
 
@@ -3627,6 +3857,28 @@ def measure_k10_training(report: Report, calls: dict, model, totals: dict):
     report.extra["depthwise_conv7_norm_backward_rows"]["block_fwd_bwd"] = block
 
 
+def measure_training_split(den, totals: dict, tag: str):
+    """What a training step spends on the forward kernels' split weights:
+    ``prepare`` (once a forward) at the step's shapes, CUDA-event median,
+    and of it ``tf32_split`` of the 40 weights by device time
+    (``device_ms``), beside the step's median."""
+    import torch
+
+    from fish_diffusion_tpu_torch.models import wavenet
+
+    d_enc = den.residual_layers[0].conditioner_projection.conv.weight.shape[1]
+    c = torch.zeros(DIFF_B, 512, d_enc, device=DEVICE)
+    ws = (lambda p: p["w_conv"] + p["w_out"])(den.prepare(c))
+    split_ms = device_ms(lambda: [wavenet.tf32_split(w) for w in ws], reps=5)
+    prepare_ms = cuda_ms(lambda: den.prepare(c))
+    step_ms = totals[f"{tag}_step_s_median"] * 1e3
+    print(f"[{tag}] prepare in a training step ({len(den.residual_layers)} blocks, B={DIFF_B} "
+          f"T=512): {prepare_ms:.3f} ms, of which tf32_split of the {len(ws)} weights "
+          f"{split_ms:.3f} ms of device time ({split_ms / step_ms:.1%} of the step's median "
+          f"{step_ms:.2f} ms)")
+    totals[f"{tag}_prepare_ms"], totals[f"{tag}_split_ms"] = prepare_ms, split_ms
+
+
 def measure_k1_training(report: Report, calls: dict, totals: dict):
     """K1's training kernels at the step's recorded inputs (B=20 x 512 x
     512), for each dilation: within 1e-4 of the plain version's scale, a
@@ -3643,15 +3895,18 @@ def measure_k1_training(report: Report, calls: dict, totals: dict):
 
     from fish_diffusion_tpu_torch.models import wavenet
 
+    import torch.nn.functional as F
+
     print("[diffusion_train] K1's training kernels at the step's inputs (B=20 T=512 R=512)")
-    per_block = {}
+    per_block, gt = {}, {}
     for d, (args, _, count) in sorted(calls["residual_gate_train"].items()):
-        x, step, cond, w_conv, b_conv, _ = (a.detach() if torch.is_tensor(a) else a
-                                            for a in args)
+        x, step, cond, w_conv, b_conv, _, w_split = (a.detach() if torch.is_tensor(a) else a
+                                                     for a in args)
         B_, T_, R_ = x.shape
         M = B_ * T_
         with torch.no_grad():
-            fn = lambda: wavenet.residual_gate_train(x, step, cond, w_conv, b_conv, d)  # noqa: E731
+            fn = lambda: wavenet.residual_gate_train(  # noqa: E731
+                x, step, cond, w_conv, b_conv, d, w_split)
             ref_fn = lambda: wavenet.residual_gate_train_reference(  # noqa: E731
                 x, step, cond, w_conv, b_conv, d)
             (g, z), (ref_g, ref_z) = fn(), ref_fn()
@@ -3661,15 +3916,49 @@ def measure_k1_training(report: Report, calls: dict, totals: dict):
             again = fn()
             check_rerun(report, label, torch.cat([g.flatten(), z.flatten()]),
                         torch.cat([again[0].flatten(), again[1].flatten()]))
+            if not torch.equal(g, wavenet.residual_gate(x, step, cond, w_conv, b_conv, d,
+                                                        w_split)):
+                print(f"  {label}: serving's wavenet_gate gives other bits FAIL")
+                report.failures.append(f"{label}: serving's g")
             ms, plain, _ = timed_triple(fn, ref_fn)
+            y_t = (x + step[:, None, :]).transpose(1, 2).contiguous()
+            w_t = w_conv.reshape(3, R_, 2 * R_).permute(2, 1, 0).contiguous()
+            product = cuda_ms(lambda: F.conv1d(y_t, w_t, padding=d, dilation=d))
         flops = 2 * M * 3 * R_ * 2 * R_
         work = (nbytes(x, step, cond, w_conv, b_conv, g, z), flops)
-        t_bound = bound(*work)[0]
+        t_bound, t_simt = bound(*work, TF32X3_FLOP_PER_S)[0], bound(*work)[0]
         print(f"    x{count}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
-              f"{t_bound / ms:.0%} of its bound {t_bound:.4f}), plain {plain:.4f} ms")
+              f"{t_bound / ms:.0%} of its 3xTF32 bound {t_bound:.4f}, {t_simt / ms:.0%} of the "
+              f"float32 SIMT bound {t_simt:.4f}), plain {plain:.4f} ms, F.conv1d (the dilated "
+              f"product alone, TF32 off) {product:.4f} ms")
         report.kernel("wavenet_gate_train", err, ms * count, plain * count,
-                      "a step's 20 launches, B=20 T=512 R=512", work[0] * count, flops * count)
+                      "a step's 20 launches, B=20 T=512 R=512", work[0] * count, flops * count,
+                      rate=TF32X3_FLOP_PER_S)
+        gt[d] = dict(count=count, ms=ms, plain_ms=plain, product_ms=product,
+                     bound_ms=t_bound, bound_f32_simt_ms=t_simt)
         per_block[d] = (x, step, cond, w_conv, b_conv)
+    report.extra.setdefault("wavenet_gate_train", {}).update(
+        by_dilation=gt,
+        library_product_ms=sum(v["product_ms"] * v["count"] for v in gt.values()),
+        library_product="F.conv1d, the dilated product alone",
+        bound_f32_simt_ms=sum(v["bound_f32_simt_ms"] * v["count"] for v in gt.values()))
+
+    # the output product at the step's shapes (its row is the batch request's)
+    (g_, x_, skip_, w_out_, b_out_, os_), _, count = calls["residual_out"][0]
+    g_, x_, skip_, w_out_, b_out_, os_ = (a.detach() for a in (g_, x_, skip_, w_out_, b_out_,
+                                                                 os_))
+    with torch.no_grad():
+        fn = lambda: wavenet.residual_out(g_, x_, skip_, w_out_, b_out_, os_)  # noqa: E731
+        got = fn()
+        ref = wavenet.residual_out_reference(g_, x_, skip_, w_out_, b_out_)
+        report.compare("wavenet_out (training shapes)", got, ref, 1e-4 * max_abs(ref))
+        check_rerun(report, "wavenet_out (training shapes)", torch.cat(got), torch.cat(fn()))
+        ms = cuda_ms(fn)
+        product = cuda_ms(lambda: torch.addmm(b_out_, g_.reshape(-1, g_.shape[-1]), w_out_))
+    print(f"    wavenet_out x{count}: kernel {ms:.4f} ms, torch.addmm (the product alone, TF32 "
+          f"off) {product:.4f} ms")
+    report.extra.setdefault("wavenet_out", {})["train"] = dict(
+        count=count, ms=ms, product_ms=product)
 
     (dx_out, dskip_out, z, w_out), _, count = calls["residual_gate_backward"][0]
     dx_out, dskip_out, z, w_out = (a.detach() for a in (dx_out, dskip_out, z, w_out))
@@ -3876,9 +4165,12 @@ def phase_align(report: Report, seed: int):
 
 def tensor_core_products(kernels):
     """The SASS of K1's 3xTF32 kernels (``cuobjdump -sass`` of the built
-    ``wavenet_block`` library): each kernel's TF32 tensor-core products
-    (HMMA.1688.F32.TF32, three per m16n8k8 step) printed; a kernel with none
-    is a failure. Where the toolkit has no cuobjdump: not measured."""
+    ``wavenet_block`` library): the backward's TF32 ``mma.sync`` products
+    (HMMA.1688.F32.TF32, three per m16n8k8 step) and the forward's TF32
+    ``wgmma`` products (HGMMA ... .TF32, three per k8 step) printed per
+    kernel; a kernel with none, or a count of kernels other than the two
+    backward and six forward instances, is a failure. Where the toolkit has
+    no cuobjdump: not measured."""
     cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
     if not cuobjdump.exists():
         print("[build] cuobjdump not found: tensor-core products not measured")
@@ -3889,13 +4181,16 @@ def tensor_core_products(kernels):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if "k1x3" in fn and "_sum" not in fn:
+            if ("k1x3" in fn and "_sum" not in fn) or ("k1f" in fn and "fwd_kernel" in fn):
                 counts[fn] = 0
-        elif fn in counts and "HMMA.1688.F32.TF32" in line:
+        elif fn in counts and ("HMMA.1688.F32.TF32" in line if "k1x3" in fn else
+                               "HGMMA." in line and ".TF32" in line):
             counts[fn] += 1
     for fn, n in counts.items():
-        print(f"[build] wavenet_block {fn}: {n} HMMA.1688.F32.TF32 in its SASS")
-    if len(counts) != 2 or not all(counts.values()):
+        kind = "HMMA.1688.F32.TF32" if "k1x3" in fn else "HGMMA (TF32)"
+        print(f"[build] wavenet_block {fn}: {n} {kind} in its SASS")
+    n_bwd = sum("k1x3" in fn for fn in counts)
+    if n_bwd != 2 or len(counts) - n_bwd != 6 or not all(counts.values()):
         raise SystemExit("chip_smoke: K1's 3xTF32 kernels hold no tensor-core products")
 
 

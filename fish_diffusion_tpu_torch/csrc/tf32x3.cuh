@@ -1,6 +1,7 @@
 // 3xTF32: float32 matrix products on the tensor cores, for K1's backward
-// (wavenet_block.cu: wavenet_weight_grad, wavenet_input_backward). Include
-// after <cuda_runtime.h>.
+// (wavenet_block.cu: wavenet_weight_grad, wavenet_input_backward: mma.sync)
+// and its forward (wavenet_gate, wavenet_gate_train, wavenet_out: wgmma,
+// the last part of this file). Include after <cuda_runtime.h>.
 //
 // Replaces the float32 SIMT products that stood for XLA's derivative of
 // fish_diffusion_tpu/models/wavenet.py:59 (ResidualBlock.__call__) and of
@@ -278,6 +279,204 @@ __device__ __forceinline__ void warp_stage_rmajor(float (&acc)[MI][NJ][4], const
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// wgmma (sm_90a): a warpgroup's (4 warps, 128 threads) 64 x N product of
+// depth 8, the sum in registers; B read by the tensor cores from shared
+// memory, A from the threads' registers (mma_rs: each warp's 16 rows as
+// mma.sync's m16n8k8 A fragment, FragA, loaded and split by load_a, so
+// each element is split once by the warp that owns its row). For TF32 both
+// operands are K-major. The callers keep every tile in the 128-byte
+// swizzled layout: row r's 32 floats (a stage's depth) in the 128 bytes at
+// r * 128, its 16-byte chunk c (k = 4c .. 4c + 3) at chunk c ^ (r % 8),
+// tiles 1024-byte aligned, so the 8 rows of a group read a k chunk from 8
+// different bank groups (without the swizzle every row of a column of
+// chunks falls on the same banks). The hardware applies the XOR to the
+// address bits, so a k8 step starts 32 bytes after the previous one; 8-row
+// groups are 1024 bytes apart (SBO). d[4 j + 2 h +
+// e] of thread t is row 16 (t / 32 % 4) + (t % 32) / 4 + 8 h, column 8 j +
+// 2 (t % 4) + e (the mma.sync m16n8 layout per warp and n8 tile).
+//
+// Split operands: each float32 element is split once into big and small
+// (split above), and a 3xTF32 product is three wgmma into one sum, small_a
+// big_b (scale_d 0: the sum starts from zero), big_a small_b, big_a big_b,
+// in that order; the caller adds the sum to its float32 accumulator. The
+// host build computes each thread's own elements of d from the same tiles
+// at the same (swizzled) places, split the same way, in the same order
+// (its FragA holds the whole rows g and g + 8 of the warp's 16).
+
+namespace wg {
+
+// The float offset of row r, 16-byte chunk c in a swizzled tile.
+__host__ __device__ __forceinline__ int swizzled(int r, int c) {
+  return r * 32 + ((c ^ (r & 7)) << 2);
+}
+
+// p rounded up to a multiple of 1024 bytes in the shared window (on the
+// host: in the address space, whose bits host_at's XOR reads)
+__device__ __forceinline__ float* align1024(float* p) {
+#if defined(__CUDA_ARCH__)
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return p + ((1024 - (a & 1023)) & 1023) / 4;
+#else
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  return p + ((1024 - (a & 1023)) & 1023) / 4;
+#endif
+}
+
+#if !defined(__CUDA_ARCH__)
+// The host's read of element (row, k) of a k8 step that starts at p: the
+// hardware's address and XOR (the tiles are 1024-byte aligned on the host
+// too, align1024)
+inline float host_at(const float* p, int row, int k) {
+  uintptr_t addr = reinterpret_cast<uintptr_t>(p) + (row >> 3) * 1024 + (row & 7) * 128 +
+                   (k >> 2) * 16;
+  addr ^= ((addr >> 7) & 7) << 4;
+  return reinterpret_cast<const float*>(addr)[k & 3];
+}
+#endif
+
+#if defined(__CUDA_ARCH__)
+// start address, LBO 16 bytes (unused by swizzled K-major layouts), SBO
+// 1024 bytes, base offset 0, 128-byte swizzle
+__device__ __forceinline__ uint64_t desc(const float* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3ffff) >> 4) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
+         (uint64_t)1 << 62;
+}
+
+// A from registers: the four TF32 values of the thread's m16n8k8 fragment
+template <int N>
+__device__ __forceinline__ void mma_rs_async(float (&d)[N / 2], const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  static_assert(N == 64 || N == 128, "n64 or n128");
+  if constexpr (N == 128) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  } else {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+}
+#endif
+
+// The warp's A fragment of a k8 step from a swizzled tile of rows of 32
+// floats: rows 16 w .. 16 w + 15 (w the warp of the warpgroup), 16-byte
+// chunks 2 ks and 2 ks + 1, split. On the card one ldmatrix (a TF32
+// element is two 16-bit ones; the four 8 x 8 matrices are rows 0-7 and
+// 8-15 x the two chunks, the fragment's four registers), conflict-free on
+// the swizzled rows.
+__device__ __forceinline__ void load_a(FragA& f, const float* tile, int ks, int tid) {
+  const int w = (tid >> 5) & 3, lane = tid & 31;
+#if defined(__CUDA_ARCH__)
+  float v[4];
+  ldmatrix_x4(v, tile + swizzled(16 * w + (lane & 7) + (lane & 8), 2 * ks + (lane >> 4)));
+  split_all<4>(v, f.big, f.small);
+#else
+  const int g = lane >> 2;
+  for (int h = 0; h < 2; ++h)
+    for (int k = 0; k < 8; ++k)
+      split(tile[swizzled(16 * w + g + 8 * h, 2 * ks + (k >> 2)) + (k & 3)], f.big[h][k],
+            f.small[h][k]);
+#endif
+}
+
+// d (scale_d 1) or 0 (scale_d 0) plus the product of A's big (or small)
+// half in f with the swizzled B tile whose k8 step starts at b (N rows).
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const FragA& f, bool small,
+                                       const float* b, int scale_d) {
+#if defined(__CUDA_ARCH__)
+  mma_rs_async<N>(d, small ? f.small : f.big, desc(b), scale_d);
+#else
+  const int t = threadIdx.x & 127, c = t & 3;
+  for (int j = 0; j < N / 8; ++j)
+    for (int h = 0; h < 2; ++h)
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * c + e;
+        float s = scale_d ? d[4 * j + 2 * h + e] : 0.f;
+        for (int k = 0; k < 8; ++k) s += (small ? f.small : f.big)[h][k] * host_at(b, col, k);
+        d[4 * j + 2 * h + e] = s;
+      }
+#endif
+}
+
+// Order the warpgroup's register and shared-memory accesses before its
+// next wgmma; commit the wgmma issued since the last commit as one group;
+// wait until at most N groups are in flight.
+__device__ __forceinline__ void fence() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#endif
+}
+
+__device__ __forceinline__ void commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+#endif
+}
+
+template <int N>
+__device__ __forceinline__ void wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// Keep the compiler from moving accesses of r across a wgmma issue or wait:
+// the registers a wgmma in flight writes are not to be read before its
+// group is waited for.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#if defined(__CUDA_ARCH__)
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+#endif
+}
+
+// Keep a fragment's registers live until here: a wgmma in flight reads them
+// (called after the wait for its group).
+__device__ __forceinline__ void fence_frag(FragA& f) {
+#if defined(__CUDA_ARCH__)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(f.big[i]), "+r"(f.small[i])::"memory");
+#endif
+}
+
+// Make this thread's generic-proxy writes to shared memory (stores and
+// cp.async copies) visible to the tensor cores' reads (the async proxy);
+// a barrier then publishes them to the warpgroups.
+__device__ __forceinline__ void fence_shared() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#endif
+}
+
+}  // namespace wg
 
 }  // namespace
 }  // namespace tf32x3

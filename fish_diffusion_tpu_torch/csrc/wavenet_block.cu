@@ -14,21 +14,23 @@
 //
 // Bound on an H100: arithmetic. At B=4, T=1024, C=R=512 the two products
 // are 12.9 and 4.3 GFLOP per block and read ~12 MB, far above the card's
-// balance point. Design: shared-memory tiles with register blocking and
-// float32 accumulation; the next stage is loaded into registers (16-byte
-// loads) while the current one is multiplied. The three taps are one
-// K = 3C product whose A tile is gathered from y at t + (tap - 1) * d with
-// a zero-filled halo, so no shifted copy of y is ever written. Each thread
-// owns matching gate and filter (or residual and skip) columns, so the
-// gate and the residual update happen in registers and z never reaches
-// device memory. A short request has few rows (M = B * T = 256 for one 3 s
-// segment), so the tile shrinks with M until the launch has a thread block
-// for every SM. The element type is a template: float32 (the configs) and
-// bfloat16.
+// balance point. The three taps are one K = 3C product whose A tile is
+// gathered from y at t + (tap - 1) * d with a zero-filled halo, so no
+// shifted copy of y is ever written. Each thread owns matching gate and
+// filter (or residual and skip) columns, so the gate and the residual
+// update happen in registers and z never reaches device memory. float32
+// (the configs) runs on the tensor cores through 3xTF32 wgmma (the k1f
+// namespace below: the weights split once by the wrapper, each A element
+// split once by the block that loads it; two tile plans chosen from M =
+// B * T, which is 256 for one 3 s segment). bfloat16 runs block_gemm, a
+// SIMT kernel: shared-memory tiles with register blocking and float32
+// accumulation, the next stage loaded into registers while the current one
+// is multiplied, its tile shrunk with M until the launch has a block for
+// every SM (no config selects bfloat16).
 //
 // Training (float32). wavenet_gate_train is the same kernel with the
-// pre-activation z [B, T, 2R] written beside g (a template flag: serving's
-// wavenet_gate runs the instance it always ran). The backward replaces
+// pre-activation z [B, T, 2R] written beside g (a template flag: the same
+// plan and products as serving's wavenet_gate). The backward replaces
 // XLA's derivative of the same ResidualBlock.__call__ and DilatedConvK3,
 // given dx' and dskip', with do = [dx' / sqrt(2) | dskip']:
 //
@@ -124,7 +126,7 @@ __device__ __forceinline__ void load_smem(const float* p, float* v) {
 // BK and C of the per-thread run, so a run never crosses a tap.
 // MODE 0 (gate): A[m, k] = y[b, t + (k / C - 1) * d, k % C], K = 3C.
 // MODE 1 (out):  A[m, k] = g[m, k], K = R.
-template <typename T, int MODE, int BM, int BNH, int TM, int TNH, bool SAVE_Z = false>
+template <typename T, int MODE, int BM, int BNH, int TM, int TNH>
 __global__ void __launch_bounds__(THREADS) block_gemm(
     const T* __restrict__ a_src,   // MODE 0: x [M, C]; MODE 1: g [M, R]
     const T* __restrict__ step,    // MODE 0: [B, C]
@@ -134,7 +136,7 @@ __global__ void __launch_bounds__(THREADS) block_gemm(
     const T* __restrict__ x_in,    // MODE 1: [M, R]
     const T* __restrict__ skip_in, // MODE 1: [M, R]
     T* __restrict__ out0,          // MODE 0: g [M, R]; MODE 1: x' [M, R]
-    T* __restrict__ out1,          // MODE 1: skip' [M, R]; SAVE_Z: z [M, 2R]
+    T* __restrict__ out1,          // MODE 1: skip' [M, R]
     int M, int T_len, int C, int R, int K, int d) {
   static_assert((BM / TM) * (BNH / TNH) == THREADS, "16 x 16 threads");
   constexpr int A_PER = BM * BK / THREADS;       // A elements per thread
@@ -231,10 +233,6 @@ __global__ void __launch_bounds__(THREADS) block_gemm(
       if (MODE == 0) {
         z0 += to_f(cond[(size_t)m * 2 * R + col]);
         z1 += to_f(cond[(size_t)m * 2 * R + R + col]);
-        if constexpr (SAVE_Z) {
-          out1[(size_t)m * 2 * R + col] = from_f<T>(z0);
-          out1[(size_t)m * 2 * R + R + col] = from_f<T>(z1);
-        }
         const float gate = 1.f / (1.f + expf(-z0));
         out0[o] = from_f<T>(gate * tanhf(z1));
       } else {
@@ -245,14 +243,14 @@ __global__ void __launch_bounds__(THREADS) block_gemm(
   }
 }
 
-template <typename T, int MODE, int BM, int BNH, int TM, int TNH, bool SAVE_Z>
+template <typename T, int MODE, int BM, int BNH, int TM, int TNH>
 int launch_tile(const void* a_src, const void* step, const void* w,
                 const void* bias, const void* cond, const void* x_in,
                 const void* skip_in, void* out0, void* out1, int M,
                 int T_len, int C, int R, int d, cudaStream_t stream) {
   const int K = MODE == 0 ? 3 * C : R;
   dim3 grid((M + BM - 1) / BM, R / BNH);
-  block_gemm<T, MODE, BM, BNH, TM, TNH, SAVE_Z><<<grid, THREADS, 0, stream>>>(
+  block_gemm<T, MODE, BM, BNH, TM, TNH><<<grid, THREADS, 0, stream>>>(
       (const T*)a_src, (const T*)step, (const T*)w, (const T*)bias,
       (const T*)cond, (const T*)x_in, (const T*)skip_in, (T*)out0, (T*)out1,
       M, T_len, C, R, K, d);
@@ -260,7 +258,7 @@ int launch_tile(const void* a_src, const void* step, const void* w,
 }
 
 // The largest tile whose grid still has a block for every SM.
-template <typename T, int MODE, bool SAVE_Z = false>
+template <typename T, int MODE>
 int launch(const void* a_src, const void* step, const void* w,
            const void* bias, const void* cond, const void* x_in,
            const void* skip_in, void* out0, void* out1, int B, int T_len,
@@ -269,14 +267,14 @@ int launch(const void* a_src, const void* step, const void* w,
   const int sms = acopy::sm_count();
   cudaStream_t s = (cudaStream_t)stream;
   if (((M + 127) / 128) * (R / 64) >= sms)
-    return launch_tile<T, MODE, 128, 64, 8, 4, SAVE_Z>(a_src, step, w, bias, cond, x_in,
+    return launch_tile<T, MODE, 128, 64, 8, 4>(a_src, step, w, bias, cond, x_in,
                                                skip_in, out0, out1, M, T_len,
                                                C, R, d, s);
   if (((M + 63) / 64) * (R / 32) >= sms)
-    return launch_tile<T, MODE, 64, 32, 4, 2, SAVE_Z>(a_src, step, w, bias, cond, x_in,
+    return launch_tile<T, MODE, 64, 32, 4, 2>(a_src, step, w, bias, cond, x_in,
                                               skip_in, out0, out1, M, T_len, C,
                                               R, d, s);
-  return launch_tile<T, MODE, 32, 32, 2, 2, SAVE_Z>(a_src, step, w, bias, cond, x_in,
+  return launch_tile<T, MODE, 32, 32, 2, 2>(a_src, step, w, bias, cond, x_in,
                                             skip_in, out0, out1, M, T_len, C,
                                             R, d, s);
 }
@@ -732,29 +730,352 @@ int launch_weight_grad(const float* y, const float* dz, const float* g, const fl
 
 }  // namespace k1x3
 
+// K1's forward on the tensor cores: the gate (serving and training) and the
+// output product in float32 through 3xTF32 wgmma (tf32x3.cuh, tf32x3::wg).
+// A block is WGS warpgroups of 64 rows (m) each x BN columns (n), over
+// stages of TK reduction steps in a ring of STAGES shared-memory slots,
+// filled by 16-byte cp.async copies with zero-fill (the halo of the dilated
+// taps and the ragged rows need no branch in the products; cp.async rather
+// than TMA because an M tile may cross batch items, which a box over
+// [B, T, C] would split into several copies). A slot holds
+// three tiles of TK = 32 floats a row in tf32x3.cuh's 128-byte swizzled
+// layout (8 threads copy a row's 128 bytes, coalesced, into 8 different
+// bank groups):
+//   A: the rows' operand (x at the tap's rows, or g) as it lands;
+//   B big, B small: the weights' rows (output columns), split once per
+//   prepare() call by the wrapper and kept K-major in device memory ([2][2R]
+//   [K]: w's transpose, big then small).
+// Each warp loads its 16 rows of a k8 step from A into registers and splits
+// them there (wgmma with A from registers), while the k8 step before it
+// runs, so no element is split twice and the split costs no shared-memory
+// traffic; shared memory feeds B, which the block's warpgroups share.
+// The block's BN columns are BN / 2 gate (or residual) columns j0.. and the
+// matching BN / 2 filter (or skip) columns R + j0..: a thread's accumulator
+// holds both of a pair, so the gate and the residual update stay in
+// registers (z reaches device memory only when the training instance
+// writes it).
+//
+// The gate's y = x + step[b] enters by linearity: the products read x, and
+// the epilogue adds step[b] W_tap (for the taps whose row lies inside [0,
+// T)), which step_taps computes first into a [B][3][2R] scratch (float32
+// sums over C in order; the same launch).
+//
+// Sums: the tensor cores truncate a sum to its own magnitude (tf32x3.cuh's mma3), so
+// each stage's TK-deep product (three wgmma a k8 step) is summed on them
+// from zero and then added to the float32 accumulator. A stage rather than
+// one k8 step: on an H100 its largest error against a float64 product
+// stays below the float32 SIMT kernel's at the same inputs, which
+// chip_smoke.py checks and prints (PERF.md). A warpgroup waits for
+// its own wgmma before it reads the sum (a read of a sum whose wgmma may be
+// in flight makes ptxas serialize every wgmma); the other warpgroup or
+// block on the SM keeps the tensor cores busy meanwhile. What bounds the
+// tiles is the L2 traffic of B (big and small, all of K, for every BM
+// rows), so the large plan shares B between two warpgroups. No atomics: a
+// rerun gives the same bits, and the training instance (SAVE_Z) runs the
+// same plan as serving.
+namespace k1f {
+
+constexpr int TK = 32;              // reduction depth of a stage
+constexpr int KC = TK / 4;          // 16-byte chunks of a stage's row
+constexpr float RSQRT2 = 0.70710678118654752f;
+static_assert(TK == 32, "a row of a stage is the 128 bytes of a swizzle atom");
+
+template <int WGS, int BN, int STAGES>
+struct Plan {
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr int BM = 64 * WGS;
+  static constexpr int A_TILE = BM * TK, B_TILE = BN * TK;  // floats, 1024-byte multiples
+  static constexpr int SLOT = A_TILE + 2 * B_TILE;
+  static constexpr int SMEM = STAGES * SLOT * 4 + 1024;     // + the base's alignment
+  static constexpr int A_CHUNKS = A_TILE / 4 / THREADS;      // 16-byte copies a thread
+  static constexpr int B_CHUNKS = B_TILE / 4 / THREADS;
+  static_assert(A_CHUNKS * 4 * THREADS == A_TILE && B_CHUNKS * 4 * THREADS == B_TILE, "");
+};
+
+// taps[b][tap][n] = sum_c step[b, c] W_conv[tap C + c, n]: a block takes 32
+// columns of one tap (a lane a column) for up to 8 items (blockIdx.z's);
+// its 8 warps take C / 8 values of c each, in order, and their partial sums
+// are added in warp order through shared memory.
+__global__ void __launch_bounds__(256) step_taps(const float* __restrict__ step,
+                                                 const float* __restrict__ w,
+                                                 float* __restrict__ taps, int B, int C, int R) {
+  __shared__ float part[8][8][32];  // [warp][item][column]
+  const int tap = blockIdx.x, b0 = blockIdx.z * 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n = blockIdx.y * 32 + lane;
+  const int per = C / 8, c0 = warp * per;
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int c = c0; c < c0 + per; ++c) {
+    const float wv = w[(size_t)(tap * C + c) * 2 * R + n];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (b0 + i < B) acc[i] += step[(size_t)(b0 + i) * C + c] * wv;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) part[warp][i][lane] = acc[i];
+  __syncthreads();
+  const int i = warp;  // item b0 + i, column n: the 8 warps' sums in order
+  if (b0 + i < B) {
+    float sum = part[0][i][lane];
+    for (int v = 1; v < 8; ++v) sum += part[v][i][lane];
+    taps[((size_t)(b0 + i) * 3 + tap) * 2 * R + n] = sum;
+  }
+}
+
+// MODE 0 (gate): A[m, k] = x[b, t + (tap - 1) d, c], k = tap C + c, K = 3C
+//   (zero outside [0, T)); z = A W_conv + sum of the live taps' step[b]
+//   W_tap + b_conv + cond, g = sigmoid(z_a) tanh(z_f) -> out0 = g [M, R]
+//   (SAVE_Z: out1 = z [M, 2R]).
+// MODE 1 (out): A = g [M, R], K = R; o = A W_out + b_out ->
+//   out0 = x' = (x + o_r) / sqrt 2, out1 = skip' = skip + o_s.
+template <int MODE, int WGS, int BN, int STAGES, bool SAVE_Z>
+__global__ void __launch_bounds__(128 * WGS, 2 / WGS) fwd_kernel(
+    const float* __restrict__ a_src,   // MODE 0: x [M, C]; MODE 1: g [M, R]
+    const float* __restrict__ taps,    // MODE 0: step_taps' [B][3][2R]
+    const float* __restrict__ w,       // split weights [2][2R][K]
+    const float* __restrict__ bias,    // [2R]
+    const float* __restrict__ cond,    // MODE 0: [M, 2R]
+    const float* __restrict__ x_in,    // MODE 1: [M, R]
+    const float* __restrict__ skip_in, // MODE 1: [M, R]
+    float* __restrict__ out0, float* __restrict__ out1, int M, int T_len, int C, int R,
+    int K, int d) {
+  using P = Plan<WGS, BN, STAGES>;
+  constexpr int NACC = BN / 2;   // a thread's elements of the warpgroup's 64 x BN sum
+  extern __shared__ __align__(16) float k1f_smem[];
+  float* smem = tf32x3::wg::align1024(k1f_smem);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = blockIdx.x * P::BM, j0 = blockIdx.y * (BN / 2);
+  const int nk = K / TK;
+  const size_t half = (size_t)2 * R * K;  // floats of the big (or small) weights
+  // this thread's copies: q = tid + THREADS i is row q / 8, 16-byte chunk
+  // q % 8 (the same for every i)
+  const int kc = tid & (KC - 1);
+  int a_m[P::A_CHUNKS], a_b[P::A_CHUNKS], a_t[P::A_CHUNKS];
+#pragma unroll
+  for (int i = 0; i < P::A_CHUNKS; ++i) {
+    a_m[i] = m0 + ((tid + P::THREADS * i) >> 3);
+    a_b[i] = a_m[i] < M ? a_m[i] / T_len : 0;
+    a_t[i] = a_m[i] - a_b[i] * T_len;
+  }
+  auto at = [&](int q) { return tf32x3::wg::swizzled(q >> 3, kc); };  // chunk q's floats
+  auto slot_at = [&](int slot) { return smem + slot * P::SLOT; };
+  auto load = [&](int slot, int kt) {
+    const int k0 = kt * TK;
+    float* sa = slot_at(slot);
+    float* sb = sa + P::A_TILE;
+    if (MODE == 0) {
+      const int tap = k0 / C, c = k0 - tap * C + kc * 4, shift = (tap - 1) * d;
+#pragma unroll
+      for (int i = 0; i < P::A_CHUNKS; ++i) {
+        const int ts = a_t[i] + shift;
+        const bool ok = a_m[i] < M && ts >= 0 && ts < T_len;
+        acopy::copy16(sa + at(tid + P::THREADS * i),
+                      ok ? a_src + ((size_t)a_b[i] * T_len + ts) * C + c : a_src, ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < P::A_CHUNKS; ++i) {
+        const bool ok = a_m[i] < M;
+        acopy::copy16(sa + at(tid + P::THREADS * i),
+                      ok ? a_src + (size_t)a_m[i] * K + k0 + kc * 4 : a_src, ok);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < P::B_CHUNKS; ++i) {
+      const int q = tid + P::THREADS * i, n = q >> 3;
+      const int col = (n < BN / 2 ? 0 : R - BN / 2) + j0 + n;
+      const float* src = w + (size_t)col * K + k0 + kc * 4;
+      acopy::copy16(sb + at(q), src, true);
+      acopy::copy16(sb + P::B_TILE + at(q), src + half, true);
+    }
+  };
+
+  float acc[NACC], t[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+
+  // the prologue: STAGES - 1 stages in flight
+  static_assert(STAGES >= 3, "a slot is refilled while the next stage runs");
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    acopy::copy_commit();
+  }
+  acopy::copy_wait<STAGES - 2>();
+  tf32x3::wg::fence_shared();
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int slot = kt % STAGES;
+    const float* sa = slot_at(slot) + wg * 64 * TK;  // the warpgroup's 64 rows
+    const float* sb = slot_at(slot) + P::A_TILE;
+    // the stage's product into t from zero, each k8 step's A fragment
+    // loaded and split while the step before it runs
+    tf32x3::FragA fa[TK / 8];
+    tf32x3::wg::fence_regs(t);
+#pragma unroll
+    for (int ks = 0; ks < TK / 8; ++ks) {
+      tf32x3::wg::load_a(fa[ks], sa, ks, tid);
+      tf32x3::wg::fence();
+      const float* bb = sb + ks * 8;   // 32 bytes a k8 step
+      tf32x3::wg::mma_rs<BN>(t, fa[ks], true, bb, ks == 0 ? 0 : 1);
+      tf32x3::wg::mma_rs<BN>(t, fa[ks], false, bb + P::B_TILE, 1);
+      tf32x3::wg::mma_rs<BN>(t, fa[ks], false, bb, 1);
+    }
+    tf32x3::wg::commit();
+    // meanwhile: the copies STAGES - 1 stages ahead into the slot of the
+    // stage before (every thread was past its products at the last barrier)
+    if (kt + STAGES - 1 < nk) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    acopy::copy_commit();
+    tf32x3::wg::wait<0>();
+    tf32x3::wg::fence_regs(t);
+#pragma unroll
+    for (int ks = 0; ks < TK / 8; ++ks) tf32x3::wg::fence_frag(fa[ks]);
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] += t[i];
+    // the next stage landed (this thread's copies), visible to the block
+    // and to the tensor cores
+    acopy::copy_wait<STAGES - 2>();
+    tf32x3::wg::fence_shared();
+    __syncthreads();
+  }
+  acopy::copy_wait<0>();
+
+  // epilogue: d[4 j + 2 h + e] is row 16 warp + g + 8 h, column 8 j + 2 c +
+  // e; n8 tiles j < BN / 16 are gate (residual) columns j0 + 8 j + ..., j +
+  // BN / 16 the matching filter (skip) columns
+  const int lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int row0 = m0 + 64 * wg + 16 * ((tid >> 5) & 3) + g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = row0 + 8 * h;
+    if (m >= M) continue;
+    const int b = m / T_len, tt = m - b * T_len;
+    const bool live0 = tt - d >= 0, live2 = tt + d < T_len;  // taps 0 and 2
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      const int col = j0 + 8 * j + 2 * c;
+      const int e0 = 4 * j + 2 * h, e1 = 4 * (j + BN / 16) + 2 * h;
+      const float2 b0 = *reinterpret_cast<const float2*>(bias + col);
+      const float2 b1 = *reinterpret_cast<const float2*>(bias + R + col);
+      float2 z0 = make_float2(acc[e0], acc[e0 + 1]);
+      float2 z1 = make_float2(acc[e1], acc[e1 + 1]);
+      const size_t o = (size_t)m * R + col;
+      if (MODE == 0) {
+        const float* tp = taps + (size_t)b * 6 * R + col;  // [tap][2R] of item b
+#pragma unroll
+        for (int tap = 0; tap < 3; ++tap) {
+          if ((tap == 0 && !live0) || (tap == 2 && !live2)) continue;
+          const float2 s0 = *reinterpret_cast<const float2*>(tp + tap * 2 * R);
+          const float2 s1 = *reinterpret_cast<const float2*>(tp + tap * 2 * R + R);
+          z0.x += s0.x, z0.y += s0.y, z1.x += s1.x, z1.y += s1.y;
+        }
+      }
+      z0.x += b0.x, z0.y += b0.y, z1.x += b1.x, z1.y += b1.y;
+      if (MODE == 0) {
+        const size_t zr = (size_t)m * 2 * R + col;
+        const float2 c0 = *reinterpret_cast<const float2*>(cond + zr);
+        const float2 c1 = *reinterpret_cast<const float2*>(cond + zr + R);
+        z0.x += c0.x, z0.y += c0.y, z1.x += c1.x, z1.y += c1.y;
+        if constexpr (SAVE_Z) {
+          *reinterpret_cast<float2*>(out1 + zr) = z0;
+          *reinterpret_cast<float2*>(out1 + zr + R) = z1;
+        }
+        *reinterpret_cast<float2*>(out0 + o) =
+            make_float2(1.f / (1.f + expf(-z0.x)) * tanhf(z1.x),
+                        1.f / (1.f + expf(-z0.y)) * tanhf(z1.y));
+      } else {
+        const float2 xv = *reinterpret_cast<const float2*>(x_in + o);
+        const float2 sv = *reinterpret_cast<const float2*>(skip_in + o);
+        *reinterpret_cast<float2*>(out0 + o) =
+            make_float2((xv.x + z0.x) * RSQRT2, (xv.y + z0.y) * RSQRT2);
+        *reinterpret_cast<float2*>(out1 + o) = make_float2(sv.x + z1.x, sv.y + z1.y);
+      }
+    }
+  }
+}
+
+template <int MODE, int WGS, int BN, int STAGES, bool SAVE_Z>
+int launch_plan(const float* a_src, const float* taps, const float* w, const float* bias,
+                const float* cond, const float* x_in, const float* skip_in, float* out0,
+                float* out1, int M, int T_len, int C, int R, int d, cudaStream_t s) {
+  using P = Plan<WGS, BN, STAGES>;
+  const auto kernel = fwd_kernel<MODE, WGS, BN, STAGES, SAVE_Z>;
+  const int err = k1x3::set_smem(kernel, P::SMEM);
+  if (err) return err;
+  const int K = MODE == 0 ? 3 * C : R;
+  const dim3 grid = dim3(acopy::cdiv(M, P::BM), 2 * R / BN);
+  kernel<<<grid, P::THREADS, P::SMEM, s>>>(a_src, taps, w, bias, cond, x_in, skip_in, out0,
+                                           out1, M, T_len, C, R, K, d);
+  return (int)cudaGetLastError();
+}
+
+// The plans on the tensor cores: 1 = one warpgroup, 64 x 64 tiles, 4 stages
+// (97 KB, two blocks an SM); 2 = two warpgroups sharing B, 128 x 128 tiles,
+// 4 stages (193 KB, one block an SM). The rule from M: 128 x 128 where its
+// grid has a block for at least every second SM, else 64 x 64 (measured on
+// an H100 at M = 256 to 10240, PERF.md: 64 x 64 faster up to M =
+// 1024, 128 x 128 from M = 1536 on; a one-warpgroup 64 x 128 plan was
+// never the fastest, and the float32 SIMT kernel block_gemm was slower
+// than both at every M, so no SIMT range stays).
+int plan_for(int M, int R) {
+  return acopy::cdiv(M, 128) * (2 * R / 128) * 2 >= acopy::sm_count() ? 2 : 1;
+}
+
+// The gate (MODE 0) first writes step_taps' scratch ``taps`` [B][3][2R].
+template <int MODE, bool SAVE_Z>
+int launch(const float* a_src, const float* step, const float* w_plain, const float* w,
+           float* taps, const float* bias, const float* cond, const float* x_in,
+           const float* skip_in, float* out0, float* out1, int B, int T_len, int C, int R,
+           int d, void* stream) {
+  const int M = B * T_len;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (w == nullptr || (MODE == 0 && taps == nullptr) || C != R || R % 64)
+    return (int)cudaErrorInvalidValue;
+  if (MODE == 0) {
+    const dim3 grid = dim3(3, 2 * R / 32, acopy::cdiv(B, 8));
+    step_taps<<<grid, 256, 0, s>>>(step, w_plain, taps, B, C, R);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  if (plan_for(M, R) == 1)
+    return launch_plan<MODE, 1, 64, 4, SAVE_Z>(a_src, taps, w, bias, cond, x_in, skip_in, out0,
+                                               out1, M, T_len, C, R, d, s);
+  return launch_plan<MODE, 2, 128, 4, SAVE_Z>(a_src, taps, w, bias, cond, x_in, skip_in, out0,
+                                              out1, M, T_len, C, R, d, s);
+}
+
+}  // namespace k1f
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. The Python wrapper checks R % 64 == 0
-// and 16-byte aligned tensors. Returns the cudaError_t of the launch.
+// and 16-byte aligned tensors. float32 runs the tensor cores, in the plan
+// that k1f::plan_for picks from M, on w_split, the weights split by the
+// wrapper ([2][2R][K]: w's transpose, big and small), the gate with
+// ``taps`` [B][3][2R] as scratch; bfloat16 runs block_gemm on w_conv /
+// w_out (w_split and taps unused). Returns the cudaError_t of the launch.
 extern "C" int wavenet_gate(int dtype, const void* x, const void* step,
-                            const void* w_conv, const void* b_conv,
-                            const void* cond, void* g, int B, int T_len,
+                            const void* w_conv, const void* w_split, void* taps,
+                            const void* b_conv, const void* cond, void* g, int B, int T_len,
                             int C, int R, int d, void* stream) {
   if (dtype == 0)
-    return launch<float, 0>(x, step, w_conv, b_conv, cond, nullptr, nullptr,
-                            g, nullptr, B, T_len, C, R, d, stream);
+    return k1f::launch<0, false>((const float*)x, (const float*)step,
+                                 (const float*)w_conv, (const float*)w_split, (float*)taps,
+                                 (const float*)b_conv, (const float*)cond, nullptr, nullptr,
+                                 (float*)g, nullptr, B, T_len, C, R, d, stream);
   return launch<__nv_bfloat16, 0>(x, step, w_conv, b_conv, cond, nullptr,
                                   nullptr, g, nullptr, B, T_len, C, R, d,
                                   stream);
 }
 
-extern "C" int wavenet_out(int dtype, const void* g, const void* w_out,
+extern "C" int wavenet_out(int dtype, const void* g, const void* w_out, const void* w_split,
                            const void* b_out, const void* x_in,
                            const void* skip_in, void* x_out, void* skip_out,
                            int B, int T_len, int R, void* stream) {
   if (dtype == 0)
-    return launch<float, 1>(g, nullptr, w_out, b_out, nullptr, x_in, skip_in,
-                            x_out, skip_out, B, T_len, R, R, 0, stream);
+    return k1f::launch<1, false>((const float*)g, nullptr, (const float*)w_out,
+                                 (const float*)w_split, nullptr, (const float*)b_out, nullptr,
+                                 (const float*)x_in, (const float*)skip_in, (float*)x_out,
+                                 (float*)skip_out, B, T_len, R, R, 0, stream);
   return launch<__nv_bfloat16, 1>(g, nullptr, w_out, b_out, nullptr, x_in,
                                   skip_in, x_out, skip_out, B, T_len, R, R, 0,
                                   stream);
@@ -762,12 +1083,20 @@ extern "C" int wavenet_out(int dtype, const void* g, const void* w_out,
 
 // K1's training forward (float32): wavenet_gate that also writes the
 // pre-activation z [B, T, 2R] (bias and conditioner added), which the
-// backward reads.
+// backward reads; the same plan as serving's for the same shapes.
 extern "C" int wavenet_gate_train(const void* x, const void* step, const void* w_conv,
-                                  const void* b_conv, const void* cond, void* g, void* z,
-                                  int B, int T_len, int R, int d, void* stream) {
-  return launch<float, 0, true>(x, step, w_conv, b_conv, cond, nullptr, nullptr, g, z, B,
-                                T_len, R, R, d, stream);
+                                  const void* w_split, void* taps, const void* b_conv,
+                                  const void* cond, void* g, void* z, int B, int T_len, int R,
+                                  int d, void* stream) {
+  return k1f::launch<0, true>((const float*)x, (const float*)step, (const float*)w_conv,
+                              (const float*)w_split, (float*)taps, (const float*)b_conv,
+                              (const float*)cond, nullptr, nullptr, (float*)g, (float*)z, B,
+                              T_len, R, R, d, stream);
+}
+
+// The plan the rule picks for B T rows (wavenet_gate's and wavenet_out's).
+extern "C" int wavenet_forward_plan(int B, int T_len, int R) {
+  return k1f::plan_for(B * T_len, R);
 }
 
 // The rows of the input backward's tiles: ``part`` of

@@ -181,9 +181,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # csrc/<file>.cu -> {C entry: argtypes}; every entry returns an int
 SIGNATURES = {
     "wavenet_block": {
-        "wavenet_gate": [_I] + [_P] * 6 + [_I] * 5 + [_P],
-        "wavenet_out": [_I] + [_P] * 7 + [_I] * 3 + [_P],
-        "wavenet_gate_train": [_P] * 7 + [_I] * 4 + [_P],
+        "wavenet_gate": [_I] + [_P] * 8 + [_I] * 5 + [_P],
+        "wavenet_out": [_I] + [_P] * 8 + [_I] * 3 + [_P],
+        "wavenet_gate_train": [_P] * 9 + [_I] * 4 + [_P],
+        "wavenet_forward_plan": [_I] * 3,
         "wavenet_backward_rows": [_I] * 3,
         "wavenet_gate_backward": [_P] * 5 + [_I] * 3 + [_P],
         "wavenet_input_backward": [_P] * 5 + [_I] * 4 + [_P],

@@ -5,7 +5,11 @@ residual block (``csrc/wavenet_block.cu``), two kernels per block:
 ``residual_gate`` (the dilated k=3 product with bias, conditioner and gate)
 and ``residual_out`` (the output product with the residual update and the
 skip sum). ``residual_gate_reference`` and ``residual_out_reference`` are
-their plain PyTorch versions, which the wrappers take for CPU tensors.
+their plain PyTorch versions, which the wrappers take for CPU tensors. In
+float32 both run on the tensor cores through 3xTF32 ``wgmma``; their
+weights are split once into TF32 big and small halves in the kernels'
+layout (``tf32_split``), which ``prepare`` does once a sampling call or a
+training forward, and a direct call without them does itself.
 
 Training goes through ``ResidualBlockFunction`` whenever grad is enabled:
 its forward is ``residual_gate_train`` (K1's gate in its training mode,
@@ -20,8 +24,8 @@ Serving (grad disabled) keeps ``residual_block``.
 The per-block conditioner projections ``[B, T, 2R]`` are constant across
 the reverse-diffusion steps, so ``prepare`` computes them once per sampling
 call (the JAX ``project_conditioner`` hoist), together with the blocks'
-weights packed in the layout the kernel reads; one list entry a block, so
-that training takes the same path.
+weights packed in the layout the kernel reads and their split; one list
+entry a block, so that training takes the same path.
 """
 
 from __future__ import annotations
@@ -38,6 +42,23 @@ from ..registry import DENOISERS
 from .common import ConvNorm, LinearNorm, diffusion_embedding, mish, shift_time
 
 _RSQRT2 = 1.0 / math.sqrt(2.0)
+
+
+def _round_tf32(x):
+    """x to TF32 (10 mantissa bits), to nearest with ties away from zero, as
+    float32: ``tf32x3::round_tf32``'s two integer operations."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(w):
+    """The forward kernels' weights (``csrc/wavenet_block.cu``, ``k1f``):
+    w [K, N] float32 -> [2, N, K], w's transpose (K-major) as big = rna(w)
+    and small = rna(w - big) (``tf32x3::split``). No gradient flows
+    through it."""
+    t = w.detach().t()
+    big = _round_tf32(t)
+    return torch.stack([big, _round_tf32(t - big)])
 
 
 def gate_preactivation_reference(x, step, cond, w_conv, b_conv, dilation: int):
@@ -59,30 +80,33 @@ def _gate(z):
     return torch.sigmoid(gate) * torch.tanh(filt)
 
 
-def residual_gate_reference(x, step, cond, w_conv, b_conv, dilation: int):
+def residual_gate_reference(x, step, cond, w_conv, b_conv, dilation: int, w_split=None):
     """Plain version of K1's first kernel. x [B, T, R]; step [B, R]; cond
     [B, T, 2R]; w_conv [3R, 2R] (taps x[t-d], x[t], x[t+d] stacked on the
-    input axis); b_conv [2R] -> g [B, T, R]."""
+    input axis); b_conv [2R] -> g [B, T, R]. ``w_split``, which the kernel
+    reads, is not used."""
     return _gate(gate_preactivation_reference(x, step, cond, w_conv, b_conv, dilation))
 
 
-def residual_gate_train_reference(x, step, cond, w_conv, b_conv, dilation: int):
+def residual_gate_train_reference(x, step, cond, w_conv, b_conv, dilation: int,
+                                  w_split=None):
     """Plain version of K1's gate in its training mode -> (g, z)."""
     z = gate_preactivation_reference(x, step, cond, w_conv, b_conv, dilation)
     return _gate(z), z
 
 
-def residual_out_reference(g, x, skip, w_out, b_out):
+def residual_out_reference(g, x, skip, w_out, b_out, w_split=None):
     """Plain version of K1's second kernel. g, x, skip [B, T, R]; w_out
-    [R, 2R]; b_out [2R] -> (x', skip')."""
+    [R, 2R]; b_out [2R] -> (x', skip') (``w_split`` not used)."""
     out = g @ w_out + b_out
     res, skip_add = out.chunk(2, dim=-1)
     return (x + res) * _RSQRT2, skip + skip_add
 
 
 def residual_block_reference(x, skip, step, cond, w_conv, b_conv, w_out, b_out,
-                             dilation: int):
-    """Plain version of K1: one residual block -> (x', skip')."""
+                             dilation: int, conv_split=None, out_split=None):
+    """Plain version of K1: one residual block -> (x', skip') (the split
+    weights not used)."""
     g = residual_gate_reference(x, step, cond, w_conv, b_conv, dilation)
     return residual_out_reference(g, x, skip, w_out, b_out)
 
@@ -97,9 +121,35 @@ def _check_shapes(name, shapes: dict, R: int, *tensors):
         raise ValueError(f"{name}: tensors must be 16-byte aligned")
 
 
-def residual_gate(x, step, cond, w_conv, b_conv, dilation: int):
+def _split_for(name, w, w_split, R: int, K: int):
+    """The split weights a float32 launch reads: ``w_split`` checked, or
+    ``tf32_split(w)`` made here (a call without ``prepare``'s); None for
+    bfloat16 (its kernel reads w)."""
+    if w.dtype != torch.float32:
+        return None
+    if w_split is None:
+        return tf32_split(w)
+    kernels.require_cuda(name, w, w_split)
+    _check_shapes(name, {"w_split": (w_split, (2, 2 * R, K))}, R, w_split)
+    return w_split
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _taps_scratch(w_split, B: int, R: int):
+    """The float32 gate's scratch for step[b] W_tap, [B, 3, 2R] (None for
+    bfloat16)."""
+    if w_split is None:
+        return None
+    return torch.empty((B, 3, 2 * R), dtype=torch.float32, device=w_split.device)
+
+
+def residual_gate(x, step, cond, w_conv, b_conv, dilation: int, w_split=None):
     """K1, first kernel: the dilated k=3 product with bias, conditioner and
-    gate. CPU tensors take ``residual_gate_reference``."""
+    gate; ``w_split = tf32_split(w_conv)``, made here if not given. CPU
+    tensors take ``residual_gate_reference``."""
     if not x.is_cuda:
         return residual_gate_reference(x, step, cond, w_conv, b_conv, dilation)
     kernels.require_cuda("residual_gate", x, step, cond, w_conv, b_conv)
@@ -108,11 +158,13 @@ def residual_gate(x, step, cond, w_conv, b_conv, dilation: int):
         "step": (step, (B, R)), "cond": (cond, (B, T, 2 * R)),
         "w_conv": (w_conv, (3 * R, 2 * R)), "b_conv": (b_conv, (2 * R,)),
     }, R, x, step, cond, w_conv, b_conv)
+    w_split = _split_for("residual_gate", w_conv, w_split, R, 3 * R)
     g = torch.empty_like(x)
+    taps = _taps_scratch(w_split, B, R)
     kernels.check(
         kernels.load_library("wavenet_block").wavenet_gate(
             kernels.dtype_code(x), x.data_ptr(), step.data_ptr(),
-            w_conv.data_ptr(), b_conv.data_ptr(), cond.data_ptr(),
+            w_conv.data_ptr(), _ptr(w_split), _ptr(taps), b_conv.data_ptr(), cond.data_ptr(),
             g.data_ptr(), B, T, R, R, int(dilation), kernels.stream(),
         ),
         "wavenet_gate",
@@ -121,9 +173,10 @@ def residual_gate(x, step, cond, w_conv, b_conv, dilation: int):
     return g
 
 
-def residual_out(g, x, skip, w_out, b_out):
+def residual_out(g, x, skip, w_out, b_out, w_split=None):
     """K1, second kernel: the output product with the residual update and
-    the skip sum. CPU tensors take ``residual_out_reference``."""
+    the skip sum; ``w_split = tf32_split(w_out)``, made here if not given.
+    CPU tensors take ``residual_out_reference``."""
     if not g.is_cuda:
         return residual_out_reference(g, x, skip, w_out, b_out)
     kernels.require_cuda("residual_out", g, x, skip, w_out, b_out)
@@ -132,10 +185,11 @@ def residual_out(g, x, skip, w_out, b_out):
         "g": (g, (B, T, R)), "skip": (skip, (B, T, R)),
         "w_out": (w_out, (R, 2 * R)), "b_out": (b_out, (2 * R,)),
     }, R, g, x, skip, w_out, b_out)
+    w_split = _split_for("residual_out", w_out, w_split, R, R)
     x_out, skip_out = torch.empty_like(x), torch.empty_like(skip)
     kernels.check(
         kernels.load_library("wavenet_block").wavenet_out(
-            kernels.dtype_code(x), g.data_ptr(), w_out.data_ptr(),
+            kernels.dtype_code(x), g.data_ptr(), w_out.data_ptr(), _ptr(w_split),
             b_out.data_ptr(), x.data_ptr(), skip.data_ptr(), x_out.data_ptr(),
             skip_out.data_ptr(), B, T, R, kernels.stream(),
         ),
@@ -146,15 +200,16 @@ def residual_out(g, x, skip, w_out, b_out):
 
 
 def residual_block(x, skip, step, cond, w_conv, b_conv, w_out, b_out,
-                   dilation: int):
+                   dilation: int, conv_split=None, out_split=None):
     """K1: one residual block -> (x', skip')."""
-    g = residual_gate(x, step, cond, w_conv, b_conv, dilation)
-    return residual_out(g, x, skip, w_out, b_out)
+    g = residual_gate(x, step, cond, w_conv, b_conv, dilation, conv_split)
+    return residual_out(g, x, skip, w_out, b_out, out_split)
 
 
-def residual_gate_train(x, step, cond, w_conv, b_conv, dilation: int):
+def residual_gate_train(x, step, cond, w_conv, b_conv, dilation: int, w_split=None):
     """K1's gate in its training mode (float32): ``residual_gate`` that also
-    returns the pre-activation z [B, T, 2R] -> (g, z). CPU tensors take
+    returns the pre-activation z [B, T, 2R] -> (g, z), on the same plan
+    for the same shapes. CPU tensors take
     ``residual_gate_train_reference``."""
     if not x.is_cuda:
         return residual_gate_train_reference(x, step, cond, w_conv, b_conv, dilation)
@@ -165,13 +220,15 @@ def residual_gate_train(x, step, cond, w_conv, b_conv, dilation: int):
         "step": (step, (B, R)), "cond": (cond, (B, T, 2 * R)),
         "w_conv": (w_conv, (3 * R, 2 * R)), "b_conv": (b_conv, (2 * R,)),
     }, R, x, step, cond, w_conv, b_conv)
+    w_split = _split_for("residual_gate_train", w_conv, w_split, R, 3 * R)
     g = torch.empty_like(x)
     z = torch.empty_like(cond)
+    taps = _taps_scratch(w_split, B, R)
     kernels.check(
         kernels.load_library("wavenet_block").wavenet_gate_train(
-            x.data_ptr(), step.data_ptr(), w_conv.data_ptr(), b_conv.data_ptr(),
-            cond.data_ptr(), g.data_ptr(), z.data_ptr(), B, T, R, int(dilation),
-            kernels.stream(),
+            x.data_ptr(), step.data_ptr(), w_conv.data_ptr(), w_split.data_ptr(),
+            taps.data_ptr(), b_conv.data_ptr(), cond.data_ptr(), g.data_ptr(), z.data_ptr(),
+            B, T, R, int(dilation), kernels.stream(),
         ),
         "wavenet_gate_train",
     )
@@ -321,14 +378,17 @@ def residual_block_backward(x, step, z, g, dx_out, dskip_out, w_conv, w_out,
 
 class ResidualBlockFunction(torch.autograd.Function):
     """K1 with a gradient: (x, skip, step, cond, w_conv, b_conv, w_out,
-    b_out, dilation) -> (x', skip'). The forward saves x, step, z and g
-    (~4 activations of [B, T, R] a block); the backward is
-    ``residual_block_backward``."""
+    b_out, dilation, conv_split, out_split) -> (x', skip'). The kernels
+    read the split weights (``tf32_split``: made here when None), which take
+    no gradient; the weight gradients go to w_conv and w_out. The forward
+    saves x, step, z and g (~4 activations of [B, T, R] a block); the
+    backward is ``residual_block_backward``."""
 
     @staticmethod
-    def forward(ctx, x, skip, step, cond, w_conv, b_conv, w_out, b_out, dilation):
-        g, z = residual_gate_train(x, step, cond, w_conv, b_conv, dilation)
-        x_out, skip_out = residual_out(g, x, skip, w_out, b_out)
+    def forward(ctx, x, skip, step, cond, w_conv, b_conv, w_out, b_out, dilation,
+                conv_split=None, out_split=None):
+        g, z = residual_gate_train(x, step, cond, w_conv, b_conv, dilation, conv_split)
+        x_out, skip_out = residual_out(g, x, skip, w_out, b_out, out_split)
         ctx.save_for_backward(x, step, z, g, w_conv, w_out)
         ctx.dilation = dilation
         return x_out, skip_out
@@ -338,14 +398,14 @@ class ResidualBlockFunction(torch.autograd.Function):
         x, step, z, g, w_conv, w_out = ctx.saved_tensors
         grads = residual_block_backward(x, step, z, g, dx_out, dskip_out, w_conv,
                                         w_out, ctx.dilation)
-        return (*grads, None)
+        return (*grads, None, None, None)
 
 
 def residual_block_train(x, skip, step, cond, w_conv, b_conv, w_out, b_out,
-                         dilation: int):
+                         dilation: int, conv_split=None, out_split=None):
     """K1 with its backward: one residual block -> (x', skip')."""
     return ResidualBlockFunction.apply(x, skip, step, cond, w_conv, b_conv, w_out,
-                                       b_out, dilation)
+                                       b_out, dilation, conv_split, out_split)
 
 
 class Mish(nn.Module):
@@ -422,20 +482,29 @@ class WaveNet(nn.Module):
         """Per-sampling-call constants, one entry a block: ``cond``, the
         block's conditioner projection ``[B, T, 2R]``, and its weights packed
         in the layout the kernel reads (``w_conv [3R, 2R]``, ``b_conv``,
-        ``w_out [R, 2R]``, ``b_out``). Lists, not stacks, so that under grad
-        each block's gradient is its own."""
+        ``w_out [R, 2R]``, ``b_out``) with the float32 kernels' split of them
+        (``conv_split``, ``out_split``: ``tf32_split``, ~16 MB a block at R =
+        512; None for other dtypes), made from the live parameters on every
+        call, so that the forward after an optimizer step reads the new
+        weights. Lists, not stacks, so that under grad each block's gradient
+        is its own."""
         c = self._conditioner(conditioner, cond_masks)
         r = self.residual_channels
         layers = self.residual_layers
+        w_conv = [layer.conv_layer.conv.weight.permute(2, 1, 0).reshape(3 * r, 2 * r)
+                  .contiguous() for layer in layers]
+        w_out = [layer.output_projection.conv.weight[:, :, 0].t().contiguous()
+                 for layer in layers]
+        split = [tf32_split(w) if w.dtype == torch.float32 else None for w in w_conv + w_out]
         return {
             "cond": [F.linear(c, layer.conditioner_projection.conv.weight[:, :, 0],
                               layer.conditioner_projection.conv.bias) for layer in layers],
-            "w_conv": [layer.conv_layer.conv.weight.permute(2, 1, 0).reshape(3 * r, 2 * r)
-                       .contiguous() for layer in layers],
+            "w_conv": w_conv,
             "b_conv": [layer.conv_layer.conv.bias for layer in layers],
-            "w_out": [layer.output_projection.conv.weight[:, :, 0].t().contiguous()
-                      for layer in layers],
+            "w_out": w_out,
             "b_out": [layer.output_projection.conv.bias for layer in layers],
+            "conv_split": split[: len(layers)],
+            "out_split": split[len(layers):],
         }
 
     def forward(
@@ -457,12 +526,12 @@ class WaveNet(nn.Module):
 
         skip = torch.zeros_like(x)
         block = residual_block_train if torch.is_grad_enabled() else residual_block
-        for layer, cond, w_conv, b_conv, w_out, b_out in zip(
+        for layer, cond, w_conv, b_conv, w_out, b_out, conv_split, out_split in zip(
             self.residual_layers, plan["cond"], plan["w_conv"], plan["b_conv"], plan["w_out"],
-            plan["b_out"],
+            plan["b_out"], plan["conv_split"], plan["out_split"],
         ):
             x, skip = block(x, skip, layer.diffusion_projection(step), cond, w_conv, b_conv,
-                            w_out, b_out, layer.dilation)
+                            w_out, b_out, layer.dilation, conv_split, out_split)
 
         x = skip * (1.0 / math.sqrt(len(self.residual_layers)))
         x = F.relu(self.skip_projection(x))

@@ -170,15 +170,26 @@ def rn(gen, *shape, scale=1.0):
     return torch.randn(shape, generator=gen) * scale
 
 
+def _split_ptrs(dtype, *ws):
+    """The float32 kernels' split weights (kept alive by the caller) and their
+    pointers; None for bfloat16, whose kernel reads the weights."""
+    if dtype != torch.float32:
+        return [None] * len(ws), [None] * len(ws)
+    splits = [wavenet.tf32_split(w) for w in ws]
+    return splits, [t.data_ptr() for t in splits]
+
+
 @pytest.mark.parametrize(
     "B,T,R,d,dtype",
-    # with 8 SMs the rows M = B*T and R pick the tile: 64x32 (M=300,
-    # R=64), 128x64 (M=300, R=256), 32x32 (M=51)
+    # with 8 SMs the rule from M = B*T and R picks the float32 plan: 64 x
+    # 64 tiles (M=300 or 51 at R=64), 128 x 128 over two warpgroups (M=600
+    # at R=64, M=300 at R=256); bfloat16 takes the SIMT tile
     [
         (2, 150, 64, 1, torch.float32),
         (2, 150, 64, 1, torch.bfloat16),
         (1, 300, 256, 8, torch.float32),
         (3, 17, 64, 4, torch.float32),
+        (2, 300, 64, 2, torch.float32),
     ],
 )
 def test_wavenet_block_source(host_libs, B, T, R, d, dtype):
@@ -191,11 +202,13 @@ def test_wavenet_block_source(host_libs, B, T, R, d, dtype):
     x, skip, step, cond, w_conv, b_conv, w_out, b_out = (t.to(dtype) for t in a)
     code = kernels.dtype_code(x)
     lib = host_libs["wavenet_block"]
+    _, (cs, os_) = _split_ptrs(dtype, w_conv, w_out)
+    taps = torch.empty(B, 3, 2 * R)
     g, x_out, skip_out = (torch.empty_like(x) for _ in range(3))
-    assert lib.wavenet_gate(code, x.data_ptr(), step.data_ptr(), w_conv.data_ptr(),
-                            b_conv.data_ptr(), cond.data_ptr(), g.data_ptr(),
+    assert lib.wavenet_gate(code, x.data_ptr(), step.data_ptr(), w_conv.data_ptr(), cs,
+                            taps.data_ptr(), b_conv.data_ptr(), cond.data_ptr(), g.data_ptr(),
                             B, T, R, R, d, None) == 0
-    assert lib.wavenet_out(code, g.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+    assert lib.wavenet_out(code, g.data_ptr(), w_out.data_ptr(), os_, b_out.data_ptr(),
                            x.data_ptr(), skip.data_ptr(), x_out.data_ptr(),
                            skip_out.data_ptr(), B, T, R, None) == 0
     ref_x, ref_skip = wavenet.residual_block_reference(
@@ -239,10 +252,11 @@ def test_wavenet_training_source(host_libs, B, T, R, d):
     a = _k1_training(gen, B, T, R)
     lib = host_libs["wavenet_block"]
     g, z = torch.empty(B, T, R), torch.empty(B, T, 2 * R)
+    w_split, taps = wavenet.tf32_split(a["w_conv"]), torch.empty(B, 3, 2 * R)
     assert lib.wavenet_gate_train(a["x"].data_ptr(), a["step"].data_ptr(),
-                                  a["w_conv"].data_ptr(), a["b_conv"].data_ptr(),
-                                  a["cond"].data_ptr(), g.data_ptr(), z.data_ptr(),
-                                  B, T, R, d, None) == 0
+                                  a["w_conv"].data_ptr(), w_split.data_ptr(), taps.data_ptr(),
+                                  a["b_conv"].data_ptr(), a["cond"].data_ptr(), g.data_ptr(),
+                                  z.data_ptr(), B, T, R, d, None) == 0
     ref_g, ref_z = wavenet.residual_gate_train_reference(
         a["x"], a["step"], a["cond"], a["w_conv"], a["b_conv"], d)
     dz = torch.empty(B, T, 2 * R)
@@ -262,6 +276,88 @@ def test_wavenet_training_source(host_libs, B, T, R, d):
                            ("dx", dx, ref_dx), ("ds", part.sum(1), ref_ds)):
         err = (got - ref).abs().max().item()
         assert err <= 1e-4 * ref.abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize(
+    "B,T,R,d,plan",
+    # each plan the rule picks from M with the shim's 8 SMs (1 = 64 x 64
+    # tiles, 2 = 128 x 128 over two warpgroups), each at: a ragged M whose
+    # tiles cross items, T < d and T < the tile (the halo all zeros), R =
+    # 128 (several tiles of columns, pairs j0 > 0)
+    [(3, 37, 64, 1, 1), (3, 137, 64, 1, 2), (1, 7, 64, 4, 1), (2, 5, 64, 8, 1),
+     (40, 5, 128, 8, 2), (1, 70, 128, 4, 1), (1, 200, 128, 4, 2)],
+)
+def test_wavenet_forward_plans_source(host_libs, B, T, R, d, plan):
+    """K1's forward in each plan the rule picks from M (``k1f::plan_for``):
+    the gate (serving), its training instance (g and z) and the output
+    product (x', skip', the residual and skip columns paired in a thread)
+    against their plain versions, <= 1e-5 of each output's scale; serving's
+    g and the training instance's equal bit for bit, and a rerun too."""
+    gen = torch.Generator().manual_seed(B * T + R + d + plan)
+    a = _k1_training(gen, B, T, R)
+    skip, b_out = rn(gen, B, T, R), rn(gen, 2 * R, scale=0.1)
+    lib = host_libs["wavenet_block"]
+    assert lib.wavenet_forward_plan(B, T, R) == plan
+    cs, os_ = wavenet.tf32_split(a["w_conv"]), wavenet.tf32_split(a["w_out"])
+    taps = torch.full((B, 3, 2 * R), float("nan"))
+    gate = (a["x"].data_ptr(), a["step"].data_ptr(), a["w_conv"].data_ptr(), cs.data_ptr(),
+            taps.data_ptr(), a["b_conv"].data_ptr(), a["cond"].data_ptr())
+    g, z, g_serve, g_again = (torch.full((B, T, c * R), float("nan")) for c in (1, 2, 1, 1))
+    assert lib.wavenet_gate_train(*gate, g.data_ptr(), z.data_ptr(), B, T, R, d, None) == 0
+    for out in (g_serve, g_again):
+        assert lib.wavenet_gate(0, *gate, out.data_ptr(), B, T, R, R, d, None) == 0
+    ref_g, ref_z = wavenet.residual_gate_train_reference(
+        a["x"], a["step"], a["cond"], a["w_conv"], a["b_conv"], d)
+    x_out, skip_out = torch.full((B, T, R), float("nan")), torch.full((B, T, R), float("nan"))
+    assert lib.wavenet_out(0, ref_g.data_ptr(), a["w_out"].data_ptr(), os_.data_ptr(),
+                           b_out.data_ptr(), a["x"].data_ptr(), skip.data_ptr(),
+                           x_out.data_ptr(), skip_out.data_ptr(), B, T, R, None) == 0
+    ref_x, ref_skip = wavenet.residual_out_reference(ref_g, a["x"], skip, a["w_out"], b_out)
+    for name, got, ref in (("g", g, ref_g), ("z", z, ref_z), ("x'", x_out, ref_x),
+                           ("skip'", skip_out, ref_skip)):
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), (name, err)
+    assert torch.equal(g, g_serve) and torch.equal(g, g_again)
+
+
+def test_wavenet_forward_plan_rule_source(host_libs):
+    """The rule from M (the shim's 8 SMs): 128 x 128 tiles where their grid
+    has a block for at least every second SM, else 64 x 64; a float32
+    launch without split weights, or without the gate's scratch, is
+    refused."""
+    lib = host_libs["wavenet_block"]
+    assert [lib.wavenet_forward_plan(B, T, R) for B, T, R in
+            [(1, 384, 64), (1, 385, 64), (1, 300, 256), (4, 1024, 512), (1, 7, 64)]] == [
+        1, 2, 2, 2, 1]
+    x = torch.zeros(1, 8, 64)
+    assert lib.wavenet_gate(0, x.data_ptr(), None, None, None, None, None, None, x.data_ptr(),
+                            1, 8, 64, 64, 1, None) != 0
+    assert lib.wavenet_gate(0, x.data_ptr(), None, None, x.data_ptr(), None, None, None,
+                            x.data_ptr(), 1, 8, 64, 64, 1, None) != 0
+    assert lib.wavenet_out(0, x.data_ptr(), None, None, None, None, None, None, None,
+                           1, 8, 64, None) != 0
+
+
+def test_wavenet_weight_split_matches_numpy():
+    """``tf32_split`` (the forward kernels' weights): w's transpose (K-major),
+    big = w to TF32 (10 mantissa bits, to nearest, ties away from zero) and
+    small = the same of w - big, bit for bit against numpy's ``tf32_rna``,
+    ties included."""
+    rng = np.random.default_rng(15)
+    K, N = 96, 128
+    w = (rng.standard_normal((K, N)) * 10.0 ** rng.uniform(-6, 6, (K, N))).astype(np.float32)
+    ties = (rng.integers(0x30000000, 0x4c000000, 64, dtype=np.uint32) & 0xffffe000) | 0x1000
+    w.reshape(-1)[:64] = (ties | rng.integers(0, 2, 64, dtype=np.uint32) << 31).view(np.float32)
+    got = wavenet.tf32_split(torch.from_numpy(w)).numpy()
+    assert got.shape == (2, N, K)
+    big, small = got
+    want_big = tf32_rna(w.T)
+    np.testing.assert_array_equal(big, want_big)
+    tail = (w.T.astype(np.float64) - want_big).astype(np.float32)
+    live = tail != 0
+    np.testing.assert_array_equal(small[live], tf32_rna(tail[live]))
+    assert not small[~live].any()
+    assert np.all(np.abs(big.T.reshape(-1)[:64]) > np.abs(w.reshape(-1)[:64]))  # away from 0
 
 
 @pytest.mark.parametrize("T,R,d", [(40, 64, 1), (40, 64, 8), (12, 32, 8)])

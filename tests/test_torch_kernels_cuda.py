@@ -92,6 +92,47 @@ def test_residual_block_training_kernels(gen, B, T, R, d):
     assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
 
 
+@pytest.mark.parametrize("B,T", [(4, 1024), (1, 256), (3, 333), (20, 512), (1, 1536)])
+@pytest.mark.parametrize("d", [1, 8, 400])
+def test_k1_forward_on_the_tensor_cores(gen, B, T, d):
+    """K1's forward on the 3xTF32 wgmma core at R = 512, in each plan the
+    rule picks from B T (64 x 64 tiles at 256, 333 x 3; 128 x 128 at 1536,
+    4 x 1024, 20 x 512 on an H100): ``wavenet_gate`` and ``wavenet_out``
+    within 1e-3 of their plain versions (``chip_smoke.py``'s kernel phase),
+    ``wavenet_gate_train`` within 1e-4 of each output's scale, the training
+    instance's g equal to serving's, each a second launch bit-equal, with
+    ``prepare``'s split weights and without (the wrapper splits them)
+    alike; one launch a call (T = 333: ragged tiles that cross items; d =
+    400 >= T there)."""
+    R = 512
+    assert kernels.load_library("wavenet_block").wavenet_forward_plan(B, T, R) == (
+        2 if B * T > 1024 else 1)
+    a = k1_training_inputs(gen, B, T, R)
+    cs, os_ = wavenet.tf32_split(a["w_conv"]), wavenet.tf32_split(a["w_out"])
+    gate = (a["x"], a["step"], a["cond"], a["w_conv"], a["b_conv"], d)
+    before = {k: kernels.LAUNCHES[k] for k in ("wavenet_gate", "wavenet_gate_train",
+                                                "wavenet_out")}
+    g = wavenet.residual_gate(*gate, cs)
+    ref_g, ref_z = wavenet.residual_gate_train_reference(*gate)
+    torch.testing.assert_close(g, ref_g, atol=1e-3, rtol=0)
+    assert torch.equal(g, wavenet.residual_gate(*gate, cs))
+    assert torch.equal(g, wavenet.residual_gate(*gate))
+    g_t, z = wavenet.residual_gate_train(*gate, cs)
+    assert_scaled(g_t, ref_g)
+    assert_scaled(z, ref_z)
+    assert torch.equal(g_t, g)
+    again = wavenet.residual_gate_train(*gate, cs)
+    assert torch.equal(again[0], g_t) and torch.equal(again[1], z)
+    out = (ref_g, a["x"], a["skip"], a["w_out"], a["b_out"])
+    got = wavenet.residual_out(*out, os_)
+    for o, r in zip(got, wavenet.residual_out_reference(*out)):
+        torch.testing.assert_close(o, r, atol=1e-3, rtol=0)
+        assert_scaled(o, r)
+    assert all(torch.equal(o, r) for o, r in zip(got, wavenet.residual_out(*out)))
+    assert {k: kernels.LAUNCHES[k] - v for k, v in before.items()} == {
+        "wavenet_gate": 3, "wavenet_gate_train": 2, "wavenet_out": 2}
+
+
 @pytest.mark.parametrize("d", [1, 8])
 def test_residual_block_function_on_the_card(gen, d):
     """``ResidualBlockFunction`` through the kernels against torch autograd

@@ -182,3 +182,34 @@ def test_denoiser_takes_the_autograd_block_with_grad():
             served = net(x, t, c)
     assert calls == ["residual_block_train"] * 2 + ["residual_block"] * 2
     assert torch.allclose(trained, served, atol=1e-6)
+
+
+def test_prepare_splits_the_live_weights_after_an_optimizer_step():
+    """``prepare`` splits each block's packed weights for the float32
+    kernels (``tf32_split``) from the live parameters on every call, with no
+    gradient through the split: after an optimizer step the next plan
+    carries the new weights' split, and the forward under grad still gives
+    the packed weights' parameters their gradients."""
+    torch.manual_seed(15)
+    net = wavenet.WaveNet(mel_channels=16, d_encoder=8, residual_channels=64,
+                          residual_layers=2, use_linear_bias=True, dilation_cycle=2)
+    x, t, c = torch.randn(2, 12, 16), torch.tensor([3.0, 40.0]), torch.randn(2, 12, 8)
+    opt = torch.optim.SGD(net.parameters(), lr=0.5)
+    before = net.prepare(c)
+    for w, split in zip(before["w_conv"] + before["w_out"],
+                        before["conv_split"] + before["out_split"]):
+        assert torch.equal(split, wavenet.tf32_split(w))
+        assert not split.requires_grad and split.grad_fn is None
+    net(x, t, c).square().mean().backward()
+    layer = net.residual_layers[0]
+    assert layer.conv_layer.conv.weight.grad.abs().sum() > 0
+    assert layer.output_projection.conv.weight.grad.abs().sum() > 0
+    opt.step()
+    after = net.prepare(c)
+    for i, layer in enumerate(net.residual_layers):
+        w_conv = layer.conv_layer.conv.weight.detach().permute(2, 1, 0).reshape(128 * 3 // 2, 128)
+        assert torch.equal(after["conv_split"][i], wavenet.tf32_split(w_conv))
+        assert not torch.equal(after["conv_split"][i], before["conv_split"][i])
+        w_out = layer.output_projection.conv.weight.detach()[:, :, 0].t()
+        assert torch.equal(after["out_split"][i], wavenet.tf32_split(w_out))
+        assert not torch.equal(after["out_split"][i], before["out_split"][i])
