@@ -10,8 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build:   compile the CUDA sources in ``fish_diffusion_tpu_torch/csrc``,
             one ``nvcc`` each, all started together; print each kernel's
             registers and spills, and the TF32 tensor-core products in the
-            SASS of K1's 3xTF32 kernels (mma.sync in the backward, wgmma in
-            the forward; none fails).
+            SASS of K1's 3xTF32 kernels (mma.sync in the input backward and
+            the weight gradients, wgmma in the forward and the gate
+            backward; none fails).
 3. kernels: every hand-written kernel against its plain PyTorch version at
             B=4 x 1024 frames, with median CUDA-event times of both (K2's and
             K3's Triton kernels by device time, ``device_ms``, with the
@@ -22,8 +23,10 @@ Phases, in order; any failure raises and the script exits non-zero:
             computes the same function, that call's time; K1's forward
             (gate and output product, 3xTF32 wgmma with prepare's split
             weights) beside the products alone by cuDNN / cuBLAS, its error
-            against float64 no larger than the plain float32 version's, the
-            split timed on its own, and the L2 traffic of its tiles; K5 (an FFT) at n_fft 2048 and at the key shifts'
+            against float64 no larger than the plain float32 version's, and
+            the L2 traffic of its tiles; K1's split kernel on a sampling
+            call's 40 weights (one launch) bit-equal to ``tf32_split``,
+            timed beside its byte bound; K5 (an FFT) at n_fft 2048 and at the key shifts'
             2299 and 1933 (Bluestein), and at B=1 over a segment, and
             past shared memory (the four-step split path: n_fft 6000 in
             float64, forward and backward, n_fft 16384 in float32); K4 at
@@ -88,17 +91,22 @@ Phases, in order; any failure raises and the script exits non-zero:
             (1 + d)), the median of six paired comparisons, the plain step
             of each pair on the kernel step's side of every ReLU and the two
             forwards within 1e-4 of scale at the ReLUs' inputs; the state's
-            digest, the training order drawn from the seed); K1's training
-            kernels at the step's inputs for each dilation against their
-            plain versions (1e-4 of scale, bit-equal on rerun, timed beside
-            their bound; the training gate, serving's bits, beside
-            ``F.conv1d``, and the output product at the step's
-            shapes; the input backward and the weight gradients, 3xTF32
-            on the tensor cores, beside both bounds and cuDNN's
-            ``conv1d_input`` / ``conv1d_weight``, and the weight gradients
-            beside ``conv1d_wgrad`` on the same shapes, the route they
-            replace; one block's forward and backward against torch
-            autograd of the plain block).
+            digest, the training order drawn from the seed by the loader);
+            K1's training kernels at the step's inputs for each dilation
+            against their plain versions (1e-4 of scale, bit-equal on rerun,
+            timed beside their bound; the training gate, serving's bits,
+            beside ``F.conv1d``, and the output product at the step's
+            shapes; the gate backward, 3xTF32 wgmma, beside both bounds and
+            ``torch.mm``, its error against float64 no larger than the
+            plain float32 version's, in the plan its rule picks;
+            the input backward and the weight gradients, 3xTF32 on the
+            tensor cores, beside both bounds and cuDNN's ``conv1d_input`` /
+            ``conv1d_weight``, and the weight gradients beside
+            ``conv1d_wgrad`` on the same shapes, the route they replace;
+            one block's forward and backward against torch autograd of the
+            plain block; the split kernel on the step's 40 weights, W_out
+            in both layouts from one read, bit-equal to ``tf32_split``,
+            beside the step's median).
    convnext_train: (after diffusion_train) the same on
             ``configs/denoiser_cn_hubert.py`` (ConvNext 20 x 512 x 4, its
             dataset set to ``NaiveSVCDataset``: the config's
@@ -119,15 +127,22 @@ Phases, in order; any failure raises and the script exits non-zero:
             16 x 32768, float32) over a synthetic dataset: 2 warm-up and 6
             timed steps (seconds, audio seconds per second, stage split,
             peak memory, losses, exact launches per step), validation and a
-            checkpoint; a resume from it; one step through the kernels
-            against one through every plain version (every loss within
-            1e-4 relative, every gradient within 1e-3 of its max or 3x the
-            plain step's own largest change under five ~1e-6 changes of the
-            audio, whichever is larger: the losses' kinks give float32
-            noise of 1e-4-1e-2 there; and each network's relative L2
-            gradient difference at most ``L2_RATIO_LIMIT`` times the plain
-            step's largest own, with the five tensors that carry most of
-            it printed); K5's forward at every STFT configuration of the
+            checkpoint; a resume from it; the same steps again from the
+            seed with cuDNN's deterministic algorithms, so that the gate's
+            state is a function of the seed (its digest printed); from
+            there one step through the kernels against one
+            through every plain version (every loss within 1e-4 relative;
+            in six pairs at the audio x (1 + d), the plain step on the
+            kernel step's side of every kink, ``pinned_kinks``, and every
+            element the two forwards decide differently within 1e-4 of its
+            input's scale from its kink: the median
+            of the pairs' largest gradient errors within 1e-3 of its max or
+            3x the plain step's own largest change under five ~1e-6 changes
+            of the audio, whichever is larger: the kinks give float32 noise
+            of 1e-4-1e-2 there; and each network's relative L2 gradient
+            difference at most ``L2_RATIO_LIMIT`` times the plain step's
+            largest own, with the five tensors that carry most of it
+            printed); K5's forward at every STFT configuration of the
             step and each kernel of this slice (K5 backward, K6, the weight
             gradient, K4's input gradient, K3 backward) against its plain
             version (K5's backward against the plain version in float64,
@@ -196,7 +211,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import hashlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -607,14 +624,53 @@ def phase_kernels(report: Report, seed: int):
     print(f"  vocoder: kernels {ms_voc:.3f} ms, plain {plain_voc:.3f} ms")
     with torch.inference_mode():
         ws = plan["w_conv"] + plan["w_out"]
-        split_ms = cuda_ms(lambda: [wavenet.tf32_split(w) for w in ws], iters=5)
+        split = measure_weight_split(report, ws, [True] * len(ws), [False] * len(ws),
+                                     "a sampling call's")
+        report.kernel("wavenet_weight_split", split["max_abs_err"], split["ms"],
+                      split["plain_ms"], f"the {len(ws)} weights of a sampling call's prepare "
+                      f"(20 blocks, R=512), one launch", split["bytes"])
         prepare_ms = cuda_ms(lambda: denoiser.prepare(feats), iters=5)
     print(f"  prepare (20 blocks, B=4 T=1024): {prepare_ms:.3f} ms, of which the split of "
-          f"the 40 weights (tf32_split) {split_ms:.3f} ms, once a sampling call")
+          f"the 40 weights {split['ms']:.4f} ms of device time, once a sampling call")
     report.finish("kernels")
     return dict(denoiser_eval_ms=ms_den, denoiser_eval_plain_ms=plain_den,
                 vocoder_ms=ms_voc, vocoder_plain_ms=plain_voc, k1_forward=k1_forward,
-                prepare_ms=prepare_ms, prepare_split_ms=split_ms)
+                prepare_ms=prepare_ms, prepare_split=split)
+
+
+def measure_weight_split(report: Report, ws, transposed, stored, label: str) -> dict:
+    """K1's split kernel (``split_weights``, one launch) on ``ws`` against its
+    plain version (``tf32_split`` of each weight, transposed and / or as
+    stored): bit-equal (``max_abs_err`` 0), a rerun bit-equal, device times
+    of both (``device_ms``), the bound of its bytes (each weight read once,
+    each plane written once)."""
+    import torch
+
+    from fish_diffusion_tpu_torch.models import wavenet
+
+    def flat(split):
+        return [t for t in split[0] + split[1] if t is not None]
+
+    got = flat(wavenet.split_weights(ws, transposed, stored))
+    ref = flat(wavenet.split_weights_reference(ws, transposed, stored))
+    same = len(got) == len(ref) and all(torch.equal(g, r) for g, r in zip(got, ref))
+    err = max(max_err(g, r) for g, r in zip(got, ref))
+    check_rerun(report, f"wavenet_weight_split ({label})", torch.cat([g.flatten() for g in got]),
+                torch.cat([g.flatten() for g in
+                           flat(wavenet.split_weights(ws, transposed, stored))]))
+    if not same:
+        report.failures.append(f"wavenet_weight_split ({label}): not bit-equal to tf32_split")
+    ms = device_ms(lambda: wavenet.split_weights(ws, transposed, stored), reps=10)
+    plain = device_ms(lambda: wavenet.split_weights_reference(ws, transposed, stored), reps=2)
+    n_bytes = nbytes(*ws, *got)
+    t_bound = bound(n_bytes, 0)[0]
+    print(f"  wavenet_weight_split, {label} {len(ws)} weights into {len(got)} splits "
+          f"({nbytes(*ws) / 1e6:.0f} MB read, {nbytes(*got) / 1e6:.0f} MB written) in one "
+          f"launch: bit-equal to tf32_split {'ok' if same else 'FAIL'}; kernel {ms:.4f} ms of "
+          f"device time ({t_bound / ms:.0%} of its byte bound {t_bound:.4f}), tf32_split "
+          f"{plain:.4f} ms")
+    return dict(weights=len(ws), splits=len(got), ms=ms, plain_ms=plain, bound_ms=t_bound,
+                bytes=n_bytes, max_abs_err=err, bit_equal=same)
 
 
 def measure_k1_forward(report: Report, a: dict) -> dict:
@@ -626,9 +682,9 @@ def measure_k1_forward(report: Report, a: dict) -> dict:
     larger than the plain float32 version's (cuBLAS) at the same inputs;
     device times of kernel, plain version and the products alone by cuBLAS
     / cuDNN (``torch.addmm`` and ``F.conv1d``, TF32 off; neither computes
-    the kernel's whole function, so ``library_ms`` stays null); the split
-    timed on its own; bound at ``TF32X3_FLOP_PER_S`` with the float32 SIMT
-    bound beside; what the rule's plan reads from L2."""
+    the kernel's whole function, so ``library_ms`` stays null); bound at
+    ``TF32X3_FLOP_PER_S`` with the float32 SIMT bound beside; what the
+    rule's plan reads from L2."""
     import torch
     import torch.nn.functional as F
 
@@ -638,12 +694,8 @@ def measure_k1_forward(report: Report, a: dict) -> dict:
     assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
     x, skip, step, cond = a["x"], a["skip"], a["step"], a["cond"]
     w_conv, b_conv, w_out, b_out = a["w_conv"], a["b_conv"], a["w_out"], a["b_out"]
-    cs, os_ = wavenet.tf32_split(w_conv), wavenet.tf32_split(w_out)
-    split_ms = {"w_conv": cuda_ms(lambda: wavenet.tf32_split(w_conv)),
-                "w_out": cuda_ms(lambda: wavenet.tf32_split(w_out))}
-    print(f"  tf32_split on its own (once a prepare call, per block): w_conv "
-          f"{split_ms['w_conv']:.4f} ms, w_out {split_ms['w_out']:.4f} ms")
-    out = {"split_ms": split_ms}
+    cs, os_ = wavenet.split_weights([w_conv, w_out], [True, True], [False, False])[0]
+    out = {}
     for d in (1, 2, 4, 8):
         gate_args = (x, step, cond, w_conv, b_conv, d)
         g_ref = wavenet.residual_gate_reference(*gate_args)
@@ -921,6 +973,7 @@ class recording:
         self.fn = getattr(module, name)
 
     def start(self):
+        @functools.wraps(self.fn)
         def call(*args, **kwargs):
             if self.key is None:
                 self.calls.append((args, kwargs))
@@ -963,38 +1016,153 @@ class plain_path:
             setattr(mod, name, fn)
 
 
-class pinned_relu:
-    """A network's ReLUs (``module.F.relu``) with their inputs kept, in call
-    order, in ``inputs``; given ``decisions`` (another run's ``input > 0``
-    in the same call order), each call returns its input times the
-    decisions: the branch the other run took, with its gradient, so that
-    two forwards whose float32 rounding differs are differentiated on the
-    same side of every kink."""
+class _view:
+    """A module (``torch``, ``torch.nn.functional``) with some of its
+    functions replaced (``over``)."""
 
-    def __init__(self, module, decisions=None):
-        self.module, self.decisions, self.inputs = module, decisions, []
+    def __init__(self, base, over: dict):
+        self._base, self._over = base, over
 
-    def relu(self, x, inplace=False):
-        self.inputs.append(x.detach())
-        if self.decisions is None:
-            return self.saved.relu(x)
-        return x * self.decisions[len(self.inputs) - 1]
+    def __getattr__(self, name):
+        return self._over[name] if name in self._over else getattr(self._base, name)
+
+
+class pinned_kinks:
+    """A network's kinks, in call order: the ReLUs, leaky ReLUs, absolute
+    values, clamps and max-pools that the modules in ``namespaces`` call
+    through an attribute ((module, "F") or (module, "torch")), and the fused
+    input activation (``in_slope``) of the functions in ``slopes`` ((module,
+    name): K4's convs, kernel or plain). Without ``other`` it records each
+    kink's decision (the side taken, or the max-pool's argmax) and, with
+    ``inputs``, its input; given ``other`` (another run's record, the same
+    calls in the same order) each kink takes the side ``other`` took, with
+    its gradient, so that two forwards whose float32 rounding differs are
+    differentiated on the same side of every kink. A pinned run keeps, by
+    kind, ``flips`` (the elements the two decided differently) and
+    ``near`` (the largest distance of such an element from its kink over
+    the input's scale), and where ``other`` kept its inputs, ``gaps`` (each
+    call's largest difference from ``other``'s input over its scale)."""
+
+    def __init__(self, namespaces=(), slopes=(), other=None, inputs=False):
+        self.namespaces, self.slopes, self.other = list(namespaces), list(slopes), other
+        self.inputs, self.met, self.record, self.gaps, self.saved = inputs, 0, [], [], {}
+        self.flips, self.near = defaultdict(int), {}
+
+    def _kink(self, kind, x, run, decide, pin, edge=None):
+        """``run()`` the call as made, ``decide(x, out)`` its decision,
+        ``pin(decision)`` the call on another decision; ``edge(x, out,
+        decision)`` each element's distance from its kink (default |x|)."""
+        import torch
+
+        if self.other is None:
+            out = run()
+            self.record.append((kind, x.detach() if self.inputs else None,
+                                decide(x.detach(), out)))
+            return out
+        i, self.met = self.met, self.met + 1
+        if i >= len(self.other.record) or self.other.record[i][0] != kind:
+            raise SystemExit(f"chip_smoke: kink {i} ({kind}) does not match the recorded run")
+        _, x_k, d_k = self.other.record[i]
+        with torch.no_grad():
+            xd = x.detach()
+            scale = max(float(xd.abs().max()), 1e-30)
+            if x_k is not None:
+                self.gaps.append(float((xd - x_k).abs().max()) / scale)
+            out = run() if kind == "max_pool1d" else None
+            flipped = decide(xd, out) != d_k
+            self.flips[kind] += int(flipped.sum())
+            if bool(flipped.any()):
+                dist = float((edge(xd, out, d_k) if edge else xd.abs())[flipped].max()) / scale
+                self.near[kind] = max(self.near.get(kind, 0.0), dist)
+        return pin(d_k)
+
+    def _over(self, base):
+        import torch
+
+        def relu(x, inplace=False):
+            return self._kink("relu", x, lambda: base.relu(x), lambda v, _: v > 0,
+                              lambda d: torch.where(d, x, 0.0))
+
+        def leaky_relu(x, negative_slope=0.01, inplace=False):
+            return self._kink("leaky_relu", x, lambda: base.leaky_relu(x, negative_slope),
+                              lambda v, _: v > 0,
+                              lambda d: torch.where(d, x, x * negative_slope))
+
+        def abs_(x):
+            return self._kink("abs", x, lambda: base.abs(x), lambda v, _: v > 0,
+                              lambda d: torch.where(d, x, -x))
+
+        def clamp(x, min=None, max=None):
+            def inside(v, _):
+                d = torch.ones_like(v, dtype=torch.bool)
+                d = d if min is None else d & (v >= min)
+                return d if max is None else d & (v <= max)
+            def edge(v, _, d):
+                bounds = [b for b in (min, max) if b is not None]
+                return torch.stack([(v - b).abs() for b in bounds]).amin(0)
+            return self._kink("clamp", x, lambda: base.clamp(x, min, max), inside,
+                              lambda d: torch.where(d, x, x.detach().clamp(min, max)), edge)
+
+        def max_pool1d(x, kernel_size, stride=None, padding=0, dilation=1, ceil_mode=False,
+                       return_indices=False):
+            assert not return_indices
+            out = self._kink(
+                "max_pool1d", x,
+                lambda: base.max_pool1d(x, kernel_size, stride, padding, dilation, ceil_mode,
+                                        True),
+                lambda v, out: out[1], lambda d: x.gather(-1, d),
+                lambda v, out, d: (out[0] - v.gather(-1, d)).abs())
+            return out[0] if isinstance(out, tuple) else out
+
+        over = {"relu": relu, "leaky_relu": leaky_relu, "abs": abs_, "clamp": clamp,
+                "max_pool1d": max_pool1d}
+        return {k: f for k, f in over.items() if hasattr(base, k)}
+
+    def _slope(self, fn):
+        import inspect
+
+        import torch
+
+        sig = inspect.signature(fn)
+
+        def call(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            slope, x = bound.arguments.get("in_slope"), bound.arguments["x"]
+            if slope is None:
+                return fn(*args, **kwargs)
+
+            def pin(d):
+                bound.arguments["x"] = torch.where(d, x, x * slope)
+                bound.arguments["in_slope"] = None
+                return fn(*bound.args, **bound.kwargs)
+
+            return self._kink("in_slope", x, lambda: fn(*args, **kwargs), lambda v, _: v > 0,
+                              pin)
+        return call
 
     def __enter__(self):
-        import types
-
-        self.saved = self.module.F
-        view = types.SimpleNamespace(**{k: getattr(self.saved, k) for k in dir(self.saved)
-                                        if not k.startswith("__")})
-        view.relu = self.relu
-        self.module.F = view
+        for mod, name in self.namespaces:
+            base = getattr(mod, name)
+            self.saved[(mod, name)] = base
+            setattr(mod, name, _view(base, self._over(base)))
+        for mod, name in self.slopes:
+            fn = getattr(mod, name)
+            self.saved[(mod, name)] = fn
+            setattr(mod, name, self._slope(fn))
         return self
 
     def __exit__(self, *exc):
-        self.module.F = self.saved
+        for (mod, name), obj in self.saved.items():
+            setattr(mod, name, obj)
+        self.saved = {}
 
-    def taken(self):
-        return [x > 0 for x in self.inputs]
+    def check(self) -> tuple:
+        """A pinned run: (the largest gap, 0 without inputs; the flips by
+        kind); every recorded kink was met."""
+        if self.met != len(self.other.record) or not self.met:
+            raise SystemExit(f"chip_smoke: {self.met} kinks met, "
+                             f"{len(self.other.record)} recorded")
+        return max(self.gaps, default=0.0), dict(self.flips)
 
 
 def make_request_audio(rng, n_samples: int):
@@ -1039,7 +1207,8 @@ def phase_serve(report: Report, seed: int):
                    "nsf_phase_base": 1, "nsf_merge": 1}
     expected = {name: 0 for name in kernels.LAUNCHES}
     expected.update({"wavenet_gate": layers * evals, "wavenet_out": layers * evals,
-                     "unipc_predict": evals, "unipc_correct": evals, **per_vocoder})
+                     "wavenet_weight_split": 1, "unipc_predict": evals, "unipc_correct": evals,
+                     **per_vocoder})
 
     requests = [
         ("forward_batch 4 x ~11.9 s (bucket 1024)",
@@ -1167,7 +1336,8 @@ ISTFT_NET_LAUNCHES = {"conv_transpose1d": 2, "conv1d": 2 + 2 * (1 + 3 * 6),
 def expect_file_launches(layers, segments, evals, steps=None, predictor="unipc", stft=0,
                          pitch_kernel="viterbi_candidates", vocoder=None):
     """The launches of a request of ``segments`` segments: the denoiser's
-    two K1 kernels per block and eval, the sampler's K2 updates, one
+    two K1 kernels per block and eval and its weights' split once a
+    segment (a WaveNet's, ``layers`` > 0), the sampler's K2 updates, one
     vocoder pass (``vocoder``: NSF-HiFiGAN's unless given), K5 for a
     shallow request and the pitch extractor's decoder (Harvest's and
     ParselMouth's K8-cand, pYIN's and CREPE's K8 dense, none for DIO and
@@ -1178,7 +1348,7 @@ def expect_file_launches(layers, segments, evals, steps=None, predictor="unipc",
     out = {name: 0 for name in kernels.LAUNCHES}
     out.update({k: v * segments for k, v in (vocoder or VOCODER_LAUNCHES).items()})
     out.update(wavenet_gate=layers * evals * segments, wavenet_out=layers * evals * segments,
-               stft_magnitude=stft * segments)
+               wavenet_weight_split=segments if layers else 0, stft_magnitude=stft * segments)
     if pitch_kernel:
         out[pitch_kernel] = segments
     if predictor == "unipc":
@@ -2072,6 +2242,22 @@ FLOOR_SCALES = (1e-6, -1e-6, 2e-6, -2e-6, 3e-6)
 L2_RATIO_LIMIT = 3 * 12.8
 
 
+def vocoder_kinks() -> dict:
+    """The kinks of a vocoder training step (``pinned_kinks``' sites): the
+    discriminators' leaky ReLUs and the losses' absolute values, max-pools
+    and clamps (``models/discriminators.py``), the log-mel's clamp
+    (``ops/mel.py``), RefineGAN's own leaky ReLUs, and the generators'
+    convolutions' fused input activation (K4's ``in_slope``, kernel or
+    plain)."""
+    from fish_diffusion_tpu_torch.models import discriminators
+    from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan, refinegan
+    from fish_diffusion_tpu_torch.ops import mel
+
+    return dict(namespaces=[(discriminators, "F"), (discriminators, "torch"), (mel, "torch"),
+                            (refinegan, "F")],
+                slopes=[(nsf_hifigan, "conv1d"), (nsf_hifigan, "conv_transpose1d")])
+
+
 def make_vocoder_dataset(rng, root: Path):
     """32 training and 2 validation clips of 2-4 s, harmonic phrases with a
     known f0 (``make_phrase``), as ``.npy`` dicts {path, audio, pitches,
@@ -2563,11 +2749,13 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
     given), ``VocoderTrainer.fit`` for ``warm`` + ``timed`` steps with
     validation and a checkpoint, every step's launches held to
     ``expected_fn(trainer)`` exactly; a resume from the checkpoint; then
-    one step through the kernels, during which the calls of the wrappers in
-    ``record`` ((module, name) pairs, or (module, name, key) to keep the
-    first call of each key: ``recording``) are kept, against one through every
-    plain version in ``plain_fns``. Returns (launches over the fit, the
-    path's numbers under ``tag``, the recorded calls by name)."""
+    the same number of steps again from the seed with cuDNN's deterministic
+    algorithms, and from their state one step through the kernels, during
+    which the calls of the wrappers in ``record`` ((module, name) pairs, or
+    (module, name, key) to keep the first call of each key: ``recording``)
+    are kept, against one through every plain version in ``plain_fns`` on
+    the kernel step's side of every kink (``vocoder_kinks``). Returns (launches over the fit, the path's numbers under
+    ``tag``, the recorded calls by name)."""
     import copy
 
     import torch
@@ -2589,9 +2777,10 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
     cfg.trainer["discriminator_dtype"] = "float32"
     cfg.dataset.train["path"] = str(tmp / "data" / "train")
     cfg.dataset.valid["path"] = str(tmp / "data" / "valid")
-    # the loaders read in this process (no worker processes to stop)
+    # the loaders read in this process (no worker processes to stop); the
+    # training order from the seed
     loader = vocoder_cli.build_loader(cfg.dataset.train, {**cfg.dataloader.train,
-                                                          "num_workers": 0})
+                                                          "num_workers": 0, "seed": seed + 42})
     valid = vocoder_cli.build_loader(cfg.dataset.valid, {**cfg.dataloader.valid,
                                                          "num_workers": 0})
     t0 = time.perf_counter()
@@ -2686,6 +2875,26 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
     del resumed, restored, after
     torch.cuda.empty_cache()
 
+    # The gate's state. cuDNN's default algorithms for the discriminators'
+    # convolutions sum in an order that varies from run to run (two fits
+    # from one seed part at their first step, by ~1e-6 of each gradient),
+    # and its deterministic ones cost the step 12-29% on an H100: so the fit
+    # above is timed as users run it, and the gate starts from the same
+    # number of steps taken again from the seed with the deterministic
+    # algorithms, which stay on until the gate ends.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.reset_peak_memory_stats()
+    np.random.seed(seed + 43)
+    again = vocoder_cli.build_loader(cfg.dataset.train, {**cfg.dataloader.train,
+                                                         "num_workers": 0, "seed": seed + 44})
+    state = trainer.init_state(seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    for batch in itertools.islice(itertools.chain.from_iterable(itertools.repeat(again)),
+                                  warm + timed):
+        batch = trainer._to_device(batch)
+        state, _ = step_fn(state, batch, trainer.draw(batch, gen))
+
     # one step through the kernels and one through every plain version,
     # from the same state, batch and draws (TF32 is off)
     batch = trainer._to_device(next(iter(loader)))
@@ -2693,6 +2902,10 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
     snap = copy.deepcopy({"g": state.params_g.state_dict(), "d": state.params_d.state_dict(),
                           "s": state.spectral_d, "og": state.opt_state_g.state_dict(),
                           "od": state.opt_state_d.state_dict(), "step": state.step})
+    print(f"{say} the gate's state: parameters {digest([*snap['g'].values(), *snap['d'].values(), *snap['s'].values()])}, "
+          f"batch {digest(batch[k] for k in sorted(batch))}, draws {digest(draws)} (the first "
+          f"16 hex digits of the SHA-256 of their bytes: two runs from one seed that agree "
+          f"here start the gate from the same state)")
 
     def restore():
         state.params_g.load_state_dict(snap["g"])
@@ -2706,14 +2919,40 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
         return {f"{t}.{k}": p.grad.detach().clone() for t, m in
                 (("g", state.params_g), ("d", state.params_d)) for k, p in m.named_parameters()}
 
-    def one_step(swaps, audio_scale=1.0):
-        """One step from the snapshot -> (grads, metrics, launches)."""
+    def one_step(swaps, audio_scale=1.0, kinks=None):
+        """One step from the snapshot -> (grads, metrics, launches);
+        ``kinks``, a ``pinned_kinks``, is entered around it."""
         restore()
         kernels.reset_launches()
         scaled = {**batch, "audio": batch["audio"] * audio_scale}
-        with plain_path(swaps):
+        with plain_path(swaps), kinks or contextlib.nullcontext():
             _, metrics = step_fn(state, scaled, draws)
         return grads(), metrics, dict(kernels.LAUNCHES)
+
+    def pinned_pair(audio_scale=1.0, recorders=()):
+        """The kernel step at audio x ``audio_scale``, its kinks recorded, and
+        the plain step on the kernel step's side of every kink -> (the
+        kernel step's grads and metrics, the plain step's grads, the
+        forwards' largest difference at the kinks' inputs over their scale,
+        the elements the two forwards decided differently, by kind)."""
+        record = pinned_kinks(**vocoder_kinks())
+        for r in recorders:
+            r.start()
+        try:
+            g_k, m_k, _ = one_step({}, audio_scale, record)
+        finally:
+            for r in recorders:
+                r.stop()
+        pinned = pinned_kinks(**vocoder_kinks(), other=record)
+        g_pp, _, _ = one_step(plain_fns, audio_scale, pinned)
+        pinned.check()
+        pinned.other = None  # the record's decisions: several GB at this step
+        print(f"{say}   audio x (1 {audio_scale - 1:+.0e}): {len(record.record)} kinks; the "
+              f"elements the two forwards decide differently, by kind: "
+              + ", ".join(f"{k} {v}" for k, v in sorted(pinned.flips.items()))
+              + "; their largest distance from the kink / scale "
+              + (", ".join(f"{k} {v:.1e}" for k, v in sorted(pinned.near.items())) or "none"))
+        return g_k, m_k, g_pp, pinned
 
     def worst_error(got, ref, prefix):
         rel = {k: float((got[k] - ref[k]).abs().max())
@@ -2729,42 +2968,58 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
         return (num / max(den, 1e-300)) ** 0.5
 
     recorders = [recording(*entry) for entry in record]
-    for r in recorders:
-        r.start()
-    try:
-        g_k, m_k, _ = one_step({})
-    finally:
-        for r in recorders:
-            r.stop()
+    g_k, m_k, g_kp, pinned = pinned_pair(1.0, recorders)
     g_p, m_p, launched = one_step(plain_fns)
     if any(launched.values()):
         report.failures.append(f"{tag}: plain step launched kernels: {launched}")
     # The step's float32 noise floor: the plain step again with the audio
     # scaled by 1 + d, a change of the size of the kernels' own differences
-    # from plain. The losses have kinks (L1 signs, the envelope's max-pool,
-    # leaky-relu, the log clamp); such a change flips a few of them, and the
-    # gradients move by 1e-4-1e-2 of their max whatever its size (1e-7 to
-    # 1e-5). Which kinks flip is chance: at one state the largest move
-    # ranges over 3.4x from one d to the next, and the kernels' differences
-    # draw from the same spread, so the floor is the largest move over
-    # several d, for the generator and the discriminators alike.
-    # The kernels' own difference is one such draw, and its largest element
-    # is heavy-tailed: now and then one flip at a large gradient (an AdaIN
-    # weight's, a sum over noise that mostly cancels) exceeds 3x the largest
-    # of five moves. So the kernel step is also compared with the plain step
-    # on each scaled audio, and the gate reads the median of these paired
-    # errors; a kernel that is wrong is wrong at every one of them.
+    # from plain. The losses and the networks have kinks (the L1 losses'
+    # signs, the envelope's max-pool, the log-mel's clamp, every leaky
+    # ReLU, K4's fused input activation among them); such a change flips a
+    # few of them, and the gradients move by 1e-4-1e-2 of their max
+    # whatever its size (1e-7 to 1e-5). Which kinks flip is chance: at one
+    # state the largest move ranges over 3.4x from one d to the next. The
+    # kernels' own difference from plain flips kinks the same way, a
+    # comparison across a discontinuity, not of the kernels: so the plain
+    # step of each pair takes the kernel step's side of every kink
+    # (``pinned_kinks``, which keeps the kernel step's decisions, not its
+    # inputs: a step's kink inputs would not fit beside the plain step),
+    # and each element decided differently must lie within rounding of its
+    # kink (below). The floor is the largest move over several d, for the generator and the
+    # discriminators alike; the gate reads the median of the kernels'
+    # errors against the pinned plain step at each scaled audio (six
+    # pairs); a kernel that is wrong is wrong at every one of them.
     moves = {"g.": [], "d.": []}
     moves_l2 = {"g.": [], "d.": []}
-    paired = {p: [worst_error(g_k, g_p, p)] for p in moves}
+    paired = {p: [worst_error(g_k, g_kp, p)] for p in moves}
+    pins = [pinned]
     for d in FLOOR_SCALES:
         g_q, _, _ = one_step(plain_fns, 1.0 + d)
-        g_kq, _, _ = one_step({}, 1.0 + d)
         for prefix, found in moves.items():
             found.append(worst_error(g_q, g_p, prefix))
             moves_l2[prefix].append(rel_l2(g_q, g_p, prefix))
-            paired[prefix].append(worst_error(g_kq, g_q, prefix))
-        del g_q, g_kq
+        del g_q
+        g_kq, _, g_qq, pinned = pinned_pair(1.0 + d)
+        for prefix in moves:
+            paired[prefix].append(worst_error(g_kq, g_qq, prefix))
+        pins.append(pinned)
+        del g_kq, g_qq
+    # the pinning's premise, held over the six pairs: every element the two
+    # forwards decide differently lies within rounding of its kink (within
+    # 1e-4 of its input's scale), so that pinning moves only what float32
+    # rounding decides; a forward that is wrong flips elements far from
+    # their kinks
+    near = max((v for p in pins for v in p.near.values()), default=0.0)
+    ok = near <= 1e-4
+    print(f"{say} the kinks, kernel forward vs plain forward over the six pairs: the elements "
+          f"on opposite sides, each pinned to the kernel step's side, lie at most {near:.2e} "
+          f"of their input's scale from their kink (tol 1e-4) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        report.failures.append(f"{tag}: an element the forwards decide differently lies "
+                               f"{near:.2e} of its scale from its kink")
+    print(f"{say} peak device memory over the gate {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB")
     for k, want in m_p.items():
         if k.startswith("loss"):
             report.compare(f"{tag} step {k} vs plain", m_k[k].reshape(1), want.reshape(1),
@@ -2782,9 +3037,9 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
                                                                          moves[prefix]))
         each = ", ".join(f"{m:.3e} at {d:+.0e} ({k})" for d, (k, m) in
                          zip((0.0,) + FLOOR_SCALES, paired[prefix]))
-        print(f"{say} whole step, kernels vs plain on the same audio x (1 + d): the {whose} "
-              f"largest gradient error of its max |grad|: {each}; median {err:.3e}, tol "
-              f"{tol:.3e} = max(1e-3, 3 x the largest {floor:.3e} of the plain step's own "
+        print(f"{say} whole step, kernels vs plain (pinned) on the same audio x (1 + d): the "
+              f"{whose} largest gradient error of its max |grad|: {each}; median {err:.3e}, "
+              f"tol {tol:.3e} = max(1e-3, 3 x the largest {floor:.3e} of the plain step's own "
               f"moves under audio x (1 + d): {listed}; {floor_name}) "
               f"{'ok' if err <= tol else 'FAIL'}")
         if not err <= tol:
@@ -2793,25 +3048,25 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
         # the second gate, beside the elementwise one: one kink flip moves
         # the relative L2 less than the largest element, so a kernel wrong
         # on many elements by a little shows here first
-        l2, l2_floor = rel_l2(g_k, g_p, prefix), max(moves_l2[prefix])
+        l2, l2_floor = rel_l2(g_k, g_kp, prefix), max(moves_l2[prefix])
         ratio = l2 / max(l2_floor, 1e-300)
         held[prefix[0]] += (l2, l2_floor, ratio)
         ok = ratio <= L2_RATIO_LIMIT
         print(f"{say} whole step, the {whose} gradients' relative L2 difference, kernels vs "
-              f"plain: {l2:.3e}; the plain step's own under audio x (1 + d): "
+              f"plain (pinned): {l2:.3e}; the plain step's own under audio x (1 + d): "
               + ", ".join(f"{m:.3e}" for m in moves_l2[prefix])
               + f" (largest {l2_floor:.3e}; ratio {ratio:.2f}, limit {L2_RATIO_LIMIT:.1f}) "
               + ("ok" if ok else "FAIL"))
         if not ok:
             report.failures.append(f"{tag} step {whose} gradients' relative L2 vs plain: "
                                    f"ratio {ratio:.2f} > {L2_RATIO_LIMIT:.1f}")
-        sq = {k: float(((g_k[k] - g_p[k]).double() ** 2).sum())
-              for k in g_p if k.startswith(prefix)}
+        sq = {k: float(((g_k[k] - g_kp[k]).double() ** 2).sum())
+              for k in g_kp if k.startswith(prefix)}
         total = max(sum(sq.values()), 1e-300)
         top = sorted(sq, key=sq.get, reverse=True)[:5]
         print(f"{say}   the five {whose} tensors carrying most of that difference: "
               + "; ".join(f"{k} {sq[k] / total:.1%} (its own relative L2 "
-                          f"{sq[k] ** 0.5 / max(float(g_p[k].double().norm()), 1e-300):.2e})"
+                          f"{sq[k] ** 0.5 / max(float(g_kp[k].double().norm()), 1e-300):.2e})"
                           for k in top))
     restore()
     totals = {
@@ -2824,7 +3079,10 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
                                  for k, v in zip(("max_rel_err_median", "noise_floor", "tol",
                                                   "rel_l2", "rel_l2_floor", "rel_l2_ratio"),
                                                  row)},
+        f"{tag}_kinks": {"flipped_distance_max": near,
+                         "opposite": [dict(p.flips) for p in pins]},
     }
+    torch.backends.cudnn.deterministic = deterministic
     return launches, totals, {r.name: r.calls for r in recorders}
 
 
@@ -3187,9 +3445,10 @@ DIFF_WARM, DIFF_TIMED = 2, 10
 # K1's launches in one training step of the 20-block WaveNet: the training
 # forward, the output product, the gate and input backward and the weight
 # gradients (dW_conv and dW_out in one launch) once a block; no
-# conv1d_wgrad
+# conv1d_wgrad; the split of the step's 40 weights in one launch
 DIFF_LAUNCHES = {"wavenet_gate_train": 20, "wavenet_out": 20, "wavenet_gate_backward": 20,
-                 "wavenet_input_backward": 20, "wavenet_weight_grad": 20}
+                 "wavenet_input_backward": 20, "wavenet_weight_grad": 20,
+                 "wavenet_weight_split": 1}
 # K10's launches in one training step of the 20-block ConvNeXt: the forward
 # and both backward kernels once a block
 CONVNEXT_TRAIN_LAUNCHES = {"depthwise_conv7_norm": 20, "depthwise_conv7_norm_backward_rows": 20,
@@ -3216,8 +3475,6 @@ def diffusion_config(seed: int, config_file: str, tmp: Path, dataset_type=None):
     (read by ``dataset_type`` when given): 12 steps, validation (one batch,
     UniPC at interval 100, a random NSF-HiFiGAN) at 6 and 12, metrics every
     step; the loaders read in this process (no worker processes to stop)."""
-    import torch
-
     from fish_diffusion_tpu_torch.config import Config
     from fish_diffusion_tpu_torch.datasets.loader import build_loader
 
@@ -3232,11 +3489,10 @@ def diffusion_config(seed: int, config_file: str, tmp: Path, dataset_type=None):
         part["path"] = str(tmp / "data" / split)
         if dataset_type:
             part["type"] = dataset_type
-    # the training order from the seed, not from the process's global
-    # generator, whose state here depends on what ran before
-    order = torch.Generator().manual_seed(seed + 64)
+    # the training order from the seed (the loader's, as the JAX loader
+    # draws it)
     loader = build_loader(cfg.dataset.train, {**cfg.dataloader.train, "num_workers": 0,
-                                              "generator": order})
+                                              "seed": seed + 64})
     valid = build_loader(cfg.dataset.valid, {**cfg.dataloader.valid, "num_workers": 0})
     assert cfg.dataloader.train.batch_size == DIFF_B
     return cfg, loader, valid
@@ -3257,7 +3513,7 @@ def drive_diffusion_training(report: Report, seed: int, tag: str, cfg, loader, v
     the whole step's gradients within max(1e-4, 3 x the plain step's own
     move under mel x (1 + d)), the median of six paired comparisons, the
     plain step of each pair on the kernel step's side of every ReLU of the
-    module ``kinks`` (``pinned_relu``) and the two forwards within 1e-4 of
+    module ``kinks`` (``pinned_kinks``) and the two forwards within 1e-4 of
     scale at those ReLUs' inputs. ``recorders`` keep the kernel step's
     calls. Returns (the fit's launches, totals, the state)."""
     import torch
@@ -3376,7 +3632,7 @@ def drive_diffusion_training(report: Report, seed: int, tag: str, cfg, loader, v
         """Loss, gradients and launches of one step from the same state;
         ``order`` permutes the batch's items (the same function, its sums
         over the batch taken in another order); ``mel_scale`` scales the
-        mel; ``relu``, a ``pinned_relu``, is entered around the step."""
+        mel; ``relu``, a ``pinned_kinks``, is entered around the step."""
         b, tt, nn_ = batch, t, noise
         if order is not None:
             b = {k: v[order] for k, v in batch.items()}
@@ -3402,7 +3658,7 @@ def drive_diffusion_training(report: Report, seed: int, tag: str, cfg, loader, v
 
     def kernel_step(mel_scale=1.0):
         """The kernel step at mel x ``mel_scale``, its ReLUs recorded."""
-        relu = pinned_relu(kinks) if kinks is not None else None
+        relu = pinned_kinks([(kinks, "F")], inputs=True) if kinks is not None else None
         return (*one_step({}, mel_scale=mel_scale, relu=relu), relu)
 
     def pinned_plain_step(relu_k, mel_scale=1.0):
@@ -3410,13 +3666,10 @@ def drive_diffusion_training(report: Report, seed: int, tag: str, cfg, loader, v
         each ReLU (``relu_k``, the kernel step's record) -> (gradients, the
         forwards' largest difference at the ReLUs' inputs over their scale,
         the units the two forwards decided differently)."""
-        relu = pinned_relu(kinks, relu_k.taken())
+        relu = pinned_kinks([(kinks, "F")], other=relu_k)
         grads = one_step(plain_fns, mel_scale=mel_scale, relu=relu)[1]
-        pairs = list(zip(relu_k.inputs, relu.inputs))
-        assert len(pairs) == len(relu_k.inputs) == len(relu.inputs) > 0
-        gap = max(max_err(a, b) / max_abs(b) for a, b in pairs)
-        flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in pairs)
-        return grads, gap, flips
+        gap, flips = relu.check()
+        return grads, gap, sum(flips.values())
 
     for r in recorders:
         r.start()
@@ -3461,7 +3714,7 @@ def drive_diffusion_training(report: Report, seed: int, tag: str, cfg, loader, v
     # one row's gradient, which reaches every parameter (~1e-3 relative L2
     # on every tensor, at some states and not others: a comparison across a
     # discontinuity, not of the kernels). So the plain step of each pair
-    # takes the kernel step's side of every ReLU (``pinned_relu``), and the
+    # takes the kernel step's side of every ReLU (``pinned_kinks``), and the
     # two forwards are held at those ReLUs' inputs: their largest difference
     # within 1e-4 of its scale, so that a unit decided differently lies
     # within rounding of 0. The floor is the plain step's own move when its
@@ -3560,6 +3813,7 @@ def phase_diffusion_train(report: Report, seed: int):
           f"{DIFF_FRAMES[1]} frames (bucketed to 512), float32, clip "
           f"{cfg.trainer.gradient_clip_val}, {len(loader)} steps per epoch")
     plain_fns = {
+        (wavenet, "split_weights"): wavenet.split_weights_reference,
         (wavenet, "residual_gate_train"): wavenet.residual_gate_train_reference,
         (wavenet, "residual_out"): wavenet.residual_out_reference,
         (wavenet, "residual_gate_backward"): wavenet.residual_gate_backward_reference,
@@ -3567,18 +3821,19 @@ def phase_diffusion_train(report: Report, seed: int):
         (wavenet, "residual_weight_grad"): wavenet.residual_weight_grad_reference,
     }
     backward = [key for key in plain_fns
-                if key[1] not in ("residual_gate_train", "residual_out")]
+                if key[1] not in ("split_weights", "residual_gate_train", "residual_out")]
     recorders = [recording(wavenet, "residual_gate_train", key=lambda a, kw: a[5]),
                  recording(wavenet, "residual_out", key=lambda a, kw: 0),
                  recording(wavenet, "residual_gate_backward", key=lambda a, kw: 0),
                  recording(wavenet, "residual_input_backward", key=lambda a, kw: a[3]),
                  recording(wavenet, "residual_weight_grad", key=lambda a, kw: a[5])]
-    forward = {k: DIFF_LAUNCHES[k] for k in ("wavenet_gate_train", "wavenet_out")}
+    forward = {k: DIFF_LAUNCHES[k] for k in ("wavenet_gate_train", "wavenet_out",
+                                             "wavenet_weight_split")}
     launches, totals, state = drive_diffusion_training(
         report, seed, tag, cfg, loader, valid, DIFF_LAUNCHES, forward, plain_fns, backward,
         recorders, kinks=wavenet)
     measure_k1_training(report, {r.name: r.calls for r in recorders}, totals)
-    measure_training_split(state.model.diffusion.denoise_fn, totals, tag)
+    measure_training_split(report, state.model.diffusion.denoise_fn, totals, tag)
     report.finish(tag)
     return launches, totals
 
@@ -3857,26 +4112,91 @@ def measure_k10_training(report: Report, calls: dict, model, totals: dict):
     report.extra["depthwise_conv7_norm_backward_rows"]["block_fwd_bwd"] = block
 
 
-def measure_training_split(den, totals: dict, tag: str):
-    """What a training step spends on the forward kernels' split weights:
-    ``prepare`` (once a forward) at the step's shapes, CUDA-event median,
-    and of it ``tf32_split`` of the 40 weights by device time
-    (``device_ms``), beside the step's median."""
+def measure_training_split(report: Report, den, totals: dict, tag: str):
+    """What a training step spends on its kernels' split weights: ``prepare``
+    (once a forward, under grad) at the step's shapes, CUDA-event median,
+    and of it the split kernel on the 40 weights (all transposed for the
+    forward, W_out also as stored for the gate backward, from the same
+    read) against ``tf32_split`` (``measure_weight_split``), beside the
+    step's median."""
     import torch
-
-    from fish_diffusion_tpu_torch.models import wavenet
 
     d_enc = den.residual_layers[0].conditioner_projection.conv.weight.shape[1]
     c = torch.zeros(DIFF_B, 512, d_enc, device=DEVICE)
-    ws = (lambda p: p["w_conv"] + p["w_out"])(den.prepare(c))
-    split_ms = device_ms(lambda: [wavenet.tf32_split(w) for w in ws], reps=5)
+    plan = den.prepare(c)
+    n = len(den.residual_layers)
+    ws = [w.detach() for w in plan["w_conv"] + plan["w_out"]]
+    split = measure_weight_split(report, ws, [True] * (2 * n), [False] * n + [True] * n,
+                                 "a training step's")
     prepare_ms = cuda_ms(lambda: den.prepare(c))
     step_ms = totals[f"{tag}_step_s_median"] * 1e3
-    print(f"[{tag}] prepare in a training step ({len(den.residual_layers)} blocks, B={DIFF_B} "
-          f"T=512): {prepare_ms:.3f} ms, of which tf32_split of the {len(ws)} weights "
-          f"{split_ms:.3f} ms of device time ({split_ms / step_ms:.1%} of the step's median "
-          f"{step_ms:.2f} ms)")
-    totals[f"{tag}_prepare_ms"], totals[f"{tag}_split_ms"] = prepare_ms, split_ms
+    print(f"[{tag}] prepare in a training step ({n} blocks, B={DIFF_B} T=512): "
+          f"{prepare_ms:.3f} ms, of which the split of the {len(ws)} weights (W_out in both "
+          f"layouts) {split['ms']:.4f} ms of device time ({split['ms'] / step_ms:.2%} of the step's "
+          f"median {step_ms:.2f} ms; tf32_split {split['plain_ms']:.4f} ms)")
+    report.extra.setdefault("wavenet_weight_split", {})["train"] = split
+    totals[f"{tag}_prepare_ms"], totals[f"{tag}_split"] = prepare_ms, split
+
+
+def measure_k1_gate_backward(report: Report, call):
+    """K1's gate backward (``wavenet_gate_backward``, 3xTF32 wgmma) at the
+    step's recorded inputs (B=20 x 512 x 512; one call stands for the step's
+    20: the shapes are the same at every dilation): within 1e-4 of the
+    plain version's scale, a rerun bit-equal, its largest error against the
+    float64 function no larger than the plain float32 version's (cuBLAS);
+    CUDA-event times of kernel and plain and of the product alone
+    (``torch.mm``, TF32 off; no one call computes dz, so ``library_ms``
+    stays null) beside the bound at ``TF32X3_FLOP_PER_S`` and the float32
+    SIMT bound, and the plan the rule picks."""
+    import torch
+
+    from fish_diffusion_tpu_torch import kernels
+    from fish_diffusion_tpu_torch.models import wavenet
+
+    (dx_out, dskip_out, z, w_out, w_split), _, count = call
+    dx_out, dskip_out, z, w_out, w_split = (a.detach() for a in (dx_out, dskip_out, z, w_out,
+                                                                  w_split))
+    B_, T_, R_ = dx_out.shape
+    M = B_ * T_
+    with torch.no_grad():
+        fn = lambda: wavenet.residual_gate_backward(  # noqa: E731
+            dx_out, dskip_out, z, w_out, w_split)
+        ref_fn = lambda: wavenet.residual_gate_backward_reference(  # noqa: E731
+            dx_out, dskip_out, z, w_out)
+        got, ref = fn(), ref_fn()
+        err = report.compare("wavenet_gate_backward", got, ref, 1e-4 * max_abs(ref))
+        check_rerun(report, "wavenet_gate_backward", got, fn())
+        ref64 = wavenet.residual_gate_backward_reference(
+            *(t.double() for t in (dx_out, dskip_out, z, w_out)))
+        errs = dict(kernel=max_err(got.double(), ref64) / max_abs(ref64),
+                    plain=max_err(ref.double(), ref64) / max_abs(ref64))
+        ok = errs["kernel"] <= errs["plain"]
+        print(f"    wavenet_gate_backward: largest error / scale against float64: kernel "
+              f"{errs['kernel']:.3e} (plain float32 {errs['plain']:.3e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            report.failures.append("wavenet_gate_backward: error against float64 above the "
+                                   "plain float32 version's")
+        del ref64
+        do = torch.cat([dx_out * 2 ** -0.5, dskip_out], dim=-1).reshape(M, 2 * R_)
+        w_t = w_out.t()
+        ms, plain, product = timed_triple(fn, ref_fn, lambda: torch.mm(do, w_t))
+    flops = 2 * M * 2 * R_ * R_
+    work = (nbytes(dx_out, dskip_out, z, w_out, got), flops)
+    t_bound, t_simt = bound(*work, TF32X3_FLOP_PER_S)[0], bound(*work)[0]
+    plan = kernels.load_library("wavenet_block").wavenet_gate_backward_plan(B_, T_, R_)
+    tiles = {1: "64 x 64", 2: "128 x 128", 3: "128 x 64"}[plan]
+    print(f"    wavenet_gate_backward x{count}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s, {t_bound / ms:.0%} of its 3xTF32 bound {t_bound:.4f}, {t_simt / ms:.0%} "
+          f"of the float32 SIMT bound {t_simt:.4f}) in the plan the rule picks at M = {M}, "
+          f"{plan} ({tiles} tiles); plain {plain:.4f} ms, torch.mm (the product alone, TF32 "
+          f"off) {product:.4f} ms")
+    report.kernel("wavenet_gate_backward", err, ms * count, plain * count,
+                  "a step's 20 launches, B=20 T=512 R=512", work[0] * count, flops * count,
+                  rate=TF32X3_FLOP_PER_S)
+    report.extra.setdefault("wavenet_gate_backward", {}).update(
+        library_product_ms=product * count, library_product="torch.mm, the product alone",
+        bound_f32_simt_ms=t_simt * count, f64_errors=errs, plan=plan)
 
 
 def measure_k1_training(report: Report, calls: dict, totals: dict):
@@ -3960,24 +4280,9 @@ def measure_k1_training(report: Report, calls: dict, totals: dict):
     report.extra.setdefault("wavenet_out", {})["train"] = dict(
         count=count, ms=ms, product_ms=product)
 
-    (dx_out, dskip_out, z, w_out), _, count = calls["residual_gate_backward"][0]
-    dx_out, dskip_out, z, w_out = (a.detach() for a in (dx_out, dskip_out, z, w_out))
-    M, R_ = dx_out.shape[0] * dx_out.shape[1], dx_out.shape[2]
-    with torch.no_grad():
-        fn = lambda: wavenet.residual_gate_backward(dx_out, dskip_out, z, w_out)  # noqa: E731
-        ref_fn = lambda: wavenet.residual_gate_backward_reference(  # noqa: E731
-            dx_out, dskip_out, z, w_out)
-        got, ref = fn(), ref_fn()
-        err = report.compare("wavenet_gate_backward", got, ref, 1e-4 * max_abs(ref))
-        check_rerun(report, "wavenet_gate_backward", got, fn())
-        ms, plain, _ = timed_triple(fn, ref_fn)
-    flops = 2 * M * 2 * R_ * R_
-    work = (nbytes(dx_out, dskip_out, z, w_out, got), flops)
-    t_bound = bound(*work)[0]
-    print(f"    wavenet_gate_backward x{count}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-          f"TFLOP/s, {t_bound / ms:.0%} of its bound {t_bound:.4f}), plain {plain:.4f} ms")
-    report.kernel("wavenet_gate_backward", err, ms * count, plain * count,
-                  "a step's 20 launches, B=20 T=512 R=512", work[0] * count, flops * count)
+    measure_k1_gate_backward(report, calls["residual_gate_backward"][0])
+    (dx_out, dskip_out, _, w_out, _), _, _ = calls["residual_gate_backward"][0]
+    dx_out, dskip_out, w_out = (a.detach() for a in (dx_out, dskip_out, w_out))
 
     # the input backward and the weight gradients: 3xTF32 on the tensor
     # cores, their bound at TF32X3_FLOP_PER_S (the float32 SIMT bound beside)
@@ -4165,12 +4470,13 @@ def phase_align(report: Report, seed: int):
 
 def tensor_core_products(kernels):
     """The SASS of K1's 3xTF32 kernels (``cuobjdump -sass`` of the built
-    ``wavenet_block`` library): the backward's TF32 ``mma.sync`` products
-    (HMMA.1688.F32.TF32, three per m16n8k8 step) and the forward's TF32
-    ``wgmma`` products (HGMMA ... .TF32, three per k8 step) printed per
-    kernel; a kernel with none, or a count of kernels other than the two
-    backward and six forward instances, is a failure. Where the toolkit has
-    no cuobjdump: not measured."""
+    ``wavenet_block`` library): the input backward's and the weight
+    gradients' TF32 ``mma.sync`` products (HMMA.1688.F32.TF32, three per
+    m16n8k8 step) and the forward's and the gate backward's TF32 ``wgmma``
+    products (HGMMA ... .TF32, three per k8 step) printed per kernel; a
+    kernel with none, or a count of kernels other than the two ``mma.sync``
+    ones, six forward and three gate backward instances, is a failure.
+    Where the toolkit has no cuobjdump: not measured."""
     cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
     if not cuobjdump.exists():
         print("[build] cuobjdump not found: tensor-core products not measured")
@@ -4181,7 +4487,7 @@ def tensor_core_products(kernels):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if ("k1x3" in fn and "_sum" not in fn) or ("k1f" in fn and "fwd_kernel" in fn):
+            if ("k1x3" in fn and "_sum" not in fn) or ("k1f" in fn and "_kernel" in fn):
                 counts[fn] = 0
         elif fn in counts and ("HMMA.1688.F32.TF32" in line if "k1x3" in fn else
                                "HGMMA." in line and ".TF32" in line):
@@ -4189,8 +4495,10 @@ def tensor_core_products(kernels):
     for fn, n in counts.items():
         kind = "HMMA.1688.F32.TF32" if "k1x3" in fn else "HGMMA (TF32)"
         print(f"[build] wavenet_block {fn}: {n} {kind} in its SASS")
-    n_bwd = sum("k1x3" in fn for fn in counts)
-    if n_bwd != 2 or len(counts) - n_bwd != 6 or not all(counts.values()):
+    n_sync = sum("k1x3" in fn for fn in counts)
+    n_gate_bwd = sum("gate_bwd_kernel" in fn for fn in counts)
+    if (n_sync != 2 or n_gate_bwd != 3 or len(counts) - n_sync - n_gate_bwd != 6
+            or not all(counts.values())):
         raise SystemExit("chip_smoke: K1's 3xTF32 kernels hold no tensor-core products")
 
 

@@ -1,12 +1,13 @@
 // 3xTF32: float32 matrix products on the tensor cores, for K1's backward
-// (wavenet_block.cu: wavenet_weight_grad, wavenet_input_backward: mma.sync)
-// and its forward (wavenet_gate, wavenet_gate_train, wavenet_out: wgmma,
-// the last part of this file). Include after <cuda_runtime.h>.
+// (wavenet_block.cu: wavenet_weight_grad, wavenet_input_backward: mma.sync;
+// wavenet_gate_backward: wgmma) and its forward (wavenet_gate,
+// wavenet_gate_train, wavenet_out: wgmma, the last part of this file).
+// Include after <cuda_runtime.h>.
 //
 // Replaces the float32 SIMT products that stood for XLA's derivative of
 // fish_diffusion_tpu/models/wavenet.py:59 (ResidualBlock.__call__) and of
-// models/common.py:103 (DilatedConvK3): the weight gradients and the
-// dilated conv's input gradient.
+// models/common.py:103 (DilatedConvK3): the weight gradients, the dilated
+// conv's input gradient and the output product's (the gate backward's dg).
 //
 // Each float32 operand x is split in registers into two TF32 values,
 // big = rna(x) and small = rna(x - big) (rna: round to 10 mantissa bits,
@@ -386,22 +387,26 @@ __device__ __forceinline__ void mma_rs_async(float (&d)[N / 2], const uint32_t (
 
 // The warp's A fragment of a k8 step from a swizzled tile of rows of 32
 // floats: rows 16 w .. 16 w + 15 (w the warp of the warpgroup), 16-byte
-// chunks 2 ks and 2 ks + 1, split. On the card one ldmatrix (a TF32
-// element is two 16-bit ones; the four 8 x 8 matrices are rows 0-7 and
-// 8-15 x the two chunks, the fragment's four registers), conflict-free on
-// the swizzled rows.
-__device__ __forceinline__ void load_a(FragA& f, const float* tile, int ks, int tid) {
+// chunks 2 ks and 2 ks + 1, times ``scale`` (a float32 product, before the
+// split; 1 leaves the elements as they are), split. On the card one
+// ldmatrix (a TF32 element is two 16-bit ones; the four 8 x 8 matrices are
+// rows 0-7 and 8-15 x the two chunks, the fragment's four registers),
+// conflict-free on the swizzled rows.
+__device__ __forceinline__ void load_a(FragA& f, const float* tile, int ks, int tid,
+                                       float scale = 1.f) {
   const int w = (tid >> 5) & 3, lane = tid & 31;
 #if defined(__CUDA_ARCH__)
   float v[4];
   ldmatrix_x4(v, tile + swizzled(16 * w + (lane & 7) + (lane & 8), 2 * ks + (lane >> 4)));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] *= scale;
   split_all<4>(v, f.big, f.small);
 #else
   const int g = lane >> 2;
   for (int h = 0; h < 2; ++h)
     for (int k = 0; k < 8; ++k)
-      split(tile[swizzled(16 * w + g + 8 * h, 2 * ks + (k >> 2)) + (k & 3)], f.big[h][k],
-            f.small[h][k]);
+      split(tile[swizzled(16 * w + g + 8 * h, 2 * ks + (k >> 2)) + (k & 3)] * scale,
+            f.big[h][k], f.small[h][k]);
 #endif
 }
 

@@ -47,20 +47,23 @@
 //
 // Bound: arithmetic, as the forward (at B = 20, T = 512, R = 512 the gate
 // backward's product is 10.7 GFLOP a block, the input backward's 32.2,
-// dW_conv 32.2 and dW_out 10.7). The gate backward runs the forward's SIMT
-// tiles with both operands read along K: the A tile gathered in the
-// prologue from dx' (scaled by 1 / sqrt(2)) and dskip', with no
-// concatenated copy of do, W_out read transposed. The input backward and
-// the weight gradients run on the 3xTF32 tensor-core core (tf32x3.cuh, the
-// k1x3 namespace below): the input backward gathers its A tile from dz at t
-// + (1 - tap) d with a zero halo, so no shifted copy is written; a block's
-// rows lie in one batch item, so its column sums of dy are one item's
-// partial sum of ds, reduced over the block in a fixed order in shared
-// memory. The weight gradients gather y at t + (tap - 1) d and do from dx'
-// and dskip' the same way, split the B T rows into chunks (128 output tiles
-// of the two products are fewer than the card's SMs) and add the chunks'
-// partial tiles in chunk order. No atomics anywhere, so a rerun gives the
-// same bits.
+// dW_conv 32.2 and dW_out 10.7). The gate backward runs on the forward's
+// 3xTF32 wgmma core (the k1f namespace: the same stage loop, ``products``),
+// its A tile gathered stage by stage from dx' (scaled by 1 / sqrt(2) in
+// registers) and dskip', with no concatenated copy of do, and W_out split
+// once a prepare() call as stored (it is K-major for dg = do W_out^T); its
+// epilogue reads z and writes dz as float2 pairs. The weights' splits are
+// one launch a prepare() call (the wsplit namespace). The input backward
+// and the weight gradients run on the 3xTF32 mma.sync core (tf32x3.cuh,
+// the k1x3 namespace below): the input backward gathers its A tile from dz
+// at t + (1 - tap) d with a zero halo, so no shifted copy is written; a
+// block's rows lie in one batch item, so its column sums of dy are one
+// item's partial sum of ds, reduced over the block in a fixed order in
+// shared memory. The weight gradients gather y at t + (tap - 1) d and do
+// from dx' and dskip' the same way, split the B T rows into chunks (128
+// output tiles of the two products are fewer than the card's SMs) and add
+// the chunks' partial tiles in chunk order. No atomics anywhere, so a rerun
+// gives the same bits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -277,136 +280,6 @@ int launch(const void* a_src, const void* step, const void* w,
   return launch_tile<T, MODE, 32, 32, 2, 2>(a_src, step, w, bias, cond, x_in,
                                             skip_in, out0, out1, M, T_len, C,
                                             R, d, s);
-}
-
-// The gate backward's product, float32: dg[m, n] = sum_k A[m, k] W_out[n, k]
-// over the rows m of one batch item (a block takes BM consecutive time
-// steps of item b = blockIdx.x / tiles) and N = R columns, with A = [dx' /
-// sqrt 2 | dskip'] (K = 2R); both tiles are loaded along K (16-byte loads)
-// and stored K-major in shared memory; epilogue dz from z. A thread owns TM
-// rows (two runs of TM / 2, BM / 2 apart) x TN columns (two runs of TN / 2,
-// BN / 2 apart), so its shared-memory reads are 16-byte runs on distinct
-// banks across a quarter-warp.
-template <int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(THREADS) bwd_gemm(
-    const float* __restrict__ a0,  // dx' [M, R]
-    const float* __restrict__ a1,  // dskip' [M, R]
-    const float* __restrict__ w,   // W_out [R, 2R]
-    const float* __restrict__ z,   // z [M, 2R]
-    float* __restrict__ out,       // dz [M, 2R]
-    int T_len, int R, int tiles) {
-  static_assert((BM / TM) * (BN / TN) == THREADS, "16 x 16 threads");
-  constexpr int A_PER = BM * BK / THREADS;
-  constexpr int B_PER = BN * BK / THREADS;
-  constexpr float RSQRT2 = 0.70710678118654752f;
-  const int K = 2 * R;
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / tiles;
-  const int t0 = (blockIdx.x - b * tiles) * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-
-  const int a_row = tid / (BK / A_PER);
-  const int a_k = (tid % (BK / A_PER)) * A_PER;
-  const int a_t = t0 + a_row;
-  const bool a_ok = a_t < T_len;
-  const int b_row = tid / (BK / B_PER);
-  const int b_k = (tid % (BK / B_PER)) * B_PER;
-  const int b_n = n0 + b_row;
-
-  float a_next[A_PER], b_next[B_PER];
-  auto fetch = [&](int k0) {
-    const int k = k0 + a_k;
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) a_next[i] = 0.f;
-    if (a_ok) {
-      const size_t row = (size_t)b * T_len + a_t;
-      if (k < R) {
-        load_row<float, A_PER>(a0 + row * R + k, a_next);
-#pragma unroll
-        for (int i = 0; i < A_PER; ++i) a_next[i] *= RSQRT2;
-      } else {
-        load_row<float, A_PER>(a1 + row * R + (k - R), a_next);
-      }
-    }
-    load_row<float, B_PER>(w + (size_t)b_n * (2 * R) + k0 + b_k, b_next);
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) As[a_k + i][a_row] = a_next[i];
-#pragma unroll
-    for (int i = 0; i < B_PER; ++i) Bs[b_k + i][b_row] = b_next[i];
-    __syncthreads();
-    if (k0 + BK < K) fetch(k0 + BK);
-
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], bv[TN];
-      load_smem<TM / 2>(&As[kk][ty * (TM / 2)], a);
-      load_smem<TM / 2>(&As[kk][BM / 2 + ty * (TM / 2)], a + TM / 2);
-      load_smem<TN / 2>(&Bs[kk][tx * (TN / 2)], bv);
-      load_smem<TN / 2>(&Bs[kk][BN / 2 + tx * (TN / 2)], bv + TN / 2);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += a[i] * bv[j];
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = i < TM / 2 ? ty * (TM / 2) + i
-                               : BM / 2 + ty * (TM / 2) + (i - TM / 2);
-    const int t = t0 + row;
-    if (t >= T_len) continue;
-    const size_t m = (size_t)b * T_len + t;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + (j < TN / 2 ? tx * (TN / 2) + j
-                                     : BN / 2 + tx * (TN / 2) + (j - TN / 2));
-      const float s = 1.f / (1.f + expf(-z[m * 2 * R + n]));
-      const float tf = tanhf(z[m * 2 * R + R + n]);
-      out[m * 2 * R + n] = acc[i][j] * tf * s * (1.f - s);
-      out[m * 2 * R + R + n] = acc[i][j] * s * (1.f - tf * tf);
-    }
-  }
-}
-
-template <int BM, int BN, int TM, int TN>
-int launch_bwd_tile(const float* a0, const float* a1, const float* w, const float* z,
-                    float* out, int B, int T_len, int R, cudaStream_t stream) {
-  const int tiles = (T_len + BM - 1) / BM;
-  dim3 grid(B * tiles, R / BN);
-  bwd_gemm<BM, BN, TM, TN><<<grid, THREADS, 0, stream>>>(a0, a1, w, z, out, T_len, R, tiles);
-  return (int)cudaGetLastError();
-}
-
-// The gate backward's tile: 128 x 128 (8 x 8 a thread) when R allows it and
-// the grid has a block for every SM, else 128 x 64 under the same rule,
-// else 64 x 64.
-int launch_gate_bwd(const float* a0, const float* a1, const float* w, const float* z,
-                    float* out, int B, int T_len, int R, void* stream) {
-  const int sms = acopy::sm_count();
-  const int t128 = (T_len + 127) / 128;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (R % 128 == 0 && B * t128 * (R / 128) >= sms)
-    return launch_bwd_tile<128, 128, 8, 8>(a0, a1, w, z, out, B, T_len, R, s);
-  if (B * t128 * (R / 64) >= sms)
-    return launch_bwd_tile<128, 64, 8, 4>(a0, a1, w, z, out, B, T_len, R, s);
-  return launch_bwd_tile<64, 64, 4, 4>(a0, a1, w, z, out, B, T_len, R, s);
 }
 
 // K1's input backward and weight gradients on the 3xTF32 tensor-core core
@@ -783,14 +656,83 @@ static_assert(TK == 32, "a row of a stage is the 128 bytes of a swizzle atom");
 template <int WGS, int BN, int STAGES>
 struct Plan {
   static constexpr int THREADS = 128 * WGS;
-  static constexpr int BM = 64 * WGS;
+  static constexpr int BM = 64 * WGS, N = BN, NSTAGES = STAGES;
+  static constexpr int NACC = BN / 2;  // a thread's elements of its warpgroup's 64 x BN sum
   static constexpr int A_TILE = BM * TK, B_TILE = BN * TK;  // floats, 1024-byte multiples
   static constexpr int SLOT = A_TILE + 2 * B_TILE;
   static constexpr int SMEM = STAGES * SLOT * 4 + 1024;     // + the base's alignment
+  // two blocks an SM where their shared memory fits (at most 128 registers
+  // a thread), else one
+  static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
   static constexpr int A_CHUNKS = A_TILE / 4 / THREADS;      // 16-byte copies a thread
   static constexpr int B_CHUNKS = B_TILE / 4 / THREADS;
   static_assert(A_CHUNKS * 4 * THREADS == A_TILE && B_CHUNKS * 4 * THREADS == B_TILE, "");
+  static_assert(STAGES >= 3, "a slot is refilled while the next stage runs");
 };
+
+// The float offset of chunk q (q / 8 the row, q % 8 the 16-byte chunk) in a
+// swizzled tile.
+__device__ __forceinline__ int chunk_at(int q) { return tf32x3::wg::swizzled(q >> 3, q & 7); }
+
+// The products of a plan: a thread's NACC elements of its warpgroup's 64 x
+// BN sum over nk stages, into acc from zero. ``load(slot, kt)`` issues the
+// copies of stage kt into a slot of the ring at ``smem`` (A's BM rows, then
+// B big and B small, BN rows each, all swizzled); stage kt's A elements are
+// multiplied by ``a_scale(kt)`` in registers before their split.
+template <class P, class Load, class Scale>
+__device__ __forceinline__ void products(float (&acc)[P::NACC], float* smem, int nk,
+                                         Load&& load, Scale&& a_scale) {
+  const int tid = threadIdx.x, wg = tid >> 7;
+  constexpr int STAGES = P::NSTAGES;
+  float t[P::NACC];
+#pragma unroll
+  for (int i = 0; i < P::NACC; ++i) acc[i] = 0.f;
+
+  // the prologue: STAGES - 1 stages in flight
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    acopy::copy_commit();
+  }
+  acopy::copy_wait<STAGES - 2>();
+  tf32x3::wg::fence_shared();
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const float* slot = smem + (kt % STAGES) * P::SLOT;
+    const float* sa = slot + wg * 64 * TK;  // the warpgroup's 64 rows
+    const float* sb = slot + P::A_TILE;
+    const float scale = a_scale(kt);
+    // the stage's product into t from zero, each k8 step's A fragment
+    // loaded and split while the step before it runs
+    tf32x3::FragA fa[TK / 8];
+    tf32x3::wg::fence_regs(t);
+#pragma unroll
+    for (int ks = 0; ks < TK / 8; ++ks) {
+      tf32x3::wg::load_a(fa[ks], sa, ks, tid, scale);
+      tf32x3::wg::fence();
+      const float* bb = sb + ks * 8;   // 32 bytes a k8 step
+      tf32x3::wg::mma_rs<P::N>(t, fa[ks], true, bb, ks == 0 ? 0 : 1);
+      tf32x3::wg::mma_rs<P::N>(t, fa[ks], false, bb + P::B_TILE, 1);
+      tf32x3::wg::mma_rs<P::N>(t, fa[ks], false, bb, 1);
+    }
+    tf32x3::wg::commit();
+    // meanwhile: the copies STAGES - 1 stages ahead into the slot of the
+    // stage before (every thread was past its products at the last barrier)
+    if (kt + STAGES - 1 < nk) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    acopy::copy_commit();
+    tf32x3::wg::wait<0>();
+    tf32x3::wg::fence_regs(t);
+#pragma unroll
+    for (int ks = 0; ks < TK / 8; ++ks) tf32x3::wg::fence_frag(fa[ks]);
+#pragma unroll
+    for (int i = 0; i < P::NACC; ++i) acc[i] += t[i];
+    // the next stage landed (this thread's copies), visible to the block
+    // and to the tensor cores
+    acopy::copy_wait<STAGES - 2>();
+    tf32x3::wg::fence_shared();
+    __syncthreads();
+  }
+  acopy::copy_wait<0>();
+}
 
 // taps[b][tap][n] = sum_c step[b, c] W_conv[tap C + c, n]: a block takes 32
 // columns of one tap (a lane a column) for up to 8 items (blockIdx.z's);
@@ -829,7 +771,7 @@ __global__ void __launch_bounds__(256) step_taps(const float* __restrict__ step,
 // MODE 1 (out): A = g [M, R], K = R; o = A W_out + b_out ->
 //   out0 = x' = (x + o_r) / sqrt 2, out1 = skip' = skip + o_s.
 template <int MODE, int WGS, int BN, int STAGES, bool SAVE_Z>
-__global__ void __launch_bounds__(128 * WGS, 2 / WGS) fwd_kernel(
+__global__ void __launch_bounds__(128 * WGS, (Plan<WGS, BN, STAGES>::MIN_BLOCKS)) fwd_kernel(
     const float* __restrict__ a_src,   // MODE 0: x [M, C]; MODE 1: g [M, R]
     const float* __restrict__ taps,    // MODE 0: step_taps' [B][3][2R]
     const float* __restrict__ w,       // split weights [2][2R][K]
@@ -840,12 +782,10 @@ __global__ void __launch_bounds__(128 * WGS, 2 / WGS) fwd_kernel(
     float* __restrict__ out0, float* __restrict__ out1, int M, int T_len, int C, int R,
     int K, int d) {
   using P = Plan<WGS, BN, STAGES>;
-  constexpr int NACC = BN / 2;   // a thread's elements of the warpgroup's 64 x BN sum
   extern __shared__ __align__(16) float k1f_smem[];
   float* smem = tf32x3::wg::align1024(k1f_smem);
   const int tid = threadIdx.x, wg = tid >> 7;
   const int m0 = blockIdx.x * P::BM, j0 = blockIdx.y * (BN / 2);
-  const int nk = K / TK;
   const size_t half = (size_t)2 * R * K;  // floats of the big (or small) weights
   // this thread's copies: q = tid + THREADS i is row q / 8, 16-byte chunk
   // q % 8 (the same for every i)
@@ -857,11 +797,9 @@ __global__ void __launch_bounds__(128 * WGS, 2 / WGS) fwd_kernel(
     a_b[i] = a_m[i] < M ? a_m[i] / T_len : 0;
     a_t[i] = a_m[i] - a_b[i] * T_len;
   }
-  auto at = [&](int q) { return tf32x3::wg::swizzled(q >> 3, kc); };  // chunk q's floats
-  auto slot_at = [&](int slot) { return smem + slot * P::SLOT; };
   auto load = [&](int slot, int kt) {
     const int k0 = kt * TK;
-    float* sa = slot_at(slot);
+    float* sa = smem + slot * P::SLOT;
     float* sb = sa + P::A_TILE;
     if (MODE == 0) {
       const int tap = k0 / C, c = k0 - tap * C + kc * 4, shift = (tap - 1) * d;
@@ -869,14 +807,14 @@ __global__ void __launch_bounds__(128 * WGS, 2 / WGS) fwd_kernel(
       for (int i = 0; i < P::A_CHUNKS; ++i) {
         const int ts = a_t[i] + shift;
         const bool ok = a_m[i] < M && ts >= 0 && ts < T_len;
-        acopy::copy16(sa + at(tid + P::THREADS * i),
+        acopy::copy16(sa + chunk_at(tid + P::THREADS * i),
                       ok ? a_src + ((size_t)a_b[i] * T_len + ts) * C + c : a_src, ok);
       }
     } else {
 #pragma unroll
       for (int i = 0; i < P::A_CHUNKS; ++i) {
         const bool ok = a_m[i] < M;
-        acopy::copy16(sa + at(tid + P::THREADS * i),
+        acopy::copy16(sa + chunk_at(tid + P::THREADS * i),
                       ok ? a_src + (size_t)a_m[i] * K + k0 + kc * 4 : a_src, ok);
       }
     }
@@ -885,59 +823,12 @@ __global__ void __launch_bounds__(128 * WGS, 2 / WGS) fwd_kernel(
       const int q = tid + P::THREADS * i, n = q >> 3;
       const int col = (n < BN / 2 ? 0 : R - BN / 2) + j0 + n;
       const float* src = w + (size_t)col * K + k0 + kc * 4;
-      acopy::copy16(sb + at(q), src, true);
-      acopy::copy16(sb + P::B_TILE + at(q), src + half, true);
+      acopy::copy16(sb + chunk_at(q), src, true);
+      acopy::copy16(sb + P::B_TILE + chunk_at(q), src + half, true);
     }
   };
-
-  float acc[NACC], t[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-
-  // the prologue: STAGES - 1 stages in flight
-  static_assert(STAGES >= 3, "a slot is refilled while the next stage runs");
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load(s, s);
-    acopy::copy_commit();
-  }
-  acopy::copy_wait<STAGES - 2>();
-  tf32x3::wg::fence_shared();
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int slot = kt % STAGES;
-    const float* sa = slot_at(slot) + wg * 64 * TK;  // the warpgroup's 64 rows
-    const float* sb = slot_at(slot) + P::A_TILE;
-    // the stage's product into t from zero, each k8 step's A fragment
-    // loaded and split while the step before it runs
-    tf32x3::FragA fa[TK / 8];
-    tf32x3::wg::fence_regs(t);
-#pragma unroll
-    for (int ks = 0; ks < TK / 8; ++ks) {
-      tf32x3::wg::load_a(fa[ks], sa, ks, tid);
-      tf32x3::wg::fence();
-      const float* bb = sb + ks * 8;   // 32 bytes a k8 step
-      tf32x3::wg::mma_rs<BN>(t, fa[ks], true, bb, ks == 0 ? 0 : 1);
-      tf32x3::wg::mma_rs<BN>(t, fa[ks], false, bb + P::B_TILE, 1);
-      tf32x3::wg::mma_rs<BN>(t, fa[ks], false, bb, 1);
-    }
-    tf32x3::wg::commit();
-    // meanwhile: the copies STAGES - 1 stages ahead into the slot of the
-    // stage before (every thread was past its products at the last barrier)
-    if (kt + STAGES - 1 < nk) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    acopy::copy_commit();
-    tf32x3::wg::wait<0>();
-    tf32x3::wg::fence_regs(t);
-#pragma unroll
-    for (int ks = 0; ks < TK / 8; ++ks) tf32x3::wg::fence_frag(fa[ks]);
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) acc[i] += t[i];
-    // the next stage landed (this thread's copies), visible to the block
-    // and to the tensor cores
-    acopy::copy_wait<STAGES - 2>();
-    tf32x3::wg::fence_shared();
-    __syncthreads();
-  }
-  acopy::copy_wait<0>();
+  float acc[P::NACC];
+  products<P>(acc, smem, K / TK, load, [](int) { return 1.f; });
 
   // epilogue: d[4 j + 2 h + e] is row 16 warp + g + 8 h, column 8 j + 2 c +
   // e; n8 tiles j < BN / 16 are gate (residual) columns j0 + 8 j + ..., j +
@@ -1043,7 +934,210 @@ int launch(const float* a_src, const float* step, const float* w_plain, const fl
                                               out1, M, T_len, C, R, d, s);
 }
 
+// The gate backward on the same products: dg = do W_out^T over the M = B T
+// rows (flat: nothing here depends on the item) and N = R columns, K = 2R,
+// with do = [dx' / sqrt 2 | dskip'] gathered stage by stage (TK divides R,
+// so a stage lies in dx' or in dskip'; the 1 / sqrt 2 is applied to A's
+// elements in registers before their split, the plain version's float32
+// product) and B = W_out's rows as stored ([R][2R] is K-major already:
+// the wrapper's split is of W_out itself, [2][R][2R], not of its transpose,
+// which the forward's out_split holds). The block's BN columns are n0 ..
+// n0 + BN - 1; the epilogue reads z[m, n], z[m, n + 1] and z[m, R + n], z[m,
+// R + n + 1] as float2 for a thread's column pair and writes both halves of
+// dz [M, 2R].
+template <int WGS, int BN, int STAGES>
+__global__ void __launch_bounds__(128 * WGS, (Plan<WGS, BN, STAGES>::MIN_BLOCKS))
+    gate_bwd_kernel(const float* __restrict__ dx_out,     // [M, R]
+                    const float* __restrict__ dskip_out,  // [M, R]
+                    const float* __restrict__ w,          // W_out split [2][R][2R]
+                    const float* __restrict__ z,          // [M, 2R]
+                    float* __restrict__ dz,               // [M, 2R]
+                    int M, int R) {
+  using P = Plan<WGS, BN, STAGES>;
+  extern __shared__ __align__(16) float k1f_smem[];
+  float* smem = tf32x3::wg::align1024(k1f_smem);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = blockIdx.x * P::BM, n0 = blockIdx.y * BN;
+  const int K = 2 * R;
+  const size_t half = (size_t)R * K;  // floats of the big (or small) weights
+  const int kc = tid & (KC - 1);
+  auto load = [&](int slot, int kt) {
+    const int k0 = kt * TK;
+    float* sa = smem + slot * P::SLOT;
+    float* sb = sa + P::A_TILE;
+    const float* a = (k0 < R ? dx_out + k0 : dskip_out + (k0 - R)) + kc * 4;
+#pragma unroll
+    for (int i = 0; i < P::A_CHUNKS; ++i) {
+      const int q = tid + P::THREADS * i, m = m0 + (q >> 3);
+      acopy::copy16(sa + chunk_at(q), m < M ? a + (size_t)m * R : a, m < M);
+    }
+#pragma unroll
+    for (int i = 0; i < P::B_CHUNKS; ++i) {
+      const int q = tid + P::THREADS * i;
+      const float* src = w + (size_t)(n0 + (q >> 3)) * K + k0 + kc * 4;
+      acopy::copy16(sb + chunk_at(q), src, true);
+      acopy::copy16(sb + P::B_TILE + chunk_at(q), src + half, true);
+    }
+  };
+  float acc[P::NACC];
+  products<P>(acc, smem, K / TK, load, [R](int kt) { return kt * TK < R ? RSQRT2 : 1.f; });
+
+  // epilogue: acc[4 j + 2 h + e] is dg at row 16 warp + g + 8 h, column n0
+  // + 8 j + 2 c + e
+  const int lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int row0 = m0 + 64 * wg + 16 * ((tid >> 5) & 3) + g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = row0 + 8 * h;
+    if (m >= M) continue;
+    const float* zr = z + (size_t)m * 2 * R;
+    float* dr = dz + (size_t)m * 2 * R;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * c, e = 4 * j + 2 * h;
+      const float2 za = *reinterpret_cast<const float2*>(zr + n);
+      const float2 zf = *reinterpret_cast<const float2*>(zr + R + n);
+      const float dg[2] = {acc[e], acc[e + 1]};
+      const float zs[2] = {za.x, za.y}, zt[2] = {zf.x, zf.y};
+      float da[2], df[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float sg = 1.f / (1.f + expf(-zs[q])), tf = tanhf(zt[q]);
+        da[q] = dg[q] * tf * sg * (1.f - sg);
+        df[q] = dg[q] * sg * (1.f - tf * tf);
+      }
+      *reinterpret_cast<float2*>(dr + n) = make_float2(da[0], da[1]);
+      *reinterpret_cast<float2*>(dr + R + n) = make_float2(df[0], df[1]);
+    }
+  }
+}
+
+template <int WGS, int BN, int STAGES>
+int launch_gate_bwd_plan(const float* dx_out, const float* dskip_out, const float* w,
+                         const float* z, float* dz, int M, int R, cudaStream_t s) {
+  using P = Plan<WGS, BN, STAGES>;
+  if (R % BN) return (int)cudaErrorInvalidValue;
+  const auto kernel = gate_bwd_kernel<WGS, BN, STAGES>;
+  const int err = k1x3::set_smem(kernel, P::SMEM);
+  if (err) return err;
+  const dim3 grid = dim3(acopy::cdiv(M, P::BM), R / BN);
+  kernel<<<grid, P::THREADS, P::SMEM, s>>>(dx_out, dskip_out, w, z, dz, M, R);
+  return (int)cudaGetLastError();
+}
+
+// The gate backward's plans: 1 = one warpgroup, 64 x 64 tiles, 4 stages
+// (two blocks an SM); 2 = two warpgroups sharing B, 128 x 128 tiles, 4
+// stages (one block an SM); 3 = two warpgroups sharing B, 128 x 64 tiles,
+// 3 stages (two blocks an SM, so one block's epilogue overlaps the other's
+// products). The rule from M and R, in 128 x 64 tiles (PERF.md, measured
+// on an H100 at R = 512: 128 x 64 fastest at M = 10240, 64 x 64 at 5120
+// and 1024, 128 x 128 at 2560): 128 x 64 where its grid fills the card's
+// slots of two blocks an SM at least twice; 128 x 128 where R allows it
+// and its grid is one wave of one block an SM, at least half full; else
+// 64 x 64.
+int gate_bwd_plan_for(int M, int R) {
+  const int sms = acopy::sm_count(), tiles = acopy::cdiv(M, 128) * (R / 64);
+  if (tiles >= 4 * sms) return 3;
+  return R % 128 == 0 && tiles >= sms && tiles < 2 * sms ? 2 : 1;
+}
+
+int launch_gate_bwd(const float* dx_out, const float* dskip_out, const float* w,
+                    const float* z, float* dz, int B, int T_len, int R, void* stream) {
+  const int M = B * T_len;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (w == nullptr || R % 64) return (int)cudaErrorInvalidValue;
+  switch (gate_bwd_plan_for(M, R)) {
+    case 1: return launch_gate_bwd_plan<1, 64, 4>(dx_out, dskip_out, w, z, dz, M, R, s);
+    case 2: return launch_gate_bwd_plan<2, 128, 4>(dx_out, dskip_out, w, z, dz, M, R, s);
+    default: return launch_gate_bwd_plan<2, 64, 3>(dx_out, dskip_out, w, z, dz, M, R, s);
+  }
+}
+
 }  // namespace k1f
+
+// The weights' TF32 split for the 3xTF32 wgmma kernels (k1f): big =
+// rna(x) and small = rna(x - big) of every element (tf32x3::split), the
+// bits of models/wavenet.py's tf32_split. It replaces no TPU kernel: the
+// 3xTF32 design needs it, once a prepare() call, for every block's
+// weights. A weight w [rows][cols] is written as [2][cols][rows] (its
+// transpose, K-major for the forward, where w is [K][N]), as
+// [2][rows][cols] (itself, the gate backward's W_out), or both from one
+// read. One launch splits a table of up to MAX weights (a prepare() call's
+// 40): a block takes a 32 x 32 tile of one weight (the table's first tiles
+// hold its weight's start, so a block finds its weight in the table),
+// reads it coalesced, writes it as stored straight from registers and
+// transposed through shared memory, both coalesced. Bound on an H100:
+// bytes, each weight read once and its planes written (~590 MB a training
+// step's 40 weights at R = 512, W_out in both layouts).
+namespace wsplit {
+
+constexpr int MAX = 64, TILE = 32;
+
+struct Table {
+  const float* src[MAX];
+  float* dst_t[MAX];  // [2][cols][rows], or null
+  float* dst_n[MAX];  // [2][rows][cols], or null
+  int rows[MAX], cols[MAX];
+  int tile0[MAX + 1];  // weight i's tiles are tile0[i] .. tile0[i + 1] - 1
+  int n;
+};
+
+__global__ void __launch_bounds__(256) split_kernel(const Table tab) {
+  __shared__ float big[TILE][TILE + 1], small[TILE][TILE + 1];
+  int i = 0;
+  while (i + 1 < tab.n && tab.tile0[i + 1] <= (int)blockIdx.x) ++i;
+  const int rows = tab.rows[i], cols = tab.cols[i];
+  const int t = blockIdx.x - tab.tile0[i], tiles_c = acopy::cdiv(cols, TILE);
+  const int r0 = (t / tiles_c) * TILE, c0 = (t % tiles_c) * TILE;
+  const float* src = tab.src[i];
+  float *dst_t = tab.dst_t[i], *dst_n = tab.dst_n[i];
+  const size_t plane = (size_t)rows * cols;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;  // 32 x 8 threads
+  for (int k = ty; k < TILE; k += 8) {
+    const int r = r0 + k, c = c0 + tx;
+    if (r >= rows || c >= cols) continue;
+    const size_t o = (size_t)r * cols + c;
+    float b, sm;
+    tf32x3::split(src[o], b, sm);
+    big[k][tx] = b;
+    small[k][tx] = sm;
+    if (dst_n) {
+      dst_n[o] = b;
+      dst_n[plane + o] = sm;
+    }
+  }
+  if (!dst_t) return;  // the same for the whole block
+  __syncthreads();
+  for (int k = ty; k < TILE; k += 8) {
+    const int c = c0 + k, r = r0 + tx;
+    if (r >= rows || c >= cols) continue;
+    const size_t o = (size_t)c * rows + r;
+    dst_t[o] = big[tx][k];
+    dst_t[plane + o] = small[tx][k];
+  }
+}
+
+int launch(const void* const* src, void* const* dst_t, void* const* dst_n, const int* rows,
+           const int* cols, int n, void* stream) {
+  if (n < 1 || n > MAX) return (int)cudaErrorInvalidValue;
+  Table tab;
+  tab.n = n;
+  tab.tile0[0] = 0;
+  for (int i = 0; i < n; ++i) {
+    if (!dst_t[i] && !dst_n[i]) return (int)cudaErrorInvalidValue;
+    tab.src[i] = (const float*)src[i];
+    tab.dst_t[i] = (float*)dst_t[i];
+    tab.dst_n[i] = (float*)dst_n[i];
+    tab.rows[i] = rows[i];
+    tab.cols[i] = cols[i];
+    tab.tile0[i + 1] = tab.tile0[i] + acopy::cdiv(rows[i], TILE) * acopy::cdiv(cols[i], TILE);
+  }
+  const dim3 grid = dim3(tab.tile0[n]);
+  split_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(tab);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wsplit
 
 }  // namespace
 
@@ -1103,12 +1197,29 @@ extern "C" int wavenet_forward_plan(int B, int T_len, int R) {
 // wavenet_input_backward is [B, ceil(T / rows), R].
 extern "C" int wavenet_backward_rows(int B, int T_len, int R) { return k1x3::TM; }
 
-// dz [B, T, 2R] from dx', dskip' [B, T, R], W_out [R, 2R] and z [B, T, 2R].
+// dz [B, T, 2R] from dx', dskip' [B, T, R], w_split (W_out [R, 2R] split:
+// [2][R][2R], big and small, not transposed) and z [B, T, 2R], on the
+// 3xTF32 wgmma core in the plan k1f::gate_bwd_plan_for picks.
 extern "C" int wavenet_gate_backward(const void* dx_out, const void* dskip_out,
-                                     const void* w_out, const void* z, void* dz, int B,
+                                     const void* w_split, const void* z, void* dz, int B,
                                      int T_len, int R, void* stream) {
-  return launch_gate_bwd((const float*)dx_out, (const float*)dskip_out, (const float*)w_out,
-                         (const float*)z, (float*)dz, B, T_len, R, stream);
+  return k1f::launch_gate_bwd((const float*)dx_out, (const float*)dskip_out,
+                              (const float*)w_split, (const float*)z, (float*)dz, B, T_len, R,
+                              stream);
+}
+
+// The plan the rule picks for wavenet_gate_backward at B T rows.
+extern "C" int wavenet_gate_backward_plan(int B, int T_len, int R) {
+  return k1f::gate_bwd_plan_for(B * T_len, R);
+}
+
+// The TF32 split of n <= 64 float32 weights in one launch: weight i, src[i]
+// [rows[i]][cols[i]], into dst_t[i] [2][cols[i]][rows[i]] and dst_n[i]
+// [2][rows[i]][cols[i]], big then small, either null but not both.
+extern "C" int wavenet_weight_split(const void* const* src, void* const* dst_t,
+                                    void* const* dst_n, const int* rows, const int* cols, int n,
+                                    void* stream) {
+  return wsplit::launch(src, dst_t, dst_n, rows, cols, n, stream);
 }
 
 // dx [B, T, R] and part [B, ceil(T / rows), R] (each tile's column sums of

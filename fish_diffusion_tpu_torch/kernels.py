@@ -64,6 +64,12 @@ KERNELS = {
         id="K1 dW", route="cuda", source=_PORT + "csrc/wavenet_block.cu",
         replaces=_TPU + "models/wavenet.py:59",
     ),
+    # the weights' TF32 split that the 3xTF32 wgmma kernels above read
+    # (no TPU kernel does this; listed under the block they serve)
+    "wavenet_weight_split": dict(
+        id="K1 split", route="cuda", source=_PORT + "csrc/wavenet_block.cu",
+        replaces=_TPU + "models/wavenet.py:59",
+    ),
     "unipc_predict": dict(
         id="K2", route="triton", source=_PORT + "models/diffusion.py",
         replaces=_TPU + "models/diffusion.py:462",
@@ -187,6 +193,8 @@ SIGNATURES = {
         "wavenet_forward_plan": [_I] * 3,
         "wavenet_backward_rows": [_I] * 3,
         "wavenet_gate_backward": [_P] * 5 + [_I] * 3 + [_P],
+        "wavenet_gate_backward_plan": [_I] * 3,
+        "wavenet_weight_split": [_P] * 5 + [_I, _P],
         "wavenet_input_backward": [_P] * 5 + [_I] * 4 + [_P],
         "wavenet_weight_grad_chunks": [_I] * 3,
         "wavenet_weight_grad": [_P] * 8 + [_I] * 5 + [_P],

@@ -8,18 +8,21 @@ skip sum). ``residual_gate_reference`` and ``residual_out_reference`` are
 their plain PyTorch versions, which the wrappers take for CPU tensors. In
 float32 both run on the tensor cores through 3xTF32 ``wgmma``; their
 weights are split once into TF32 big and small halves in the kernels'
-layout (``tf32_split``), which ``prepare`` does once a sampling call or a
-training forward, and a direct call without them does itself.
+layout (``split_weights``: one launch of K1's split kernel for all of a
+call's weights; its plain version ``tf32_split``), which ``prepare`` does
+once a sampling call or a training forward, and a direct call without them
+does itself.
 
 Training goes through ``ResidualBlockFunction`` whenever grad is enabled:
 its forward is ``residual_gate_train`` (K1's gate in its training mode,
 which also writes the pre-activation z) and ``residual_out``; its backward
-is K1's backward, ``residual_gate_backward`` (dz from dx', dskip' and z),
-``residual_input_backward`` (dx and the step's gradient from dz) and
-``residual_weight_grad`` (dW_conv and dW_out in one launch), each with its
-plain version beside it (``*_reference``). The input backward and the
-weight gradients run on the 3xTF32 tensor-core core (``csrc/tf32x3.cuh``).
-Serving (grad disabled) keeps ``residual_block``.
+is K1's backward, ``residual_gate_backward`` (dz from dx', dskip' and z:
+3xTF32 ``wgmma``, on W_out split as stored, which ``prepare`` adds under
+grad), ``residual_input_backward`` (dx and the step's gradient from dz)
+and ``residual_weight_grad`` (dW_conv and dW_out in one launch), each with
+its plain version beside it (``*_reference``). The input backward and the
+weight gradients run on the 3xTF32 ``mma.sync`` core
+(``csrc/tf32x3.cuh``). Serving (grad disabled) keeps ``residual_block``.
 
 The per-block conditioner projections ``[B, T, 2R]`` are constant across
 the reverse-diffusion steps, so ``prepare`` computes them once per sampling
@@ -30,6 +33,7 @@ entry a block, so that training takes the same path.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -59,6 +63,50 @@ def tf32_split(w):
     t = w.detach().t()
     big = _round_tf32(t)
     return torch.stack([big, _round_tf32(t - big)])
+
+
+def split_weights_reference(ws, transposed, stored):
+    """Plain version of K1's split kernel: for each weight w [K, N], its
+    ``tf32_split(w)`` ([2, N, K]) where ``transposed[i]`` and its
+    ``tf32_split(w.t())`` (w itself split, [2, K, N]: the gate backward's
+    W_out) where ``stored[i]`` -> (the transposed splits, the stored ones),
+    None where not asked."""
+    return ([tf32_split(w) if t else None for w, t in zip(ws, transposed)],
+            [tf32_split(w.t()) if n else None for w, n in zip(ws, stored)])
+
+
+def split_weights(ws, transposed, stored):
+    """K1's split kernel, ``csrc/wavenet_block.cu`` ``wavenet_weight_split``:
+    the float32 weights ``ws`` (at most 64) split as
+    ``split_weights_reference`` does, bit for bit, in one launch that reads
+    each weight once, also where it writes both layouts. CPU tensors take
+    ``split_weights_reference``."""
+    if not ws[0].is_cuda:
+        return split_weights_reference(ws, transposed, stored)
+    kernels.require_cuda("split_weights", *ws)
+    _check_f32("split_weights", ws[0])
+
+    def planes(asked, shape):
+        return [torch.empty((2, *shape(w)), dtype=w.dtype, device=w.device) if a else None
+                for w, a in zip(ws, asked)]
+
+    out_t = planes(transposed, lambda w: w.shape[::-1])
+    out_n = planes(stored, lambda w: w.shape)
+    n = len(ws)
+
+    def pointers(ts):
+        return (ctypes.c_void_p * n)(*(None if t is None else t.data_ptr() for t in ts))
+
+    kernels.check(
+        kernels.load_library("wavenet_block").wavenet_weight_split(
+            pointers(ws), pointers(out_t), pointers(out_n),
+            (ctypes.c_int * n)(*(w.shape[0] for w in ws)),
+            (ctypes.c_int * n)(*(w.shape[1] for w in ws)), n, kernels.stream(),
+        ),
+        "wavenet_weight_split",
+    )
+    kernels.count_launch("wavenet_weight_split")
+    return out_t, out_n
 
 
 def gate_preactivation_reference(x, step, cond, w_conv, b_conv, dilation: int):
@@ -121,16 +169,19 @@ def _check_shapes(name, shapes: dict, R: int, *tensors):
         raise ValueError(f"{name}: tensors must be 16-byte aligned")
 
 
-def _split_for(name, w, w_split, R: int, K: int):
-    """The split weights a float32 launch reads: ``w_split`` checked, or
-    ``tf32_split(w)`` made here (a call without ``prepare``'s); None for
+def _split_for(name, w, w_split, R: int, transpose: bool = True):
+    """The split weights a float32 launch reads: ``w_split`` checked
+    (``[2, *w.shape]``, transposed where ``transpose``), or
+    ``split_weights`` made here (a call without ``prepare``'s); None for
     bfloat16 (its kernel reads w)."""
     if w.dtype != torch.float32:
         return None
     if w_split is None:
-        return tf32_split(w)
+        split_t, split_n = split_weights([w], [transpose], [not transpose])
+        return (split_t if transpose else split_n)[0]
     kernels.require_cuda(name, w, w_split)
-    _check_shapes(name, {"w_split": (w_split, (2, 2 * R, K))}, R, w_split)
+    shape = (2, *(w.shape[::-1] if transpose else w.shape))
+    _check_shapes(name, {"w_split": (w_split, shape)}, R, w_split)
     return w_split
 
 
@@ -158,7 +209,7 @@ def residual_gate(x, step, cond, w_conv, b_conv, dilation: int, w_split=None):
         "step": (step, (B, R)), "cond": (cond, (B, T, 2 * R)),
         "w_conv": (w_conv, (3 * R, 2 * R)), "b_conv": (b_conv, (2 * R,)),
     }, R, x, step, cond, w_conv, b_conv)
-    w_split = _split_for("residual_gate", w_conv, w_split, R, 3 * R)
+    w_split = _split_for("residual_gate", w_conv, w_split, R)
     g = torch.empty_like(x)
     taps = _taps_scratch(w_split, B, R)
     kernels.check(
@@ -185,7 +236,7 @@ def residual_out(g, x, skip, w_out, b_out, w_split=None):
         "g": (g, (B, T, R)), "skip": (skip, (B, T, R)),
         "w_out": (w_out, (R, 2 * R)), "b_out": (b_out, (2 * R,)),
     }, R, g, x, skip, w_out, b_out)
-    w_split = _split_for("residual_out", w_out, w_split, R, R)
+    w_split = _split_for("residual_out", w_out, w_split, R)
     x_out, skip_out = torch.empty_like(x), torch.empty_like(skip)
     kernels.check(
         kernels.load_library("wavenet_block").wavenet_out(
@@ -220,7 +271,7 @@ def residual_gate_train(x, step, cond, w_conv, b_conv, dilation: int, w_split=No
         "step": (step, (B, R)), "cond": (cond, (B, T, 2 * R)),
         "w_conv": (w_conv, (3 * R, 2 * R)), "b_conv": (b_conv, (2 * R,)),
     }, R, x, step, cond, w_conv, b_conv)
-    w_split = _split_for("residual_gate_train", w_conv, w_split, R, 3 * R)
+    w_split = _split_for("residual_gate_train", w_conv, w_split, R)
     g = torch.empty_like(x)
     z = torch.empty_like(cond)
     taps = _taps_scratch(w_split, B, R)
@@ -241,19 +292,23 @@ def _check_f32(name, t):
         raise TypeError(f"{name}: takes float32, got {t.dtype}")
 
 
-def residual_gate_backward_reference(dx_out, dskip_out, z, w_out):
+def residual_gate_backward_reference(dx_out, dskip_out, z, w_out, w_split=None):
     """Plain version of K1's gate backward: dx', dskip' [B, T, R], z
     [B, T, 2R], w_out [R, 2R] -> dz [B, T, 2R] through the output product
-    (do = [dx' / sqrt(2) | dskip']) and the gate."""
+    (do = [dx' / sqrt(2) | dskip']) and the gate (``w_split`` not used)."""
     do = torch.cat([dx_out * _RSQRT2, dskip_out], dim=-1)
     dg = do @ w_out.t()
     s, tf = torch.sigmoid(z[..., : dg.shape[-1]]), torch.tanh(z[..., dg.shape[-1] :])
     return torch.cat([dg * tf * s * (1 - s), dg * s * (1 - tf * tf)], dim=-1)
 
 
-def residual_gate_backward(dx_out, dskip_out, z, w_out):
-    """K1's gate backward, ``csrc/wavenet_block.cu`` ``wavenet_gate_backward``
-    (see ``residual_gate_backward_reference``, which CPU tensors take)."""
+def residual_gate_backward(dx_out, dskip_out, z, w_out, w_split=None):
+    """K1's gate backward, ``csrc/wavenet_block.cu`` ``wavenet_gate_backward``,
+    on the 3xTF32 ``wgmma`` core in the plan its rule picks from B T; its
+    weights ``w_split`` are W_out split as stored (``split_weights``'
+    ``stored`` layout, [2, R, 2R]: ``prepare``'s ``bwd_split``), made
+    here if not given (see ``residual_gate_backward_reference``, which CPU
+    tensors take)."""
     if not dx_out.is_cuda:
         return residual_gate_backward_reference(dx_out, dskip_out, z, w_out)
     kernels.require_cuda("residual_gate_backward", dx_out, dskip_out, z, w_out)
@@ -263,10 +318,11 @@ def residual_gate_backward(dx_out, dskip_out, z, w_out):
         "dskip_out": (dskip_out, (B, T, R)), "z": (z, (B, T, 2 * R)),
         "w_out": (w_out, (R, 2 * R)),
     }, R, dx_out, dskip_out, z, w_out)
+    w_split = _split_for("residual_gate_backward", w_out, w_split, R, transpose=False)
     dz = torch.empty_like(z)
     kernels.check(
         kernels.load_library("wavenet_block").wavenet_gate_backward(
-            dx_out.data_ptr(), dskip_out.data_ptr(), w_out.data_ptr(), z.data_ptr(),
+            dx_out.data_ptr(), dskip_out.data_ptr(), w_split.data_ptr(), z.data_ptr(),
             dz.data_ptr(), B, T, R, kernels.stream(),
         ),
         "wavenet_gate_backward",
@@ -361,14 +417,14 @@ def residual_weight_grad(y, dz, g, dx_out, dskip_out, dilation: int):
 
 
 def residual_block_backward(x, step, z, g, dx_out, dskip_out, w_conv, w_out,
-                            dilation: int):
+                            dilation: int, bwd_split=None):
     """K1's backward: the gradients of (x, skip, step, cond, w_conv, b_conv,
     w_out, b_out) from those of (x', skip'). dz, dx and the weight gradients
-    come from K1's backward kernels (``residual_gate_backward``,
-    ``residual_input_backward``, ``residual_weight_grad`` on y = x + step[b],
-    rebuilt); the bias gradients are column sums."""
+    come from K1's backward kernels (``residual_gate_backward`` on
+    ``bwd_split``, ``residual_input_backward``, ``residual_weight_grad`` on
+    y = x + step[b], rebuilt); the bias gradients are column sums."""
     dx_out, dskip_out = dx_out.contiguous(), dskip_out.contiguous()
-    dz = residual_gate_backward(dx_out, dskip_out, z, w_out)
+    dz = residual_gate_backward(dx_out, dskip_out, z, w_out, bwd_split)
     dx, ds = residual_input_backward(dz, dx_out, w_conv, dilation)
     dw_conv, dw_out = residual_weight_grad(x + step[:, None, :], dz, g, dx_out, dskip_out,
                                            dilation)
@@ -378,34 +434,34 @@ def residual_block_backward(x, step, z, g, dx_out, dskip_out, w_conv, w_out,
 
 class ResidualBlockFunction(torch.autograd.Function):
     """K1 with a gradient: (x, skip, step, cond, w_conv, b_conv, w_out,
-    b_out, dilation, conv_split, out_split) -> (x', skip'). The kernels
-    read the split weights (``tf32_split``: made here when None), which take
-    no gradient; the weight gradients go to w_conv and w_out. The forward
-    saves x, step, z and g (~4 activations of [B, T, R] a block); the
-    backward is ``residual_block_backward``."""
+    b_out, dilation, conv_split, out_split, bwd_split) -> (x', skip'). The
+    kernels read the split weights (``split_weights``: made where needed
+    when None), which take no gradient; the weight gradients go to w_conv
+    and w_out. The forward saves x, step, z and g (~4 activations of [B, T,
+    R] a block); the backward is ``residual_block_backward``."""
 
     @staticmethod
     def forward(ctx, x, skip, step, cond, w_conv, b_conv, w_out, b_out, dilation,
-                conv_split=None, out_split=None):
+                conv_split=None, out_split=None, bwd_split=None):
         g, z = residual_gate_train(x, step, cond, w_conv, b_conv, dilation, conv_split)
         x_out, skip_out = residual_out(g, x, skip, w_out, b_out, out_split)
-        ctx.save_for_backward(x, step, z, g, w_conv, w_out)
+        ctx.save_for_backward(x, step, z, g, w_conv, w_out, bwd_split)
         ctx.dilation = dilation
         return x_out, skip_out
 
     @staticmethod
     def backward(ctx, dx_out, dskip_out):
-        x, step, z, g, w_conv, w_out = ctx.saved_tensors
+        x, step, z, g, w_conv, w_out, bwd_split = ctx.saved_tensors
         grads = residual_block_backward(x, step, z, g, dx_out, dskip_out, w_conv,
-                                        w_out, ctx.dilation)
-        return (*grads, None, None, None)
+                                        w_out, ctx.dilation, bwd_split)
+        return (*grads, None, None, None, None)
 
 
 def residual_block_train(x, skip, step, cond, w_conv, b_conv, w_out, b_out,
-                         dilation: int, conv_split=None, out_split=None):
+                         dilation: int, conv_split=None, out_split=None, bwd_split=None):
     """K1 with its backward: one residual block -> (x', skip')."""
     return ResidualBlockFunction.apply(x, skip, step, cond, w_conv, b_conv, w_out,
-                                       b_out, dilation, conv_split, out_split)
+                                       b_out, dilation, conv_split, out_split, bwd_split)
 
 
 class Mish(nn.Module):
@@ -483,19 +539,25 @@ class WaveNet(nn.Module):
         block's conditioner projection ``[B, T, 2R]``, and its weights packed
         in the layout the kernel reads (``w_conv [3R, 2R]``, ``b_conv``,
         ``w_out [R, 2R]``, ``b_out``) with the float32 kernels' split of them
-        (``conv_split``, ``out_split``: ``tf32_split``, ~16 MB a block at R =
-        512; None for other dtypes), made from the live parameters on every
+        (``conv_split``, ``out_split``: transposed, ~16 MB a block at R =
+        512; under grad also ``bwd_split``, W_out split as stored for the
+        gate backward, 4 MB; None for other dtypes or without grad), all in
+        one ``split_weights`` call, made from the live parameters on every
         call, so that the forward after an optimizer step reads the new
         weights. Lists, not stacks, so that under grad each block's gradient
         is its own."""
         c = self._conditioner(conditioner, cond_masks)
         r = self.residual_channels
         layers = self.residual_layers
+        n = len(layers)
         w_conv = [layer.conv_layer.conv.weight.permute(2, 1, 0).reshape(3 * r, 2 * r)
                   .contiguous() for layer in layers]
         w_out = [layer.output_projection.conv.weight[:, :, 0].t().contiguous()
                  for layer in layers]
-        split = [tf32_split(w) if w.dtype == torch.float32 else None for w in w_conv + w_out]
+        split_t = split_n = [None] * (2 * n)
+        if w_conv[0].dtype == torch.float32:
+            split_t, split_n = split_weights(w_conv + w_out, [True] * (2 * n),
+                                             [False] * n + [torch.is_grad_enabled()] * n)
         return {
             "cond": [F.linear(c, layer.conditioner_projection.conv.weight[:, :, 0],
                               layer.conditioner_projection.conv.bias) for layer in layers],
@@ -503,8 +565,9 @@ class WaveNet(nn.Module):
             "b_conv": [layer.conv_layer.conv.bias for layer in layers],
             "w_out": w_out,
             "b_out": [layer.output_projection.conv.bias for layer in layers],
-            "conv_split": split[: len(layers)],
-            "out_split": split[len(layers):],
+            "conv_split": split_t[:n],
+            "out_split": split_t[n:],
+            "bwd_split": split_n[n:],
         }
 
     def forward(
@@ -525,13 +588,14 @@ class WaveNet(nn.Module):
             x = x.masked_fill(x_masks[:, :, None], 0.0)
 
         skip = torch.zeros_like(x)
-        block = residual_block_train if torch.is_grad_enabled() else residual_block
-        for layer, cond, w_conv, b_conv, w_out, b_out, conv_split, out_split in zip(
+        grad = torch.is_grad_enabled()
+        for layer, cond, w_conv, b_conv, w_out, b_out, conv_split, out_split, bwd_split in zip(
             self.residual_layers, plan["cond"], plan["w_conv"], plan["b_conv"], plan["w_out"],
-            plan["b_out"], plan["conv_split"], plan["out_split"],
+            plan["b_out"], plan["conv_split"], plan["out_split"], plan["bwd_split"],
         ):
-            x, skip = block(x, skip, layer.diffusion_projection(step), cond, w_conv, b_conv,
-                            w_out, b_out, layer.dilation, conv_split, out_split)
+            args = (x, skip, layer.diffusion_projection(step), cond, w_conv, b_conv, w_out,
+                    b_out, layer.dilation, conv_split, out_split)
+            x, skip = residual_block_train(*args, bwd_split) if grad else residual_block(*args)
 
         x = skip * (1.0 / math.sqrt(len(self.residual_layers)))
         x = F.relu(self.skip_projection(x))

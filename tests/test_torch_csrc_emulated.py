@@ -229,9 +229,9 @@ def _k1_training(gen, B, T, R):
 
 @pytest.mark.parametrize(
     "B,T,R,d",
-    # with 8 SMs: the backward's 128 x 128 tile (R=128, B*T rows fill 8
-    # blocks), 128 x 64 (R=64), 64 x 64 (few rows); T <= 2d (the halo is all
-    # zeros) and a ragged last tile
+    # with 8 SMs: the gate backward's 128 x 128 tiles (R=128, B*T rows for
+    # one wave of one block an SM), 64 x 64 (R=64, or few rows); T <= 2d
+    # (the halo is all zeros) and a ragged last tile
     [
         (2, 300, 128, 1),
         (2, 150, 64, 2),
@@ -260,8 +260,9 @@ def test_wavenet_training_source(host_libs, B, T, R, d):
     ref_g, ref_z = wavenet.residual_gate_train_reference(
         a["x"], a["step"], a["cond"], a["w_conv"], a["b_conv"], d)
     dz = torch.empty(B, T, 2 * R)
+    out_split = wavenet.tf32_split(a["w_out"].t())
     assert lib.wavenet_gate_backward(a["dx_out"].data_ptr(), a["dskip_out"].data_ptr(),
-                                     a["w_out"].data_ptr(), ref_z.data_ptr(), dz.data_ptr(),
+                                     out_split.data_ptr(), ref_z.data_ptr(), dz.data_ptr(),
                                      B, T, R, None) == 0
     ref_dz = wavenet.residual_gate_backward_reference(a["dx_out"], a["dskip_out"], ref_z,
                                                       a["w_out"])
@@ -336,6 +337,105 @@ def test_wavenet_forward_plan_rule_source(host_libs):
                             x.data_ptr(), 1, 8, 64, 64, 1, None) != 0
     assert lib.wavenet_out(0, x.data_ptr(), None, None, None, None, None, None, None,
                            1, 8, 64, None) != 0
+
+
+@pytest.mark.parametrize(
+    "B,T,R,plan",
+    # each plan of the gate backward on the wgmma core, reached by M = B T
+    # as the rule picks it with the shim's 8 SMs (1 = 64 x 64, 2 = 128 x
+    # 128 over two warpgroups, 3 = 128 x 64 over two warpgroups), at ragged
+    # M whose tiles cross items, at R = 128 or 256 (several column tiles;
+    # A's stages from dx' and from dskip') and at few rows
+    [(3, 37, 64, 1), (2, 70, 128, 1), (1, 40, 64, 1), (5, 130, 128, 2), (1, 300, 256, 2),
+     (2, 300, 128, 2), (4, 1000, 64, 3), (3, 700, 128, 3), (7, 600, 64, 3)],
+)
+def test_wavenet_gate_backward_plans_source(host_libs, B, T, R, plan):
+    """K1's gate backward on the 3xTF32 wgmma core (``wavenet_gate_backward``,
+    W_out split as stored) in each plan its rule picks against
+    ``residual_gate_backward_reference``: <= 1e-4 of dz's scale, a rerun
+    bit-equal."""
+    gen = torch.Generator().manual_seed(B * T + R + plan)
+    a = _k1_training(gen, B, T, R)
+    z = rn(gen, B, T, 2 * R, scale=2.0)
+    lib = host_libs["wavenet_block"]
+    assert lib.wavenet_gate_backward_plan(B, T, R) == plan
+    w_split = wavenet.split_weights_reference([a["w_out"]], [False], [True])[1][0]
+    dz, again = (torch.full((B, T, 2 * R), float("nan")) for _ in range(2))
+    for out in (dz, again):
+        assert lib.wavenet_gate_backward(a["dx_out"].data_ptr(), a["dskip_out"].data_ptr(),
+                                         w_split.data_ptr(), z.data_ptr(), out.data_ptr(),
+                                         B, T, R, None) == 0
+    ref = wavenet.residual_gate_backward_reference(a["dx_out"], a["dskip_out"], z, a["w_out"])
+    err = (dz - ref).abs().max().item()
+    assert err <= 1e-4 * ref.abs().max().item(), err
+    assert torch.equal(dz, again)
+
+
+def test_wavenet_gate_backward_plan_rule_source(host_libs):
+    """The gate backward's rule from M and R (the shim's 8 SMs), in 128 x 64
+    tiles: 128 x 64 where they are at least 4 an SM, else 128 x 128 where R
+    is a multiple of 128 and they are one or more but fewer than two an
+    SM, else 64 x 64; R off the 64-column tile, or a launch without split
+    weights, is refused."""
+    lib = host_libs["wavenet_block"]
+    assert [lib.wavenet_gate_backward_plan(B, T, R) for B, T, R in
+            [(1, 512, 128), (1, 384, 128), (1, 300, 256), (20, 512, 512), (4, 1000, 64),
+             (4, 900, 64), (1, 1024, 128), (1, 896, 128)]] == [2, 1, 2, 3, 3, 1, 1, 2]
+    x = torch.zeros(1, 8, 128)
+    w = torch.zeros(2, 64, 128)
+    for R, w_ptr in ((32, w.data_ptr()), (96, w.data_ptr()), (64, None)):
+        assert lib.wavenet_gate_backward(x.data_ptr(), x.data_ptr(), w_ptr, x.data_ptr(),
+                                         x.data_ptr(), 1, 8, R, None) != 0
+
+
+def _ties(rng, w):
+    """w with its first 64 elements (or all) on a TF32 rounding tie (bit 12
+    set, the 12 bits below it clear), both signs."""
+    n = min(64, w.size)
+    ties = (rng.integers(0x30000000, 0x4c000000, n, dtype=np.uint32) & 0xffffe000) | 0x1000
+    w.reshape(-1)[:n] = (ties | rng.integers(0, 2, n, dtype=np.uint32) << 31).view(np.float32)
+    return w
+
+
+def test_wavenet_weight_split_source(host_libs):
+    """K1's split kernel (``wavenet_weight_split``): one launch over a table
+    of weights, each bit-equal to its plain version (``tf32_split(w)``
+    transposed, ``tf32_split(w.t())`` as stored, or both from one read),
+    ties included, at shapes off the 32 x 32 tile; a table past 64
+    weights, or a weight with neither layout asked, is refused."""
+    rng = np.random.default_rng(16)
+    shapes = [(96, 128, True, False), (40, 72, True, True), (33, 65, False, True),
+              (64, 128, False, True), (7, 5, True, True), (5, 9, True, False)]
+    ws = [torch.from_numpy(_ties(rng, (rng.standard_normal((r, c))
+                                       * 10.0 ** rng.uniform(-6, 6, (r, c))).astype(np.float32)))
+          for r, c, _, _ in shapes]
+    transposed = [t for _, _, t, _ in shapes]
+    stored = [n for _, _, _, n in shapes]
+    out_t = [torch.full((2, *w.shape[::-1]), float("nan")) if t else None
+             for w, t in zip(ws, transposed)]
+    out_n = [torch.full((2, *w.shape), float("nan")) if n else None for w, n in zip(ws, stored)]
+    n = len(ws)
+
+    def pointers(ts):
+        return (ctypes.c_void_p * len(ts))(*(None if t is None else t.data_ptr() for t in ts))
+
+    lib = host_libs["wavenet_block"]
+    assert lib.wavenet_weight_split(
+        pointers(ws), pointers(out_t), pointers(out_n),
+        (ctypes.c_int * n)(*(r for r, _, _, _ in shapes)),
+        (ctypes.c_int * n)(*(c for _, c, _, _ in shapes)), n, None) == 0
+    want_t, want_n = wavenet.split_weights_reference(ws, transposed, stored)
+    for got, want in zip(out_t + out_n, want_t + want_n):
+        assert (got is None) == (want is None)
+        assert got is None or torch.equal(got, want)
+    assert torch.equal(out_t[1], wavenet.tf32_split(ws[1]))
+    assert torch.equal(out_n[1], wavenet.tf32_split(ws[1].t()))
+    many = 65
+    table = pointers([ws[0]] * many)
+    dims = (ctypes.c_int * many)(*([1] * many))
+    assert lib.wavenet_weight_split(table, table, table, dims, dims, many, None) != 0
+    assert lib.wavenet_weight_split(pointers(ws[:1]), pointers([None]), pointers([None]),
+                                    dims, dims, 1, None) != 0
 
 
 def test_wavenet_weight_split_matches_numpy():

@@ -1,4 +1,5 @@
-"""The port's hand-written kernels (K1 with its training mode and backward,
+"""The port's hand-written kernels (K1 with its training mode, backward and
+weight split,
 K2-K6 with K6 2-D and K5 istft, K7,
 K8-cand, K8 dense, K9 comb and sine, K10 with its backward, the weight gradients, and the
 backward kernels of K3 and K5) against their plain PyTorch versions
@@ -152,6 +153,7 @@ def test_residual_block_function_on_the_card(gen, d):
     for name in ("wavenet_gate_train", "wavenet_out", "wavenet_gate_backward",
                  "wavenet_input_backward", "wavenet_weight_grad"):
         assert kernels.LAUNCHES[name] == 1, name
+    assert kernels.LAUNCHES["wavenet_weight_split"] == 3  # each wrapper splits its own
     assert kernels.LAUNCHES["conv1d_wgrad"] == 0
     for got_t, ref_t in zip(got, grads(wavenet.residual_block_reference)):
         assert_scaled(got_t, ref_t)
@@ -182,6 +184,50 @@ def test_k1_backward_on_the_tensor_cores(gen, B, T, d):
     assert_scaled(ds, ref_ds)
     dx2, ds2 = wavenet.residual_input_backward(dz, dx_out, w_conv, d)
     assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.parametrize("B,T,plan", [(20, 512, 3), (3, 1000, 2), (3, 333, 1)])
+def test_k1_gate_backward_on_the_tensor_cores(gen, B, T, plan):
+    """K1's gate backward on the 3xTF32 wgmma core at R = 512, in each plan
+    its rule picks from M = B T on an H100's SMs (3 = 128 x 64, 2 = 128 x
+    128, 1 = 64 x 64; T = 1000 and 333: ragged tiles that cross items):
+    <= 1e-4 of dz's scale against the plain version, a second launch
+    bit-equal; with ``prepare``'s split and without it alike, one launch a
+    call."""
+    R = 512
+    a = k1_training_inputs(gen, B, T, R)
+    z = rn(gen, B, T, 2 * R, scale=2.0)
+    args = (a["dx_out"], a["dskip_out"], z, a["w_out"])
+    ref = wavenet.residual_gate_backward_reference(*args)
+    assert kernels.load_library("wavenet_block").wavenet_gate_backward_plan(B, T, R) == plan
+    w_split = wavenet.split_weights([a["w_out"]], [False], [True])[1][0]
+    before = kernels.LAUNCHES["wavenet_gate_backward"]
+    dz = wavenet.residual_gate_backward(*args, w_split)
+    assert kernels.LAUNCHES["wavenet_gate_backward"] == before + 1
+    assert_scaled(dz, ref)
+    assert torch.equal(dz, wavenet.residual_gate_backward(*args, w_split))
+    assert torch.equal(dz, wavenet.residual_gate_backward(*args))
+
+
+def test_weight_split_on_the_card(gen):
+    """K1's split kernel, one launch for a table of weights at R = 512 (the
+    forward's w_conv transposed, w_out in both layouts from one read, a
+    weight as stored only, one off the 32 x 32 tile): bit-equal to
+    ``tf32_split``; past the table's 64 weights it raises."""
+    R = 512
+    ws = [rn(gen, 3 * R, 2 * R, scale=1e-3), rn(gen, R, 2 * R, scale=30.0), rn(gen, R, 2 * R),
+          rn(gen, 37, 70)]
+    transposed, stored = [True, True, False, True], [False, True, True, True]
+    before = kernels.LAUNCHES["wavenet_weight_split"]
+    got_t, got_n = wavenet.split_weights(ws, transposed, stored)
+    assert kernels.LAUNCHES["wavenet_weight_split"] == before + 1
+    for w, t, n, g_t, g_n in zip(ws, transposed, stored, got_t, got_n):
+        assert (g_t is None) != t and (g_n is None) != n
+        assert g_t is None or torch.equal(g_t, wavenet.tf32_split(w))
+        assert g_n is None or torch.equal(g_n, wavenet.tf32_split(w.t()))
+    many = [rn(gen, 64, 96) for _ in range(65)]
+    with pytest.raises(RuntimeError):
+        wavenet.split_weights(many, [True] * 65, [False] * 65)
 
 
 def test_unipc_step(gen):

@@ -189,7 +189,9 @@ def test_prepare_splits_the_live_weights_after_an_optimizer_step():
     kernels (``tf32_split``) from the live parameters on every call, with no
     gradient through the split: after an optimizer step the next plan
     carries the new weights' split, and the forward under grad still gives
-    the packed weights' parameters their gradients."""
+    the packed weights' parameters their gradients. Under grad it also
+    splits W_out as stored for the gate backward (``bwd_split``); without
+    grad it does not."""
     torch.manual_seed(15)
     net = wavenet.WaveNet(mel_channels=16, d_encoder=8, residual_channels=64,
                           residual_layers=2, use_linear_bias=True, dilation_cycle=2)
@@ -200,6 +202,11 @@ def test_prepare_splits_the_live_weights_after_an_optimizer_step():
                         before["conv_split"] + before["out_split"]):
         assert torch.equal(split, wavenet.tf32_split(w))
         assert not split.requires_grad and split.grad_fn is None
+    for w, split in zip(before["w_out"], before["bwd_split"]):
+        assert torch.equal(split, wavenet.tf32_split(w.t()))
+        assert not split.requires_grad and split.grad_fn is None
+    with torch.no_grad():
+        assert net.prepare(c)["bwd_split"] == [None, None]
     net(x, t, c).square().mean().backward()
     layer = net.residual_layers[0]
     assert layer.conv_layer.conv.weight.grad.abs().sum() > 0
@@ -213,3 +220,5 @@ def test_prepare_splits_the_live_weights_after_an_optimizer_step():
         w_out = layer.output_projection.conv.weight.detach()[:, :, 0].t()
         assert torch.equal(after["out_split"][i], wavenet.tf32_split(w_out))
         assert not torch.equal(after["out_split"][i], before["out_split"][i])
+        assert torch.equal(after["bwd_split"][i], wavenet.tf32_split(w_out.t()))
+        assert not torch.equal(after["bwd_split"][i], before["bwd_split"][i])
