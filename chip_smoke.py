@@ -113,15 +113,15 @@ Phases, in order; any failure raises and the script exits non-zero:
             ``NaiveDenoiserDataset`` carries no pitches, which its DiffSVC
             model needs): 12 steps, validation and checkpoints at 6 and 12
             (K10 serving, K2, K3, K4), a resume, 3 profiled steps, exact
-            K10 launches per step (the forward and both backward kernels 20
-            each), the whole step against the plain step (the same three
-            gates); K10's backward kernels on the step's own inputs at each
-            dilation against their plain versions (1e-4 of scale, bit-equal
-            on rerun), timed beside their bound and cuDNN's (the layer
-            norm's autograd and the depthwise conv's weight and input
-            gradients), and one block's forward and backward at each
-            dilation against torch autograd of the plain block (1e-4
-            relative L2).
+            K10 launches per step (the forward and the backward, one
+            kernel with dh on chip and its slots' sum, 20 each), the whole
+            step against the plain step (the same three gates); K10's
+            backward on the step's own inputs at each dilation against the
+            plain whole backward (1e-4 of each output's scale, bit-equal on
+            rerun), timed beside its bound and the whole backward through
+            cuDNN (autograd of the depthwise conv and the layer norm), and
+            one block's forward and backward at each dilation against torch
+            autograd of the plain block (1e-4 relative L2).
 5. train:   ``VocoderTrainer.fit`` on ``configs/vocoder_nsf_hifigan.py`` at
             full width (NSF-HiFiGAN 512, MPD 2/3/5/7/11, 3-scale MSD, batch
             16 x 32768, float32) over a synthetic dataset: 2 warm-up and 6
@@ -161,8 +161,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             start_channels 16, hop 256, GAN flavor v2: MPD 2/3/5/7/11 + MRD
             at (1024, 120, 600), (2048, 240, 1200), (512, 50, 240), batch 16
             x 32768, float32): 2 warm-up and 5 timed steps, validation, a
-            checkpoint and a resume, the whole step against the plain
-            versions (the same tolerances), then K6 2-D (forward, input
+            checkpoint and a resume, the gate's state built twice from the
+            seed in one process (the linear resampling's gradient is a
+            fixed-order gather: two digests that differ fail the run), the
+            whole step against the plain versions (the same tolerances),
+            then K6 2-D (forward, input
             gradient in its direct and transposed modes, weight gradient) at
             every layer of one MRD pass (the weight gradient's and the
             transposed mode's ms, TFLOP/s, share of their bound and cuDNN ms
@@ -187,7 +190,7 @@ Phases, in order; any failure raises and the script exits non-zero:
             / hop 512.
 7. train_sine: phase 6's path with ``template_generator="sine"``: 2
             warm-up and 4 timed steps, exact launches (K9 sine once a
-            step), the whole step against the plain step (phase 6's
+            step), the gate's state built twice (as phase 6), the whole step against the plain step (phase 6's
             check), K9 sine at the step's template against its plain
             version.
 8. align:   K7 at GlowTTS/VITS alignment shapes (B=32, T_y 1000, T_x 200,
@@ -2743,7 +2746,7 @@ def measure_train_kernels(report: Report, seed: int, stft_fwd_calls, stft_calls,
 
 def drive_training(report: Report, seed: int, tag: str, config_file: str, describe,
                    warm: int, timed: int, expected_fn, plain_fns: dict, record,
-                   override=None):
+                   override=None, state_twice: bool = False):
     """One training path at full width (float32) on a synthetic dataset:
     ``configs/<config_file>`` (changed in place by ``override(cfg)`` when
     given), ``VocoderTrainer.fit`` for ``warm`` + ``timed`` steps with
@@ -2754,8 +2757,10 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
     which the calls of the wrappers in ``record`` ((module, name) pairs, or
     (module, name, key) to keep the first call of each key: ``recording``)
     are kept, against one through every plain version in ``plain_fns`` on
-    the kernel step's side of every kink (``vocoder_kinks``). Returns (launches over the fit, the path's numbers under
-    ``tag``, the recorded calls by name)."""
+    the kernel step's side of every kink (``vocoder_kinks``). With
+    ``state_twice`` the gate's state is built twice from the seed in this
+    process and its two digests must agree. Returns (launches over the fit,
+    the path's numbers under ``tag``, the recorded calls by name)."""
     import copy
 
     import torch
@@ -2885,15 +2890,40 @@ def drive_training(report: Report, seed: int, tag: str, config_file: str, descri
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     torch.cuda.reset_peak_memory_stats()
-    np.random.seed(seed + 43)
-    again = vocoder_cli.build_loader(cfg.dataset.train, {**cfg.dataloader.train,
-                                                         "num_workers": 0, "seed": seed + 44})
-    state = trainer.init_state(seed)
-    gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    for batch in itertools.islice(itertools.chain.from_iterable(itertools.repeat(again)),
-                                  warm + timed):
-        batch = trainer._to_device(batch)
-        state, _ = step_fn(state, batch, trainer.draw(batch, gen))
+
+    def gate_state():
+        np.random.seed(seed + 43)
+        again = vocoder_cli.build_loader(cfg.dataset.train, {**cfg.dataloader.train,
+                                                             "num_workers": 0,
+                                                             "seed": seed + 44})
+        state = trainer.init_state(seed)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        for batch in itertools.islice(itertools.chain.from_iterable(itertools.repeat(again)),
+                                      warm + timed):
+            batch = trainer._to_device(batch)
+            state, _ = step_fn(state, batch, trainer.draw(batch, gen))
+        return state
+
+    def state_digest(state):
+        return digest([*state.params_g.state_dict().values(),
+                       *state.params_d.state_dict().values(), *state.spectral_d.values()])
+
+    state = gate_state()
+    if state_twice:
+        first = state_digest(state)
+        del state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = gate_state()
+        torch.cuda.synchronize()
+        extra_s = time.perf_counter() - t0
+        second = state_digest(state)
+        same = first == second
+        print(f"{say} the gate's state built twice from the seed in this process: parameters "
+              f"{first} / {second} {'ok' if same else 'DIFFER'} (the second build "
+              f"{extra_s:.1f} s)")
+        if not same:
+            report.failures.append(f"{tag} gate state not a function of the seed")
 
     # one step through the kernels and one through every plain version,
     # from the same state, batch and draws (TF32 is off)
@@ -3361,7 +3391,7 @@ def phase_train_v2(report: Report, seed: int):
         },
         [(blocked_conv, "conv2d_nhwc"), (mel, "stft_magnitude"), (mel, "stft_backward"),
          (source, "comb_tooth"), (nsf_hifigan, "conv1d_wgrad"),
-         (nsf_hifigan, "_launch_conv", k4_key)])
+         (nsf_hifigan, "_launch_conv", k4_key)], state_twice=True)
     measure_train_v2_kernels(report, seed, calls["conv2d_nhwc"], calls["stft_magnitude"],
                              calls["stft_backward"], calls["comb_tooth"])
     print("[train_v2] conv1d_wgrad at the RefineGAN generator's weight gradients of one step")
@@ -3414,7 +3444,8 @@ def phase_train_sine(report: Report, seed: int):
             (blocked_conv, "conv2d_nhwc"): blocked_conv.conv2d_nhwc_reference,
         },
         [(source, "sine_template")],
-        override=lambda cfg: cfg.model.generator.update(template_generator="sine"))
+        override=lambda cfg: cfg.model.generator.update(template_generator="sine"),
+        state_twice=True)
 
     (f0, rand_ini, noise, weight, bias, sr, hop, *_), _ = calls["sine_template"][0]
     weight, bias = weight.detach(), bias.detach()
@@ -3450,9 +3481,8 @@ DIFF_LAUNCHES = {"wavenet_gate_train": 20, "wavenet_out": 20, "wavenet_gate_back
                  "wavenet_input_backward": 20, "wavenet_weight_grad": 20,
                  "wavenet_weight_split": 1}
 # K10's launches in one training step of the 20-block ConvNeXt: the forward
-# and both backward kernels once a block
-CONVNEXT_TRAIN_LAUNCHES = {"depthwise_conv7_norm": 20, "depthwise_conv7_norm_backward_rows": 20,
-                           "depthwise_conv7_backward_taps": 20}
+# and the backward once a block
+CONVNEXT_TRAIN_LAUNCHES = {"depthwise_conv7_norm": 20, "depthwise_conv7_norm_backward": 20}
 
 
 def make_svc_dataset(rng, root: Path):
@@ -3844,12 +3874,12 @@ def phase_convnext_train(report: Report, seed: int):
     batch 20 x 512 frames, float32, the config's warmup-cosine AdamW and
     clip 0.5) over the synthetic SVC dataset, with the dataset set to
     ``NaiveSVCDataset`` (``drive_diffusion_training``: K10's forward and
-    both backward kernels 20 times every step, validation with K10 serving,
+    backward 20 times every step, validation with K10 serving,
     checkpoints, a resume, the whole step against the plain step); then
-    K10's backward kernels on the step's own inputs at each dilation
-    against their plain versions (1e-4 of scale, bit-equal on rerun),
-    timed beside their bound and cuDNN's, and one block's forward and
-    backward against torch autograd of the plain block."""
+    K10's backward on the step's own inputs at each dilation against its
+    plain version (1e-4 of scale, bit-equal on rerun), timed beside its
+    bound and cuDNN's, and one block's forward and backward against torch
+    autograd of the plain block."""
     from fish_diffusion_tpu_torch.models import convnext
 
     tag = "convnext_train"
@@ -3867,20 +3897,20 @@ def phase_convnext_train(report: Report, seed: int):
           f"{cfg.trainer.gradient_clip_val}, {len(loader)} steps per epoch")
     plain_fns = {
         (convnext, "depthwise_conv7_norm"): convnext.depthwise_conv7_norm_reference,
-        (convnext, "depthwise_conv7_norm_backward_rows"):
-            convnext.depthwise_conv7_norm_backward_rows_reference,
-        (convnext, "depthwise_conv7_backward_taps"):
-            convnext.depthwise_conv7_backward_taps_reference,
+        (convnext, "depthwise_conv7_norm_backward"):
+            convnext.depthwise_conv7_norm_backward_reference,
     }
     backward = list(plain_fns)[1:]
-    recorders = [recording(convnext, "depthwise_conv7_norm_backward_rows",
-                           key=lambda a, kw: a[8]),
-                 recording(convnext, "depthwise_conv7_backward_taps", key=lambda a, kw: a[3])]
+    recorders = [recording(convnext, "depthwise_conv7_norm_backward", key=lambda a, kw: a[9])]
+    t0 = time.perf_counter()
     launches, totals, state = drive_diffusion_training(
         report, seed, tag, cfg, loader, valid, CONVNEXT_TRAIN_LAUNCHES,
         {"depthwise_conv7_norm": CONVNEXT_TRAIN_LAUNCHES["depthwise_conv7_norm"]}, plain_fns,
         backward, recorders)
+    t1 = time.perf_counter()
     measure_k10_training(report, {r.name: r.calls for r in recorders}, state.model, totals)
+    print(f"[{tag}] the training path and its gates {t1 - t0:.1f} s, K10's measurements "
+          f"{time.perf_counter() - t1:.1f} s")
     report.finish(tag)
     return launches, totals
 
@@ -3943,137 +3973,94 @@ def profile_steps(state, step_fn, batch, seed: int, tag: str, step_s: float,
             "top": [(name[:90], ms, count) for ms, count, name in rows[:14]]}
 
 
-def k10_backward_work(x, C: int, taps: bool):
-    """Bytes and float32 operations K10's backward kernels need. Kernel A
-    (``taps`` False) reads x, cond and go and writes dh (16 bytes an
-    element; the step projections, mask, parameters and the [10, C]
-    gradients besides); per element the pre-add (2), the conv (14), the
-    statistics (3), n and g (3), the two row sums (3), dh (4), the column
-    sums of go n, go and dh (4) and dk (14): 47. Kernel B reads dh and
-    writes dy (8 bytes an element, the mask, the taps and dstep besides);
-    per element 7 taps (14) and the sum for dstep (1): 15."""
+def k10_backward_work(x, C: int):
+    """Bytes and float32 operations K10's backward needs: go, x and cond
+    read and dy written once (16 bytes an element; the step projections,
+    the mask, the parameters and the [10 + B, C] gradients besides); per
+    element the pre-add (2), the conv (14), the norm's statistics and dh
+    (14), the column sums of go n, go and dh (4), dk (14), the 7 taps of dy
+    (14) and its sum for dstep (1): 63."""
     B_, T_, _ = x.shape
-    if taps:
-        return 2 * nbytes(x) + B_ * T_ + 4 * 7 * C + 4 * B_ * C, 15 * x.numel()
-    return 4 * nbytes(x) + 4 * B_ * C + B_ * T_ + 4 * 20 * C, 47 * x.numel()
+    return 4 * nbytes(x) + 8 * B_ * C + B_ * T_ + 4 * 19 * C, 63 * x.numel()
 
 
 def measure_k10_training(report: Report, calls: dict, model, totals: dict):
-    """K10's backward kernels at the step's recorded inputs (B=20 x 512 x
-    512), at each dilation: kernel A (dh and the column sums) and kernel B
-    (dy, dstep, on the step's own dh) against their plain versions (1e-4 of
-    each output's scale), a rerun bit-equal, device times of kernel and
-    plain beside the bound and cuDNN's (kernel A: autograd of
-    ``F.layer_norm`` and ``conv1d_weight`` of the depthwise conv, two
-    calls; kernel B: the depthwise ``conv1d_input``, one call; and the
-    whole backward as autograd of the depthwise ``F.conv1d(groups=C)`` +
-    ``F.layer_norm``), summed over a step's launches (5 blocks a
-    dilation); then one block's forward and backward through the kernels
-    against torch autograd of the plain block at each dilation."""
+    """K10's backward at the step's recorded inputs (B=20 x 512 x 512), at
+    each dilation: the kernel (one kernel, dh on chip, and its slots' sum)
+    against the plain whole backward (1e-4 of each output's scale), a rerun
+    bit-equal, the kernel's and the plain version's device time beside the bound and the whole backward through cuDNN (autograd of the
+    depthwise ``F.conv1d(groups=C)`` + ``F.layer_norm``), summed over a
+    step's launches (5 blocks a dilation); then one block's forward and
+    backward through the kernels against torch autograd of the plain block
+    at each dilation."""
     import torch
     import torch.nn.functional as F
 
     from fish_diffusion_tpu_torch.models import convnext
 
     tag = "[convnext_train]"
-    print(f"{tag} K10's backward kernels at the step's inputs (B=20 T=512 C=512)")
-    whole_lib, by_d = {}, {}
-    for d, (args, _, count) in sorted(calls["depthwise_conv7_norm_backward_rows"].items()):
-        go, x, step, cond, mask, k, b, ln_w, _ = (a.detach() if torch.is_tensor(a) else a
-                                                  for a in args)
+    print(f"{tag} K10's backward at the step's inputs (B=20 T=512 C=512)")
+    by_d = {}
+    for d, (args, _, count) in sorted(calls["depthwise_conv7_norm_backward"].items()):
+        go, x, step, cond, mask, k, b, ln_w, ln_b, _ = (
+            a.detach() if torch.is_tensor(a) else a for a in args)
+        go = go.contiguous()
         C = x.shape[-1]
         masked = 0 if mask is None else int(mask.sum())
-        label = f"d={d}, {masked} masked rows"
+        label = f"depthwise_conv7_norm_backward d={d}, {masked} masked rows"
         with torch.no_grad():
-            fn = lambda: convnext.depthwise_conv7_norm_backward_rows(  # noqa: E731
-                go, x, step, cond, mask, k, b, ln_w, d)
-            ref_fn = lambda: convnext.depthwise_conv7_norm_backward_rows_reference(  # noqa: E731
-                go, x, step, cond, mask, k, b, ln_w, d)
+            fn = lambda: convnext.depthwise_conv7_norm_backward(  # noqa: E731
+                go, x, step, cond, mask, k, b, ln_w, ln_b, d)
+            ref_fn = lambda: convnext.depthwise_conv7_norm_backward_reference(  # noqa: E731
+                go, x, step, cond, mask, k, b, ln_w, ln_b, d)
             got, ref = fn(), ref_fn()
-            err = max(report.compare(f"depthwise_conv7_norm_backward_rows {label} {name}", g,
-                                     r, 1e-4 * max_abs(r))
-                      for name, g, r in zip(("dh", "dk", "db", "dln_scale", "dln_bias"),
-                                            got, ref))
-            check_rerun(report, f"depthwise_conv7_norm_backward_rows {label}",
-                        torch.cat([t.flatten() for t in got]),
+            names = ("dx", "dstep", "dcond", "dk", "db", "dln_scale", "dln_bias")
+            err = max(report.compare(f"{label} {name}", g, r, 1e-4 * max_abs(r))
+                      for name, g, r in zip(names, got, ref))
+            check_rerun(report, label, torch.cat([t.flatten() for t in got]),
                         torch.cat([t.flatten() for t in fn()]))
             ms = device_ms(fn)
-            plain = device_ms(ref_fn, reps=10)
-        # cuDNN: the pre-added, masked input and dh laid out [B, C, T]
+            # the plain version launches dozens of kernels a call: two calls
+            # a timing, so that the hold outlasts their enqueue
+            plain = device_ms(ref_fn, reps=2)
+        # the whole backward through cuDNN: autograd of its forward, the
+        # pre-added, masked input laid out [B, C, T]
         y_t = convnext._pre_add(x, step, cond, mask).transpose(1, 2).contiguous()
-        w = k.t().contiguous()[:, None, :]
-        h = F.conv1d(y_t, w, b, padding=3 * d, dilation=d, groups=C).transpose(1, 2)
-        h_leaf = h.detach().requires_grad_(True)
-        lw, lb = ln_w.detach().requires_grad_(True), torch.zeros_like(ln_w).requires_grad_(True)
-        ln_out = F.layer_norm(h_leaf, (C,), lw, lb, convnext.LN_EPS)
-        dh_t = ref[0].transpose(1, 2).contiguous()
-
-        def library_a():
-            torch.autograd.grad(ln_out, (h_leaf, lw, lb), go, retain_graph=True)
-            return torch.nn.grad.conv1d_weight(y_t, w.shape, dh_t, padding=3 * d,
-                                               dilation=d, groups=C)
-
-        lib_err = max_err(library_a()[:, 0, :].t(), ref[1])
-        lib = device_ms(library_a)
-        work = k10_backward_work(x, C, taps=False)
-        t_bound, by = bound(*work)
-        print(f"    x{count}: kernel {ms:.4f} ms ({t_bound / ms:.0%} of its bound "
-              f"{t_bound:.4f} ms, {by}), plain {plain:.4f} ms, cuDNN (autograd of "
-              f"F.layer_norm + conv1d_weight: two calls) {lib:.4f} ms (dk max_abs_err "
-              f"{lib_err:.2e})")
-        report.kernel("depthwise_conv7_norm_backward_rows", err, ms * count, plain * count,
-                      "a step's 20 launches, B=20 T=512 C=512", work[0] * count,
-                      work[1] * count, library_ms=lib * count)
-        by_d[d] = {"rows_ms": ms, "rows_plain_ms": plain, "rows_cudnn_ms": lib,
-                   "rows_bound_ms": t_bound}
-
-        # the whole K10 backward through cuDNN: autograd of its forward
         y_leaf = y_t.clone().requires_grad_(True)
-        wl, bl = w.clone().requires_grad_(True), b.detach().clone().requires_grad_(True)
+        wl = k.t().unsqueeze(1).contiguous().requires_grad_(True)
+        bl = b.clone().requires_grad_(True)
+        lw, lb = ln_w.clone().requires_grad_(True), ln_b.clone().requires_grad_(True)
         out = F.layer_norm(F.conv1d(y_leaf, wl, bl, padding=3 * d, dilation=d,
                                     groups=C).transpose(1, 2), (C,), lw, lb, convnext.LN_EPS)
-        whole_lib[d] = device_ms(lambda: torch.autograd.grad(
-            out, (y_leaf, wl, bl, lw, lb), go, retain_graph=True))
-        del out, ln_out, h, h_leaf
-
-    for d, (args, _, count) in sorted(calls["depthwise_conv7_backward_taps"].items()):
-        dh, mask, k, _ = (a.detach() if torch.is_tensor(a) else a for a in args)
-        C = dh.shape[-1]
-        with torch.no_grad():
-            fn = lambda: convnext.depthwise_conv7_backward_taps(dh, mask, k, d)  # noqa: E731
-            ref_fn = lambda: convnext.depthwise_conv7_backward_taps_reference(  # noqa: E731
-                dh, mask, k, d)
-            (dy, ds), (ref_dy, ref_ds) = fn(), ref_fn()
-            label = f"depthwise_conv7_backward_taps d={d}"
-            err = max(report.compare(f"{label} dy", dy, ref_dy, 1e-4 * max_abs(ref_dy)),
-                      report.compare(f"{label} dstep", ds, ref_ds, 1e-4 * max_abs(ref_ds)))
-            again = fn()
-            check_rerun(report, label, torch.cat([dy.flatten(), ds.flatten()]),
-                        torch.cat([again[0].flatten(), again[1].flatten()]))
-            ms = device_ms(fn)
-            plain = device_ms(ref_fn, reps=10)
-            dh_t = dh.transpose(1, 2).contiguous()
-            w = k.t().contiguous()[:, None, :]
-            lib = device_ms(lambda: torch.nn.grad.conv1d_input(
-                dh_t.shape, w, dh_t, padding=3 * d, dilation=d, groups=C))
-        work = k10_backward_work(dh, C, taps=True)
+        library = lambda: torch.autograd.grad(  # noqa: E731
+            out, (y_leaf, wl, bl, lw, lb), go, retain_graph=True)
+        dy_lib = library()[0].transpose(1, 2)  # the pre-add's gradient, 0 at padding
+        lib_err = max_err(dy_lib if mask is None else dy_lib.masked_fill(mask[:, :, None], 0),
+                          ref[0])
+        lib = device_ms(library)
+        del out
+        work = k10_backward_work(x, C)
         t_bound, by = bound(*work)
         print(f"    x{count}: {label}: kernel {ms:.4f} ms ({t_bound / ms:.0%} of its bound "
-              f"{t_bound:.4f} ms, {by}), plain {plain:.4f} ms, cuDNN depthwise conv1d_input "
-              f"{lib:.4f} ms; the whole backward through cuDNN (autograd of F.conv1d + "
-              f"F.layer_norm) {whole_lib[d]:.4f} ms")
-        report.kernel("depthwise_conv7_backward_taps", err, ms * count, plain * count,
+              f"{t_bound:.4f} ms, {by}), plain {plain:.4f} ms, the whole backward through "
+              f"cuDNN (autograd of F.conv1d + F.layer_norm) {lib:.4f} ms (dx max_abs_err "
+              f"{lib_err:.2e})")
+        report.kernel("depthwise_conv7_norm_backward", err, ms * count, plain * count,
                       "a step's 20 launches, B=20 T=512 C=512", work[0] * count,
                       work[1] * count, library_ms=lib * count)
-        by_d[d].update(taps_ms=ms, taps_plain_ms=plain, taps_cudnn_ms=lib, taps_bound_ms=t_bound,
-                       whole_cudnn_autograd_ms=whole_lib[d])
+        by_d[d] = {"ms": ms, "plain_ms": plain, "cudnn_autograd_ms": lib, "bound_ms": t_bound,
+                   "launches": count}
+    entry = report.kernels["depthwise_conv7_norm_backward"]
+    print(f"    a step's {sum(v['launches'] for v in by_d.values())} launches: kernel "
+          f"{entry['ms']:.4f} ms (bound {entry['bound_ms']:.4f}), plain "
+          f"{entry['plain_ms']:.4f} ms, cuDNN autograd {entry['library_ms']:.4f} ms")
 
     # one block forward and backward: K10's kernels (the MLP on cuBLAS)
     # against torch autograd of the plain block, at each dilation
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     block = {}
     for layer in model.diffusion.denoise_fn.residual_layers[:4]:
-        args, _, _ = calls["depthwise_conv7_norm_backward_rows"][layer.dilation]
+        args, _, _ = calls["depthwise_conv7_norm_backward"][layer.dilation]
         _, x, _, cond, mask, k = (a.detach() for a in args[:6])
         step = torch.randn((x.shape[0], x.shape[2]), generator=gen, device=DEVICE)
         g_out = torch.randn(x.shape, generator=gen, device=DEVICE)
@@ -4108,8 +4095,8 @@ def measure_k10_training(report: Report, calls: dict, model, totals: dict):
         layer.zero_grad(set_to_none=True)
     totals["convnext_train_k10_backward"] = by_d
     totals["convnext_train_block_fwd_bwd"] = block
-    report.extra.setdefault("depthwise_conv7_norm_backward_rows", {})["by_dilation"] = by_d
-    report.extra["depthwise_conv7_norm_backward_rows"]["block_fwd_bwd"] = block
+    report.extra.setdefault("depthwise_conv7_norm_backward", {})["by_dilation"] = by_d
+    report.extra["depthwise_conv7_norm_backward"]["block_fwd_bwd"] = block
 
 
 def measure_training_split(report: Report, den, totals: dict, tag: str):

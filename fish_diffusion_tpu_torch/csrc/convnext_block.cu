@@ -57,29 +57,45 @@
 // The mask applies to the source row only: the forward computes h at a
 // padded row from its live neighbours, so dh there flows back to them.
 //
-//   depthwise_conv7_norm_backward_rows (kernel A): the forward's tile and
-//     its own phase 1 and 2 (conv_tile, row_stats: h and the statistics as
-//     the forward computes them), then go and n in shared memory, the two
-//     row means, dh written to [B, T, C] and over go in the tile, and the
-//     tile's column partials of dscale, dbias, db and dk (10 x C floats),
-//     dk from dh in the tile and the window reloaded (load_window).
-//   depthwise_conv7_backward_taps (kernel B): the same tiling; a thread
-//     loads dh over its channel's window (the 6-row halo of the class),
-//     applies the 7 taps transposed, zeroes padded rows and writes dy, and
-//     the tile's column sums of dy (C floats, for dstep).
-//
-// The partials are one slot per tile (a tile past its class's rows writes
-// zeros), added by the wrapper in an order fixed by the shapes: no
-// atomics, reruns bit-equal. Rows past n_rows of a ragged tile add nothing:
-// their go, n and dh are 0. Bound: bytes. Kernel A reads x, cond and go
-// and writes dh (16 bytes an element), kernel B reads dh and writes dy (8);
-// ~50 float operations an element. Kernel A keeps two ROWS x C tiles in
-// shared memory (64 KB at C = 512): C up to 1798. (A first kernel A that
-// loaded go row by row behind each row's bound check was markedly slower
-// at a training step's shape; one that issued the window's reload before
-// forming dh gained little for more spills: not kept.)
+// depthwise_conv7_norm_backward: one kernel, dh kept on chip, then a small
+// kernel that adds the blocks' column sums. Bound: bytes. go, x and cond
+// are read and dy written once (16 bytes an element); ~62 float operations
+// an element. At B=20 x 512 frames x 512 channels, 84 MB, 25.0 us at 3.35
+// TB/s. (The two kernels it replaces wrote dh [B, T, C] and read it back
+// with its halo, and wrote 10 x C partials every 16 rows, added by a
+// PyTorch reduction: 126 MB and more.)
+// Design: a block owns a segment of L consecutive rows i of one residue
+// class r of one item (t = r + i d) and all C channels, CPT neighbouring
+// channels a thread. It walks the segment in chunks of CHUNK rows of h,
+// from 3 rows before the segment to 3 after (the halo that dy needs). The
+// next chunk's rows of x, cond and go fly into a stage of the thread's own
+// in shared memory (cp.async, 8-byte pairs of channels where C is even)
+// while this one computes: the pre-added, masked y into a register window
+// that rolls from chunk to chunk (x and cond read once, plus the segment's
+// halo), h from the window, the two block sums of the LayerNorm (sum h and
+// sum g, then sum (h - mean)^2 and sum g (h - mean): two passes, so that a
+// row of constant h has variance 0), dh in registers, the column sums of
+// the rows the segment owns (dk from the same window), and dy of the rows
+// whose 7 taps of dh are known, from a ring of the last 6 rows of dh. dh
+// never leaves the SM; only the halo's 6 rows of it are computed twice, by
+// the neighbouring segments. A block sum is a warp reduce-scatter of the
+// chunk's 2 CHUNK values with shuffles (each lane ends with one value's
+// warp sum), the warps' sums added in warp order through shared memory by
+// one thread a row, which also forms the row's statistics: no atomics,
+// reruns bit-equal (the host emulation of the tests runs the shuffles as
+// exchanges through a shared array). A block keeps its column sums (dk[7],
+// db, dscale, dbias and its item's dstep) in registers and writes them
+// once, 11 x C floats, to its slot; dwconv7_backward_sum_kernel adds the
+// slots in slot order. The plan (plan_of): CPT and CHUNK from C, L from
+// the number of segments a class that covers the card's block slots in
+// the fewest rounds of chunks. At 2 channels a thread and 7 rows a chunk a
+// thread holds 128 registers, two blocks an SM. (A first version that
+// loaded each chunk into registers, with a float division per row and
+// channel, ran at 22-31% of the bound: PERF.md.)
 
 #include <cuda_runtime.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -90,14 +106,12 @@ constexpr int TAPS = 7;
 constexpr int HALF = TAPS / 2;
 constexpr int WINDOW = ROWS + 2 * HALF;  // a tile's rows with their halo
 constexpr int SMEM_LIMIT = 232448;
-constexpr int PARTS = 3 + TAPS;          // kernel A's partials a tile: dscale, dbias, db, dk
 
 // A block's place: batch item b, residue class r, rows i0 .. i0 + n_rows
 // of the class (t = r + i d), n_r rows in the class.
 struct Tile {
   int b, r, n_r, i0, n_rows;
   size_t row0;  // b * T
-  size_t index; // the block's slot among the grid's tiles
 };
 
 __device__ __forceinline__ Tile tile_of(int T, int d) {
@@ -108,8 +122,6 @@ __device__ __forceinline__ Tile tile_of(int T, int d) {
   p.i0 = blockIdx.x * ROWS;
   p.n_rows = p.n_r - p.i0 < ROWS ? p.n_r - p.i0 : ROWS;
   p.row0 = (size_t)p.b * T;
-  const int gx = ((T + d - 1) / d + ROWS - 1) / ROWS, gy = d < T ? d : T;  // grid_of's
-  p.index = ((size_t)p.b * gy + p.r) * gx + blockIdx.x;
   return p;
 }
 
@@ -165,32 +177,6 @@ __device__ __forceinline__ void conv_tile(float* h, const float* __restrict__ x,
       h[(size_t)l * C + c] = acc;
     }
   }
-}
-
-// the sum over C of each row of a [ROWS][C] tile (of a * b with b), taken
-// by SPLIT threads over interleaved channels and added in a fixed order;
-// the caller has synchronised after writing the tile. Row l's sum lands in
-// out[l]; ends synchronised
-__device__ __forceinline__ void row_sums(const float* a, const float* b, const float* w,
-                                         float* part, float* out, int C) {
-  const int l = threadIdx.x / SPLIT, p = threadIdx.x % SPLIT;
-  const float* al = a + (size_t)l * C;
-  const float* bl = b == nullptr ? nullptr : b + (size_t)l * C;
-  float acc = 0.f;
-  for (int c = p; c < C; c += SPLIT) {
-    float v = al[c];
-    if (w != nullptr) v *= w[c];
-    if (bl != nullptr) v *= bl[c];
-    acc += v;
-  }
-  part[threadIdx.x] = acc;
-  __syncthreads();
-  if (p == 0) {
-    float sum = 0.f;
-    for (int q = 0; q < SPLIT; ++q) sum += part[l * SPLIT + q];
-    out[l] = sum;
-  }
-  __syncthreads();
 }
 
 // phase 2: mean and 1 / std of each row into stat[0 .. ROWS) and
@@ -257,147 +243,424 @@ dwconv7_norm_kernel(const float* __restrict__ x, const float* __restrict__ step,
   }
 }
 
-// kernel A: dh and the tile's column partials [PARTS][C] (see the top)
-__global__ void __launch_bounds__(THREADS, 2)
-dwconv7_norm_backward_rows_kernel(const float* __restrict__ go, const float* __restrict__ x,
-                                  const float* __restrict__ step,
-                                  const float* __restrict__ cond,
-                                  const unsigned char* __restrict__ mask,
-                                  const float* __restrict__ k, const float* __restrict__ bias,
-                                  const float* __restrict__ ln_w, float* __restrict__ dh,
-                                  float* __restrict__ partials, int T, int C, int d,
-                                  float eps) {
-  extern __shared__ float smem[];
-  float* h = smem;                       // [ROWS][C]: h, then n
-  float* g = h + (size_t)ROWS * C;       // [ROWS][C]: go
-  float* part = g + (size_t)ROWS * C;    // [THREADS] partial sums
-  float* stat = part + THREADS;          // [4][ROWS]: mean, 1 / std, mean(g), mean(g n)
-  const Tile p = tile_of(T, d);
-  float* out = partials + p.index * PARTS * C;
-  if (p.i0 >= p.n_r) {                   // a tile past its class's rows adds nothing
-    for (int c = threadIdx.x; c < PARTS * C; c += THREADS) out[c] = 0.f;
-    return;
-  }
+// ---- K10's backward (see the top) ----
 
-  __shared__ unsigned char live[WINDOW];
-  mark_live(live, mask, p, d);
-  __syncthreads();
-  conv_tile(h, x, step, cond, k, bias, live, p, d, C);
-  __syncthreads();
-  row_stats(h, part, stat, C, eps);
+constexpr int FIELDS = 4 + TAPS;  // a block's slot: dk[0..6], db, dscale, dbias, dstep
+constexpr int MAX_THREADS = 512;
+constexpr int MAX_WARPS = MAX_THREADS / 32;
 
-  // phase 3: n over h and go beside it; rows past n_rows hold 0. The loads
-  // of go are unconditional (a row past n_rows reads the tile's last row),
-  // so a thread has all of them in flight at once
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    float gv[ROWS];
-#pragma unroll
-    for (int m = 0; m < ROWS; ++m) {
-      const int mc = m < p.n_rows ? m : p.n_rows - 1;
-      gv[m] = go[(p.row0 + p.r + (size_t)(p.i0 + mc) * d) * C + c];
-    }
-#pragma unroll
-    for (int m = 0; m < ROWS; ++m) {
-      const size_t o = (size_t)m * C + c;
-      const bool in = m < p.n_rows;
-      g[o] = in ? gv[m] : 0.f;
-      h[o] = in ? (h[o] - stat[m]) * stat[ROWS + m] : 0.f;
-    }
-  }
-  __syncthreads();
+__device__ __forceinline__ float shfl_xor(float v, int lane_mask) {
+  return __shfl_xor_sync(0xffffffffu, v, lane_mask);
+}
 
-  // phase 4: each row's mean over C of go * scale and of go * scale * n
-  row_sums(g, nullptr, ln_w, part, stat + 2 * ROWS, C);
-  row_sums(g, h, ln_w, part, stat + 3 * ROWS, C);
-  if (threadIdx.x < 2 * ROWS) stat[2 * ROWS + threadIdx.x] /= (float)C;
-  __syncthreads();
-
-  // phase 5: dh for the tile's rows (to device memory, and over go in the
-  // tile: each thread reads and writes its own channels only), and the
-  // tile's column partials, dk from dh in the tile and the window reloaded
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    const float w = ln_w[c];
-    float dw = 0.f, dlb = 0.f, db = 0.f;
-    for (int m = 0; m < p.n_rows; ++m) {
-      const size_t o = (size_t)m * C + c;
-      const float gv = g[o], n = h[o];
-      const float v = stat[ROWS + m] * ((gv * w - stat[2 * ROWS + m]) - n * stat[3 * ROWS + m]);
-      dw += gv * n;
-      dlb += gv;
-      db += v;
-      g[o] = v;
-      dh[(p.row0 + p.r + (size_t)(p.i0 + m) * d) * C + c] = v;
+// A warp's reduce-scatter of N values (a power of two up to 32): at each
+// step a lane keeps one half of its values, sends the other half to its
+// partner and adds what comes back. Afterwards v[0] of lane l holds the
+// warp's sum of value l / (32 / N), added in an order fixed by the lanes.
+template <int N, int OFF>
+__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
+  if constexpr (OFF >= 1) {
+    if constexpr (N > 1) {
+      constexpr int H = N / 2;
+      const bool up = (lane & OFF) != 0;
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const float send = up ? v[i] : v[i + H];
+        const float keep = up ? v[i + H] : v[i];
+        v[i] = keep + shfl_xor(send, OFF);
+      }
+      reduce_scatter<H, OFF / 2>(v, lane);
+    } else {
+      v[0] += shfl_xor(v[0], OFF);
+      reduce_scatter<1, OFF / 2>(v, lane);
     }
-    for (int m = p.n_rows; m < ROWS; ++m) g[(size_t)m * C + c] = 0.f;
-    out[c] = dw;
-    out[(size_t)C + c] = dlb;
-    out[(size_t)2 * C + c] = db;
-    float y[WINDOW];
-    load_window(y, x, step[(size_t)p.b * C + c], cond, live, p, d, C, c);
-    float dk[TAPS] = {};
-#pragma unroll
-    for (int m = 0; m < ROWS; ++m) {
-      const float v = g[(size_t)m * C + c];
-#pragma unroll
-      for (int j = 0; j < TAPS; ++j) dk[j] += v * y[m + j];
-    }
-#pragma unroll
-    for (int j = 0; j < TAPS; ++j) out[(size_t)(3 + j) * C + c] = dk[j];
   }
 }
 
-// kernel B: dy and the tile's column sums of dy [C] (see the top)
-__global__ void __launch_bounds__(THREADS, 2)
-dwconv7_backward_taps_kernel(const float* __restrict__ dh,
-                             const unsigned char* __restrict__ mask,
-                             const float* __restrict__ k, float* __restrict__ dy,
-                             float* __restrict__ partials, int T, int C, int d) {
-  const Tile p = tile_of(T, d);
-  float* out = partials + p.index * C;
-  if (p.i0 >= p.n_r) {
-    for (int c = threadIdx.x; c < C; c += THREADS) out[c] = 0.f;
-    return;
-  }
-  // inside: the window rows of dh inside [0, T); keep: the tile's rows that
-  // are live sources (inside [0, T), not padding)
-  __shared__ unsigned char inside[WINDOW], keep[ROWS];
-  if (threadIdx.x < WINDOW) {
-    const int i = p.i0 - HALF + (int)threadIdx.x;
-    inside[threadIdx.x] = i >= 0 && i < p.n_r;
-  } else if (threadIdx.x < WINDOW + ROWS) {
-    const int m = (int)threadIdx.x - WINDOW, i = p.i0 + m;
-    bool ok = m < p.n_rows;
-    if (ok && mask != nullptr) ok = !mask[p.row0 + p.r + (size_t)i * d];
-    keep[m] = ok;
+// The block's sums of the rows' two values in each thread's v (row m's at
+// m and H + m, of N): the warps' sums (reduce_scatter) through red
+// [MAX_WARPS][N], added in warp order by the thread of row m, which
+// writes finish(sum m, sum H + m) to out[m] and out[H + m]. Every thread
+// of the block calls it; ends synchronised
+template <int N, int H, class F>
+__device__ __forceinline__ void block_sums(float* v, float* red, float* out, F finish) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  reduce_scatter<N, 16>(v, lane);
+  constexpr int PER = 32 / N;
+  if (lane % PER == 0) red[warp * N + lane / PER] = v[0];
+  __syncthreads();
+  if ((int)threadIdx.x < H) {
+    const int warps = (int)(blockDim.x >> 5), m = (int)threadIdx.x;
+    float lo = 0.f, hi = 0.f;
+    for (int w = 0; w < warps; ++w) {
+      lo += red[w * N + m];
+      hi += red[w * N + H + m];
+    }
+    finish(lo, hi, out[m], out[H + m]);
   }
   __syncthreads();
+}
 
-  // offsets inside one item fit 32 bits (the C entry checks T * C)
-  const float* item = dh + (p.row0 + p.r) * C;
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    float w[WINDOW];
+// The block's segment: rows i0 .. i1 of class r of item b, and the offset
+// of the class's row 0 in the [B * T] rows
+struct Segment {
+  int b, r, n_r, i0, i1;
+  size_t base;
+};
+
+__device__ __forceinline__ Segment segment_of(int T, int d, int S, int L) {
+  const int classes = d < T ? d : T;
+  Segment g;
+  const int blk = (int)blockIdx.x;
+  g.b = blk / (S * classes);
+  g.r = (blk / S) % classes;
+  g.n_r = (T - g.r + d - 1) / d;
+  g.i0 = (blk % S) * L;
+  g.i1 = g.i0 + L < g.n_r ? g.i0 + L : g.n_r;
+  g.base = (size_t)g.b * T + g.r;
+  return g;
+}
+
+// A backward thread's stage in shared memory: two chunks of its channels'
+// rows, x and cond of the new y rows and go of the h rows, [2][3][CHUNK]
+// [CPT], its length 2 more than a multiple of 4 floats, so that the 16
+// lanes of a half warp reading one 8-byte pair of their own stages hit 16
+// pairs of banks
+template <int CPT, int CHUNK>
+__host__ __device__ constexpr int stage_floats() {
+  return (2 * 3 * CPT * CHUNK) % 4 == 0 ? 2 * 3 * CPT * CHUNK + 2 : 2 * 3 * CPT * CHUNK;
+}
+
+// 8 bytes (ok) or zeros (!ok) into shared memory, asynchronously
+__device__ __forceinline__ void copy8(float* dst, const float* src, bool ok) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+               "r"(ok ? 8 : 0));
+#else
+  dst[0] = ok ? src[0] : 0.f;
+  dst[1] = ok ? src[1] : 0.f;
+#endif
+}
+
+template <int CPT, int CHUNK>
+size_t backward_smem(int threads) {
+  return sizeof(float) * (size_t)threads * stage_floats<CPT, CHUNK>();
+}
+
+// go, x, cond, dy [B, T, C]; step [B, C]; mask [B, T] or null; k [7, C];
+// bias, ln_w [C]; slots [gridDim.x][FIELDS][C]
+template <int CPT, int CHUNK>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+dwconv7_norm_backward_kernel(const float* __restrict__ go, const float* __restrict__ x,
+                             const float* __restrict__ step, const float* __restrict__ cond,
+                             const unsigned char* __restrict__ mask,
+                             const float* __restrict__ k, const float* __restrict__ bias,
+                             const float* __restrict__ ln_w, float* __restrict__ dy,
+                             float* __restrict__ slots, int T, int C, int d, int S, int L,
+                             float eps) {
+  constexpr int WIN = CHUNK + 2 * HALF;        // y rows a - 3 .. a + CHUNK + 2 of a chunk
+  constexpr int N = 2 * CHUNK <= 16 ? 16 : 32;  // values of a block sum (2 CHUNK, padded)
+  static_assert(CHUNK >= 2 * HALF && 2 * CHUNK <= 32 && WIN <= 32, "CHUNK");
+  static_assert(CPT % 2 == 0, "CPT: channels in pairs");
+  extern __shared__ float stage[];              // [threads][stage_floats]
+  __shared__ float red[2][MAX_WARPS * N];
+  __shared__ float tot[2][N];
+
+  const Segment g = segment_of(T, d, S, L);
+  float* slot = slots + (size_t)blockIdx.x * FIELDS * C;
+  if (g.i0 >= g.n_r) {  // a segment past its class's rows adds nothing
+    for (int c = threadIdx.x; c < FIELDS * C; c += blockDim.x) slot[c] = 0.f;
+    return;
+  }
+  // a thread reads back only what it copied into its own stage: no
+  // barrier around the copies. Its channels are CPT neighbours, moved in
+  // 8-byte pairs where C is even (pairs), else one by one
+  constexpr int PER = 3 * CPT * CHUNK;  // a chunk's floats in a stage
+  float* const mine = stage + (size_t)threadIdx.x * stage_floats<CPT, CHUNK>();
+  const bool pairs = C % 2 == 0;
+  auto at = [](int array, int m, int q) { return (array * CHUNK + m) * CPT + q; };
+
+  int ch[CPT];
+  bool on[CPT];
+  float kc[CPT][TAPS], bc[CPT], wc[CPT], sc[CPT];
 #pragma unroll
-    for (int j = 0; j < WINDOW; ++j) {
-      const int i = p.i0 - HALF + j;
-      const int ic = i < 0 ? 0 : (i < p.n_r ? i : p.n_r - 1);
-      const float v = item[ic * d * C + c];
-      w[j] = inside[j] ? v : 0.f;
+  for (int q = 0; q < CPT; ++q) {
+    const int c = (int)threadIdx.x * CPT + q;
+    on[q] = c < C;
+    // a channel past C reads channel C - 2 + (q & 1) (pairs) or C - 1 and adds nothing
+    ch[q] = on[q] ? c : (pairs ? C - 2 + (q & 1) : C - 1);
+#pragma unroll
+    for (int j = 0; j < TAPS; ++j) kc[q][j] = k[(size_t)j * C + ch[q]];
+    bc[q] = bias[ch[q]];
+    wc[q] = ln_w[ch[q]];
+    sc[q] = step[(size_t)g.b * C + ch[q]];
+  }
+
+  // the class's row 0 in each tensor; offsets inside an item fit 32 bits
+  // (the C entry checks T C)
+  const size_t cls = g.base * C;
+  const float *xc = x + cls, *cc = cond + cls, *gc = go + cls;
+  float* const dyc = dy + cls;
+  const unsigned char* mc = mask == nullptr ? nullptr : mask + g.base;
+  // class row i clamped into the class
+  auto clamp = [&](int i) { return i < 0 ? 0 : (i < g.n_r ? i : g.n_r - 1); };
+  // chunk a's rows into stage buf: x and cond of y rows a + 3 .. a + CHUNK
+  // + 2, go of rows a .. a + CHUNK - 1 (0 outside the class: so is dh);
+  // one group of asynchronous copies. The y rows' mask bytes go to mb, read
+  // a chunk later (live_bits), so that their loads are in flight meanwhile
+  auto stage_chunk = [&](int buf, int a, int* mb) {
+    float* st = mine + buf * PER;
+#pragma unroll
+    for (int m = 0; m < CHUNK; ++m) {
+      const int iy = clamp(a + HALF + m) * d, ig = a + m;
+      const int oy = iy * C, og = clamp(ig) * d * C;
+      const bool in = ig >= 0 && ig < g.n_r;
+      if (pairs) {
+#pragma unroll
+        for (int q = 0; q < CPT; q += 2) {
+          copy8(st + at(0, m, q), xc + oy + ch[q], true);
+          copy8(st + at(1, m, q), cc + oy + ch[q], true);
+          copy8(st + at(2, m, q), gc + og + ch[q], in);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < CPT; ++q) {
+          acopy::copy4(st + at(0, m, q), xc + oy + ch[q], true);
+          acopy::copy4(st + at(1, m, q), cc + oy + ch[q], true);
+          acopy::copy4(st + at(2, m, q), gc + og + ch[q], in);
+        }
+      }
+      mb[m] = mc == nullptr ? 0 : mc[iy];
     }
-    float kc[TAPS];
+    acopy::copy_commit();
+  };
+  // the live bits (inside the class, not padding) of chunk a's y rows
+  auto live_bits = [&](int a, const int* mb) {
+    unsigned bits = 0;
 #pragma unroll
-    for (int j = 0; j < TAPS; ++j) kc[j] = k[(size_t)j * C + c];
-    float sum = 0.f;
-#pragma unroll
-    for (int l = 0; l < ROWS; ++l) {
-      // row l's output reads h at rows l + 3 - j' (j' = j - 3): window l + 6 - j
-      float acc = 0.f;
-#pragma unroll
-      for (int j = 0; j < TAPS; ++j) acc += kc[j] * w[l + 2 * HALF - j];
-      acc = keep[l] ? acc : 0.f;
-      if (l < p.n_rows) dy[(p.row0 + p.r + (size_t)(p.i0 + l) * d) * C + c] = acc;
-      sum += acc;
+    for (int m = 0; m < CHUNK; ++m) {
+      const int iy = a + HALF + m;
+      bits |= (unsigned)(iy >= 0 && iy < g.n_r && !mb[m]) << m;
     }
-    out[c] = sum;
+    return bits;
+  };
+
+  // the window y[WIN] of class rows a - 3 .., live bit p for window row p;
+  // the ring of dh for rows a - 6 .. a - 1; the segment's column sums
+  float yw[CPT][WIN], dr[CPT][2 * HALF];
+  float dk[CPT][TAPS], db[CPT], dw[CPT], dlb[CPT], dst[CPT];
+#pragma unroll
+  for (int q = 0; q < CPT; ++q) {
+#pragma unroll
+    for (int j = 0; j < TAPS; ++j) dk[q][j] = 0.f;
+    db[q] = dw[q] = dlb[q] = dst[q] = 0.f;
+#pragma unroll
+    for (int p = 0; p < 2 * HALF; ++p) dr[q][p] = 0.f;
+  }
+
+  // chunk a: h and dh of rows a .. a + CHUNK - 1, dy of rows a - 3 ..
+  // a + CHUNK - 4; from 3 rows before the segment until dy reaches its
+  // end. The next chunk's copies fly while this one computes
+  int a = g.i0 - HALF, buf = 0, mb[CHUNK];
+  stage_chunk(0, a, mb);
+  unsigned next = live_bits(a, mb), live = 0;
+  // the first window's 6 rows, i0 - 6 .. i0 - 1, loaded directly
+#pragma unroll
+  for (int p = 0; p < 2 * HALF; ++p) {
+    const int i = g.i0 - 2 * HALF + p;
+    const int ic = clamp(i) * d, o = ic * C;
+    const bool ok = i >= 0 && i < g.n_r && (mc == nullptr || !mc[ic]);
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) {
+      const float v = (xc[o + ch[q]] + sc[q]) + cc[o + ch[q]];
+      yw[q][p] = ok ? v : 0.f;
+    }
+    live |= (unsigned)ok << p;
+  }
+
+  for (; a - HALF < g.i1; a += CHUNK, buf ^= 1) {
+    live |= next << (2 * HALF);
+    const bool more = a + CHUNK - HALF < g.i1;
+    if (more) {
+      stage_chunk(buf ^ 1, a + CHUNK, mb);
+      acopy::copy_wait<1>();
+    } else {
+      acopy::copy_wait<0>();
+    }
+    const float* st = mine + buf * PER;
+
+    // go of row m, channel q, from the stage
+    auto go_at = [&](int m, int q) { return st[at(2, m, q)]; };
+
+    // y, h, and the first block sums: sum h, sum g
+    float hv[CPT][CHUNK];
+#pragma unroll
+    for (int m = 0; m < CHUNK; ++m) {
+#pragma unroll
+      for (int q = 0; q < CPT; q += 2) {
+        const float2 xv = *reinterpret_cast<const float2*>(st + at(0, m, q));
+        const float2 cv = *reinterpret_cast<const float2*>(st + at(1, m, q));
+        const bool ok = (live >> (2 * HALF + m)) & 1u;
+        yw[q][2 * HALF + m] = ok ? (xv.x + sc[q]) + cv.x : 0.f;
+        yw[q + 1][2 * HALF + m] = ok ? (xv.y + sc[q + 1]) + cv.y : 0.f;
+      }
+    }
+    float part[N];
+#pragma unroll
+    for (int v = 0; v < N; ++v) part[v] = 0.f;
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) {
+#pragma unroll
+      for (int m = 0; m < CHUNK; ++m) {
+        float acc = bc[q];
+#pragma unroll
+        for (int j = 0; j < TAPS; ++j) acc += kc[q][j] * yw[q][m + j];
+        hv[q][m] = acc;
+        part[m] += on[q] ? acc : 0.f;
+        part[CHUNK + m] += on[q] ? go_at(m, q) * wc[q] : 0.f;
+      }
+    }
+    // the means of h and of g
+    block_sums<N, CHUNK>(part, red[0], tot[0], [&](float sh, float sg, float& mean, float& mg) {
+      mean = sh / (float)C;
+      mg = sg / (float)C;
+    });
+
+    // h - mean, and the second: sum (h - mean)^2, sum g (h - mean)
+#pragma unroll
+    for (int v = 0; v < N; ++v) part[v] = 0.f;
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) {
+#pragma unroll
+      for (int m = 0; m < CHUNK; ++m) {
+        const float e = hv[q][m] - tot[0][m];
+        hv[q][m] = e;
+        part[m] += on[q] ? e * e : 0.f;
+        part[CHUNK + m] += on[q] ? go_at(m, q) * wc[q] * e : 0.f;
+      }
+    }
+    // 1 / std, and the mean of g n = r g (h - mean)
+    block_sums<N, CHUNK>(part, red[1], tot[1], [&](float se, float sge, float& rs, float& mgn) {
+      rs = 1.f / sqrtf(se / (float)C + eps);
+      mgn = rs * sge / (float)C;
+    });
+
+    // dh, and the column sums of the rows the segment owns
+#pragma unroll
+    for (int m = 0; m < CHUNK; ++m) {
+      const float rs = tot[1][m], mg = tot[0][CHUNK + m], mgn = tot[1][CHUNK + m];
+      const bool own = a + m >= g.i0 && a + m < g.i1;
+#pragma unroll
+      for (int q = 0; q < CPT; ++q) {
+        const float gg = go_at(m, q);
+        const float n = hv[q][m] * rs;
+        const float v = rs * ((gg * wc[q] - mg) - n * mgn);
+        hv[q][m] = v;
+        if (own) {
+          dw[q] += gg * n;
+          dlb[q] += gg;
+          db[q] += v;
+#pragma unroll
+          for (int j = 0; j < TAPS; ++j) dk[q][j] += v * yw[q][m + j];
+        }
+      }
+    }
+
+    // dy of rows a - 3 + m: dh of rows a - 6 + m .. a + m, the ring then
+    // the chunk (taps transposed)
+#pragma unroll
+    for (int m = 0; m < CHUNK; ++m) {
+      const int i = a - HALF + m;
+      if (i < g.i0 || i >= g.i1) continue;
+      const bool keep = (live >> m) & 1u;
+      const int o = i * d * C;
+      float out[CPT];
+#pragma unroll
+      for (int q = 0; q < CPT; ++q) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < TAPS; ++j) {
+          const int e = m + 2 * HALF - j;
+          acc += kc[q][j] * (e < 2 * HALF ? dr[q][e] : hv[q][e - 2 * HALF]);
+        }
+        out[q] = keep ? acc : 0.f;
+        dst[q] += out[q];
+      }
+#pragma unroll
+      for (int q = 0; q < CPT; q += 2) {
+        if (pairs && on[q]) {
+          *reinterpret_cast<float2*>(dyc + o + ch[q]) = make_float2(out[q], out[q + 1]);
+        } else if (!pairs) {
+          if (on[q]) dyc[o + ch[q]] = out[q];
+          if (on[q + 1]) dyc[o + ch[q + 1]] = out[q + 1];
+        }
+      }
+    }
+
+    if (more) next = live_bits(a + CHUNK, mb);
+    // roll the window and the ring on by CHUNK rows
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) {
+#pragma unroll
+      for (int p = 0; p < 2 * HALF; ++p) {
+        yw[q][p] = yw[q][p + CHUNK];
+        dr[q][p] = hv[q][CHUNK - 2 * HALF + p];
+      }
+    }
+    live = (live >> CHUNK) & ((1u << (2 * HALF)) - 1u);
+  }
+
+#pragma unroll
+  for (int q = 0; q < CPT; ++q) {
+    if (!on[q]) continue;
+    float* out = slot + ch[q];
+#pragma unroll
+    for (int j = 0; j < TAPS; ++j) out[(size_t)j * C] = dk[q][j];
+    out[(size_t)TAPS * C] = db[q];
+    out[(size_t)(TAPS + 1) * C] = dw[q];
+    out[(size_t)(TAPS + 2) * C] = dlb[q];
+    out[(size_t)(TAPS + 3) * C] = dst[q];
+  }
+}
+
+// The slots' sums in an order fixed by the shapes: grads [10 + B][C] =
+// dk[0..6], db, dscale, dbias over every slot, then dstep of item b over
+// its per_item slots. A block: 32 channels of one output row; its 32 warps
+// take the slots interleaved, 8 loads in flight a thread into 8 sums,
+// added in order, then the warps' sums in warp order
+constexpr int SUM_WARPS = 32, SUM_LANES = 8;
+
+__global__ void __launch_bounds__(SUM_WARPS * 32)
+dwconv7_backward_sum_kernel(const float* __restrict__ slots, float* __restrict__ grads,
+                            int n_slots, int per_item, int C) {
+  __shared__ float part[SUM_WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = (int)blockIdx.x * 32 + lane, row = (int)blockIdx.y;
+  const int field = row < FIELDS - 1 ? row : FIELDS - 1;
+  const int n0 = row < FIELDS - 1 ? 0 : (row - (FIELDS - 1)) * per_item;
+  const int n1 = row < FIELDS - 1 ? n_slots : n0 + per_item;
+  float acc[SUM_LANES] = {};
+  if (c < C) {
+    const float* col = slots + (size_t)field * C + c;
+    const size_t step = (size_t)FIELDS * C;
+    for (int n = n0 + warp; n < n1; n += SUM_WARPS * SUM_LANES) {
+#pragma unroll
+      for (int u = 0; u < SUM_LANES; ++u) {
+        const int m = n + u * SUM_WARPS;
+        if (m < n1) acc[u] += col[(size_t)m * step];
+      }
+    }
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int u = 0; u < SUM_LANES; ++u) sum += acc[u];
+  part[warp][lane] = sum;
+  __syncthreads();
+  if (warp == 0 && c < C) {
+    float total = 0.f;
+    for (int w = 0; w < SUM_WARPS; ++w) total += part[w][lane];
+    grads[(size_t)row * C + c] = total;
   }
 }
 
@@ -436,43 +699,133 @@ extern "C" int depthwise_conv7_norm(const void* x, const void* step, const void*
   return (int)cudaGetLastError();
 }
 
-// The backward's tiles per batch item (both kernels): the partial-sum
-// buffers hold B times this many slots.
-extern "C" int depthwise_conv7_backward_tiles(int T, int d) {
-  if (T < 1 || d < 1) return 0;
-  const dim3 g = grid_of(1, T, d);
-  return (int)(g.x * g.y);
+namespace {
+
+// K10's backward plan: CPT channels a thread, CHUNK rows a chunk, the
+// threads of a block, S segments of L rows a class (blocks = B classes S).
+struct Plan {
+  int cpt, chunk, threads, S, L;
+};
+
+template <int CPT_, int CHUNK_>
+struct Instance {
+  static constexpr int CPT = CPT_, CHUNK = CHUNK_;
+};
+
+// f(Instance<CPT, CHUNK>) for the plan's kernel: CPT 2 up to 1024
+// channels, 4 past them, CHUNK 7 (PERF.md: the plans timed at a training
+// step's shape)
+template <class F>
+int with_instance(int C, F f) {
+  return C <= 2 * MAX_THREADS ? f(Instance<2, 7>{}) : f(Instance<4, 7>{});
 }
 
-// Kernel A. go, x, cond, dh [B, T, C]; step [B, C]; mask as above; k [7,
-// C]; b, ln_w [C]; partials [B * tiles][10][C]: per tile the column sums of
-// go n, go, dh and dk[0..6]. Returns the cudaError_t of the launch.
-extern "C" int depthwise_conv7_norm_backward_rows(
-    const void* go, const void* x, const void* step, const void* cond, const void* mask,
-    const void* k, const void* b, const void* ln_w, void* dh, void* partials, int B, int T,
-    int C, int d, float eps, void* stream) {
-  if (B < 1 || T < 1 || C < 1 || d < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)2 * ROWS * C + THREADS + 4 * ROWS);
-  const int e = set_smem(dwconv7_norm_backward_rows_kernel, smem);
-  if (e != 0) return e;
-  const dim3 grid = grid_of(B, T, d);
-  dwconv7_norm_backward_rows_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)go, (const float*)x, (const float*)step, (const float*)cond,
-      (const unsigned char*)mask, (const float*)k, (const float*)b, (const float*)ln_w,
-      (float*)dh, (float*)partials, T, C, d, eps);
+// the kernel's shared memory set for its threads, and its blocks an SM
+template <int CPT, int CHUNK>
+int prepare(int threads, int& per_sm) {
+  const size_t smem = backward_smem<CPT, CHUNK>(threads);
+  int err = set_smem(dwconv7_norm_backward_kernel<CPT, CHUNK>, smem);
+  if (err) return err;
+  static int known[MAX_THREADS / 32 + 1] = {};
+  int& n = known[threads / 32];
+  if (n == 0) {
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, dwconv7_norm_backward_kernel<CPT, CHUNK>, threads, smem);
+    if (err || n < 1) n = 1;
+  }
+  per_sm = n;
+  return 0;
+}
+
+// The segments of a class: the fewest rounds of chunks over the card's
+// block slots (waves x chunks a segment, the halo's 6 rows included), the
+// fewest blocks among equals
+void segments(int B, int T, int d, int slots_on_card, Plan& p) {
+  const int classes = d < T ? d : T, rows = (T + d - 1) / d;  // class 0 has the most rows
+  long long best = -1;
+  for (int S = 1; S <= rows && S <= 4096; ++S) {
+    const int L = (rows + S - 1) / S;
+    if ((S - 1) * L >= rows) continue;  // the last segment would be empty: a smaller S has this L
+    const long long blocks = (long long)B * classes * S;
+    const long long waves = (blocks + slots_on_card - 1) / slots_on_card;
+    const long long cost = waves * ((L + 2 * HALF + p.chunk - 1) / p.chunk);
+    if (best < 0 || cost < best) {
+      best = cost;
+      p.S = S;
+      p.L = L;
+    }
+  }
+}
+
+// threads for the channels in whole warps, the segments from the card's
+// SMs and the kernel's blocks an SM
+int plan_of(int B, int T, int C, int d, Plan& p) {
+  if (B < 1 || T < 1 || C < 1 || d < 1 || (long long)T * C > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  return with_instance(C, [&](auto inst) {
+    using I = decltype(inst);
+    p.cpt = I::CPT;
+    p.chunk = I::CHUNK;
+    p.threads = ((C + p.cpt - 1) / p.cpt + 31) / 32 * 32;
+    if (p.threads > MAX_THREADS) return (int)cudaErrorInvalidValue;
+    int per_sm = 1;
+    const int err = prepare<I::CPT, I::CHUNK>(p.threads, per_sm);
+    if (err) return err;
+    segments(B, T, d, per_sm * acopy::sm_count(), p);
+    return 0;
+  });
+}
+
+template <int CPT, int CHUNK>
+int launch_backward(const Plan& p, int blocks, const float* go, const float* x,
+                    const float* step, const float* cond, const unsigned char* mask,
+                    const float* k, const float* b, const float* ln_w, float* dy, float* slots,
+                    int T, int C, int d, float eps, cudaStream_t stream) {
+  const size_t smem = backward_smem<CPT, CHUNK>(p.threads);
+  dwconv7_norm_backward_kernel<CPT, CHUNK><<<blocks, p.threads, smem, stream>>>(
+      go, x, step, cond, mask, k, b, ln_w, dy, slots, T, C, d, p.S, p.L, eps);
   return (int)cudaGetLastError();
 }
 
-// Kernel B. dh, dy [B, T, C]; mask as above; k [7, C]; partials [B * tiles]
-// [C]: per tile the column sums of dy. Returns the cudaError_t of the launch.
-extern "C" int depthwise_conv7_backward_taps(const void* dh, const void* mask, const void* k,
-                                             void* dy, void* partials, int B, int T, int C,
-                                             int d, void* stream) {
-  if (B < 1 || T < 1 || C < 1 || d < 1 || (long long)T * C > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid = grid_of(B, T, d);
-  dwconv7_backward_taps_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)dh, (const unsigned char*)mask, (const float*)k, (float*)dy,
-      (float*)partials, T, C, d);
+}  // namespace
+
+// The slots K10's backward writes: its blocks, B * classes * segments
+// (slots [blocks][11][C] floats). 0 for shapes it does not take.
+extern "C" int depthwise_conv7_norm_backward_slots(int B, int T, int C, int d) {
+  Plan p;
+  if (plan_of(B, T, C, d, p)) return 0;
+  return B * (d < T ? d : T) * p.S;
+}
+
+// K10's backward. go, x, cond, dy [B, T, C]; step [B, C]; mask [B, T]
+// bytes (nonzero at padding) or null; k [7, C]; b, ln_w [C]; slots
+// [depthwise_conv7_norm_backward_slots][11][C], scratch; grads [10 + B][C]:
+// dk[0..6], db, dln_scale, dln_bias, then dstep [B][C]. All float32 and
+// contiguous (the Python wrapper checks). Launches the backward kernel and
+// the slots' sum; returns the first cudaError_t.
+extern "C" int depthwise_conv7_norm_backward(const void* go, const void* x, const void* step,
+                                             const void* cond, const void* mask, const void* k,
+                                             const void* b, const void* ln_w, void* dy,
+                                             void* slots, void* grads, int B, int T, int C,
+                                             int d, float eps, void* stream) {
+  Plan p;
+  int err = plan_of(B, T, C, d, p);
+  if (err) return err;
+  const int classes = d < T ? d : T, blocks = B * classes * p.S;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *go_ = (const float*)go, *x_ = (const float*)x, *step_ = (const float*)step,
+              *cond_ = (const float*)cond, *k_ = (const float*)k, *b_ = (const float*)b,
+              *w_ = (const float*)ln_w;
+  const unsigned char* m_ = (const unsigned char*)mask;
+  float *dy_ = (float*)dy, *slots_ = (float*)slots;
+  err = with_instance(C, [&](auto inst) {
+    using I = decltype(inst);
+    return launch_backward<I::CPT, I::CHUNK>(p, blocks, go_, x_, step_, cond_, m_, k_, b_, w_,
+                                             dy_, slots_, T, C, d, eps, s);
+  });
+  if (err) return err;
+  const dim3 grid = dim3((C + 31) / 32, FIELDS - 1 + B);
+  dwconv7_backward_sum_kernel<<<grid, SUM_WARPS * 32, 0, s>>>(slots_, (float*)grads, blocks,
+                                                              classes * p.S, C);
   return (int)cudaGetLastError();
 }

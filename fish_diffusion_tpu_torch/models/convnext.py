@@ -12,12 +12,14 @@ leaves its ``nn.Dense`` to XLA).
 
 Training: with grad enabled ``depthwise_conv7_norm`` goes through
 ``DepthwiseConv7NormFunction``, whose forward is the serving kernel and
-whose backward is K10's backward, two kernels of the same source:
-``depthwise_conv7_norm_backward_rows`` (the norm's backward: dh, and the
-gradients of the conv's taps and bias and of the norm's scale and bias)
-and ``depthwise_conv7_backward_taps`` (the taps transposed: the pre-add's
-gradient, which is x's and cond's, and the step's). Each has its plain
-version beside it (``*_reference``), which CPU tensors take.
+whose backward is K10's backward, ``depthwise_conv7_norm_backward``: one
+kernel of the same source that keeps the norm's gradient dh on chip and
+gives the pre-add's gradient (x's and cond's) and the column sums of the
+conv's taps and bias, the norm's scale and bias and the step, then a small
+kernel that adds its blocks' sums in a fixed order. Its plain version
+``depthwise_conv7_norm_backward_reference`` (the norm's backward, then the
+taps transposed: ``*_rows_reference``, ``*_taps_reference``) is what CPU
+tensors take.
 
 The per-block condition projections ``[B, T, C]`` and the depthwise
 kernels in the layout K10 reads ``[7, C]`` are constant across the
@@ -45,13 +47,15 @@ from .common import diffusion_embedding, shift_time
 LN_EPS = 1e-6
 TAPS = 7
 # K10 keeps a tile of ROWS rows x C channels of the conv's output in shared
-# memory, with THREADS + 2 * ROWS floats for the row statistics; its
-# backward (kernel A) two such tiles and THREADS + 4 * ROWS floats
+# memory, with THREADS + 2 * ROWS floats for the row statistics
 _ROWS, _THREADS, _SMEM_LIMIT = 16, 256, 232448
 MAX_CHANNELS = (_SMEM_LIMIT // 4 - _THREADS - 2 * _ROWS) // _ROWS
-MAX_TRAIN_CHANNELS = (_SMEM_LIMIT // 4 - _THREADS - 4 * _ROWS) // (2 * _ROWS)
-# kernel A's column partials a tile: dln_scale, dln_bias, db, dk[0..6]
-_PARTS = 3 + TAPS
+# its backward stages two chunks of 7 rows of x, cond and go for each
+# thread in shared memory (170 floats a thread of 4 channels, past 1024
+# channels; threads in whole warps)
+MAX_TRAIN_CHANNELS = 1280
+# a backward block's column sums: dk[0..6], db, dln_scale, dln_bias, dstep
+_FIELDS = 4 + TAPS
 
 
 def _pre_add(x, step, cond, mask):
@@ -146,7 +150,7 @@ def depthwise_conv7_norm(x, step, cond, mask, k, b, ln_scale, ln_bias, dilation:
     ``depthwise_conv7_norm_reference``, which CPU tensors take). float32;
     any T and dilation, C up to ``MAX_CHANNELS``. With grad enabled and an
     input that requires it, ``DepthwiseConv7NormFunction`` (this kernel,
-    with K10's backward)."""
+    with K10's backward: C up to ``MAX_TRAIN_CHANNELS`` on the card)."""
     tensors = (x, step, cond, k, b, ln_scale, ln_bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return DepthwiseConv7NormFunction.apply(x, step, cond, mask, k, b, ln_scale, ln_bias,
@@ -173,96 +177,44 @@ def depthwise_conv7_norm(x, step, cond, mask, k, b, ln_scale, ln_bias, dilation:
     return out
 
 
-# The backward's per-tile partial sums, one buffer per device grown to the
-# largest call (a training step's: 640 tiles x 11 x 512 floats, 14 MB).
-# Calls on one stream use it in turn: each call's sums are read before the
-# next call's kernels write it.
-_PARTIALS: dict = {}
-
-
-def _partials(tiles: int, C: int, device) -> tuple:
-    """Views [tiles, 10, C] (kernel A's) and [tiles, C] (kernel B's) of the
-    module's partial-sum buffer on ``device``."""
-    n = tiles * (_PARTS + 1) * C
-    buf = _PARTIALS.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.empty(n, dtype=torch.float32, device=device)
-        _PARTIALS[device] = buf
-    a = buf[: tiles * _PARTS * C].view(tiles, _PARTS, C)
-    return a, buf[tiles * _PARTS * C : n].view(tiles, C)
-
-
-def depthwise_conv7_norm_backward_rows(go, x, step, cond, mask, k, b, ln_scale,
-                                       dilation: int):
-    """K10's norm backward, kernel A, ``csrc/convnext_block.cu``
-    ``depthwise_conv7_norm_backward_rows``: dh and the tiles' column
-    partials of dk, db, dln_scale and dln_bias, added over the tiles in an
-    order fixed by the shapes (see
-    ``depthwise_conv7_norm_backward_rows_reference``, which CPU tensors
-    take). C up to ``MAX_TRAIN_CHANNELS``."""
-    if not go.is_cuda:
-        return depthwise_conv7_norm_backward_rows_reference(go, x, step, cond, mask, k, b,
-                                                            ln_scale, dilation)
-    _check("depthwise_conv7_norm_backward_rows", x, step, cond, mask, k, (b, ln_scale),
-           MAX_TRAIN_CHANNELS)
-    kernels.require_cuda("depthwise_conv7_norm_backward_rows", go, x)
-    if go.shape != x.shape:
-        raise ValueError(f"depthwise_conv7_norm_backward_rows: go {tuple(go.shape)} != "
-                         f"{tuple(x.shape)}")
-    B, T, C = x.shape
-    lib = kernels.load_library("convnext_block")
-    part, _ = _partials(B * lib.depthwise_conv7_backward_tiles(T, int(dilation)), C, x.device)
-    dh = torch.empty_like(x)
-    kernels.check(
-        lib.depthwise_conv7_norm_backward_rows(
-            go.data_ptr(), x.data_ptr(), step.data_ptr(), cond.data_ptr(),
-            None if mask is None else mask.data_ptr(), k.data_ptr(), b.data_ptr(),
-            ln_scale.data_ptr(), dh.data_ptr(), part.data_ptr(), B, T, C, int(dilation),
-            LN_EPS, kernels.stream(),
-        ),
-        "depthwise_conv7_norm_backward_rows",
-    )
-    kernels.count_launch("depthwise_conv7_norm_backward_rows")
-    sums = part.sum(0)
-    return dh, sums[3:], sums[2], sums[0], sums[1]
-
-
-def depthwise_conv7_backward_taps(dh, mask, k, dilation: int):
-    """K10's taps backward, kernel B, ``csrc/convnext_block.cu``
-    ``depthwise_conv7_backward_taps``: dy, and dstep as the tiles' column
-    sums of dy added per item in an order fixed by the shapes (see
-    ``depthwise_conv7_backward_taps_reference``, which CPU tensors take)."""
-    if not dh.is_cuda:
-        return depthwise_conv7_backward_taps_reference(dh, mask, k, dilation)
-    B, T, C = dh.shape
-    kernels.require_cuda("depthwise_conv7_backward_taps", dh, k)
-    if dh.dtype != torch.float32 or tuple(k.shape) != (TAPS, C):
-        raise ValueError("depthwise_conv7_backward_taps: float32 dh [B, T, C] and k [7, C]")
-    _check_mask("depthwise_conv7_backward_taps", mask, dh)
-    lib = kernels.load_library("convnext_block")
-    tiles = lib.depthwise_conv7_backward_tiles(T, int(dilation))
-    _, part = _partials(B * tiles, C, dh.device)
-    dy = torch.empty_like(dh)
-    kernels.check(
-        lib.depthwise_conv7_backward_taps(
-            dh.data_ptr(), None if mask is None else mask.data_ptr(), k.data_ptr(),
-            dy.data_ptr(), part.data_ptr(), B, T, C, int(dilation), kernels.stream(),
-        ),
-        "depthwise_conv7_backward_taps",
-    )
-    kernels.count_launch("depthwise_conv7_backward_taps")
-    return dy, part.view(B, tiles, C).sum(1)
-
-
 def depthwise_conv7_norm_backward(go, x, step, cond, mask, k, b, ln_scale, ln_bias,
                                   dilation: int):
-    """K10's backward: kernel A then kernel B -> (dx, dstep, dcond, dk, db,
-    dln_scale, dln_bias), dx and dcond one tensor (see
-    ``depthwise_conv7_norm_backward_reference``)."""
-    dh, dk, db, dw, dlb = depthwise_conv7_norm_backward_rows(
-        go.contiguous(), x, step, cond, mask, k, b, ln_scale, dilation)
-    dy, dstep = depthwise_conv7_backward_taps(dh, mask, k, dilation)
-    return dy, dstep, dy, dk, db, dw, dlb
+    """K10's backward, ``csrc/convnext_block.cu``
+    ``depthwise_conv7_norm_backward``: one kernel that keeps dh on chip,
+    and the sum of its blocks' column sums in an order fixed by the shapes
+    -> (dx, dstep, dcond, dk, db, dln_scale, dln_bias), dx and dcond one
+    tensor (see ``depthwise_conv7_norm_backward_reference``, which CPU
+    tensors take). float32; any T and dilation, C up to
+    ``MAX_TRAIN_CHANNELS``."""
+    if not go.is_cuda:
+        return depthwise_conv7_norm_backward_reference(go, x, step, cond, mask, k, b,
+                                                       ln_scale, ln_bias, dilation)
+    name = "depthwise_conv7_norm_backward"
+    go = go.contiguous()
+    _check(name, x, step, cond, mask, k, (b, ln_scale), MAX_TRAIN_CHANNELS)
+    kernels.require_cuda(name, go, x)
+    if go.shape != x.shape:
+        raise ValueError(f"{name}: go {tuple(go.shape)} != {tuple(x.shape)}")
+    if dilation < 1:
+        raise ValueError(f"{name}: dilation {dilation} < 1")
+    B, T, C = x.shape
+    lib = kernels.load_library("convnext_block")
+    n_slots = lib.depthwise_conv7_norm_backward_slots(B, T, C, int(dilation))
+    slots = torch.empty((n_slots, _FIELDS, C), dtype=torch.float32, device=x.device)
+    grads = torch.empty((_FIELDS - 1 + B, C), dtype=torch.float32, device=x.device)
+    dy = torch.empty_like(x)
+    kernels.check(
+        lib.depthwise_conv7_norm_backward(
+            go.data_ptr(), x.data_ptr(), step.data_ptr(), cond.data_ptr(),
+            None if mask is None else mask.data_ptr(), k.data_ptr(), b.data_ptr(),
+            ln_scale.data_ptr(), dy.data_ptr(), slots.data_ptr(), grads.data_ptr(), B, T, C,
+            int(dilation), LN_EPS, kernels.stream(),
+        ),
+        name,
+    )
+    kernels.count_launch(name)
+    return dy, grads[_FIELDS - 1:], dy, grads[:TAPS], grads[TAPS], grads[TAPS + 1], \
+        grads[TAPS + 2]
 
 
 class DepthwiseConv7NormFunction(torch.autograd.Function):
@@ -275,6 +227,10 @@ class DepthwiseConv7NormFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, step, cond, mask, k, b, ln_scale, ln_bias, dilation):
+        # refuse a width the backward cannot take before the step runs
+        if x.is_cuda and x.shape[-1] > MAX_TRAIN_CHANNELS:
+            raise ValueError(f"depthwise_conv7_norm under grad: {x.shape[-1]} channels > "
+                             f"{MAX_TRAIN_CHANNELS}")
         ctx.save_for_backward(x, step, cond, mask, k, b, ln_scale, ln_bias)
         ctx.dilation = dilation
         return depthwise_conv7_norm(x, step, cond, mask, k, b, ln_scale, ln_bias, dilation)

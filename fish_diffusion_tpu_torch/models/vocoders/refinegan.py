@@ -16,7 +16,8 @@ through K4's input gradient and ``conv1d_wgrad``. The weight-normed convs
 use flax ``nn.WeightNorm``'s fold (``ops/blocked_conv.py:weight_norm_kernel``,
 eps inside the square root). The JAX package's ``blocked_tail`` knob and
 its space-to-depth layout were TPU devices and are not carried over; the
-linear resampling is ``F.interpolate`` (``ops/tensor.py:repeat_expand``),
+linear resampling is ``F.interpolate`` (``ops/tensor.py:repeat_expand``,
+whose backward is a fixed-order gather, so a rerun gives the same bits),
 without antialiasing, as in the JAX module.
 
 Random draws, in the JAX module's call order: the template's noise

@@ -11,7 +11,8 @@ block's threads run as ``std::thread``s meeting at a ``std::barrier`` for
 ``__syncthreads``, and ``kernel<<<grid, block, smem, stream>>>(...)``
 becomes a call that runs the grid; a shared header (``csrc/*.cuh``) is
 inlined, with the headers it includes. The shim covers what the sources use (no warp intrinsics or
-tensor-core instructions); PTX sits behind ``#if defined(__CUDA_ARCH__)``
+tensor-core instructions; K10's backward's warp shuffles run as exchanges through a
+shared array between two barriers of the warp); PTX sits behind ``#if defined(__CUDA_ARCH__)``
 with a plain branch, so the weight gradient's ``cp.async`` copies run as
 plain copies here, and K1's 3xTF32 products (``csrc/tf32x3.cuh``) as each
 lane's own accumulator elements computed from the same shared-memory tiles
@@ -43,6 +44,7 @@ SHIM = r"""
 #include <math.h>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __global__
@@ -63,7 +65,20 @@ struct dim3 {
 };
 inline thread_local dim3 threadIdx, blockIdx, blockDim;
 inline thread_local std::barrier<>* g_barrier;
+inline thread_local std::barrier<>* g_warp_barrier;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
+// a warp shuffle as an exchange through a shared array between two
+// barriers of the warp: every thread of the warp must call it, as K10's
+// backward does (blocks of whole warps, the shuffles outside any branch)
+inline float g_shuffle[1024];
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  const unsigned t = threadIdx.x;
+  g_shuffle[t] = v;
+  g_warp_barrier->arrive_and_wait();
+  const float r = g_shuffle[(t & ~31u) | ((t & 31u) ^ (unsigned)lane_mask)];
+  g_warp_barrier->arrive_and_wait();
+  return r;
+}
 // round-to-nearest arithmetic that nvcc never contracts into an FMA (g++
 // in ISO C++ mode does not contract either)
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -101,12 +116,16 @@ template <class F> void run_grid(dim3 grid, dim3 block, size_t smem, F body) {
   if (smem > 232448) throw 1;
   const unsigned n = block.x * block.y * block.z;
   std::barrier<> bar(n);
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  for (unsigned w = 0; w < n; w += 32)
+    warps.push_back(std::make_unique<std::barrier<>>(n - w < 32 ? n - w : 32));
   std::vector<std::thread> threads;
   for (unsigned t = 0; t < n; ++t)
     threads.emplace_back([&, t] {
       threadIdx = dim3(t);
       blockDim = block;
       g_barrier = &bar;
+      g_warp_barrier = warps[t / 32].get();
       for (unsigned z = 0; z < grid.z; ++z)
         for (unsigned y = 0; y < grid.y; ++y)
           for (unsigned x = 0; x < grid.x; ++x) {
@@ -1341,22 +1360,20 @@ def test_convnext_block_source_wide_and_padded(host_libs):
 
 
 def _dwconv7_norm_backward(lib, go, x, step, cond, mask, k, b, ln_scale, d):
-    """Kernels A and B as the wrappers launch them -> (dx, dstep, dcond, dk,
-    db, dln_scale, dln_bias), the partials added over the tiles."""
+    """K10's backward as the wrapper launches it -> (dx, dstep, dcond, dk,
+    db, dln_scale, dln_bias); the slots and the outputs start as NaN."""
     B, T, C = x.shape
-    tiles = lib.depthwise_conv7_backward_tiles(T, d)
-    part_a = torch.full((B * tiles, 10, C), float("nan"))
-    part_b = torch.full((B * tiles, C), float("nan"))
-    dh, dy = torch.full_like(x, float("nan")), torch.full_like(x, float("nan"))
-    m = None if mask is None else mask.data_ptr()
-    assert lib.depthwise_conv7_norm_backward_rows(
-        go.data_ptr(), x.data_ptr(), step.data_ptr(), cond.data_ptr(), m, k.data_ptr(),
-        b.data_ptr(), ln_scale.data_ptr(), dh.data_ptr(), part_a.data_ptr(), B, T, C, d,
+    n_slots = lib.depthwise_conv7_norm_backward_slots(B, T, C, d)
+    assert n_slots > 0
+    slots = torch.full((n_slots, 11, C), float("nan"))
+    grads = torch.full((10 + B, C), float("nan"))
+    dy = torch.full_like(x, float("nan"))
+    assert lib.depthwise_conv7_norm_backward(
+        go.data_ptr(), x.data_ptr(), step.data_ptr(), cond.data_ptr(),
+        None if mask is None else mask.data_ptr(), k.data_ptr(), b.data_ptr(),
+        ln_scale.data_ptr(), dy.data_ptr(), slots.data_ptr(), grads.data_ptr(), B, T, C, d,
         convnext.LN_EPS, None) == 0
-    assert lib.depthwise_conv7_backward_taps(dh.data_ptr(), m, k.data_ptr(), dy.data_ptr(),
-                                             part_b.data_ptr(), B, T, C, d, None) == 0
-    sums = part_a.sum(0)
-    return dy, part_b.view(B, tiles, C).sum(1), dy, sums[3:], sums[2], sums[0], sums[1]
+    return dy, grads[10:], dy, grads[:7], grads[7], grads[8], grads[9]
 
 
 def _check_k10_backward(lib, args, d, seed):
@@ -1372,22 +1389,54 @@ def _check_k10_backward(lib, args, d, seed):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _segments(lib, B, T, C, d):
+    """The segments a class of K10's backward: its slots over B x classes."""
+    return lib.depthwise_conv7_norm_backward_slots(B, T, C, d) // (B * min(d, T))
+
+
 @pytest.mark.parametrize("T", [5, 37, 130])
 @pytest.mark.parametrize("d", [1, 2, 4, 8])
 def test_convnext_backward_source(host_libs, T, d):
-    """K10's backward, kernels A and B, with and without a mask (go
-    nonzero at padded rows): classes of one row to 17 rows (a ragged
-    second tile, whose rows past the class add nothing), T shorter than the
-    halo: every gradient <= 1e-5 of the plain backward's scale, a rerun
-    bit-equal."""
+    """K10's backward, one kernel and its slots' sum, with and without a
+    mask (go nonzero at padded rows): classes of one row to 130 rows, T
+    shorter than the halo, classes in one segment or several (on the
+    shim's 8 SMs x 2 blocks: T=130 at d = 1 in segments of 17 rows, the
+    last of 11): every gradient <= 1e-5 of the plain backward's scale, a
+    rerun bit-equal."""
     lib = host_libs["convnext_block"]
     for masked in (False, True):
         _check_k10_backward(lib, convnext_case(2, T, 24, T * 3 + d, masked), d, T + d)
 
 
+@pytest.mark.parametrize("B,T,d,C", [(2, 130, 1, 40), (1, 300, 8, 41), (1, 77, 1, 41),
+                                     (1, 410, 8, 40)])
+def test_convnext_backward_source_segments(host_libs, B, T, d, C):
+    """K10's backward where a class spans several segments with a ragged
+    last one (the rule's segments at these shapes, on the shim's 8 SMs), at
+    d = 1 and 8, with and without a mask, C past one warp of 2 channels a
+    thread, even (8-byte pairs) and odd (one by one): <= 1e-5 of scale, a
+    rerun bit-equal."""
+    lib = host_libs["convnext_block"]
+    S = _segments(lib, B, T, C, d)
+    rows = [(T - r + d - 1) // d for r in range(min(d, T))]
+    L = -(-rows[0] // S)
+    assert S > 1 and any(n % L for n in rows), (S, L, rows)  # several segments, some ragged
+    for masked in (False, True):
+        _check_k10_backward(lib, convnext_case(B, T, C, B * T + d, masked), d, T - d)
+
+
 def test_convnext_backward_source_wide_and_padded(host_libs):
-    """K10's backward past one channel per thread (C = 300) with a zero
-    conv bias: padded rows of variance 0 (r = 1000) with a nonzero go."""
+    """K10's backward past one warp of channels a block (C = 300: 160
+    threads, 2 channels each, the last warp part idle) with a zero conv
+    bias: padded rows of variance 0 (r = 1000) with a nonzero go."""
     lib = host_libs["convnext_block"]
     args = convnext_case(3, 70, 300, 1, True, zero_bias=True)
     _check_k10_backward(lib, args, 4, 2)
+
+
+def test_convnext_backward_source_four_channels_a_thread(host_libs):
+    """K10's backward past 1024 channels, where the plan holds 4 channels a
+    thread (C = 1100: 288 threads, the last warp part idle), with a mask:
+    <= 1e-5 of scale, a rerun bit-equal."""
+    lib = host_libs["convnext_block"]
+    _check_k10_backward(lib, convnext_case(2, 24, 1100, 5, True), 2, 3)

@@ -46,11 +46,10 @@ for name in ("NaiveSVCDataset", "NaiveDenoiserDataset", "NaiveVOCODERDataset"):
 from fish_diffusion_tpu_torch import kernels
 from fish_diffusion_tpu_torch.models import convnext
 for name in ("depthwise_conv7_norm_backward_reference", "depthwise_conv7_norm_backward",
-             "depthwise_conv7_norm_backward_rows", "depthwise_conv7_backward_taps",
-             "DepthwiseConv7NormFunction"):
+             "depthwise_conv7_norm_backward_rows_reference",
+             "depthwise_conv7_backward_taps_reference", "DepthwiseConv7NormFunction"):
     assert hasattr(convnext, name), name
-for name in ("depthwise_conv7_norm_backward_rows", "depthwise_conv7_backward_taps"):
-    assert name in kernels.KERNELS, name
+assert kernels.KERNELS["depthwise_conv7_norm_backward"]["id"] == "K10 bwd"
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "fish_diffusion_tpu")]
 for name in ("HarvestPitchExtractor", "ParselMouthPitchExtractor", "AutocorrPitchExtractor",

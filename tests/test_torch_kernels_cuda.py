@@ -940,40 +940,55 @@ K10_GRADS = ("dx", "dstep", "dcond", "dk", "db", "dln_scale", "dln_bias")
 @pytest.mark.parametrize("B,T,C", [(20, 512, 512), (2, 37, 24), (3, 5, 64), (1, 130, 520)])
 @pytest.mark.parametrize("d", [1, 2, 4, 8])
 def test_depthwise_conv7_norm_backward(gen, B, T, C, d):
-    """K10's backward kernels with and without a mask (go nonzero at padded
-    rows; a zero conv bias gives padded rows of variance 0): kernel A (dh
-    and the column partials) and kernel B (dy, dstep, on the plain dh)
-    each <= 1e-4 of the plain version's scale, and bit-equal on a second
-    launch (B=20 x 512 x 512 is a training step's shape)."""
+    """K10's backward (one kernel, dh on chip, and its slots' sum) with and
+    without a mask (go nonzero at padded rows; a zero conv bias gives padded
+    rows of variance 0): every gradient <= 1e-4 of the plain backward's
+    scale and within 1e-4 relative L2, bit-equal on a second launch (B=20 x
+    512 x 512 is a training step's shape)."""
     for masked, zero_bias in ((False, False), (True, False), (True, True)):
         args = convnext_case(B, T, C, B * T + C + d, masked, zero_bias, device="cuda")
-        x, step, cond, mask, k, b, w, lb = args
         go = rn(gen, B, T, C)
-        rows = (go, x, step, cond, mask, k, b, w, d)
-        got = convnext.depthwise_conv7_norm_backward_rows(*rows)
-        ref = convnext.depthwise_conv7_norm_backward_rows_reference(*rows)
-        for g, r in zip(got, ref):
-            assert torch.isfinite(g).all()
+        got = convnext.depthwise_conv7_norm_backward(go, *args, d)
+        ref = convnext.depthwise_conv7_norm_backward_reference(go, *args, d)
+        for name, g, r in zip(K10_GRADS, got, ref):
+            assert torch.isfinite(g).all(), name
             assert_scaled(g, r)
-        again = convnext.depthwise_conv7_norm_backward_rows(*rows)
-        assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
-        taps = (ref[0], mask, k, d)
-        got = convnext.depthwise_conv7_backward_taps(*taps)
-        ref = convnext.depthwise_conv7_backward_taps_reference(*taps)
-        for g, r in zip(got, ref):
-            assert_scaled(g, r)
-        again = convnext.depthwise_conv7_backward_taps(*taps)
-        assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
-        full = convnext.depthwise_conv7_norm_backward(go, *args, d)
-        for name, g, r in zip(K10_GRADS, full,
-                              convnext.depthwise_conv7_norm_backward_reference(go, *args, d)):
             assert float((g - r).norm() / r.norm()) <= 1e-4, name
+        again = convnext.depthwise_conv7_norm_backward(go, *args, d)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def test_depthwise_conv7_norm_backward_widest(gen):
+    """K10's backward at ``MAX_TRAIN_CHANNELS`` (4 channels a thread, the
+    stages filling shared memory) against the plain backward, and a
+    ValueError one channel past it."""
+    C = convnext.MAX_TRAIN_CHANNELS
+    args = convnext_case(2, 40, C, 3, True, device="cuda")
+    go = rn(gen, 2, 40, C)
+    got = convnext.depthwise_conv7_norm_backward(go, *args, 2)
+    for name, g, r in zip(K10_GRADS, got,
+                          convnext.depthwise_conv7_norm_backward_reference(go, *args, 2)):
+        assert_scaled(g, r)
+    args = convnext_case(1, 8, C + 1, 3, False, device="cuda")
+    with pytest.raises(ValueError):
+        convnext.depthwise_conv7_norm_backward(rn(gen, 1, 8, C + 1), *args, 1)
+
+
+def test_depthwise_conv7_norm_refuses_training_width(gen):
+    """Under grad, a width past ``MAX_TRAIN_CHANNELS`` (which the forward
+    alone takes) is refused by the forward, before a backward could run."""
+    C = convnext.MAX_TRAIN_CHANNELS + 1
+    x, step, cond, mask, k, b, w, lb = convnext_case(1, 8, C, 3, False, device="cuda")
+    with torch.no_grad():
+        assert convnext.depthwise_conv7_norm(x, step, cond, mask, k, b, w, lb, 1).shape == x.shape
+    with pytest.raises(ValueError):
+        convnext.depthwise_conv7_norm(x.requires_grad_(True), step, cond, mask, k, b, w, lb, 1)
 
 
 @pytest.mark.parametrize("d", [1, 8])
 def test_depthwise_conv7_norm_function_on_the_card(gen, d):
     """Under grad the wrapper takes ``DepthwiseConv7NormFunction``: K10's
-    forward and both backward kernels once each, every gradient <= 1e-4
+    forward and its backward once each, every gradient <= 1e-4
     of its scale against torch autograd of the plain version; with grad
     off, the serving kernel alone."""
     args = convnext_case(2, 96, 128, d, True, device="cuda")
@@ -989,8 +1004,7 @@ def test_depthwise_conv7_norm_function_on_the_card(gen, d):
 
     kernels.reset_launches()
     got = grads(convnext.depthwise_conv7_norm)
-    for name in ("depthwise_conv7_norm", "depthwise_conv7_norm_backward_rows",
-                 "depthwise_conv7_backward_taps"):
+    for name in ("depthwise_conv7_norm", "depthwise_conv7_norm_backward"):
         assert kernels.LAUNCHES[name] == 1, name
     for got_t, ref_t in zip(got, grads(convnext.depthwise_conv7_norm_reference)):
         assert_scaled(got_t, ref_t)
@@ -998,4 +1012,4 @@ def test_depthwise_conv7_norm_function_on_the_card(gen, d):
     with torch.no_grad():
         convnext.depthwise_conv7_norm(*args, d)
     assert kernels.LAUNCHES["depthwise_conv7_norm"] == 1
-    assert kernels.LAUNCHES["depthwise_conv7_norm_backward_rows"] == 0
+    assert kernels.LAUNCHES["depthwise_conv7_norm_backward"] == 0
