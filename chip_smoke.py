@@ -57,7 +57,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             CREPE's network apart, HubertSoft, sample, vocoder) and RTF;
             K8 pYIN and K8 CREPE held against their plain versions on the
             requests' own inputs (paths and path scores identical), timed
-            beside their bound, chip-wide and on one SM.
+            by device time beside their bound, chip-wide, on one SM and on
+            the cluster's SMs, with microseconds a frame, the chain floor
+            (the same launch with an empty frame body) and the plan.
    convnext: (after istft_net) ``SVCInference`` from
             ``configs/denoiser_cn_hubert.py`` at full width with seeded
             weights (ChineseHubertSoft 12 x 768 with its gate of 10, ConvNext
@@ -1560,8 +1562,13 @@ def path_score(delta0, log_obs, log_A, path):
 def measure_dense_viterbi(report: Report, name: str, log_obs, log_A, label: str):
     """K8 dense (``pyin_viterbi`` or ``crepe_viterbi``) against its plain
     version on one call's own inputs: the paths and their scores identical;
-    kernel and plain times beside the bound, chip-wide and on one SM (one
-    item is one dependent chain)."""
+    the kernel's device time and microseconds a frame beside the bound,
+    chip-wide, on one SM (one item is one dependent chain) and on the
+    cluster's SMs, the chain floor (``viterbi_dense_chain``: the same launch
+    with an empty frame body) and the plan; the plain version's time."""
+    import torch
+
+    from fish_diffusion_tpu_torch import kernels
     from fish_diffusion_tpu_torch.extractors import pitch
 
     wrapper = getattr(pitch, name)
@@ -1575,17 +1582,34 @@ def measure_dense_viterbi(report: Report, name: str, log_obs, log_A, label: str)
           f"{'ok' if s_got == s_ref else 'FAIL'}")
     if s_got != s_ref:
         report.failures.append(f"{name} path score {label}")
-    ms = cuda_ms(lambda: wrapper(log_obs, log_A), iters=5)
+    ms = device_ms(lambda: wrapper(log_obs, log_A), reps=10)
+    t0 = time.perf_counter()  # the host's cost of a call: 20 enqueued back to back
+    for _ in range(20):
+        wrapper(log_obs, log_A)
+    host = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    chain = device_ms(lambda: pitch._viterbi_dense(name, delta0, log_obs, log_A,
+                                                   entry="viterbi_dense_chain"), reps=10)
     plain = cuda_ms(lambda: pitch.viterbi_dense_reference(delta0, log_obs, log_A),
                     iters=2, warmup=1)
     B_, T_, S_ = log_obs.shape
+    frames = max(T_ - 1, 1)
     flops = 2 * B_ * (T_ - 1) * S_ * S_
     one_sm = flops / (F32_FLOP_PER_S / 132) * 1e3
+    lib = kernels.load_library("viterbi_dense")
+    plan = dict(zip(("C", "P", "K", "threads", "clusters"),
+                    (lib.viterbi_dense_plan(S_, w) for w in range(5))))
+    cluster = one_sm / plan["C"]
     t_bound, by = bound(nbytes(delta0, log_obs, log_A, got), flops)
-    print(f"    kernel {ms:.4f} ms ({ms * 1e3 / max(T_ - 1, 1):.3f} us per frame), plain "
-          f"{plain:.4f} ms, bound {t_bound:.5f} ms ({by}), one SM {one_sm:.4f} ms")
-    return dict(err=err, ms=ms, plain=plain, one_sm=one_sm,
-                work=(nbytes(delta0, log_obs, log_A, got), flops))
+    print(f"    kernel {ms:.4f} ms of device time ({ms * 1e3 / frames:.3f} us a frame; the "
+          f"host enqueues a call in {host:.4f} ms), plain {plain:.4f} ms, bound {t_bound:.5f} ms ({by}), one SM {one_sm:.4f} ms, "
+          f"the cluster's {plan['C']} SMs {cluster:.4f} ms ({cluster / ms:.1%} of it "
+          f"reached); chain floor {chain:.4f} ms ({chain * 1e3 / frames:.3f} us a frame); "
+          f"plan: {plan['C']} blocks a cluster, {plan['P']} lanes a column of "
+          f"{plan['K']} states each, {plan['threads']} threads a block, A in "
+          f"registers, {plan['clusters']} clusters fit the card")
+    return dict(err=err, ms=ms, host=host, plain=plain, one_sm=one_sm, cluster=cluster,
+                chain=chain, plan=plan, work=(nbytes(delta0, log_obs, log_A, got), flops))
 
 
 def phase_pitch(report: Report, engine, seed: int):
@@ -1727,15 +1751,27 @@ def phase_pitch(report: Report, engine, seed: int):
         shapes = "+".join(str(a[0].shape[1]) for a, _ in calls.calls)
         print(f"[pitch] {name} on the request's own inputs ({len(calls.calls)} calls, "
               f"T = {shapes}, S = {calls.calls[0][0][0].shape[2]})")
-        one_sm = 0.0
+        sums = dict(one_sm=0.0, cluster=0.0, chain=0.0, host=0.0)
+        frames = 0
         for (log_obs, log_A), _ in calls.calls:
             r = measure_dense_viterbi(report, name, log_obs, log_A,
                                       f"B=1 T={log_obs.shape[1]}")
-            one_sm += r["one_sm"]
+            for k in sums:
+                sums[k] += r[k]
+            frames += log_obs.shape[1] - 1
             report.kernel(name, r["err"], r["ms"], r["plain"],
                           f"sum of one 24 s request's {len(calls.calls)} calls at B=1, "
                           f"T = {shapes}, S = {log_obs.shape[2]}", *r["work"])
-        report.extra[name] = dict(bound_one_sm_ms=one_sm)
+        ms = report.kernels[name]["ms"]
+        print(f"[pitch] {name}, the request's {len(calls.calls)} calls: {ms:.4f} ms "
+              f"({ms * 1e3 / frames:.3f} us a frame), the cluster's bound "
+              f"{sums['cluster']:.4f} ms ({sums['cluster'] / ms:.1%} of it reached), chain "
+              f"floor {sums['chain']:.4f} ms ({sums['chain'] * 1e3 / frames:.3f} us a frame), "
+              f"the host's enqueues {sums['host']:.4f} ms")
+        report.extra[name] = dict(bound_one_sm_ms=sums["one_sm"],
+                                  bound_cluster_ms=sums["cluster"],
+                                  chain_floor_ms=sums["chain"], host_ms=sums["host"],
+                                  us_a_frame=ms * 1e3 / frames, plan=r["plan"])
     report.finish("pitch")
     return launches
 

@@ -435,16 +435,27 @@ def pyin_delta0(log_obs):
 
 def crepe_delta0(log_obs):
     """CREPE's first frame: delta_0 = -log(S) + obs_0, the uniform initial
-    distribution with its constant formed in float32 (``_viterbi_path``)."""
+    distribution with its constant formed in float32 (``_viterbi_path``).
+    The constant goes in as a Python scalar (exact in float32), so a CUDA
+    call copies nothing from the host and does not wait for the card."""
     S = log_obs.shape[-1]
-    init = -torch.log(torch.tensor(float(S), dtype=torch.float32))
-    return (log_obs[:, 0] + init.to(log_obs.device)).contiguous()
+    init = float(-torch.log(torch.tensor(float(S), dtype=torch.float32)))
+    return (log_obs[:, 0] + init).contiguous()
 
 
-def _viterbi_dense(name: str, delta0, log_obs, log_A):
-    """K8 dense under launch name ``name``: the kernel on CUDA tensors (it
-    raises if the build or the launch fails), the plain version on CPU
-    ones."""
+def dense_backptr_shape(B: int, T: int, S: int):
+    """K8 dense's backpointer scratch: [B, T - 1, S] int16 with each row
+    padded to a multiple of 8 states (16 bytes, which the backtrack's
+    copies move); one row where T = 1."""
+    return (B, max(T - 1, 1), (S + 7) // 8 * 8)
+
+
+def _viterbi_dense(name: str, delta0, log_obs, log_A, entry: str = "viterbi_dense"):
+    """K8 dense under launch name ``name``: the cluster kernel on CUDA
+    tensors (it raises if the build, the launch or the cluster's scheduling
+    fails), the plain version on CPU ones. ``entry="viterbi_dense_chain"``
+    launches the same kernel with an empty frame body (the chain floor of a
+    measurement; not a decode, not counted)."""
     if not log_obs.is_cuda:
         return viterbi_dense_reference(delta0, log_obs, log_A)
     kernels.require_cuda(name, delta0, log_obs, log_A)
@@ -460,16 +471,17 @@ def _viterbi_dense(name: str, delta0, log_obs, log_A):
         raise ValueError(f"{name}: S = {S}, T = {T}: needs 1 <= S <= 512 states "
                          "and a frame")
     dev = log_obs.device
-    backptr = torch.empty((B, max(T - 1, 1), S), dtype=torch.int16, device=dev)
+    backptr = torch.empty(dense_backptr_shape(B, T, S), dtype=torch.int16, device=dev)
     path = torch.empty((B, T), dtype=torch.int32, device=dev)
     lib = kernels.load_library("viterbi_dense")
     kernels.check(
-        lib.viterbi_dense(delta0.data_ptr(), log_obs.data_ptr(), log_A.data_ptr(),
-                          backptr.data_ptr(), path.data_ptr(), B, T, S,
-                          kernels.stream()),
+        getattr(lib, entry)(delta0.data_ptr(), log_obs.data_ptr(), log_A.data_ptr(),
+                            backptr.data_ptr(), path.data_ptr(), B, T, S,
+                            kernels.stream()),
         name,
     )
-    kernels.count_launch(name)
+    if entry == "viterbi_dense":
+        kernels.count_launch(name)
     return path
 
 

@@ -218,6 +218,8 @@ SIGNATURES = {
     },
     "viterbi_dense": {
         "viterbi_dense": [_P] * 5 + [_I] * 3 + [_P],
+        "viterbi_dense_chain": [_P] * 5 + [_I] * 3 + [_P],
+        "viterbi_dense_plan": [_I] * 2,
     },
     "istft": {
         "istft": [_P] * 5 + [_I] * 7 + [_P],

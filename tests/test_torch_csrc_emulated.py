@@ -10,13 +10,21 @@ arrays become function statics (blocks run one after another), each
 block's threads run as ``std::thread``s meeting at a ``std::barrier`` for
 ``__syncthreads``, and ``kernel<<<grid, block, smem, stream>>>(...)``
 becomes a call that runs the grid; a shared header (``csrc/*.cuh``) is
-inlined, with the headers it includes. The shim covers what the sources use (no warp intrinsics or
-tensor-core instructions; K10's backward's warp shuffles run as exchanges through a
-shared array between two barriers of the warp); PTX sits behind ``#if defined(__CUDA_ARCH__)``
+inlined, with the headers it includes. The shim covers what the sources use (no
+tensor-core instructions; K10's backward's and K8 dense's warp shuffles run as
+exchanges through the block's shared array between two barriers of the warp);
+PTX sits behind ``#if defined(__CUDA_ARCH__)``
 with a plain branch, so the weight gradient's ``cp.async`` copies run as
 plain copies here, and K1's 3xTF32 products (``csrc/tf32x3.cuh``) as each
 lane's own accumulator elements computed from the same shared-memory tiles
-with the same TF32 rounding. Needs ``g++`` with C++20; skips without one.
+with the same TF32 rounding. A launch with a thread-block cluster
+(``cudaLaunchKernelEx``, K8 dense) runs the cluster's blocks at once, each
+with its own dynamic shared memory; ``cooperative_groups::this_cluster()``
+gives the block's rank, ``map_shared_rank`` points into another block's
+region and ``sync`` is a ``std::barrier`` over all of the cluster's
+threads (K8 dense's host branch sends with plain stores and meets there at
+the end of each frame, where the card uses ``st.async`` and mbarriers).
+Needs ``g++`` with C++20; skips without one.
 """
 
 import ctypes
@@ -58,6 +66,8 @@ SHIM = r"""
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct alignas(8) float2 { float x, y; };
+struct alignas(8) uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 inline float2 make_float2(float x, float y) { return {x, y}; }
 struct dim3 {
   unsigned x, y, z;
@@ -67,15 +77,28 @@ inline thread_local dim3 threadIdx, blockIdx, blockDim;
 inline thread_local std::barrier<>* g_barrier;
 inline thread_local std::barrier<>* g_warp_barrier;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
-// a warp shuffle as an exchange through a shared array between two
-// barriers of the warp: every thread of the warp must call it, as K10's
-// backward does (blocks of whole warps, the shuffles outside any branch)
-inline float g_shuffle[1024];
-inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+// a warp shuffle as an exchange through the block's shared array between
+// two barriers of the warp: every thread of the warp must call it, as K10's
+// backward and K8 dense do (blocks of whole warps, the shuffles outside any
+// branch)
+inline thread_local uint32_t* g_shuffle;
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  static_assert(sizeof(T) == 4, "32-bit shuffles");
   const unsigned t = threadIdx.x;
-  g_shuffle[t] = v;
+  std::memcpy(&g_shuffle[t], &v, 4);
   g_warp_barrier->arrive_and_wait();
-  const float r = g_shuffle[(t & ~31u) | ((t & 31u) ^ (unsigned)lane_mask)];
+  T r;
+  std::memcpy(&r, &g_shuffle[(t & ~31u) | ((t & 31u) ^ (unsigned)lane_mask)], 4);
+  g_warp_barrier->arrive_and_wait();
+  return r;
+}
+template <class T> inline T __shfl_sync(unsigned, T v, int src_lane) {
+  static_assert(sizeof(T) == 4, "32-bit shuffles");
+  const unsigned t = threadIdx.x;
+  std::memcpy(&g_shuffle[t], &v, 4);
+  g_warp_barrier->arrive_and_wait();
+  T r;
+  std::memcpy(&r, &g_shuffle[(t & ~31u) | ((unsigned)src_lane & 31u)], 4);
   g_warp_barrier->arrive_and_wait();
   return r;
 }
@@ -87,7 +110,9 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum { cudaErrorLaunchOutOfResources = 701 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
@@ -108,33 +133,96 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   uint32_t u; std::memcpy(&u, &f, 4); u += 0x7fff + ((u >> 16) & 1);
   return {(uint16_t)(u >> 16)};
 }
-inline std::vector<float> g_dynamic_smem(1 << 20);
-// One host thread per CUDA thread of a block; they walk the grid's blocks
-// in order and meet at the barrier after each block, so the statics that
-// stand for shared memory serve one block at a time.
-template <class F> void run_grid(dim3 grid, dim3 block, size_t smem, F body) {
-  if (smem > 232448) throw 1;
+// dynamic shared memory: one region of 256 KB a block of a cluster
+constexpr size_t SMEM_REGION = 256 * 1024;
+inline std::vector<float> g_dynamic_smem(16 * SMEM_REGION / sizeof(float));
+inline thread_local char* g_smem_base;
+// a thread-block cluster: its blocks run at once, each with its own
+// dynamic shared memory; the cluster barrier is one std::barrier over all
+// of their threads, and map_shared_rank points into another block's region
+inline thread_local unsigned g_cluster_rank;
+inline thread_local std::barrier<>* g_cluster_barrier;
+namespace cooperative_groups {
+struct cluster_group {
+  unsigned block_rank() const { return g_cluster_rank; }
+  void sync() const { g_cluster_barrier->arrive_and_wait(); }
+  template <class T> T* map_shared_rank(T* p, unsigned rank) const {
+    return reinterpret_cast<T*>(reinterpret_cast<char*>(p) +
+                                ((long)rank - (long)g_cluster_rank) * (long)SMEM_REGION);
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+// One host thread per CUDA thread of a cluster's blocks (a block is a
+// cluster of one); they walk the grid's clusters in order and meet at the
+// cluster barrier after each, so the statics that stand for shared memory
+// serve one block at a time where clusters are of one block.
+template <class F> void run_clusters(dim3 grid, dim3 block, size_t smem, unsigned C, F body) {
+  if (smem > 232448 || C > 16 || grid.x % C) throw 1;
   const unsigned n = block.x * block.y * block.z;
-  std::barrier<> bar(n);
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
-  for (unsigned w = 0; w < n; w += 32)
-    warps.push_back(std::make_unique<std::barrier<>>(n - w < 32 ? n - w : 32));
+  std::barrier<> cluster(C * n);
+  std::vector<std::unique_ptr<std::barrier<>>> blocks, warps;
+  for (unsigned r = 0; r < C; ++r) {
+    blocks.push_back(std::make_unique<std::barrier<>>(n));
+    for (unsigned w = 0; w < n; w += 32)
+      warps.push_back(std::make_unique<std::barrier<>>(n - w < 32 ? n - w : 32));
+  }
+  const unsigned warps_a_block = (n + 31) / 32;
+  std::vector<uint32_t> shuffle(C * n);
   std::vector<std::thread> threads;
-  for (unsigned t = 0; t < n; ++t)
+  for (unsigned t = 0; t < C * n; ++t)
     threads.emplace_back([&, t] {
-      threadIdx = dim3(t);
+      const unsigned r = t / n, tid = t % n;
+      threadIdx = dim3(tid);
       blockDim = block;
-      g_barrier = &bar;
-      g_warp_barrier = warps[t / 32].get();
+      g_barrier = blocks[r].get();
+      g_warp_barrier = warps[r * warps_a_block + tid / 32].get();
+      g_shuffle = shuffle.data() + r * n;
+      g_smem_base = reinterpret_cast<char*>(g_dynamic_smem.data()) + r * SMEM_REGION;
+      g_cluster_rank = r;
+      g_cluster_barrier = &cluster;
       for (unsigned z = 0; z < grid.z; ++z)
         for (unsigned y = 0; y < grid.y; ++y)
-          for (unsigned x = 0; x < grid.x; ++x) {
-            blockIdx = dim3(x, y, z);
+          for (unsigned x = 0; x < grid.x; x += C) {
+            blockIdx = dim3(x + r, y, z);
             body();
-            bar.arrive_and_wait();
+            cluster.arrive_and_wait();
           }
     });
   for (auto& th : threads) th.join();
+}
+template <class F> void run_grid(dim3 grid, dim3 block, size_t smem, F body) {
+  run_clusters(grid, block, smem, 1, body);
+}
+// cudaLaunchKernelEx with a cluster dimension: the shim's GPC holds 16
+// SMs, one block an SM
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+inline unsigned cluster_of(const cudaLaunchConfig_t* cfg) {
+  for (unsigned a = 0; a < cfg->numAttrs; ++a)
+    if (cfg->attrs[a].id == cudaLaunchAttributeClusterDimension)
+      return cfg->attrs[a].val.clusterDim.x;
+  return 1;
+}
+template <class T> int cudaOccupancyMaxActiveClusters(int* n, T, const cudaLaunchConfig_t* cfg) {
+  *n = 16 / cluster_of(cfg);
+  return 0;
+}
+template <class... P, class... A>
+int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P...), A&&... args) {
+  run_clusters(cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes, cluster_of(cfg),
+               [&] { kernel(args...); });
+  return 0;
 }
 """
 
@@ -151,9 +239,10 @@ def _host_source(cu: str) -> str:
         src = _HEADER.sub(lambda m: (kernels.CSRC / m.group(1)).read_text(), src)
     src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
     src = src.replace("#include <cuda_bf16.h>", "")
+    src = src.replace("#include <cooperative_groups.h>", "")
     src = _EXTERN_SHARED.sub(
         lambda m: f"{m.group(1)}* {m.group(2)} = "
-                  f"reinterpret_cast<{m.group(1)}*>(g_dynamic_smem.data());", src)
+                  f"reinterpret_cast<{m.group(1)}*>(g_smem_base);", src)
 
     def launch(m):
         grid, block, smem = (p.strip() for p in m.group(2).split(",")[:3])
@@ -925,24 +1014,44 @@ def _check_viterbi(lib, freqs, strengths, unvoiced):
     return path
 
 
-@pytest.mark.parametrize("kind,B,T,ties", [
-    ("pyin", 2, 24, False), ("crepe", 2, 20, False), ("pyin", 1, 1, False),
-    ("crepe", 1, 2, False), ("pyin", 1, 12, True), ("crepe", 1, 12, True),
-    ("flat", 2, 12, False)])
-def test_viterbi_dense_source(host_libs, kind, B, T, ties):
-    """K8 dense at S = 430 (pYIN) and 360 (CREPE, with -inf bins and pad
-    rows): the path identical to the plain version's; the ``ties`` cases
-    tie in the recursion and in the final argmax, the ``flat`` one across
-    the previous-state parts of the kernel (``dense_case``)."""
-    delta0, log_obs, log_A = dense_case(kind, B, T, seed=T, ties=ties)
-    S = log_obs.shape[2]
-    backptr = torch.empty((B, max(T - 1, 1), S), dtype=torch.int16)
+@pytest.mark.parametrize("kind,B,T,ties,S", [
+    ("pyin", 2, 24, False, 430), ("crepe", 2, 20, False, 360), ("pyin", 1, 1, False, 430),
+    ("crepe", 1, 2, False, 360), ("pyin", 1, 12, True, 430), ("crepe", 1, 12, True, 360),
+    ("flat", 2, 12, False, 430), ("edges", 1, 12, False, 430), ("random", 2, 12, False, 1),
+    ("random", 2, 12, False, 33), ("random", 1, 12, False, 511)])
+def test_viterbi_dense_source(host_libs, kind, B, T, ties, S):
+    """K8 dense's cluster kernel (its blocks run at once, exchanging delta
+    through each other's shared memory) at S = 430 (pYIN) and 360 (CREPE,
+    with -inf bins and pad rows), and at S = 1, 33 and 511, which no
+    cluster of 8 or 16 divides: the path identical to the plain version's; the
+    ``ties`` cases tie in the recursion and in the final argmax, the
+    ``flat`` one across the previous-state parts of the kernel, ``edges``
+    in the final argmax across the cluster's blocks (``dense_case``)."""
+    delta0, log_obs, log_A = dense_case(kind, B, T, seed=T, ties=ties, S=S)
+    backptr = torch.empty(pitch.dense_backptr_shape(B, T, S), dtype=torch.int16)
     path = torch.full((B, T), -1, dtype=torch.int32)
     assert host_libs["viterbi_dense"].viterbi_dense(
         delta0.data_ptr(), log_obs.data_ptr(), log_A.data_ptr(), backptr.data_ptr(),
         path.data_ptr(), B, T, S, None) == 0
     ref = pitch.viterbi_dense_reference(delta0, log_obs, log_A)
     torch.testing.assert_close(path, ref, atol=0, rtol=0)
+
+
+def test_viterbi_dense_plan_source(host_libs):
+    """K8 dense's plan: each block's columns whole groups of 4, the fewest
+    that 16 blocks need to cover S, and as many blocks (up to 16: the
+    shim's GPC holds one such cluster) as own a column, so that every block
+    of the cluster owns one; 8 lanes a column, each lane's previous states a
+    multiple of 4 covering S, whole warps; -1 past 512 states."""
+    lib = host_libs["viterbi_dense"]
+    for S, C_want in ((1, 1), (33, 9), (360, 15), (430, 16), (511, 16), (512, 16)):
+        C, P, K, threads = (lib.viterbi_dense_plan(S, w) for w in range(4))
+        assert (C, P) == (C_want, 8) and K % 4 == 0 and P * K >= S > P * (K - 4)
+        W = threads // P
+        assert threads % 32 == 0 and W % 4 == 0 and 16 * W >= S > 16 * (W - 4)
+        assert C * W >= S > (C - 1) * W
+        assert lib.viterbi_dense_plan(S, 4) >= 1 and lib.viterbi_dense_plan(S, 5) == -1
+    assert lib.viterbi_dense_plan(513, 0) == -1
 
 
 @pytest.mark.parametrize(

@@ -2,7 +2,9 @@
 ``fish_diffusion_tpu_torch`` (the training modules, the datasets, the
 discriminators, the RefineGAN and iSTFTNet vocoders, monotonic alignment,
 the pitch extractors, the ConvNeXt denoiser with K10's backward, the
-denoiser's dataset and the HuBERT front ends among them) loads no JAX, flax, optax or
+denoiser's dataset and the HuBERT front ends among them), and of the scripts
+that run on the card (``chip_smoke.py``, ``chip_step_noise.py``), loads no
+JAX, flax, optax or
 ``fish_diffusion_tpu`` module (checked in a fresh interpreter)."""
 
 import subprocess
@@ -50,6 +52,9 @@ for name in ("depthwise_conv7_norm_backward_reference", "depthwise_conv7_norm_ba
              "depthwise_conv7_backward_taps_reference", "DepthwiseConv7NormFunction"):
     assert hasattr(convnext, name), name
 assert kernels.KERNELS["depthwise_conv7_norm_backward"]["id"] == "K10 bwd"
+assert {"viterbi_dense", "viterbi_dense_chain", "viterbi_dense_plan"} <= set(
+    kernels.SIGNATURES["viterbi_dense"])
+import chip_smoke, chip_step_noise
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "fish_diffusion_tpu")]
 for name in ("HarvestPitchExtractor", "ParselMouthPitchExtractor", "AutocorrPitchExtractor",

@@ -372,11 +372,17 @@ def test_viterbi_candidates(gen, B, T, K):
         torch.testing.assert_close(g, r, atol=0, rtol=0)
 
 
-def dense_case(kind: str, B: int, T: int, seed: int, ties: bool = False):
+def dense_case(kind: str, B: int, T: int, seed: int, ties: bool = False, S: int = 430):
     """Inputs of K8 dense as pYIN (S = 430, its transition matrix) or CREPE
     (S = 360: bins outside 12-166 at -inf, the last quarter of the frames
     uniform pad rows, delta_0 = -log(S) + obs_0) give them, observations on
-    a grid of 0.5; or ``flat`` (S = 430, a constant matrix). With ``ties``: every frame favours the even states by 8
+    a grid of 0.5; or ``flat`` (S = 430, a constant matrix); or ``edges``
+    (``flat`` whose last frame favours only the states on either side of
+    each boundary between blocks of 28 states, so that the final argmax
+    ties across the blocks of a cluster of 16 or 8, 28 or 56 states each
+    at S = 430: state 27 must win); or ``random`` (S states, any S: a
+    row-stochastic random matrix).
+    With ``ties``: every frame favours the even states by 8
     but the last, which favours the odd ones; the states whose transition
     rows are cut by an edge are kept out (pYIN: voiced bins 0-7 and from
     207, and the unvoiced states, at -100; CREPE: its -inf bins), and CREPE
@@ -384,6 +390,19 @@ def dense_case(kind: str, B: int, T: int, seed: int, ties: bool = False):
     left, so an odd state's best predecessors j - 1 and j + 1 tie exactly,
     as do the odd states of the last frame: the first index must win in the
     recursion and in the final argmax."""
+    if kind == "random":
+        gen = torch.Generator().manual_seed(seed)
+        log_obs = torch.round(torch.rand((B, T, S), generator=gen) * -16) / 2
+        rows = torch.rand((S, S), generator=gen) + 1e-3
+        log_A = torch.log(rows / rows.sum(dim=1, keepdim=True))
+        return pitch.pyin_delta0(log_obs), log_obs.contiguous(), log_A
+    if kind == "edges":
+        delta0, log_obs, log_A = dense_case("flat", B, T, seed)
+        last = torch.full((430,), -2.0)
+        for edge in range(28, 430, 28):
+            last[edge - 1 : edge + 1] = 0.0
+        log_obs[:, -1] = last
+        return pitch.pyin_delta0(log_obs), log_obs.contiguous(), log_A
     gen = torch.Generator().manual_seed(seed)
     S = 360 if kind == "crepe" else 430
     if kind == "flat":
@@ -410,16 +429,24 @@ def dense_case(kind: str, B: int, T: int, seed: int, ties: bool = False):
     return pitch.crepe_delta0(log_obs), log_obs.contiguous(), log_A
 
 
-@pytest.mark.parametrize("kind,B,T,ties", [
-    ("pyin", 2, 300, False), ("crepe", 2, 256, False), ("pyin", 1, 1, False),
-    ("crepe", 1, 2, False), ("pyin", 1, 40, True), ("crepe", 1, 40, True),
-    ("flat", 2, 40, False)])
-def test_viterbi_dense(gen, kind, B, T, ties):
+DENSE_CASES = [
+    ("pyin", 2, 300, False, 430), ("crepe", 2, 256, False, 360), ("pyin", 1, 1, False, 430),
+    ("crepe", 1, 2, False, 360), ("pyin", 1, 40, True, 430), ("crepe", 1, 40, True, 360),
+    ("flat", 2, 40, False, 430), ("edges", 1, 40, False, 430), ("random", 2, 40, False, 1),
+    ("random", 2, 40, False, 33), ("random", 1, 40, False, 511),
+    # the pitch path's shapes: one pYIN call, one CREPE call of a 24 s request
+    ("pyin", 1, 1025, False, 430), ("crepe", 1, 2560, False, 360)]
+
+
+@pytest.mark.parametrize("kind,B,T,ties,S", DENSE_CASES)
+def test_viterbi_dense(gen, kind, B, T, ties, S):
     """K8 dense (pYIN: 430 states; CREPE: 360 with -inf bins and uniform
-    pad rows; observations on a grid of 0.5, so that many scores tie): the
-    path identical to the plain version's, one launch per call under each
+    pad rows; observations on a grid of 0.5, so that many scores tie; state
+    counts that no cluster of 8 or 16 divides, 1, 33 and 511; final-argmax ties
+    across the cluster's blocks; the pitch path's own shapes): the path
+    identical to the plain version's, one launch per call under each
     wrapper's name."""
-    delta0, log_obs, log_A = (t.cuda() for t in dense_case(kind, B, T, seed=T, ties=ties))
+    delta0, log_obs, log_A = (t.cuda() for t in dense_case(kind, B, T, seed=T, ties=ties, S=S))
     wrapper = pitch.crepe_viterbi if kind == "crepe" else pitch.pyin_viterbi
     name = "crepe_viterbi" if kind == "crepe" else "pyin_viterbi"
     before = kernels.LAUNCHES[name]
