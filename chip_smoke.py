@@ -2,6 +2,12 @@
 """Drive the PyTorch port's SVC paths and vocoder training once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --chains DIR
+
+``--chains DIR`` times K8-cand and K7 alone through the port in DIR (this
+checkout, or another revision unpacked by ``git archive``) and prints one
+JSON line (``time_chains``); two revisions compare by one method when run
+in one call, in turns. Without it:
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -29,7 +35,10 @@ Phases, in order; any failure raises and the script exits non-zero:
             timed beside its byte bound; K5 (an FFT) at n_fft 2048 and at the key shifts'
             2299 and 1933 (Bluestein), and at B=1 over a segment, and
             past shared memory (the four-step split path: n_fft 6000 in
-            float64, forward and backward, n_fft 16384 in float32); K4 at
+            float64, forward and backward, n_fft 16384 in float32); K8-cand
+            at B=4 x 1024, at a 30 s segment (B=1 x 2600) and at K = 31 over
+            8000 frames (its streamed plan), paths and f0 identical, device
+            time beside the host-paced reading and the chain floor; K4 at
             every shape of one vocoder pass (TFLOP/s, share of its bound,
             cuDNN's convolution alone, a rerun bit-equal; summed by level
             into ``conv1d.pass_by_level``); then the whole 20-block
@@ -45,7 +54,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             pitch and UniPC, again with shallow diffusion (``skip_steps``
             500), and a 2.97 s ``forward`` with each of PLMS and naive; K5
             and K8-cand are held against their plain versions, and timed,
-            on the inputs the shallow request gave them; a short shallow
+            on the inputs the shallow request gave them (K8-cand by device
+            time, microseconds a frame and its chain floor); a short shallow
             file is checked against the plain composition of every kernel.
    pitch:   the same 24 s wav through ``inference`` once with each pitch
             extractor a config can name (ParselMouth, pYIN, CREPE at full
@@ -59,7 +69,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             requests' own inputs (paths and path scores identical), timed
             by device time beside their bound, chip-wide, on one SM and on
             the cluster's SMs, with microseconds a frame, the chain floor
-            (the same launch with an empty frame body) and the plan.
+            (the same launch with an empty frame body) and the plan; K8-cand
+            on the ParselMouth request's own inputs (path and f0 identical,
+            timed as in the file phase).
    convnext: (after istft_net) ``SVCInference`` from
             ``configs/denoiser_cn_hubert.py`` at full width with seeded
             weights (ChineseHubertSoft 12 x 768 with its gate of 10, ConvNext
@@ -197,7 +209,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             version.
 8. align:   K7 at GlowTTS/VITS alignment shapes (B=32, T_y 1000, T_x 200,
             lengths per item), paths bit-equal to the plain version on
-            random and on integer (tied) values; kernel and plain times.
+            random and on integer (tied) values, and at B=8 x 1200 x 1100
+            (its streamed plan); device time, microseconds a row and the
+            chain floor, and the plain version's time.
 
 Each phase prints its wall time.
 
@@ -862,7 +876,12 @@ def measure_stft(report: Report, yp, n_fft: int, hop: int, win: int, label: str,
 
 
 def measure_viterbi(report: Report, args, label: str):
-    """K8-cand against its plain version (path and f0 identical), timed."""
+    """K8-cand against its plain version (path and f0 identical), timed by
+    device time (``device_ms``) beside the host-paced reading (CUDA events
+    around each call, ``cuda_ms``) and the chain floor
+    (``viterbi_candidates_chain``: each frame's exchange, tree and add on
+    costs held in registers)."""
+    from fish_diffusion_tpu_torch import kernels
     from fish_diffusion_tpu_torch.extractors import pitch
 
     got, ref = pitch.viterbi_candidates(*args), pitch.viterbi_candidates_reference(*args)
@@ -870,15 +889,52 @@ def measure_viterbi(report: Report, args, label: str):
                              got[1], ref[1], 0.0),
               report.compare(f"viterbi_candidates f0 {label} (identical)",
                              got[0], ref[0], 0.0))
-    ms = cuda_ms(lambda: pitch.viterbi_candidates(*args), iters=5)
+    B_, T_, K_ = args[0].shape
+    frames = max(T_ - 1, 1)
+    ms = device_ms(lambda: pitch.viterbi_candidates(*args), reps=20)
+    host = cuda_ms(lambda: pitch.viterbi_candidates(*args), iters=5)
+    floor = device_ms(lambda: pitch._viterbi_candidates(
+        *args, entry="viterbi_candidates_chain"), reps=20)
     plain = cuda_ms(lambda: pitch.viterbi_candidates_reference(*args), iters=3)
-    B_, T_ = args[2].shape
-    print(f"    kernel {ms:.4f} ms ({ms * 1e3 / max(T_ - 1, 1):.3f} us per frame), "
-          f"plain {plain:.4f} ms")
+    plan = "streamed" if kernels.load_library("viterbi").viterbi_candidates_plan(
+        T_, K_, 0) else "on chip"
+
+    def us(t):
+        return f"{t:.4f} ms ({t * 1e3 / frames:.4f} us a frame)"
+
+    print(f"    kernel {us(ms)} of device time (host-paced {host:.4f} ms), chain floor "
+          f"{us(floor)}, plain {plain:.4f} ms; backpointers {plan}")
     # per transition: 25 state pairs of ~6 operations; the real limit is
     # the chain of T - 1 dependent frames
-    return dict(err=err, ms=ms, plain=plain,
-                work=(nbytes(*args, *got), 6 * B_ * (T_ - 1) * 25))
+    return dict(err=err, ms=ms, host=host, floor=floor, plain=plain,
+                work=(nbytes(*args, *got), 6 * B_ * (T_ - 1) * (K_ + 1) ** 2), frames=frames)
+
+
+def report_viterbi_calls(report: Report, calls, where: str, entry: bool):
+    """K8-cand on one request's own calls (``recording``): each held and
+    timed by ``measure_viterbi``, summed into ``report.extra
+    ["viterbi_candidates"][where]`` and, where ``entry``, into the kernel's
+    entry of the kernels line (its errors in any case)."""
+    frames = "+".join(str(a[2].shape[1]) for a, _ in calls)
+    sums = dict(ms=0.0, host=0.0, floor=0.0, plain=0.0, frames=0)
+    for args, _ in calls:
+        r = measure_viterbi(report, args, f"{where} T={args[2].shape[1]}")
+        if entry:
+            report.kernel("viterbi_candidates", r["err"], r["ms"], r["plain"],
+                          f"{where}, sum of its {len(calls)} calls at B=1, {frames} frames, "
+                          f"K={args[0].shape[2]}", *r["work"])
+        else:
+            report.kernel("viterbi_candidates", r["err"], 0.0, 0.0)
+        for k in sums:
+            sums[k] += r[k]
+    n = sums.pop("frames")
+    print(f"  {where}: K8-cand's {len(calls)} calls {sums['ms']:.4f} ms of device time "
+          f"({sums['ms'] * 1e3 / n:.4f} us a frame), chain floor {sums['floor']:.4f} ms "
+          f"({sums['floor'] * 1e3 / n:.4f} us a frame), host-paced {sums['host']:.4f} ms")
+    report.extra.setdefault("viterbi_candidates", {})[where] = dict(
+        calls=len(calls), frames=frames, ms=sums["ms"], us_a_frame=sums["ms"] * 1e3 / n,
+        chain_floor_ms=sums["floor"], host_paced_ms=sums["host"],
+        plain_ms=sums["plain"])
 
 
 def phase_kernels_stft_viterbi(report: Report, seed: int):
@@ -954,14 +1010,24 @@ def phase_kernels_stft_viterbi(report: Report, seed: int):
         split[f"n_fft {n_fft}"] = row
     report.extra.setdefault("stft_magnitude", {})["split_path"] = split
 
-    print(f"[kernels] K8-cand candidate Viterbi, B={B} T={T} K=4")
-    freqs = torch.rand((B, T, 4), generator=gen, device=DEVICE) * 1050 + 50
-    freqs = freqs * (torch.rand((B, T, 4), generator=gen, device=DEVICE) > 0.3)
-    strengths = torch.rand((B, T, 4), generator=gen, device=DEVICE) * 2 - 1
-    unvoiced = torch.rand((B, T), generator=gen, device=DEVICE) * 1.5
-    r = measure_viterbi(report, (freqs, strengths, unvoiced), "B=4 T=1024")
-    report.kernel("viterbi_candidates", r["err"], 0.0, 0.0)
-    report.batch4("viterbi_candidates", r, "B=4 T=1024 K=4")
+    # B=4 x 1024; a 30 s segment (2600 frames); K = 31 at 8000 frames,
+    # whose backpointers pass shared memory (the streamed plan)
+    sizes = {}
+    for B_, T_, K_ in ((B, T, 4), (1, 2600, 4), (1, 8000, 31)):
+        print(f"[kernels] K8-cand candidate Viterbi, B={B_} T={T_} K={K_}")
+        freqs = torch.rand((B_, T_, K_), generator=gen, device=DEVICE) * 1050 + 50
+        freqs = freqs * (torch.rand((B_, T_, K_), generator=gen, device=DEVICE) > 0.3)
+        strengths = torch.rand((B_, T_, K_), generator=gen, device=DEVICE) * 2 - 1
+        unvoiced = torch.rand((B_, T_), generator=gen, device=DEVICE) * 1.5
+        r = measure_viterbi(report, (freqs, strengths, unvoiced), f"B={B_} T={T_} K={K_}")
+        report.kernel("viterbi_candidates", r["err"], 0.0, 0.0)
+        if B_ == B:
+            report.batch4("viterbi_candidates", r, f"B={B} T={T} K=4")
+        else:
+            sizes[f"B={B_} T={T_} K={K_}"] = dict(
+                ms=r["ms"], us_a_frame=r["ms"] * 1e3 / r["frames"], chain_floor_ms=r["floor"],
+                plain_ms=r["plain"], bound_ms=bound(*r["work"])[0])
+    report.extra["viterbi_candidates"]["sizes"] = sizes
     report.finish("kernels (K5, K8)")
 
 
@@ -1482,12 +1548,7 @@ def phase_file_to_file(report: Report, engine, seed: int):
         report.kernel("stft_magnitude", r["err"], r["ms"], r["plain"],
                       f"request (b), sum of its {len(stft_calls.calls)} calls at "
                       f"B=1, {frames} frames, n_fft 2048", *r["work"], r["lib"])
-    frames = "+".join(str(a[2].shape[1]) for a, _ in viterbi_calls.calls)
-    for args, _ in viterbi_calls.calls:
-        r = measure_viterbi(report, args, f"request (b) T={args[2].shape[1]}")
-        report.kernel("viterbi_candidates", r["err"], r["ms"], r["plain"],
-                      f"request (b), sum of its {len(viterbi_calls.calls)} calls at "
-                      f"B=1, {frames} frames, K=4", *r["work"])
+    report_viterbi_calls(report, viterbi_calls.calls, "request (b)", entry=True)
 
     # a short shallow file with Harvest, through the kernels and through the
     # plain version of every kernel
@@ -1727,6 +1788,7 @@ def phase_pitch(report: Report, engine, seed: int):
     print("[pitch] stage seconds per segment (synced host clock; a second run of each)")
     pyin_calls = recording(pitch, "pyin_viterbi")
     crepe_calls = recording(crepe, "crepe_viterbi")
+    parsel_calls = recording(pitch, "viterbi_candidates")
     for label in built:
         clock = StageClock()
         ext = built[label]
@@ -1736,7 +1798,7 @@ def phase_pitch(report: Report, engine, seed: int):
         clock.wrap(engine.text_features_extractor.model, "forward", "HubertSoft")
         clock.wrap(engine.model, "sample", "sample")
         clock.wrap(engine.vocoder, "spec2wav", "vocoder")
-        calls = {"pYIN": pyin_calls, "CREPE": crepe_calls}.get(label)
+        calls = {"pYIN": pyin_calls, "CREPE": crepe_calls, "ParselMouth": parsel_calls}.get(label)
         if calls:
             calls.start()
         run(f"{label}_clocked.wav")
@@ -1772,6 +1834,9 @@ def phase_pitch(report: Report, engine, seed: int):
                                   bound_cluster_ms=sums["cluster"],
                                   chain_floor_ms=sums["chain"], host_ms=sums["host"],
                                   us_a_frame=ms * 1e3 / frames, plan=r["plan"])
+    print(f"[pitch] viterbi_candidates on the ParselMouth request's own inputs "
+          f"({len(parsel_calls.calls)} calls)")
+    report_viterbi_calls(report, parsel_calls.calls, "ParselMouth request", entry=False)
     report.finish("pitch")
     return launches
 
@@ -4437,58 +4502,170 @@ def phase_align(report: Report, seed: int):
     """The sixth slice's alignment op: K7 at GlowTTS/VITS alignment shapes
     (B=32, T_y 1000 mel frames, T_x 200 text positions, lengths drawn per
     item: t_y 500-1000, t_x 100-200, t_x <= t_y), once on random values and
-    once on integer values (ties), paths bit-equal to the plain version and
-    valid; kernel and plain times."""
+    once on integer values (ties), and at B=8, T_y 1200, T_x 1100 (random
+    values), whose decisions pass shared memory (the streamed plan): paths
+    bit-equal to the plain version and valid; device time a call and
+    microseconds a row beside the chain floor (``maximum_path_chain``: each
+    row's exchange, maximum and add on a value held in a register) and the
+    plain version's time."""
     import torch
 
     from fish_diffusion_tpu_torch import kernels
     from fish_diffusion_tpu_torch.ops import monotonic_align as ma
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 61)
+
+    def lengths(B_, T_y, T_x):
+        t_ys = torch.randint(T_y // 2, T_y + 1, (B_,), generator=gen, device=DEVICE)
+        return t_ys, torch.minimum(torch.randint(T_x // 2, T_x + 1, (B_,), generator=gen,
+                                                 device=DEVICE), t_ys)
+
     B_, T_y, T_x = 32, 1000, 200
-    t_ys = torch.randint(500, T_y + 1, (B_,), generator=gen, device=DEVICE)
-    t_xs = torch.minimum(torch.randint(100, T_x + 1, (B_,), generator=gen, device=DEVICE),
-                         t_ys)
+    t_ys, t_xs = lengths(B_, T_y, T_x)
     cases = {"random": torch.randn((B_, T_y, T_x), generator=gen, device=DEVICE) * 3,
              "ties": torch.randint(0, 3, (B_, T_y, T_x), generator=gen,
                                    device=DEVICE).float()}
+    wide = (8, 1200, 1100)
+    w_ys, w_xs = lengths(*wide)
+    w_values = torch.randn(wide, generator=gen, device=DEVICE) * 3
     label = f"B={B_} T_y={T_y} T_x={T_x}"
     print(f"[align] K7 maximum_path, {label}, t_y {int(t_ys.min())}-{int(t_ys.max())}, "
-          f"t_x {int(t_xs.min())}-{int(t_xs.max())}")
+          f"t_x {int(t_xs.min())}-{int(t_xs.max())}; B=8 T_y=1200 T_x=1100")
+    lib = kernels.load_library("monotonic_align")
+    plans = ["streamed" if lib.maximum_path_plan(t_y, t_x, 0) else "on chip"
+             for t_y, t_x in ((T_y, T_x), wide[1:])]
+    print(f"  decisions at {label}: {plans[0]}; at 1200 x 1100: {plans[1]}")
+    streamed = plans[1] == "streamed"
+    if not streamed:
+        report.failures.append("maximum_path at 1200 x 1100 did not reach the streamed plan")
     kernels.reset_launches()
     paths = {k: ma.maximum_path(v, t_ys, t_xs) for k, v in cases.items()}
+    paths["wide"] = ma.maximum_path(w_values, w_ys, w_xs)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    if launches["maximum_path"] != len(cases):
+    if launches["maximum_path"] != len(cases) + 1:
         report.failures.append(f"maximum_path launched {launches['maximum_path']} times")
+    cases["wide"] = w_values
     err = 0.0
     for kind, values in cases.items():
         got = paths[kind]
-        err = max(err, report.compare(f"maximum_path {kind} {label} (identical)", got,
-                                      ma.maximum_path_reference(values, t_ys, t_xs), 0.0))
+        ys, xs = (w_ys, w_xs) if kind == "wide" else (t_ys, t_xs)
+        err = max(err, report.compare(f"maximum_path {kind} {tuple(values.shape)} (identical)",
+                                      got, ma.maximum_path_reference(values, ys, xs), 0.0))
         rows = got.sum(dim=2)
         valid = all(
-            int(rows[b, : t_ys[b]].min()) == 1 and int(rows[b].sum()) == int(t_ys[b])
-            and int(got[b, 0, 0]) == 1 and int(got[b, t_ys[b] - 1, t_xs[b] - 1]) == 1
-            for b in range(B_))
+            int(rows[b, : ys[b]].min()) == 1 and int(rows[b].sum()) == int(ys[b])
+            and int(got[b, 0, 0]) == 1 and int(got[b, ys[b] - 1, xs[b] - 1]) == 1
+            for b in range(values.shape[0]))
         print(f"  {kind}: every path monotonic from (0, 0) to (t_y - 1, t_x - 1), one "
               f"position a frame: {'ok' if valid else 'FAIL'}")
         if not valid:
             report.failures.append(f"maximum_path {kind}: invalid path")
+
+    def timed(values, ys, xs):
+        ms = device_ms(lambda: ma.maximum_path(values, ys, xs), reps=20)
+        host = cuda_ms(lambda: ma.maximum_path(values, ys, xs), iters=5)
+        floor = device_ms(lambda: ma._maximum_path(values, ys, xs, entry="maximum_path_chain"),
+                          reps=20)
+        plain = cuda_ms(lambda: ma.maximum_path_reference(values, ys, xs), iters=3)
+        n = int(ys.max())  # the longest item's rows: one chain
+        print(f"    kernel {ms:.4f} ms of device time ({ms * 1e3 / n:.4f} us a row of the "
+              f"longest item; host-paced {host:.4f} ms), chain floor {floor:.4f} ms "
+              f"({floor * 1e3 / n:.4f} us a row), plain {plain:.4f} ms")
+        return ms, host, floor, plain, n
+
     values = cases["random"]
-    ms, plain, _ = timed_triple(lambda: ma.maximum_path(values, t_ys, t_xs),
-                                lambda: ma.maximum_path_reference(values, t_ys, t_xs), iters=3)
+    ms, host, floor, plain, n = timed(values, t_ys, t_xs)
     # what the op must move: each item's t_y rows of values read once, the
     # whole path written once; per cell an add, a max and a compare
     cells = int((t_ys * T_x).sum())
     work = (4 * cells + nbytes(paths["random"], t_ys, t_xs), 3 * cells)
     t_bound, by = bound(*work)
-    print(f"    kernel {ms:.4f} ms ({ms * 1e3 / T_y:.3f} us per frame of the longest chain), "
-          f"plain {plain:.4f} ms, bound {t_bound:.5f} ms ({by}; the real limit is the "
-          f"chain of t_y dependent rows, then t_y backtrack steps)")
+    print(f"    bound {t_bound:.5f} ms ({by}; the real limit is the chain of t_y dependent "
+          f"rows, then t_y backtrack steps, then the path's writes)")
     report.kernel("maximum_path", err, ms, plain, f"{label}, random values", *work)
+    print("  B=8 T_y=1200 T_x=1100, streamed decisions:")
+    w_ms, w_host, w_floor, w_plain, w_n = timed(w_values, w_ys, w_xs)
+    report.extra["maximum_path"] = dict(
+        us_a_row=ms * 1e3 / n, chain_floor_ms=floor, host_paced_ms=host,
+        streamed_1200x1100=dict(ms=w_ms, us_a_row=w_ms * 1e3 / w_n, chain_floor_ms=w_floor,
+                                host_paced_ms=w_host, plain_ms=w_plain))
     report.finish("align")
     return launches
+
+
+# (B, T, K) of K8-cand: a segment's 1025 frames, the kernels phase's batch,
+# a 30 s segment, K = 31 past the on-chip backpointers; (B, T_y, T_x) of
+# K7: the align phase's shape and its streamed one
+CHAIN_CASES = {"viterbi_candidates": [(1, 1025, 4), (B, T, 4), (1, 2600, 4), (1, 8000, 31)],
+               "maximum_path": [(32, 1000, 200), (8, 1200, 1100)]}
+
+
+def time_chains(tree: Path) -> int:
+    """K8-cand and K7 through the public wrappers of the port in ``tree``,
+    on inputs drawn from fixed seeds on the card (as the kernels and align
+    phases draw them): device milliseconds a call (``device_ms``), microseconds
+    a frame or a row of the longest item, and whether the result equals the
+    plain version's; one JSON line with the card's name and power limit and
+    the SM clock sampled every 50 ms while the cases run (median and
+    largest, MHz). Exit code 1 where a result differs."""
+    import torch
+
+    sys.path.insert(0, str(tree))
+    from fish_diffusion_tpu_torch.extractors import pitch
+    from fish_diffusion_tpu_torch.ops import monotonic_align as ma
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    # the tree the port was imported from
+    result, differs = {"tree": str(Path(pitch.__file__).parents[2]), "card": smi}, []
+
+    def row(kernel, case, fn, ref, steps):
+        same = all(bool((g == r).all()) for g, r in zip(fn(), ref()))
+        ms = device_ms(fn, reps=20)
+        print(f"[chains] {kernel} {case}: {ms:.4f} ms ({ms * 1e3 / steps:.4f} us a step); "
+              f"identical to plain: {same}")
+        result[f"{kernel} {case}"] = ms
+        if not same:
+            differs.append(f"{kernel} {case}")
+
+    clock = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                              "--format=csv,noheader,nounits", "-lms", "50"],
+                             stdout=subprocess.PIPE, text=True)
+    try:
+        run_chains(row, pitch, ma)
+    finally:
+        clock.terminate()
+        mhz = sorted(int(x) for x in clock.communicate()[0].split() if x.isdigit())
+    if mhz:
+        result["sm_clock_mhz"] = dict(median=mhz[len(mhz) // 2], max=mhz[-1], samples=len(mhz))
+    print(json.dumps(result))
+    if differs:
+        print(f"chip_smoke: not identical to the plain version: {differs}", file=sys.stderr)
+    return 1 if differs else 0
+
+
+def run_chains(row, pitch, ma):
+    """``time_chains``'s cases, each through ``row``."""
+    import torch
+
+    for B_, T_, K_ in CHAIN_CASES["viterbi_candidates"]:
+        gen = torch.Generator(device=DEVICE).manual_seed(T_ + K_)
+        freqs = torch.rand((B_, T_, K_), generator=gen, device=DEVICE) * 1050 + 50
+        freqs = freqs * (torch.rand((B_, T_, K_), generator=gen, device=DEVICE) > 0.3)
+        xs = (freqs, torch.rand((B_, T_, K_), generator=gen, device=DEVICE) * 2 - 1,
+              torch.rand((B_, T_), generator=gen, device=DEVICE) * 1.5)
+        row("viterbi_candidates", f"B={B_} T={T_} K={K_}", lambda: pitch.viterbi_candidates(*xs),
+            lambda: pitch.viterbi_candidates_reference(*xs), max(T_ - 1, 1))
+    for B_, T_y, T_x in CHAIN_CASES["maximum_path"]:
+        gen = torch.Generator(device=DEVICE).manual_seed(T_y + T_x)
+        t_ys = torch.randint(T_y // 2, T_y + 1, (B_,), generator=gen, device=DEVICE)
+        t_xs = torch.minimum(torch.randint(T_x // 2, T_x + 1, (B_,), generator=gen,
+                                           device=DEVICE), t_ys)
+        values = torch.randn((B_, T_y, T_x), generator=gen, device=DEVICE) * 3
+        row("maximum_path", f"B={B_} T_y={T_y} T_x={T_x}",
+            lambda: [ma.maximum_path(values, t_ys, t_xs)],
+            lambda: [ma.maximum_path_reference(values, t_ys, t_xs)], int(t_ys.max()))
 
 
 def tensor_core_products(kernels):
@@ -4528,6 +4705,8 @@ def tensor_core_products(kernels):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--chains", type=Path, metavar="DIR",
+                        help="time K8-cand and K7 alone through the port in DIR")
     args = parser.parse_args()
 
     import torch
@@ -4535,9 +4714,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not (ROOT / "fish_diffusion_tpu_torch").is_dir():
+    tree = (args.chains or ROOT).resolve()
+    if not (tree / "fish_diffusion_tpu_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
+    if args.chains:
+        return time_chains(tree)
     sys.path.insert(0, str(ROOT))
 
     print("[device] " + torch.cuda.get_device_name(0)

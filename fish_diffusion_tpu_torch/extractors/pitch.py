@@ -135,6 +135,16 @@ def viterbi_candidates(freqs, strengths, unvoiced):
     take ``viterbi_candidates_reference``."""
     if not freqs.is_cuda:
         return viterbi_candidates_reference(freqs, strengths, unvoiced)
+    out = _viterbi_candidates(freqs, strengths, unvoiced)
+    kernels.count_launch("viterbi_candidates")
+    return out
+
+
+def _viterbi_candidates(freqs, strengths, unvoiced, entry: str = "viterbi_candidates"):
+    """K8-cand's kernel on CUDA tensors, uncounted.
+    ``entry="viterbi_candidates_chain"`` launches the same kernel with each
+    frame's exchange, tree and add on costs held in registers (the chain
+    floor of a measurement; path and f0 are not written)."""
     kernels.require_cuda("viterbi_candidates", freqs, strengths, unvoiced)
     if freqs.dtype != torch.float32:
         raise TypeError(f"viterbi_candidates: takes float32, got {freqs.dtype}")
@@ -150,18 +160,19 @@ def viterbi_candidates(freqs, strengths, unvoiced):
         raise ValueError(f"viterbi_candidates: K = {K}, T = {T}: needs "
                          "1 <= K <= 31 candidates and a frame")
     dev = freqs.device
-    backptr = torch.empty((B, max(T - 1, 1), K + 1), dtype=torch.int32, device=dev)
+    lib = kernels.load_library("viterbi")
+    per_item = lib.viterbi_candidates_plan(T, K, 2)
+    if per_item < 0:
+        raise ValueError(f"viterbi_candidates: no plan for T = {T}, K = {K}")
+    scratch = torch.empty(B * per_item, dtype=torch.uint8, device=dev) if per_item else None
     path = torch.empty((B, T), dtype=torch.int32, device=dev)
     f0 = torch.empty((B, T), dtype=torch.float32, device=dev)
-    lib = kernels.load_library("viterbi")
     kernels.check(
-        lib.viterbi_candidates(freqs.data_ptr(), strengths.data_ptr(),
-                               unvoiced.data_ptr(), backptr.data_ptr(),
-                               path.data_ptr(), f0.data_ptr(), B, T, K,
-                               kernels.stream()),
+        getattr(lib, entry)(freqs.data_ptr(), strengths.data_ptr(), unvoiced.data_ptr(),
+                            None if scratch is None else scratch.data_ptr(),
+                            path.data_ptr(), f0.data_ptr(), B, T, K, kernels.stream()),
         "viterbi_candidates",
     )
-    kernels.count_launch("viterbi_candidates")
     return f0, path
 
 

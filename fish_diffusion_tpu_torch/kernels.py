@@ -215,6 +215,8 @@ SIGNATURES = {
     },
     "viterbi": {
         "viterbi_candidates": [_P] * 6 + [_I] * 3 + [_P],
+        "viterbi_candidates_chain": [_P] * 6 + [_I] * 3 + [_P],
+        "viterbi_candidates_plan": [_I] * 3,
     },
     "viterbi_dense": {
         "viterbi_dense": [_P] * 5 + [_I] * 3 + [_P],
@@ -226,6 +228,8 @@ SIGNATURES = {
     },
     "monotonic_align": {
         "maximum_path": [_P] * 5 + [_I] * 3 + [_P],
+        "maximum_path_chain": [_P] * 5 + [_I] * 3 + [_P],
+        "maximum_path_plan": [_I] * 3,
     },
     "conv2d": {
         "conv2d": [_I] + [_P] * 4 + [_I] * 13 + [_P],

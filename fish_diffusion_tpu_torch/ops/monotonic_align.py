@@ -8,12 +8,14 @@ iff ``index != 0 and (index == y or v[y-1, index] < v[y-1, index-1])``,
 gives a 0/1 path ``[B, T_y, T_x]``, 0 at rows >= t_y and columns >= t_x.
 
 ``maximum_path`` is K7, the hand-written CUDA kernel of
-``csrc/monotonic_align.cu`` (one block per item, the row in shared
-memory, a decision byte per cell, the backtrack in one thread), for a CUDA
-tensor; a CPU tensor takes ``maximum_path_reference``, the JAX op's scan
-formulation in torch (one row update per frame, then the backtrack over
-the batch). Both follow the JAX op's float32 order and its strict ``<``,
-so their paths are bit-equal to it. ``maximum_path_numpy`` is the host
+``csrc/monotonic_align.cu`` (one block per item, one warp's registers
+holding the row, the rows of values staged by bulk copies, a decision bit
+per cell in shared memory, the backtrack in one thread; the path's zeros
+written by the block's other warps during the DP), for a CUDA tensor; a
+CPU tensor takes ``maximum_path_reference``, the JAX op's scan formulation
+in torch (one row update per frame, then the backtrack over the batch).
+Both follow the JAX op's float32 order and its strict ``<``, so their
+paths are bit-equal to it. ``maximum_path_numpy`` is the host
 golden reference, a copy of the JAX package's.
 """
 
@@ -68,6 +70,17 @@ def maximum_path(neg_cent: torch.Tensor, t_ys, t_xs) -> torch.Tensor:
     region. CPU tensors take ``maximum_path_reference``."""
     if not neg_cent.is_cuda:
         return maximum_path_reference(neg_cent, t_ys, t_xs)
+    path = _maximum_path(neg_cent, t_ys, t_xs)
+    kernels.count_launch("maximum_path")
+    return path
+
+
+def _maximum_path(neg_cent: torch.Tensor, t_ys, t_xs,
+                  entry: str = "maximum_path") -> torch.Tensor:
+    """K7's kernel on a CUDA tensor, uncounted. ``entry="maximum_path_chain"``
+    launches the same kernel with each row's exchange, maximum and add on a
+    value held in a register (the chain floor of a measurement; the path is
+    not written)."""
     kernels.require_cuda("maximum_path", neg_cent)
     if neg_cent.dtype != torch.float32 or neg_cent.ndim != 3:
         raise TypeError("maximum_path: takes float32 values [B, T_y, T_x]")
@@ -77,18 +90,24 @@ def maximum_path(neg_cent: torch.Tensor, t_ys, t_xs) -> torch.Tensor:
     if t_ys.shape != (B,) or t_xs.shape != (B,):
         raise ValueError(f"maximum_path: lengths {tuple(t_ys.shape)}, "
                          f"{tuple(t_xs.shape)} for a batch of {B}")
-    if 2 * T_x * 4 > 232448:
-        raise ValueError(f"maximum_path: {T_x} text positions do not fit two rows "
-                         "in shared memory")
-    dec = torch.empty((B, T_y, T_x), dtype=torch.uint8, device=neg_cent.device)
     path = torch.empty((B, T_y, T_x), dtype=torch.int32, device=neg_cent.device)
+    if path.numel() == 0:
+        return path
+    lib = kernels.load_library("monotonic_align")
+    per_item = lib.maximum_path_plan(T_y, T_x, 3)
+    if per_item < 0:
+        raise ValueError(
+            f"maximum_path: [{T_y}, {T_x}] exceeds the kernel: one warp keeps a row "
+            "in registers (at most 2016 text positions) and shared memory holds "
+            "each row's index (2 bytes a mel frame, about 75,000 frames or more)")
+    scratch = (torch.empty(B * per_item, dtype=torch.uint8, device=neg_cent.device)
+               if per_item else None)
     kernels.check(
-        kernels.load_library("monotonic_align").maximum_path(
-            neg_cent.data_ptr(), t_ys.data_ptr(), t_xs.data_ptr(), dec.data_ptr(),
-            path.data_ptr(), B, T_y, T_x, kernels.stream()),
+        getattr(lib, entry)(neg_cent.data_ptr(), t_ys.data_ptr(), t_xs.data_ptr(),
+                            None if scratch is None else scratch.data_ptr(), path.data_ptr(),
+                            B, T_y, T_x, kernels.stream()),
         "maximum_path",
     )
-    kernels.count_launch("maximum_path")
     return path
 
 

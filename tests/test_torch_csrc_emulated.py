@@ -24,13 +24,19 @@ gives the block's rank, ``map_shared_rank`` points into another block's
 region and ``sync`` is a ``std::barrier`` over all of the cluster's
 threads (K8 dense's host branch sends with plain stores and meets there at
 the end of each frame, where the card uses ``st.async`` and mbarriers).
-Needs ``g++`` with C++20; skips without one.
+K8-cand's and K7's chains (``csrc/bulk_copy.cuh``) keep their protocol on
+the host: an mbarrier is a word of shared memory updated with atomics (its
+waits spin), a TMA bulk copy or a ``cp.async`` is a copy made at once, and
+``__shfl_up_sync`` and ``__syncwarp`` run through the warp's barrier; their
+sources are built once more with less shared memory a block (``-DSMEM_MAX``,
+``SMALL_SMEM``), so that small cases reach the streamed plans. Needs ``g++`` with C++20; skips without one.
 """
 
 import ctypes
 import re
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -43,7 +49,8 @@ from fish_diffusion_tpu_torch.models.vocoders import nsf_hifigan
 from fish_diffusion_tpu_torch.ops import blocked_conv, mel
 from fish_diffusion_tpu_torch.ops import monotonic_align as ma
 from tests.test_torch_kernels_cuda import (ALIGN_CASES, QUIET_CASES, align_case,
-                                          convnext_case, dense_case, quiet_case)
+                                          align_wide_case, candidate_case, convnext_case,
+                                          dense_case, quiet_case)
 
 SHIM = r"""
 #pragma once
@@ -66,6 +73,9 @@ SHIM = r"""
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct alignas(8) float2 { float x, y; };
+struct alignas(16) int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 struct alignas(8) uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 inline float2 make_float2(float x, float y) { return {x, y}; }
@@ -102,6 +112,17 @@ template <class T> inline T __shfl_sync(unsigned, T v, int src_lane) {
   g_warp_barrier->arrive_and_wait();
   return r;
 }
+template <class T> inline T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  static_assert(sizeof(T) == 4, "32-bit shuffles");
+  const unsigned t = threadIdx.x;
+  std::memcpy(&g_shuffle[t], &v, 4);
+  g_warp_barrier->arrive_and_wait();
+  T r;
+  std::memcpy(&r, &g_shuffle[(t & 31u) >= delta ? t - delta : t], 4);
+  g_warp_barrier->arrive_and_wait();
+  return r;
+}
+inline void __syncwarp(unsigned = 0xffffffffu) { g_warp_barrier->arrive_and_wait(); }
 // round-to-nearest arithmetic that nvcc never contracts into an FMA (g++
 // in ISO C++ mode does not contract either)
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -230,7 +251,7 @@ int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P...), A&&.
 _HEADER = re.compile(r'#include "(\w+\.cuh)"')
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", re.S)
 # dynamic shared memory, ``extern __shared__ [__align__(n)] T name[];``
-_EXTERN_SHARED = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];")
+_EXTERN_SHARED = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?(\w+(?: \w+)?) (\w+)\[\];")
 
 
 def _host_source(cu: str) -> str:
@@ -252,25 +273,40 @@ def _host_source(cu: str) -> str:
     return _LAUNCH.sub(launch, src)
 
 
+# sources built once more with less shared memory a block (``-DSMEM_MAX``),
+# so that small cases reach their streamed plans: ``host_libs["name@bytes"]``
+SMALL_SMEM = [("viterbi", 64000), ("viterbi", 85400), ("monotonic_align", 83000)]
+
+
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the CUDA sources for the host")
     out = tmp_path_factory.mktemp("csrc")
     (out / "shim.h").write_text(SHIM)
-    libs = {}
-    for name, signature in kernels.SIGNATURES.items():
+
+    def build(name, smem=0):  # one g++ a library, four at a time
+        key = f"{name}@{smem}" if smem else name
         cpp = out / f"{name}.cpp"
-        cpp.write_text(_host_source((kernels.CSRC / f"{name}.cu").read_text()))
-        so = out / f"lib{name}.so"
+        so = out / f"lib{key}.so"
         subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                        f"-I{out}", "-o", str(so), str(cpp)], check=True,
-                       capture_output=True, timeout=600)
+                        f"-I{out}", *([f"-DSMEM_MAX={smem}"] if smem else []),
+                        "-o", str(so), str(cpp)], check=True, capture_output=True, timeout=600)
+        return key, name, so
+
+    for name in kernels.SIGNATURES:
+        (out / f"{name}.cpp").write_text(
+            _host_source((kernels.CSRC / f"{name}.cu").read_text()))
+    with ThreadPoolExecutor(4) as pool:
+        built = list(pool.map(lambda job: build(*job),
+                              [(name,) for name in kernels.SIGNATURES] + SMALL_SMEM))
+    libs = {}
+    for key, name, so in built:
         lib = ctypes.CDLL(str(so))
-        for fn, argtypes in signature.items():
+        for fn, argtypes in kernels.SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
+        libs[key] = lib
     return libs
 
 
@@ -1000,18 +1036,58 @@ def test_viterbi_source_ties(host_libs):
     assert (path == 0).all()
 
 
-def _check_viterbi(lib, freqs, strengths, unvoiced):
+def _viterbi(lib, freqs, strengths, unvoiced, entry="viterbi_candidates"):
+    """K8-cand's C entry ``entry`` on a path of -1s and an f0 of NaNs."""
     B, T, K = freqs.shape
-    backptr = torch.empty((B, max(T - 1, 1), K + 1), dtype=torch.int32)
+    per_item = lib.viterbi_candidates_plan(T, K, 2)
+    scratch = torch.zeros(max(B * per_item, 1), dtype=torch.uint8)
     path = torch.full((B, T), -1, dtype=torch.int32)
     f0 = torch.full((B, T), float("nan"))
-    assert lib.viterbi_candidates(freqs.data_ptr(), strengths.data_ptr(),
-                                  unvoiced.data_ptr(), backptr.data_ptr(),
-                                  path.data_ptr(), f0.data_ptr(), B, T, K, None) == 0
+    assert getattr(lib, entry)(freqs.data_ptr(), strengths.data_ptr(), unvoiced.data_ptr(),
+                               scratch.data_ptr(), path.data_ptr(), f0.data_ptr(),
+                               B, T, K, None) == 0
+    return f0, path
+
+
+def _check_viterbi(lib, freqs, strengths, unvoiced):
+    """K8-cand's C entry: path and f0 identical to the plain version's."""
+    f0, path = _viterbi(lib, freqs, strengths, unvoiced)
     ref_f0, ref_path = pitch.viterbi_candidates_reference(freqs, strengths, unvoiced)
     torch.testing.assert_close(path, ref_path, atol=0, rtol=0)
     torch.testing.assert_close(f0, ref_f0, atol=0, rtol=0)
     return path
+
+
+@pytest.mark.parametrize("kind,B,T,K,smem", [
+    ("random", 2, 600, 4, 0),  # 5 chunks of 128 frames: both rings wrap
+    ("random", 1, 600, 4, 64000),  # streamed: the backpointers' ring of 4 wraps
+    ("grid", 2, 600, 4, 64000), ("inf", 1, 700, 4, 64000),
+    ("grid", 2, 300, 4, 0), ("inf", 2, 200, 4, 0), ("random", 2, 300, 7, 0),
+    ("random", 2, 1, 1, 0), ("random", 1, 2, 1, 0), ("grid", 2, 40, 1, 0),
+    ("random", 1, 1, 31, 0), ("random", 2, 2, 31, 0),
+    ("random", 1, 45, 31, 85400),  # streamed, S = 32: the scan in order, 8 frames a chunk
+    ("grid", 2, 100, 31, 85400),
+    ("grid", 1, 200, 9, 0),  # S = 10: the scan in order, 64 frames a chunk
+])
+def test_viterbi_source_plans(host_libs, kind, B, T, K, smem):
+    """K8-cand's chain at either plan (streamed where the source is built
+    with ``smem`` bytes of shared memory, ``SMALL_SMEM``), across chunks of
+    the rings, at K = 1 and 31, T = 1 and 2, with exact ties and +-inf
+    strengths (``candidate_case``): path and f0 identical."""
+    lib = host_libs[f"viterbi@{smem}" if smem else "viterbi"]
+    assert lib.viterbi_candidates_plan(T, K, 0) == (smem > 0)
+    args = [torch.from_numpy(a) for a in candidate_case(kind, B, T, K, seed=T + K)]
+    _check_viterbi(lib, *args)
+
+
+@pytest.mark.parametrize("T,K,smem", [(300, 4, 0), (600, 4, 64000), (45, 31, 85400)])
+def test_viterbi_source_chain(host_libs, T, K, smem):
+    """The chain floor's entry (``viterbi_candidates_chain``) runs the
+    recursion at either plan and writes nothing but f0[b, 0]."""
+    lib = host_libs[f"viterbi@{smem}" if smem else "viterbi"]
+    args = [torch.from_numpy(a) for a in candidate_case("random", 2, T, K, seed=T)]
+    f0, path = _viterbi(lib, *args, entry="viterbi_candidates_chain")
+    assert (path == -1).all() and f0[:, 1:].isnan().all() and f0[:, 0].isfinite().all()
 
 
 @pytest.mark.parametrize("kind,B,T,ties,S", [
@@ -1382,12 +1458,15 @@ def test_istft_source(host_libs, B, n_fft, win, hop, F, center):
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
-def _maximum_path(lib, values, t_ys, t_xs):
+def _maximum_path(lib, values, t_ys, t_xs, entry="maximum_path"):
+    """K7's C entry ``entry`` on a path filled with 7s (every cell must be
+    written)."""
     B, T_y, T_x = values.shape
-    dec = torch.empty((B, T_y, T_x), dtype=torch.uint8)
+    per_item = lib.maximum_path_plan(T_y, T_x, 3)
+    scratch = torch.zeros(max(B * per_item, 1), dtype=torch.uint8)
     path = torch.full((B, T_y, T_x), 7, dtype=torch.int32)
-    assert lib.maximum_path(values.data_ptr(), t_ys.data_ptr(), t_xs.data_ptr(),
-                            dec.data_ptr(), path.data_ptr(), B, T_y, T_x, None) == 0
+    assert getattr(lib, entry)(values.data_ptr(), t_ys.data_ptr(), t_xs.data_ptr(),
+                               scratch.data_ptr(), path.data_ptr(), B, T_y, T_x, None) == 0
     return path
 
 
@@ -1406,10 +1485,10 @@ def test_maximum_path_source(host_libs, kind, seed):
 
 @pytest.mark.parametrize("T_y,T_x", [(320, 300), (1150, 1100)])
 def test_maximum_path_source_wide(host_libs, T_y, T_x):
-    """K7 past one position per thread (300: a second prefetched position)
-    and past the four prefetched ones (1100: the tail loop), integer values
-    (ties), the path through every column: identical to the plain
-    version."""
+    """K7 at wide strips (300: 11 columns a lane; 1100: 39 columns a lane,
+    8 bytes of decisions a row, past shared memory: the streamed plan),
+    integer values (ties), the path through every column: identical to the
+    plain version."""
     gen = torch.Generator().manual_seed(T_x)
     values = torch.randint(0, 3, (1, T_y, T_x), generator=gen).float()
     t_ys = torch.tensor([T_y], dtype=torch.int32)
@@ -1417,6 +1496,49 @@ def test_maximum_path_source_wide(host_libs, T_y, T_x):
     got = _maximum_path(host_libs["monotonic_align"], values, t_ys, t_xs)
     torch.testing.assert_close(got, ma.maximum_path_reference(values, t_ys, t_xs),
                                atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("B,T_y,T_x,smem", [
+    (2, 700, 90, 83000),  # streamed: 3 columns a lane, a byte of decisions a row, 6 chunks
+    (2, 300, 300, 83000),  # streamed: 11 columns a lane, 2 bytes a row, 5 chunks of 64 rows
+    (2, 700, 40, 0), (3, 200, 50, 0), (2, 64, 64, 0), (1, 1, 5, 0), (2, 5, 1, 0),
+    (2, 40, 700, 0),  # 23 columns a lane, 4 bytes a row, 5 rows a value slot
+])
+def test_maximum_path_source_plans(host_libs, B, T_y, T_x, smem):
+    """K7 at either plan (streamed where the source is built with ``smem``
+    bytes of shared memory, ``SMALL_SMEM``), over the whole grid, t_x =
+    t_y, t_x = 1 and drawn lengths, T_y = 1 and T_x = 1, integer values
+    (ties; ``align_wide_case``): identical to the plain version."""
+    lib = host_libs[f"monotonic_align@{smem}" if smem else "monotonic_align"]
+    assert lib.maximum_path_plan(T_y, T_x, 0) == (smem > 0)
+    values, t_ys, t_xs = (torch.from_numpy(a) for a in align_wide_case(B, T_y, T_x, seed=T_y))
+    got = _maximum_path(lib, values, t_ys, t_xs)
+    torch.testing.assert_close(got, ma.maximum_path_reference(values, t_ys, t_xs),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("T_y,T_x,smem", [(200, 50, 0), (300, 300, 83000)])
+def test_maximum_path_source_chain(host_libs, T_y, T_x, smem):
+    """The chain floor's entry (``maximum_path_chain``) runs the DP at
+    either plan and writes nothing but path[b, 0, 0]."""
+    lib = host_libs[f"monotonic_align@{smem}" if smem else "monotonic_align"]
+    values, t_ys, t_xs = (torch.from_numpy(a) for a in align_wide_case(2, T_y, T_x, seed=T_y))
+    got = _maximum_path(lib, values, t_ys, t_xs, entry="maximum_path_chain")
+    assert (got.flatten(1)[:, 1:] == 7).all()
+
+
+@pytest.mark.parametrize("T_y,T_x,plan", [(10, 2016, 63), (10, 2017, -1), (75704, 2016, 1),
+                                          (75705, 2016, -1), (107192, 1, 1), (107193, 1, -1)])
+def test_maximum_path_source_refuses_wide_rows(host_libs, T_y, T_x, plan):
+    """Past 2016 text positions (63 columns a lane of one warp), or past the
+    rows whose 2-byte indices fit in shared memory beside the rings (75,704
+    at 2016 positions, 107,192 at one), the plan refuses and the C entry
+    returns an error; the sizes below are taken (field 1: columns a lane,
+    field 0: streamed)."""
+    lib = host_libs["monotonic_align"]
+    assert lib.maximum_path_plan(T_y, T_x, 1 if T_y == 10 else 0) == plan
+    if plan < 0:
+        assert lib.maximum_path(None, None, None, None, None, 1, T_y, T_x, None) != 0
 
 
 def _dwconv7_norm(lib, x, step, cond, mask, k, b, ln_scale, ln_bias, d):

@@ -54,6 +54,10 @@ for name in ("depthwise_conv7_norm_backward_reference", "depthwise_conv7_norm_ba
 assert kernels.KERNELS["depthwise_conv7_norm_backward"]["id"] == "K10 bwd"
 assert {"viterbi_dense", "viterbi_dense_chain", "viterbi_dense_plan"} <= set(
     kernels.SIGNATURES["viterbi_dense"])
+assert {"viterbi_candidates", "viterbi_candidates_chain", "viterbi_candidates_plan"} <= set(
+    kernels.SIGNATURES["viterbi"])
+assert {"maximum_path", "maximum_path_chain", "maximum_path_plan"} <= set(
+    kernels.SIGNATURES["monotonic_align"])
 import chip_smoke, chip_step_noise
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "fish_diffusion_tpu")]

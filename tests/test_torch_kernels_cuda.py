@@ -372,6 +372,53 @@ def test_viterbi_candidates(gen, B, T, K):
         torch.testing.assert_close(g, r, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("kind,B,T,K,plan", [
+    ("random", 1, 2600, 4, "chip"),  # a 30 s segment
+    ("grid", 4, 1024, 4, "chip"), ("inf", 2, 1025, 4, "chip"),
+    # streamed in the card's 227 KB: K = 31 past 4632 frames, K = 15 (16
+    # states) past 8288
+    ("random", 1, 8000, 31, "streamed"), ("inf", 2, 6000, 31, "streamed"),
+    ("grid", 1, 9000, 15, "streamed"),
+    ("random", 2, 1000, 31, "chip"), ("grid", 2, 700, 9, "chip"),
+    ("random", 2, 1, 1, "chip"), ("random", 3, 2, 1, "chip"), ("grid", 2, 2, 31, "chip"),
+])
+def test_viterbi_candidates_plans(gen, kind, B, T, K, plan):
+    """K8-cand at either plan, at the card's sizes, K = 1 and 31, T = 1 and
+    2, exact ties and +-inf strengths (``candidate_case``): path and f0
+    identical to the plain version."""
+    assert kernels.load_library("viterbi").viterbi_candidates_plan(T, K, 0) == (
+        plan == "streamed")
+    args = [torch.from_numpy(a).cuda() for a in candidate_case(kind, B, T, K, seed=T + K)]
+    got = pitch.viterbi_candidates(*args)
+    ref = pitch.viterbi_candidates_reference(*args)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=0, rtol=0)
+
+
+def candidate_case(kind: str, B: int, T: int, K: int, seed: int):
+    """K8-cand's inputs (freqs, strengths [B, T, K], unvoiced [B, T],
+    float32) made with numpy: ``random`` (about 30% of the candidates
+    empty); ``grid`` (frequencies from 0, 110, 220 and 440 Hz, strengths and
+    unvoiced strengths on a grid of 0.25: exact ties in the recursion and
+    in the final argmax); ``inf`` (random, with -inf strengths for about a
+    fifth of the candidates of the first half, and a +inf strength at 3/4 of
+    T, after which every state ties at +inf; the unvoiced state stays finite,
+    so no sum meets +inf and -inf)."""
+    rng = np.random.default_rng(seed)
+    freqs = (rng.random((B, T, K)) * 1050 + 50) * (rng.random((B, T, K)) > 0.3)
+    strengths = rng.random((B, T, K)) * 2 - 1
+    unvoiced = rng.random((B, T)) * 1.5
+    if kind == "grid":
+        freqs = rng.choice([0.0, 110.0, 220.0, 440.0], (B, T, K))
+        strengths = rng.integers(-4, 5, (B, T, K)) * 0.25
+        unvoiced = rng.integers(0, 5, (B, T)) * 0.25
+    elif kind == "inf":
+        half = strengths[:, : T // 2]
+        half[rng.random(half.shape) < 0.2] = -np.inf
+        strengths[:, 3 * T // 4, 0] = np.inf
+    return tuple(a.astype(np.float32) for a in (freqs, strengths, unvoiced))
+
+
 def dense_case(kind: str, B: int, T: int, seed: int, ties: bool = False, S: int = 430):
     """Inputs of K8 dense as pYIN (S = 430, its transition matrix) or CREPE
     (S = 360: bins outside 12-166 at -inf, the last quarter of the frames
@@ -922,6 +969,51 @@ def test_maximum_path_wide(gen, B, T_y, T_x):
     got = ma.maximum_path(values, t_ys, t_xs)
     torch.testing.assert_close(got, ma.maximum_path_reference(values, t_ys, t_xs),
                                atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("B,T_y,T_x,plan", [
+    (32, 1000, 200, "chip"),  # the align phase's shape
+    # streamed in the card's 227 KB
+    (2, 1200, 1100, "streamed"), (2, 8000, 100, "streamed"), (4, 2000, 500, "streamed"),
+    (2, 4000, 100, "chip"), (2, 60, 2016, "chip"), (3, 1, 300, "chip"), (3, 300, 1, "chip"),
+])
+def test_maximum_path_plans(gen, B, T_y, T_x, plan):
+    """K7 at either plan, at the card's sizes, over the whole grid, t_x =
+    t_y, t_x = 1 and drawn lengths, integer values (ties;
+    ``align_wide_case``): identical to the plain version."""
+    assert kernels.load_library("monotonic_align").maximum_path_plan(T_y, T_x, 0) == (
+        plan == "streamed")
+    values, t_ys, t_xs = (torch.from_numpy(a).cuda() for a in align_wide_case(B, T_y, T_x, T_y))
+    got = ma.maximum_path(values, t_ys, t_xs)
+    torch.testing.assert_close(got, ma.maximum_path_reference(values, t_ys, t_xs),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("T_y,T_x", [(10, 2017), (75705, 2016), (107193, 1)])
+def test_maximum_path_refuses(gen, T_y, T_x):
+    """Past 2016 text positions, or past the rows whose indices fit in
+    shared memory (75,704 at 2016 positions, 107,192 at one), the public
+    ``maximum_path`` raises ValueError before it launches: the count stays."""
+    values = torch.zeros((1, T_y, T_x), device="cuda")
+    lengths = torch.tensor([T_y], dtype=torch.int32), torch.tensor([T_x], dtype=torch.int32)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="exceeds the kernel"):
+        ma.maximum_path(values, *lengths)
+    assert kernels.LAUNCHES["maximum_path"] == 0
+
+
+def align_wide_case(B: int, T_y: int, T_x: int, seed: int):
+    """K7's inputs at [B, T_y, T_x], made with numpy: integer values 0-2
+    (exact ties), item 0 over the whole grid (t_x = t_y where T_x >= T_y),
+    item 1 with t_x = 1, the others lengths drawn with t_x <= t_y <= T_y."""
+    rng = np.random.default_rng(seed)
+    values = rng.integers(0, 3, (B, T_y, T_x)).astype(np.float32)
+    t_xs = rng.integers(1, min(T_x, T_y) + 1, B)
+    t_ys = np.maximum(rng.integers(1, T_y + 1, B), t_xs)
+    t_ys[0], t_xs[0] = T_y, min(T_x, T_y)
+    if B > 1:
+        t_xs[1] = 1
+    return values, t_ys.astype(np.int32), t_xs.astype(np.int32)
 
 
 def convnext_case(B: int, T: int, C: int, seed: int, masked: bool, zero_bias: bool = False,
