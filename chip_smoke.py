@@ -2,12 +2,13 @@
 """Drive the PyTorch port's SVC paths and vocoder training once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
-    python3 chip_smoke.py --chains DIR
+    python3 chip_smoke.py --ab DIR
 
-``--chains DIR`` times K8-cand and K7 alone through the port in DIR (this
-checkout, or another revision unpacked by ``git archive``) and prints one
-JSON line (``time_chains``); two revisions compare by one method when run
-in one call, in turns. Without it:
+``--ab DIR`` times K8-cand, K7, K3's merge and K5 istft alone through the
+public wrappers of the port in DIR (this checkout, or another revision
+unpacked by ``git archive``), each held against its plain version, and
+prints one JSON line (``time_ab``); two revisions compare by one method
+when run in one call, in turns. Without it:
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -200,8 +201,10 @@ Phases, in order; any failure raises and the script exits non-zero:
             pass), finite audio of the input's length (no output tanh: the
             peak is printed); a short request against the plain
             composition; K5 istft on the batch request's own spectra
-            against its plain version and ``torch.istft``, and at n_fft 2048
-            / hop 512.
+            against its plain version and ``torch.istft`` (device time
+            beside the bound and the plan; host-paced beside the plain
+            version's and ``torch.istft``'s), and at n_fft 2048 and 2299
+            (the FFT core; Bluestein) / hop 512.
 7. train_sine: phase 6's path with ``template_generator="sine"``: 2
             warm-up and 4 timed steps, exact launches (K9 sine once a
             step), the gate's state built twice (as phase 6), the whole step against the plain step (phase 6's
@@ -539,9 +542,26 @@ def phase_kernels(report: Report, seed: int):
     ms, plain = timed_device_and_host(report, "nsf_merge", lambda: source.nsf_merge(*margs),
                                       lambda: source.nsf_merge_reference(*margs))
     # per sample and harmonic: phase, sin, uv gate, noise, weight (~8)
-    report.kernel("nsf_merge", err, ms, plain, "B=4 T=1024 hop=512",
-                  nbytes(f0, base_ref, rand_ini, noise, weight, bias) + 4 * B * T * HOP,
-                  8 * noise.numel())
+    work = (nbytes(f0, base_ref, rand_ini, noise, weight, bias) + 4 * B * T * HOP,
+            8 * noise.numel())
+    report.kernel("nsf_merge", err, ms, plain, "B=4 T=1024 hop=512", *work)
+    t_bound = bound(*work)[0]
+    print(f"    {t_bound:.4f} ms bound (bytes), {100 * t_bound / ms:.0f}% reached")
+    # iSTFTNet's trunk rate: the batch request's 1024 frames at hop 64
+    noise64 = rn(B, T * 64, 9)
+    base64 = source.nsf_phase_base_reference(f0, SR, 64)
+    args64 = (f0, base64, rand_ini, noise64, weight, bias, SR, 64)
+    err64 = report.compare("nsf_merge hop 64", source.nsf_merge(*args64),
+                           source.nsf_merge_reference(*args64), 1e-4)
+    ms64 = device_ms(lambda: source.nsf_merge(*args64))
+    t64, _ = bound(nbytes(f0, base64, rand_ini, noise64, weight, bias) + 4 * B * T * 64,
+                   8 * noise64.numel())
+    print(f"  nsf_merge at iSTFTNet's trunk rate, B=4 T=1024 hop=64: {ms64:.4f} ms of device "
+          f"time, bound {t64:.4f} ms (bytes), {100 * t64 / ms64:.0f}% reached")
+    report.extra["nsf_merge"]["hop_64"] = dict(
+        shape="B=4 T=1024 hop=64 (iSTFTNet's trunk rate)", device_ms=ms64, bound_ms=t64,
+        bound_share=t64 / ms64, max_abs_err=err64)
+    del noise64
 
     print("[kernels] K4 vocoder convolutions, every shape of a B=4 x 1024-frame pass")
     gen_cpu_seed = seed + 1
@@ -1869,27 +1889,36 @@ def istft_scale(real, imag, n_fft: int, hop: int):
 
 def measure_istft(report: Report, real, imag, n_fft: int, hop: int, label: str):
     """K5 istft against its plain version on one input, every output sample
-    within 1e-5 of its own scale (``istft_scale``), timed beside
-    ``torch.istft`` and its bound."""
+    within 1e-5 of its own scale (``istft_scale``), in the plan its rule
+    picks; timed by device time (``device_ms``: the wrapper's host work
+    outlasts the n_fft 16 kernel) beside its bound, and host-paced by CUDA
+    events around each call (``cuda_ms``), the method that times the plain
+    version and ``torch.istft``: both wait for the card within a call (the
+    plain version to copy its window, ``torch.istft`` for its envelope
+    check), so only the host-paced readings compare with theirs."""
     import torch
 
     from fish_diffusion_tpu_torch.ops import mel
 
-    got = mel.istft(real, imag, n_fft, hop)
+    run = lambda: mel.istft(real, imag, n_fft, hop)  # noqa: E731
+    got = run()
     ref = mel.istft_reference(real, imag, n_fft, hop)
     ratio = report.compare_local(f"istft {label}", got, ref,
                                  istft_scale(real, imag, n_fft, hop), 1e-5)
     window = torch.hann_window(n_fft, device=DEVICE)
     spec = torch.complex(real, imag)
-    ms, plain, lib = timed_triple(lambda: mel.istft(real, imag, n_fft, hop),
-                                  lambda: mel.istft_reference(real, imag, n_fft, hop),
-                                  lambda: torch.istft(spec, n_fft, hop, n_fft, window,
-                                                      center=True))
+    ms = device_ms(run)
+    host, plain, lib = timed_triple(
+        run, lambda: mel.istft_reference(real, imag, n_fft, hop),
+        lambda: torch.istft(spec, n_fft, hop, n_fft, window, center=True))
     work = istft_work(real, got, n_fft)
     t_bound, by = bound(*work)
-    print(f"    kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.istft {lib:.4f} ms, bound "
-          f"{t_bound:.4f} ms ({by})")
-    return dict(err=max_err(got, ref), ratio=ratio, ms=ms, plain=plain, lib=lib, work=work)
+    which = mel.istft_plan(n_fft, hop, real.shape[2])
+    print(f"    plan {which}: kernel {ms:.4f} ms of device time, bound {t_bound:.4f} ms ({by}), "
+          f"{100 * t_bound / ms:.0f}% reached; host-paced: kernel {host:.4f} ms, plain "
+          f"{plain:.4f} ms, torch.istft {lib:.4f} ms")
+    return dict(err=max_err(got, ref), ratio=ratio, ms=ms, host=host, plain=plain, lib=lib,
+                work=work, plan=which)
 
 
 def phase_istft_net(report: Report, engine, seed: int):
@@ -2026,16 +2055,23 @@ def phase_istft_net(report: Report, engine, seed: int):
                   f"the forward_batch request's shape, {shape}, standard normal spectra",
                   *r["work"], r["lib"])
     own = measure_istft(report, real, imag, n_fft, hop, f"{shape}, the request's own")
-    report.extra["istft"] = dict(request_spectra=dict(
-        shape=shape, max_abs_err=own["err"], max_err_over_local_scale=own["ratio"],
-        ms=own["ms"], plain_ms=own["plain"], library_ms=own["lib"]))
-    print("[istft_net] K5 istft at n_fft 2048, hop 512, B=4 x 1024 frames")
-    big = [torch.randn((B, 1025, T), generator=gen, device=DEVICE) for _ in range(2)]
-    r2 = measure_istft(report, *big, 2048, 512, "n_fft=2048 B=4 F=1024")
-    t2, by2 = bound(*r2["work"])
-    report.extra["istft"]["n_fft_2048"] = dict(
-        shape="B=4 x 1024 frames, n_fft 2048, hop 512", max_abs_err=r2["err"], ms=r2["ms"],
-        plain_ms=r2["plain"], library_ms=r2["lib"], bound_ms=t2, bound_by=by2)
+    report.extra["istft"] = dict(
+        randn=dict(host_paced_ms=r["host"], plan=r["plan"]),
+        request_spectra=dict(shape=shape, max_abs_err=own["err"],
+                             max_err_over_local_scale=own["ratio"], ms=own["ms"],
+                             host_paced_ms=own["host"], plain_ms=own["plain"],
+                             library_ms=own["lib"], plan=own["plan"]))
+    for n_big in (2048, 2299):
+        print(f"[istft_net] K5 istft at n_fft {n_big}, hop 512, B=4 x 1024 frames")
+        big = [torch.randn((B, n_big // 2 + 1, T), generator=gen, device=DEVICE)
+               for _ in range(2)]
+        r2 = measure_istft(report, *big, n_big, 512, f"n_fft={n_big} B=4 F=1024")
+        t2, by2 = bound(*r2["work"])
+        report.extra["istft"][f"n_fft_{n_big}"] = dict(
+            shape=f"B=4 x 1024 frames, n_fft {n_big}, hop 512", max_abs_err=r2["err"],
+            ms=r2["ms"], host_paced_ms=r2["host"], plain_ms=r2["plain"],
+            library_ms=r2["lib"], bound_ms=t2, bound_by=by2, plan=r2["plan"])
+        del big
     engine.set_vocoder(nsf)
     report.finish("istft_net")
     return launches
@@ -4597,43 +4633,49 @@ def phase_align(report: Report, seed: int):
 # (B, T, K) of K8-cand: a segment's 1025 frames, the kernels phase's batch,
 # a 30 s segment, K = 31 past the on-chip backpointers; (B, T_y, T_x) of
 # K7: the align phase's shape and its streamed one
-CHAIN_CASES = {"viterbi_candidates": [(1, 1025, 4), (B, T, 4), (1, 2600, 4), (1, 8000, 31)],
-               "maximum_path": [(32, 1000, 200), (8, 1200, 1100)]}
+AB_CASES = {"viterbi_candidates": [(1, 1025, 4), (B, T, 4), (1, 2600, 4), (1, 8000, 31)],
+            "maximum_path": [(32, 1000, 200), (8, 1200, 1100)],
+            "nsf_merge": [(B, T, 512), (B, T, 64)],
+            "istft": [(B, 65537, 16, 8), (B, 1024, 2048, 512)]}
 
 
-def time_chains(tree: Path) -> int:
-    """K8-cand and K7 through the public wrappers of the port in ``tree``,
-    on inputs drawn from fixed seeds on the card (as the kernels and align
-    phases draw them): device milliseconds a call (``device_ms``), microseconds
-    a frame or a row of the longest item, and whether the result equals the
-    plain version's; one JSON line with the card's name and power limit and
-    the SM clock sampled every 50 ms while the cases run (median and
-    largest, MHz). Exit code 1 where a result differs."""
+def time_ab(tree: Path) -> int:
+    """K8-cand, K7, K3's merge and K5 istft through the public wrappers of
+    the port in ``tree``, on inputs drawn from fixed seeds on the card:
+    device milliseconds a call (``device_ms``), microseconds a step where a
+    chain has steps, and whether the result holds against the plain
+    version (K8-cand and K7 identical; ``nsf_merge`` within 1e-4; ``istft``
+    every sample within 1e-5 of its own scale, ``istft_scale``); one JSON
+    line with the card's name and power limit and the SM clock sampled
+    every 50 ms while the cases run (median and largest, MHz). Exit code 1
+    where a result does not hold."""
     import torch
 
     sys.path.insert(0, str(tree))
     from fish_diffusion_tpu_torch.extractors import pitch
-    from fish_diffusion_tpu_torch.ops import monotonic_align as ma
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     # the tree the port was imported from
     result, differs = {"tree": str(Path(pitch.__file__).parents[2]), "card": smi}, []
 
-    def row(kernel, case, fn, ref, steps):
-        same = all(bool((g == r).all()) for g, r in zip(fn(), ref()))
+    def identical(got, ref):
+        return all(bool((g == r).all()) for g, r in zip(got, ref))
+
+    def row(kernel, case, fn, ref, steps=None, holds=identical):
+        ok = holds(fn(), ref())
         ms = device_ms(fn, reps=20)
-        print(f"[chains] {kernel} {case}: {ms:.4f} ms ({ms * 1e3 / steps:.4f} us a step); "
-              f"identical to plain: {same}")
+        per = f" ({ms * 1e3 / steps:.4f} us a step)" if steps else ""
+        print(f"[ab] {kernel} {case}: {ms:.4f} ms{per}; holds against plain: {ok}")
         result[f"{kernel} {case}"] = ms
-        if not same:
+        if not ok:
             differs.append(f"{kernel} {case}")
 
     clock = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
                               "--format=csv,noheader,nounits", "-lms", "50"],
                              stdout=subprocess.PIPE, text=True)
     try:
-        run_chains(row, pitch, ma)
+        run_ab(row)
     finally:
         clock.terminate()
         mhz = sorted(int(x) for x in clock.communicate()[0].split() if x.isdigit())
@@ -4641,15 +4683,21 @@ def time_chains(tree: Path) -> int:
         result["sm_clock_mhz"] = dict(median=mhz[len(mhz) // 2], max=mhz[-1], samples=len(mhz))
     print(json.dumps(result))
     if differs:
-        print(f"chip_smoke: not identical to the plain version: {differs}", file=sys.stderr)
+        print(f"chip_smoke: does not hold against the plain version: {differs}",
+              file=sys.stderr)
     return 1 if differs else 0
 
 
-def run_chains(row, pitch, ma):
-    """``time_chains``'s cases, each through ``row``."""
+def run_ab(row):
+    """``time_ab``'s cases, each through ``row``."""
     import torch
 
-    for B_, T_, K_ in CHAIN_CASES["viterbi_candidates"]:
+    from fish_diffusion_tpu_torch.extractors import pitch
+    from fish_diffusion_tpu_torch.models.vocoders import source
+    from fish_diffusion_tpu_torch.ops import mel
+    from fish_diffusion_tpu_torch.ops import monotonic_align as ma
+
+    for B_, T_, K_ in AB_CASES["viterbi_candidates"]:
         gen = torch.Generator(device=DEVICE).manual_seed(T_ + K_)
         freqs = torch.rand((B_, T_, K_), generator=gen, device=DEVICE) * 1050 + 50
         freqs = freqs * (torch.rand((B_, T_, K_), generator=gen, device=DEVICE) > 0.3)
@@ -4657,7 +4705,7 @@ def run_chains(row, pitch, ma):
               torch.rand((B_, T_), generator=gen, device=DEVICE) * 1.5)
         row("viterbi_candidates", f"B={B_} T={T_} K={K_}", lambda: pitch.viterbi_candidates(*xs),
             lambda: pitch.viterbi_candidates_reference(*xs), max(T_ - 1, 1))
-    for B_, T_y, T_x in CHAIN_CASES["maximum_path"]:
+    for B_, T_y, T_x in AB_CASES["maximum_path"]:
         gen = torch.Generator(device=DEVICE).manual_seed(T_y + T_x)
         t_ys = torch.randint(T_y // 2, T_y + 1, (B_,), generator=gen, device=DEVICE)
         t_xs = torch.minimum(torch.randint(T_x // 2, T_x + 1, (B_,), generator=gen,
@@ -4666,6 +4714,29 @@ def run_chains(row, pitch, ma):
         row("maximum_path", f"B={B_} T_y={T_y} T_x={T_x}",
             lambda: [ma.maximum_path(values, t_ys, t_xs)],
             lambda: [ma.maximum_path_reference(values, t_ys, t_xs)], int(t_ys.max()))
+    for B_, T_, hop in AB_CASES["nsf_merge"]:
+        gen = torch.Generator(device=DEVICE).manual_seed(T_ + hop)
+        f0 = torch.rand((B_, T_), generator=gen, device=DEVICE) * 400 + 100
+        f0 = f0 * (torch.rand((B_, T_), generator=gen, device=DEVICE) > 0.2)
+        rand_ini = torch.rand((B_, 9), generator=gen, device=DEVICE)
+        rand_ini[:, 0] = 0
+        noise = torch.randn((B_, T_ * hop, 9), generator=gen, device=DEVICE)
+        weight = torch.randn(9, generator=gen, device=DEVICE) / 3
+        bias = torch.randn(1, generator=gen, device=DEVICE) * 0.1
+        args = (f0, source.nsf_phase_base_reference(f0, SR, hop), rand_ini, noise, weight,
+                bias, SR, hop)
+        row("nsf_merge", f"B={B_} T={T_} hop={hop}", lambda: source.nsf_merge(*args),
+            lambda: source.nsf_merge_reference(*args),
+            holds=lambda got, ref: max_err(got, ref) <= 1e-4)
+        del noise, args
+    for B_, F_, n_fft, hop in AB_CASES["istft"]:
+        gen = torch.Generator(device=DEVICE).manual_seed(F_ + n_fft)
+        re, im = (torch.randn((B_, n_fft // 2 + 1, F_), generator=gen, device=DEVICE)
+                  for _ in range(2))
+        scale = istft_scale(re, im, n_fft, hop)
+        row("istft", f"B={B_} F={F_} n_fft={n_fft} hop={hop}",
+            lambda: mel.istft(re, im, n_fft, hop), lambda: mel.istft_reference(re, im, n_fft, hop),
+            holds=lambda got, ref: bool(((got - ref).abs() <= 1e-5 * scale).all()))
 
 
 def tensor_core_products(kernels):
@@ -4705,8 +4776,9 @@ def tensor_core_products(kernels):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--chains", type=Path, metavar="DIR",
-                        help="time K8-cand and K7 alone through the port in DIR")
+    parser.add_argument("--ab", type=Path, metavar="DIR",
+                        help="time K8-cand, K7, K3's merge and K5 istft alone through the "
+                             "port in DIR")
     args = parser.parse_args()
 
     import torch
@@ -4714,12 +4786,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    tree = (args.chains or ROOT).resolve()
+    tree = (args.ab or ROOT).resolve()
     if not (tree / "fish_diffusion_tpu_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
-    if args.chains:
-        return time_chains(tree)
+    if args.ab:
+        return time_ab(tree)
     sys.path.insert(0, str(ROOT))
 
     print("[device] " + torch.cuda.get_device_name(0)

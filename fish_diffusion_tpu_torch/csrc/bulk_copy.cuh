@@ -1,6 +1,7 @@
-// Helpers shared by the chain kernels (viterbi.cu, monotonic_align.cu):
-// mbarriers, and 1-D bulk copies by the Tensor Memory Accelerator
-// (cp.async.bulk) between device memory and shared memory. Include after
+// Helpers shared by the kernels that stage by TMA (viterbi.cu,
+// monotonic_align.cu, nsf_source.cu, istft.cu): mbarriers, 1-D bulk copies
+// by the Tensor Memory Accelerator (cp.async.bulk) between device memory
+// and shared memory, and the card's SM count. Include after
 // <cuda_runtime.h>.
 //
 // The PTX sits behind `#if defined(__CUDA_ARCH__)`. The host branch (the
@@ -15,6 +16,7 @@
 #define FDT_BULK_COPY_CUH
 
 #include <stdint.h>
+#include <atomic>
 
 #if !defined(__CUDA_ARCH__)
 #include <sched.h>
@@ -226,6 +228,20 @@ __host__ __device__ __forceinline__ void stage_middle(T* dst, const T* src, int 
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ __forceinline__ int round16(int bytes) { return (bytes + 15) & ~15; }
+
+// the current device's SM count, queried once a device (up to 64 devices;
+// threads that race store the same value)
+inline int sm_count() {
+  static std::atomic<int> cached[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int n = dev >= 0 && dev < 64 ? cached[dev].load(std::memory_order_relaxed) : 0;
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (dev >= 0 && dev < 64) cached[dev].store(n, std::memory_order_relaxed);
+  }
+  return n;
+}
 
 }  // namespace
 }  // namespace bulk

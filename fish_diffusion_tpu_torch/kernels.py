@@ -11,7 +11,10 @@ them.
 
 Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel and nowhere else, so that a run can show which kernels the main path
-went through. ``KERNELS`` describes each kernel for reports.
+went through. Where one call's C entry launches more than one kernel (K5's
+backward and its split paths, K5 istft's FFT and split plans), the
+wrapper adds one a call: such a count is of calls. ``KERNELS`` describes
+each kernel for reports.
 """
 
 from __future__ import annotations
@@ -83,7 +86,7 @@ KERNELS = {
         replaces=_TPU + "models/vocoders/source.py:77",
     ),
     "nsf_merge": dict(
-        id="K3", route="triton", source=_PORT + "models/vocoders/source.py",
+        id="K3", route="cuda", source=_PORT + "csrc/nsf_source.cu",
         replaces=_TPU + "models/vocoders/source.py:92",
     ),
     "conv1d": dict(
@@ -223,8 +226,12 @@ SIGNATURES = {
         "viterbi_dense_chain": [_P] * 5 + [_I] * 3 + [_P],
         "viterbi_dense_plan": [_I] * 2,
     },
+    "nsf_source": {
+        "nsf_merge": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
+    },
     "istft": {
-        "istft": [_P] * 5 + [_I] * 7 + [_P],
+        "istft_plan": [_I] * 3,
+        "istft": [_P] * 11 + [_I] * 7 + [_P],
     },
     "monotonic_align": {
         "maximum_path": [_P] * 5 + [_I] * 3 + [_P],

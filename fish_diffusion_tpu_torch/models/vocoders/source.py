@@ -9,19 +9,21 @@ frames' phase advances, mod 1, plus the intra-frame advance
 Dense(9 -> 1) with tanh merges them. The blocked ``[B, T, hop]`` layout was
 a TPU device and is not carried over.
 
-K3 computes it in two Triton kernels, replacing the JAX package's
+K3 computes it in two kernels, replacing the JAX package's
 ``blocked_phase`` (``source.py:77``) and ``BlockedSineGen`` with the merge
 (``source.py:92-169``):
 
-- ``nsf_phase_base``: one program per batch row scans the T frame
+- ``nsf_phase_base`` (Triton): one program per batch row scans the T frame
   advances. Blocks run in no order on the card, so the scan across frames
   has to live inside one program (T <= 2600 frames fits one block). The sum
   runs in float64 and is reduced mod 1 at the end: exact for any order of
   summation, where the TPU's float32 mod-1 scan rounds at every step.
-- ``nsf_merge``: one program per (batch row, tile of frames) builds the
-  ``[frames, hop]`` phase, the 9 harmonics, the voicing gate, the noise and
-  the merge, and writes only the merged ``[B, T * hop]`` signal; the 9
-  harmonics never reach device memory.
+- ``nsf_merge`` (CUDA, ``csrc/nsf_source.cu``): a block owns a run of
+  samples of one row; its contiguous noise span comes into shared memory a
+  chunk at a time by TMA bulk copies, and each sample takes one
+  ``sincospif`` (the harmonics by rotation, the start phases by angle
+  addition), the voicing gate, the noise and the merge; only the merged
+  ``[B, T * hop]`` signal is written.
 
 On an H100 the pair is bound by memory: it reads the ``[B, T * hop, 9]``
 noise (drawn outside, with a ``torch.Generator``; an in-kernel Philox draw
@@ -83,6 +85,7 @@ tl = None  # triton.language, bound at the first launch (no triton on import)
 libdevice = None
 _TRITON: dict = {}
 _FRAMES_PER_PROGRAM = 4
+NSF_MAX_HARMONICS = 16  # csrc/nsf_source.cu's MAX_H
 
 
 def _phase_base_kernel(f0_ptr, base_ptr, T, sr, hop, a_prev, a_cur, a_next,
@@ -105,33 +108,6 @@ def _phase_base_kernel(f0_ptr, base_ptr, T, sr, hop, a_prev, a_cur, a_next,
     excl = tl.cumsum(advance, axis=0) - advance
     base = (excl - tl.floor(excl)).to(tl.float32)
     tl.store(base_ptr + b * T + offs, base, mask=mask)
-
-
-def _source_kernel(f0_ptr, base_ptr, rand_ptr, noise_ptr, w_ptr, bias_ptr,
-                   out_ptr, T, sr, sine_amp, noise_std,
-                   HOP: tl.constexpr, FT: tl.constexpr, NH: tl.constexpr):
-    b = tl.program_id(1)
-    frames = tl.program_id(0) * FT + tl.arange(0, FT)
-    fmask = frames < T
-    f0 = tl.load(f0_ptr + b * T + frames, mask=fmask, other=0.0)
-    base = tl.load(base_ptr + b * T + frames, mask=fmask, other=0.0)
-    rad = tl.math.div_rn(f0, sr)
-    j = tl.arange(0, HOP)
-    phase = base[:, None] + rad[:, None] * (j + 1).to(tl.float32)[None, :]
-    phase = phase - tl.floor(phase)
-    uv = (f0 > 0.0).to(tl.float32)
-    noise_amp = uv * noise_std + (1.0 - uv) * sine_amp / 3.0
-    samples = (b * T + frames[:, None]) * HOP + j[None, :]
-    smask = fmask[:, None] & (j[None, :] < HOP)
-    acc = tl.zeros((FT, HOP), dtype=tl.float32)
-    for n in tl.static_range(NH):
-        ph = phase * (n + 1) + tl.load(rand_ptr + b * NH + n)
-        ph = ph - tl.floor(ph)
-        sine = libdevice.sin(6.283185307179586 * ph) * sine_amp
-        nz = tl.load(noise_ptr + samples * NH + n, mask=smask, other=0.0)
-        acc += (sine * uv[:, None] + noise_amp[:, None] * nz) * tl.load(w_ptr + n)
-    out = libdevice.tanh(acc + tl.load(bias_ptr))
-    tl.store(out_ptr + samples, out, mask=smask)
 
 
 def _source_bwd_kernel(f0_ptr, base_ptr, rand_ptr, noise_ptr, out_ptr, g_ptr,
@@ -261,7 +237,6 @@ def _triton_kernels() -> dict:
             from triton.language.extra.cuda import libdevice as _libdevice
         tl, libdevice = triton.language, _libdevice
         _TRITON["base"] = triton.jit(_phase_base_kernel)
-        _TRITON["source"] = triton.jit(_source_kernel)
         _TRITON["source_bwd"] = triton.jit(_source_bwd_kernel)
         _TRITON["partials_sum"] = triton.jit(_partials_sum_kernel)
         _TRITON["comb"] = triton.jit(_comb_kernel)
@@ -415,13 +390,15 @@ def _nsf_merge_forward(f0, base, rand_ini, noise, weight, bias,
         raise ValueError("nsf_merge: shapes do not match f0 [B, T]")
     if hop & (hop - 1):
         raise ValueError(f"nsf_merge: hop {hop} is not a power of two")
+    if not 1 <= H <= NSF_MAX_HARMONICS:
+        raise ValueError(f"nsf_merge: {H} harmonics; the kernel takes 1 to "
+                         f"{NSF_MAX_HARMONICS}")
     out = torch.empty((B, T * hop, 1), dtype=f0.dtype, device=f0.device)
-    grid = (-(-T // _FRAMES_PER_PROGRAM), B)
-    _triton_kernels()["source"][grid](
-        f0, base, rand_ini, noise, weight, bias, out, T, float(sampling_rate),
-        float(sine_amp), float(noise_std), HOP=hop, FT=_FRAMES_PER_PROGRAM,
-        NH=H, num_warps=8,
-    )
+    kernels.check(kernels.load_library("nsf_source").nsf_merge(
+        f0.data_ptr(), base.data_ptr(), rand_ini.data_ptr(), noise.data_ptr(),
+        weight.data_ptr(), bias.data_ptr(), out.data_ptr(), B, T, hop, H,
+        float(sampling_rate), float(sine_amp), float(noise_std), kernels.stream()),
+        "nsf_merge")
     kernels.count_launch("nsf_merge")
     return out
 
@@ -431,7 +408,7 @@ def nsf_merge_backward(g, out, f0, base, rand_ini, noise, sampling_rate: int,
                        noise_std: float = 0.003):
     """K3's backward: (dW [H], db [1]) of the Dense(H -> 1) merge. One Triton
     program per (batch row, tile of frames) recomputes the phase, sines,
-    voicing and noise of its samples, as the forward does (the
+    voicing and noise of its samples, as the plain version forms them (the
     ``[B, T * hop, H]`` sines never reach device memory), and writes its
     H + 1 partial sums; a second program per output adds the partials in
     program order. Memory-bound on the noise it rereads. CPU tensors take
@@ -485,7 +462,8 @@ class _NsfMerge(torch.autograd.Function):
 
 def nsf_merge(f0, base, rand_ini, noise, weight, bias, sampling_rate: int,
               hop: int, sine_amp: float = 0.1, noise_std: float = 0.003):
-    """K3, second kernel; differentiable in ``weight`` and ``bias``
+    """K3, second kernel (``csrc/nsf_source.cu``; H at most 16 harmonics,
+    hop a power of two); differentiable in ``weight`` and ``bias``
     (``_NsfMerge``). CPU tensors take ``nsf_merge_reference``."""
     args = (f0, base, rand_ini, noise, weight, bias, sampling_rate, hop,
             sine_amp, noise_std)

@@ -33,11 +33,15 @@ option (the STFT loss). ``LogMelSpectrogram.log_mel`` is the
 differentiable log-mel; ``wav2spec``, which serving calls, stays under
 ``torch.inference_mode``.
 
-``istft`` (iSTFTNet's last step) is K5 istft, ``csrc/istft.cu``: the
-inverse DFT of each frame as a product with the forward's basis read by
-bin, and the overlap-add as a gather in frame order (no atomics), divided
-by the window-square envelope that ``_istft_envelope`` builds once per
-shape. ``istft_reference`` (``torch.fft.irfft`` and ``fold``) is the plain
+``istft`` (iSTFTNet's last step) is K5 istft, ``csrc/istft.cu``, in
+three plans by size (``istft_plan``): n_fft 16 and 32 by an inverse DFT of
+each frame compiled for its size, other sizes on K5's FFT core (pairs of
+frames in one complex inverse transform), past shared memory by its
+four-step FFTs, all on the tables of ``_fft_tables``; the
+overlap-add is a gather in frame order (no atomics), divided by the
+window-square envelope that ``_istft_envelope`` builds once per shape (the
+direct plan sums it in place, in the same order).
+``istft_reference`` (``torch.fft.irfft`` and ``fold``) is the plain
 version.
 """
 
@@ -394,15 +398,6 @@ def linear_spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,
 
 
 @functools.lru_cache(maxsize=16)
-def _idft_basis(n_fft: int, win_length: int, device: str) -> torch.Tensor:
-    """K5 istft's operand: the windowed DFT basis [2 * bins, n_fft] (the
-    transpose of ``_dft_basis``: a row per bin) as float32 on ``device``."""
-    k = _dft_kernel(n_fft, win_length)[:, 0, :]
-    with torch.inference_mode(False):
-        return torch.from_numpy(np.ascontiguousarray(k)).to(device)
-
-
-@functools.lru_cache(maxsize=16)
 def _istft_envelope(n_fft: int, hop: int, win_length: int, frames: int,
                     device: str) -> torch.Tensor:
     """max(sum_f w[t - f * hop]^2, 1e-11) over the n_fft + hop * (frames - 1)
@@ -452,16 +447,26 @@ def istft_reference(real: torch.Tensor, imag: torch.Tensor, n_fft: int,
     return audio
 
 
-def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
-          win_length: Optional[int] = None, center: bool = True) -> torch.Tensor:
-    """K5 istft (``csrc/istft.cu``): the inverse STFT of real + i imag
-    [B, n_fft // 2 + 1, F] by windowed overlap-add, ``torch.istft``'s
-    contract -> [B, hop * (F - 1)] when centred, else [B, n_fft + hop *
-    (F - 1)]. The window-square envelope is built once per shape. CPU
-    tensors take ``istft_reference``."""
-    win_length = win_length or n_fft
-    if not real.is_cuda:
-        return istft_reference(real, imag, n_fft, hop_length, win_length, center)
+# K5 istft's plans (``csrc/istft.cu``), by ``istft_plan``'s numbers
+ISTFT_PLANS = ("direct", "fft", "split")
+
+
+@functools.lru_cache(maxsize=64)
+def istft_plan(n_fft: int, hop_length: int, n_frames: int) -> str:
+    """The plan K5 istft takes for a size: "direct" (n_fft 16, 32), "fft"
+    (the shared-memory FFT core) or "split" (four-step FFTs through device
+    memory). Raises for a size it does not take."""
+    plan = kernels.load_library("istft").istft_plan(n_fft, hop_length, n_frames)
+    if plan < 0:
+        raise ValueError(f"istft: n_fft {n_fft}, hop {hop_length}, {n_frames} frames: "
+                         "no plan takes this size")
+    return ISTFT_PLANS[plan]
+
+
+def _istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
+           win_length: int, center: bool) -> torch.Tensor:
+    """K5 istft's launch on CUDA tensors, in the plan its rule picks.
+    Uncounted."""
     kernels.require_cuda("istft", real, imag)
     if real.dtype != torch.float32:
         raise TypeError(f"istft: takes float32, got {real.dtype}")
@@ -475,19 +480,44 @@ def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
     B, _, n_frames = real.shape
     device = str(real.device)
     offset = n_fft // 2 if center else 0
-    L = n_fft + hop_length * (n_frames - 1) - 2 * offset
-    if L <= 0:
+    n_out = n_fft + hop_length * (n_frames - 1) - 2 * offset
+    if n_out <= 0:
         raise ValueError(f"istft: {n_frames} frames give no samples")
-    out = torch.empty((B, L), dtype=torch.float32, device=real.device)
+    which = istft_plan(n_fft, hop_length, n_frames)
+    out = torch.empty((B, n_out), dtype=torch.float32, device=real.device)
     env = _istft_envelope(n_fft, hop_length, win_length, n_frames, device)
-    kernels.check(
-        kernels.load_library("istft").istft(
-            real.data_ptr(), imag.data_ptr(),
-            _idft_basis(n_fft, win_length, device).data_ptr(), env.data_ptr(),
-            out.data_ptr(), B, n_frames, n_fft, hop_length, bins, L, offset,
-            kernels.stream()),
-        "istft",
-    )
+    work = scales = frames = None
+    L1 = 0
+    tables = _fft_plan(n_fft, win_length, device, double=which == "split")
+    if which in ("fft", "split"):
+        frames = torch.empty((B, n_frames, n_fft), dtype=torch.float32, device=real.device)
+    if which == "split":
+        L = _fft_size(n_fft)
+        L1, pairs = _split(L), B * ((n_frames + 1) // 2)
+        work = torch.empty((pairs, L, 2), dtype=torch.float64, device=real.device)
+        scales = torch.empty((pairs, 2), dtype=torch.float64, device=real.device)
+    status = kernels.load_library("istft").istft(
+        real.data_ptr(), imag.data_ptr(), *_pointers(tables), env.data_ptr(),
+        *_pointers([work, scales, frames]), out.data_ptr(), B, n_frames, n_fft, hop_length,
+        L1, n_out, offset, kernels.stream())
+    kernels.check(status, "istft")
+    return out
+
+
+def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
+          win_length: Optional[int] = None, center: bool = True) -> torch.Tensor:
+    """K5 istft (``csrc/istft.cu``): the inverse STFT of real + i imag
+    [B, n_fft // 2 + 1, F] by windowed overlap-add, ``torch.istft``'s
+    contract -> [B, hop * (F - 1)] when centred, else [B, n_fft + hop *
+    (F - 1)]. The plan comes from the size (``istft_plan``); the
+    window-square envelope is built once per shape. CPU tensors take
+    ``istft_reference``. ``LAUNCHES["istft"]`` counts calls: the direct
+    plan is one kernel, the FFT plan two (the transforms, the gather), the
+    split path five (eight by Bluestein)."""
+    win_length = win_length or n_fft
+    if not real.is_cuda:
+        return istft_reference(real, imag, n_fft, hop_length, win_length, center)
+    out = _istft(real, imag, n_fft, hop_length, win_length, center)
     kernels.count_launch("istft")
     return out
 

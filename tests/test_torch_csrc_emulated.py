@@ -1,5 +1,5 @@
-"""The CUDA sources of K1 (with its training mode, backward and weight gradients), K4 (and its weight gradient), K5 (forward,
-backward and istft), K6 (grouped and 2-D, with the 2-D weight gradient),
+"""The CUDA sources of K1 (with its training mode, backward and weight gradients), K3's merge, K4 (and its weight gradient), K5 (forward,
+backward and istft, its three plans), K6 (grouped and 2-D, with the 2-D weight gradient),
 K7, K8-cand, K8 dense (pYIN's and CREPE's decoder) and K10 (with its backward), compiled for the host CPU and run against their
 plain PyTorch versions at small shapes.
 
@@ -28,8 +28,10 @@ K8-cand's and K7's chains (``csrc/bulk_copy.cuh``) keep their protocol on
 the host: an mbarrier is a word of shared memory updated with atomics (its
 waits spin), a TMA bulk copy or a ``cp.async`` is a copy made at once, and
 ``__shfl_up_sync`` and ``__syncwarp`` run through the warp's barrier; their
-sources are built once more with less shared memory a block (``-DSMEM_MAX``,
-``SMALL_SMEM``), so that small cases reach the streamed plans. Needs ``g++`` with C++20; skips without one.
+sources, and K5 istft's, are built once more with less shared memory a
+block (``-DSMEM_MAX``, ``SMALL_SMEM``), so that small cases reach the
+streamed plans and istft's split path. Needs ``g++`` with C++20; skips
+without one.
 """
 
 import ctypes
@@ -50,7 +52,7 @@ from fish_diffusion_tpu_torch.ops import blocked_conv, mel
 from fish_diffusion_tpu_torch.ops import monotonic_align as ma
 from tests.test_torch_kernels_cuda import (ALIGN_CASES, QUIET_CASES, align_case,
                                           align_wide_case, candidate_case, convnext_case,
-                                          dense_case, quiet_case)
+                                          dense_case, istft_scale, quiet_case)
 
 SHIM = r"""
 #pragma once
@@ -128,6 +130,14 @@ inline void __syncwarp(unsigned = 0xffffffffu) { g_warp_barrier->arrive_and_wait
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+// sin and cos of pi x (the card's is exact to a few ulps; this rounds the
+// double result)
+inline void sincospif(float x, float* s, float* c) {
+  const double a = 3.14159265358979323846 * (double)x;
+  *s = (float)std::sin(a);
+  *c = (float)std::cos(a);
+}
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -274,8 +284,10 @@ def _host_source(cu: str) -> str:
 
 
 # sources built once more with less shared memory a block (``-DSMEM_MAX``),
-# so that small cases reach their streamed plans: ``host_libs["name@bytes"]``
-SMALL_SMEM = [("viterbi", 64000), ("viterbi", 85400), ("monotonic_align", 83000)]
+# so that small cases reach their streamed plans (istft: its split path):
+# ``host_libs["name@bytes"]``
+SMALL_SMEM = [("viterbi", 64000), ("viterbi", 85400), ("monotonic_align", 83000),
+              ("istft", 4096)]
 
 
 @pytest.fixture(scope="module")
@@ -900,6 +912,44 @@ def test_conv_fwd_source_unaligned(host_libs, kind):
         assert torch.equal(fn(x, w, out, _at_offset(r)), aligned)
 
 
+@pytest.mark.parametrize(
+    "B,T,hop,H,seed",
+    # hop 16 and 64, the modules' 9 harmonics and 1; T not a multiple of a
+    # block's frames (the shim's 8 SMs: a block of 1 or 2 chunks of 512
+    # samples here, and a ragged last chunk at hop 16); runs of unvoiced
+    # frames; start phases near 1; blocks of 4 chunks (the ring of 3 slots
+    # wraps) at hop 256
+    [(2, 37, 16, 9, 0), (3, 50, 64, 9, 1), (1, 45, 64, 1, 2), (2, 29, 16, 1, 3),
+     (1, 203, 256, 9, 4)],
+)
+def test_nsf_merge_source(host_libs, B, T, hop, H, seed):
+    """K3's merge (``csrc/nsf_source.cu``) against ``nsf_merge_reference``:
+    <= 1e-4 (one sincospif a sample, the harmonics by rotation, against nine
+    float32 sines), every sample written."""
+    from fish_diffusion_tpu_torch.models.vocoders import source
+
+    gen = torch.Generator().manual_seed(seed)
+    f0 = torch.rand((B, T), generator=gen) * 900 + 60
+    f0[:, T // 4: T // 4 + 7] = 0.0  # a run of unvoiced frames
+    f0 = f0 * (torch.rand((B, T), generator=gen) > 0.2)
+    rand_ini = 1 - torch.rand((B, H), generator=gen) * 1e-3  # near 1
+    rand_ini[:, 0] = 0
+    noise = rn(gen, B, T * hop, H)
+    weight, bias = rn(gen, H, scale=0.3), rn(gen, 1, scale=0.1)
+    base = source.nsf_phase_base_reference(f0, 44100, hop)
+    out = torch.full((B, T * hop, 1), float("nan"))
+    assert host_libs["nsf_source"].nsf_merge(
+        f0.data_ptr(), base.data_ptr(), rand_ini.data_ptr(), noise.data_ptr(),
+        weight.data_ptr(), bias.data_ptr(), out.data_ptr(), B, T, hop, H, 44100.0, 0.1,
+        0.003, None) == 0
+    ref = source.nsf_merge_reference(f0, base, rand_ini, noise, weight, bias, 44100, hop)
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert host_libs["nsf_source"].nsf_merge(
+        f0.data_ptr(), base.data_ptr(), rand_ini.data_ptr(), noise.data_ptr(),
+        weight.data_ptr(), bias.data_ptr(), out.data_ptr(), B, T, hop, 17, 44100.0, 0.1,
+        0.003, None) != 0
+
+
 def _k5(n_fft, win, double=False):
     """K5's tables on the CPU (float64 for the backward) and the FFT length."""
     return mel._fft_plan(n_fft, win, "cpu", double), mel._fft_size(n_fft)
@@ -1432,30 +1482,96 @@ def test_conv2d_source_transposed_takes_stride_1_in_h(host_libs):
     assert out.isnan().all()
 
 
+def _istft_host(lib, re, im, n_fft, hop, win, center):
+    """K5 istft's C entry on CPU tensors, with the tables and scratch its
+    rule's plan reads (as ``mel._istft``)."""
+    B, _, F = re.shape
+    offset = n_fft // 2 if center else 0
+    n_out = n_fft + hop * (F - 1) - 2 * offset
+    which = mel.ISTFT_PLANS[lib.istft_plan(n_fft, hop, F)]
+    tables = mel._fft_plan(n_fft, win, "cpu", double=which == "split")
+    scratch, L1 = [None] * 3, 0
+    if which in ("fft", "split"):
+        scratch[2] = torch.empty(B, F, n_fft)
+    if which == "split":
+        L = mel._fft_size(n_fft)
+        L1, pairs = mel._split(L), B * ((F + 1) // 2)
+        scratch[:2] = [torch.empty(pairs, L, 2, dtype=torch.float64),
+                       torch.empty(pairs, 2, dtype=torch.float64)]
+    out = torch.full((B, n_out), float("nan"))
+    assert lib.istft(re.data_ptr(), im.data_ptr(), *mel._pointers(tables),
+                     mel._istft_envelope(n_fft, hop, win, F, "cpu").data_ptr(),
+                     *mel._pointers(scratch), out.data_ptr(), B, F, n_fft, hop, L1, n_out,
+                     offset, None) == 0
+    return out
+
+
 @pytest.mark.parametrize(
-    "B,n_fft,win,hop,F,center",
-    # iSTFTNet's shape; a window shorter than n_fft without the trim; a hop
-    # that does not divide n_fft (3 frames over some samples, 2 over others);
-    # n_fft 2048 (1025 bins, 4 frames a sample)
-    [(2, 16, 16, 8, 30, True), (1, 16, 12, 4, 20, False), (1, 64, 48, 27, 7, True),
-     (1, 2048, 2048, 512, 3, True)],
+    "B,n_fft,win,hop,F,center,smem,plan,quiet",
+    # the direct plan: iSTFTNet's shape, a window shorter than n_fft
+    # without the trim (4 frames over a sample), the rule's last size (32),
+    # an odd frame count (its halo), a hop that is not a multiple of 4 (a
+    # sample a thread, by divisions); the FFT plan: twice the threshold
+    # (64), a hop that does not divide n_fft (3 frames over some samples, 2
+    # over others), n_fft 2048 (1025 bins, 4 frames a sample), Bluestein
+    # (100, hop 25; 48; an odd n_fft, 99, with no Nyquist bin); odd frame
+    # counts (the last frame pairs with zeros); every other frame at 1e-6
+    # of its pair's (quiet); the split path's four-step FFTs at L1 = 16,
+    # reached by the source built with 4 KB of shared memory a block
+    [(2, 16, 16, 8, 30, True, 0, "direct", False),
+     (1, 16, 12, 4, 20, False, 0, "direct", False),
+     (1, 32, 32, 16, 9, True, 0, "direct", False),
+     (2, 16, 16, 8, 131, True, 0, "direct", True),
+     (1, 16, 16, 6, 23, True, 0, "direct", False),
+     (1, 64, 64, 16, 9, True, 0, "fft", False), (1, 64, 48, 27, 7, True, 0, "fft", False),
+     (1, 2048, 2048, 512, 3, True, 0, "fft", False),
+     (1, 2048, 2048, 512, 7, True, 0, "fft", True),
+     (2, 100, 100, 25, 9, True, 0, "fft", False), (1, 100, 80, 25, 8, False, 0, "fft", True),
+     (1, 48, 48, 12, 21, True, 0, "fft", True), (1, 99, 99, 33, 9, True, 0, "fft", False),
+     (1, 256, 200, 64, 5, True, 4096, "split", True),
+     (1, 100, 100, 25, 7, False, 4096, "split", False)],
 )
-def test_istft_source(host_libs, B, n_fft, win, hop, F, center):
-    """K5 istft: <= 1e-5 of the output's scale against the plain version
-    (inverse transforms by a float32 FFT and by the direct sum)."""
+def test_istft_source(host_libs, B, n_fft, win, hop, F, center, smem, plan, quiet):
+    """K5 istft in the plan its rule picks: every output sample within 1e-5
+    of its own scale (``istft_scale``: the covering frames' bounds), and
+    within 1e-5 of the output's largest value, against the plain version."""
+    lib = host_libs[f"istft@{smem}" if smem else "istft"]
+    assert mel.ISTFT_PLANS[lib.istft_plan(n_fft, hop, F)] == plan
     gen = torch.Generator().manual_seed(n_fft + hop + F)
     bins = n_fft // 2 + 1
     re, im = rn(gen, B, bins, F), rn(gen, B, bins, F)
-    offset = n_fft // 2 if center else 0
-    L = n_fft + hop * (F - 1) - 2 * offset
-    out = torch.full((B, L), float("nan"))
-    assert host_libs["istft"].istft(
-        re.data_ptr(), im.data_ptr(), mel._idft_basis(n_fft, win, "cpu").data_ptr(),
-        mel._istft_envelope(n_fft, hop, win, F, "cpu").data_ptr(), out.data_ptr(),
-        B, F, n_fft, hop, bins, L, offset, None) == 0
+    if quiet:
+        re[..., 1::2] *= 1e-6
+        im[..., 1::2] *= 1e-6
+    out = _istft_host(lib, re, im, n_fft, hop, win, center)
     ref = mel.istft_reference(re, im, n_fft, hop, win, center)
     assert ref.shape == out.shape
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    scale = istft_scale(re, im, n_fft, hop) if center else None
+    if scale is not None:
+        assert ((out - ref).abs() <= 1e-5 * scale).all()
+
+
+def test_istft_plan_source(host_libs):
+    """K5 istft's rule: direct at n_fft 16 and 32 (iSTFTNet's 16; any
+    hop), the FFT core from 64 while shared memory holds the transform and
+    the staged spectra (Bluestein sizes too), the split path past it (and
+    sooner where the source is built with less shared memory); the entry
+    refuses a size no plan takes and a plan's missing tables."""
+    lib = host_libs["istft"]
+    plan = lambda n, h, F=100: lib.istft_plan(n, h, F)  # noqa: E731
+    assert [plan(16, 8), plan(16, 1), plan(32, 16), plan(32, 5)] == [0, 0, 0, 0]
+    assert [plan(24, 8), plan(64, 16), plan(65, 16), plan(128, 32)] == [1, 1, 1, 1]
+    assert [plan(2048, 512), plan(2299, 512), plan(8192, 2048)] == [1, 1, 1]
+    assert [plan(16384, 4096), plan(9000, 2000), plan(1 << 21, 1 << 19)] == [2, 2, 2]
+    assert plan(5000, 1000) == 1 and plan(8191, 2048) == 2  # Bluestein's L = 16384
+    assert plan((1 << 21) + 1, 1 << 19) == -1 and plan(16, 8, 0) == -1
+    small = host_libs["istft@4096"]
+    assert [small.istft_plan(n, n // 4, 9) for n in (16, 64, 100, 256)] == [1, 1, 2, 2]
+    none = [None] * 11
+    assert lib.istft(*none, 1, 4, (1 << 21) + 1, 1 << 19, 0, 100, 0, None) != 0
+    assert lib.istft(*none, 1, 0, 64, 16, 0, 100, 0, None) != 0
+    assert lib.istft(*none, 1, 4, 64, 16, 0, 100, 0, None) != 0  # no window, tables, scratch
 
 
 def _maximum_path(lib, values, t_ys, t_xs, entry="maximum_path"):

@@ -3,7 +3,8 @@
 discriminators, the RefineGAN and iSTFTNet vocoders, monotonic alignment,
 the pitch extractors, the ConvNeXt denoiser with K10's backward, the
 denoiser's dataset and the HuBERT front ends among them), and of the scripts
-that run on the card (``chip_smoke.py``, ``chip_step_noise.py``), loads no
+that run on the card (``chip_smoke.py``, ``chip_step_noise.py``,
+``chip_istft_plans.py``), loads no
 JAX, flax, optax or
 ``fish_diffusion_tpu`` module (checked in a fresh interpreter)."""
 
@@ -58,7 +59,8 @@ assert {"viterbi_candidates", "viterbi_candidates_chain", "viterbi_candidates_pl
     kernels.SIGNATURES["viterbi"])
 assert {"maximum_path", "maximum_path_chain", "maximum_path_plan"} <= set(
     kernels.SIGNATURES["monotonic_align"])
-import chip_smoke, chip_step_noise
+assert set(kernels.SIGNATURES["istft"]) == {"istft", "istft_plan"}
+import chip_istft_plans, chip_smoke, chip_step_noise
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "fish_diffusion_tpu")]
 for name in ("HarvestPitchExtractor", "ParselMouthPitchExtractor", "AutocorrPitchExtractor",

@@ -507,9 +507,13 @@ def test_viterbi_dense(gen, kind, B, T, ties, S):
         wrapper(torch.zeros((1, 3, 600), device="cuda"), torch.zeros((600, 600), device="cuda"))
 
 
-def test_nsf_source(gen):
-    """K3: phase base exact (float64 sums), merged source <= 1e-4."""
-    B, T, hop = 2, 300, 256
+@pytest.mark.parametrize("hop", [64, 512])
+def test_nsf_source(gen, hop):
+    """K3: phase base exact (float64 sums), merged source <= 1e-4 (the
+    CUDA merge: one sincospif a sample, the harmonics by rotation), at
+    iSTFTNet's trunk rate and NSF-HiFiGAN's hop; one launch a call; 17
+    harmonics raise before a launch."""
+    B, T = 4, 300
     f0 = torch.rand((B, T), generator=gen, device="cuda") * 500 + 80
     f0 = f0 * (torch.rand((B, T), generator=gen, device="cuda") > 0.3)
     rand_ini = torch.rand((B, 9), generator=gen, device="cuda")
@@ -520,8 +524,15 @@ def test_nsf_source(gen):
     torch.testing.assert_close(base, source.nsf_phase_base_reference(f0, 44100, hop),
                                atol=0, rtol=0)
     args = (f0, base, rand_ini, noise, weight, bias, 44100, hop)
-    torch.testing.assert_close(source.nsf_merge(*args),
-                               source.nsf_merge_reference(*args), atol=1e-4, rtol=0)
+    before = kernels.LAUNCHES["nsf_merge"]
+    got = source.nsf_merge(*args)
+    assert kernels.LAUNCHES["nsf_merge"] == before + 1
+    torch.testing.assert_close(got, source.nsf_merge_reference(*args), atol=1e-4, rtol=0)
+    wide = torch.zeros((B, 17), device="cuda")
+    with pytest.raises(ValueError, match="harmonics"):
+        source.nsf_merge(f0, base, wide, rn(gen, B, T * hop, 17), rn(gen, 17), bias, 44100,
+                         hop)
+    assert kernels.LAUNCHES["nsf_merge"] == before + 1
 
 
 @pytest.mark.parametrize(
@@ -881,10 +892,14 @@ def test_comb_tooth(gen, hop):
 
 @pytest.mark.parametrize("B,n_fft,win,hop,F,center", [
     (4, 16, 16, 8, 257, True), (1, 16, 12, 4, 40, False), (2, 64, 48, 27, 9, True),
-    (2, 2048, 2048, 512, 33, True)])
+    (2, 2048, 2048, 512, 33, True), (2, 2299, 2299, 512, 17, True),
+    (1, 16384, 16384, 4096, 5, True)])
 def test_istft(gen, B, n_fft, win, hop, F, center):
-    """K5 istft: <= 1e-5 of the output's scale against the plain version
-    (cuFFT's float32 inverse against the direct sum); one launch a call."""
+    """K5 istft: every sample within 1e-5 of its own scale
+    (``chip_smoke.istft_scale``) and of the output's largest value, against
+    the plain version (cuFFT's float32 inverse); the direct plan (n_fft 16),
+    the FFT core (64, 2048; 2299 by Bluestein) and the split path (16384 at
+    hop 4096); one launch a call."""
     bins = n_fft // 2 + 1
     re, im = rn(gen, B, bins, F), rn(gen, B, bins, F)
     before = kernels.LAUNCHES["istft"]
@@ -892,8 +907,38 @@ def test_istft(gen, B, n_fft, win, hop, F, center):
     assert kernels.LAUNCHES["istft"] == before + 1
     ref = mel.istft_reference(re, im, n_fft, hop, win, center)
     torch.testing.assert_close(got, ref, atol=1e-5 * ref.abs().max().item(), rtol=0)
+    if center and win == n_fft:
+        assert ((got - ref).abs() <= 1e-5 * istft_scale(re, im, n_fft, hop)).all()
     with pytest.raises(ValueError, match="expected"):
         mel.istft(re[:, 1:].contiguous(), im[:, 1:].contiguous(), n_fft, hop)
+
+
+@pytest.mark.parametrize("plan,n_fft,hop,F", [
+    ("direct", 16, 8, 257), ("direct", 32, 16, 65), ("fft", 2048, 512, 33),
+    ("fft", 2299, 512, 10), ("split", 16384, 4096, 5), ("split", 9000, 2000, 6)])
+def test_istft_plans(gen, plan, n_fft, hop, F):
+    """Each K5 istft plan, at sizes its rule gives it, on spectra whose
+    pairs hold a loud and a quiet frame: every sample within 1e-5 of its
+    own scale; one launch a call."""
+    assert mel.istft_plan(n_fft, hop, F) == plan
+    bins = n_fft // 2 + 1
+    re, im = rn(gen, 2, bins, F), rn(gen, 2, bins, F)
+    re[..., 1::2] *= 1e-6
+    im[..., 1::2] *= 1e-6
+    before = kernels.LAUNCHES["istft"]
+    got = mel.istft(re, im, n_fft, hop)
+    assert kernels.LAUNCHES["istft"] == before + 1
+    ref = mel.istft_reference(re, im, n_fft, hop)
+    assert ((got - ref).abs() <= 1e-5 * istft_scale(re, im, n_fft, hop)).all()
+
+
+def istft_scale(real, imag, n_fft: int, hop: int):
+    """Each output sample's own scale (as ``chip_smoke.py``'s): the plain
+    istft of a spectrum whose frames hold only (2 / n_fft) sum_k (|re| +
+    |im|), at DC."""
+    dc = torch.zeros_like(real)
+    dc[:, 0] = (real.abs() + imag.abs()).sum(1) * 2.0
+    return mel.istft_reference(dc, torch.zeros_like(imag), n_fft, hop)
 
 
 @pytest.mark.parametrize("H,hop", [(1, 256), (3, 16)])
