@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --ab DIR
 
-``--ab DIR`` times K8-cand, K7, K3's merge and K5 istft alone through the
-public wrappers of the port in DIR (this checkout, or another revision
+``--ab DIR`` times K8-cand, K7, K3's merge and backward, K5 istft and K9
+sine alone through the public wrappers of the port in DIR (this checkout, or another revision
 unpacked by ``git archive``), each held against its plain version, and
 prints one JSON line (``time_ab``); two revisions compare by one method
 when run in one call, in turns. Without it:
@@ -2872,9 +2872,12 @@ def measure_train_kernels(report: Report, seed: int, stft_fwd_calls, stft_calls,
     args = (g, out, f0, base, rand_ini, noise, SR, HOP)
     got, ref = source.nsf_merge_backward(*args), source.nsf_merge_backward_reference(*args)
     err = report.compare("nsf_merge_backward (dW, db)", got, ref, 1e-4 * max_abs(ref))
-    ms, plain, _ = timed_triple(lambda: source.nsf_merge_backward(*args),
-                                lambda: source.nsf_merge_backward_reference(*args))
-    print(f"    kernel {ms:.4f} ms, plain {plain:.4f} ms (no single PyTorch call)")
+    check_rerun(report, "nsf_merge_backward (dW, db)", torch.cat(got),
+                torch.cat(source.nsf_merge_backward(*args)))
+    ms, plain = timed_device_and_host(report, "nsf_merge_backward",
+                                      lambda: source.nsf_merge_backward(*args),
+                                      lambda: source.nsf_merge_backward_reference(*args))
+    print("    (no single PyTorch call)")
     report.kernel("nsf_merge_backward", err, ms, plain,
                   f"B={TRAIN_B} T={T_f} hop={HOP}, 9 harmonics",
                   nbytes(g, out, f0, base, rand_ini, noise) + 40,
@@ -3590,13 +3593,31 @@ def phase_train_sine(report: Report, seed: int):
           f"T={f0.shape[1]} hop={hop}, {rand_ini.shape[1]} harmonic")
     base = source.nsf_phase_base_reference(f0, sr, hop, "linear")
     args = (f0, base, rand_ini, noise, weight, bias, sr, hop)
+    label = f"sine_merge B={f0.shape[0]} T={f0.shape[1]} hop={hop}"
     with torch.no_grad():
         got = source.sine_merge(*args)
-        err = report.compare(f"sine_merge B={f0.shape[0]} T={f0.shape[1]} hop={hop}", got,
-                             source.sine_merge_reference(*args), 1e-5)
-        ms, plain, _ = timed_triple(lambda: source.sine_merge(*args),
-                                    lambda: source.sine_merge_reference(*args))
-    print(f"    kernel {ms:.4f} ms, plain {plain:.4f} ms (no single PyTorch call)")
+        err = report.compare(label, got, source.sine_merge_reference(*args), 1e-5)
+        ms, plain = timed_device_and_host(report, "sine_merge",
+                                          lambda: source.sine_merge(*args),
+                                          lambda: source.sine_merge_reference(*args))
+        # the training form: the forward also writes the merge's inputs
+        # [B, T * hop, H], which the analytic backward reads
+        out, signals = source._sine_merge_forward(*args, 0.1, 0.003, with_signals=True)
+        ref, ref_signals = source._sine_merge_plain(*args, 0.1, 0.003)
+        err = max(err, report.compare(label + " training form", out, ref, 1e-5),
+                  report.compare(label + " training form's signals", signals, ref_signals,
+                                 1e-5))
+    train_w = weight.clone().requires_grad_()
+    train_ms = device_ms(lambda: source.sine_merge(f0, base, rand_ini, noise, train_w, bias,
+                                                   sr, hop))
+    train_host = cuda_ms(lambda: source.sine_merge(f0, base, rand_ini, noise, train_w, bias,
+                                                   sr, hop), reps=20)
+    train_bound, _ = bound(nbytes(f0, base, rand_ini, noise, weight, bias, out, signals),
+                           40 * noise.numel())
+    print(f"    training form: kernel {train_ms:.4f} ms of device time (host-paced "
+          f"{train_host:.4f}), bound {train_bound:.5f} ms; no single PyTorch call")
+    report.extra["sine_merge"].update(training_form=dict(
+        ms=train_ms, host_paced_ms=train_host, bound_ms=train_bound))
     # per sample and harmonic: interpolated f0, the float64 phase, sin, the
     # sr / 2 and voicing gates, noise, merge; tanh (~40)
     report.kernel("sine_merge", err, ms, plain, f"B={f0.shape[0]} T={f0.shape[1]} hop={hop}",
@@ -4636,16 +4657,22 @@ def phase_align(report: Report, seed: int):
 AB_CASES = {"viterbi_candidates": [(1, 1025, 4), (B, T, 4), (1, 2600, 4), (1, 8000, 31)],
             "maximum_path": [(32, 1000, 200), (8, 1200, 1100)],
             "nsf_merge": [(B, T, 512), (B, T, 64)],
-            "istft": [(B, 65537, 16, 8), (B, 1024, 2048, 512)]}
+            "istft": [(B, 65537, 16, 8), (B, 1024, 2048, 512)],
+            # (B, T, hop, H): K3's backward at the train step's shape, K9
+            # sine at the train_sine step's template
+            "nsf_merge_backward": [(16, 64, 512, 9)],
+            "sine_merge": [(16, 128, 256, 1)]}
 
 
 def time_ab(tree: Path) -> int:
-    """K8-cand, K7, K3's merge and K5 istft through the public wrappers of
-    the port in ``tree``, on inputs drawn from fixed seeds on the card:
-    device milliseconds a call (``device_ms``), microseconds a step where a
-    chain has steps, and whether the result holds against the plain
-    version (K8-cand and K7 identical; ``nsf_merge`` within 1e-4; ``istft``
-    every sample within 1e-5 of its own scale, ``istft_scale``); one JSON
+    """K8-cand, K7, K3's merge and backward, K5 istft and K9 sine (both
+    forms) through the public wrappers of the port in ``tree``, on inputs
+    drawn from fixed seeds on the card: device milliseconds a call
+    (``device_ms``), microseconds a step where a chain has steps, and
+    whether the result holds against the plain version (K8-cand and K7
+    identical; ``nsf_merge`` within 1e-4; ``nsf_merge_backward`` within
+    1e-4 of the plain version's scale; ``istft`` every sample within 1e-5
+    of its own scale, ``istft_scale``; ``sine_merge`` within 1e-5); one JSON
     line with the card's name and power limit and the SM clock sampled
     every 50 ms while the cases run (median and largest, MHz). Exit code 1
     where a result does not hold."""
@@ -4737,6 +4764,45 @@ def run_ab(row):
         row("istft", f"B={B_} F={F_} n_fft={n_fft} hop={hop}",
             lambda: mel.istft(re, im, n_fft, hop), lambda: mel.istft_reference(re, im, n_fft, hop),
             holds=lambda got, ref: bool(((got - ref).abs() <= 1e-5 * scale).all()))
+    for B_, T_, hop, H in AB_CASES["nsf_merge_backward"]:
+        gen = torch.Generator(device=DEVICE).manual_seed(T_ + hop + H)
+        f0 = torch.rand((B_, T_), generator=gen, device=DEVICE) * 400 + 100
+        f0 = f0 * (torch.rand((B_, T_), generator=gen, device=DEVICE) > 0.2)
+        rand_ini = torch.rand((B_, H), generator=gen, device=DEVICE)
+        rand_ini[:, 0] = 0
+        noise = torch.randn((B_, T_ * hop, H), generator=gen, device=DEVICE)
+        base = source.nsf_phase_base_reference(f0, SR, hop)
+        out = source.nsf_merge_reference(
+            f0, base, rand_ini, noise, torch.randn(H, generator=gen, device=DEVICE) / 3,
+            torch.randn(1, generator=gen, device=DEVICE) * 0.1, SR, hop)
+        g = torch.randn(out.shape, generator=gen, device=DEVICE)
+        args = (g, out, f0, base, rand_ini, noise, SR, hop)
+        row("nsf_merge_backward", f"B={B_} T={T_} hop={hop} H={H}",
+            lambda: source.nsf_merge_backward(*args),
+            lambda: source.nsf_merge_backward_reference(*args),
+            holds=lambda got, ref: max_err(got, ref) <= 1e-4 * max_abs(ref))
+        del noise, args
+    for B_, T_, hop, H in AB_CASES["sine_merge"]:
+        gen = torch.Generator(device=DEVICE).manual_seed(T_ + hop + H)
+        f0 = torch.rand((B_, T_), generator=gen, device=DEVICE) * 700 + 80
+        f0 = f0 * (torch.rand((B_, T_), generator=gen, device=DEVICE) > 0.2)
+        rand_ini = torch.rand((B_, H), generator=gen, device=DEVICE)
+        rand_ini[:, 0] = 0
+        noise = torch.randn((B_, T_ * hop, H), generator=gen, device=DEVICE)
+        weight = torch.randn(H, generator=gen, device=DEVICE) / H ** 0.5
+        bias = torch.randn(1, generator=gen, device=DEVICE) * 0.1
+        base = source.nsf_phase_base_reference(f0, SR, hop, "linear")
+        case = f"B={B_} T={T_} hop={hop} H={H}"
+        holds = lambda got, ref: max_err(got, ref) <= 1e-5  # noqa: E731
+        with torch.no_grad():
+            args = (f0, base, rand_ini, noise, weight, bias, SR, hop)
+            row("sine_merge", case, lambda: source.sine_merge(*args),
+                lambda: source.sine_merge_reference(*args), holds=holds)
+        # the training form: the forward also writes the merge's inputs
+        train_args = (f0, base, rand_ini, noise, weight.clone().requires_grad_(), bias, SR, hop)
+        row("sine_merge", case + " training", lambda: source.sine_merge(*train_args).detach(),
+            lambda: source.sine_merge_reference(*args), holds=holds)
+        del noise, args, train_args
 
 
 def tensor_core_products(kernels):
@@ -4777,8 +4843,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ab", type=Path, metavar="DIR",
-                        help="time K8-cand, K7, K3's merge and K5 istft alone through the "
-                             "port in DIR")
+                        help="time K8-cand, K7, K3's merge and backward, K5 istft and K9 "
+                             "sine alone through the port in DIR")
     args = parser.parse_args()
 
     import torch

@@ -12,8 +12,9 @@ them.
 Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel and nowhere else, so that a run can show which kernels the main path
 went through. Where one call's C entry launches more than one kernel (K5's
-backward and its split paths, K5 istft's FFT and split plans), the
-wrapper adds one a call: such a count is of calls. ``KERNELS`` describes
+backward and its split paths, K5 istft's FFT and split plans, K3's
+backward with its partial sums' kernel), the wrapper adds one a call:
+such a count is of calls. ``KERNELS`` describes
 each kernel for reports.
 """
 
@@ -126,7 +127,7 @@ KERNELS = {
         replaces=_TPU + "ops/blocked_conv.py:84",
     ),
     "nsf_merge_backward": dict(
-        id="K3", route="triton", source=_PORT + "models/vocoders/source.py",
+        id="K3", route="cuda", source=_PORT + "csrc/nsf_source.cu",
         replaces=_TPU + "models/vocoders/source.py:92",
     ),
     "conv2d": dict(
@@ -158,7 +159,7 @@ KERNELS = {
         replaces=_TPU + "ops/mel.py:249",
     ),
     "sine_merge": dict(
-        id="K9 sine", route="triton", source=_PORT + "models/vocoders/source.py",
+        id="K9 sine", route="cuda", source=_PORT + "csrc/nsf_source.cu",
         replaces=_TPU + "models/vocoders/nsf_hifigan.py:188",
     ),
     "maximum_path": dict(
@@ -228,6 +229,8 @@ SIGNATURES = {
     },
     "nsf_source": {
         "nsf_merge": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
+        "nsf_merge_backward": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
+        "sine_merge": [_P] * 10 + [_I] * 4 + [_F] * 4 + [_P],
     },
     "istft": {
         "istft_plan": [_I] * 3,

@@ -31,10 +31,12 @@ is later work) and writes ``[B, T * hop]``. ``nsf_phase_base_reference``
 and ``nsf_merge_reference`` are the plain versions.
 
 Training trains the merge's Dense(9 -> 1) (``l_linear``): its gradient is
-``nsf_merge_backward``, a third Triton kernel that recomputes the signals
-(replacing what XLA derives for ``source.py:92`` on the TPU), with
-``nsf_merge_backward_reference`` beside it. The gradient reaches the
-merged source through the noise convs' input gradient (K4).
+``nsf_merge_backward`` (CUDA, ``csrc/nsf_source.cu``, on the merge's
+staged-noise core), which recomputes the signals and adds its blocks'
+sums in a fixed order (replacing what XLA derives for ``source.py:92``
+on the TPU), with ``nsf_merge_backward_reference`` beside it. The
+gradient reaches the merged source through the noise convs' input
+gradient (K4).
 
 RefineGAN's comb-tooth template (K9) replaces the JAX package's
 ``BlockedCombTooth`` (``source.py:172``) on linear f0 interpolation
@@ -57,14 +59,15 @@ template out. ``comb_merge_reference`` is the plain version,
 RefineGAN's sine template (K9 sine) replaces the JAX package's
 ``RefineSineGen`` (``refinegan.py:252``), whose phase is a mod-1
 associative scan over samples (``nsf_hifigan.py:188 _mod1_phase_scan``)
-of linearly resized f0. ``sine_merge``, a Triton kernel, takes the frame
-base from K3's linear scan and forms per (row, tile of frames) the
-interpolated f0, the float64 phase (as K9 comb), each harmonic's sine
-with its start phase, 0 above sr // 2, the amplitude, the voicing gate,
-the injected noise and the Dense(H -> 1) merge with tanh, and writes only
-``[B, T * hop, 1]``. The sines are stop-gradient but the merge is
-trained: in training the kernel also writes the merge's inputs, and
-``_SineMerge``'s backward is the analytic tanh/merge gradient in torch.
+of linearly resized f0. ``sine_merge`` is ``nsf_merge``'s kernel in its
+linear mode (``csrc/nsf_source.cu``): it takes the frame base from K3's
+linear scan and forms per sample the interpolated f0, the float64 phase
+(as K9 comb), each harmonic's sine with its start phase, 0 above
+sr // 2, the amplitude, the voicing gate, the injected noise and the
+Dense(H -> 1) merge with tanh, and writes only ``[B, T * hop, 1]``. The
+sines are stop-gradient but the merge is trained: in training the kernel
+also writes the merge's inputs, and ``_SineMerge``'s backward is the
+analytic tanh/merge gradient in torch.
 ``sine_merge_reference`` is the plain version, ``RefineSineSource`` the
 module (key ``merge``).
 """
@@ -86,6 +89,7 @@ libdevice = None
 _TRITON: dict = {}
 _FRAMES_PER_PROGRAM = 4
 NSF_MAX_HARMONICS = 16  # csrc/nsf_source.cu's MAX_H
+_NSF_CHUNK = 512  # csrc/nsf_source.cu's CHUNK: a block owns whole chunks of samples
 
 
 def _phase_base_kernel(f0_ptr, base_ptr, T, sr, hop, a_prev, a_cur, a_next,
@@ -108,36 +112,6 @@ def _phase_base_kernel(f0_ptr, base_ptr, T, sr, hop, a_prev, a_cur, a_next,
     excl = tl.cumsum(advance, axis=0) - advance
     base = (excl - tl.floor(excl)).to(tl.float32)
     tl.store(base_ptr + b * T + offs, base, mask=mask)
-
-
-def _source_bwd_kernel(f0_ptr, base_ptr, rand_ptr, noise_ptr, out_ptr, g_ptr,
-                       part_ptr, T, sr, sine_amp, noise_std,
-                       HOP: tl.constexpr, FT: tl.constexpr, NH: tl.constexpr):
-    tile = tl.program_id(0)
-    b = tl.program_id(1)
-    frames = tile * FT + tl.arange(0, FT)
-    fmask = frames < T
-    f0 = tl.load(f0_ptr + b * T + frames, mask=fmask, other=0.0)
-    base = tl.load(base_ptr + b * T + frames, mask=fmask, other=0.0)
-    rad = tl.math.div_rn(f0, sr)
-    j = tl.arange(0, HOP)
-    phase = base[:, None] + rad[:, None] * (j + 1).to(tl.float32)[None, :]
-    phase = phase - tl.floor(phase)
-    uv = (f0 > 0.0).to(tl.float32)
-    noise_amp = uv * noise_std + (1.0 - uv) * sine_amp / 3.0
-    samples = (b * T + frames[:, None]) * HOP + j[None, :]
-    smask = fmask[:, None] & (j[None, :] < HOP)
-    out = tl.load(out_ptr + samples, mask=smask, other=0.0)
-    gz = tl.load(g_ptr + samples, mask=smask, other=0.0) * (1.0 - out * out)
-    part = part_ptr + (b * tl.num_programs(0) + tile) * (NH + 1)
-    for n in tl.static_range(NH):
-        ph = phase * (n + 1) + tl.load(rand_ptr + b * NH + n)
-        ph = ph - tl.floor(ph)
-        sine = libdevice.sin(6.283185307179586 * ph) * sine_amp
-        nz = tl.load(noise_ptr + samples * NH + n, mask=smask, other=0.0)
-        s_n = sine * uv[:, None] + noise_amp[:, None] * nz
-        tl.store(part + n, tl.sum(tl.sum(gz * s_n, axis=1), axis=0))
-    tl.store(part + NH, tl.sum(tl.sum(gz, axis=1), axis=0))
 
 
 def _comb_kernel(f0_ptr, base_ptr, coef_ptr, psum_ptr, noise_ptr, out_ptr, T, sr,
@@ -175,56 +149,6 @@ def _comb_kernel(f0_ptr, base_ptr, coef_ptr, psum_ptr, noise_ptr, out_ptr, T, sr
     tl.store(out_ptr + samples, out, mask=smask)
 
 
-def _sine_kernel(f0_ptr, base_ptr, coef_ptr, psum_ptr, rand_ptr, noise_ptr, w_ptr,
-                 bias_ptr, out_ptr, sig_ptr, T, sr, sine_amp, noise_std, half_sr,
-                 HOP: tl.constexpr, FT: tl.constexpr, NH: tl.constexpr,
-                 SIGNALS: tl.constexpr):
-    b = tl.program_id(1)
-    frames = tl.program_id(0) * FT + tl.arange(0, FT)
-    fmask = frames < T
-    row = f0_ptr + b * T
-    f0 = tl.load(row + frames, mask=fmask, other=0.0)
-    f_prev = tl.load(row + tl.maximum(frames - 1, 0), mask=fmask, other=0.0)
-    f_next = tl.load(row + tl.minimum(frames + 1, T - 1), mask=fmask, other=0.0)
-    base = tl.load(base_ptr + b * T + frames, mask=fmask, other=0.0)
-    j = tl.arange(0, HOP)
-    fp, fc, fn = f_prev[:, None], f0[:, None], f_next[:, None]
-    f0s = (fp * tl.load(coef_ptr + j)[None, :] + fc * tl.load(coef_ptr + HOP + j)[None, :]
-           + fn * tl.load(coef_ptr + 2 * HOP + j)[None, :])
-    # the intra-frame prefix sum of rad = f0 / sr, in float64 (as K9 comb)
-    intra = (fp.to(tl.float64) * tl.load(psum_ptr + j)[None, :]
-             + fc.to(tl.float64) * tl.load(psum_ptr + HOP + j)[None, :]
-             + fn.to(tl.float64) * tl.load(psum_ptr + 2 * HOP + j)[None, :])
-    phase = base[:, None].to(tl.float64) + intra / sr.to(tl.float64)
-    voiced = f0s > 0.0
-    noise_amp = tl.where(voiced, noise_std, sine_amp / 3.0)
-    samples = (b * T + frames[:, None]) * HOP + j[None, :]
-    smask = fmask[:, None] & (j[None, :] < HOP)
-    acc = tl.zeros((FT, HOP), dtype=tl.float32)
-    for n in tl.static_range(NH):
-        ph = phase * (n + 1) + tl.load(rand_ptr + b * NH + n).to(tl.float64)
-        ph = (ph - tl.floor(ph)).to(tl.float32)
-        sine = libdevice.sin(6.283185307179586 * ph)
-        sine = tl.where(f0s * (n + 1) > half_sr, 0.0, sine) * sine_amp
-        nz = tl.load(noise_ptr + samples * NH + n, mask=smask, other=0.0)
-        s_n = tl.where(voiced, sine, 0.0) + noise_amp * nz
-        if SIGNALS:
-            tl.store(sig_ptr + samples * NH + n, s_n, mask=smask)
-        acc += s_n * tl.load(w_ptr + n)
-    out = libdevice.tanh(acc + tl.load(bias_ptr))
-    tl.store(out_ptr + samples, out, mask=smask)
-
-
-def _partials_sum_kernel(part_ptr, out_ptr, P, NH1: tl.constexpr,
-                         BLOCK: tl.constexpr):
-    n = tl.program_id(0)
-    acc = tl.zeros((BLOCK,), dtype=tl.float32)
-    for p0 in range(0, P, BLOCK):
-        rows = p0 + tl.arange(0, BLOCK)
-        acc += tl.load(part_ptr + rows * NH1 + n, mask=rows < P, other=0.0)
-    tl.store(out_ptr + n, tl.sum(acc, axis=0))
-
-
 def _triton_kernels() -> dict:
     global tl, libdevice
     if not _TRITON:
@@ -237,10 +161,7 @@ def _triton_kernels() -> dict:
             from triton.language.extra.cuda import libdevice as _libdevice
         tl, libdevice = triton.language, _libdevice
         _TRITON["base"] = triton.jit(_phase_base_kernel)
-        _TRITON["source_bwd"] = triton.jit(_source_bwd_kernel)
-        _TRITON["partials_sum"] = triton.jit(_partials_sum_kernel)
         _TRITON["comb"] = triton.jit(_comb_kernel)
-        _TRITON["sine"] = triton.jit(_sine_kernel)
     return _TRITON
 
 
@@ -373,6 +294,15 @@ def nsf_phase_base(f0, sampling_rate: int, hop: int, interp: str = "nearest"):
     return base
 
 
+def _check_sizes(name: str, hop: int, H: int) -> None:
+    """The sizes ``csrc/nsf_source.cu``'s kernels take."""
+    if hop & (hop - 1):
+        raise ValueError(f"{name}: hop {hop} is not a power of two")
+    if not 1 <= H <= NSF_MAX_HARMONICS:
+        raise ValueError(f"{name}: {H} harmonics; the kernel takes 1 to "
+                         f"{NSF_MAX_HARMONICS}")
+
+
 def _nsf_merge_forward(f0, base, rand_ini, noise, weight, bias,
                        sampling_rate: int, hop: int, sine_amp: float = 0.1,
                        noise_std: float = 0.003):
@@ -388,11 +318,7 @@ def _nsf_merge_forward(f0, base, rand_ini, noise, weight, bias,
             or tuple(noise.shape) != (B, T * hop, H)
             or tuple(weight.shape) != (H,) or bias.numel() != 1):
         raise ValueError("nsf_merge: shapes do not match f0 [B, T]")
-    if hop & (hop - 1):
-        raise ValueError(f"nsf_merge: hop {hop} is not a power of two")
-    if not 1 <= H <= NSF_MAX_HARMONICS:
-        raise ValueError(f"nsf_merge: {H} harmonics; the kernel takes 1 to "
-                         f"{NSF_MAX_HARMONICS}")
+    _check_sizes("nsf_merge", hop, H)
     out = torch.empty((B, T * hop, 1), dtype=f0.dtype, device=f0.device)
     kernels.check(kernels.load_library("nsf_source").nsf_merge(
         f0.data_ptr(), base.data_ptr(), rand_ini.data_ptr(), noise.data_ptr(),
@@ -406,34 +332,37 @@ def _nsf_merge_forward(f0, base, rand_ini, noise, weight, bias,
 def nsf_merge_backward(g, out, f0, base, rand_ini, noise, sampling_rate: int,
                        hop: int, sine_amp: float = 0.1,
                        noise_std: float = 0.003):
-    """K3's backward: (dW [H], db [1]) of the Dense(H -> 1) merge. One Triton
-    program per (batch row, tile of frames) recomputes the phase, sines,
-    voicing and noise of its samples, as the plain version forms them (the
-    ``[B, T * hop, H]`` sines never reach device memory), and writes its
-    H + 1 partial sums; a second program per output adds the partials in
-    program order. Memory-bound on the noise it rereads. CPU tensors take
-    ``nsf_merge_backward_reference``."""
+    """K3's backward (``csrc/nsf_source.cu``): (dW [H], db [1]) of the
+    Dense(H -> 1) merge. On ``nsf_merge``'s core, each block recomputes its
+    samples' phase, sines, voicing and noise as the merge forms them (the
+    ``[B, T * hop, H]`` signals never reach device memory) and writes its
+    H + 1 sums; a second kernel adds the blocks' sums in block order, so a
+    second call gives the same bits. H at most 16, hop a power of two. CPU
+    tensors take ``nsf_merge_backward_reference``."""
     if not f0.is_cuda:
         return nsf_merge_backward_reference(g, out, f0, base, rand_ini, noise,
                                             sampling_rate, hop, sine_amp,
                                             noise_std)
     kernels.require_cuda("nsf_merge_backward", g, out, f0, base, rand_ini, noise)
+    if f0.dtype != torch.float32:
+        raise TypeError(f"nsf_merge_backward: takes float32, got {f0.dtype}")
     B, T = f0.shape
     H = rand_ini.shape[1]
     if tuple(g.shape) != (B, T * hop, 1) or tuple(out.shape) != (B, T * hop, 1):
         raise ValueError("nsf_merge_backward: g and out must be [B, T * hop, 1]")
-    if hop & (hop - 1):
-        raise ValueError(f"nsf_merge_backward: hop {hop} is not a power of two")
-    tiles = -(-T // _FRAMES_PER_PROGRAM)
-    part = torch.empty((B * tiles, H + 1), dtype=f0.dtype, device=f0.device)
+    if (tuple(base.shape) != (B, T) or tuple(rand_ini.shape) != (B, H)
+            or tuple(noise.shape) != (B, T * hop, H)):
+        raise ValueError("nsf_merge_backward: shapes do not match f0 [B, T]")
+    _check_sizes("nsf_merge_backward", hop, H)
+    # a block's partial sums: at most one block a chunk of samples
+    partials = torch.empty(((H + 1) * B * -(-T * hop // _NSF_CHUNK),), dtype=f0.dtype,
+                           device=f0.device)
     sums = torch.empty((H + 1,), dtype=f0.dtype, device=f0.device)
-    k = _triton_kernels()
-    k["source_bwd"][(tiles, B)](
-        f0, base, rand_ini, noise, out, g, part, T, float(sampling_rate),
-        float(sine_amp), float(noise_std), HOP=hop, FT=_FRAMES_PER_PROGRAM,
-        NH=H, num_warps=8,
-    )
-    k["partials_sum"][(H + 1,)](part, sums, B * tiles, NH1=H + 1, BLOCK=256)
+    kernels.check(kernels.load_library("nsf_source").nsf_merge_backward(
+        g.data_ptr(), out.data_ptr(), f0.data_ptr(), base.data_ptr(), rand_ini.data_ptr(),
+        noise.data_ptr(), partials.data_ptr(), sums.data_ptr(), B, T, hop, H,
+        float(sampling_rate), float(sine_amp), float(noise_std), kernels.stream()),
+        "nsf_merge_backward")
     kernels.count_launch("nsf_merge_backward")
     return sums[:H], sums[H:]
 
@@ -662,20 +591,18 @@ def _sine_merge_forward(f0, base, rand_ini, noise, weight, bias, sampling_rate: 
             or tuple(noise.shape) != (B, T * hop, H)
             or tuple(weight.shape) != (H,) or bias.numel() != 1):
         raise ValueError("sine_merge: shapes do not match f0 [B, T]")
-    if hop & (hop - 1):
-        raise ValueError(f"sine_merge: hop {hop} is not a power of two")
+    _check_sizes("sine_merge", hop, H)
     out = torch.empty((B, T * hop, 1), dtype=f0.dtype, device=f0.device)
-    signals = torch.empty_like(noise) if with_signals else out
+    signals = torch.empty_like(noise) if with_signals else None
     coef, psum = _coeff_tensors(hop, str(f0.device))
-    grid = (-(-T // _FRAMES_PER_PROGRAM), B)
-    _triton_kernels()["sine"][grid](
-        f0, base, coef, psum, rand_ini, noise, weight, bias, out, signals, T,
+    kernels.check(kernels.load_library("nsf_source").sine_merge(
+        f0.data_ptr(), base.data_ptr(), coef.data_ptr(), psum.data_ptr(),
+        rand_ini.data_ptr(), noise.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), signals.data_ptr() if with_signals else None, B, T, hop, H,
         float(sampling_rate), float(sine_amp), float(noise_std),
-        float(sampling_rate // 2), HOP=hop, FT=_FRAMES_PER_PROGRAM, NH=H,
-        SIGNALS=with_signals, num_warps=8,
-    )
+        float(sampling_rate // 2), kernels.stream()), "sine_merge")
     kernels.count_launch("sine_merge")
-    return out, (signals if with_signals else None)
+    return out, signals
 
 
 class _SineMerge(torch.autograd.Function):
@@ -704,13 +631,15 @@ class _SineMerge(torch.autograd.Function):
 
 def sine_merge(f0, base, rand_ini, noise, weight, bias, sampling_rate: int, hop: int,
                sine_amp: float = 0.1, noise_std: float = 0.003):
-    """K9 sine: one Triton program per (batch row, tile of frames) forms the
-    linearly interpolated f0, its float64 phase (the frame's base plus the
+    """K9 sine (``csrc/nsf_source.cu``, ``nsf_merge``'s core in its linear
+    mode; H at most 16, hop a power of two): per sample the linearly
+    interpolated f0, its float64 phase (the frame's base plus the
     intra-frame prefix sum of f0 / sr), the harmonics' sines with their
     start phases, the zero above sr // 2, the amplitude, the voicing gate,
-    the noise and the Dense(H -> 1) merge with tanh, and writes only the
-    ``[B, T * hop, 1]`` template; differentiable in ``weight`` and ``bias``
-    (``_SineMerge``). CPU tensors take ``sine_merge_reference``."""
+    the noise and the Dense(H -> 1) merge with tanh; only the
+    ``[B, T * hop, 1]`` template is written; differentiable in ``weight``
+    and ``bias`` (``_SineMerge``). CPU tensors take
+    ``sine_merge_reference``."""
     args = (f0, base, rand_ini, noise, weight, bias, sampling_rate, hop, sine_amp,
             noise_std)
     if torch.is_grad_enabled() and (weight.requires_grad or bias.requires_grad):

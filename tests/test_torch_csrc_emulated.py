@@ -1,6 +1,7 @@
-"""The CUDA sources of K1 (with its training mode, backward and weight gradients), K3's merge, K4 (and its weight gradient), K5 (forward,
+"""The CUDA sources of K1 (with its training mode, backward and weight gradients), K3's merge
+(and its backward), K4 (and its weight gradient), K5 (forward,
 backward and istft, its three plans), K6 (grouped and 2-D, with the 2-D weight gradient),
-K7, K8-cand, K8 dense (pYIN's and CREPE's decoder) and K10 (with its backward), compiled for the host CPU and run against their
+K7, K8-cand, K8 dense (pYIN's and CREPE's decoder), K9 sine and K10 (with its backward), compiled for the host CPU and run against their
 plain PyTorch versions at small shapes.
 
 The card is the real test (``chip_smoke.py``, ``tests/test_torch_kernels_cuda.py``),
@@ -81,11 +82,13 @@ inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 struct alignas(8) uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 inline float2 make_float2(float x, float y) { return {x, y}; }
+struct alignas(16) double2 { double x, y; };
+inline double2 make_double2(double x, double y) { return {x, y}; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline thread_local dim3 threadIdx, blockIdx, blockDim;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local std::barrier<>* g_barrier;
 inline thread_local std::barrier<>* g_warp_barrier;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
@@ -131,6 +134,7 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+template <class T> inline T __ldg(const T* p) { return *p; }
 // sin and cos of pi x (the card's is exact to a few ulps; this rounds the
 // double result)
 inline void sincospif(float x, float* s, float* c) {
@@ -206,6 +210,7 @@ template <class F> void run_clusters(dim3 grid, dim3 block, size_t smem, unsigne
       const unsigned r = t / n, tid = t % n;
       threadIdx = dim3(tid);
       blockDim = block;
+      gridDim = grid;
       g_barrier = blocks[r].get();
       g_warp_barrier = warps[r * warps_a_block + tid / 32].get();
       g_shuffle = shuffle.data() + r * n;
@@ -948,6 +953,95 @@ def test_nsf_merge_source(host_libs, B, T, hop, H, seed):
         f0.data_ptr(), base.data_ptr(), rand_ini.data_ptr(), noise.data_ptr(),
         weight.data_ptr(), bias.data_ptr(), out.data_ptr(), B, T, hop, 17, 44100.0, 0.1,
         0.003, None) != 0
+
+
+def _nsf_inputs(B, T, hop, H, seed, f0_scale=900.0):
+    """f0 [B, T] with a run of unvoiced frames and ~20% more, start phases
+    near 1 (column 0 is 0), noise [B, T * hop, H], the merge's weights."""
+    gen = torch.Generator().manual_seed(seed)
+    f0 = torch.rand((B, T), generator=gen) * f0_scale + 60
+    f0[:, T // 4: T // 4 + 7] = 0.0
+    f0 = f0 * (torch.rand((B, T), generator=gen) > 0.2)
+    rand_ini = 1 - torch.rand((B, H), generator=gen) * 1e-3
+    rand_ini[:, 0] = 0
+    noise = rn(gen, B, T * hop, H)
+    weight, bias = rn(gen, H, scale=H ** -0.5), rn(gen, 1, scale=0.1)
+    return gen, f0, rand_ini, noise, weight, bias
+
+
+@pytest.mark.parametrize(
+    "B,T,hop,H,seed",
+    # as test_nsf_merge_source: hop 16, 64 and 256, 9 harmonics and 1, T
+    # not a multiple of a block's frames (a ragged last chunk at hop 16),
+    # unvoiced runs, start phases near 1, the ring wrapping at hop 256
+    [(2, 37, 16, 9, 10), (1, 45, 64, 1, 11), (1, 203, 256, 9, 12), (2, 29, 16, 1, 13)],
+)
+def test_nsf_merge_backward_source(host_libs, B, T, hop, H, seed):
+    """K3's backward (``csrc/nsf_source.cu``) against
+    ``nsf_merge_backward_reference``: dW and db within 1e-4 of their scale
+    (sums over every sample in another order, the sines by rotation); a
+    second call gives the same bits; 17 harmonics are refused."""
+    from fish_diffusion_tpu_torch.models.vocoders import source
+
+    gen, f0, rand_ini, noise, weight, bias = _nsf_inputs(B, T, hop, H, seed)
+    base = source.nsf_phase_base_reference(f0, 44100, hop)
+    out = source.nsf_merge_reference(f0, base, rand_ini, noise, weight, bias, 44100, hop)
+    g = rn(gen, *out.shape)
+    lib = host_libs["nsf_source"]
+    partials = torch.full(((H + 1) * B * -(-T * hop // 512),), float("nan"))
+
+    def backward(H_=H):
+        sums = torch.full((H + 1,), float("nan"))
+        status = lib.nsf_merge_backward(
+            g.data_ptr(), out.data_ptr(), f0.data_ptr(), base.data_ptr(), rand_ini.data_ptr(),
+            noise.data_ptr(), partials.data_ptr(), sums.data_ptr(), B, T, hop, H_, 44100.0,
+            0.1, 0.003, None)
+        return status, sums
+
+    status, sums = backward()
+    assert status == 0
+    dw, db = source.nsf_merge_backward_reference(g, out, f0, base, rand_ini, noise, 44100, hop)
+    ref = torch.cat([dw, db])
+    assert (sums - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert torch.equal(backward()[1], sums)
+    assert backward(17)[0] != 0
+
+
+@pytest.mark.parametrize(
+    "B,T,hop,H,seed",
+    # hop 16 and 256 (a thread's samples on one coefficient lane; at hop 16
+    # a ragged last chunk), 1 harmonic (RefineGAN's) and 3; an f0 at
+    # sr / 2 - 50, whose harmonics above the first cross sr // 2 and whose
+    # phase advances ~128 turns in a frame at hop 256; unvoiced frames;
+    # blocks of 4 chunks (the ring wraps) at hop 256 and 512; hop 512 and
+    # 1024, past the block's 256 threads (a lane read a sample), at 1024 a
+    # block inside one frame
+    [(2, 37, 16, 1, 20), (1, 45, 256, 1, 21), (2, 29, 16, 3, 22), (1, 200, 256, 3, 23),
+     (1, 9, 1024, 1, 24), (1, 100, 512, 3, 25)],
+)
+def test_sine_merge_source(host_libs, B, T, hop, H, seed):
+    """K9 sine (``csrc/nsf_source.cu``'s linear mode) against
+    ``_sine_merge_plain``: the template and, in the training form, the
+    written signals within 1e-5."""
+    from fish_diffusion_tpu_torch.models.vocoders import source
+
+    sr = 44100
+    _, f0, rand_ini, noise, weight, bias = _nsf_inputs(B, T, hop, H, seed, f0_scale=700.0)
+    f0[0, T // 2] = sr / 2 - 50
+    base = source.nsf_phase_base_reference(f0, sr, hop, "linear")
+    coef, psum = source._coeff_tensors(hop, "cpu")
+    ref, ref_signals = source._sine_merge_plain(f0, base, rand_ini, noise, weight, bias, sr,
+                                                hop, 0.1, 0.003)
+    for signals in (None, torch.full_like(noise, float("nan"))):
+        out = torch.full((B, T * hop, 1), float("nan"))
+        assert host_libs["nsf_source"].sine_merge(
+            f0.data_ptr(), base.data_ptr(), coef.data_ptr(), psum.data_ptr(),
+            rand_ini.data_ptr(), noise.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), None if signals is None else signals.data_ptr(), B, T, hop, H,
+            float(sr), 0.1, 0.003, float(sr // 2), None) == 0
+        assert (out - ref).abs().max().item() <= 1e-5
+        if signals is not None:
+            assert (signals - ref_signals).abs().max().item() <= 1e-5
 
 
 def _k5(n_fft, win, double=False):

@@ -693,23 +693,33 @@ def test_conv_transpose1d_gradients(gen, C_in, C_out, K, u):
         torch.testing.assert_close(g_, r_, atol=1e-4 * r_.abs().max().item(), rtol=0)
 
 
-def test_nsf_merge_backward(gen):
+@pytest.mark.parametrize("B,T,hop,H", [(3, 50, 256, 9), (2, 37, 16, 9), (2, 45, 64, 1)])
+def test_nsf_merge_backward(gen, B, T, hop, H):
     """K3's backward: dW and db <= 1e-4 of their scale (sums over every
-    sample in another order)."""
-    B, T, hop = 3, 50, 256
+    sample in another order), at the modules' 9 harmonics and 1, with a
+    ragged last chunk at hop 16; a second call gives the same bits; one
+    launch a call; 17 harmonics raise before a launch."""
     f0 = torch.rand((B, T), generator=gen, device="cuda") * 500 + 80
     f0 = f0 * (torch.rand((B, T), generator=gen, device="cuda") > 0.3)
-    rand_ini = torch.rand((B, 9), generator=gen, device="cuda")
+    rand_ini = torch.rand((B, H), generator=gen, device="cuda")
     rand_ini[:, 0] = 0
-    noise = rn(gen, B, T * hop, 9)
+    noise = rn(gen, B, T * hop, H)
     base = source.nsf_phase_base(f0, 44100, hop)
-    out = source.nsf_merge_reference(f0, base, rand_ini, noise, rn(gen, 9, scale=0.3),
+    out = source.nsf_merge_reference(f0, base, rand_ini, noise, rn(gen, H, scale=0.3),
                                      rn(gen, 1, scale=0.1), 44100, hop)
     g = rn(gen, *out.shape)
     args = (g, out, f0, base, rand_ini, noise, 44100, hop)
-    for got, ref in zip(source.nsf_merge_backward(*args),
-                        source.nsf_merge_backward_reference(*args)):
-        torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
+    before = kernels.LAUNCHES["nsf_merge_backward"]
+    got = source.nsf_merge_backward(*args)
+    assert kernels.LAUNCHES["nsf_merge_backward"] == before + 1
+    for got_, ref in zip(got, source.nsf_merge_backward_reference(*args)):
+        torch.testing.assert_close(got_, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
+    again = source.nsf_merge_backward(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    wide = torch.zeros((B, 17), device="cuda")
+    with pytest.raises(ValueError, match="harmonics"):
+        source.nsf_merge_backward(g, out, f0, base, wide, rn(gen, B, T * hop, 17), 44100, hop)
+    assert kernels.LAUNCHES["nsf_merge_backward"] == before + 2
 
 
 @pytest.mark.parametrize(
@@ -944,8 +954,9 @@ def istft_scale(real, imag, n_fft: int, hop: int):
 @pytest.mark.parametrize("H,hop", [(1, 256), (3, 16)])
 def test_sine_merge(gen, H, hop):
     """K9 sine: the template <= 1e-5 of the plain version's on a voiced and
-    unvoiced f0 with a value near sr / 2; the merge's gradients (the
-    kernel's written signals, the analytic backward) <= 1e-4 relative."""
+    unvoiced f0 with a value near sr / 2, in both forms; the training
+    form's written signals <= 1e-5 of the plain version's; the merge's
+    gradients (the analytic backward on those signals) <= 1e-4 relative."""
     B, T, sr = 3, 70, 44100
     f0 = torch.rand((B, T), generator=gen, device="cuda") * 700 + 80
     f0 = f0 * (torch.rand((B, T), generator=gen, device="cuda") > 0.2)
@@ -958,6 +969,10 @@ def test_sine_merge(gen, H, hop):
     args = (f0, base, rand_ini, noise, weight, bias, sr, hop)
     got = source.sine_merge(*args)
     torch.testing.assert_close(got, source.sine_merge_reference(*args), atol=1e-5, rtol=0)
+    out, signals = source._sine_merge_forward(*args, 0.1, 0.003, with_signals=True)
+    ref, ref_signals = source._sine_merge_plain(*args, 0.1, 0.003)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(signals, ref_signals, atol=1e-5, rtol=0)
     g = rn(gen, B, T * hop, 1)
     grads = []
     for fn in (source.sine_merge, source.sine_merge_reference):
