@@ -4,8 +4,10 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --ab DIR
 
-``--ab DIR`` times K8-cand, K7, K3's merge and backward, K5 istft and K9
-sine alone through the public wrappers of the port in DIR (this checkout, or another revision
+``--ab DIR`` times K8-cand, K7, K3's merge and backward, K5 istft, K9
+sine and the source compositions (K3, K9 comb, K9 sine with their
+frame-phase scan) alone through the public wrappers of the port in DIR
+(this checkout, or another revision
 unpacked by ``git archive``), each held against its plain version, and
 prints one JSON line (``time_ab``); two revisions compare by one method
 when run in one call, in turns. Without it:
@@ -21,9 +23,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             the weight gradients, wgmma in the forward and the gate
             backward; none fails).
 3. kernels: every hand-written kernel against its plain PyTorch version at
-            B=4 x 1024 frames, with median CUDA-event times of both (K2's and
-            K3's Triton kernels by device time, ``device_ms``, with the
-            host-paced reading beside), its bound (the larger of the bytes
+            B=4 x 1024 frames, with median CUDA-event times of both (K2's
+            Triton kernels and K3 by device time, ``device_ms``, with the
+            host-paced reading beside; K3 with the frame-phase scan inside
+            its one launch, bit-equal to the kernel given the plain
+            version's bases, and the scan's cost: the launch less the
+            merge given a base, at hop 512 and 64), its bound (the larger of the bytes
             the function must move over 3.35 TB/s and the float32
             operations it needs over 67 TFLOP/s; over 495 / 3 TFLOP/s for
             the 3xTF32 tensor-core kernels) and, where one PyTorch call
@@ -202,9 +207,10 @@ Phases, in order; any failure raises and the script exits non-zero:
             peak is printed); a short request against the plain
             composition; K5 istft on the batch request's own spectra
             against its plain version and ``torch.istft`` (device time
-            beside the bound and the plan; host-paced beside the plain
-            version's and ``torch.istft``'s), and at n_fft 2048 and 2299
-            (the FFT core; Bluestein) / hop 512.
+            beside the bound, the plan and ``torch.istft``'s own kernels'
+            device time from a ``torch.profiler`` trace; host-paced beside
+            the plain version's and ``torch.istft``'s), and at n_fft 2048
+            and 2299 (the FFT core; Bluestein) / hop 512.
 7. train_sine: phase 6's path with ``template_generator="sine"``: 2
             warm-up and 4 timed steps, exact launches (K9 sine once a
             step), the gate's state built twice (as phase 6), the whole step against the plain step (phase 6's
@@ -308,6 +314,38 @@ def device_ms(fn, reps: int = 40, iters: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def profiled_device_ms(fn, iters: int = 20):
+    """Device milliseconds a call of ``fn`` from a ``torch.profiler`` trace of
+    ``iters`` calls: the sum of the device's own events (kernels, copies,
+    fills; not the device-side twins of annotations) over ``iters``, with
+    the kernels' names; (None, []) where the trace holds no device time. For
+    a library call that waits for the card inside each call, where
+    ``device_ms`` would time the host's pace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host_keys = {e.key for e in events if e.device_type != DeviceType.CUDA}
+    total, names = 0.0, []
+    for e in events:
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        if (e.device_type != DeviceType.CUDA or dev <= 0 or e.key in host_keys
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        total += dev
+        names.append(f"{e.key[:60]} x{e.count // iters}")
+    return (total / 1e3 / iters, names) if total > 0 else (None, [])
 
 
 def timed_device_and_host(report, name: str, fn, ref):
@@ -521,46 +559,28 @@ def phase_kernels(report: Report, seed: int):
         report.kernel(name, err, ms, plain, "one step, [4, 1024, 128] f32",
                       n_io * elems * 4, flops)
 
-    print("[kernels] K3 NSF source, B=4 T=1024 hop=512, 9 harmonics")
+    print("[kernels] K3 NSF source, B=4 T=1024 hop=512, 9 harmonics: one nsf_merge launch "
+          "with the frame-phase scan inside")
     f0 = (torch.rand((B, T), generator=gen, device=DEVICE) * 400 + 100)
     f0 = f0 * (torch.rand((B, T), generator=gen, device=DEVICE) > 0.2)
     rand_ini = torch.rand((B, 9), generator=gen, device=DEVICE)
     rand_ini[:, 0] = 0
     noise = rn(B, T * HOP, 9)
     weight, bias = rn(9, scale=1 / 3), rn(1, scale=0.1)
-    base_ref = source.nsf_phase_base_reference(f0, SR, HOP)
-    err = report.compare("nsf_phase_base", source.nsf_phase_base(f0, SR, HOP),
-                         base_ref, 1e-6)
-    ms, plain = timed_device_and_host(
-        report, "nsf_phase_base", lambda: source.nsf_phase_base(f0, SR, HOP),
-        lambda: source.nsf_phase_base_reference(f0, SR, HOP))
-    report.kernel("nsf_phase_base", err, ms, plain, "B=4 T=1024",
-                  nbytes(f0, base_ref), 4 * B * T)
-    margs = (f0, base_ref, rand_ini, noise, weight, bias, SR, HOP)
-    err = report.compare("nsf_merge", source.nsf_merge(*margs),
-                         source.nsf_merge_reference(*margs), 1e-4)
-    ms, plain = timed_device_and_host(report, "nsf_merge", lambda: source.nsf_merge(*margs),
-                                      lambda: source.nsf_merge_reference(*margs))
-    # per sample and harmonic: phase, sin, uv gate, noise, weight (~8)
-    work = (nbytes(f0, base_ref, rand_ini, noise, weight, bias) + 4 * B * T * HOP,
-            8 * noise.numel())
-    report.kernel("nsf_merge", err, ms, plain, "B=4 T=1024 hop=512", *work)
-    t_bound = bound(*work)[0]
-    print(f"    {t_bound:.4f} ms bound (bytes), {100 * t_bound / ms:.0f}% reached")
+    scan = measure_nsf_source(report, f0, rand_ini, noise, weight, bias, HOP)
+    report.kernel("nsf_merge", scan["err"], scan["ms"], scan["plain"], "B=4 T=1024 hop=512",
+                  *scan["work"])
+    report.extra.setdefault("nsf_merge", {}).update(
+        host_paced_ms=scan["host"], plain_host_paced_ms=scan["plain_host"],
+        scan_in_kernel=scan["scan"])
     # iSTFTNet's trunk rate: the batch request's 1024 frames at hop 64
     noise64 = rn(B, T * 64, 9)
-    base64 = source.nsf_phase_base_reference(f0, SR, 64)
-    args64 = (f0, base64, rand_ini, noise64, weight, bias, SR, 64)
-    err64 = report.compare("nsf_merge hop 64", source.nsf_merge(*args64),
-                           source.nsf_merge_reference(*args64), 1e-4)
-    ms64 = device_ms(lambda: source.nsf_merge(*args64))
-    t64, _ = bound(nbytes(f0, base64, rand_ini, noise64, weight, bias) + 4 * B * T * 64,
-                   8 * noise64.numel())
-    print(f"  nsf_merge at iSTFTNet's trunk rate, B=4 T=1024 hop=64: {ms64:.4f} ms of device "
-          f"time, bound {t64:.4f} ms (bytes), {100 * t64 / ms64:.0f}% reached")
+    scan64 = measure_nsf_source(report, f0, rand_ini, noise64, weight, bias, 64)
     report.extra["nsf_merge"]["hop_64"] = dict(
-        shape="B=4 T=1024 hop=64 (iSTFTNet's trunk rate)", device_ms=ms64, bound_ms=t64,
-        bound_share=t64 / ms64, max_abs_err=err64)
+        shape="B=4 T=1024 hop=64 (iSTFTNet's trunk rate)", device_ms=scan64["ms"],
+        bound_ms=bound(*scan64["work"])[0], bound_share=bound(*scan64["work"])[0] / scan64["ms"],
+        host_paced_ms=scan64["host"], max_abs_err=scan64["err"],
+        scan_in_kernel=scan64["scan"])
     del noise64
 
     print("[kernels] K4 vocoder convolutions, every shape of a B=4 x 1024-frame pass")
@@ -675,6 +695,47 @@ def phase_kernels(report: Report, seed: int):
     return dict(denoiser_eval_ms=ms_den, denoiser_eval_plain_ms=plain_den,
                 vocoder_ms=ms_voc, vocoder_plain_ms=plain_voc, k1_forward=k1_forward,
                 prepare_ms=prepare_ms, prepare_split=split)
+
+
+def measure_nsf_source(report: Report, f0, rand_ini, noise, weight, bias, hop: int) -> dict:
+    """K3 at one shape: ``nsf_source`` (one ``nsf_merge`` launch, the scan
+    inside) within 1e-4 of ``nsf_source_reference`` and bit-equal to
+    ``nsf_merge`` given ``nsf_phase_base_reference``'s bases; device time
+    of both (the scan's cost inside the kernel: the fused launch less the
+    merge given a base) and of the plain composition, host-paced beside;
+    the bound (f0, the draws and the weights read, the source written)."""
+    import torch
+
+    from fish_diffusion_tpu_torch.models.vocoders import source
+
+    label = f"B={f0.shape[0]} T={f0.shape[1]} hop={hop}"
+    args = (f0, rand_ini, noise, weight, bias, SR, hop)
+    base = source.nsf_phase_base_reference(f0, SR, hop)
+    given = (f0, base, rand_ini, noise, weight, bias, SR, hop)
+    got = source.nsf_source(*args)
+    err = report.compare(f"nsf_source {label}", got, source.nsf_source_reference(*args), 1e-4)
+    same = torch.equal(got, source.nsf_merge(*given))
+    print(f"  nsf_source {label}: the scan inside the kernel bit-equal to the merge given the "
+          f"reference's bases: {same}")
+    if not same:
+        report.failures.append(f"nsf_source {label}: bases")
+    run, ref = lambda: source.nsf_source(*args), lambda: source.nsf_source_reference(*args)
+    ms, plain, host, plain_host = (device_ms(run), device_ms(ref, reps=10), cuda_ms(run, reps=20),
+                                   cuda_ms(ref, reps=20))
+    given_ms = device_ms(lambda: source.nsf_merge(*given))
+    given_host = cuda_ms(lambda: source.nsf_merge(*given), reps=20)
+    # per sample and harmonic: phase, sin, uv gate, noise, weight (~8)
+    work = (nbytes(f0, rand_ini, noise, weight, bias, got), 8 * noise.numel())
+    t_bound = bound(*work)[0]
+    print(f"  nsf_source {label}: kernel {ms:.4f} ms of device time (host-paced {host:.4f}), "
+          f"plain {plain:.4f} (host-paced {plain_host:.4f}); bound {t_bound:.4f} ms (bytes), "
+          f"{100 * t_bound / ms:.0f}% reached; the merge given a base {given_ms:.4f} ms "
+          f"(host-paced {given_host:.4f}): the scan costs {ms - given_ms:+.4f} ms of device "
+          f"time inside the launch")
+    return dict(err=err, ms=ms, plain=plain, host=host, plain_host=plain_host, work=work,
+                scan=dict(fused_ms=ms, given_base_ms=given_ms,
+                          given_base_host_paced_ms=given_host, scan_ms=ms - given_ms,
+                          bit_equal_to_given_base=same))
 
 
 def measure_weight_split(report: Report, ws, transposed, stored, label: str) -> dict:
@@ -1294,8 +1355,7 @@ def phase_serve(report: Report, seed: int):
     short, short_f0 = make_request_audio(rng, 256 * HOP)
     evals = cfg.model.diffusion.timesteps // cfg.model.diffusion.sampler_interval
     layers = cfg.model.diffusion.denoiser.residual_layers
-    per_vocoder = {"conv_transpose1d": 5, "conv1d": 2 + 5 * (1 + 3 * 6),
-                   "nsf_phase_base": 1, "nsf_merge": 1}
+    per_vocoder = {"conv_transpose1d": 5, "conv1d": 2 + 5 * (1 + 3 * 6), "nsf_merge": 1}
     expected = {name: 0 for name in kernels.LAUNCHES}
     expected.update({"wavenet_gate": layers * evals, "wavenet_out": layers * evals,
                      "wavenet_weight_split": 1, "unipc_predict": evals, "unipc_correct": evals,
@@ -1416,12 +1476,12 @@ class StageClock:
 
 # the file-to-file phases' song: (seconds, f0) of three phrases
 PHRASES = ((7.4, 220.0), (7.4, 247.0), (7.4, 196.0))
-VOCODER_LAUNCHES = {"conv_transpose1d": 5, "conv1d": 2 + 5 * (1 + 3 * 6),
-                    "nsf_phase_base": 1, "nsf_merge": 1}
+# (the source: one nsf_merge, its frame-phase scan inside)
+VOCODER_LAUNCHES = {"conv_transpose1d": 5, "conv1d": 2 + 5 * (1 + 3 * 6), "nsf_merge": 1}
 # iSTFTNet: 2 levels of (transposed conv, noise conv, 3 fans x 6 convs),
 # conv_pre and conv_post; the source at trunk rate; one K5 istft
 ISTFT_NET_LAUNCHES = {"conv_transpose1d": 2, "conv1d": 2 + 2 * (1 + 3 * 6),
-                      "nsf_phase_base": 1, "nsf_merge": 1, "istft": 1}
+                      "nsf_merge": 1, "istft": 1}
 
 
 def expect_file_launches(layers, segments, evals, steps=None, predictor="unipc", stft=0,
@@ -1895,7 +1955,9 @@ def measure_istft(report: Report, real, imag, n_fft: int, hop: int, label: str):
     events around each call (``cuda_ms``), the method that times the plain
     version and ``torch.istft``: both wait for the card within a call (the
     plain version to copy its window, ``torch.istft`` for its envelope
-    check), so only the host-paced readings compare with theirs."""
+    check), so ``device_ms`` cannot time them; ``torch.istft``'s device
+    time comes from a ``torch.profiler`` trace of its own kernels
+    (``profiled_device_ms``)."""
     import torch
 
     from fish_diffusion_tpu_torch.ops import mel
@@ -1908,17 +1970,22 @@ def measure_istft(report: Report, real, imag, n_fft: int, hop: int, label: str):
     window = torch.hann_window(n_fft, device=DEVICE)
     spec = torch.complex(real, imag)
     ms = device_ms(run)
+    library = lambda: torch.istft(spec, n_fft, hop, n_fft, window, center=True)  # noqa: E731
     host, plain, lib = timed_triple(
-        run, lambda: mel.istft_reference(real, imag, n_fft, hop),
-        lambda: torch.istft(spec, n_fft, hop, n_fft, window, center=True))
+        run, lambda: mel.istft_reference(real, imag, n_fft, hop), library)
+    lib_device, lib_kernels = profiled_device_ms(library)
     work = istft_work(real, got, n_fft)
     t_bound, by = bound(*work)
     which = mel.istft_plan(n_fft, hop, real.shape[2])
+    lib_dev_txt = "not measured (no device time in the trace)" if lib_device is None else (
+        f"{lib_device:.4f} ms ({'faster' if ms < lib_device else 'SLOWER'} than it: kernel "
+        f"{ms:.4f}); its kernels a call: {', '.join(lib_kernels)}")
     print(f"    plan {which}: kernel {ms:.4f} ms of device time, bound {t_bound:.4f} ms ({by}), "
           f"{100 * t_bound / ms:.0f}% reached; host-paced: kernel {host:.4f} ms, plain "
-          f"{plain:.4f} ms, torch.istft {lib:.4f} ms")
+          f"{plain:.4f} ms, torch.istft {lib:.4f} ms; torch.istft by device time "
+          f"(torch.profiler) {lib_dev_txt}")
     return dict(err=max_err(got, ref), ratio=ratio, ms=ms, host=host, plain=plain, lib=lib,
-                work=work, plan=which)
+                lib_device=lib_device, work=work, plan=which)
 
 
 def phase_istft_net(report: Report, engine, seed: int):
@@ -2056,11 +2123,13 @@ def phase_istft_net(report: Report, engine, seed: int):
                   *r["work"], r["lib"])
     own = measure_istft(report, real, imag, n_fft, hop, f"{shape}, the request's own")
     report.extra["istft"] = dict(
-        randn=dict(host_paced_ms=r["host"], plan=r["plan"]),
+        randn=dict(host_paced_ms=r["host"], plan=r["plan"],
+                   library_device_ms=r["lib_device"]),
         request_spectra=dict(shape=shape, max_abs_err=own["err"],
                              max_err_over_local_scale=own["ratio"], ms=own["ms"],
                              host_paced_ms=own["host"], plain_ms=own["plain"],
-                             library_ms=own["lib"], plan=own["plan"]))
+                             library_ms=own["lib"], library_device_ms=own["lib_device"],
+                             plan=own["plan"]))
     for n_big in (2048, 2299):
         print(f"[istft_net] K5 istft at n_fft {n_big}, hop 512, B=4 x 1024 frames")
         big = [torch.randn((B, n_big // 2 + 1, T), generator=gen, device=DEVICE)
@@ -2070,7 +2139,8 @@ def phase_istft_net(report: Report, engine, seed: int):
         report.extra["istft"][f"n_fft_{n_big}"] = dict(
             shape=f"B=4 x 1024 frames, n_fft {n_big}, hop 512", max_abs_err=r2["err"],
             ms=r2["ms"], host_paced_ms=r2["host"], plain_ms=r2["plain"],
-            library_ms=r2["lib"], bound_ms=t2, bound_by=by2, plan=r2["plan"])
+            library_ms=r2["lib"], library_device_ms=r2["lib_device"], bound_ms=t2,
+            bound_by=by2, plan=r2["plan"])
         del big
     engine.set_vocoder(nsf)
     report.finish("istft_net")
@@ -2434,7 +2504,7 @@ def train_launches_per_step(gen_cfg, n_mels: int, n_stft: int = 3) -> dict:
     return {
         "conv1d": (2 + levels + res) + (levels + res + 1 + (levels - strided_noise)),
         "conv_transpose1d": levels + strided_noise,
-        "nsf_phase_base": 1, "nsf_merge": 1, "nsf_merge_backward": 1,
+        "nsf_merge": 1, "nsf_merge_backward": 1,
         "stft_magnitude": 1 + 2 * n_mels + 2 * n_stft,
         "stft_backward": n_mels + n_stft,
         "grouped_conv1d": k6 * 4 + k6 * 3,
@@ -2856,8 +2926,8 @@ def measure_train_kernels(report: Report, seed: int, stft_fwd_calls, stft_calls,
         shape="the k=11, d=5 resblock conv of each generator level, "
               f"B={TRAIN_B} x {TRAIN_SEG} samples", **dgrad)
 
-    print(f"[train] K3 backward (nsf_merge_backward) at B={TRAIN_B} T={TRAIN_SEG // HOP} "
-          f"hop={HOP}")
+    print(f"[train] K3 backward (nsf_merge_backward, the frame-phase scan inside) at "
+          f"B={TRAIN_B} T={TRAIN_SEG // HOP} hop={HOP}")
     T_f = TRAIN_SEG // HOP
     f0 = torch.rand((TRAIN_B, T_f), generator=gen, device=DEVICE) * 400 + 100
     f0 = f0 * (torch.rand((TRAIN_B, T_f), generator=gen, device=DEVICE) > 0.2)
@@ -2866,22 +2936,24 @@ def measure_train_kernels(report: Report, seed: int, stft_fwd_calls, stft_calls,
     noise = torch.randn((TRAIN_B, TRAIN_SEG, 9), generator=gen, device=DEVICE)
     weight = torch.randn(9, generator=gen, device=DEVICE) / 3
     bias = torch.randn(1, generator=gen, device=DEVICE) * 0.1
-    base = source.nsf_phase_base_reference(f0, SR, HOP)
-    out = source.nsf_merge_reference(f0, base, rand_ini, noise, weight, bias, SR, HOP)
+    out = source.nsf_merge_reference(f0, None, rand_ini, noise, weight, bias, SR, HOP)
     g = torch.randn(out.shape, generator=gen, device=DEVICE)
-    args = (g, out, f0, base, rand_ini, noise, SR, HOP)
+    args = (g, out, f0, None, rand_ini, noise, SR, HOP)
     got, ref = source.nsf_merge_backward(*args), source.nsf_merge_backward_reference(*args)
     err = report.compare("nsf_merge_backward (dW, db)", got, ref, 1e-4 * max_abs(ref))
     check_rerun(report, "nsf_merge_backward (dW, db)", torch.cat(got),
                 torch.cat(source.nsf_merge_backward(*args)))
+    base = source.nsf_phase_base_reference(f0, SR, HOP)
+    check_rerun(report, "nsf_merge_backward (dW, db), given the reference's bases",
+                torch.cat(got), torch.cat(source.nsf_merge_backward(g, out, f0, base, rand_ini,
+                                                                    noise, SR, HOP)))
     ms, plain = timed_device_and_host(report, "nsf_merge_backward",
                                       lambda: source.nsf_merge_backward(*args),
                                       lambda: source.nsf_merge_backward_reference(*args))
     print("    (no single PyTorch call)")
     report.kernel("nsf_merge_backward", err, ms, plain,
                   f"B={TRAIN_B} T={T_f} hop={HOP}, 9 harmonics",
-                  nbytes(g, out, f0, base, rand_ini, noise) + 40,
-                  12 * noise.numel() + 3 * g.numel())
+                  nbytes(g, out, f0, rand_ini, noise) + 40, 12 * noise.numel() + 3 * g.numel())
 
 
 def drive_training(report: Report, seed: int, tag: str, config_file: str, describe,
@@ -3301,7 +3373,7 @@ def train_v2_launches_per_step(trainer) -> dict:
 
     Generator forward: template_conv, 6 convs per down level, mel_conv,
     source_conv, per up level input_conv and 3 branches x 6 convs, and
-    output_conv (all K4); the template (K3's linear phase scan, K9). Its
+    output_conv (all K4); the template (K9, its linear phase scan inside). Its
     backward: K4 input gradients for every conv but the three whose input
     is data (template_conv, mel_conv, source_conv), a weight gradient for
     every conv. STFT: the generator's mel of the real audio; each mel scale
@@ -3323,7 +3395,7 @@ def train_v2_launches_per_step(trainer) -> dict:
     direct = len(layers) - strided
     return {
         "conv1d": n_conv + (n_conv - 3), "conv1d_wgrad": n_conv,
-        "nsf_phase_base": 1, "comb_merge": 1,
+        "comb_merge": 1,
         "stft_magnitude": 1 + 2 * n_mels + 3 * n_res,
         "stft_backward": n_mels + n_res,
         "conv2d": n_res * (3 * len(layers) + 2 * (direct - 1) + direct),
@@ -3467,33 +3539,30 @@ def measure_train_v2_kernels(report: Report, seed: int, conv2d_calls, stft_calls
     report.extra["conv2d_wgrad"] = dict(by_layer=wgrad_rows, pass_ms=w_ms,
                                         pass_library_ms=w_lib, pass_bound_ms=w_bound)
 
-    print("[train_v2] K9 (K3's linear phase scan + comb_merge) at the step's template")
+    print("[train_v2] K9 comb (comb_merge, the linear frame-phase scan inside) at the step's "
+          "template")
     (f0, noise, sr, hop, *_), _ = comb_calls[0]
+    label = f"B={f0.shape[0]} T={f0.shape[1]} hop={hop}"
+    run = lambda: source.comb_tooth(f0, noise, sr, hop)  # noqa: E731
+    got = run()
+    err = report.compare(f"comb_merge {label}", got,
+                         source.comb_tooth_reference(f0, noise, sr, hop), 1e-5)
+    ms, plain = timed_device_and_host(report, "comb_merge", run,
+                                      lambda: source.comb_tooth_reference(f0, noise, sr, hop))
     base_ref = source.nsf_phase_base_reference(f0, sr, hop, "linear")
-    d = (source.nsf_phase_base(f0, sr, hop, "linear") - base_ref).abs()
-    err = float(torch.minimum(d, 1 - d).max())
-    ok = err <= 1e-6
-    print(f"  nsf_phase_base linear: max_abs_err={err:.3e} (mod 1) tol=1.000e-06 "
-          f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        report.failures.append("nsf_phase_base linear")
-    got = source.comb_merge(f0, base_ref, noise, sr, hop)
-    ref = source.comb_merge_reference(f0, base_ref, noise, sr, hop)
-    err = report.compare(f"comb_merge B={f0.shape[0]} T={f0.shape[1]} hop={hop}", got, ref,
-                         1e-5)
-    ms, plain, _ = timed_triple(lambda: source.comb_merge(f0, base_ref, noise, sr, hop),
-                                lambda: source.comb_merge_reference(f0, base_ref, noise, sr,
-                                                                    hop))
-    ms_b, plain_b, _ = timed_triple(lambda: source.nsf_phase_base(f0, sr, hop, "linear"),
-                                    lambda: source.nsf_phase_base_reference(f0, sr, hop,
-                                                                            "linear"))
-    print(f"    comb_merge: kernel {ms:.4f} ms, plain {plain:.4f} ms (no single PyTorch "
-          f"call); the linear phase scan: kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms")
+    given = lambda: source.comb_merge(f0, base_ref, noise, sr, hop)  # noqa: E731
+    err = max(err, report.compare(f"comb_merge {label}, given the reference's bases", given(),
+                                  source.comb_merge_reference(f0, base_ref, noise, sr, hop),
+                                  1e-5))
+    given_ms = device_ms(given)
+    work = (nbytes(f0, noise, got), 30 * got.numel())
+    t_bound = bound(*work)[0]
+    print(f"    bound {t_bound:.5f} ms (bytes), {100 * t_bound / ms:.0f}% reached; given a base "
+          f"{given_ms:.4f} ms: the scan costs {ms - given_ms:+.4f} ms inside the launch; no "
+          "single PyTorch call")
     # per sample: interpolated f0, the float64 phase, round, sinc, gate, noise
-    report.kernel("comb_merge", err, ms, plain, f"B={f0.shape[0]} T={f0.shape[1]} hop={hop}",
-                  nbytes(f0, base_ref, noise, got), 30 * got.numel())
-    report.extra.setdefault("nsf_phase_base", {})["train_v2_linear"] = dict(
-        ms=ms_b, plain_ms=plain_b, shape=f"B={f0.shape[0]} T={f0.shape[1]} hop={hop}")
+    report.kernel("comb_merge", err, ms, plain, label, *work)
+    report.extra["comb_merge"].update(given_base_ms=given_ms, scan_ms=ms - given_ms)
 
     print("[train_v2] K5 at the step's STFT shapes (MRD resolutions, mel scales)")
     report.extra.setdefault("stft_magnitude", {})["train_v2"] = measure_stft_configs(
@@ -3589,14 +3658,19 @@ def phase_train_sine(report: Report, seed: int):
 
     (f0, rand_ini, noise, weight, bias, sr, hop, *_), _ = calls["sine_template"][0]
     weight, bias = weight.detach(), bias.detach()
-    print(f"[train_sine] K9 sine (sine_merge) at the step's template, B={f0.shape[0]} "
-          f"T={f0.shape[1]} hop={hop}, {rand_ini.shape[1]} harmonic")
-    base = source.nsf_phase_base_reference(f0, sr, hop, "linear")
+    print(f"[train_sine] K9 sine (sine_merge, the linear frame-phase scan inside) at the step's "
+          f"template, B={f0.shape[0]} T={f0.shape[1]} hop={hop}, {rand_ini.shape[1]} harmonic")
+    base = None  # the kernel's own scan; the plain version's cumsum
     args = (f0, base, rand_ini, noise, weight, bias, sr, hop)
     label = f"sine_merge B={f0.shape[0]} T={f0.shape[1]} hop={hop}"
     with torch.no_grad():
         got = source.sine_merge(*args)
         err = report.compare(label, got, source.sine_merge_reference(*args), 1e-5)
+        given = (f0, source.nsf_phase_base_reference(f0, sr, hop, "linear")) + args[2:]
+        err = max(err, report.compare(label + ", given the reference's bases",
+                                      source.sine_merge(*given),
+                                      source.sine_merge_reference(*given), 1e-5))
+        given_ms = device_ms(lambda: source.sine_merge(*given))
         ms, plain = timed_device_and_host(report, "sine_merge",
                                           lambda: source.sine_merge(*args),
                                           lambda: source.sine_merge_reference(*args))
@@ -3612,16 +3686,18 @@ def phase_train_sine(report: Report, seed: int):
                                                    sr, hop))
     train_host = cuda_ms(lambda: source.sine_merge(f0, base, rand_ini, noise, train_w, bias,
                                                    sr, hop), reps=20)
-    train_bound, _ = bound(nbytes(f0, base, rand_ini, noise, weight, bias, out, signals),
+    train_bound, _ = bound(nbytes(f0, rand_ini, noise, weight, bias, out, signals),
                            40 * noise.numel())
     print(f"    training form: kernel {train_ms:.4f} ms of device time (host-paced "
-          f"{train_host:.4f}), bound {train_bound:.5f} ms; no single PyTorch call")
-    report.extra["sine_merge"].update(training_form=dict(
-        ms=train_ms, host_paced_ms=train_host, bound_ms=train_bound))
+          f"{train_host:.4f}), bound {train_bound:.5f} ms; no single PyTorch call; given a "
+          f"base {given_ms:.4f} ms: the scan costs {ms - given_ms:+.4f} ms inside the launch")
+    report.extra["sine_merge"].update(given_base_ms=given_ms, scan_ms=ms - given_ms,
+                                      training_form=dict(ms=train_ms, host_paced_ms=train_host,
+                                                         bound_ms=train_bound))
     # per sample and harmonic: interpolated f0, the float64 phase, sin, the
     # sr / 2 and voicing gates, noise, merge; tanh (~40)
     report.kernel("sine_merge", err, ms, plain, f"B={f0.shape[0]} T={f0.shape[1]} hop={hop}",
-                  nbytes(f0, base, rand_ini, noise, weight, bias, got), 40 * noise.numel())
+                  nbytes(f0, rand_ini, noise, weight, bias, got), 40 * noise.numel())
     report.finish("train_sine")
     return launches, totals
 
@@ -4661,18 +4737,29 @@ AB_CASES = {"viterbi_candidates": [(1, 1025, 4), (B, T, 4), (1, 2600, 4), (1, 80
             # (B, T, hop, H): K3's backward at the train step's shape, K9
             # sine at the train_sine step's template
             "nsf_merge_backward": [(16, 64, 512, 9)],
-            "sine_merge": [(16, 128, 256, 1)]}
+            "sine_merge": [(16, 128, 256, 1)],
+            # the public compositions (the frame-phase scan and the merge):
+            # K3 at the kernels phase's hop 512 and iSTFTNet's trunk rate (B,
+            # T, hop, H), K9 comb at the train_v2 step's template (B, T,
+            # hop), K9 sine at train_sine's (B, T, hop, H)
+            "nsf_source": [(B, T, 512, 9), (B, T, 64, 9)],
+            "comb_tooth": [(16, 128, 256)],
+            "sine_template": [(16, 128, 256, 1)]}
 
 
 def time_ab(tree: Path) -> int:
-    """K8-cand, K7, K3's merge and backward, K5 istft and K9 sine (both
-    forms) through the public wrappers of the port in ``tree``, on inputs
-    drawn from fixed seeds on the card: device milliseconds a call
-    (``device_ms``), microseconds a step where a chain has steps, and
-    whether the result holds against the plain version (K8-cand and K7
-    identical; ``nsf_merge`` within 1e-4; ``nsf_merge_backward`` within
-    1e-4 of the plain version's scale; ``istft`` every sample within 1e-5
-    of its own scale, ``istft_scale``; ``sine_merge`` within 1e-5); one JSON
+    """K8-cand, K7, K3's merge and backward, K5 istft, K9 sine (both forms)
+    and the source compositions (``nsf_source``, ``comb_tooth``,
+    ``sine_template`` in both forms: the frame-phase scan with the merge)
+    through the public wrappers of the port in ``tree``, on inputs drawn
+    from fixed seeds on the card: device milliseconds a call
+    (``device_ms``) and the host-paced milliseconds (``cuda_ms``),
+    microseconds a step where a chain has steps, and whether the result
+    holds against the plain version (K8-cand and K7 identical;
+    ``nsf_merge`` and ``nsf_source`` within 1e-4; ``nsf_merge_backward``
+    within 1e-4 of the plain version's scale; ``istft`` every sample within
+    1e-5 of its own scale, ``istft_scale``; ``sine_merge``, ``comb_tooth``
+    and ``sine_template`` within 1e-5); one JSON
     line with the card's name and power limit and the SM clock sampled
     every 50 ms while the cases run (median and largest, MHz). Exit code 1
     where a result does not hold."""
@@ -4692,9 +4779,12 @@ def time_ab(tree: Path) -> int:
     def row(kernel, case, fn, ref, steps=None, holds=identical):
         ok = holds(fn(), ref())
         ms = device_ms(fn, reps=20)
+        host = cuda_ms(fn, reps=20)
         per = f" ({ms * 1e3 / steps:.4f} us a step)" if steps else ""
-        print(f"[ab] {kernel} {case}: {ms:.4f} ms{per}; holds against plain: {ok}")
+        print(f"[ab] {kernel} {case}: {ms:.4f} ms{per}, host-paced {host:.4f}; holds against "
+              f"plain: {ok}")
         result[f"{kernel} {case}"] = ms
+        result[f"{kernel} {case} host-paced"] = host
         if not ok:
             differs.append(f"{kernel} {case}")
 
@@ -4803,6 +4893,51 @@ def run_ab(row):
         row("sine_merge", case + " training", lambda: source.sine_merge(*train_args).detach(),
             lambda: source.sine_merge_reference(*args), holds=holds)
         del noise, args, train_args
+    for B_, T_, hop, H in AB_CASES["nsf_source"]:
+        f0, rand_ini, noise, weight, bias = ab_source_inputs(B_, T_, hop, H, 400.0, 100.0)
+        args = (f0, rand_ini, noise, weight, bias, SR, hop)
+        row("nsf_source", f"B={B_} T={T_} hop={hop} H={H}", lambda: source.nsf_source(*args),
+            lambda: source.nsf_source_reference(*args),
+            holds=lambda got, ref: max_err(got, ref) <= 1e-4)
+        del noise, args
+    for B_, T_, hop in AB_CASES["comb_tooth"]:
+        f0, _, noise, _, _ = ab_source_inputs(B_, T_, hop, 1, 700.0, 80.0)
+        args = (f0, noise.reshape(B_, T_ * hop), SR, hop)
+        row("comb_tooth", f"B={B_} T={T_} hop={hop}", lambda: source.comb_tooth(*args),
+            lambda: source.comb_tooth_reference(*args),
+            holds=lambda got, ref: max_err(got, ref) <= 1e-5)
+        del noise, args
+    for B_, T_, hop, H in AB_CASES["sine_template"]:
+        f0, rand_ini, noise, weight, bias = ab_source_inputs(B_, T_, hop, H, 700.0, 80.0)
+        case = f"B={B_} T={T_} hop={hop} H={H}"
+        holds = lambda got, ref: max_err(got, ref) <= 1e-5  # noqa: E731
+        args = (f0, rand_ini, noise, weight, bias, SR, hop)
+        with torch.no_grad():
+            row("sine_template", case, lambda: source.sine_template(*args),
+                lambda: source.sine_template_reference(*args), holds=holds)
+        # the training form: the merge's weight takes a gradient
+        train_args = (f0, rand_ini, noise, weight.clone().requires_grad_(), bias, SR, hop)
+        row("sine_template", case + " training",
+            lambda: source.sine_template(*train_args).detach(),
+            lambda: source.sine_template_reference(*args), holds=holds)
+        del noise, args, train_args
+
+
+def ab_source_inputs(B_: int, T_: int, hop: int, H: int, f0_span: float, f0_low: float):
+    """Seeded inputs of a source composition on the card: f0 [B, T] (about a
+    fifth of the frames unvoiced), rand_ini [B, H] (column 0 is 0), noise
+    [B, T * hop, H], the merge's weight [H] and bias [1]."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(T_ + hop + H + 1)
+    f0 = torch.rand((B_, T_), generator=gen, device=DEVICE) * f0_span + f0_low
+    f0 = f0 * (torch.rand((B_, T_), generator=gen, device=DEVICE) > 0.2)
+    rand_ini = torch.rand((B_, H), generator=gen, device=DEVICE)
+    rand_ini[:, 0] = 0
+    noise = torch.randn((B_, T_ * hop, H), generator=gen, device=DEVICE)
+    weight = torch.randn(H, generator=gen, device=DEVICE) / H ** 0.5
+    bias = torch.randn(1, generator=gen, device=DEVICE) * 0.1
+    return f0, rand_ini, noise, weight, bias
 
 
 def tensor_core_products(kernels):
@@ -4843,8 +4978,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ab", type=Path, metavar="DIR",
-                        help="time K8-cand, K7, K3's merge and backward, K5 istft and K9 "
-                             "sine alone through the port in DIR")
+                        help="time K8-cand, K7, K3's merge and backward, K5 istft, K9 "
+                             "sine and the source compositions alone through the port "
+                             "in DIR")
     args = parser.parse_args()
 
     import torch

@@ -82,10 +82,8 @@ KERNELS = {
         id="K2", route="triton", source=_PORT + "models/diffusion.py",
         replaces=_TPU + "models/diffusion.py:462",
     ),
-    "nsf_phase_base": dict(
-        id="K3", route="triton", source=_PORT + "models/vocoders/source.py",
-        replaces=_TPU + "models/vocoders/source.py:77",
-    ),
+    # with the frame-phase scan, source.py:77 blocked_phase, inside (as in
+    # nsf_merge_backward, sine_merge and comb_merge)
     "nsf_merge": dict(
         id="K3", route="cuda", source=_PORT + "csrc/nsf_source.cu",
         replaces=_TPU + "models/vocoders/source.py:92",
@@ -143,7 +141,7 @@ KERNELS = {
         replaces=_TPU + "ops/blocked_conv.py:99",
     ),
     "comb_merge": dict(
-        id="K9", route="triton", source=_PORT + "models/vocoders/source.py",
+        id="K9", route="cuda", source=_PORT + "csrc/nsf_source.cu",
         replaces=_TPU + "models/vocoders/source.py:172",
     ),
     "pyin_viterbi": dict(
@@ -231,6 +229,7 @@ SIGNATURES = {
         "nsf_merge": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
         "nsf_merge_backward": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
         "sine_merge": [_P] * 10 + [_I] * 4 + [_F] * 4 + [_P],
+        "comb_merge": [_P] * 6 + [_I] * 3 + [_F] * 3 + [_P],
     },
     "istft": {
         "istft_plan": [_I] * 3,

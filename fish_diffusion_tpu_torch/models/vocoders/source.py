@@ -9,34 +9,36 @@ frames' phase advances, mod 1, plus the intra-frame advance
 Dense(9 -> 1) with tanh merges them. The blocked ``[B, T, hop]`` layout was
 a TPU device and is not carried over.
 
-K3 computes it in two kernels, replacing the JAX package's
-``blocked_phase`` (``source.py:77``) and ``BlockedSineGen`` with the merge
-(``source.py:92-169``):
+K3 is one CUDA kernel a pass, ``nsf_merge`` (``csrc/nsf_source.cu``),
+replacing the JAX package's ``blocked_phase`` (``source.py:77``) and
+``BlockedSineGen`` with the merge (``source.py:92-169``):
 
-- ``nsf_phase_base`` (Triton): one program per batch row scans the T frame
-  advances. Blocks run in no order on the card, so the scan across frames
-  has to live inside one program (T <= 2600 frames fits one block). The sum
-  runs in float64 and is reduced mod 1 at the end: exact for any order of
-  summation, where the TPU's float32 mod-1 scan rounds at every step.
-- ``nsf_merge`` (CUDA, ``csrc/nsf_source.cu``): a block owns a run of
-  samples of one row; its contiguous noise span comes into shared memory a
-  chunk at a time by TMA bulk copies, and each sample takes one
-  ``sincospif`` (the harmonics by rotation, the start phases by angle
-  addition), the voicing gate, the noise and the merge; only the merged
-  ``[B, T * hop]`` signal is written.
+- the frame-phase scan runs inside the kernel's blocks: each block sums
+  the frames' advances up to its own frames in float64, in one order fixed
+  by the frame index (tiles of 256 frames, the tiles in order), so that
+  every block, and the backward, forms the same bits; reduced mod 1 at the
+  end, exact for any order in this mode, where the TPU's float32 mod-1
+  scan rounds at every step (``nsf_phase_base_reference`` is its plain
+  version);
+- a block owns a run of samples of one row; its contiguous noise span
+  comes into shared memory a chunk at a time by TMA bulk copies, and each
+  sample takes one ``sincospif`` (the harmonics by rotation, the start
+  phases by angle addition), the voicing gate, the noise and the merge;
+  only the merged ``[B, T * hop]`` signal is written.
 
-On an H100 the pair is bound by memory: it reads the ``[B, T * hop, 9]``
-noise (drawn outside, with a ``torch.Generator``; an in-kernel Philox draw
-is later work) and writes ``[B, T * hop]``. ``nsf_phase_base_reference``
-and ``nsf_merge_reference`` are the plain versions.
+On an H100 it is bound by memory: it reads the ``[B, T * hop, 9]`` noise
+(drawn outside, with a ``torch.Generator``; an in-kernel Philox draw is
+later work) and writes ``[B, T * hop]``. ``nsf_merge_reference`` is the
+plain version. Every merge takes a given ``base`` too (the tests hold the
+fused scan against the reference's bases that way).
 
 Training trains the merge's Dense(9 -> 1) (``l_linear``): its gradient is
 ``nsf_merge_backward`` (CUDA, ``csrc/nsf_source.cu``, on the merge's
-staged-noise core), which recomputes the signals and adds its blocks'
-sums in a fixed order (replacing what XLA derives for ``source.py:92``
-on the TPU), with ``nsf_merge_backward_reference`` beside it. The
-gradient reaches the merged source through the noise convs' input
-gradient (K4).
+staged-noise core), which recomputes the scan and the signals and adds
+its blocks' sums in a fixed order (replacing what XLA derives for
+``source.py:92`` on the TPU), with ``nsf_merge_backward_reference``
+beside it. The gradient reaches the merged source through the noise
+convs' input gradient (K4).
 
 RefineGAN's comb-tooth template (K9) replaces the JAX package's
 ``BlockedCombTooth`` (``source.py:172``) on linear f0 interpolation
@@ -46,30 +48,34 @@ RefineGAN's comb-tooth template (K9) replaces the JAX package's
 repeated), and its phase is the frame's base plus the same combination of
 the coefficients' inclusive prefix sums, over sr, formed in float64
 (within a frame the phase reaches hop * f0 / sr, 128 at hop 256 near
-sr / 2, where float32's step would be 8e-6). K3's ``nsf_phase_base`` gains this
-``interp="linear"`` mode (a frame advances by the prefix sums' last
-entries). ``comb_merge``, a Triton kernel, forms per (row, tile of
-frames) the phase, ``x = phase - round(phase)`` (half to even), the sinc
-comb ``0.1 sinc(sr x / (f0 + 1e-3))``, the voicing gate and the injected
-noise, and writes only ``[B, T * hop]``; it needs no gradient (the template
-depends on f0 and noise alone). Bound by memory: f0 and noise in, the
-template out. ``comb_merge_reference`` is the plain version,
+sr / 2, where float32's step would be 8e-6). The frame-phase scan's
+``interp="linear"`` mode gives the bases (a frame advances by the prefix
+sums' last entries). ``comb_merge`` is the core's comb mode
+(``csrc/nsf_source.cu``): the scan, then per sample the phase,
+``x = phase - round(phase)`` (half to even), the sinc comb
+``0.1 sinc(sr x / (f0 + 1e-3))``, the voicing gate and the injected
+noise; only ``[B, T * hop]`` is written. It needs no gradient (the
+template depends on f0 and noise alone). Bound by memory: f0 and noise
+in, the template out. ``comb_merge_reference`` is the plain version,
 ``CombToothSource`` the module.
 
 RefineGAN's sine template (K9 sine) replaces the JAX package's
 ``RefineSineGen`` (``refinegan.py:252``), whose phase is a mod-1
 associative scan over samples (``nsf_hifigan.py:188 _mod1_phase_scan``)
 of linearly resized f0. ``sine_merge`` is ``nsf_merge``'s kernel in its
-linear mode (``csrc/nsf_source.cu``): it takes the frame base from K3's
-linear scan and forms per sample the interpolated f0, the float64 phase
-(as K9 comb), each harmonic's sine with its start phase, 0 above
-sr // 2, the amplitude, the voicing gate, the injected noise and the
-Dense(H -> 1) merge with tanh, and writes only ``[B, T * hop, 1]``. The
-sines are stop-gradient but the merge is trained: in training the kernel
-also writes the merge's inputs, and ``_SineMerge``'s backward is the
-analytic tanh/merge gradient in torch.
+linear mode (``csrc/nsf_source.cu``): the linear scan, then per sample
+the interpolated f0, the float64 phase (as K9 comb), each harmonic's sine
+with its start phase, 0 above sr // 2, the amplitude, the voicing gate,
+the injected noise and the Dense(H -> 1) merge with tanh; only
+``[B, T * hop, 1]`` is written. The sines are stop-gradient but the merge
+is trained: in training the kernel also writes the merge's inputs, and
+``_SineMerge``'s backward is the analytic tanh/merge gradient in torch.
 ``sine_merge_reference`` is the plain version, ``RefineSineSource`` the
 module (key ``merge``).
+
+Every wrapper takes ``base=None`` (the kernel's scan; on the CPU the plain
+version forms it with ``nsf_phase_base_reference``) or a given ``[B, T]``
+base.
 """
 
 from __future__ import annotations
@@ -84,85 +90,9 @@ from torch import nn
 
 from ... import kernels
 
-tl = None  # triton.language, bound at the first launch (no triton on import)
-libdevice = None
-_TRITON: dict = {}
-_FRAMES_PER_PROGRAM = 4
 NSF_MAX_HARMONICS = 16  # csrc/nsf_source.cu's MAX_H
+NSF_MAX_FRAMES = 1 << 20  # csrc/nsf_source.cu's MAX_T
 _NSF_CHUNK = 512  # csrc/nsf_source.cu's CHUNK: a block owns whole chunks of samples
-
-
-def _phase_base_kernel(f0_ptr, base_ptr, T, sr, hop, a_prev, a_cur, a_next,
-                       BLOCK_T: tl.constexpr, LINEAR: tl.constexpr):
-    b = tl.program_id(0)
-    offs = tl.arange(0, BLOCK_T)
-    mask = offs < T
-    f0 = tl.load(f0_ptr + b * T + offs, mask=mask, other=0.0)
-    if LINEAR:
-        f_prev = tl.load(f0_ptr + b * T + tl.maximum(offs - 1, 0), mask=mask, other=0.0)
-        f_next = tl.load(f0_ptr + b * T + tl.minimum(offs + 1, T - 1), mask=mask,
-                         other=0.0)
-        # float64 division is IEEE (div.rn.f64)
-        advance = (f_prev.to(tl.float64) * a_prev + f0.to(tl.float64) * a_cur
-                   + f_next.to(tl.float64) * a_next) / sr.to(tl.float64)
-    else:
-        advance = tl.math.div_rn(f0, sr) * hop
-        advance = advance.to(tl.float64)
-    advance = advance - tl.floor(advance)
-    excl = tl.cumsum(advance, axis=0) - advance
-    base = (excl - tl.floor(excl)).to(tl.float32)
-    tl.store(base_ptr + b * T + offs, base, mask=mask)
-
-
-def _comb_kernel(f0_ptr, base_ptr, coef_ptr, psum_ptr, noise_ptr, out_ptr, T, sr,
-                 wave_amp, noise_std, HOP: tl.constexpr, FT: tl.constexpr):
-    b = tl.program_id(1)
-    frames = tl.program_id(0) * FT + tl.arange(0, FT)
-    fmask = frames < T
-    row = f0_ptr + b * T
-    f0 = tl.load(row + frames, mask=fmask, other=0.0)
-    f_prev = tl.load(row + tl.maximum(frames - 1, 0), mask=fmask, other=0.0)
-    f_next = tl.load(row + tl.minimum(frames + 1, T - 1), mask=fmask, other=0.0)
-    base = tl.load(base_ptr + b * T + frames, mask=fmask, other=0.0)
-    j = tl.arange(0, HOP)
-    fp, fc, fn = f_prev[:, None], f0[:, None], f_next[:, None]
-    f0s = (fp * tl.load(coef_ptr + j)[None, :] + fc * tl.load(coef_ptr + HOP + j)[None, :]
-           + fn * tl.load(coef_ptr + 2 * HOP + j)[None, :])
-    # the intra-frame phase reaches hop * f0 / sr (128 at hop 256 near sr / 2):
-    # float64 keeps it exact to well below float32's step at 1
-    intra = (fp.to(tl.float64) * tl.load(psum_ptr + j)[None, :]
-             + fc.to(tl.float64) * tl.load(psum_ptr + HOP + j)[None, :]
-             + fn.to(tl.float64) * tl.load(psum_ptr + 2 * HOP + j)[None, :])
-    phase = base[:, None].to(tl.float64) + intra / sr.to(tl.float64)
-    phase = phase - tl.floor(phase)
-    x = (phase - libdevice.rint(phase)).to(tl.float32)
-    z = tl.math.div_rn(sr * x, f0s + 1e-3)
-    pz = 3.141592653589793 * z
-    safe = tl.where(z == 0.0, 1.0, pz)
-    sinc = tl.where(z == 0.0, 1.0, tl.math.div_rn(libdevice.sin(safe), safe))
-    voiced = f0s > 0.0
-    noise_amp = tl.where(voiced, noise_std, wave_amp / 3.0)
-    samples = (b * T + frames[:, None]) * HOP + j[None, :]
-    smask = fmask[:, None] & (j[None, :] < HOP)
-    nz = tl.load(noise_ptr + samples, mask=smask, other=0.0)
-    out = tl.where(voiced, sinc * wave_amp, 0.0) + noise_amp * nz
-    tl.store(out_ptr + samples, out, mask=smask)
-
-
-def _triton_kernels() -> dict:
-    global tl, libdevice
-    if not _TRITON:
-        import triton
-        import triton.language
-
-        try:
-            from triton.language.extra import libdevice as _libdevice
-        except ImportError:
-            from triton.language.extra.cuda import libdevice as _libdevice
-        tl, libdevice = triton.language, _libdevice
-        _TRITON["base"] = triton.jit(_phase_base_kernel)
-        _TRITON["comb"] = triton.jit(_comb_kernel)
-    return _TRITON
 
 
 def _true_div(x: torch.Tensor, divisor: float) -> torch.Tensor:
@@ -201,8 +131,8 @@ def _neighbours(f0):
 
 def nsf_phase_base_reference(f0, sampling_rate: int, hop: int,
                              interp: str = "nearest"):
-    """Plain version of K3's first kernel: f0 [B, T] -> the phase at the
-    start of each frame, [B, T] in [0, 1). ``interp="nearest"`` holds a
+    """Plain version of the frame-phase scan: f0 [B, T] -> the phase at the
+    start of each frame, [B, T] in [0, 1]. ``interp="nearest"`` holds a
     frame's f0 for its ``hop`` samples (NSF-HiFiGAN); ``"linear"``
     interpolates it (RefineGAN), so that a frame advances by
     ``(f[k-1] A_prev + f[k] A_cur + f[k+1] A_next) / sr`` with A the
@@ -222,9 +152,12 @@ def nsf_phase_base_reference(f0, sampling_rate: int, hop: int,
 
 def _source_signals_reference(f0, base, rand_ini, noise, sampling_rate: int,
                               hop: int, sine_amp: float, noise_std: float):
-    """The H gated sines plus noise that the merge mixes, [B, T, hop, H]."""
+    """The H gated sines plus noise that the merge mixes, [B, T, hop, H]
+    (base None: the nearest mode's scan)."""
     B, T = f0.shape
     H = rand_ini.shape[1]
+    if base is None:
+        base = nsf_phase_base_reference(f0, sampling_rate, hop)
     rad = _true_div(f0, sampling_rate)
     j = torch.arange(1, hop + 1, dtype=torch.float32, device=f0.device)
     phase = torch.remainder(base[..., None] + rad[..., None] * j, 1.0)
@@ -241,9 +174,10 @@ def _source_signals_reference(f0, base, rand_ini, noise, sampling_rate: int,
 def nsf_merge_reference(f0, base, rand_ini, noise, weight, bias,
                         sampling_rate: int, hop: int, sine_amp: float = 0.1,
                         noise_std: float = 0.003):
-    """Plain version of K3's second kernel. f0, base [B, T]; rand_ini [B, H]
-    (column 0 is 0); noise [B, T * hop, H] standard normal; weight [H];
-    bias [1] -> merged source [B, T * hop, 1]."""
+    """Plain version of K3's kernel. f0 [B, T]; base [B, T] or None (then
+    ``nsf_phase_base_reference``'s); rand_ini [B, H] (column 0 is 0); noise
+    [B, T * hop, H] standard normal; weight [H]; bias [1] -> merged source
+    [B, T * hop, 1]."""
     B, T = f0.shape
     sines = _source_signals_reference(f0, base, rand_ini, noise, sampling_rate,
                                       hop, sine_amp, noise_std)
@@ -257,7 +191,8 @@ def nsf_merge_backward_reference(g, out, f0, base, rand_ini, noise,
                                  noise_std: float = 0.003):
     """Plain version of K3's backward: g, out [B, T * hop, 1] (the merged
     source's gradient and the source itself) -> (dW [H], db [1]) with
-    ``gz = g * (1 - out^2)``, ``dW[n] = sum gz * s_n``, ``db = sum gz``."""
+    ``gz = g * (1 - out^2)``, ``dW[n] = sum gz * s_n``, ``db = sum gz``
+    (base as ``nsf_merge_reference``'s)."""
     B, T = f0.shape
     sines = _source_signals_reference(f0, base, rand_ini, noise, sampling_rate,
                                       hop, sine_amp, noise_std)
@@ -274,33 +209,30 @@ def nsf_source_reference(f0, rand_ini, noise, weight, bias, sampling_rate: int,
                                sampling_rate, hop, sine_amp, noise_std)
 
 
-def nsf_phase_base(f0, sampling_rate: int, hop: int, interp: str = "nearest"):
-    """K3, first kernel (``interp`` as in ``nsf_phase_base_reference``).
-    CPU tensors take ``nsf_phase_base_reference``."""
-    if not f0.is_cuda:
-        return nsf_phase_base_reference(f0, sampling_rate, hop, interp)
-    kernels.require_cuda("nsf_phase_base", f0)
-    if f0.dtype != torch.float32 or f0.ndim != 2:
-        raise TypeError("nsf_phase_base: takes float32 f0 [B, T]")
-    if interp not in ("nearest", "linear"):
-        raise NotImplementedError(f"interp {interp!r}")
-    B, T = f0.shape
-    base = torch.empty_like(f0)
-    block_t = max(16, 1 << (T - 1).bit_length())
-    sums = [float(v) for v in frame_interp_coeffs(hop)[1][:, -1]]
-    _triton_kernels()["base"][(B,)](f0, base, T, float(sampling_rate), hop, *sums,
-                                    BLOCK_T=block_t, LINEAR=interp == "linear")
-    kernels.count_launch("nsf_phase_base")
-    return base
-
-
-def _check_sizes(name: str, hop: int, H: int) -> None:
+def _check_sizes(name: str, f0, base, hop: int, H: int) -> None:
     """The sizes ``csrc/nsf_source.cu``'s kernels take."""
+    if f0.dtype != torch.float32 or f0.ndim != 2:
+        raise TypeError(f"{name}: takes float32 f0 [B, T]")
+    if base is not None and tuple(base.shape) != tuple(f0.shape):
+        raise ValueError(f"{name}: base must be [B, T] as f0")
     if hop & (hop - 1):
         raise ValueError(f"{name}: hop {hop} is not a power of two")
     if not 1 <= H <= NSF_MAX_HARMONICS:
         raise ValueError(f"{name}: {H} harmonics; the kernel takes 1 to "
                          f"{NSF_MAX_HARMONICS}")
+    if f0.shape[1] > NSF_MAX_FRAMES:
+        raise ValueError(f"{name}: {f0.shape[1]} frames; the kernel takes at most "
+                         f"{NSF_MAX_FRAMES}")
+
+
+def _ptr(t) -> Optional[int]:
+    """A tensor's device pointer, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def _given(*tensors):
+    """The tensors that are not None."""
+    return [t for t in tensors if t is not None]
 
 
 def _nsf_merge_forward(f0, base, rand_ini, noise, weight, bias,
@@ -309,19 +241,16 @@ def _nsf_merge_forward(f0, base, rand_ini, noise, weight, bias,
     if not f0.is_cuda:
         return nsf_merge_reference(f0, base, rand_ini, noise, weight, bias,
                                    sampling_rate, hop, sine_amp, noise_std)
-    kernels.require_cuda("nsf_merge", f0, base, rand_ini, noise, weight, bias)
-    if f0.dtype != torch.float32:
-        raise TypeError(f"nsf_merge: takes float32, got {f0.dtype}")
+    kernels.require_cuda("nsf_merge", *_given(f0, base), rand_ini, noise, weight, bias)
     B, T = f0.shape
     H = rand_ini.shape[1]
-    if (tuple(base.shape) != (B, T) or tuple(rand_ini.shape) != (B, H)
-            or tuple(noise.shape) != (B, T * hop, H)
+    _check_sizes("nsf_merge", f0, base, hop, H)
+    if (tuple(rand_ini.shape) != (B, H) or tuple(noise.shape) != (B, T * hop, H)
             or tuple(weight.shape) != (H,) or bias.numel() != 1):
         raise ValueError("nsf_merge: shapes do not match f0 [B, T]")
-    _check_sizes("nsf_merge", hop, H)
     out = torch.empty((B, T * hop, 1), dtype=f0.dtype, device=f0.device)
     kernels.check(kernels.load_library("nsf_source").nsf_merge(
-        f0.data_ptr(), base.data_ptr(), rand_ini.data_ptr(), noise.data_ptr(),
+        f0.data_ptr(), _ptr(base), rand_ini.data_ptr(), noise.data_ptr(),
         weight.data_ptr(), bias.data_ptr(), out.data_ptr(), B, T, hop, H,
         float(sampling_rate), float(sine_amp), float(noise_std), kernels.stream()),
         "nsf_merge")
@@ -334,7 +263,8 @@ def nsf_merge_backward(g, out, f0, base, rand_ini, noise, sampling_rate: int,
                        noise_std: float = 0.003):
     """K3's backward (``csrc/nsf_source.cu``): (dW [H], db [1]) of the
     Dense(H -> 1) merge. On ``nsf_merge``'s core, each block recomputes its
-    samples' phase, sines, voicing and noise as the merge forms them (the
+    frames' bases (the scan, where base is None), its samples' phase,
+    sines, voicing and noise as the merge forms them (the
     ``[B, T * hop, H]`` signals never reach device memory) and writes its
     H + 1 sums; a second kernel adds the blocks' sums in block order, so a
     second call gives the same bits. H at most 16, hop a power of two. CPU
@@ -343,23 +273,20 @@ def nsf_merge_backward(g, out, f0, base, rand_ini, noise, sampling_rate: int,
         return nsf_merge_backward_reference(g, out, f0, base, rand_ini, noise,
                                             sampling_rate, hop, sine_amp,
                                             noise_std)
-    kernels.require_cuda("nsf_merge_backward", g, out, f0, base, rand_ini, noise)
-    if f0.dtype != torch.float32:
-        raise TypeError(f"nsf_merge_backward: takes float32, got {f0.dtype}")
+    kernels.require_cuda("nsf_merge_backward", g, out, *_given(f0, base), rand_ini, noise)
     B, T = f0.shape
     H = rand_ini.shape[1]
+    _check_sizes("nsf_merge_backward", f0, base, hop, H)
     if tuple(g.shape) != (B, T * hop, 1) or tuple(out.shape) != (B, T * hop, 1):
         raise ValueError("nsf_merge_backward: g and out must be [B, T * hop, 1]")
-    if (tuple(base.shape) != (B, T) or tuple(rand_ini.shape) != (B, H)
-            or tuple(noise.shape) != (B, T * hop, H)):
+    if tuple(rand_ini.shape) != (B, H) or tuple(noise.shape) != (B, T * hop, H):
         raise ValueError("nsf_merge_backward: shapes do not match f0 [B, T]")
-    _check_sizes("nsf_merge_backward", hop, H)
     # a block's partial sums: at most one block a chunk of samples
     partials = torch.empty(((H + 1) * B * -(-T * hop // _NSF_CHUNK),), dtype=f0.dtype,
                            device=f0.device)
     sums = torch.empty((H + 1,), dtype=f0.dtype, device=f0.device)
     kernels.check(kernels.load_library("nsf_source").nsf_merge_backward(
-        g.data_ptr(), out.data_ptr(), f0.data_ptr(), base.data_ptr(), rand_ini.data_ptr(),
+        g.data_ptr(), out.data_ptr(), f0.data_ptr(), _ptr(base), rand_ini.data_ptr(),
         noise.data_ptr(), partials.data_ptr(), sums.data_ptr(), B, T, hop, H,
         float(sampling_rate), float(sine_amp), float(noise_std), kernels.stream()),
         "nsf_merge_backward")
@@ -370,7 +297,9 @@ def nsf_merge_backward(g, out, f0, base, rand_ini, noise, sampling_rate: int,
 class _NsfMerge(torch.autograd.Function):
     """K3's merge with the gradient of its Dense(H -> 1) weights: only
     ``weight`` and ``bias`` are trained (f0 is data, the draws are not
-    differentiated), so the backward is ``nsf_merge_backward``."""
+    differentiated), so the backward is ``nsf_merge_backward``. A base of
+    None is kept as None: the backward's kernel forms the forward's bases
+    again, bit for bit."""
 
     @staticmethod
     def forward(ctx, f0, base, rand_ini, noise, weight, bias, sampling_rate,
@@ -391,9 +320,10 @@ class _NsfMerge(torch.autograd.Function):
 
 def nsf_merge(f0, base, rand_ini, noise, weight, bias, sampling_rate: int,
               hop: int, sine_amp: float = 0.1, noise_std: float = 0.003):
-    """K3, second kernel (``csrc/nsf_source.cu``; H at most 16 harmonics,
-    hop a power of two); differentiable in ``weight`` and ``bias``
-    (``_NsfMerge``). CPU tensors take ``nsf_merge_reference``."""
+    """K3 (``csrc/nsf_source.cu``; H at most 16 harmonics, hop a power of
+    two): the frame-phase scan (base None) or the given base [B, T], then
+    the sines, gate, noise and merge; differentiable in ``weight`` and
+    ``bias`` (``_NsfMerge``). CPU tensors take ``nsf_merge_reference``."""
     args = (f0, base, rand_ini, noise, weight, bias, sampling_rate, hop,
             sine_amp, noise_std)
     if torch.is_grad_enabled() and (weight.requires_grad or bias.requires_grad):
@@ -403,9 +333,9 @@ def nsf_merge(f0, base, rand_ini, noise, weight, bias, sampling_rate: int,
 
 def nsf_source(f0, rand_ini, noise, weight, bias, sampling_rate: int, hop: int,
                sine_amp: float = 0.1, noise_std: float = 0.003):
-    """K3: frame f0 [B, T] -> merged source [B, T * hop, 1]."""
-    base = nsf_phase_base(f0, sampling_rate, hop)
-    return nsf_merge(f0, base, rand_ini, noise, weight, bias, sampling_rate,
+    """K3: frame f0 [B, T] -> merged source [B, T * hop, 1], one launch (the
+    scan inside ``nsf_merge``)."""
+    return nsf_merge(f0, None, rand_ini, noise, weight, bias, sampling_rate,
                      hop, sine_amp, noise_std)
 
 
@@ -448,10 +378,12 @@ class SourceModule(nn.Module):
 
 def comb_merge_reference(f0, base, noise, sampling_rate: int, hop: int,
                          wave_amp: float = 0.1, noise_std: float = 0.003):
-    """Plain version of K9's merge. f0, base [B, T] (base from
-    ``nsf_phase_base(..., interp="linear")``); noise [B, T * hop] standard
-    normal -> template [B, T * hop]."""
+    """Plain version of K9's kernel. f0 [B, T]; base [B, T] or None (then
+    ``nsf_phase_base_reference``'s linear mode); noise [B, T * hop]
+    standard normal -> template [B, T * hop]."""
     B, T = f0.shape
+    if base is None:
+        base = nsf_phase_base_reference(f0, sampling_rate, hop, "linear")
     coef, psum = _coeff_tensors(hop, str(f0.device))
     f_prev, f_next = _neighbours(f0)
     fp, fc, fn = f_prev[..., None], f0[..., None], f_next[..., None]
@@ -468,28 +400,25 @@ def comb_merge_reference(f0, base, noise, sampling_rate: int, hop: int,
 
 def comb_merge(f0, base, noise, sampling_rate: int, hop: int,
                wave_amp: float = 0.1, noise_std: float = 0.003):
-    """K9's merge: one Triton program per (batch row, tile of frames); only
-    the ``[B, T * hop]`` template reaches device memory. CPU tensors take
-    ``comb_merge_reference``."""
+    """K9 (``csrc/nsf_source.cu``'s comb mode; hop a power of two): the
+    linear frame-phase scan (base None) or the given base [B, T], then per
+    sample the interpolated f0, the float64 phase, the sinc comb, the
+    voicing gate and the noise; only the ``[B, T * hop]`` template reaches
+    device memory. CPU tensors take ``comb_merge_reference``."""
     if not f0.is_cuda:
         return comb_merge_reference(f0, base, noise, sampling_rate, hop, wave_amp,
                                     noise_std)
-    kernels.require_cuda("comb_merge", f0, base, noise)
-    if f0.dtype != torch.float32 or f0.ndim != 2:
-        raise TypeError("comb_merge: takes float32 f0 [B, T]")
+    kernels.require_cuda("comb_merge", *_given(f0, base), noise)
+    _check_sizes("comb_merge", f0, base, hop, 1)
     B, T = f0.shape
-    if tuple(base.shape) != (B, T) or tuple(noise.shape) != (B, T * hop):
-        raise ValueError("comb_merge: base must be [B, T] and noise [B, T * hop]")
-    if hop & (hop - 1):
-        raise ValueError(f"comb_merge: hop {hop} is not a power of two")
+    if tuple(noise.shape) != (B, T * hop):
+        raise ValueError("comb_merge: noise must be [B, T * hop]")
     out = torch.empty((B, T * hop), dtype=f0.dtype, device=f0.device)
-    grid = (-(-T // _FRAMES_PER_PROGRAM), B)
     coef, psum = _coeff_tensors(hop, str(f0.device))
-    _triton_kernels()["comb"][grid](
-        f0, base, coef, psum, noise, out, T,
-        float(sampling_rate), float(wave_amp), float(noise_std), HOP=hop,
-        FT=_FRAMES_PER_PROGRAM, num_warps=8,
-    )
+    kernels.check(kernels.load_library("nsf_source").comb_merge(
+        f0.data_ptr(), _ptr(base), coef.data_ptr(), psum.data_ptr(), noise.data_ptr(),
+        out.data_ptr(), B, T, hop, float(sampling_rate), float(wave_amp), float(noise_std),
+        kernels.stream()), "comb_merge")
     kernels.count_launch("comb_merge")
     return out
 
@@ -504,9 +433,8 @@ def comb_tooth_reference(f0, noise, sampling_rate: int, hop: int,
 
 def comb_tooth(f0, noise, sampling_rate: int, hop: int, wave_amp: float = 0.1,
                noise_std: float = 0.003):
-    """K9: K3's frame-phase scan in its linear mode, then ``comb_merge``."""
-    base = nsf_phase_base(f0, sampling_rate, hop, "linear")
-    return comb_merge(f0, base, noise, sampling_rate, hop, wave_amp, noise_std)
+    """K9: ``comb_merge`` with its scan, one launch."""
+    return comb_merge(f0, None, noise, sampling_rate, hop, wave_amp, noise_std)
 
 
 class CombToothSource(nn.Module):
@@ -534,9 +462,12 @@ class CombToothSource(nn.Module):
 
 def _sine_signals_reference(f0, base, rand_ini, noise, sampling_rate: int, hop: int,
                             sine_amp: float, noise_std: float):
-    """The H gated sines plus noise that the merge mixes, [B, T, hop, H]."""
+    """The H gated sines plus noise that the merge mixes, [B, T, hop, H]
+    (base None: the linear mode's scan)."""
     B, T = f0.shape
     H = rand_ini.shape[1]
+    if base is None:
+        base = nsf_phase_base_reference(f0, sampling_rate, hop, "linear")
     coef, psum = _coeff_tensors(hop, str(f0.device))
     f_prev, f_next = _neighbours(f0)
     fp, fc, fn = f_prev[..., None], f0[..., None], f_next[..., None]
@@ -556,9 +487,9 @@ def _sine_signals_reference(f0, base, rand_ini, noise, sampling_rate: int, hop: 
 
 def sine_merge_reference(f0, base, rand_ini, noise, weight, bias, sampling_rate: int,
                          hop: int, sine_amp: float = 0.1, noise_std: float = 0.003):
-    """Plain version of K9 sine. f0, base [B, T] (base from
-    ``nsf_phase_base(..., interp="linear")``); rand_ini [B, H] (column 0 is
-    0); noise [B, T * hop, H] standard normal; weight [H]; bias [1] ->
+    """Plain version of K9 sine. f0 [B, T]; base [B, T] or None (then
+    ``nsf_phase_base_reference``'s linear mode); rand_ini [B, H] (column 0
+    is 0); noise [B, T * hop, H] standard normal; weight [H]; bias [1] ->
     template [B, T * hop, 1]."""
     return _sine_merge_plain(f0, base, rand_ini, noise, weight, bias, sampling_rate, hop,
                              sine_amp, noise_std)[0]
@@ -584,21 +515,18 @@ def _sine_merge_forward(f0, base, rand_ini, noise, weight, bias, sampling_rate: 
         return out, (signals if with_signals else None)
     B, T = f0.shape
     H = rand_ini.shape[1]
-    kernels.require_cuda("sine_merge", f0, base, rand_ini, noise, weight, bias)
-    if f0.dtype != torch.float32 or f0.ndim != 2:
-        raise TypeError("sine_merge: takes float32 f0 [B, T]")
-    if (tuple(base.shape) != (B, T) or tuple(rand_ini.shape) != (B, H)
-            or tuple(noise.shape) != (B, T * hop, H)
+    kernels.require_cuda("sine_merge", *_given(f0, base), rand_ini, noise, weight, bias)
+    _check_sizes("sine_merge", f0, base, hop, H)
+    if (tuple(rand_ini.shape) != (B, H) or tuple(noise.shape) != (B, T * hop, H)
             or tuple(weight.shape) != (H,) or bias.numel() != 1):
         raise ValueError("sine_merge: shapes do not match f0 [B, T]")
-    _check_sizes("sine_merge", hop, H)
     out = torch.empty((B, T * hop, 1), dtype=f0.dtype, device=f0.device)
     signals = torch.empty_like(noise) if with_signals else None
     coef, psum = _coeff_tensors(hop, str(f0.device))
     kernels.check(kernels.load_library("nsf_source").sine_merge(
-        f0.data_ptr(), base.data_ptr(), coef.data_ptr(), psum.data_ptr(),
+        f0.data_ptr(), _ptr(base), coef.data_ptr(), psum.data_ptr(),
         rand_ini.data_ptr(), noise.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), signals.data_ptr() if with_signals else None, B, T, hop, H,
+        out.data_ptr(), _ptr(signals), B, T, hop, H,
         float(sampling_rate), float(sine_amp), float(noise_std),
         float(sampling_rate // 2), kernels.stream()), "sine_merge")
     kernels.count_launch("sine_merge")
@@ -632,7 +560,8 @@ class _SineMerge(torch.autograd.Function):
 def sine_merge(f0, base, rand_ini, noise, weight, bias, sampling_rate: int, hop: int,
                sine_amp: float = 0.1, noise_std: float = 0.003):
     """K9 sine (``csrc/nsf_source.cu``, ``nsf_merge``'s core in its linear
-    mode; H at most 16, hop a power of two): per sample the linearly
+    mode; H at most 16, hop a power of two): the linear frame-phase scan
+    (base None) or the given base [B, T], then per sample the linearly
     interpolated f0, its float64 phase (the frame's base plus the
     intra-frame prefix sum of f0 / sr), the harmonics' sines with their
     start phases, the zero above sr // 2, the amplitude, the voicing gate,
@@ -658,9 +587,8 @@ def sine_template_reference(f0, rand_ini, noise, weight, bias, sampling_rate: in
 
 def sine_template(f0, rand_ini, noise, weight, bias, sampling_rate: int, hop: int,
                   sine_amp: float = 0.1, noise_std: float = 0.003):
-    """K9 sine: K3's frame-phase scan in its linear mode, then ``sine_merge``."""
-    base = nsf_phase_base(f0, sampling_rate, hop, "linear")
-    return sine_merge(f0, base, rand_ini, noise, weight, bias, sampling_rate, hop,
+    """K9 sine: ``sine_merge`` with its scan, one launch."""
+    return sine_merge(f0, None, rand_ini, noise, weight, bias, sampling_rate, hop,
                       sine_amp, noise_std)
 
 

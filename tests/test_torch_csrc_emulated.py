@@ -1,7 +1,8 @@
 """The CUDA sources of K1 (with its training mode, backward and weight gradients), K3's merge
 (and its backward), K4 (and its weight gradient), K5 (forward,
 backward and istft, its three plans), K6 (grouped and 2-D, with the 2-D weight gradient),
-K7, K8-cand, K8 dense (pYIN's and CREPE's decoder), K9 sine and K10 (with its backward), compiled for the host CPU and run against their
+K7, K8-cand, K8 dense (pYIN's and CREPE's decoder), K9 comb and sine (K3's and K9's frame-phase
+scan inside them) and K10 (with its backward), compiled for the host CPU and run against their
 plain PyTorch versions at small shapes.
 
 The card is the real test (``chip_smoke.py``, ``tests/test_torch_kernels_cuda.py``),
@@ -128,12 +129,36 @@ template <class T> inline T __shfl_up_sync(unsigned, T v, unsigned delta) {
   return r;
 }
 inline void __syncwarp(unsigned = 0xffffffffu) { g_warp_barrier->arrive_and_wait(); }
+// a double's shuffle as two of its 32-bit halves
+inline double shuffle_halves(double v, uint32_t (*half)(uint32_t)) {
+  uint64_t u;
+  std::memcpy(&u, &v, 8);
+  u = (uint64_t)half((uint32_t)(u >> 32)) << 32 | half((uint32_t)u);
+  std::memcpy(&v, &u, 8);
+  return v;
+}
+inline thread_local unsigned g_shuffle_arg;
+inline double __shfl_up_sync(unsigned m, double v, unsigned delta) {
+  g_shuffle_arg = delta;
+  return shuffle_halves(v, [](uint32_t h) {
+    return __shfl_up_sync(0xffffffffu, h, g_shuffle_arg);
+  });
+}
+inline double __shfl_sync(unsigned m, double v, int src_lane) {
+  g_shuffle_arg = (unsigned)src_lane;
+  return shuffle_halves(v, [](uint32_t h) {
+    return __shfl_sync(0xffffffffu, h, (int)g_shuffle_arg);
+  });
+}
 // round-to-nearest arithmetic that nvcc never contracts into an FMA (g++
 // in ISO C++ mode does not contract either)
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 // sin and cos of pi x (the card's is exact to a few ulps; this rounds the
 // double result)
@@ -1042,6 +1067,147 @@ def test_sine_merge_source(host_libs, B, T, hop, H, seed):
         assert (out - ref).abs().max().item() <= 1e-5
         if signals is not None:
             assert (signals - ref_signals).abs().max().item() <= 1e-5
+
+
+def _comb_inputs(B, T, hop, seed, sr):
+    """f0 [B, T] as ``_nsf_inputs``' (unvoiced runs) with one frame at sr / 2
+    - 50, and noise [B, T * hop]."""
+    gen, f0, *_ = _nsf_inputs(B, T, hop, 1, seed, f0_scale=700.0)
+    f0[0, T // 2] = sr / 2 - 50
+    return f0, rn(gen, B, T * hop)
+
+
+def _comb_merge(lib, f0, base, noise, sr, hop):
+    """The C entry ``comb_merge`` (base None: its own scan) -> (status, out)."""
+    from fish_diffusion_tpu_torch.models.vocoders import source
+
+    B, T = f0.shape
+    coef, psum = source._coeff_tensors(hop, "cpu")
+    out = torch.full((B, T * hop), float("nan"))
+    status = lib.comb_merge(f0.data_ptr(), None if base is None else base.data_ptr(),
+                            coef.data_ptr(), psum.data_ptr(), noise.data_ptr(), out.data_ptr(),
+                            B, T, hop, float(sr), 0.1, 0.003, None)
+    return status, out
+
+
+@pytest.mark.parametrize(
+    "B,T,hop,seed",
+    # hop 16 (a ragged last chunk) and 256 (RefineGAN's: a thread's samples
+    # on one coefficient lane), hop 512 past the block's 256 threads (a lane
+    # read a sample); unvoiced runs; an f0 at sr / 2 - 50
+    [(2, 37, 16, 30), (1, 45, 256, 31), (2, 29, 16, 32), (1, 200, 256, 33), (1, 100, 512, 34)],
+)
+def test_comb_merge_source(host_libs, B, T, hop, seed):
+    """K9 comb (``csrc/nsf_source.cu``'s comb mode) against
+    ``comb_merge_reference`` within 1e-5 on a 0.1-amplitude template, given
+    the reference's linear bases and with its own scan (a null base)."""
+    from fish_diffusion_tpu_torch.models.vocoders import source
+
+    sr = 44100
+    f0, noise = _comb_inputs(B, T, hop, seed, sr)
+    base = source.nsf_phase_base_reference(f0, sr, hop, "linear")
+    ref = source.comb_merge_reference(f0, base, noise, sr, hop)
+    for given in (base, None):
+        status, out = _comb_merge(host_libs["nsf_source"], f0, given, noise, sr, hop)
+        assert status == 0
+        assert (out - ref).abs().max().item() <= 1e-5
+    assert _comb_merge(host_libs["nsf_source"], f0, base, noise, sr, 24)[0] != 0
+
+
+# (B, T, hop, H) of the scan inside the kernels: one tile of frames at hop
+# 16 (a ragged last chunk); 5 tiles, a block's 128 frames inside one (hop
+# 4); 18 tiles at hop 4, blocks of 384 frames straddling tiles and warps
+# taking up to three tiles; frames that two blocks share (hop 1024)
+SCAN_CASES = [(2, 37, 16, 9), (1, 1100, 4, 1), (2, 4500, 4, 1), (1, 9, 1024, 3)]
+
+
+@pytest.mark.parametrize("B,T,hop,H", SCAN_CASES)
+def test_nsf_merge_source_scans(host_libs, B, T, hop, H):
+    """K3 with its own frame-phase scan (a null base) bit-equal to the
+    kernel given ``nsf_phase_base_reference``'s bases (the nearest mode's
+    sums are exact in any order), and within 1e-4 of the plain version."""
+    from fish_diffusion_tpu_torch.models.vocoders import source
+
+    _, f0, rand_ini, noise, weight, bias = _nsf_inputs(B, T, hop, H, T + hop)
+    base = source.nsf_phase_base_reference(f0, 44100, hop)
+    outs = []
+    for given in (base, None):
+        out = torch.full((B, T * hop, 1), float("nan"))
+        assert host_libs["nsf_source"].nsf_merge(
+            f0.data_ptr(), None if given is None else given.data_ptr(), rand_ini.data_ptr(),
+            noise.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), B, T, hop, H,
+            44100.0, 0.1, 0.003, None) == 0
+        outs.append(out)
+    assert torch.equal(outs[1], outs[0])
+    ref = source.nsf_merge_reference(f0, None, rand_ini, noise, weight, bias, 44100, hop)
+    assert (outs[1] - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("B,T,hop,H", SCAN_CASES)
+def test_nsf_merge_backward_source_scans(host_libs, B, T, hop, H):
+    """K3's backward with its own scan (a null base): dW and db within 1e-4
+    of their scale of the plain version, bit-equal on a second call and to
+    the kernel given the reference's bases."""
+    from fish_diffusion_tpu_torch.models.vocoders import source
+
+    gen, f0, rand_ini, noise, weight, bias = _nsf_inputs(B, T, hop, H, T + hop + 1)
+    base = source.nsf_phase_base_reference(f0, 44100, hop)
+    out = source.nsf_merge_reference(f0, base, rand_ini, noise, weight, bias, 44100, hop)
+    g = rn(gen, *out.shape)
+    partials = torch.full(((H + 1) * B * -(-T * hop // 512),), float("nan"))
+
+    def backward(given):
+        sums = torch.full((H + 1,), float("nan"))
+        assert host_libs["nsf_source"].nsf_merge_backward(
+            g.data_ptr(), out.data_ptr(), f0.data_ptr(),
+            None if given is None else given.data_ptr(), rand_ini.data_ptr(), noise.data_ptr(),
+            partials.data_ptr(), sums.data_ptr(), B, T, hop, H, 44100.0, 0.1, 0.003, None) == 0
+        return sums
+
+    sums = backward(None)
+    ref = torch.cat(source.nsf_merge_backward_reference(g, out, f0, None, rand_ini, noise,
+                                                        44100, hop))
+    assert (sums - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert torch.equal(backward(None), sums)
+    assert torch.equal(backward(base), sums)
+
+
+@pytest.mark.parametrize("B,T,hop,H", SCAN_CASES)
+def test_linear_merges_source_scan(host_libs, B, T, hop, H):
+    """K9 sine and K9 comb with their own linear scan (a null base) against
+    the plain composition, the merge on ``nsf_phase_base_reference``'s
+    linear bases: within 1e-5 (the scan's float64 sums in another order
+    than the plain cumsum, ~1e-13 of a turn; a base a float32 step apart
+    moves the comb by < 4e-6)."""
+    from fish_diffusion_tpu_torch.models.vocoders import source
+
+    sr = 44100
+    _, f0, rand_ini, noise, weight, bias = _nsf_inputs(B, T, hop, H, T + hop + 2,
+                                                       f0_scale=700.0)
+    f0[0, T // 2] = sr / 2 - 50
+    coef, psum = source._coeff_tensors(hop, "cpu")
+    ref = source.sine_template_reference(f0, rand_ini, noise, weight, bias, sr, hop)
+    out = torch.full((B, T * hop, 1), float("nan"))
+    assert host_libs["nsf_source"].sine_merge(
+        f0.data_ptr(), None, coef.data_ptr(), psum.data_ptr(), rand_ini.data_ptr(),
+        noise.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), None, B, T, hop,
+        H, float(sr), 0.1, 0.003, float(sr // 2), None) == 0
+    assert (out - ref).abs().max().item() <= 1e-5
+    comb_noise = noise[..., 0].contiguous()
+    status, comb = _comb_merge(host_libs["nsf_source"], f0, None, comb_noise, sr, hop)
+    assert status == 0
+    assert (comb - source.comb_tooth_reference(f0, comb_noise, sr, hop)).abs().max().item() \
+        <= 1e-5
+
+
+def test_nsf_source_refuses_sizes(host_libs):
+    """Every entry of ``csrc/nsf_source.cu`` refuses rows past 2^20 frames
+    (the scan's tile sums in shared memory) before any launch."""
+    lib, T = host_libs["nsf_source"], (1 << 20) + 1
+    assert lib.nsf_merge(*[None] * 7, 1, T, 1, 1, 44100.0, 0.1, 0.003, None) != 0
+    assert lib.nsf_merge_backward(*[None] * 8, 1, T, 1, 1, 44100.0, 0.1, 0.003, None) != 0
+    assert lib.sine_merge(*[None] * 10, 1, T, 1, 1, 44100.0, 0.1, 0.003, 22050.0, None) != 0
+    assert lib.comb_merge(*[None] * 6, 1, T, 1, 44100.0, 0.1, 0.003, None) != 0
 
 
 def _k5(n_fft, win, double=False):

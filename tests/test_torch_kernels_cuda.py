@@ -509,30 +509,33 @@ def test_viterbi_dense(gen, kind, B, T, ties, S):
 
 @pytest.mark.parametrize("hop", [64, 512])
 def test_nsf_source(gen, hop):
-    """K3: phase base exact (float64 sums), merged source <= 1e-4 (the
-    CUDA merge: one sincospif a sample, the harmonics by rotation), at
-    iSTFTNet's trunk rate and NSF-HiFiGAN's hop; one launch a call; 17
-    harmonics raise before a launch."""
-    B, T = 4, 300
+    """K3, one launch of ``nsf_merge`` a pass with the frame-phase scan
+    inside: the merged source <= 1e-4 of the plain composition (one
+    sincospif a sample, the harmonics by rotation) and bit-equal to the
+    kernel given ``nsf_phase_base_reference``'s bases (the scan's sums are
+    exact in any order), at iSTFTNet's trunk rate and NSF-HiFiGAN's hop, on
+    1300 frames (6 tiles of the scan); 17 harmonics raise before a
+    launch."""
+    B, T = 4, 1300
     f0 = torch.rand((B, T), generator=gen, device="cuda") * 500 + 80
     f0 = f0 * (torch.rand((B, T), generator=gen, device="cuda") > 0.3)
     rand_ini = torch.rand((B, 9), generator=gen, device="cuda")
     rand_ini[:, 0] = 0
     noise = rn(gen, B, T * hop, 9)
     weight, bias = rn(gen, 9, scale=0.3), rn(gen, 1, scale=0.1)
-    base = source.nsf_phase_base(f0, 44100, hop)
-    torch.testing.assert_close(base, source.nsf_phase_base_reference(f0, 44100, hop),
-                               atol=0, rtol=0)
-    args = (f0, base, rand_ini, noise, weight, bias, 44100, hop)
+    args = (f0, rand_ini, noise, weight, bias, 44100, hop)
     before = kernels.LAUNCHES["nsf_merge"]
-    got = source.nsf_merge(*args)
+    got = source.nsf_source(*args)
     assert kernels.LAUNCHES["nsf_merge"] == before + 1
-    torch.testing.assert_close(got, source.nsf_merge_reference(*args), atol=1e-4, rtol=0)
+    torch.testing.assert_close(got, source.nsf_source_reference(*args), atol=1e-4, rtol=0)
+    base = source.nsf_phase_base_reference(f0, 44100, hop)
+    assert torch.equal(source.nsf_merge(f0, base, rand_ini, noise, weight, bias, 44100, hop),
+                       got)
     wide = torch.zeros((B, 17), device="cuda")
     with pytest.raises(ValueError, match="harmonics"):
-        source.nsf_merge(f0, base, wide, rn(gen, B, T * hop, 17), rn(gen, 17), bias, 44100,
+        source.nsf_merge(f0, None, wide, rn(gen, B, T * hop, 17), rn(gen, 17), bias, 44100,
                          hop)
-    assert kernels.LAUNCHES["nsf_merge"] == before + 1
+    assert kernels.LAUNCHES["nsf_merge"] == before + 2
 
 
 @pytest.mark.parametrize(
@@ -695,20 +698,20 @@ def test_conv_transpose1d_gradients(gen, C_in, C_out, K, u):
 
 @pytest.mark.parametrize("B,T,hop,H", [(3, 50, 256, 9), (2, 37, 16, 9), (2, 45, 64, 1)])
 def test_nsf_merge_backward(gen, B, T, hop, H):
-    """K3's backward: dW and db <= 1e-4 of their scale (sums over every
-    sample in another order), at the modules' 9 harmonics and 1, with a
-    ragged last chunk at hop 16; a second call gives the same bits; one
-    launch a call; 17 harmonics raise before a launch."""
+    """K3's backward with the frame-phase scan inside: dW and db <= 1e-4 of
+    their scale (sums over every sample in another order), at the modules' 9
+    harmonics and 1, with a ragged last chunk at hop 16; a second call, and
+    the kernel given the reference's bases, give the same bits; one launch a
+    call; 17 harmonics raise before a launch."""
     f0 = torch.rand((B, T), generator=gen, device="cuda") * 500 + 80
     f0 = f0 * (torch.rand((B, T), generator=gen, device="cuda") > 0.3)
     rand_ini = torch.rand((B, H), generator=gen, device="cuda")
     rand_ini[:, 0] = 0
     noise = rn(gen, B, T * hop, H)
-    base = source.nsf_phase_base(f0, 44100, hop)
-    out = source.nsf_merge_reference(f0, base, rand_ini, noise, rn(gen, H, scale=0.3),
+    out = source.nsf_merge_reference(f0, None, rand_ini, noise, rn(gen, H, scale=0.3),
                                      rn(gen, 1, scale=0.1), 44100, hop)
     g = rn(gen, *out.shape)
-    args = (g, out, f0, base, rand_ini, noise, 44100, hop)
+    args = (g, out, f0, None, rand_ini, noise, 44100, hop)
     before = kernels.LAUNCHES["nsf_merge_backward"]
     got = source.nsf_merge_backward(*args)
     assert kernels.LAUNCHES["nsf_merge_backward"] == before + 1
@@ -716,10 +719,13 @@ def test_nsf_merge_backward(gen, B, T, hop, H):
         torch.testing.assert_close(got_, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
     again = source.nsf_merge_backward(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    base = source.nsf_phase_base_reference(f0, 44100, hop)
+    given = source.nsf_merge_backward(g, out, f0, base, rand_ini, noise, 44100, hop)
+    assert all(torch.equal(a, b) for a, b in zip(got, given))
     wide = torch.zeros((B, 17), device="cuda")
     with pytest.raises(ValueError, match="harmonics"):
-        source.nsf_merge_backward(g, out, f0, base, wide, rn(gen, B, T * hop, 17), 44100, hop)
-    assert kernels.LAUNCHES["nsf_merge_backward"] == before + 2
+        source.nsf_merge_backward(g, out, f0, None, wide, rn(gen, B, T * hop, 17), 44100, hop)
+    assert kernels.LAUNCHES["nsf_merge_backward"] == before + 3
 
 
 @pytest.mark.parametrize(
@@ -883,18 +889,22 @@ def test_forward_convs_at_training_shapes(gen, kind):
 
 @pytest.mark.parametrize("hop", [16, 256])
 def test_comb_tooth(gen, hop):
-    """K9: K3's frame-phase scan in its linear mode (<= 1e-6, both sum in
-    float64) and comb_merge (<= 1e-5 on a 0.1-amplitude template), with
-    unvoiced frames, jumps and f0 near sr / 2."""
+    """K9: ``comb_tooth`` one launch of ``comb_merge`` with the linear
+    frame-phase scan inside, <= 1e-5 of the plain composition on a
+    0.1-amplitude template; ``comb_merge`` given the reference's bases
+    <= 1e-5 of ``comb_merge_reference``; with unvoiced frames, jumps and f0
+    near sr / 2."""
     B, T, sr = 3, 70, 44100
     f0 = torch.rand((B, T), generator=gen, device="cuda") * 700 + 80
     f0 = f0 * (torch.rand((B, T), generator=gen, device="cuda") > 0.2)
     f0[0, 10] = sr / 2 - 50
-    base = source.nsf_phase_base(f0, sr, hop, "linear")
-    ref_base = source.nsf_phase_base_reference(f0, sr, hop, "linear")
-    d = (base - ref_base).abs()
-    assert torch.minimum(d, 1 - d).max().item() <= 1e-6
     noise = rn(gen, B, T * hop)
+    before = kernels.LAUNCHES["comb_merge"]
+    got = source.comb_tooth(f0, noise, sr, hop)
+    assert kernels.LAUNCHES["comb_merge"] == before + 1
+    torch.testing.assert_close(got, source.comb_tooth_reference(f0, noise, sr, hop), atol=1e-5,
+                               rtol=0)
+    ref_base = source.nsf_phase_base_reference(f0, sr, hop, "linear")
     got = source.comb_merge(f0, ref_base, noise, sr, hop)
     ref = source.comb_merge_reference(f0, ref_base, noise, sr, hop)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
@@ -953,22 +963,29 @@ def istft_scale(real, imag, n_fft: int, hop: int):
 
 @pytest.mark.parametrize("H,hop", [(1, 256), (3, 16)])
 def test_sine_merge(gen, H, hop):
-    """K9 sine: the template <= 1e-5 of the plain version's on a voiced and
-    unvoiced f0 with a value near sr / 2, in both forms; the training
+    """K9 sine (the linear frame-phase scan inside, one launch): the template
+    <= 1e-5 of the plain version's on a voiced and unvoiced f0 with a value
+    near sr / 2, in both forms and given the reference's bases; the training
     form's written signals <= 1e-5 of the plain version's; the merge's
     gradients (the analytic backward on those signals) <= 1e-4 relative."""
     B, T, sr = 3, 70, 44100
     f0 = torch.rand((B, T), generator=gen, device="cuda") * 700 + 80
     f0 = f0 * (torch.rand((B, T), generator=gen, device="cuda") > 0.2)
     f0[0, 10] = sr / 2 - 50
-    base = source.nsf_phase_base(f0, sr, hop, "linear")
+    base = None  # the kernel's own linear scan; the plain version's cumsum
     rand_ini = torch.rand((B, H), generator=gen, device="cuda")
     rand_ini[:, 0] = 0
     noise = rn(gen, B, T * hop, H)
     weight, bias = rn(gen, H, scale=H ** -0.5), rn(gen, 1, scale=0.1)
     args = (f0, base, rand_ini, noise, weight, bias, sr, hop)
-    got = source.sine_merge(*args)
+    before = kernels.LAUNCHES["sine_merge"]
+    got = source.sine_template(f0, rand_ini, noise, weight, bias, sr, hop)
+    assert kernels.LAUNCHES["sine_merge"] == before + 1
     torch.testing.assert_close(got, source.sine_merge_reference(*args), atol=1e-5, rtol=0)
+    ref_base = source.nsf_phase_base_reference(f0, sr, hop, "linear")
+    given = (f0, ref_base) + args[2:]
+    torch.testing.assert_close(source.sine_merge(*given), source.sine_merge_reference(*given),
+                               atol=1e-5, rtol=0)
     out, signals = source._sine_merge_forward(*args, 0.1, 0.003, with_signals=True)
     ref, ref_signals = source._sine_merge_plain(*args, 0.1, 0.003)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)

@@ -140,12 +140,20 @@ def test_linear_phase_base_matches_blocked_phase():
     f0 = f0_curve(rng, 2, 50, sr)
     f0_blk = sample_f0_blocked(jnp.asarray(f0), hop, "linear")
     ref = np.asarray(blocked_phase(f0_blk, sr))[:, :, 0] - np.asarray(f0_blk)[:, :, 0] / sr
-    got = source.nsf_phase_base(t(f0), sr, hop, "linear").numpy()
+    got = source.nsf_phase_base_reference(t(f0), sr, hop, "linear").numpy()
     d = (got - ref) % 1.0
     assert np.minimum(d, 1 - d).max() <= 2e-6
-    # the nearest mode (K3 for NSF-HiFiGAN) is unchanged
-    near = source.nsf_phase_base(t(f0), sr, hop)
-    assert torch.equal(near, source.nsf_phase_base_reference(t(f0), sr, hop))
+    # the nearest mode (K3 for NSF-HiFiGAN): against ``blocked_phase`` on
+    # held f0, and bit for bit the exclusive float64 sum of each frame's
+    # frac(float32(f0 / sr) * hop), exact in any order
+    near = source.nsf_phase_base_reference(t(f0), sr, hop).numpy()
+    f0_held = sample_f0_blocked(jnp.asarray(f0), hop, "nearest")
+    ref = np.asarray(blocked_phase(f0_held, sr))[:, :, 0] - np.asarray(f0_held)[:, :, 0] / sr
+    d = (near - ref) % 1.0
+    assert np.minimum(d, 1 - d).max() <= 2e-6
+    adv = np.mod((f0.astype(np.float32) / np.float32(sr) * np.float32(hop)).astype(np.float64),
+                 1.0)
+    assert np.array_equal(near, np.mod(np.cumsum(adv, axis=1) - adv, 1.0).astype(np.float32))
 
 
 @pytest.mark.parametrize("src,dst", [(24, 48), (48, 24), (33, 264), (264, 33), (30, 7)])
